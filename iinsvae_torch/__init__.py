@@ -1,0 +1,35 @@
+"""iinsvae_torch — the PyTorch/CUDA port of iinsvae_tpu for one NVIDIA H100.
+
+This slice serves the 1-D IIns-VAE forward (range and env encoders plus the
+Linear restorer and classifier heads). Activations stay channels-last
+``(B, L, C)``, conv taps ``(k, C_in, C_out)`` and dense weights
+``(D_in, D_out)``, the JAX package's layouts, so parameters carry across
+without transposes (bridge.py). Every kernel on the path is hand-written
+CUDA for sm_90a (ops/kernels/csrc), built with nvcc at first use and bound
+by ctypes; on CPU tensors each wrapper runs its plain PyTorch version.
+
+The package imports torch and numpy only: never jax, flax or iinsvae_tpu.
+"""
+
+__version__ = "0.1.0"
+
+# lazy exports (PEP 562): importing the package loads no submodule
+_EXPORTS = {
+    "IInsVAE": "iinsvae_torch.models.vae",
+    "Predictor": "iinsvae_torch.serving",
+    "load_npz": "iinsvae_torch.bridge",
+}
+
+__all__ = ["__version__", *_EXPORTS]
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        import importlib
+
+        return getattr(importlib.import_module(_EXPORTS[name]), name)
+    raise AttributeError(f"module 'iinsvae_torch' has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS))

@@ -1,0 +1,59 @@
+"""JAX parameters (as numpy) -> the port's state.
+
+The port keeps the JAX layouts (conv taps (k, C_in, C_out), dense weights
+(D_in, D_out)) and mirrors the flax module names, so a flattened flax key
+``params/a/b/c`` is the port's state key ``a.b.c`` with no transpose. The
+weights file is the ``weights.npz`` that iinsvae_tpu's
+``Predictor.export_serving`` writes: '/'-joined keys, with
+``<collection>/__empty__`` sentinels for empty collections.
+"""
+
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+_SERVED = re.compile(
+    r"params/("
+    r"encoder/range_encoder/(in_kernel|down\d+_kernel|res\d+_kernel[12]|out_kernel|out_bias)"
+    r"|encoder/env_encoder/(ConvINAct_\d+|Conv1d_0)/(kernel|bias)"
+    r"|(restorer/restorer|classifier/classifier)/[wb]\d+"
+    r")")
+# read and dropped until the decoder slice serves --recon
+_IGNORED_PREFIXES = ("params/decoder/",)
+_EMPTY = "/__empty__"
+
+
+def from_flax_numpy(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """Flattened flax variables -> the port's state dict (float32, CPU)."""
+    state = {}
+    for key, value in flat.items():
+        if key.endswith(_EMPTY) or key.startswith(_IGNORED_PREFIXES):
+            continue
+        if not _SERVED.fullmatch(key):
+            raise KeyError(f"unknown JAX parameter {key!r}: the port serves the 1-D "
+                           "model with Linear heads")
+        state[key[len("params/"):].replace("/", ".")] = torch.from_numpy(
+            np.array(value, dtype=np.float32))
+    return state
+
+
+def load_npz(path: str) -> dict[str, torch.Tensor]:
+    """The port's state from an export_serving ``weights.npz``."""
+    with np.load(path) as z:
+        return from_flax_numpy({k: z[k] for k in z.files})
+
+
+def model_geometry(state: dict[str, torch.Tensor]) -> dict[str, int]:
+    """The IInsVAE constructor fields that the weights fix (all but cir_len)."""
+    rk = "encoder.range_encoder."
+    return dict(
+        dim=state[rk + "in_kernel"].shape[-1],
+        n_downsample=sum(1 for k in state if re.fullmatch(rk + r"down\d+_kernel", k)),
+        n_residual=sum(1 for k in state if re.fullmatch(rk + r"res\d+_kernel1", k)),
+        range_dim=state[rk + "out_kernel"].shape[-1],
+        style_dim=state["encoder.env_encoder.Conv1d_0.kernel"].shape[-1],
+        num_classes=state["classifier.classifier.w3"].shape[-1],
+    )

@@ -1,0 +1,59 @@
+"""`serve` entry of the port, self-test mode (iinsvae_tpu/cli/serve.py:95-106).
+
+Builds a ``Predictor`` from an export_serving ``weights.npz`` (``--npz``)
+or, without one, from the seeded initialisation, sends ``--selftest_n``
+random CIRs through it in padded batches of ``--serve_batch``, and prints a
+summary. The native batcher and the socket/TCP fronts are a later slice.
+
+    python -m iinsvae_torch.cli.serve --dataset_env room_full --serve_batch 256
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from iinsvae_torch.config import add_args, from_args
+from iinsvae_torch.models.vae import IInsVAE
+from iinsvae_torch.serving import Predictor
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--npz", default="", help="export_serving weights.npz; empty = seeded init")
+    parser.add_argument("--serve_batch", type=int, default=256)
+    parser.add_argument("--selftest_n", type=int, default=64)
+    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    add_args(parser)
+    args = parser.parse_args(argv)
+    cfg = from_args(args)
+
+    if args.npz:
+        predictor = Predictor.from_npz(args.npz, cir_len=cfg.cir_len,
+                                       batch_size=args.serve_batch, device=args.device)
+    else:
+        model = IInsVAE(**cfg.model_kwargs(),
+                        generator=torch.Generator().manual_seed(cfg.seed))
+        predictor = Predictor(model, batch_size=args.serve_batch, device=args.device)
+    print(f"[serve] predictor ready (cir_len={cfg.cir_len}, batch={args.serve_batch}, "
+          f"device={predictor.device})", flush=True)
+
+    cirs = np.random.default_rng(cfg.seed).normal(size=(args.selftest_n, cfg.cir_len))
+    t0 = time.perf_counter()
+    pred = predictor(cirs)
+    if predictor.device.type == "cuda":
+        torch.cuda.synchronize(predictor.device)
+    dt = time.perf_counter() - t0
+    if not (np.isfinite(pred.err_est).all() and np.isfinite(pred.label_probs).all()):
+        raise RuntimeError("self-test produced non-finite outputs")
+    n_batches = -(-args.selftest_n // args.serve_batch)
+    print(f"[serve] self-test ok: {args.selftest_n} requests in {n_batches} batches, "
+          f"{dt:.3f}s, err range ({pred.err_est.min():.4f}, {pred.err_est.max():.4f}), "
+          f"labels {np.bincount(pred.label, minlength=cfg.num_classes).tolist()}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,93 @@
+"""The model-geometry and serving fields of the run config.
+
+A copy of the subset of iinsvae_tpu/config.py that serving needs, with the
+same names and defaults, and the env -> (num_classes, cir_len) tables.
+"""
+
+from __future__ import annotations
+
+import argparse
+from dataclasses import dataclass
+
+NUM_CLASSES = {
+    "nlos": 2,
+    "room_full": 5,
+    "obstacle_full": 10,
+    "room_part": 3,
+    "room_full_rough": 3,
+    "obstacle_part": 4,
+    "obstacle_part2": 2,
+    "room_full_rough2": 2,
+    "paper": 4,
+}
+
+CIR_LEN = {"zenodo": 157, "ewine": 152}
+
+_NET_NAMES = {"1": "Linear", "2": "Conv1d", "3": "Conv2d",
+              "Linear": "Linear", "Conv1d": "Conv1d", "Conv2d": "Conv2d"}
+
+
+@dataclass
+class Config:
+    n_residual: int = 3
+    n_downsample: int = 4
+    env_dim: int = 16
+    conv_type: int = 1
+    dim: int = 4
+    range_dim: int = 2
+    restorer_type: str = "Linear"
+    classifier_type: str = "Linear"
+    dataset_name: str = "zenodo"
+    dataset_env: str = "nlos"
+    seed: int = 0
+
+    @property
+    def cir_len(self) -> int:
+        return CIR_LEN[self.dataset_name]
+
+    @property
+    def num_classes(self) -> int:
+        if self.dataset_name == "ewine":
+            return 2
+        return NUM_CLASSES[self.dataset_env]
+
+    def model_kwargs(self) -> dict:
+        """Keyword arguments of models.vae.IInsVAE for this config."""
+        return dict(
+            conv_type=self.conv_type, dim=self.dim,
+            n_residual=self.n_residual, n_downsample=self.n_downsample,
+            style_dim=self.env_dim, range_dim=self.range_dim,
+            cir_len=self.cir_len, num_classes=self.num_classes,
+            restorer_type=self.restorer_type,
+            classifier_type=self.classifier_type,
+        )
+
+
+def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    d = Config()
+    a = parser.add_argument
+    a("--n_residual", type=int, default=d.n_residual)
+    a("--n_downsample", type=int, default=d.n_downsample)
+    a("--env_dim", type=int, default=d.env_dim)
+    a("--conv_type", type=int, default=d.conv_type)
+    a("--dim", type=int, default=d.dim)
+    a("--range_dim", type=int, default=d.range_dim)
+    a("--restorer_type", type=str, default=d.restorer_type)
+    a("--classifier_type", type=str, default=d.classifier_type)
+    a("--dataset_name", type=str, default=d.dataset_name, choices=sorted(CIR_LEN))
+    a("--dataset_env", type=str, default=d.dataset_env)
+    a("--seed", type=int, default=d.seed)
+    return parser
+
+
+def from_args(args: argparse.Namespace) -> Config:
+    cfg = Config()
+    for k in vars(args):
+        if hasattr(cfg, k):
+            setattr(cfg, k, getattr(args, k))
+    cfg.restorer_type = _NET_NAMES[str(cfg.restorer_type)]
+    cfg.classifier_type = _NET_NAMES[str(cfg.classifier_type)]
+    if cfg.dataset_env not in NUM_CLASSES and cfg.dataset_name == "zenodo":
+        raise ValueError(
+            f"Unknown environment {cfg.dataset_env!r}; choices: {sorted(NUM_CLASSES)}")
+    return cfg

@@ -1,0 +1,50 @@
+"""IInsVAE for serving: Encoder + Restorer + Classifier (iinsvae_tpu/models/vae.py).
+
+The decoder slot is not here yet: serving without ``--recon`` never runs
+it, and its kernels (fused_adain_res_block, fused_sln_chain) come with the
+decoder slice.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from iinsvae_torch.models.encoders import Encoder
+from iinsvae_torch.models.heads import Classifier, Restorer
+
+
+class IInsVAE(nn.Module):
+    """Parameters are made from ``generator`` (default: seed 0) on the CPU;
+    move the module with ``.to(device)``. Parameter names follow the flax
+    tree (``encoder.range_encoder.in_kernel``, ``restorer.restorer.w0``,
+    ...), so bridge.from_flax_numpy loads a JAX checkpoint with no renaming."""
+
+    def __init__(self, conv_type: int = 1, dim: int = 4, n_residual: int = 3,
+                 n_downsample: int = 4, style_dim: int = 8, range_dim: int = 2,
+                 cir_len: int = 157, num_classes: int = 5,
+                 restorer_type: str = "Linear", classifier_type: str = "Linear",
+                 *, generator: torch.Generator | None = None):
+        super().__init__()
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.cir_len, self.num_classes = cir_len, num_classes
+        self.encoder = Encoder(conv_type, dim, n_residual, n_downsample, style_dim,
+                               range_dim, cir_len, generator=generator)
+        code_size = (128 // 2**n_downsample) * range_dim
+        self.restorer = Restorer(code_size, restorer_type, generator=generator)
+        self.classifier = Classifier(style_dim, num_classes, net_type=classifier_type,
+                                     generator=generator)
+
+    def forward(self, cir: torch.Tensor) -> dict[str, torch.Tensor]:
+        """cir (B, cir_len) -> err_est (B, 1), logits (B, num_classes),
+        env_code (B, style_dim), range_code (B, 8, range_dim). The KL term
+        of the JAX forward is ``encoders.env_kl(*split_env_stats(env_code))``:
+        serving never reads it, so it is not computed here."""
+        range_code, env_code = self.encoder(cir)
+        return {
+            "err_est": self.restorer(range_code),
+            "logits": self.classifier(env_code),
+            "env_code": env_code,
+            "range_code": range_code,
+        }

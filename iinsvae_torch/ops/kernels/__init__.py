@@ -1,0 +1,24 @@
+"""Hand-written CUDA kernels of the serving forward and their plain versions.
+
+Each wrapper runs its kernel on CUDA tensors and its plain PyTorch version
+(``*_ref``) on CPU tensors; it never falls back from one to the other. Each
+counts its kernel launches in a plain int attribute, ``<wrapper>.launches``.
+
+  K1 fused.in_chain          conv -> IN -> ReLU|skip, 1-2 stages
+  K2 fused.conv_bias_act     conv + bias + ReLU
+  K3 strided_conv.strided_conv  k4 s2 zero-pad-1 conv + bias + ReLU (K2's kernel)
+  K4 fused.mlp_chain         Dense + LeakyReLU chain
+"""
+
+from iinsvae_torch.ops.kernels import fused, strided_conv
+
+WRAPPERS = (fused.in_chain, fused.conv_bias_act, strided_conv.strided_conv, fused.mlp_chain)
+
+
+def reset_launch_counts() -> None:
+    for w in WRAPPERS:
+        w.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {w.__name__: w.launches for w in WRAPPERS}

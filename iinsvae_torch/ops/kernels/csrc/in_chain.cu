@@ -1,0 +1,271 @@
+// K1 in_chain and K2 conv_bias_act: direct channels-last Conv1d stages.
+//
+// K1 replaces three TPU entries of iinsvae_tpu/ops/pallas/fused.py:
+//   fused_in_pair (:361), fused_dense_layer(norm='in') (:1320, kernel
+//   _make_in_layer :1179) and fused_res_block (:253).
+// It runs 1 or 2 stages of conv -> InstanceNorm -> (ReLU | + chain input)
+// on a tile of samples. K2 replaces fused_dense_layer(norm='none') (:1320,
+// kernel _make_nonorm_layer :1248): one stage of conv + bias + ReLU. K3
+// launches the same conv + bias + ReLU kernel at k4, stride 2, zero pad 1,
+// in place of fused_strided_conv (iinsvae_tpu/ops/pallas/strided_conv.py:250),
+// whose 128-lane row tiles and prev/cur/next W3 assembly are TPU devices.
+//
+// Bound on the H100: one sample's activation is at most 2048 floats here,
+// so a block keeps its tile of samples in shared memory through the whole
+// chain and device memory sees the chain input once and its output once
+// (1-4 MB per launch at batch 500: about a microsecond at 3.35 TB/s). The
+// residual block does 192 multiply-adds per output, ~196 MFLOP per launch
+// at batch 500, so it is bound by fp32 operations (2.9 us at 67 TFLOP/s),
+// as is K3's second stride-2 stage (128 per output); the other stages are
+// bound by bytes. At these sizes a launch is latency-bound, so
+// the design is about instruction-level parallelism: the mid-chain
+// activation stays on chip (the TPU kernel's point, fused.py:265-270), a
+// thread computes four consecutive output channels from one float4 load of
+// the taps (read through the read-only cache) and one shared-memory read of
+// the input (a broadcast across the warp), and the InstanceNorm statistics
+// use a few lanes per (sample, channel) so short rows do not serialise.
+//
+// Layout: x (B, L, C) row-major, taps (k, C_in, C_out). K1 takes stages
+// whose C_out is a multiple of 4 only; K2 runs a C_out that is not (the 1x1
+// out-conv, C_out 2) on its scalar path.
+//
+// InstanceNorm statistics are two-pass per (sample, channel): the mean,
+// then the mean of (x - mean)^2. No E[x^2] - mean^2, which cancels below
+// zero on near-constant channels. There is no conv bias before the norm:
+// the norm would remove it.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr float kEps = 1e-5f;
+
+struct Stage {
+  int k, stride, pad, reflect;
+  int l_in, c_in, l_out, c_out;
+  int vec;  // 4: C_out % 4 == 0 and the taps are 16-byte aligned; else 1
+};
+
+// Input row read by tap t of output position l, or -1 for a zero pad.
+__device__ __forceinline__ int src_row(const Stage& st, int l, int t) {
+  int u = l * st.stride + t - st.pad;
+  if (u < 0) return st.reflect ? -u : -1;
+  if (u >= st.l_in) return st.reflect ? 2 * st.l_in - 2 - u : -1;
+  return u;
+}
+
+// Output channels co..co+V-1 of position l; xs is one sample (L_in, C_in).
+template <int V>
+__device__ __forceinline__ void conv_points(const float* xs, const float* __restrict__ w,
+                                            const Stage& st, int l, int co, float (&acc)[V]) {
+#pragma unroll
+  for (int v = 0; v < V; ++v) acc[v] = 0.f;
+  for (int t = 0; t < st.k; ++t) {
+    const int u = src_row(st, l, t);
+    if (u < 0) continue;
+    const float* xr = xs + u * st.c_in;
+    const float* wr = w + t * st.c_in * st.c_out + co;
+#pragma unroll 4
+    for (int ci = 0; ci < st.c_in; ++ci) {
+      const float xv = xr[ci];
+      if constexpr (V == 4) {
+        const float4 wv = __ldg(reinterpret_cast<const float4*>(wr + ci * st.c_out));
+        acc[0] = fmaf(xv, wv.x, acc[0]);
+        acc[1] = fmaf(xv, wv.y, acc[1]);
+        acc[2] = fmaf(xv, wv.z, acc[2]);
+        acc[3] = fmaf(xv, wv.w, acc[3]);
+      } else {
+        acc[0] = fmaf(xv, __ldg(wr + ci * st.c_out), acc[0]);
+      }
+    }
+  }
+}
+
+// out (ns, L_out, C_out) = conv(in); thread item o owns V channels of one position.
+template <int V>
+__device__ void conv_stage(const float* in, const float* __restrict__ w, float* out,
+                           const Stage& st, int ns) {
+  const int groups = st.c_out / V, per = st.l_out * groups;
+  for (int o = threadIdx.x; o < ns * per; o += blockDim.x) {
+    const int s = o / per, r = o - s * per;
+    const int l = r / groups, co = (r - l * groups) * V;
+    float acc[V];
+    conv_points<V>(in + s * st.l_in * st.c_in, w, st, l, co, acc);
+    float* dst = out + (s * st.l_out + l) * st.c_out + co;
+#pragma unroll
+    for (int v = 0; v < V; ++v) dst[v] = acc[v];
+  }
+}
+
+// Lanes that share one (sample, channel) row of length l: about four
+// elements a lane, a power of two <= 32 (so a group never spans warps).
+__device__ __forceinline__ int norm_lanes(int l) {
+  int g = 1;
+  while (g < 32 && g * 4 < l) g *= 2;
+  return g;
+}
+
+__device__ __forceinline__ float group_sum(float v, int g) {
+  for (int off = g >> 1; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// In place over y (ns, L, C): IN, then ReLU, or + skip (same shape) when given.
+__device__ void norm_stage(float* y, const float* skip, int l, int c, int ns) {
+  const int g = norm_lanes(l), lane = threadIdx.x % g;
+  const int slots = blockDim.x / g, pairs = ns * c;
+  const float inv_l = 1.f / static_cast<float>(l);
+  // every lane runs the same trip count, so the shuffles see full warps
+  for (int base = 0; base < pairs; base += slots) {
+    const int p = base + static_cast<int>(threadIdx.x) / g;
+    const bool valid = p < pairs;
+    const int s = valid ? p / c : 0, ch = valid ? p - s * c : 0;
+    float* ys = y + s * l * c + ch;
+    float sum = 0.f;
+    if (valid)
+      for (int i = lane; i < l; i += g) sum += ys[i * c];
+    const float mean = group_sum(sum, g) * inv_l;
+    float sq = 0.f;
+    if (valid)
+      for (int i = lane; i < l; i += g) {
+        const float d = ys[i * c] - mean;
+        sq = fmaf(d, d, sq);
+      }
+    const float rs = rsqrtf(group_sum(sq, g) * inv_l + kEps);
+    if (valid) {
+      const float* ks = skip ? skip + s * l * c + ch : nullptr;
+      for (int i = lane; i < l; i += g) {
+        const float v = (ys[i * c] - mean) * rs;
+        ys[i * c] = ks ? v + ks[i * c] : fmaxf(v, 0.f);
+      }
+    }
+  }
+}
+
+// Shared memory: a0 (spb, L0*C0) chain input, a1 (spb, L1*C1), a2 (spb, L2*C2).
+// A residual chain has two stages; the second adds a0.
+__global__ void __launch_bounds__(kThreads)
+in_chain_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+                const float* __restrict__ w2, float* __restrict__ y, int batch,
+                Stage s1, Stage s2, int n_stages, int residual, int spb) {
+  extern __shared__ float smem[];
+  const int s0 = blockIdx.x * spb;
+  const int ns = min(spb, batch - s0);
+  const int n0 = s1.l_in * s1.c_in, n1 = s1.l_out * s1.c_out;
+  const int n2 = n_stages == 2 ? s2.l_out * s2.c_out : 0;
+  float* a0 = smem;
+  float* a1 = a0 + spb * n0;
+  float* a2 = a1 + spb * n1;
+
+  const float* xg = x + static_cast<size_t>(s0) * n0;
+  for (int i = threadIdx.x; i < ns * n0; i += blockDim.x) a0[i] = xg[i];
+  __syncthreads();
+
+  conv_stage<4>(a0, w1, a1, s1, ns);
+  __syncthreads();
+  norm_stage(a1, nullptr, s1.l_out, s1.c_out, ns);
+  __syncthreads();
+  const float* last = a1;
+  int n_last = n1;
+  if (n_stages == 2) {
+    conv_stage<4>(a1, w2, a2, s2, ns);
+    __syncthreads();
+    norm_stage(a2, residual ? a0 : nullptr, s2.l_out, s2.c_out, ns);
+    __syncthreads();
+    last = a2;
+    n_last = n2;
+  }
+  float* yg = y + static_cast<size_t>(s0) * n_last;
+  for (int i = threadIdx.x; i < ns * n_last; i += blockDim.x) yg[i] = last[i];
+}
+
+// K2: one conv stage + per-channel bias + ReLU, written straight to y.
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+conv_bias_act_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     const float* __restrict__ b, float* __restrict__ y, int batch,
+                     Stage st, int spb) {
+  extern __shared__ float smem[];
+  const int s0 = blockIdx.x * spb;
+  const int ns = min(spb, batch - s0);
+  const int n0 = st.l_in * st.c_in;
+  const float* xg = x + static_cast<size_t>(s0) * n0;
+  for (int i = threadIdx.x; i < ns * n0; i += blockDim.x) smem[i] = xg[i];
+  __syncthreads();
+  const int groups = st.c_out / V, per = st.l_out * groups;
+  float* yg = y + static_cast<size_t>(s0) * st.l_out * st.c_out;
+  for (int o = threadIdx.x; o < ns * per; o += blockDim.x) {
+    const int s = o / per, r = o - s * per;
+    const int l = r / groups, co = (r - l * groups) * V;
+    float acc[V];
+    conv_points<V>(smem + s * n0, w, st, l, co, acc);
+    float* dst = yg + (s * st.l_out + l) * st.c_out + co;
+#pragma unroll
+    for (int v = 0; v < V; ++v) dst[v] = fmaxf(acc[v] + __ldg(b + co + v), 0.f);
+  }
+}
+
+bool stage_ok(const Stage& st) {
+  return st.k > 0 && st.stride > 0 && st.pad >= 0 && st.c_in > 0 && st.c_out > 0 &&
+         st.l_out == (st.l_in + 2 * st.pad - st.k) / st.stride + 1 && st.l_out > 0 &&
+         (!st.reflect || st.pad < st.l_in);
+}
+
+Stage make_stage(const int* p, const float* w) {
+  Stage st{p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], 1};
+  if (st.c_out % 4 == 0 && reinterpret_cast<std::uintptr_t>(w) % 16 == 0) st.vec = 4;
+  return st;
+}
+
+constexpr size_t kMaxSmem = 48 * 1024;
+
+}  // namespace
+
+extern "C" {
+
+const char* iins_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// stages: n_stages rows of (k, stride, pad, reflect, l_in, c_in, l_out, c_out).
+int iins_in_chain(const float* x, const float* w1, const float* w2, float* y, int batch,
+                  const int* stages, int n_stages, int residual, int spb, void* stream) {
+  if (batch <= 0 || spb <= 0 || n_stages < 1 || n_stages > 2) return cudaErrorInvalidValue;
+  const Stage s1 = make_stage(stages, w1);
+  const Stage s2 = n_stages == 2 ? make_stage(stages + 8, w2) : Stage{};
+  if (!stage_ok(s1) || s1.vec != 4) return cudaErrorInvalidValue;
+  if (n_stages == 2 && (!stage_ok(s2) || s2.vec != 4 || s2.l_in != s1.l_out ||
+                        s2.c_in != s1.c_out)) return cudaErrorInvalidValue;
+  if (residual && (n_stages != 2 || s2.l_out != s1.l_in || s2.c_out != s1.c_in))
+    return cudaErrorInvalidValue;
+  const size_t per = static_cast<size_t>(s1.l_in) * s1.c_in + s1.l_out * s1.c_out +
+                     (n_stages == 2 ? s2.l_out * s2.c_out : 0);
+  const size_t smem = per * spb * sizeof(float);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  const int grid = (batch + spb - 1) / spb;
+  in_chain_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, w1, w2, y, batch, s1, s2, n_stages, residual, spb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// stage: (k, stride, pad, reflect, l_in, c_in, l_out, c_out).
+int iins_conv_bias_act(const float* x, const float* w, const float* b, float* y, int batch,
+                       const int* stage, int spb, void* stream) {
+  if (batch <= 0 || spb <= 0) return cudaErrorInvalidValue;
+  const Stage st = make_stage(stage, w);
+  if (!stage_ok(st)) return cudaErrorInvalidValue;
+  const size_t smem = static_cast<size_t>(st.l_in) * st.c_in * spb * sizeof(float);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  const int grid = (batch + spb - 1) / spb;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (st.vec == 4) {
+    conv_bias_act_kernel<4><<<grid, kThreads, smem, s>>>(x, w, b, y, batch, st, spb);
+  } else {
+    conv_bias_act_kernel<1><<<grid, kThreads, smem, s>>>(x, w, b, y, batch, st, spb);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,0 +1,171 @@
+"""The port's kernel wrappers against the JAX package's Pallas entries.
+
+Each of the six Pallas entry variants on the serving forward runs as the
+JAX tests run it on the CPU (interpret mode; dense conv matrices built by
+``dense_conv_matrix(..., centered=True)`` from the same taps where the
+entry takes one) and is compared with the port wrapper on CPU tensors,
+which runs the kernel's plain PyTorch version. Inputs come from numpy with
+a seed. Tolerance: fp32, rtol 5e-4 / atol 5e-5 (tests/test_lowering_parity.py).
+The CUDA kernels themselves are held against these plain versions on the
+card by tests/test_torch_gpu.py and chip_smoke.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from iinsvae_tpu.ops import dense_conv
+from iinsvae_tpu.ops.pallas import fused as pf
+from iinsvae_tpu.ops.pallas import strided_conv as psc
+from iinsvae_torch.ops import kernels
+from iinsvae_torch.ops.conv import conv1d
+from iinsvae_torch.ops.kernels import fused, strided_conv
+
+RTOL, ATOL = 5e-4, 5e-5
+B = 6
+
+# (name, l_in, c_in, stages as (k, c_out, stride, padding, pad_mode)) — the
+# range encoder's K1 call sites at flagship width
+IN_CHAINS = {
+    "pair0": (128, 1, [(7, 4, 1, 3, "reflect"), (4, 8, 2, 1, "zero")]),
+    "pair1": (64, 8, [(4, 16, 2, 1, "zero"), (4, 32, 2, 1, "zero")]),
+    "single": (16, 32, [(4, 64, 2, 1, "zero")]),
+    "res": (8, 64, [(3, 64, 1, 1, "reflect"), (3, 64, 1, 1, "reflect")]),
+}
+# (l_in, c_in, k, c_out, padding, pad_mode) — K2 call sites
+CONV_BIAS_ACT = {
+    "range_out": (8, 64, 1, 2, 0, "zero"),
+    "env_in": (128, 1, 7, 16, 3, "reflect"),
+}
+# (l_in, c_in, c_out) — K3 call sites
+STRIDED = {"env_down0": (128, 16, 32), "env_down1": (64, 32, 64)}
+# (dims, slopes) — K4 call sites
+MLPS = {
+    "restorer": ((16, 512, 256, 256, 1), (0.2, 0.2, 0.2, 1.0)),
+    "classifier": ((16, 16, 32, 16, 5), (0.01, 0.01, 0.01, 0.2)),
+}
+
+
+def _rng(name: str) -> np.random.Generator:
+    return np.random.default_rng(sum(map(ord, name)))
+
+
+def _taps(rng, k, c_in, c_out):
+    return (rng.normal(size=(k, c_in, c_out)) / np.sqrt(k * c_in)).astype(np.float32)
+
+
+def _in_chain_case(name):
+    rng = _rng(name)
+    l, c, spec = IN_CHAINS[name]
+    x = rng.normal(size=(B, l, c)).astype(np.float32)
+    taps, shapes = [], []
+    for k, c_out, s, p, mode in spec:
+        taps.append(_taps(rng, k, c, c_out))
+        l_out = (l + 2 * p - k) // s + 1
+        shapes.append((l, l_out, c_out))
+        l, c = l_out, c_out
+    return x, taps, shapes, spec
+
+
+def _torch_stages(taps, spec, device="cpu"):
+    return [(torch.tensor(t, device=device), s, p, mode)
+            for t, (_, _, s, p, mode) in zip(taps, spec)]
+
+
+def _m(t, l_in, s, p, mode, centered):
+    return dense_conv.dense_conv_matrix(jnp.asarray(t), l_in, stride=s, padding=p,
+                                        pad_mode=mode, centered=centered)
+
+
+@pytest.mark.parametrize("name", list(IN_CHAINS))
+def test_in_chain_matches_pallas_entry(name):
+    """pair0/pair1 vs fused_in_pair, single vs fused_dense_layer(norm='in'),
+    res vs fused_res_block."""
+    x, taps, shapes, spec = _in_chain_case(name)
+    ms = [_m(t, l_in, s, p, mode, True)
+          for t, (l_in, _, _), (_, _, s, p, mode) in zip(taps, shapes, spec)]
+    x2 = jnp.asarray(x.reshape(B, -1))
+    if name == "res":
+        want = pf.fused_res_block(x2, *ms, l_out=8, c_out=64, centered=True)
+    elif name == "single":
+        (_, l1, c1), = shapes
+        want = pf.fused_dense_layer(x2, ms[0], l_out=l1, c_out=c1, norm="in",
+                                    act="relu", centered=True)
+    else:
+        (_, l1, c1), (_, l2, c2) = shapes
+        want = pf.fused_in_pair(x2, *ms, l1=l1, c1=c1, l2=l2, c2=c2, centered=True)
+    got = fused.in_chain(torch.tensor(x), _torch_stages(taps, spec), residual=name == "res")
+    _, l_out, c_out = shapes[-1]
+    assert got.shape == (B, l_out, c_out)
+    np.testing.assert_allclose(got.numpy().reshape(B, -1), np.asarray(want),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("name", list(CONV_BIAS_ACT))
+def test_conv_bias_act_matches_pallas_entry(name):
+    """vs fused_dense_layer(norm='none') with the bias tiled over L."""
+    rng = _rng(name)
+    l, c, k, c_out, p, mode = CONV_BIAS_ACT[name]
+    x = rng.normal(size=(B, l, c)).astype(np.float32)
+    taps = _taps(rng, k, c, c_out)
+    bias = rng.uniform(-0.5, 0.5, size=c_out).astype(np.float32)
+    l_out = l + 2 * p - k + 1
+    m = _m(taps, l, 1, p, mode, False)
+    want = pf.fused_dense_layer(jnp.asarray(x.reshape(B, -1)), m, l_out=l_out, c_out=c_out,
+                                norm="none", act="relu", bias=jnp.tile(jnp.asarray(bias), l_out))
+    got = fused.conv_bias_act(torch.tensor(x), torch.tensor(taps), torch.tensor(bias),
+                              padding=p, pad_mode=mode)
+    np.testing.assert_allclose(got.numpy().reshape(B, -1), np.asarray(want),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("name", list(STRIDED))
+def test_strided_conv_matches_pallas_entry(name):
+    rng = _rng(name)
+    l, c, c_out = STRIDED[name]
+    x = rng.normal(size=(B, l, c)).astype(np.float32)
+    taps = _taps(rng, 4, c, c_out)
+    bias = rng.uniform(-0.5, 0.5, size=c_out).astype(np.float32)
+    want = psc.fused_strided_conv(jnp.asarray(x), jnp.asarray(taps), jnp.asarray(bias),
+                                  l_in=l, c_in=c)
+    got = strided_conv.strided_conv(torch.tensor(x), torch.tensor(taps), torch.tensor(bias))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+def _mlp_case(name):
+    rng = _rng(name)
+    dims, slopes = MLPS[name]
+    x = rng.normal(size=(B, dims[0])).astype(np.float32)
+    ws = [(rng.uniform(-1, 1, size=(a, b)) / np.sqrt(a)).astype(np.float32)
+          for a, b in zip(dims, dims[1:])]
+    bs = [(rng.uniform(-1, 1, size=b) / np.sqrt(a)).astype(np.float32)
+          for a, b in zip(dims, dims[1:])]
+    return x, ws, bs, slopes
+
+
+@pytest.mark.parametrize("name", list(MLPS))
+def test_mlp_chain_matches_pallas_entry(name):
+    x, ws, bs, slopes = _mlp_case(name)
+    want = pf.fused_mlp_chain(jnp.asarray(x), [jnp.asarray(w) for w in ws],
+                              [jnp.asarray(b) for b in bs], slopes)
+    got = fused.mlp_chain(torch.tensor(x), [torch.tensor(w) for w in ws],
+                          [torch.tensor(b) for b in bs], slopes)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
+    kernels.reset_launch_counts()
+    x, taps, _, spec = _in_chain_case("pair0")
+    fused.in_chain(torch.tensor(x), _torch_stages(taps, spec))
+    assert kernels.launch_counts() == {
+        "in_chain": 0, "conv_bias_act": 0, "strided_conv": 0, "mlp_chain": 0}
+
+
+def test_conv1d_reflect_padding_excludes_the_edge():
+    """k3 reflect at L=8: output 0 reads inputs (1, 0, 1), output 7 reads (6, 7, 6)."""
+    x = torch.arange(8, dtype=torch.float32).reshape(1, 8, 1)
+    taps = torch.tensor([1.0, 10.0, 100.0]).reshape(3, 1, 1)
+    y = conv1d(x, taps, padding=1, pad_mode="reflect").flatten()
+    assert y[0].item() == 1 * 1 + 10 * 0 + 100 * 1
+    assert y[7].item() == 1 * 6 + 10 * 7 + 100 * 6

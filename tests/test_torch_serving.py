@@ -1,0 +1,166 @@
+"""The port's serving path against the JAX package's.
+
+The JAX ``Predictor`` (Pallas in interpret mode on the CPU) exports its
+weights with ``export_serving``; the port loads that npz with
+``Predictor.from_npz(..., device="cpu")`` and must give the same outputs on
+the same CIRs: fp32, rtol 5e-4 / atol 5e-5 (tests/test_lowering_parity.py),
+identical labels. 13 CIRs at batch 8 pad the tail batch.
+"""
+
+import os
+import subprocess
+import sys
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from iinsvae_tpu.models import IInsVAE as JaxIInsVAE
+from iinsvae_tpu.serving import Predictor as JaxPredictor
+from iinsvae_torch import bridge
+from iinsvae_torch.models.encoders import env_kl, split_env_stats
+from iinsvae_torch.models.vae import IInsVAE
+from iinsvae_torch.serving import Predictor
+
+RTOL, ATOL = 5e-4, 5e-5
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def exported(tmp_path_factory):
+    """The flagship 1-D model (style_dim 16, 5 classes) in JAX, its
+    Predictor at batch 8, and its export_serving weights."""
+    model = JaxIInsVAE(cir_len=157, num_classes=5, style_dim=16)
+    variables = jax.jit(model.init)({"params": jax.random.PRNGKey(0)}, jnp.ones((2, 157)))
+    state = types.SimpleNamespace(params=variables["params"],
+                                  batch_stats=variables.get("batch_stats", {}))
+    pred = JaxPredictor(model, state, batch_size=8)
+    art = tmp_path_factory.mktemp("serving")
+    pred.export_serving(str(art))
+    return model, variables, pred, str(art / "weights.npz")
+
+
+@pytest.fixture(scope="module")
+def cirs():
+    return np.random.default_rng(7).normal(size=(13, 157)).astype(np.float32)
+
+
+def test_predictor_matches_jax(exported, cirs):
+    _, _, jpred, npz = exported
+    want = jpred(cirs)
+    got = Predictor.from_npz(npz, batch_size=8, device="cpu")(cirs)
+    for field in ("err_est", "label_probs", "env_code"):
+        assert getattr(got, field).shape == getattr(want, field).shape
+        np.testing.assert_allclose(getattr(got, field), getattr(want, field),
+                                   rtol=RTOL, atol=ATOL, err_msg=field)
+    np.testing.assert_array_equal(got.label, want.label)
+
+
+def test_mitigate_matches_jax(exported, cirs):
+    _, _, jpred, npz = exported
+    d = np.linspace(1.0, 12.0, len(cirs))
+    got = Predictor.from_npz(npz, batch_size=8, device="cpu").mitigate(cirs, d)
+    np.testing.assert_allclose(got, jpred.mitigate(cirs, d), rtol=RTOL, atol=ATOL)
+
+
+def test_forward_codes_and_kl_match_jax(exported, cirs):
+    model, variables, _, npz = exported
+    want = jax.jit(lambda v, c: model.apply(v, c, sample_key=None, train=False))(
+        variables, jnp.asarray(cirs))
+    port = IInsVAE(cir_len=157, num_classes=5, style_dim=16)
+    port.load_state_dict(bridge.load_npz(npz))
+    with torch.inference_mode():
+        got = port(torch.tensor(cirs))
+        got["kl"] = env_kl(*split_env_stats(got["env_code"]))
+    for key in ("range_code", "env_code", "err_est", "logits", "kl"):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                   rtol=RTOL, atol=ATOL, err_msg=key)
+
+
+def test_predict_dataset_matches_per_request_path(exported, cirs):
+    pred = Predictor.from_npz(exported[3], batch_size=8, device="cpu")
+    a, b = pred(cirs), pred.predict_dataset(cirs)
+    np.testing.assert_allclose(a.err_est, b.err_est, rtol=1e-6, atol=1e-7)
+    np.testing.assert_array_equal(a.label, b.label)
+
+
+def test_padding_rows_do_not_change_real_rows(exported, cirs):
+    whole = Predictor.from_npz(exported[3], batch_size=13, device="cpu")(cirs)
+    padded = Predictor.from_npz(exported[3], batch_size=5, device="cpu")(cirs)
+    np.testing.assert_allclose(whole.err_est, padded.err_est, rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(whole.env_code, padded.env_code, rtol=1e-6, atol=1e-7)
+
+
+def test_bridge_ignores_decoder_and_rejects_unknown_keys(exported):
+    with np.load(exported[3]) as z:
+        flat = {k: z[k] for k in z.files}
+    state = bridge.from_flax_numpy(flat)
+    assert not any(k.startswith("decoder") for k in state)
+    assert bridge.model_geometry(state) == dict(
+        dim=4, n_downsample=4, n_residual=3, range_dim=2, style_dim=16, num_classes=5)
+    with pytest.raises(KeyError, match="unknown JAX parameter"):
+        bridge.from_flax_numpy({**flat, "params/restorer/restorer/Conv1d_0/kernel": np.zeros(1)})
+
+
+def test_seeded_init_follows_the_reference_distributions():
+    m = IInsVAE(cir_len=157, num_classes=5, style_dim=16,
+                generator=torch.Generator().manual_seed(3))
+    taps = m.encoder.range_encoder.res0_kernel1
+    assert abs(taps.std().item() - 0.02) < 0.002
+    w1 = m.restorer.restorer.w1  # (512, 256): U(+-1/sqrt(512))
+    assert w1.shape == (512, 256)
+    assert w1.abs().max().item() <= 512 ** -0.5
+    again = IInsVAE(cir_len=157, num_classes=5, style_dim=16,
+                    generator=torch.Generator().manual_seed(3))
+    assert torch.equal(again.restorer.restorer.w1, w1)
+
+
+def test_predictor_without_device_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Predictor(IInsVAE())
+
+
+def test_recon_is_the_decoder_slice():
+    with pytest.raises(NotImplementedError, match="decoder"):
+        Predictor(IInsVAE(), return_recon=True, device="cpu")
+
+
+def test_other_conv_types_are_not_ported_yet():
+    with pytest.raises(NotImplementedError, match="conv_type"):
+        IInsVAE(conv_type=2)
+
+
+def _run(code_or_args, **kw):
+    env = {**os.environ, "PYTHONPATH": REPO, "CUDA_VISIBLE_DEVICES": ""}
+    return subprocess.run([sys.executable, *code_or_args], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120, **kw)
+
+
+def test_port_serves_with_jax_and_the_jax_package_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['iinsvae_tpu'] = None\n"
+        "import numpy as np, iinsvae_torch\n"
+        "from iinsvae_torch.cli import serve\n"
+        "from iinsvae_torch.models.vae import IInsVAE\n"
+        "p = iinsvae_torch.Predictor(IInsVAE(style_dim=16), batch_size=4, device='cpu')\n"
+        "out = p(np.zeros((6, 157), np.float32))\n"
+        "assert out.err_est.shape == (6, 1) and np.isfinite(out.err_est).all()\n"
+        "print('isolated ok')\n"
+    )
+    r = _run(["-c", code])
+    assert r.returncode == 0, r.stderr
+    assert "isolated ok" in r.stdout
+
+
+def test_cli_self_test_on_cpu():
+    r = _run(["-m", "iinsvae_torch.cli.serve", "--device", "cpu", "--dataset_env",
+              "room_full", "--selftest_n", "9", "--serve_batch", "4"])
+    assert r.returncode == 0, r.stderr
+    assert "self-test ok: 9 requests in 3 batches" in r.stdout
