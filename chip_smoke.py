@@ -11,12 +11,15 @@
    replayed between CUDA events after a warmup, median of 25 replays; the
    kernel's eager back-to-back time (the host's dispatch) beside it;
 4. serves the flagship 1-D model at full width (seeded weights) through
-   ``Predictor(device="cuda")``: 3 batches of 500 CIRs and a ragged 137,
-   with every launch counter set to 0 just before and read just after;
-   checks that every kernel ran its expected count and that the outputs
-   match the same weights' ``Predictor(device="cpu")``;
-5. measures serving throughput at batch 500 and 256, and the device's idle
-   share of served batches from a torch.profiler trace of the card.
+   ``Predictor(device="cuda")`` on two paths, each on 3 batches of 500 CIRs
+   and a ragged 137 with every launch counter set to 0 just before and
+   read just after: without the decoder (12 launches a batch) and with
+   ``return_recon=True`` (17 a batch); checks that every kernel ran its
+   expected count and that the outputs, the reconstruction included, match
+   the same weights' ``Predictor(device="cpu")``;
+5. measures serving throughput at batch 500 and 256, without and with the
+   reconstruction, and the device's idle share of served batches from a
+   torch.profiler trace of the card.
 
 Prints a ``sites`` line (per call site), a ``serving`` line, a ``kernels``
 line, the nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
@@ -43,6 +46,7 @@ from iinsvae_torch.models.vae import IInsVAE
 from iinsvae_torch.ops import kernels
 from iinsvae_torch.ops.conv import out_len
 from iinsvae_torch.ops.kernels import _build, fused, strided_conv
+from iinsvae_torch.ops.pooling import adaptive_avg_pool_matrix
 from iinsvae_torch.serving import Predictor
 
 BATCH = 500
@@ -54,17 +58,24 @@ PEAK_FP32_FLOP_PER_S = 67e12
 # another order (conv sums of up to 192 terms, dense sums of up to 512) and
 # InstanceNorm divides by a per-channel std, which can scale that rounding up.
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-4
-# Predictor on the card vs on the CPU: twelve launches' reorderings compound.
+# Predictor on the card vs on the CPU: 12 (17) launches' reorderings compound.
 SERVE_RTOL, SERVE_ATOL = 1e-3, 1e-4
-# launches per forward batch of the flagship (n_downsample 4, n_residual 3):
-# in_chain 3 stage groups + 3 residual blocks; conv_bias_act the range
-# out-conv and the env in-conv; strided_conv two env stages; mlp_chain 2 heads
-EXPECTED_PER_BATCH = {"in_chain": 6, "conv_bias_act": 2, "strided_conv": 2, "mlp_chain": 2}
+# launches per forward batch of the flagship (n_downsample 4, n_residual 3)
+# without the decoder: in_chain 3 stage groups + 3 residual blocks;
+# conv_bias_act the range out-conv and the env in-conv; strided_conv two
+# env stages; mlp_chain 2 heads. The decoder adds its 1x1 in-conv
+# (conv_bias_act), 3 AdaIN blocks and the tail.
+EXPECTED_NO_RECON = {"in_chain": 6, "conv_bias_act": 2, "strided_conv": 2, "mlp_chain": 2,
+                     "adain_res_block": 0, "sln_chain": 0}
+EXPECTED_RECON = {**EXPECTED_NO_RECON, "conv_bias_act": 3, "adain_res_block": 3,
+                  "sln_chain": 1}
 SOURCES = {
     "in_chain": "iinsvae_torch/ops/kernels/csrc/in_chain.cu",
     "conv_bias_act": "iinsvae_torch/ops/kernels/csrc/in_chain.cu",
     "strided_conv": "iinsvae_torch/ops/kernels/csrc/in_chain.cu",
     "mlp_chain": "iinsvae_torch/ops/kernels/csrc/mlp_chain.cu",
+    "adain_res_block": "iinsvae_torch/ops/kernels/csrc/in_chain.cu",
+    "sln_chain": "iinsvae_torch/ops/kernels/csrc/sln_chain.cu",
 }
 FLAGSHIP = dict(conv_type=1, cir_len=157, num_classes=5, style_dim=16, dim=4,
                 n_residual=3, n_downsample=4, range_dim=2)
@@ -132,6 +143,16 @@ def valid_taps(l_in: int, k: int, stride: int, padding: int, pad_mode: str) -> i
                if 0 <= o * stride + t - padding < l_in)
 
 
+def upsampled_rows(l_in: int, k: int, padding: int) -> int:
+    """Input rows a zero-pad conv over the x2 nearest upsample of length
+    ``l_in`` needs, over all 2*l_in outputs: the taps of output o read
+    upsampled rows o+t-padding, which fall on the distinct rows
+    (o+t-padding)>>1; taps that read the same row sum their weights first,
+    so each distinct row costs one multiply-add per channel pair."""
+    return sum(len({(o + t - padding) >> 1 for t in range(k)
+                    if 0 <= o + t - padding < 2 * l_in}) for o in range(2 * l_in))
+
+
 def conv_flops(b: int, l_in: int, taps: torch.Tensor, stride: int, padding: int,
                pad_mode: str) -> float:
     k, c_in, c_out = taps.shape
@@ -155,9 +176,11 @@ def ncl_conv(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor, stride: in
 
 
 def call_sites(model: IInsVAE, gen: torch.Generator) -> list[dict]:
-    """Every kernel call of one serving forward, at batch 500, with the
-    model's own weights and seeded random inputs of the right shape."""
+    """Every kernel call of one serving forward with the reconstruction, at
+    batch 500, with the model's own weights and seeded random inputs of the
+    right shape."""
     re_, ee = model.encoder.range_encoder, model.encoder.env_encoder
+    dec = model.decoder.decoder
     dev = next(model.parameters()).device
 
     def rand(*shape):
@@ -228,6 +251,38 @@ def call_sites(model: IInsVAE, gen: torch.Generator) -> list[dict]:
              "zero", sc)
     add_mlp("restorer", model.restorer.restorer, f"{fp}:1164")
     add_mlp("classifier", model.classifier.classifier, f"{fp}:1164")
+
+    add_conv("dec.in", "conv_bias_act", rand(BATCH, 8, 2), dec.in_kernel, dec.in_bias, 1, 0,
+             "zero", f"{fp}:1320")
+    x, k1, k2 = rand(BATCH, 8, 64), dec.res0_kernel1, dec.res0_kernel2
+    affine = [rand(BATCH, 64) for _ in range(4)]
+    sites.append(dict(
+        name="dec.res", kernel="adain_res_block", replaces=f"{fp}:557", calls_per_batch=3,
+        shape=f"{tuple(x.shape)}->{tuple(x.shape)}",
+        run=lambda: fused.adain_res_block(x, k1, k2, *affine),
+        plain=lambda: fused.adain_res_block_ref(x, k1, k2, *affine), library=None,
+        bytes=nbytes(x, k1, k2, *affine, x),
+        flops=2 * conv_flops(BATCH, 8, k1, 1, 1, "reflect")))
+    xt = rand(BATCH, 8, 64)
+    stages = [tuple(getattr(dec, f"up{j}_{n}") for n in ("kernel", "bias", "gamma", "beta"))
+              for j in range(4)]
+    flops, l = 0.0, xt.shape[1]
+    for taps, *_ in stages:  # x2 upsample, then a k5 zero-pad-2 conv
+        k, c_in, c_out = taps.shape
+        flops += 2.0 * BATCH * upsampled_rows(l, k, 2) * c_in * c_out
+        l *= 2
+    flops += conv_flops(BATCH, l, dec.out_kernel, 1, 3, "reflect")
+    pool = adaptive_avg_pool_matrix(l, 157, device=dev)  # a buffer, as the encoder's is
+    sites.append(dict(
+        name="dec.tail", kernel="sln_chain", replaces=f"{fp}:1027", calls_per_batch=1,
+        shape=f"{tuple(xt.shape)}->({BATCH}, 157)",
+        run=lambda: fused.sln_chain(xt, stages, dec.out_kernel, dec.out_bias, 157),
+        plain=lambda: fused.sln_chain_ref(xt, stages, dec.out_kernel, dec.out_bias, 157,
+                                          pool=pool),
+        library=None,
+        bytes=nbytes(xt, *[t for st in stages for t in st], dec.out_kernel, dec.out_bias)
+        + 4 * BATCH * 157,
+        flops=flops))
     return sites
 
 
@@ -261,10 +316,13 @@ def check_and_time(sites: list[dict]) -> list[dict]:
     return rows
 
 
-def kernel_rows(site_rows: list[dict], launches: dict[str, int]) -> list[dict]:
-    """One row per kernel, its numbers summed over one forward batch's calls."""
+def kernel_rows(site_rows: list[dict], launches: dict[str, int],
+                launches_no_recon: dict[str, int]) -> list[dict]:
+    """One row per kernel, its numbers summed over one forward batch's calls
+    (with the reconstruction); launches from the recon main path, and from
+    the path without it beside them."""
     out = []
-    for name in EXPECTED_PER_BATCH:
+    for name in EXPECTED_RECON:
         rs = [r for r in site_rows if r["kernel"] == name]
 
         def total(key):
@@ -275,6 +333,7 @@ def kernel_rows(site_rows: list[dict], launches: dict[str, int]) -> list[dict]:
         out.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=replaces[0],
             also_replaces=replaces[1:], launches=launches[name],
+            launches_no_recon=launches_no_recon[name],
             max_abs_err=max(r["max_abs_err"] for r in rs), ms=total("ms"),
             plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
             bound_by="bytes" if bytes_ms >= total("bound_ms") / 2 else "operations",
@@ -284,25 +343,27 @@ def kernel_rows(site_rows: list[dict], launches: dict[str, int]) -> list[dict]:
     return out
 
 
-def serve_main_path(model: IInsVAE, cpu_model: IInsVAE) -> tuple[dict, dict]:
+def serve_main_path(model: IInsVAE, cpu_model: IInsVAE, recon: bool) -> tuple[dict, dict]:
     """3 batches of 500 and one of 137 through Predictor(device='cuda'),
-    counted, and compared with the CPU Predictor on the same weights."""
+    without or with the reconstruction, counted, and compared with the CPU
+    Predictor on the same weights."""
     rng = np.random.default_rng(0)
     requests = [rng.normal(size=(n, 157)).astype(np.float32) for n in (500, 500, 500, 137)]
-    gpu = Predictor(model, batch_size=BATCH, device="cuda")
+    gpu = Predictor(model, batch_size=BATCH, return_recon=recon, device="cuda")
     kernels.reset_launch_counts()
     outs = [gpu(r) for r in requests]
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
-    for name, per in EXPECTED_PER_BATCH.items():
+    expected = EXPECTED_RECON if recon else EXPECTED_NO_RECON
+    for name, per in expected.items():
         if launches[name] != per * len(requests):
-            raise AssertionError(f"{name}: {launches[name]} launches on the main path, "
-                                 f"expected {per} x {len(requests)} batches")
-    cpu = Predictor(cpu_model, batch_size=BATCH, device="cpu")
+            raise AssertionError(f"{name}: {launches[name]} launches on the main path "
+                                 f"(recon={recon}), expected {per} x {len(requests)} batches")
+    cpu = Predictor(cpu_model, batch_size=BATCH, return_recon=recon, device="cpu")
     errs, label_mismatch = {}, 0
     for r, got in zip(requests, outs):
         want = cpu(r)
-        for f in ("err_est", "label_probs", "env_code"):
+        for f in ("err_est", "label_probs", "env_code") + (("recon",) if recon else ()):
             a, b = getattr(got, f), getattr(want, f)
             if a.shape != b.shape or not np.isfinite(a).all():
                 raise AssertionError(f"{f}: shape {a.shape} (want {b.shape}) or non-finite")
@@ -314,7 +375,8 @@ def serve_main_path(model: IInsVAE, cpu_model: IInsVAE) -> tuple[dict, dict]:
         if (got.label[clear] != want.label[clear]).any():
             raise AssertionError("labels differ from the CPU path")
         label_mismatch += int((got.label != want.label).sum())
-    result = dict(requests=[len(r) for r in requests], launches=launches,
+    result = dict(recon=recon, requests=[len(r) for r in requests], launches=launches,
+                  launches_per_batch=sum(launches.values()) // len(requests),
                   max_abs_err_vs_cpu=errs, label_mismatches_within_ties=label_mismatch)
     print(f"[serve] main path: {result}", flush=True)
     return result, launches
@@ -348,14 +410,15 @@ def traced_idle_share(p: Predictor, batches: list[np.ndarray]) -> dict:
                 device_idle_share=1.0 - busy_us / wall_us if spans else None)
 
 
-def throughput(model: IInsVAE) -> dict:
-    """Per-request path (host arrays in, host arrays out) at each batch size;
-    one forward on a resident batch, on the device (graph) and eager; the
-    device's idle share over 40 served batches, from a trace."""
+def throughput(model: IInsVAE, recon: bool) -> dict:
+    """Per-request path (host arrays in, host arrays out) at each batch size,
+    without or with the reconstruction; one forward of that path on a
+    resident batch, on the device (graph) and eager; the device's idle
+    share over 40 served batches, from a trace."""
     rng = np.random.default_rng(1)
     res = {}
     for bs in (500, 256):
-        p = Predictor(model, batch_size=bs, device="cuda")
+        p = Predictor(model, batch_size=bs, return_recon=recon, device="cuda")
         n_batches = 120  # p90 then has 12 batches beyond it
         data = rng.normal(size=(n_batches * bs, 157)).astype(np.float32)
         p(data[:bs])
@@ -368,7 +431,8 @@ def throughput(model: IInsVAE) -> dict:
         wall = time.perf_counter() - t_all
         x = torch.from_numpy(data[:bs]).cuda()
         with torch.inference_mode():
-            fwd_ms, fwd_eager_ms = device_ms(lambda: p.model(x)), eager_ms(lambda: p.model(x))
+            fwd_ms, fwd_eager_ms = device_ms(lambda: p.forward_batch(x)), eager_ms(
+                lambda: p.forward_batch(x))
         median_lat = statistics.median(lat)
         trace = traced_idle_share(p, [data[i * bs:(i + 1) * bs] for i in range(40)])
         res[bs] = dict(cir_per_s=n_batches * bs / wall, batch_latency_ms_median=median_lat,
@@ -376,7 +440,8 @@ def throughput(model: IInsVAE) -> dict:
                        forward_device_ms=fwd_ms, forward_eager_ms=fwd_eager_ms,
                        batches=n_batches, trace=trace)
         idle = trace["device_idle_share"]
-        print(f"[serve] batch {bs}: {res[bs]['cir_per_s']:.1f} CIR/s, latency median "
+        print(f"[serve] {'recon' if recon else 'no recon'} batch {bs}: "
+              f"{res[bs]['cir_per_s']:.1f} CIR/s, latency median "
               f"{median_lat:.3f} ms, forward {fwd_ms:.4f} ms on the device "
               f"({fwd_eager_ms:.4f} ms eager), device idle over 40 traced batches "
               f"{'not measured (no device events)' if idle is None else f'{idle:.4f}'} "
@@ -410,18 +475,22 @@ def main() -> int:
 
     with torch.inference_mode():
         site_rows = check_and_time(call_sites(model, torch.Generator().manual_seed(1)))
-    main_path, launches = serve_main_path(model, cpu_model)
-    serving = throughput(model)
-    kernel_table = kernel_rows(site_rows, launches)
+    main_path, launches_no_recon = serve_main_path(model, cpu_model, recon=False)
+    main_path_recon, launches = serve_main_path(model, cpu_model, recon=True)
+    serving = throughput(model, recon=False)
+    serving_recon = throughput(model, recon=True)
+    kernel_table = kernel_rows(site_rows, launches, launches_no_recon)
 
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(dict(
         card=card, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
-        sites=site_rows, kernels=kernel_table, main_path=main_path, serving=serving,
+        sites=site_rows, kernels=kernel_table, main_path=main_path,
+        main_path_recon=main_path_recon, serving=serving, serving_recon=serving_recon,
         kernel_tolerance=[KERNEL_RTOL, KERNEL_ATOL], serve_tolerance=[SERVE_RTOL, SERVE_ATOL]),
         indent=1))
     print(json.dumps({"sites": site_rows}), flush=True)
     print(json.dumps({"serving": serving, "card": card}), flush=True)
+    print(json.dumps({"serving_recon": serving_recon, "card": card}), flush=True)
     print(json.dumps({"kernels": kernel_table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,8 @@
 """iinsvae_torch — the PyTorch/CUDA port of iinsvae_tpu for one NVIDIA H100.
 
-This slice serves the 1-D IIns-VAE forward (range and env encoders plus the
-Linear restorer and classifier heads). Activations stay channels-last
+It serves the 1-D IIns-VAE forward (range and env encoders, the Linear
+restorer and classifier heads, and, with ``return_recon``, the AdaIN
+decoder's reconstruction). Activations stay channels-last
 ``(B, L, C)``, conv taps ``(k, C_in, C_out)`` and dense weights
 ``(D_in, D_out)``, the JAX package's layouts, so parameters carry across
 without transposes (bridge.py). Every kernel on the path is hand-written

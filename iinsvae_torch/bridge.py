@@ -19,10 +19,10 @@ _SERVED = re.compile(
     r"params/("
     r"encoder/range_encoder/(in_kernel|down\d+_kernel|res\d+_kernel[12]|out_kernel|out_bias)"
     r"|encoder/env_encoder/(ConvINAct_\d+|Conv1d_0)/(kernel|bias)"
+    r"|decoder/decoder/(in_kernel|in_bias|res\d+_kernel[12]|up\d+_(kernel|bias|gamma|beta)"
+    r"|out_kernel|out_bias|mlp/Dense_\d+/(kernel|bias))"
     r"|(restorer/restorer|classifier/classifier)/[wb]\d+"
     r")")
-# read and dropped until the decoder slice serves --recon
-_IGNORED_PREFIXES = ("params/decoder/",)
 _EMPTY = "/__empty__"
 
 
@@ -30,7 +30,7 @@ def from_flax_numpy(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
     """Flattened flax variables -> the port's state dict (float32, CPU)."""
     state = {}
     for key, value in flat.items():
-        if key.endswith(_EMPTY) or key.startswith(_IGNORED_PREFIXES):
+        if key.endswith(_EMPTY):
             continue
         if not _SERVED.fullmatch(key):
             raise KeyError(f"unknown JAX parameter {key!r}: the port serves the 1-D "

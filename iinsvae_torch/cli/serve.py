@@ -3,9 +3,11 @@
 Builds a ``Predictor`` from an export_serving ``weights.npz`` (``--npz``)
 or, without one, from the seeded initialisation, sends ``--selftest_n``
 random CIRs through it in padded batches of ``--serve_batch``, and prints a
-summary. The native batcher and the socket/TCP fronts are a later slice.
+summary; with ``--recon`` the predictor also returns the reconstructed CIR
+and the summary gives its shape and range. The native batcher and the
+socket/TCP fronts are a later slice.
 
-    python -m iinsvae_torch.cli.serve --dataset_env room_full --serve_batch 256
+    python -m iinsvae_torch.cli.serve --dataset_env room_full --serve_batch 256 --recon
 """
 
 from __future__ import annotations
@@ -27,17 +29,21 @@ def main(argv=None) -> None:
     parser.add_argument("--serve_batch", type=int, default=256)
     parser.add_argument("--selftest_n", type=int, default=64)
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--recon", action="store_true",
+                        help="also return the reconstructed CIR (runs the decoder)")
     add_args(parser)
     args = parser.parse_args(argv)
     cfg = from_args(args)
 
     if args.npz:
         predictor = Predictor.from_npz(args.npz, cir_len=cfg.cir_len,
-                                       batch_size=args.serve_batch, device=args.device)
+                                       batch_size=args.serve_batch, return_recon=args.recon,
+                                       device=args.device)
     else:
         model = IInsVAE(**cfg.model_kwargs(),
                         generator=torch.Generator().manual_seed(cfg.seed))
-        predictor = Predictor(model, batch_size=args.serve_batch, device=args.device)
+        predictor = Predictor(model, batch_size=args.serve_batch, return_recon=args.recon,
+                              device=args.device)
     print(f"[serve] predictor ready (cir_len={cfg.cir_len}, batch={args.serve_batch}, "
           f"device={predictor.device})", flush=True)
 
@@ -53,6 +59,11 @@ def main(argv=None) -> None:
     print(f"[serve] self-test ok: {args.selftest_n} requests in {n_batches} batches, "
           f"{dt:.3f}s, err range ({pred.err_est.min():.4f}, {pred.err_est.max():.4f}), "
           f"labels {np.bincount(pred.label, minlength=cfg.num_classes).tolist()}", flush=True)
+    if args.recon:
+        if pred.recon.shape != (args.selftest_n, cfg.cir_len) or not np.isfinite(pred.recon).all():
+            raise RuntimeError(f"self-test recon: shape {pred.recon.shape} or non-finite values")
+        print(f"[serve] recon {pred.recon.shape}, range ({pred.recon.min():.4f}, "
+              f"{pred.recon.max():.4f})", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Initialisers and ConvINAct.
+"""Initialisers, ConvINAct, Conv1d and the decoder's MLP.
 
 Initialisation mirrors iinsvae_tpu/models/layers.py:21-31 in distribution
 (not in values: torch.Generator and jax.random give different streams):
@@ -60,3 +60,38 @@ class Conv1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv1d(x, self.kernel, self.bias)
+
+
+class Dense(nn.Module):
+    """Linear layer with torch-default init (JAX layers.py:223-240):
+    ``kernel`` (D_in, D_out) and ``bias`` (D_out,), each U(+-1/sqrt(D_in))."""
+
+    def __init__(self, d_in: int, features: int, *, generator: torch.Generator):
+        super().__init__()
+        self.kernel = bias_uniform((d_in, features), d_in, generator)
+        self.bias = bias_uniform((features,), d_in, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.kernel + self.bias
+
+
+class MLP(nn.Module):
+    """The AdaIN-parameter predictor (JAX layers.py:243-258): d_in -> dim ->
+    ReLU -> ... -> output_dim, ``n_blk`` Dense layers named ``Dense_{i}`` as
+    in flax. Plain tensor ops: the JAX package computes it outside any
+    Pallas kernel too."""
+
+    def __init__(self, d_in: int, output_dim: int, dim: int = 256, n_blk: int = 3, *,
+                 generator: torch.Generator):
+        super().__init__()
+        widths = [dim] * (n_blk - 1) + [output_dim]
+        self.n_blk = n_blk
+        for i, w in enumerate(widths):
+            setattr(self, f"Dense_{i}", Dense(d_in, w, generator=generator))
+            d_in = w
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.reshape(x.shape[0], -1)
+        for i in range(self.n_blk - 1):
+            x = torch.relu(getattr(self, f"Dense_{i}")(x))
+        return getattr(self, f"Dense_{self.n_blk - 1}")(x)

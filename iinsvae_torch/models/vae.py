@@ -1,15 +1,12 @@
-"""IInsVAE for serving: Encoder + Restorer + Classifier (iinsvae_tpu/models/vae.py).
-
-The decoder slot is not here yet: serving without ``--recon`` never runs
-it, and its kernels (fused_adain_res_block, fused_sln_chain) come with the
-decoder slice.
-"""
+"""IInsVAE for serving: Encoder + Decoder + Restorer + Classifier
+(iinsvae_tpu/models/vae.py)."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from iinsvae_torch.models.decoders import Decoder
 from iinsvae_torch.models.encoders import Encoder
 from iinsvae_torch.models.heads import Classifier, Restorer
 
@@ -17,8 +14,9 @@ from iinsvae_torch.models.heads import Classifier, Restorer
 class IInsVAE(nn.Module):
     """Parameters are made from ``generator`` (default: seed 0) on the CPU;
     move the module with ``.to(device)``. Parameter names follow the flax
-    tree (``encoder.range_encoder.in_kernel``, ``restorer.restorer.w0``,
-    ...), so bridge.from_flax_numpy loads a JAX checkpoint with no renaming."""
+    tree (``encoder.range_encoder.in_kernel``, ``decoder.decoder.mlp.Dense_0.kernel``,
+    ``restorer.restorer.w0``, ...), so bridge.from_flax_numpy loads a JAX
+    checkpoint with no renaming."""
 
     def __init__(self, conv_type: int = 1, dim: int = 4, n_residual: int = 3,
                  n_downsample: int = 4, style_dim: int = 8, range_dim: int = 2,
@@ -35,16 +33,35 @@ class IInsVAE(nn.Module):
         self.restorer = Restorer(code_size, restorer_type, generator=generator)
         self.classifier = Classifier(style_dim, num_classes, net_type=classifier_type,
                                      generator=generator)
+        # drawn last, so a seed gives the encoder and heads the same weights
+        # as a model without the decoder
+        self.decoder = Decoder(conv_type, dim, n_residual, n_downsample, cir_len, range_dim,
+                               style_dim, generator=generator)
 
     def forward(self, cir: torch.Tensor) -> dict[str, torch.Tensor]:
-        """cir (B, cir_len) -> err_est (B, 1), logits (B, num_classes),
-        env_code (B, style_dim), range_code (B, 8, range_dim). The KL term
-        of the JAX forward is ``encoders.env_kl(*split_env_stats(env_code))``:
-        serving never reads it, so it is not computed here."""
-        range_code, env_code = self.encoder(cir)
+        """cir (B, cir_len) -> recon (B, cir_len), err_est (B, 1), logits
+        (B, num_classes), env_code (B, style_dim), range_code (B, 8,
+        range_dim). The KL term of the JAX forward is
+        ``encoders.env_kl(*split_env_stats(env_code))``: serving never reads
+        it, so it is not computed here."""
+        range_code, env_code = self.encode(cir)
         return {
-            "err_est": self.restorer(range_code),
-            "logits": self.classifier(env_code),
+            "recon": self.decode(range_code, env_code),
+            "err_est": self.restore(range_code),
+            "logits": self.classify(env_code),
             "env_code": env_code,
             "range_code": range_code,
         }
+
+    def encode(self, cir: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """-> (range_code (B, 8, range_dim), env_code (B, style_dim))."""
+        return self.encoder(cir)
+
+    def decode(self, range_code: torch.Tensor, env_code: torch.Tensor) -> torch.Tensor:
+        return self.decoder(range_code, env_code)
+
+    def restore(self, range_code: torch.Tensor) -> torch.Tensor:
+        return self.restorer(range_code)
+
+    def classify(self, env_code: torch.Tensor) -> torch.Tensor:
+        return self.classifier(env_code)

@@ -22,6 +22,12 @@ def _reflect_index(l_in: int, padding: int, device) -> torch.Tensor:
     return torch.where(u >= l_in, 2 * l_in - 2 - u, u)
 
 
+def upsample_nearest1d(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """Nearest-neighbour upsampling of x (B, L, C) along L (torch
+    nn.Upsample(scale_factor=factor)): row u of the output is row u // factor."""
+    return x.repeat_interleave(factor, dim=1)
+
+
 def conv1d(
     x: torch.Tensor,
     kernel: torch.Tensor,

@@ -8,11 +8,14 @@ counts its kernel launches in a plain int attribute, ``<wrapper>.launches``.
   K2 fused.conv_bias_act     conv + bias + ReLU
   K3 strided_conv.strided_conv  k4 s2 zero-pad-1 conv + bias + ReLU (K2's kernel)
   K4 fused.mlp_chain         Dense + LeakyReLU chain
+  K5 fused.adain_res_block   AdaIN residual block (K1's kernel, per-sample affine)
+  K6 fused.sln_chain         decoder tail: 4 x (up, conv, LayerNorm, ReLU), conv, tanh, pool
 """
 
 from iinsvae_torch.ops.kernels import fused, strided_conv
 
-WRAPPERS = (fused.in_chain, fused.conv_bias_act, strided_conv.strided_conv, fused.mlp_chain)
+WRAPPERS = (fused.in_chain, fused.conv_bias_act, strided_conv.strided_conv, fused.mlp_chain,
+            fused.adain_res_block, fused.sln_chain)
 
 
 def reset_launch_counts() -> None:

@@ -29,6 +29,16 @@
 // whose C_out is a multiple of 4 only; K2 runs a C_out that is not (the 1x1
 // out-conv, C_out 2) on its scalar path.
 //
+// K5 adain_res_block replaces fused_adain_res_block (fused.py:557, kernel
+// _fwd_adain_block_kernel :382): the decoder's AdaIN residual block, K1's
+// residual mode with one step added. After each stage's InstanceNorm the
+// kernel applies y * gamma[s, c] + beta[s, c] from per-sample (B, C)
+// tables, before the ReLU or the skip. It is a template instance of K1's
+// kernel (kAdain = true), so K1's own instance compiles as before. Its
+// bound is K1's residual block's: ~196 MFLOP at batch 500 (2.9 us at 67
+// TFLOP/s fp32), bound by operations. The TPU body's per-sample (B, L*C)
+// tiles of gamma and beta are a layout device: the kernel reads (B, C).
+//
 // InstanceNorm statistics are two-pass per (sample, channel): the mean,
 // then the mean of (x - mean)^2. No E[x^2] - mean^2, which cancels below
 // zero on near-constant channels. There is no conv bias before the norm:
@@ -112,44 +122,59 @@ __device__ __forceinline__ float group_sum(float v, int g) {
   return v;
 }
 
-// In place over y (ns, L, C): IN, then ReLU, or + skip (same shape) when given.
-__device__ void norm_stage(float* y, const float* skip, int l, int c, int ns) {
-  const int g = norm_lanes(l), lane = threadIdx.x % g;
-  const int slots = blockDim.x / g, pairs = ns * c;
+// In place over y (ns, L, C): IN, then (kAdain) the per-sample affine
+// g[s, c], b[s, c] of (ns, C) tables, then ReLU, or + skip (same shape) when given.
+template <bool kAdain>
+__device__ void norm_stage(float* y, const float* skip, int l, int c, int ns,
+                           const float* __restrict__ g, const float* __restrict__ b) {
+  const int lanes = norm_lanes(l), lane = threadIdx.x % lanes;
+  const int slots = blockDim.x / lanes, pairs = ns * c;
   const float inv_l = 1.f / static_cast<float>(l);
   // every lane runs the same trip count, so the shuffles see full warps
   for (int base = 0; base < pairs; base += slots) {
-    const int p = base + static_cast<int>(threadIdx.x) / g;
+    const int p = base + static_cast<int>(threadIdx.x) / lanes;
     const bool valid = p < pairs;
     const int s = valid ? p / c : 0, ch = valid ? p - s * c : 0;
     float* ys = y + s * l * c + ch;
     float sum = 0.f;
     if (valid)
-      for (int i = lane; i < l; i += g) sum += ys[i * c];
-    const float mean = group_sum(sum, g) * inv_l;
+      for (int i = lane; i < l; i += lanes) sum += ys[i * c];
+    const float mean = group_sum(sum, lanes) * inv_l;
     float sq = 0.f;
     if (valid)
-      for (int i = lane; i < l; i += g) {
+      for (int i = lane; i < l; i += lanes) {
         const float d = ys[i * c] - mean;
         sq = fmaf(d, d, sq);
       }
-    const float rs = rsqrtf(group_sum(sq, g) * inv_l + kEps);
+    const float rs = rsqrtf(group_sum(sq, lanes) * inv_l + kEps);
     if (valid) {
       const float* ks = skip ? skip + s * l * c + ch : nullptr;
-      for (int i = lane; i < l; i += g) {
-        const float v = (ys[i * c] - mean) * rs;
+      float ga = 1.f, be = 0.f;
+      if constexpr (kAdain) {
+        ga = __ldg(g + p);
+        be = __ldg(b + p);
+      }
+      for (int i = lane; i < l; i += lanes) {
+        float v = (ys[i * c] - mean) * rs;
+        if constexpr (kAdain) v = fmaf(v, ga, be);
         ys[i * c] = ks ? v + ks[i * c] : fmaxf(v, 0.f);
       }
     }
   }
 }
 
+// K5's per-sample affine tables, each (B, C); unused by K1.
+struct Affine {
+  const float *g1, *b1, *g2, *b2;
+};
+
 // Shared memory: a0 (spb, L0*C0) chain input, a1 (spb, L1*C1), a2 (spb, L2*C2).
 // A residual chain has two stages; the second adds a0.
+template <bool kAdain>
 __global__ void __launch_bounds__(kThreads)
 in_chain_kernel(const float* __restrict__ x, const float* __restrict__ w1,
                 const float* __restrict__ w2, float* __restrict__ y, int batch,
-                Stage s1, Stage s2, int n_stages, int residual, int spb) {
+                Stage s1, Stage s2, int n_stages, int residual, int spb, Affine af) {
   extern __shared__ float smem[];
   const int s0 = blockIdx.x * spb;
   const int ns = min(spb, batch - s0);
@@ -158,6 +183,12 @@ in_chain_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   float* a0 = smem;
   float* a1 = a0 + spb * n0;
   float* a2 = a1 + spb * n1;
+  if constexpr (kAdain) {
+    af.g1 += s0 * s1.c_out;
+    af.b1 += s0 * s1.c_out;
+    af.g2 += s0 * s2.c_out;
+    af.b2 += s0 * s2.c_out;
+  }
 
   const float* xg = x + static_cast<size_t>(s0) * n0;
   for (int i = threadIdx.x; i < ns * n0; i += blockDim.x) a0[i] = xg[i];
@@ -165,14 +196,14 @@ in_chain_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 
   conv_stage<4>(a0, w1, a1, s1, ns);
   __syncthreads();
-  norm_stage(a1, nullptr, s1.l_out, s1.c_out, ns);
+  norm_stage<kAdain>(a1, nullptr, s1.l_out, s1.c_out, ns, af.g1, af.b1);
   __syncthreads();
   const float* last = a1;
   int n_last = n1;
   if (n_stages == 2) {
     conv_stage<4>(a1, w2, a2, s2, ns);
     __syncthreads();
-    norm_stage(a2, residual ? a0 : nullptr, s2.l_out, s2.c_out, ns);
+    norm_stage<kAdain>(a2, residual ? a0 : nullptr, s2.l_out, s2.c_out, ns, af.g2, af.b2);
     __syncthreads();
     last = a2;
     n_last = n2;
@@ -221,17 +252,11 @@ Stage make_stage(const int* p, const float* w) {
 
 constexpr size_t kMaxSmem = 48 * 1024;
 
-}  // namespace
-
-extern "C" {
-
-const char* iins_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-// stages: n_stages rows of (k, stride, pad, reflect, l_in, c_in, l_out, c_out).
-int iins_in_chain(const float* x, const float* w1, const float* w2, float* y, int batch,
-                  const int* stages, int n_stages, int residual, int spb, void* stream) {
+// Validate a 1-2 stage chain (stage rows as iins_in_chain takes them) and launch it.
+template <bool kAdain>
+int launch_chain(const float* x, const float* w1, const float* w2, float* y, int batch,
+                 const int* stages, int n_stages, int residual, int spb, Affine af,
+                 void* stream) {
   if (batch <= 0 || spb <= 0 || n_stages < 1 || n_stages > 2) return cudaErrorInvalidValue;
   const Stage s1 = make_stage(stages, w1);
   const Stage s2 = n_stages == 2 ? make_stage(stages + 8, w2) : Stage{};
@@ -245,9 +270,34 @@ int iins_in_chain(const float* x, const float* w1, const float* w2, float* y, in
   const size_t smem = per * spb * sizeof(float);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   const int grid = (batch + spb - 1) / spb;
-  in_chain_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, w1, w2, y, batch, s1, s2, n_stages, residual, spb);
+  in_chain_kernel<kAdain><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, w1, w2, y, batch, s1, s2, n_stages, residual, spb, af);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* iins_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// stages: n_stages rows of (k, stride, pad, reflect, l_in, c_in, l_out, c_out).
+int iins_in_chain(const float* x, const float* w1, const float* w2, float* y, int batch,
+                  const int* stages, int n_stages, int residual, int spb, void* stream) {
+  return launch_chain<false>(x, w1, w2, y, batch, stages, n_stages, residual, spb, Affine{},
+                             stream);
+}
+
+// K5: x, y (B, L, C); w1, w2 (3, C, C), reflect pad 1; g1, b1, g2, b2 (B, C).
+int iins_adain_res_block(const float* x, const float* w1, const float* w2, const float* g1,
+                         const float* b1, const float* g2, const float* b2, float* y,
+                         int batch, int l, int c, int spb, void* stream) {
+  const int stages[16] = {3, 1, 1, 1, l, c, l, c, 3, 1, 1, 1, l, c, l, c};
+  if (!g1 || !b1 || !g2 || !b2) return cudaErrorInvalidValue;
+  return launch_chain<true>(x, w1, w2, y, batch, stages, 2, 1, spb, Affine{g1, b1, g2, b2},
+                            stream);
 }
 
 // stage: (k, stride, pad, reflect, l_in, c_in, l_out, c_out).

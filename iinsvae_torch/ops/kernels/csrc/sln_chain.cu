@@ -1,0 +1,240 @@
+// K6 sln_chain: the 1-D decoder's tail in one launch, (B, L0, C0) -> (B, L_pool).
+//
+// Replaces fused_sln_chain (iinsvae_tpu/ops/pallas/fused.py:1027, kernel
+// _fwd_sln_chain_kernel :901, layer factory _make_sln_chain_layer :965). Four
+// stages of
+//   x2 nearest upsample -> conv k5, zero pad 2, + bias -> per-sample
+//   LayerNorm (mean over all L*C values, unbiased std, / (std + 1e-5)) ->
+//   per-channel gamma, beta -> ReLU,
+// each (L, C) -> (2L, C/2), then conv k7, reflect pad 3, C_last -> 1, +
+// bias, tanh, and the adaptive average pool L_last -> L_pool (each output
+// averages the 1 or 2 inputs of its window, ops/pooling.py). The TPU body's
+// dense stage matrices (upsample folded in, columns pre-centered), tiled
+// affine rows and pool matrix are TPU devices; this kernel computes the
+// composed path (iinsvae_tpu/models/decoders.py:178-185) from the taps.
+//
+// Bound on the H100: at the flagship (8, 64) -> (16, 32) -> (32, 16) ->
+// (64, 8) -> (128, 4) -> 128 -> 157 a sample needs 177,024 multiply-adds
+// (0.177 GFLOP per launch at batch 500, 2.64 us at 67 TFLOP/s fp32) and the
+// launch moves ~1.4 MB (0.4 us at 3.35 TB/s): bound by operations. That
+// count sums the weights of the taps that read the same pre-upsample row
+// (each output reads at most 3 distinct rows through its 5 taps); this
+// kernel does not fold them, so it issues 294,464 FMAs a sample, 5/3 of
+// what the function needs. Every
+// stage's output is L*C = 512 floats a sample, so a block keeps its tile
+// of samples in two ping-pong buffers of shared memory through the whole
+// tail, and device memory sees the input once and the pooled output once
+// (the TPU kernel kept the chain in VMEM, fused.py:863-869).
+//
+// Design:
+// - The upsample is folded into the indexing: output l, tap t reads
+//   pre-upsample row (l + t - 2) >> 1 when 0 <= l + t - 2 < 2L, else zero.
+//   The 2L-long input is never built.
+// - A thread computes four consecutive output channels of one position from
+//   float4 loads of the taps. The taps (~54 KB at the flagship, 40 KB of it
+//   the first stage's) are read through the read-only cache, not staged in
+//   shared memory, so a block needs only the default 48 KB.
+// - The LayerNorm statistics of a sample are reduced by one warp with
+//   shuffles, two-pass: the mean first, then the squared deviations from it
+//   (no E[x^2] - mean^2).
+// - Only the flagship's four stages are taken, with every stage's C_out a
+//   multiple of 4 and at most 2048 floats a sample; anything else is
+//   rejected at launch.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kStages = 4;
+constexpr int kK = 5, kPad = 2;        // up-conv taps, zero pad
+constexpr int kKOut = 7, kPadOut = 3;  // out-conv taps, reflect pad
+constexpr int kMaxFloats = 2048;       // floats a sample, per stage
+constexpr float kEps = 1e-5f;
+constexpr size_t kMaxSmem = 48 * 1024;
+
+struct ChainArgs {
+  const float* w[kStages];      // (5, C_in, C_in / 2)
+  const float* bias[kStages];   // (C_in / 2,)
+  const float* gamma[kStages];  // (C_in / 2,)
+  const float* beta[kStages];   // (C_in / 2,)
+  int l_in[kStages], c_in[kStages];  // stage j: (l_in, c_in) -> (2 l_in, c_in / 2)
+  const float* w_out;  // (7, C_last, 1)
+  const float* b_out;  // (1,)
+  int l_pool;
+  int width;  // floats a sample in each ping-pong buffer
+};
+
+// out (ns, 2L, C/2) = conv(upsample(in)) + bias; in (ns, L, C), samples
+// `width` floats apart.
+__device__ void up_conv_stage(const float* in, float* out, const float* __restrict__ w,
+                              const float* __restrict__ bias, int l_in, int c_in, int ns,
+                              int width) {
+  const int l_out = 2 * l_in, c_out = c_in / 2, groups = c_out / 4, per = l_out * groups;
+  for (int o = threadIdx.x; o < ns * per; o += blockDim.x) {
+    const int s = o / per, r = o - s * per;
+    const int l = r / groups, co = (r - l * groups) * 4;
+    const float* xs = in + s * width;
+    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+    for (int t = 0; t < kK; ++t) {
+      const int u = l + t - kPad;  // row of the upsampled input
+      if (u < 0 || u >= l_out) continue;
+      const float* xr = xs + (u >> 1) * c_in;
+      const float* wr = w + t * c_in * c_out + co;
+#pragma unroll 4
+      for (int ci = 0; ci < c_in; ++ci) {
+        const float xv = xr[ci];
+        const float4 wv = __ldg(reinterpret_cast<const float4*>(wr + ci * c_out));
+        a0 = fmaf(xv, wv.x, a0);
+        a1 = fmaf(xv, wv.y, a1);
+        a2 = fmaf(xv, wv.z, a2);
+        a3 = fmaf(xv, wv.w, a3);
+      }
+    }
+    float* dst = out + s * width + l * c_out + co;
+    dst[0] = a0 + __ldg(bias + co);
+    dst[1] = a1 + __ldg(bias + co + 1);
+    dst[2] = a2 + __ldg(bias + co + 2);
+    dst[3] = a3 + __ldg(bias + co + 3);
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// In place over y (ns, n = L*C): per-sample LayerNorm, affine, ReLU; one
+// warp a sample.
+__device__ void sln_stage(float* y, const float* __restrict__ gamma,
+                          const float* __restrict__ beta, int n, int c, int ns, int width) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, n_warps = blockDim.x >> 5;
+  const float inv_n = 1.f / static_cast<float>(n), inv_n1 = 1.f / static_cast<float>(n - 1);
+  for (int s = warp; s < ns; s += n_warps) {  // warp-uniform: full warps shuffle
+    float* ys = y + s * width;
+    float sum = 0.f;
+    for (int i = lane; i < n; i += 32) sum += ys[i];
+    const float mean = warp_sum(sum) * inv_n;
+    float sq = 0.f;
+    for (int i = lane; i < n; i += 32) {
+      const float d = ys[i] - mean;
+      sq = fmaf(d, d, sq);
+    }
+    const float rs = 1.f / (sqrtf(warp_sum(sq) * inv_n1) + kEps);
+    for (int i = lane; i < n; i += 32) {
+      const int ch = i % c;
+      ys[i] = fmaxf(fmaf((ys[i] - mean) * rs, __ldg(gamma + ch), __ldg(beta + ch)), 0.f);
+    }
+  }
+}
+
+// out (ns, L) = tanh(conv_k7_reflect(in (ns, L, C)) + b).
+__device__ void out_stage(const float* in, float* out, const float* __restrict__ w, float b,
+                          int l, int c, int ns, int width) {
+  for (int o = threadIdx.x; o < ns * l; o += blockDim.x) {
+    const int s = o / l, p = o - s * l;
+    const float* xs = in + s * width;
+    float acc = 0.f;
+#pragma unroll
+    for (int t = 0; t < kKOut; ++t) {
+      int u = p + t - kPadOut;
+      u = u < 0 ? -u : (u >= l ? 2 * l - 2 - u : u);
+      const float* xr = xs + u * c;
+      for (int ci = 0; ci < c; ++ci) acc = fmaf(xr[ci], __ldg(w + t * c + ci), acc);
+    }
+    out[s * width + p] = tanhf(acc + b);
+  }
+}
+
+// y (ns, L_pool): output i averages in[floor(i L / L_pool), ceil((i + 1) L / L_pool)).
+__device__ void pool_stage(const float* in, float* __restrict__ y, int l, int l_pool, int ns,
+                           int width) {
+  for (int o = threadIdx.x; o < ns * l_pool; o += blockDim.x) {
+    const int s = o / l_pool, i = o - s * l_pool;
+    const int start = (i * l) / l_pool, end = ((i + 1) * l + l_pool - 1) / l_pool;
+    const float* xs = in + s * width;
+    float sum = 0.f;
+    for (int u = start; u < end; ++u) sum += xs[u];
+    y[static_cast<size_t>(s) * l_pool + i] = sum / static_cast<float>(end - start);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+sln_chain_kernel(const float* __restrict__ x, float* __restrict__ y, int batch, int spb,
+                 ChainArgs a) {
+  extern __shared__ float smem[];
+  const int s0 = blockIdx.x * spb;
+  const int ns = min(spb, batch - s0);
+  float* cur = smem;
+  float* nxt = smem + spb * a.width;
+  const int n0 = a.l_in[0] * a.c_in[0];
+  const float* xg = x + static_cast<size_t>(s0) * n0;
+  for (int i = threadIdx.x; i < ns * n0; i += blockDim.x) {
+    const int s = i / n0;
+    cur[s * a.width + (i - s * n0)] = xg[i];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kStages; ++j) {
+    up_conv_stage(cur, nxt, a.w[j], a.bias[j], a.l_in[j], a.c_in[j], ns, a.width);
+    __syncthreads();
+    const int c_out = a.c_in[j] / 2;
+    sln_stage(nxt, a.gamma[j], a.beta[j], 2 * a.l_in[j] * c_out, c_out, ns, a.width);
+    __syncthreads();
+    float* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+  const int l = 2 * a.l_in[kStages - 1], c = a.c_in[kStages - 1] / 2;
+  out_stage(cur, nxt, a.w_out, __ldg(a.b_out), l, c, ns, a.width);
+  __syncthreads();
+  pool_stage(nxt, y + static_cast<size_t>(s0) * a.l_pool, l, a.l_pool, ns, a.width);
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
+
+}  // namespace
+
+extern "C" {
+
+const char* iins_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// x (B, l0, c0) -> y (B, l_pool). ws, biases, gammas, betas: kStages device
+// pointers each (host arrays); w_out (7, c0 / 2^kStages, 1), b_out (1,).
+int iins_sln_chain(const float* x, float* y, int batch, const void* const* ws,
+                   const void* const* biases, const void* const* gammas,
+                   const void* const* betas, int l0, int c0, const float* w_out,
+                   const float* b_out, int l_pool, int spb, void* stream) {
+  if (batch <= 0 || spb <= 0 || l0 <= 0 || l_pool <= 0) return cudaErrorInvalidValue;
+  // every stage's C_out = c0 / 2^(j+1) a multiple of 4; L*C is the same at every stage
+  if (c0 % (4 << kStages) != 0 || l0 * c0 > kMaxFloats) return cudaErrorInvalidValue;
+  ChainArgs a{};
+  int l = l0, c = c0;
+  for (int j = 0; j < kStages; ++j) {
+    if (!aligned16(ws[j])) return cudaErrorInvalidValue;
+    a.w[j] = static_cast<const float*>(ws[j]);
+    a.bias[j] = static_cast<const float*>(biases[j]);
+    a.gamma[j] = static_cast<const float*>(gammas[j]);
+    a.beta[j] = static_cast<const float*>(betas[j]);
+    a.l_in[j] = l;
+    a.c_in[j] = c;
+    l *= 2;
+    c /= 2;
+  }
+  if (l <= kPadOut) return cudaErrorInvalidValue;  // reflect pad 3 needs L > 3
+  a.w_out = w_out;
+  a.b_out = b_out;
+  a.l_pool = l_pool;
+  a.width = l0 * c0;
+  const size_t smem = 2 * static_cast<size_t>(spb) * a.width * sizeof(float);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  const int grid = (batch + spb - 1) / spb;
+  sln_chain_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(x, y, batch,
+                                                                               spb, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

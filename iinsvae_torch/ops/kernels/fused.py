@@ -1,10 +1,11 @@
-"""K1 in_chain, K2 conv_bias_act and K4 mlp_chain: wrappers and plain versions.
+"""K1 in_chain, K2 conv_bias_act, K4 mlp_chain, K5 adain_res_block and K6
+sln_chain: wrappers and plain versions.
 
-The CUDA sources are csrc/in_chain.cu (K1, K2 and K3's kernel) and
-csrc/mlp_chain.cu (K4);
-each states the TPU entry it replaces, its bound on the H100 and what its
-design does about it. Layouts are the JAX package's: activations (B, L, C),
-conv taps (k, C_in, C_out), dense weights (D_in, D_out).
+The CUDA sources are csrc/in_chain.cu (K1, K2, K5 and K3's kernel),
+csrc/mlp_chain.cu (K4) and csrc/sln_chain.cu (K6); each states the TPU
+entry it replaces, its bound on the H100 and what its design does about it.
+Layouts are the JAX package's: activations (B, L, C), conv taps
+(k, C_in, C_out), dense weights (D_in, D_out).
 
 A conv stage is a tuple ``(taps, stride, padding, pad_mode)`` with
 ``pad_mode`` 'zero' or 'reflect'.
@@ -17,9 +18,10 @@ from typing import Sequence
 
 import torch
 
-from iinsvae_torch.ops.conv import conv1d, out_len
+from iinsvae_torch.ops.conv import conv1d, out_len, upsample_nearest1d
 from iinsvae_torch.ops.kernels import _build
-from iinsvae_torch.ops.norms import instance_norm
+from iinsvae_torch.ops.norms import adain, instance_norm, sample_layer_norm
+from iinsvae_torch.ops.pooling import adaptive_avg_pool_matrix
 
 Stage = tuple[torch.Tensor, int, int, str]
 
@@ -189,3 +191,122 @@ def mlp_chain(x: torch.Tensor, ws: Sequence[torch.Tensor], bs: Sequence[torch.Te
 
 
 mlp_chain.launches = 0
+
+
+# --------------------------- K5 adain_res_block ---------------------------
+
+
+def adain_res_block_ref(x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
+                        g1: torch.Tensor, b1: torch.Tensor, g2: torch.Tensor,
+                        b2: torch.Tensor) -> torch.Tensor:
+    """Plain version of K5: x + adain(conv(relu(adain(conv(x, k1), g1, b1)), k2), g2, b2),
+    both convs k3 reflect pad 1 without bias."""
+    y = torch.relu(adain(conv1d(x, k1, padding=1, pad_mode="reflect"), g1, b1))
+    return x + adain(conv1d(y, k2, padding=1, pad_mode="reflect"), g2, b2)
+
+
+def adain_res_block(x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
+                    g1: torch.Tensor, b1: torch.Tensor, g2: torch.Tensor,
+                    b2: torch.Tensor) -> torch.Tensor:
+    """K5: the decoder's AdaIN residual block in one launch (K1's kernel
+    with a per-sample affine after each InstanceNorm). x (B, L, C); k1, k2
+    (3, C, C); g1, b1, g2, b2 (B, C), contiguous.
+
+    Replaces fused_adain_res_block (iinsvae_tpu/ops/pallas/fused.py:557)."""
+    if x.device.type == "cpu":
+        return adain_res_block_ref(x, k1, k2, g1, b1, g2, b2)
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, L, C), got shape {tuple(x.shape)}")
+    b, l, c = x.shape
+    if k1.shape != (3, c, c) or k2.shape != (3, c, c):
+        raise ValueError(f"taps must be (3, {c}, {c}), got {tuple(k1.shape)}, {tuple(k2.shape)}")
+    if any(t.shape != (b, c) for t in (g1, b1, g2, b2)):
+        raise ValueError(f"gamma and beta must each be ({b}, {c})")
+    if c % 4 or k1.data_ptr() % 16 or k2.data_ptr() % 16 or l < 2:
+        raise ValueError("adain_res_block takes 16-byte aligned taps, C a multiple of 4, L >= 2")
+    _build.require_cuda_f32("adain_res_block", x, k1, k2, g1, b1, g2, b2)
+    y = torch.empty_like(x)
+    spb = _build.samples_per_block(b, 3 * l * c)  # input, mid-block and output in shared memory
+    fn = _build.function("in_chain", "iins_adain_res_block",
+                         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+    err = fn(x.data_ptr(), k1.data_ptr(), k2.data_ptr(), g1.data_ptr(), b1.data_ptr(),
+             g2.data_ptr(), b2.data_ptr(), y.data_ptr(), b, l, c, spb, _build.stream_handle(x))
+    _build.check(err, "in_chain", "adain_res_block")
+    adain_res_block.launches += 1
+    return y
+
+
+adain_res_block.launches = 0
+
+
+# ------------------------------ K6 sln_chain ------------------------------
+
+# one up-stage: (taps (5, C, C/2), conv bias, gamma, beta (C/2,) each)
+UpStage = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+SLN_STAGES = 4  # the 1-D decoder's n_upsample; the kernel takes no other count
+
+
+def sln_chain_ref(x: torch.Tensor, stages: Sequence[UpStage], out_kernel: torch.Tensor,
+                  out_bias: torch.Tensor, l_pool: int,
+                  pool: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of K6: per stage x2 upsample -> conv k5 zero pad 2 +
+    bias -> sample_layer_norm -> ReLU; then tanh(conv k7 reflect pad 3 +
+    bias) (C_out 1) and the adaptive average pool to l_pool: (B, l_pool).
+    ``pool`` is that pool's (L_last, l_pool) matrix when the caller holds
+    one; else it is built here."""
+    for taps, bias, gamma, beta in stages:
+        x = conv1d(upsample_nearest1d(x, 2), taps, bias, padding=2)
+        x = torch.relu(sample_layer_norm(x, gamma, beta))
+    x = torch.tanh(conv1d(x, out_kernel, out_bias, padding=3, pad_mode="reflect"))
+    x = x.reshape(x.shape[0], -1)
+    if pool is None:
+        pool = adaptive_avg_pool_matrix(x.shape[1], l_pool, device=x.device, dtype=x.dtype)
+    elif pool.shape != (x.shape[1], l_pool):
+        raise ValueError(f"pool must be ({x.shape[1]}, {l_pool}), got {tuple(pool.shape)}")
+    return x @ pool
+
+
+def sln_chain(x: torch.Tensor, stages: Sequence[UpStage], out_kernel: torch.Tensor,
+              out_bias: torch.Tensor, l_pool: int) -> torch.Tensor:
+    """K6: the decoder tail (x (B, L, C) -> (B, l_pool)) in one launch,
+    every stage's activation kept in shared memory.
+
+    Replaces fused_sln_chain (iinsvae_tpu/ops/pallas/fused.py:1027)."""
+    if x.device.type == "cpu":
+        return sln_chain_ref(x, stages, out_kernel, out_bias, l_pool)
+    if len(stages) != SLN_STAGES:
+        raise ValueError(f"sln_chain runs the decoder's {SLN_STAGES} stages, got {len(stages)}")
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, L, C), got shape {tuple(x.shape)}")
+    b, l0, c0 = x.shape
+    c = c0
+    for j, (taps, bias, gamma, beta) in enumerate(stages):
+        half = (c // 2,)
+        if taps.shape != (5, c, c // 2) or not bias.shape == gamma.shape == beta.shape == half:
+            raise ValueError(f"stage {j}: taps {tuple(taps.shape)} must be (5, {c}, {c // 2}) "
+                             f"and bias, gamma, beta ({c // 2},)")
+        c //= 2
+    if out_kernel.shape != (7, c, 1) or out_bias.shape != (1,):
+        raise ValueError(f"out conv must be (7, {c}, 1) with bias (1,), got "
+                         f"{tuple(out_kernel.shape)}, {tuple(out_bias.shape)}")
+    if c0 % (4 << SLN_STAGES) or l0 * c0 > 2048 or l_pool < 1:
+        raise ValueError(f"sln_chain takes C a multiple of {4 << SLN_STAGES} and L*C <= 2048, "
+                         f"got ({l0}, {c0}) -> {l_pool}")
+    if any(st[0].data_ptr() % 16 for st in stages):
+        raise ValueError("sln_chain takes 16-byte aligned taps")
+    _build.require_cuda_f32("sln_chain", x, *(t for st in stages for t in st), out_kernel,
+                            out_bias)
+    y = torch.empty((b, l_pool), device=x.device, dtype=x.dtype)
+    spb = _build.samples_per_block(b, 2 * l0 * c0)  # two ping-pong buffers a sample
+    fn = _build.function("sln_chain", "iins_sln_chain",
+                         [_P, _P, _I, ctypes.POINTER(_P), ctypes.POINTER(_P),
+                          ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _I, _P, _P, _I, _I, _P])
+    ptrs = [(_P * SLN_STAGES)(*[st[i].data_ptr() for st in stages]) for i in range(4)]
+    err = fn(x.data_ptr(), y.data_ptr(), b, *ptrs, l0, c0, out_kernel.data_ptr(),
+             out_bias.data_ptr(), l_pool, spb, _build.stream_handle(x))
+    _build.check(err, "sln_chain", "sln_chain")
+    sln_chain.launches += 1
+    return y
+
+
+sln_chain.launches = 0

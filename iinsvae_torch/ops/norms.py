@@ -1,9 +1,14 @@
-"""InstanceNorm with the reference's numerics (iinsvae_tpu/ops/norms.py:32-37):
-no affine, no running stats, biased variance, eps 1e-5.
+"""Norms with the reference's numerics (iinsvae_tpu/ops/norms.py:32-90).
 
-The variance is taken two-pass, as the mean of (x - mean)^2: the one-pass
-E[x^2] - mean^2 form cancels to a negative number on near-constant
-channels and gives NaN under the rsqrt.
+* InstanceNorm: no affine, no running stats, biased variance, eps 1e-5.
+* AdaIN: InstanceNorm with a per-sample (gamma, beta) of shape (B, C).
+* The reference's "LayerNorm" (sample layer norm): per-sample mean over all
+  L*C values, torch's UNBIASED std (n - 1), denominator (std + eps) (not
+  sqrt(var + eps)), then a per-channel affine.
+
+Every variance is taken two-pass, from the squared deviations from the
+mean: the one-pass E[x^2] - mean^2 form cancels to a negative number on
+near-constant inputs and gives NaN under the root.
 """
 
 from __future__ import annotations
@@ -19,3 +24,35 @@ def instance_norm(x: torch.Tensor, eps: float = EPS) -> torch.Tensor:
     d = x - mean
     var = (d * d).mean(dim=1, keepdim=True)
     return d * torch.rsqrt(var + eps)
+
+
+def adain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+          eps: float = EPS) -> torch.Tensor:
+    """x (B, L, C); gamma, beta (B, C): IN(x) * gamma + beta per sample."""
+    return instance_norm(x, eps) * gamma[:, None, :] + beta[:, None, :]
+
+
+def sample_layer_norm_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-sample (mean, unbiased std) over all non-batch values, each (B,)."""
+    flat = x.reshape(x.shape[0], -1)
+    mean = flat.mean(dim=1)
+    d = flat - mean[:, None]
+    std = torch.sqrt((d * d).sum(dim=1) / (flat.shape[1] - 1))
+    return mean, std
+
+
+def sample_layer_norm_apply(x: torch.Tensor, mean: torch.Tensor, std: torch.Tensor,
+                            gamma: torch.Tensor, beta: torch.Tensor,
+                            eps: float = EPS) -> torch.Tensor:
+    """(x - mean) / (std + eps) per sample, then the per-channel affine
+    gamma, beta (C,)."""
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    y = (x - mean.reshape(shape)) / (std.reshape(shape) + eps)
+    return y * gamma + beta
+
+
+def sample_layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                      eps: float = EPS) -> torch.Tensor:
+    """The reference's per-sample LayerNorm (models.py:965-985)."""
+    mean, std = sample_layer_norm_stats(x)
+    return sample_layer_norm_apply(x, mean, std, gamma, beta, eps)

@@ -3,7 +3,9 @@
 Inputs are padded with zero rows to the fixed batch size (every launch
 sees one shape), outputs come back unpadded; zero rows change no real row,
 because every op of the forward is per sample. The mitigated distance is
-d_measured - err_est.
+d_measured - err_est. With ``return_recon`` the decoder runs too and
+``Prediction.recon`` holds the reconstructed CIR; without it the decoder
+does not run (eager PyTorch drops no dead code).
 
 The predictor runs on the card unless the caller asks for the CPU: with no
 CUDA device, ``Predictor(model)`` raises instead of falling back.
@@ -27,7 +29,7 @@ class Prediction:
     label_probs: np.ndarray   # (N, num_classes) softmax env probabilities
     label: np.ndarray         # (N,) argmax class
     env_code: np.ndarray      # (N, style_dim) latent env stats
-    recon: Optional[np.ndarray] = None  # (N, L), with the decoder slice
+    recon: Optional[np.ndarray] = None  # (N, L) reconstructed CIR, with return_recon
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -42,10 +44,6 @@ def resolve_device(device: str | torch.device) -> torch.device:
 class Predictor:
     def __init__(self, model: IInsVAE, batch_size: int = 500, return_recon: bool = False,
                  device: str | torch.device = "cuda"):
-        if return_recon:
-            raise NotImplementedError(
-                "return_recon needs the decoder, which is the next slice of the port "
-                "(fused_adain_res_block, fused_sln_chain)")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.batch_size = batch_size
@@ -53,22 +51,30 @@ class Predictor:
 
     @classmethod
     def from_npz(cls, path: str, *, cir_len: int = 157, batch_size: int = 500,
+                 return_recon: bool = False,
                  device: str | torch.device = "cuda") -> "Predictor":
         """Serve the weights of an iinsvae_tpu ``export_serving`` npz."""
         state = load_npz(path)
         model = IInsVAE(cir_len=cir_len, **model_geometry(state))
         model.load_state_dict(state)
-        return cls(model, batch_size=batch_size, device=device)
+        return cls(model, batch_size=batch_size, return_recon=return_recon, device=device)
 
-    def _forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        out = self.model(x)
-        return out["err_est"], torch.softmax(out["logits"], dim=-1), out["env_code"]
+    def forward_batch(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """err_est, label probs, env_code[, recon] of one padded batch
+        (batch_size, L) already on the device, as device tensors."""
+        m = self.model
+        range_code, env_code = m.encode(x)
+        parts = [m.restore(range_code), torch.softmax(m.classify(env_code), dim=-1), env_code]
+        if self.return_recon:
+            parts.append(m.decode(range_code, env_code))
+        return parts
 
-    def _prediction(self, parts: list[torch.Tensor], n: int) -> Prediction:
+    def _prediction(self, outs: list[list[torch.Tensor]], n: int) -> Prediction:
         # one device -> host copy per output
-        err_est, probs, env_code = (p[:n].cpu().numpy() for p in parts)
-        return Prediction(err_est=err_est, label_probs=probs,
-                          label=np.argmax(probs, axis=-1), env_code=env_code)
+        err_est, probs, env_code, *recon = (
+            torch.cat(parts)[:n].cpu().numpy() for parts in zip(*outs))
+        return Prediction(err_est=err_est, label_probs=probs, label=np.argmax(probs, axis=-1),
+                          env_code=env_code, recon=recon[0] if recon else None)
 
     @torch.inference_mode()
     def __call__(self, cir: np.ndarray) -> Prediction:
@@ -81,8 +87,8 @@ class Predictor:
             pad = bs - chunk.shape[0]
             if pad:
                 chunk = np.pad(chunk, ((0, pad), (0, 0)))
-            outs.append(self._forward(torch.from_numpy(chunk).to(self.device)))
-        return self._prediction([torch.cat([o[j] for o in outs]) for j in range(3)], n)
+            outs.append(self.forward_batch(torch.from_numpy(chunk).to(self.device)))
+        return self._prediction(outs, n)
 
     @torch.inference_mode()
     def predict_dataset(self, cir: np.ndarray) -> Prediction:
@@ -92,8 +98,8 @@ class Predictor:
         n, bs = cir.shape[0], self.batch_size
         nb = -(-n // bs)
         dev = torch.from_numpy(np.pad(cir, ((0, nb * bs - n), (0, 0)))).to(self.device)
-        outs = [self._forward(dev[i * bs:(i + 1) * bs]) for i in range(nb)]
-        return self._prediction([torch.cat([o[j] for o in outs]) for j in range(3)], n)
+        outs = [self.forward_batch(dev[i * bs:(i + 1) * bs]) for i in range(nb)]
+        return self._prediction(outs, n)
 
     def mitigate(self, cir: np.ndarray, d_measured: np.ndarray) -> np.ndarray:
         """Error-mitigated distance: d_measured - err_est."""

@@ -1,7 +1,8 @@
 """The port's kernel wrappers against the JAX package's Pallas entries.
 
-Each of the six Pallas entry variants on the serving forward runs as the
-JAX tests run it on the CPU (interpret mode; dense conv matrices built by
+Each of the eight Pallas entry variants on the serving forward (six on the
+encoders and heads, two on the decoder) runs as the JAX tests run it on
+the CPU (interpret mode; dense conv matrices built by
 ``dense_conv_matrix(..., centered=True)`` from the same taps where the
 entry takes one) and is compared with the port wrapper on CPU tensors,
 which runs the kernel's plain PyTorch version. Inputs come from numpy with
@@ -15,11 +16,14 @@ import numpy as np
 import pytest
 import torch
 
+from iinsvae_tpu.ops import conv as jconv
 from iinsvae_tpu.ops import dense_conv
+from iinsvae_tpu.ops import norms as jnorms
 from iinsvae_tpu.ops.pallas import fused as pf
 from iinsvae_tpu.ops.pallas import strided_conv as psc
-from iinsvae_torch.ops import kernels
-from iinsvae_torch.ops.conv import conv1d
+from iinsvae_tpu.ops.pooling import adaptive_avg_pool_matrix
+from iinsvae_torch.ops import kernels, norms
+from iinsvae_torch.ops.conv import conv1d, upsample_nearest1d
 from iinsvae_torch.ops.kernels import fused, strided_conv
 
 RTOL, ATOL = 5e-4, 5e-5
@@ -154,12 +158,113 @@ def test_mlp_chain_matches_pallas_entry(name):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
 
 
+def _adain_case():
+    """One decoder AdaIN block at flagship width: x (B, 8, 64), taps
+    (3, 64, 64), per-sample g, b (B, 64)."""
+    rng = _rng("adain_res_block")
+    l, c = 8, 64
+    x = rng.normal(size=(B, l, c)).astype(np.float32)
+    k1, k2 = _taps(rng, 3, c, c), _taps(rng, 3, c, c)
+    g1, b1, g2, b2 = (rng.normal(size=(B, c)).astype(np.float32) for _ in range(4))
+    return x, k1, k2, g1, b1, g2, b2
+
+
+def test_adain_res_block_matches_pallas_entry():
+    """vs fused_adain_res_block with the centered reflect conv matrices and
+    g, b tiled over L, as decoders.py:135-148 builds them."""
+    x, k1, k2, g1, b1, g2, b2 = _adain_case()
+    _, l, c = x.shape
+    ms = [_m(k, l, 1, 1, "reflect", True) for k in (k1, k2)]
+    tiles = [jnp.tile(jnp.asarray(t), (1, l)) for t in (g1, b1, g2, b2)]
+    want = pf.fused_adain_res_block(jnp.asarray(x.reshape(B, -1)), *ms, *tiles,
+                                    l_out=l, c_out=c, centered=True)
+    got = fused.adain_res_block(*(torch.tensor(a) for a in (x, k1, k2, g1, b1, g2, b2)))
+    assert got.shape == (B, l, c)
+    np.testing.assert_allclose(got.numpy().reshape(B, -1), np.asarray(want),
+                               rtol=RTOL, atol=ATOL)
+
+
+def _sln_case():
+    """The decoder tail at flagship width: x (B, 8, 64), four (taps, bias,
+    gamma, beta) stages 64 -> 32 -> 16 -> 8 -> 4, the k7 out-conv, pool to 157."""
+    rng = _rng("sln_chain")
+    x = rng.normal(size=(B, 8, 64)).astype(np.float32)
+    stages, d = [], 64
+    for _ in range(4):
+        stages.append((_taps(rng, 5, d, d // 2),
+                       rng.uniform(-0.3, 0.3, size=d // 2).astype(np.float32),
+                       rng.uniform(0.0, 1.0, size=d // 2).astype(np.float32),
+                       rng.normal(scale=0.1, size=d // 2).astype(np.float32)))
+        d //= 2
+    ko = _taps(rng, 7, d, 1)
+    bo = rng.uniform(-0.3, 0.3, size=1).astype(np.float32)
+    return x, stages, ko, bo
+
+
+def test_sln_chain_matches_pallas_entry():
+    """vs fused_sln_chain with the dense_upconv_matrix stages, tiled biases,
+    gammas and betas, the reflect out-matrix and the 128 -> 157 pool, as
+    decoders.py:150-165 builds them."""
+    x, stages, ko, bo = _sln_case()
+    l = x.shape[1]
+    ms, biases, gammas, betas = [], [], [], []
+    for taps, bias, gamma, beta in stages:
+        ms.append(dense_conv.dense_upconv_matrix(jnp.asarray(taps), l, padding=2))
+        l *= 2
+        for rows, v in ((biases, bias), (gammas, gamma), (betas, beta)):
+            rows.append(jnp.tile(jnp.asarray(v), l).reshape(1, -1))
+    m_out = _m(ko, l, 1, 3, "reflect", False)
+    want = pf.fused_sln_chain(jnp.asarray(x.reshape(B, -1)), tuple(ms), tuple(gammas),
+                              tuple(betas), m_out, jnp.tile(jnp.asarray(bo), l).reshape(1, -1),
+                              adaptive_avg_pool_matrix(l, 157), biases=tuple(biases))
+    got = fused.sln_chain(torch.tensor(x), [tuple(map(torch.tensor, st)) for st in stages],
+                          torch.tensor(ko), torch.tensor(bo), 157)
+    assert got.shape == (B, 157)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+def test_sln_chain_ref_takes_the_callers_pool_matrix():
+    """A pool matrix passed in (here the JAX package's) gives the result of
+    the one sln_chain_ref builds; one of the wrong shape is refused."""
+    x, stages, ko, bo = _sln_case()
+    args = (torch.tensor(x), [tuple(map(torch.tensor, st)) for st in stages],
+            torch.tensor(ko), torch.tensor(bo), 157)
+    pool = torch.tensor(np.asarray(adaptive_avg_pool_matrix(128, 157)))
+    np.testing.assert_allclose(fused.sln_chain_ref(*args, pool=pool).numpy(),
+                               fused.sln_chain_ref(*args).numpy(), rtol=RTOL, atol=ATOL)
+    with pytest.raises(ValueError, match="pool must be"):
+        fused.sln_chain_ref(*args, pool=pool[:, :156])
+
+
+@pytest.mark.parametrize("op",["adain", "sample_layer_norm", "upsample_nearest1d"])
+def test_decoder_ops_match_jax(op):
+    """The plain ops under K5's and K6's plain versions vs iinsvae_tpu.ops."""
+    rng = _rng(op)
+    x = rng.normal(loc=0.5, size=(B, 16, 8)).astype(np.float32)
+    g, b = (rng.normal(size=(B, 8)).astype(np.float32) for _ in range(2))
+    if op == "adain":
+        want, got = jnorms.adain(x, g, b), norms.adain(torch.tensor(x), torch.tensor(g),
+                                                       torch.tensor(b))
+    elif op == "sample_layer_norm":
+        want = jnorms.sample_layer_norm(x, g[0], b[0])
+        got = norms.sample_layer_norm(torch.tensor(x), torch.tensor(g[0]), torch.tensor(b[0]))
+    else:
+        want, got = jconv.upsample_nearest1d(x, 2), upsample_nearest1d(torch.tensor(x), 2)
+    assert got.shape == np.asarray(want).shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     kernels.reset_launch_counts()
     x, taps, _, spec = _in_chain_case("pair0")
     fused.in_chain(torch.tensor(x), _torch_stages(taps, spec))
+    fused.adain_res_block(*(torch.tensor(a) for a in _adain_case()))
+    x, stages, ko, bo = _sln_case()
+    fused.sln_chain(torch.tensor(x), [tuple(map(torch.tensor, st)) for st in stages],
+                    torch.tensor(ko), torch.tensor(bo), 157)
     assert kernels.launch_counts() == {
-        "in_chain": 0, "conv_bias_act": 0, "strided_conv": 0, "mlp_chain": 0}
+        "in_chain": 0, "conv_bias_act": 0, "strided_conv": 0, "mlp_chain": 0,
+        "adain_res_block": 0, "sln_chain": 0}
 
 
 def test_conv1d_reflect_padding_excludes_the_edge():

@@ -4,7 +4,8 @@ The JAX ``Predictor`` (Pallas in interpret mode on the CPU) exports its
 weights with ``export_serving``; the port loads that npz with
 ``Predictor.from_npz(..., device="cpu")`` and must give the same outputs on
 the same CIRs: fp32, rtol 5e-4 / atol 5e-5 (tests/test_lowering_parity.py),
-identical labels. 13 CIRs at batch 8 pad the tail batch.
+identical labels, and with ``return_recon`` the same reconstructed CIR.
+13 CIRs at batch 8 pad the tail batch.
 """
 
 import os
@@ -48,6 +49,25 @@ def cirs():
     return np.random.default_rng(7).normal(size=(13, 157)).astype(np.float32)
 
 
+@pytest.fixture(scope="module")
+def forwards(exported, cirs):
+    """The JAX forward and the port's forward (weights from the npz) on the CIRs."""
+    model, variables, _, npz = exported
+    want = jax.jit(lambda v, c: model.apply(v, c, sample_key=None, train=False))(
+        variables, jnp.asarray(cirs))
+    port = IInsVAE(cir_len=157, num_classes=5, style_dim=16)
+    port.load_state_dict(bridge.load_npz(npz))
+    with torch.inference_mode():
+        got = port(torch.tensor(cirs))
+        got["kl"] = env_kl(*split_env_stats(got["env_code"]))
+    return got, want
+
+
+@pytest.fixture(scope="module")
+def recon_predictor(exported):
+    return Predictor.from_npz(exported[3], batch_size=8, return_recon=True, device="cpu")
+
+
 def test_predictor_matches_jax(exported, cirs):
     _, _, jpred, npz = exported
     want = jpred(cirs)
@@ -66,18 +86,45 @@ def test_mitigate_matches_jax(exported, cirs):
     np.testing.assert_allclose(got, jpred.mitigate(cirs, d), rtol=RTOL, atol=ATOL)
 
 
-def test_forward_codes_and_kl_match_jax(exported, cirs):
-    model, variables, _, npz = exported
-    want = jax.jit(lambda v, c: model.apply(v, c, sample_key=None, train=False))(
-        variables, jnp.asarray(cirs))
-    port = IInsVAE(cir_len=157, num_classes=5, style_dim=16)
-    port.load_state_dict(bridge.load_npz(npz))
-    with torch.inference_mode():
-        got = port(torch.tensor(cirs))
-        got["kl"] = env_kl(*split_env_stats(got["env_code"]))
+def test_forward_codes_and_kl_match_jax(forwards):
+    got, want = forwards
     for key in ("range_code", "env_code", "err_est", "logits", "kl"):
         np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
                                    rtol=RTOL, atol=ATOL, err_msg=key)
+
+
+def test_forward_recon_matches_jax(forwards):
+    """The decoder (MLP, K2, 3 x K5, K6 on their plain versions) vs the JAX
+    Decoder1d on the same range and env codes."""
+    got, want = forwards
+    assert got["recon"].shape == (13, 157)
+    np.testing.assert_allclose(got["recon"].numpy(), np.asarray(want["recon"]),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_recon_predictor_matches_jax(exported, recon_predictor, cirs):
+    model, variables, _, _ = exported
+    state = types.SimpleNamespace(params=variables["params"],
+                                  batch_stats=variables.get("batch_stats", {}))
+    want = JaxPredictor(model, state, batch_size=8, return_recon=True)(cirs)
+    got = recon_predictor(cirs)
+    for field in ("recon", "err_est", "label_probs", "env_code"):
+        assert getattr(got, field).shape == getattr(want, field).shape
+        np.testing.assert_allclose(getattr(got, field), getattr(want, field),
+                                   rtol=RTOL, atol=ATOL, err_msg=field)
+    np.testing.assert_array_equal(got.label, want.label)
+
+
+def test_recon_predict_dataset_matches_per_request_path(recon_predictor, cirs):
+    a, b = recon_predictor(cirs), recon_predictor.predict_dataset(cirs)
+    np.testing.assert_allclose(a.recon, b.recon, rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(a.err_est, b.err_est, rtol=1e-6, atol=1e-7)
+
+
+def test_padding_rows_do_not_change_real_rows_recon(exported, recon_predictor, cirs):
+    whole = Predictor.from_npz(exported[3], batch_size=13, return_recon=True,
+                               device="cpu")(cirs)
+    np.testing.assert_allclose(whole.recon, recon_predictor(cirs).recon, rtol=1e-6, atol=1e-7)
 
 
 def test_predict_dataset_matches_per_request_path(exported, cirs):
@@ -95,14 +142,26 @@ def test_padding_rows_do_not_change_real_rows(exported, cirs):
 
 
 def test_bridge_ignores_decoder_and_rejects_unknown_keys(exported):
+    """The bridge maps every decoder key (no transposes: each lands at the
+    port's parameter of the same shape) and rejects an unknown one."""
     with np.load(exported[3]) as z:
         flat = {k: z[k] for k in z.files}
     state = bridge.from_flax_numpy(flat)
-    assert not any(k.startswith("decoder") for k in state)
+    dec = {k: v for k, v in state.items() if k.startswith("decoder.decoder.")}
+    d = "decoder.decoder."
+    assert dec[d + "in_kernel"].shape == (1, 2, 64)
+    assert dec[d + "up0_kernel"].shape == (5, 64, 32)
+    assert dec[d + "mlp.Dense_2.kernel"].shape == (256, 768)
+    assert len(dec) == 2 + 6 + 16 + 2 + 6
+    port = IInsVAE(cir_len=157, num_classes=5, style_dim=16).state_dict()
+    assert set(state) == set(port)
+    assert all(state[k].shape == port[k].shape for k in state)
     assert bridge.model_geometry(state) == dict(
         dim=4, n_downsample=4, n_residual=3, range_dim=2, style_dim=16, num_classes=5)
     with pytest.raises(KeyError, match="unknown JAX parameter"):
         bridge.from_flax_numpy({**flat, "params/restorer/restorer/Conv1d_0/kernel": np.zeros(1)})
+    with pytest.raises(KeyError, match="unknown JAX parameter"):
+        bridge.from_flax_numpy({**flat, "params/decoder/decoder/up9_scale": np.zeros(1)})
 
 
 def test_seeded_init_follows_the_reference_distributions():
@@ -126,8 +185,11 @@ def test_predictor_without_device_needs_cuda():
 
 
 def test_recon_is_the_decoder_slice():
-    with pytest.raises(NotImplementedError, match="decoder"):
-        Predictor(IInsVAE(), return_recon=True, device="cpu")
+    """return_recon gives the decoder's (N, cir_len) reconstruction."""
+    out = Predictor(IInsVAE(), batch_size=4, return_recon=True, device="cpu")(
+        np.random.default_rng(2).normal(size=(6, 157)).astype(np.float32))
+    assert out.recon.shape == (6, 157) and np.isfinite(out.recon).all()
+    assert Predictor(IInsVAE(), batch_size=4, device="cpu")(np.zeros((6, 157))).recon is None
 
 
 def test_other_conv_types_are_not_ported_yet():
@@ -149,9 +211,11 @@ def test_port_serves_with_jax_and_the_jax_package_blocked():
         "import numpy as np, iinsvae_torch\n"
         "from iinsvae_torch.cli import serve\n"
         "from iinsvae_torch.models.vae import IInsVAE\n"
-        "p = iinsvae_torch.Predictor(IInsVAE(style_dim=16), batch_size=4, device='cpu')\n"
+        "p = iinsvae_torch.Predictor(IInsVAE(style_dim=16), batch_size=4, return_recon=True,\n"
+        "                            device='cpu')\n"
         "out = p(np.zeros((6, 157), np.float32))\n"
         "assert out.err_est.shape == (6, 1) and np.isfinite(out.err_est).all()\n"
+        "assert out.recon.shape == (6, 157) and np.isfinite(out.recon).all()\n"
         "print('isolated ok')\n"
     )
     r = _run(["-c", code])
@@ -164,3 +228,11 @@ def test_cli_self_test_on_cpu():
               "room_full", "--selftest_n", "9", "--serve_batch", "4"])
     assert r.returncode == 0, r.stderr
     assert "self-test ok: 9 requests in 3 batches" in r.stdout
+
+
+def test_cli_self_test_with_recon_on_cpu():
+    r = _run(["-m", "iinsvae_torch.cli.serve", "--device", "cpu", "--dataset_env",
+              "room_full", "--selftest_n", "9", "--serve_batch", "4", "--recon"])
+    assert r.returncode == 0, r.stderr
+    assert "self-test ok: 9 requests in 3 batches" in r.stdout
+    assert "recon (9, 157)" in r.stdout
