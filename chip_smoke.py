@@ -19,10 +19,26 @@
    the same weights' ``Predictor(device="cpu")``;
 5. measures serving throughput at batch 500 and 256, without and with the
    reconstruction, and the device's idle share of served batches from a
-   torch.profiler trace of the card.
+   torch.profiler trace of the card;
+6. at each of the 17 forward call sites of a training step, at batch 500,
+   calls the backward kernel (K1b, K2b, K4b, K6b through their six
+   wrappers) and holds every gradient against autograd of the plain
+   version, and times both, with cuDNN's conv backward
+   (``aten.convolution_backward``, TF32 off) beside K2b's sites;
+7. trains the flagship (seeded weights) on the synthetic room_full fixture
+   (10000 CIRs, the 'full' split's 8000 train CIRs standardized, batch 500)
+   through ``cli.train_semi.build`` and ``training.loop.train_epochs``:
+   supervision 0.1, Adam with bench.py's schedule (500 epochs, decay from
+   100), 3 epochs with every launch counter set to 0 just before and read
+   just after (17 forward and 17 backward launches a step); checks a finite
+   loss that falls from epoch 1 to epoch 3; then measures training CIR/s
+   over 5 more epochs, and the device's busy time per step and idle share
+   from a torch.profiler trace of 20 steps; and holds one step's gradients
+   on the card against the CPU port's on the same weights and mask.
 
-Prints a ``sites`` line (per call site), a ``serving`` line, a ``kernels``
-line, the nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
+Prints a ``sites`` line (per call site), a ``serving`` line, a ``backward``
+line (per backward call site), a ``training`` line, a ``kernels`` line, the
+nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
 The whole result also goes to chiprun_out/chip_smoke.json. Any failure
 raises and exits non-zero; without a CUDA device it exits 2 and prints no
 result.
@@ -42,12 +58,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from iinsvae_torch.cli import train_semi
+from iinsvae_torch.config import Config
 from iinsvae_torch.models.vae import IInsVAE
 from iinsvae_torch.ops import kernels
 from iinsvae_torch.ops.conv import out_len
-from iinsvae_torch.ops.kernels import _build, fused, strided_conv
+from iinsvae_torch.ops.kernels import _build, backward, fused, strided_conv
 from iinsvae_torch.ops.pooling import adaptive_avg_pool_matrix
 from iinsvae_torch.serving import Predictor
+from iinsvae_torch.training import loop, steps
 
 BATCH = 500
 # H100 SXM data-sheet peaks: HBM bytes/s, and
@@ -69,13 +88,37 @@ EXPECTED_NO_RECON = {"in_chain": 6, "conv_bias_act": 2, "strided_conv": 2, "mlp_
                      "adain_res_block": 0, "sln_chain": 0}
 EXPECTED_RECON = {**EXPECTED_NO_RECON, "conv_bias_act": 3, "adain_res_block": 3,
                   "sln_chain": 1}
+# launches of one training step: the recon forward's 17, and one backward
+# launch for each of them
+EXPECTED_TRAIN = dict(EXPECTED_RECON)
+EXPECTED_TRAIN_BWD = {f"{k}_bwd": v for k, v in EXPECTED_RECON.items()}
+# Backward kernel vs plain version, per gradient: rtol 1e-3 and atol 1e-4
+# times the gradient's largest magnitude. A weight gradient sums B*L
+# products over the batch (in another order than autograd's), and the
+# InstanceNorm and LayerNorm gradients scale by 1/std.
+BWD_RTOL, BWD_ATOL = 1e-3, 1e-4
+# One training step's gradients on the card and on the CPU (both fp32), each
+# against the CPU port's in float64: per parameter, the card's largest error
+# may be at most STEP_FACTOR times the CPU's own plus STEP_FLOOR of the
+# gradient's largest magnitude. A per-tensor tolerance does not fit here: a
+# weight gradient such as the decoder's 1x1 in-conv sums 4000 terms that
+# cancel to 1e-4 of their size, so two fp32 summation orders differ by
+# 1e-3 of the result.
+STEP_FACTOR, STEP_FLOOR = 10.0, 1e-4
+_CSRC = "iinsvae_torch/ops/kernels/csrc/"
 SOURCES = {
-    "in_chain": "iinsvae_torch/ops/kernels/csrc/in_chain.cu",
-    "conv_bias_act": "iinsvae_torch/ops/kernels/csrc/in_chain.cu",
-    "strided_conv": "iinsvae_torch/ops/kernels/csrc/in_chain.cu",
-    "mlp_chain": "iinsvae_torch/ops/kernels/csrc/mlp_chain.cu",
-    "adain_res_block": "iinsvae_torch/ops/kernels/csrc/in_chain.cu",
-    "sln_chain": "iinsvae_torch/ops/kernels/csrc/sln_chain.cu",
+    "in_chain": _CSRC + "in_chain.cu",
+    "conv_bias_act": _CSRC + "in_chain.cu",
+    "strided_conv": _CSRC + "in_chain.cu",
+    "mlp_chain": _CSRC + "mlp_chain.cu",
+    "adain_res_block": _CSRC + "in_chain.cu",
+    "sln_chain": _CSRC + "sln_chain.cu",
+    "in_chain_bwd": _CSRC + "in_chain_bwd.cu",
+    "conv_bias_act_bwd": _CSRC + "conv_bias_act_bwd.cu",
+    "strided_conv_bwd": _CSRC + "conv_bias_act_bwd.cu",
+    "mlp_chain_bwd": _CSRC + "mlp_chain_bwd.cu",
+    "adain_res_block_bwd": _CSRC + "in_chain_bwd.cu",
+    "sln_chain_bwd": _CSRC + "sln_chain_bwd.cu",
 }
 FLAGSHIP = dict(conv_type=1, cir_len=157, num_classes=5, style_dim=16, dim=4,
                 n_residual=3, n_downsample=4, range_dim=2)
@@ -316,13 +359,13 @@ def check_and_time(sites: list[dict]) -> list[dict]:
     return rows
 
 
-def kernel_rows(site_rows: list[dict], launches: dict[str, int],
-                launches_no_recon: dict[str, int]) -> list[dict]:
-    """One row per kernel, its numbers summed over one forward batch's calls
-    (with the reconstruction); launches from the recon main path, and from
-    the path without it beside them."""
+def kernel_rows(site_rows: list[dict], names, launches: dict[str, int], per: str,
+                extra: dict[str, dict]) -> list[dict]:
+    """One row per kernel wrapper, its numbers summed over its call sites
+    (each times its calls per batch); ``launches`` from a main path's run,
+    ``extra`` more fields by name."""
     out = []
-    for name in EXPECTED_RECON:
+    for name in names:
         rs = [r for r in site_rows if r["kernel"] == name]
 
         def total(key):
@@ -333,13 +376,12 @@ def kernel_rows(site_rows: list[dict], launches: dict[str, int],
         out.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=replaces[0],
             also_replaces=replaces[1:], launches=launches[name],
-            launches_no_recon=launches_no_recon[name],
             max_abs_err=max(r["max_abs_err"] for r in rs), ms=total("ms"),
             plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
             bound_by="bytes" if bytes_ms >= total("bound_ms") / 2 else "operations",
             library_ms=(total("library_ms") if all(r["library_ms"] is not None for r in rs)
                         else None),
-            per="one forward batch of 500 (sum over its call sites)"))
+            per=per, **extra.get(name, {})))
     return out
 
 
@@ -388,7 +430,6 @@ def traced_idle_share(p: Predictor, batches: list[np.ndarray]) -> dict:
     intervals, over the host's wall time of the served batches. The
     profiler's own host cost is inside the wall time, so this share is an
     upper bound on the untraced one."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -398,6 +439,17 @@ def traced_idle_share(p: Predictor, batches: list[np.ndarray]) -> dict:
             p(b)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    n_events, busy_us = device_busy(prof)
+    return dict(device_events=n_events, device_busy_us=busy_us, wall_us=wall_us,
+                device_busy_us_per_batch=busy_us / len(batches),
+                device_idle_share=1.0 - busy_us / wall_us if n_events else None)
+
+
+def device_busy(prof) -> tuple[int, float]:
+    """(device events, µs the card was busy): the union of the kernel and
+    copy intervals of a torch.profiler trace."""
+    from torch.autograd import DeviceType
+
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
     busy_us, end = 0.0, float("-inf")
@@ -405,9 +457,7 @@ def traced_idle_share(p: Predictor, batches: list[np.ndarray]) -> dict:
         if b > end:
             busy_us += b - max(a, end)
             end = b
-    return dict(device_events=len(spans), device_busy_us=busy_us, wall_us=wall_us,
-                device_busy_us_per_batch=busy_us / len(batches),
-                device_idle_share=1.0 - busy_us / wall_us if spans else None)
+    return len(spans), busy_us
 
 
 def throughput(model: IInsVAE, recon: bool) -> dict:
@@ -449,6 +499,397 @@ def throughput(model: IInsVAE, recon: bool) -> dict:
     return res
 
 
+def _tensors(out) -> list[torch.Tensor]:
+    """The tensors of a backward wrapper's nested result, None dropped."""
+    if out is None:
+        return []
+    if torch.is_tensor(out):
+        return [out]
+    return [t for o in out for t in _tensors(o)]
+
+
+def conv_backward_call(x, taps, y, g, stride: int, padding: int, pad_mode: str, need_dx: bool):
+    """One aten.convolution_backward call (cuDNN) on the same data laid out
+    channels-first: the ReLU-masked gradient, the (reflect-padded) input and
+    the taps are prepared outside the timed call. With a reflect pad its dx
+    is that of the padded input (the edge rows are not folded back)."""
+    with torch.no_grad():
+        xc = x.transpose(1, 2).contiguous()
+        if pad_mode == "reflect":
+            xc, padding = F.pad(xc, (padding, padding), mode="reflect"), 0
+        w = taps.detach().permute(2, 1, 0).contiguous()
+        gz = (g * (y > 0)).transpose(1, 2).contiguous()
+    return lambda: torch.ops.aten.convolution_backward(
+        gz, xc, w, [w.shape[0]], [stride], [padding], [1], False, [0], 1,
+        [need_dx, True, True])
+
+
+def backward_sites(model: IInsVAE, gen: torch.Generator) -> list[dict]:
+    """Every backward kernel call of one training step at batch 500: the
+    forward call sites with the model's weights, seeded random inputs and
+    upstream gradients of the right shape, and the input gradient only where
+    the step needs one (not at the two convs that read the pooled CIR).
+    Bound: each input read once and each output written once; operations of
+    d(taps), dx and, where the kernel recomputes it, the forward."""
+    re_, ee = model.encoder.range_encoder, model.encoder.env_encoder
+    dec = model.decoder.decoder
+    dev = next(model.parameters()).device
+    fp = "iinsvae_tpu/ops/pallas/fused.py"
+    sites = []
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    def add(name, wrapper, replaces, calls, args, kw, nbytes_, flops, library=None,
+            plain_kw=None):
+        plain = backward.PLAIN[wrapper]
+        sites.append(dict(
+            name=name, kernel=wrapper.__name__, replaces=replaces, calls_per_batch=calls,
+            run=lambda: wrapper(*args, **kw), plain=lambda: plain(*args, **kw, **(plain_kw or {})),
+            library=library, bytes=nbytes_, flops=flops))
+
+    def in_chain_site(name, x, stages, replaces, residual=False, calls=1, need_dx=True):
+        l, conv = x.shape[1], 0.0
+        for taps, st, pd, mode in stages:
+            conv += conv_flops(BATCH, l, taps, st, pd, mode)
+            l = out_len(l, taps.shape[0], st, pd)
+        taps = [st[0] for st in stages]
+        g = rand(BATCH, l, taps[-1].shape[2])
+        first = conv_flops(BATCH, x.shape[1], *stages[0])
+        add(name, backward.in_chain_bwd, replaces, calls, (g, x, stages),
+            dict(residual=residual, need_dx=need_dx),
+            nbytes(x, g, *taps, *taps) + (nbytes(x) if need_dx else 0),
+            3 * conv - (0 if need_dx else first))
+
+    def conv_site(name, wrapper, x, taps, bias, st, pd, mode, replaces, need_dx=True):
+        with torch.no_grad():
+            y = fused.conv_bias_act(x, taps, bias, stride=st, padding=pd, pad_mode=mode)
+        g = rand(*y.shape)
+        kw = dict(need_dx=need_dx)
+        if wrapper is backward.conv_bias_act_bwd:
+            kw.update(stride=st, padding=pd, pad_mode=mode)
+        add(name, wrapper, replaces, 1, (g, x, taps, bias, y), kw,
+            nbytes(x, taps, bias, y, g, taps, bias) + (nbytes(x) if need_dx else 0),
+            (2 if need_dx else 1) * conv_flops(BATCH, x.shape[1], taps, st, pd, mode),
+            library=conv_backward_call(x, taps, y, g, st, pd, mode, need_dx))
+
+    def mlp_site(name, head, replaces):
+        n = len(head.slopes)
+        ws = [getattr(head, f"w{j}") for j in range(n)]
+        bs = [getattr(head, f"b{j}") for j in range(n)]
+        x = rand(BATCH, ws[0].shape[0])
+        with torch.no_grad():
+            _, ds = fused.launch_mlp_chain(x, ws, bs, head.slopes, save_pre=True)
+        g = rand(BATCH, ws[-1].shape[1])
+        add(name, backward.mlp_chain_bwd, replaces, 1, (g, x, ws, bs, head.slopes, ds), {},
+            nbytes(x, *ws, *ds, g, x, *ws, *bs), 2 * 2.0 * BATCH * sum(w.numel() for w in ws))
+
+    stages = [(re_.in_kernel, 1, 3, "reflect")] + [
+        (getattr(re_, f"down{j}_kernel"), 2, 1, "zero") for j in range(4)]
+    in_chain_site("range.pair0", rand(BATCH, 128, 1), stages[0:2], f"{fp}:333", need_dx=False)
+    in_chain_site("range.pair1", rand(BATCH, 64, 8), stages[2:4], f"{fp}:333")
+    in_chain_site("range.single", rand(BATCH, 16, 32), stages[4:5], f"{fp}:1201")
+    in_chain_site("range.res", rand(BATCH, 8, 64),
+                  [(re_.res0_kernel1, 1, 1, "reflect"), (re_.res0_kernel2, 1, 1, "reflect")],
+                  f"{fp}:225", residual=True, calls=3)
+    conv_site("range.out", backward.conv_bias_act_bwd, rand(BATCH, 8, 64), re_.out_kernel,
+              re_.out_bias, 1, 0, "zero", f"{fp}:1268")
+    c0, c1, c2 = ee.ConvINAct_0, ee.ConvINAct_1, ee.ConvINAct_2
+    conv_site("env.in", backward.conv_bias_act_bwd, rand(BATCH, 128, 1), c0.kernel, c0.bias, 1,
+              3, "reflect", f"{fp}:1268", need_dx=False)
+    sc = "iinsvae_tpu/ops/pallas/strided_conv.py:211"
+    conv_site("env.down0", backward.strided_conv_bwd, rand(BATCH, 128, 16), c1.kernel, c1.bias,
+              2, 1, "zero", sc)
+    conv_site("env.down1", backward.strided_conv_bwd, rand(BATCH, 64, 32), c2.kernel, c2.bias,
+              2, 1, "zero", sc)
+    mlp_site("restorer", model.restorer.restorer, f"{fp}:1136")
+    mlp_site("classifier", model.classifier.classifier, f"{fp}:1136")
+    conv_site("dec.in", backward.conv_bias_act_bwd, rand(BATCH, 8, 2), dec.in_kernel,
+              dec.in_bias, 1, 0, "zero", f"{fp}:1268")
+
+    x, k1, k2 = rand(BATCH, 8, 64), dec.res0_kernel1, dec.res0_kernel2
+    affine = [rand(BATCH, 64) for _ in range(4)]
+    g = rand(BATCH, 8, 64)
+    add("dec.res", backward.adain_res_block_bwd, f"{fp}:524", 3, (g, x, k1, k2, *affine), {},
+        nbytes(x, k1, k2, *affine[:3], g, x, k1, k2, *affine),
+        3 * 2 * conv_flops(BATCH, 8, k1, 1, 1, "reflect"))
+
+    xt = rand(BATCH, 8, 64)
+    up = [tuple(getattr(dec, f"up{j}_{n}") for n in ("kernel", "bias", "gamma", "beta"))
+          for j in range(4)]
+    flops, l = 0.0, xt.shape[1]
+    for taps, *_ in up:
+        k, c_in, c_out = taps.shape
+        flops += 2.0 * BATCH * upsampled_rows(l, k, 2) * c_in * c_out
+        l *= 2
+    flops += conv_flops(BATCH, l, dec.out_kernel, 1, 3, "reflect")
+    params = [t for st in up for t in st] + [dec.out_kernel, dec.out_bias]
+    g = rand(BATCH, 157)
+    add("dec.tail", backward.sln_chain_bwd, f"{fp}:996", 1,
+        (g, xt, up, dec.out_kernel, dec.out_bias, 157), {},
+        nbytes(xt, *params, g, xt, *params), 3 * flops,
+        plain_kw=dict(pool=adaptive_avg_pool_matrix(l, 157, device=dev)))
+    return sites
+
+
+def check_and_time_backward(sites: list[dict]) -> list[dict]:
+    """Each backward site: every gradient of the kernel against the plain
+    version's (BWD_RTOL, BWD_ATOL of its largest magnitude), then device
+    times of kernel, plain version and library call (CUDA-graph replay)."""
+    rows = []
+    for s in sites:
+        got, want = _tensors(s["run"]()), _tensors(s["plain"]())
+        torch.cuda.synchronize()
+        if len(got) != len(want):
+            raise AssertionError(f"{s['name']}: {len(got)} gradients, plain {len(want)}")
+        errs, scaled = [], []
+        for i, (a, b) in enumerate(zip(got, want)):
+            if a.shape != b.shape or not torch.isfinite(a).all():
+                raise AssertionError(f"{s['name']} gradient {i}: shape {tuple(a.shape)} "
+                                     f"(plain {tuple(b.shape)}) or non-finite")
+            scale = b.abs().max().item()
+            torch.testing.assert_close(a, b, rtol=BWD_RTOL, atol=BWD_ATOL * scale,
+                                       msg=lambda m: f"{s['name']} gradient {i}: {m}")
+            errs.append((a - b).abs().max().item())
+            scaled.append(errs[-1] / scale if scale else 0.0)
+        bytes_ms = s["bytes"] / PEAK_BYTES_PER_S * 1e3
+        flops_ms = s["flops"] / PEAK_FP32_FLOP_PER_S * 1e3
+        rows.append(dict(
+            name=s["name"], kernel=s["kernel"], replaces=s["replaces"],
+            calls_per_batch=s["calls_per_batch"], max_abs_err=max(errs),
+            max_err_over_scale=max(scaled), grad_max_abs_errs=errs,
+            ms=device_ms(s["run"]), eager_ms=eager_ms(s["run"]), plain_ms=device_ms(s["plain"]),
+            library_ms=device_ms(s["library"]) if s["library"] else None,
+            bytes=s["bytes"], flops=s["flops"], bound_ms=max(bytes_ms, flops_ms),
+            bound_by="bytes" if bytes_ms >= flops_ms else "operations"))
+        r = rows[-1]
+        lib = f"{r['library_ms'] * 1e3:8.2f}" if r["library_ms"] is not None else "       -"
+        print(f"[backward] {r['name']:<13} {r['kernel']:<20} max_abs_err {r['max_abs_err']:.3e} "
+              f"(/scale {r['max_err_over_scale']:.2e})  {r['ms'] * 1e3:8.2f} us (eager "
+              f"{r['eager_ms'] * 1e3:.2f})  plain {r['plain_ms'] * 1e3:8.2f} us  library {lib} "
+              f"us  bound {r['bound_ms'] * 1e3:6.2f} us ({r['bound_by']})", flush=True)
+    return rows
+
+
+def train_config() -> Config:
+    """bench.py's training setting on the synthetic room_full fixture."""
+    return Config(dataset_env="room_full", env_dim=16, synthetic_n=10000, batch_size=BATCH,
+                  n_epochs=500, decay_epoch=100, supervision_rate=0.1)
+
+
+def traced_train_steps(trainer, n: int) -> dict:
+    """``n`` train steps under torch.profiler (CUDA activity): the card's
+    busy time a step and its idle share of the host's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    bs, data = trainer.cfg.batch_size, trainer.data
+    nb = data["cir"].shape[0] // bs
+    batches = [{k: v[(i % nb) * bs:(i % nb + 1) * bs] for k, v in data.items()}
+               for i in range(n)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            trainer.train_step(trainer.state, b, gen)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    n_events, busy_us = device_busy(prof)
+    return dict(steps=n, device_events_per_step=n_events / n, device_busy_us_per_step=busy_us / n,
+                wall_us_per_step=wall_us / n,
+                device_idle_share=1.0 - busy_us / wall_us if n_events else None)
+
+
+def host_profile(trainer, n: int = 5, top: int = 12) -> dict:
+    """``n`` train steps under torch.profiler with CPU activity: the host's
+    time a step in the optimizer and in the backward pass (inclusive), and
+    the ops that take the most self CPU time. The profiler's own cost is
+    inside these times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    bs, data = trainer.cfg.batch_size, trainer.data
+    batches = [{k: v[i * bs:(i + 1) * bs] for k, v in data.items()} for i in range(n)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for b in batches:
+            trainer.train_step(trainer.state, b, gen)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+
+    def inclusive_us(prefix):
+        return sum(e.cpu_time_total for e in events if e.key.startswith(prefix)) / n
+
+    ops = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:top]
+    return dict(
+        steps=n, optimizer_us_per_step=inclusive_us("Optimizer.step"),
+        backward_us_per_step=inclusive_us("autograd::engine::evaluate_function"),
+        top_self_cpu=[dict(name=e.key, calls_per_step=e.count / n,
+                           self_cpu_us_per_step=e.self_cpu_time_total / n) for e in ops])
+
+
+def _double(a):
+    if torch.is_tensor(a):
+        return a.detach().double()
+    if isinstance(a, (list, tuple)):
+        return type(a)(_double(x) for x in a)
+    return a
+
+
+def step_calls_vs_f64(data: dict) -> dict:
+    """Every backward kernel call of one real training step (the fixture's
+    first batch, seeded weights), recorded with its inputs; the kernel's and
+    the plain version's (fp32) gradients each against the plain version in
+    float64 on the same inputs, as the largest error over the gradient's
+    largest magnitude, per backward wrapper. Reported, not asserted: the
+    kernels are held to the plain version by check_and_time_backward."""
+    calls = []
+    originals = list(backward.BACKWARD)
+    for w in originals:
+        def record(*args, _w=w, **kw):
+            out = _w(*args, **kw)
+            calls.append((_w, args, kw, out))
+            return out
+        record.launches = 0
+        setattr(backward, w.__name__, record)
+    try:
+        model = IInsVAE(**FLAGSHIP, generator=torch.Generator().manual_seed(3)).cuda()
+        mask = steps.draw_sup_mask(BATCH, 0.1, "sample",
+                                   torch.Generator(device="cuda").manual_seed(5))
+        steps.make_semi_grads_fn(0.1)(model, {k: v[:BATCH] for k, v in data.items()},
+                                      sup_mask=mask)
+        torch.cuda.synchronize()
+    finally:
+        for w in originals:
+            setattr(backward, w.__name__, w)
+    out = {}
+    for w, args, kw, got in calls:
+        plain = backward.PLAIN[w]
+        ref = _tensors(plain(*_double(args), **kw))
+        row = out.setdefault(w.__name__, dict(kernel=0.0, plain_fp32=0.0, calls=0))
+        row["calls"] += 1
+        for a, b, c in zip(_tensors(got), _tensors(plain(*args, **kw)), ref):
+            scale = c.abs().max().item() or 1.0
+            row["kernel"] = max(row["kernel"], (a.double() - c).abs().max().item() / scale)
+            row["plain_fp32"] = max(row["plain_fp32"], (b.double() - c).abs().max().item() / scale)
+    for name, row in out.items():
+        print(f"[train] {name:<20} x{row['calls']} in a step: largest error vs float64, over "
+              f"the gradient's scale: kernel {row['kernel']:.2e}, plain fp32 "
+              f"{row['plain_fp32']:.2e}", flush=True)
+    return out
+
+
+def step_grads_vs_cpu(data: dict) -> dict:
+    """One step's gradients on the card and on the CPU (fp32), on the same
+    seeded weights, the first batch of the fixture and one injected mask,
+    each against the CPU port's in float64."""
+    cpu = IInsVAE(**FLAGSHIP, generator=torch.Generator().manual_seed(3))
+    gpu = copy.deepcopy(cpu).cuda()
+    f64 = copy.deepcopy(cpu).double()
+    batch = {k: v[:BATCH] for k, v in data.items()}
+    mask = steps.draw_sup_mask(BATCH, 0.1, "sample", torch.Generator(device="cuda").manual_seed(5))
+    grads_fn = steps.make_semi_grads_fn(0.1)
+    mg = grads_fn(gpu, batch, sup_mask=mask)
+    mc = grads_fn(cpu, {k: v.cpu() for k, v in batch.items()}, sup_mask=mask.cpu())
+    m64 = grads_fn(f64, {k: v.cpu().double() for k, v in batch.items()},
+                   sup_mask=mask.cpu().double())
+    torch.cuda.synchronize()
+    loss = {k: (mg[k].item(), mc[k].item(), m64[k].item())
+            for k in ("loss", "loss_ae", "loss_kl", "loss_res", "loss_env")}
+    for k, (a, _, b) in loss.items():
+        if not (np.isfinite(a) and abs(a - b) <= 1e-4 * abs(b) + 1e-6):
+            raise AssertionError(f"{k}: {a} on the card, {b} in float64 on the CPU")
+    cpu_params, ref = dict(cpu.named_parameters()), dict(f64.named_parameters())
+    rows = []
+    for name, p in gpu.named_parameters():
+        want = ref[name].grad
+        scale = want.abs().max().item()
+        e_card = (p.grad.cpu().double() - want).abs().max().item()
+        e_cpu = (cpu_params[name].grad.double() - want).abs().max().item()
+        rows.append((e_card / max(e_cpu, 1e-300), e_card, e_cpu, scale, name))
+    rows.sort(reverse=True)
+    for ratio, e_card, e_cpu, scale, name in rows[:5]:
+        print(f"[train] gradient {name}: off float64 by {e_card:.3e} on the card, {e_cpu:.3e} "
+              f"on the CPU (largest magnitude {scale:.3e})", flush=True)
+    for ratio, e_card, e_cpu, scale, name in rows:
+        if not e_card <= STEP_FACTOR * e_cpu + STEP_FLOOR * scale:
+            raise AssertionError(f"gradient {name}: card off float64 by {e_card:.3e}, the "
+                                 f"CPU by {e_cpu:.3e} (largest magnitude {scale:.3e})")
+    ratio, _, _, _, ratio_name = rows[0]
+    max_err = max(r[1] for r in rows)
+    return dict(loss_card_cpu_f64=loss, max_abs_err_vs_f64=max_err,
+                worst_card_over_cpu_err=ratio, worst_param=ratio_name,
+                mask_labeled=int(mask.sum().item()),
+                err_over_scale_card_cpu={r[4]: [r[1] / (r[3] or 1.0), r[2] / (r[3] or 1.0)]
+                                         for r in rows})
+
+
+def train_main_path() -> dict:
+    """The training main path: 3 epochs counted, then throughput, trace and
+    the card-vs-CPU gradients."""
+    cfg = train_config()
+    trainer = train_semi.build(cfg, "cuda")
+    data = trainer.data
+    n_real = int(data["weight"].sum().item())
+    steps_per_epoch = data["cir"].shape[0] // cfg.batch_size
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    history = loop.train_epochs(trainer.state, trainer.run_epoch, data, 3, seed=cfg.seed)
+    torch.cuda.synchronize()
+    wall_3 = time.perf_counter() - t0
+    fwd, bwd = kernels.launch_counts(), kernels.backward_launch_counts()
+    n_steps = trainer.state.step
+    for counts, expected in ((fwd, EXPECTED_TRAIN), (bwd, EXPECTED_TRAIN_BWD)):
+        for name, per in expected.items():
+            if counts[name] != per * n_steps:
+                raise AssertionError(f"{name}: {counts[name]} launches in {n_steps} training "
+                                     f"steps, expected {per} a step")
+    losses = [h["loss"] for h in history]
+    if not all(np.isfinite(v) for h in history for v in h.values()):
+        raise AssertionError(f"non-finite training metrics: {history}")
+    if not losses[2] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    print(f"[train] 3 epochs of {steps_per_epoch} steps ({n_real} CIRs, batch {cfg.batch_size}) "
+          f"in {wall_3:.3f} s; loss by epoch {losses}; launches a step: forward "
+          f"{sum(fwd.values()) / n_steps:g}, backward {sum(bwd.values()) / n_steps:g}", flush=True)
+    for epoch, h in enumerate(history):
+        print(f"[train] epoch {epoch}: " + " ".join(f"{k} {h[k]:.6f}" for k in train_semi.LOGGED),
+              flush=True)
+
+    timed = 5
+    t0 = time.perf_counter()
+    loop.train_epochs(trainer.state, trainer.run_epoch, data, 3 + timed, seed=cfg.seed,
+                      start_epoch=3)
+    wall = time.perf_counter() - t0
+    cir_per_s = n_real * timed / wall
+    trace = traced_train_steps(trainer, 20)
+    host = host_profile(trainer)
+    grads = step_grads_vs_cpu(data)
+    calls_f64 = step_calls_vs_f64(data)
+    result = dict(
+        config=dict(synthetic_n=cfg.synthetic_n, train_cirs=n_real, batch=cfg.batch_size,
+                    supervision_rate=cfg.supervision_rate, n_epochs_schedule=cfg.n_epochs,
+                    decay_epoch=cfg.decay_epoch),
+        history=history, steps=n_steps, launches=fwd, launches_bwd=bwd,
+        launches_per_step=sum(fwd.values()) / n_steps,
+        launches_bwd_per_step=sum(bwd.values()) / n_steps,
+        train_cir_per_s=cir_per_s, step_wall_ms=wall / (timed * steps_per_epoch) * 1e3,
+        timed_epochs=timed, trace=trace, host_profile=host, grads_vs_cpu=grads,
+        backward_calls_vs_f64=calls_f64)
+    print(f"[train] {cir_per_s:.1f} training CIR/s at batch {cfg.batch_size} over {timed} epochs "
+          f"(step {result['step_wall_ms']:.3f} ms host wall); traced 20 steps: device busy "
+          f"{trace['device_busy_us_per_step']:.1f} us a step of {trace['wall_us_per_step']:.1f} us, "
+          f"idle {trace['device_idle_share']}; grads vs float64: card max abs err "
+          f"{grads['max_abs_err_vs_f64']:.3e}, at most {grads['worst_card_over_cpu_err']:.2f}x "
+          f"the CPU's ({grads['worst_param']})", flush=True)
+    print(f"[train] host, profiled: optimizer {host['optimizer_us_per_step']:.1f} us a step, "
+          f"backward nodes {host['backward_us_per_step']:.1f} us a step (inclusive); most self "
+          "CPU a step: " + ", ".join(f"{o['name']} {o['self_cpu_us_per_step']:.1f} us "
+                                     f"x{o['calls_per_step']:g}" for o in host["top_self_cpu"]),
+          flush=True)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script runs on the card",
@@ -479,18 +920,30 @@ def main() -> int:
     main_path_recon, launches = serve_main_path(model, cpu_model, recon=True)
     serving = throughput(model, recon=False)
     serving_recon = throughput(model, recon=True)
-    kernel_table = kernel_rows(site_rows, launches, launches_no_recon)
+    bwd_rows = check_and_time_backward(backward_sites(model, torch.Generator().manual_seed(2)))
+    training = train_main_path()
+    kernel_table = kernel_rows(
+        site_rows, EXPECTED_RECON, launches, "one forward batch of 500 (sum over its call sites)",
+        {k: dict(launches_no_recon=launches_no_recon[k], launches_train=training["launches"][k])
+         for k in EXPECTED_RECON})
+    kernel_table += kernel_rows(
+        bwd_rows, EXPECTED_TRAIN_BWD, training["launches_bwd"],
+        "one training step at batch 500 (sum over its call sites)", {})
 
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(dict(
         card=card, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
         sites=site_rows, kernels=kernel_table, main_path=main_path,
         main_path_recon=main_path_recon, serving=serving, serving_recon=serving_recon,
-        kernel_tolerance=[KERNEL_RTOL, KERNEL_ATOL], serve_tolerance=[SERVE_RTOL, SERVE_ATOL]),
+        backward_sites=bwd_rows, training=training,
+        kernel_tolerance=[KERNEL_RTOL, KERNEL_ATOL], serve_tolerance=[SERVE_RTOL, SERVE_ATOL],
+        backward_tolerance=[BWD_RTOL, BWD_ATOL], step_tolerance=[STEP_FACTOR, STEP_FLOOR]),
         indent=1))
     print(json.dumps({"sites": site_rows}), flush=True)
     print(json.dumps({"serving": serving, "card": card}), flush=True)
     print(json.dumps({"serving_recon": serving_recon, "card": card}), flush=True)
+    print(json.dumps({"backward": bwd_rows}), flush=True)
+    print(json.dumps({"training": training, "card": card}), flush=True)
     print(json.dumps({"kernels": kernel_table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,12 +2,15 @@
 
 It serves the 1-D IIns-VAE forward (range and env encoders, the Linear
 restorer and classifier heads, and, with ``return_recon``, the AdaIN
-decoder's reconstruction). Activations stay channels-last
+decoder's reconstruction) and trains it with the semi-supervised step
+(training/, cli/train_semi.py). Activations stay channels-last
 ``(B, L, C)``, conv taps ``(k, C_in, C_out)`` and dense weights
 ``(D_in, D_out)``, the JAX package's layouts, so parameters carry across
 without transposes (bridge.py). Every kernel on the path is hand-written
 CUDA for sm_90a (ops/kernels/csrc), built with nvcc at first use and bound
-by ctypes; on CPU tensors each wrapper runs its plain PyTorch version.
+by ctypes, and each has a hand-written backward kernel behind a
+``torch.autograd.Function``; on CPU tensors each wrapper runs its plain
+PyTorch version, which autograd differentiates.
 
 The package imports torch and numpy only: never jax, flax or iinsvae_tpu.
 """

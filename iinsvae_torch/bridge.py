@@ -40,6 +40,19 @@ def from_flax_numpy(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
     return state
 
 
+def to_flax_numpy(state: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """The port's state (or any tensors keyed by its parameter names, such
+    as their gradients) -> flattened flax names ``params/a/b/c``, as float32
+    numpy; the inverse of ``from_flax_numpy``."""
+    flat = {}
+    for key, value in state.items():
+        name = "params/" + key.replace(".", "/")
+        if not _SERVED.fullmatch(name):
+            raise KeyError(f"{key!r} has no JAX parameter")
+        flat[name] = value.detach().to("cpu", torch.float32).numpy()
+    return flat
+
+
 def load_npz(path: str) -> dict[str, torch.Tensor]:
     """The port's state from an export_serving ``weights.npz``."""
     with np.load(path) as z:

@@ -1,7 +1,9 @@
-"""The model-geometry and serving fields of the run config.
+"""The model-geometry, serving and training fields of the run config.
 
-A copy of the subset of iinsvae_tpu/config.py that serving needs, with the
-same names and defaults, and the env -> (num_classes, cir_len) tables.
+A copy of the subset of iinsvae_tpu/config.py that serving and the semi
+training step need, with the same names and defaults, and the env ->
+(num_classes, cir_len) tables. ``add_args`` gives the model flags every
+entry point takes, ``add_train_args`` the trainer's.
 """
 
 from __future__ import annotations
@@ -40,6 +42,17 @@ class Config:
     dataset_name: str = "zenodo"
     dataset_env: str = "nlos"
     seed: int = 0
+    # training (iinsvae_tpu/config.py:39-100)
+    n_epochs: int = 500
+    batch_size: int = 500
+    lr: float = 1e-4
+    b1: float = 0.5
+    b2: float = 0.999
+    decay_epoch: int = 100
+    supervision_rate: float = 0.1
+    mask_mode: str = "sample"  # sample (intent) | batch (reference literal)
+    kl_free_bits: float = 0.0  # per-dim KL floor; 0 = reference-exact
+    synthetic_n: int = 8192
 
     @property
     def cir_len(self) -> int:
@@ -77,6 +90,23 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     a("--dataset_name", type=str, default=d.dataset_name, choices=sorted(CIR_LEN))
     a("--dataset_env", type=str, default=d.dataset_env)
     a("--seed", type=int, default=d.seed)
+    return parser
+
+
+def add_train_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    d = Config()
+    a = parser.add_argument
+    a("--n_epochs", type=int, default=d.n_epochs)
+    a("--batch_size", type=int, default=d.batch_size)
+    a("--lr", type=float, default=d.lr)
+    a("--b1", type=float, default=d.b1)
+    a("--b2", type=float, default=d.b2)
+    a("--decay_epoch", type=int, default=d.decay_epoch)
+    a("--supervision_rate", type=float, default=d.supervision_rate)
+    a("--mask_mode", type=str, default=d.mask_mode, choices=["sample", "batch"])
+    a("--kl_free_bits", type=float, default=d.kl_free_bits,
+      help="per-dimension KL floor (free bits); 0 = the reference's plain KL")
+    a("--synthetic_n", type=int, default=d.synthetic_n)
     return parser
 
 

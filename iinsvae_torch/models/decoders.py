@@ -54,9 +54,8 @@ class Decoder1d(nn.Module):
             # does not remove a per-channel bias (decoders.py:105-110)
             setattr(self, f"up{j}_kernel", conv_normal((5, d, d // 2), generator))
             setattr(self, f"up{j}_bias", bias_uniform((d // 2,), d * 5, generator))
-            setattr(self, f"up{j}_gamma", nn.Parameter(
-                torch.rand((d // 2,), generator=generator), requires_grad=False))
-            setattr(self, f"up{j}_beta", nn.Parameter(torch.zeros(d // 2), requires_grad=False))
+            setattr(self, f"up{j}_gamma", nn.Parameter(torch.rand((d // 2,), generator=generator)))
+            setattr(self, f"up{j}_beta", nn.Parameter(torch.zeros(d // 2)))
             d //= 2
         self.out_kernel = conv_normal((7, d, 1), generator)
         self.out_bias = bias_uniform((1,), d * 7, generator)

@@ -16,13 +16,13 @@ from iinsvae_torch.ops.kernels import fused, strided_conv
 
 
 def conv_normal(shape, generator: torch.Generator, std: float = 0.02) -> nn.Parameter:
-    return nn.Parameter(std * torch.randn(shape, generator=generator), requires_grad=False)
+    return nn.Parameter(std * torch.randn(shape, generator=generator))
 
 
 def bias_uniform(shape, fan_in: int, generator: torch.Generator) -> nn.Parameter:
     bound = 1.0 / float(fan_in) ** 0.5
     u = torch.rand(shape, generator=generator)
-    return nn.Parameter((2.0 * u - 1.0) * bound, requires_grad=False)
+    return nn.Parameter((2.0 * u - 1.0) * bound)
 
 
 class ConvINAct(nn.Module):

@@ -1,8 +1,12 @@
-"""Hand-written CUDA kernels of the serving forward and their plain versions.
+"""Hand-written CUDA kernels of the 1-D model's forward and backward, and
+their plain versions.
 
 Each wrapper runs its kernel on CUDA tensors and its plain PyTorch version
 (``*_ref``) on CPU tensors; it never falls back from one to the other. Each
 counts its kernel launches in a plain int attribute, ``<wrapper>.launches``.
+Under autograd the forward wrappers go through autograd.py's Functions,
+whose backward launches the backward wrappers of backward.py (K1b, K2b,
+K4b, K6b: one backward wrapper for each forward wrapper).
 
   K1 fused.in_chain          conv -> IN -> ReLU|skip, 1-2 stages
   K2 fused.conv_bias_act     conv + bias + ReLU
@@ -12,16 +16,22 @@ counts its kernel launches in a plain int attribute, ``<wrapper>.launches``.
   K6 fused.sln_chain         decoder tail: 4 x (up, conv, LayerNorm, ReLU), conv, tanh, pool
 """
 
-from iinsvae_torch.ops.kernels import fused, strided_conv
+from iinsvae_torch.ops.kernels import backward, fused, strided_conv
 
 WRAPPERS = (fused.in_chain, fused.conv_bias_act, strided_conv.strided_conv, fused.mlp_chain,
             fused.adain_res_block, fused.sln_chain)
+BACKWARD = backward.BACKWARD
 
 
 def reset_launch_counts() -> None:
-    for w in WRAPPERS:
+    for w in WRAPPERS + BACKWARD:
         w.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
+    """Forward launches by wrapper."""
     return {w.__name__: w.launches for w in WRAPPERS}
+
+
+def backward_launch_counts() -> dict[str, int]:
+    return {w.__name__: w.launches for w in BACKWARD}

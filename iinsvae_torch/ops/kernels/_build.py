@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
 library, ``build/iinsvae_torch/<name>-<hash>.so`` under the repository root,
-where the hash covers the source and the nvcc flags: a changed source is
-rebuilt, an unchanged one is loaded as it is. ``build_all`` starts one nvcc
+where the hash covers the source, the shared headers (``csrc/*.cuh``) and
+the nvcc flags: a changed source is rebuilt, an unchanged one is loaded as
+it is. ``build_all`` starts one nvcc
 per missing library, all at once, and waits for them. Nothing here runs at
 import time; the first launch of a kernel builds what is missing.
 """
@@ -22,7 +23,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "iinsvae_torch"
-SOURCES = ("in_chain", "mlp_chain", "sln_chain")
+SOURCES = ("in_chain", "mlp_chain", "sln_chain",
+           "in_chain_bwd", "conv_bias_act_bwd", "mlp_chain_bwd", "sln_chain_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -48,6 +50,8 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

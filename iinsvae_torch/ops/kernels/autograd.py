@@ -1,0 +1,130 @@
+"""One ``torch.autograd.Function`` for each of K1-K6.
+
+``forward`` launches the forward kernel (fused.py, strided_conv.py) and
+saves its inputs (K2/K3 also their output, for the ReLU mask; K4 the
+pre-activations its kernel writes under autograd); ``backward`` launches
+the backward kernel (backward.py). The public wrappers take these only for
+CUDA tensors, with grad mode on and an input that requires grad; the input
+gradient is computed only where autograd asks for it
+(``ctx.needs_input_grad``).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.autograd import Function
+from torch.autograd.function import once_differentiable
+
+from iinsvae_torch.ops.kernels import backward, fused, strided_conv
+
+
+class InChain(Function):
+    """K1 / K1b. apply(x, spec, residual, *taps); spec holds each stage's
+    (stride, padding, pad_mode)."""
+
+    @staticmethod
+    def forward(ctx, x, spec, residual, *taps):
+        ctx.spec, ctx.residual = spec, residual
+        ctx.save_for_backward(x, *taps)
+        return fused.launch_in_chain(x, [(t, *s) for t, s in zip(taps, spec)], residual)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, *taps = ctx.saved_tensors
+        dx, dtaps = backward.in_chain_bwd(
+            g.contiguous(), x, [(t, *s) for t, s in zip(taps, ctx.spec)],
+            residual=ctx.residual, need_dx=ctx.needs_input_grad[0])
+        return (dx, None, None, *dtaps)
+
+
+class ConvBiasAct(Function):
+    """K2 or K3 (``kind`` 'conv_bias_act' or 'strided_conv') / K2b.
+    apply(x, taps, bias, (stride, padding, pad_mode), kind)."""
+
+    @staticmethod
+    def forward(ctx, x, taps, bias, geometry, kind):
+        y = fused.launch_conv_bias_act(x, taps, bias, *geometry)
+        if kind == "strided_conv":
+            strided_conv.strided_conv.launches += 1
+        else:
+            fused.conv_bias_act.launches += 1
+        ctx.geometry, ctx.kind = geometry, kind
+        ctx.save_for_backward(x, taps, bias, y)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, taps, bias, y = ctx.saved_tensors
+        need_dx = ctx.needs_input_grad[0]
+        if ctx.kind == "strided_conv":
+            dx, dtaps, dbias = backward.strided_conv_bwd(g.contiguous(), x, taps, bias, y,
+                                                         need_dx=need_dx)
+        else:
+            stride, padding, pad_mode = ctx.geometry
+            dx, dtaps, dbias = backward.conv_bias_act_bwd(
+                g.contiguous(), x, taps, bias, y, stride=stride, padding=padding,
+                pad_mode=pad_mode, need_dx=need_dx)
+        return dx, dtaps, dbias, None, None
+
+
+class MlpChain(Function):
+    """K4 / K4b. apply(x, slopes, n_layers, *ws, *bs)."""
+
+    @staticmethod
+    def forward(ctx, x, slopes, n, *params):
+        ws, bs = params[:n], params[n:]
+        y, ds = fused.launch_mlp_chain(x, ws, bs, slopes, save_pre=True)
+        ctx.slopes, ctx.n = slopes, n
+        ctx.save_for_backward(x, *params, *ds)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, *rest = ctx.saved_tensors
+        n = ctx.n
+        ws, bs, ds = rest[:n], rest[n:2 * n], rest[2 * n:]
+        dx, dws, dbs = backward.mlp_chain_bwd(g.contiguous(), x, ws, bs, ctx.slopes, ds,
+                                              need_dx=ctx.needs_input_grad[0])
+        return (dx, None, None, *dws, *dbs)
+
+
+class AdainResBlock(Function):
+    """K5 / K1b's kAdain instance. apply(x, k1, k2, g1, b1, g2, b2)."""
+
+    @staticmethod
+    def forward(ctx, x, k1, k2, g1, b1, g2, b2):
+        ctx.save_for_backward(x, k1, k2, g1, b1, g2, b2)
+        return fused.launch_adain_res_block(x, k1, k2, g1, b1, g2, b2)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return backward.adain_res_block_bwd(g.contiguous(), *ctx.saved_tensors,
+                                            need_dx=ctx.needs_input_grad[0])
+
+
+class SlnChain(Function):
+    """K6 / K6b. apply(x, l_pool, *stage tensors (taps, bias, gamma, beta
+    per stage), out_kernel, out_bias)."""
+
+    @staticmethod
+    def forward(ctx, x, l_pool, *params):
+        ctx.l_pool = l_pool
+        ctx.save_for_backward(x, *params)
+        return fused.launch_sln_chain(x, _stages(params), params[-2], params[-1], l_pool)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, *params = ctx.saved_tensors
+        dx, dstages, dko, dbo = backward.sln_chain_bwd(
+            g.contiguous(), x, _stages(params), params[-2], params[-1], ctx.l_pool,
+            need_dx=ctx.needs_input_grad[0])
+        return (dx, None, *(t for st in dstages for t in st), dko, dbo)
+
+
+def _stages(params) -> list[tuple[torch.Tensor, ...]]:
+    return [tuple(params[4 * j:4 * j + 4]) for j in range((len(params) - 2) // 4)]

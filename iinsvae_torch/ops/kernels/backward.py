@@ -1,0 +1,342 @@
+"""Backward wrappers of K1-K6 and their plain versions.
+
+Four CUDA sources compute the gradients of the six forward wrappers:
+
+  K1b csrc/in_chain_bwd.cu        in_chain_bwd, adain_res_block_bwd (kAdain instance)
+  K2b csrc/conv_bias_act_bwd.cu   conv_bias_act_bwd, strided_conv_bwd
+  K4b csrc/mlp_chain_bwd.cu       mlp_chain_bwd
+  K6b csrc/sln_chain_bwd.cu       sln_chain_bwd
+
+Each wrapper takes the upstream gradient ``g`` and the forward's inputs
+(K2b also its output, for the ReLU mask; K4b the pre-activations K4 saved)
+and returns the gradients of those inputs: the input's (None without
+``need_dx``), then the parameters' in the forward's argument order. On CPU
+tensors it returns its plain version's (``*_bwd_ref``, autograd through
+the forward's ``*_ref``, on any device); on CUDA tensors it launches its kernel and counts the launch in
+``<wrapper>.launches`` (one launch = the kernel and its in-order reduction
+of the per-block weight-gradient partials). Weight gradients are summed
+without atomics, so two runs give bit-equal gradients.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, Sequence
+
+import torch
+
+from iinsvae_torch.ops.kernels import _build, fused, strided_conv
+from iinsvae_torch.ops.kernels.fused import SLN_STAGES, Stage, UpStage
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def plain_grads(fn: Callable, inputs: Sequence[torch.Tensor], g: torch.Tensor):
+    """Gradients of ``fn(*inputs)`` against ``g`` for every input, by
+    autograd through the plain ops (fresh leaves: the caller's tensors keep
+    their flags)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        return torch.autograd.grad(fn(*leaves), leaves, g)
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _split(flat: torch.Tensor, shapes) -> list[torch.Tensor]:
+    out, i = [], 0
+    for shape in shapes:
+        n = 1
+        for d in shape:
+            n *= d
+        out.append(flat[i:i + n].view(shape))
+        i += n
+    return out
+
+
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+# --------------------------- K1b: K1 and K5 ---------------------------
+
+
+def in_chain_bwd_ref(g: torch.Tensor, x: torch.Tensor, stages: Sequence[Stage], *,
+                     residual: bool = False, need_dx: bool = True):
+    """Plain version of K1b."""
+    spec = [s[1:] for s in stages]
+    dx, *dtaps = plain_grads(
+        lambda x_, *t: fused.in_chain_ref(x_, [(ti, *si) for ti, si in zip(t, spec)],
+                                          residual=residual),
+        [x, *(s[0] for s in stages)], g)
+    return (dx if need_dx else None), list(dtaps)
+
+
+def in_chain_bwd(g: torch.Tensor, x: torch.Tensor, stages: Sequence[Stage], *,
+                 residual: bool = False, need_dx: bool = True):
+    """K1b: -> (dx, [d(taps) per stage]) of fused.in_chain."""
+    if g.device.type == "cpu":
+        return in_chain_bwd_ref(g, x, stages, residual=residual, need_dx=need_dx)
+    if not 1 <= len(stages) <= 2:
+        raise ValueError(f"in_chain_bwd runs 1 or 2 stages, got {len(stages)}")
+    rows, l_out, c_out = fused.stage_rows(x, stages)
+    b = x.shape[0]
+    if g.shape != (b, l_out, c_out):
+        raise ValueError(f"g must be {(b, l_out, c_out)}, got {tuple(g.shape)}")
+    if residual and (len(stages) != 2 or (l_out, c_out) != tuple(x.shape[1:])):
+        raise ValueError("a residual chain has two stages and keeps the input's shape")
+    taps = [s[0] for s in stages]
+    if any(t.shape[2] % 4 or t.data_ptr() % 16 for t in taps):
+        raise ValueError("in_chain_bwd takes 16-byte aligned taps with C_out a multiple of 4")
+    _build.require_cuda_f32("in_chain_bwd", g, x, *taps)
+    n1 = rows[6] * rows[7]
+    per_sample = _round4(rows[4] * rows[5]) + n1 + (n1 + rows[14] * rows[15]
+                                                     if len(stages) == 2 else 0)
+    spb = _build.samples_per_block(b, per_sample)
+    n_w = sum(t.numel() for t in taps)
+    part = torch.empty(((b + spb - 1) // spb, n_w), device=x.device, dtype=x.dtype)
+    dw = torch.empty(n_w, device=x.device, dtype=x.dtype)
+    dx = torch.empty_like(x) if need_dx else None
+    fn = _build.function("in_chain_bwd", "iins_in_chain_bwd",
+                         [_P, _P, _P, _P, _P, _P, _P, _I, ctypes.POINTER(_I), _I, _I, _I, _P])
+    err = fn(x.data_ptr(), taps[0].data_ptr(), taps[-1].data_ptr(), g.data_ptr(), _ptr(dx),
+             part.data_ptr(), dw.data_ptr(), b, (_I * len(rows))(*rows), len(stages),
+             int(residual), spb, _build.stream_handle(x))
+    _build.check(err, "in_chain_bwd", "in_chain_bwd")
+    in_chain_bwd.launches += 1
+    return dx, _split(dw, [t.shape for t in taps])
+
+
+in_chain_bwd.launches = 0
+
+
+def adain_res_block_bwd_ref(g: torch.Tensor, x: torch.Tensor, k1: torch.Tensor,
+                            k2: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
+                            g2: torch.Tensor, b2: torch.Tensor, *, need_dx: bool = True):
+    """Plain version of K1b's kAdain instance."""
+    dx, *rest = plain_grads(fused.adain_res_block_ref, [x, k1, k2, g1, b1, g2, b2], g)
+    return ((dx if need_dx else None), *rest)
+
+
+def adain_res_block_bwd(g: torch.Tensor, x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
+                        g1: torch.Tensor, b1: torch.Tensor, g2: torch.Tensor, b2: torch.Tensor,
+                        *, need_dx: bool = True):
+    """K1b (kAdain): -> (dx, dk1, dk2, dg1, db1, dg2, db2) of
+    fused.adain_res_block; the four affine gradients are (B, C) tables."""
+    if g.device.type == "cpu":
+        return adain_res_block_bwd_ref(g, x, k1, k2, g1, b1, g2, b2, need_dx=need_dx)
+    fused.check_adain_res_block(x, k1, k2, g1, b1, g2, b2)
+    if g.shape != x.shape:
+        raise ValueError(f"g must be {tuple(x.shape)}, got {tuple(g.shape)}")
+    _build.require_cuda_f32("adain_res_block_bwd", g)
+    b, l, c = x.shape
+    spb = _build.samples_per_block(b, _round4(l * c) + 3 * l * c)
+    part = torch.empty(((b + spb - 1) // spb, 2 * k1.numel()), device=x.device, dtype=x.dtype)
+    dw = torch.empty(2 * k1.numel(), device=x.device, dtype=x.dtype)
+    affine = torch.empty((4, b, c), device=x.device, dtype=x.dtype)
+    dx = torch.empty_like(x) if need_dx else None
+    fn = _build.function("in_chain_bwd", "iins_adain_res_block_bwd",
+                         [_P] * 14 + [_I, _I, _I, _I, _P])
+    err = fn(x.data_ptr(), k1.data_ptr(), k2.data_ptr(), g1.data_ptr(), b1.data_ptr(),
+             g2.data_ptr(), g.data_ptr(), _ptr(dx), part.data_ptr(), dw.data_ptr(),
+             *(a.data_ptr() for a in affine), b, l, c, spb, _build.stream_handle(x))
+    _build.check(err, "in_chain_bwd", "adain_res_block_bwd")
+    adain_res_block_bwd.launches += 1
+    dk1, dk2 = _split(dw, [k1.shape, k2.shape])
+    return (dx, dk1, dk2, *affine)
+
+
+adain_res_block_bwd.launches = 0
+
+
+# --------------------------- K2b: K2 and K3 ---------------------------
+
+
+def launch_conv_bias_act_bwd(what: str, g, x, taps, bias, y, stride, padding, pad_mode,
+                              need_dx):
+    """Check the operands and launch K2b; counts nothing (K2's and K3's
+    backward wrappers count their own launches)."""
+    rows, l_out, c_out = fused.stage_rows(x, [(taps, stride, padding, pad_mode)])
+    b = x.shape[0]
+    if bias.shape != (c_out,) or g.shape != (b, l_out, c_out) or y.shape != g.shape:
+        raise ValueError(f"{what}: bias must be ({c_out},), g and y {(b, l_out, c_out)}")
+    _build.require_cuda_f32(what, g, x, taps, bias, y)
+    spb = _build.samples_per_block(b, _round4(rows[4] * rows[5]) + l_out * c_out)
+    n_w = taps.numel() + c_out
+    part = torch.empty(((b + spb - 1) // spb, n_w), device=x.device, dtype=x.dtype)
+    dw = torch.empty(n_w, device=x.device, dtype=x.dtype)
+    dx = torch.empty_like(x) if need_dx else None
+    fn = _build.function("conv_bias_act_bwd", "iins_conv_bias_act_bwd",
+                         [_P] * 7 + [_I, ctypes.POINTER(_I), _I, _P])
+    err = fn(x.data_ptr(), taps.data_ptr(), y.data_ptr(), g.data_ptr(), _ptr(dx),
+             part.data_ptr(), dw.data_ptr(), b, (_I * 8)(*rows), spb, _build.stream_handle(x))
+    _build.check(err, "conv_bias_act_bwd", what)
+    dtaps, dbias = _split(dw, [taps.shape, bias.shape])
+    return dx, dtaps, dbias
+
+
+def conv_bias_act_bwd_ref(g: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
+                          bias: torch.Tensor, y: torch.Tensor, *, stride: int = 1,
+                          padding: int = 0, pad_mode: str = "zero", need_dx: bool = True):
+    """Plain version of K2b (y, the forward's output, is not read)."""
+    dx, dt, db = plain_grads(
+        lambda x_, t_, b_: fused.conv_bias_act_ref(x_, t_, b_, stride=stride, padding=padding,
+                                                   pad_mode=pad_mode),
+        [x, taps, bias], g)
+    return (dx if need_dx else None), dt, db
+
+
+def conv_bias_act_bwd(g: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
+                      bias: torch.Tensor, y: torch.Tensor, *, stride: int = 1,
+                      padding: int = 0, pad_mode: str = "zero", need_dx: bool = True):
+    """K2b: -> (dx, d(taps), dbias) of fused.conv_bias_act, whose output was y."""
+    if g.device.type == "cpu":
+        return conv_bias_act_bwd_ref(g, x, taps, bias, y, stride=stride, padding=padding,
+                                     pad_mode=pad_mode, need_dx=need_dx)
+    out = launch_conv_bias_act_bwd("conv_bias_act_bwd", g, x, taps, bias, y, stride, padding,
+                                    pad_mode, need_dx)
+    conv_bias_act_bwd.launches += 1
+    return out
+
+
+conv_bias_act_bwd.launches = 0
+
+
+def strided_conv_bwd_ref(g: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
+                         bias: torch.Tensor, y: torch.Tensor, *, need_dx: bool = True):
+    """Plain version of K3's backward (y is not read)."""
+    dx, dt, db = plain_grads(strided_conv.strided_conv_ref, [x, taps, bias], g)
+    return (dx if need_dx else None), dt, db
+
+
+def strided_conv_bwd(g: torch.Tensor, x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor,
+                     y: torch.Tensor, *, need_dx: bool = True):
+    """K2b at k4 s2 zero pad 1: -> (dx, d(taps), dbias) of
+    strided_conv.strided_conv, whose output was y."""
+    if g.device.type == "cpu":
+        return strided_conv_bwd_ref(g, x, taps, bias, y, need_dx=need_dx)
+    if taps.dim() != 3 or taps.shape[0] != 4:
+        raise ValueError(f"taps must be (4, C_in, C_out), got {tuple(taps.shape)}")
+    out = launch_conv_bias_act_bwd("strided_conv_bwd", g, x, taps, bias, y, 2, 1, "zero",
+                                    need_dx)
+    strided_conv_bwd.launches += 1
+    return out
+
+
+strided_conv_bwd.launches = 0
+
+
+# ------------------------------ K4b ------------------------------
+
+
+def mlp_chain_bwd_ref(g: torch.Tensor, x: torch.Tensor, ws: Sequence[torch.Tensor],
+                      bs: Sequence[torch.Tensor], slopes: Sequence[float],
+                      ds: Sequence[torch.Tensor], *, need_dx: bool = True):
+    """Plain version of K4b (recomputes the forward; ``ds`` is not read)."""
+    n = len(ws)
+    dx, *rest = plain_grads(lambda x_, *p: fused.mlp_chain_ref(x_, p[:n], p[n:], slopes),
+                            [x, *ws, *bs], g)
+    return (dx if need_dx else None), list(rest[:n]), list(rest[n:])
+
+
+def mlp_chain_bwd(g: torch.Tensor, x: torch.Tensor, ws: Sequence[torch.Tensor],
+                  bs: Sequence[torch.Tensor], slopes: Sequence[float],
+                  ds: Sequence[torch.Tensor], *, need_dx: bool = True):
+    """K4b: -> (dx, [dW_j], [db_j]) of fused.mlp_chain; ``ds`` are the
+    pre-activations d_j that K4 saved (fused.launch_mlp_chain(save_pre=True))."""
+    if g.device.type == "cpu":
+        return mlp_chain_bwd_ref(g, x, ws, bs, slopes, ds, need_dx=need_dx)
+    n = len(ws)
+    dims = [x.shape[1]] + [w.shape[1] for w in ws]
+    if len(ds) != n or any(d.shape != (x.shape[0], k) for d, k in zip(ds, dims[1:])):
+        raise ValueError("mlp_chain_bwd needs each layer's saved pre-activations (B, D_j+1)")
+    if g.shape != (x.shape[0], dims[-1]) or any(w.shape != (a, k) for w, a, k in
+                                                 zip(ws, dims, dims[1:])):
+        raise ValueError(f"g must be ({x.shape[0]}, {dims[-1]}) and the weights follow "
+                         f"the widths {dims}")
+    _build.require_cuda_f32("mlp_chain_bwd", g, x, *ws, *ds)
+    b = x.shape[0]
+    gds = [torch.empty_like(d) for d in ds]
+    dwbs = [torch.empty((a + 1, k), device=x.device, dtype=x.dtype)
+            for a, k in zip(dims, dims[1:])]
+    dx = torch.empty_like(x) if need_dx else None
+    fn = _build.function("mlp_chain_bwd", "iins_mlp_chain_bwd",
+                         [_P, _P, _P, _I, _I, ctypes.POINTER(_P), ctypes.POINTER(_P),
+                          ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_I),
+                          ctypes.POINTER(ctypes.c_float), _P])
+
+    def ptrs(ts):
+        return (_P * n)(*[t.data_ptr() for t in ts])
+
+    err = fn(g.data_ptr(), x.data_ptr(), _ptr(dx), b, n, ptrs(ws), ptrs(ds), ptrs(gds),
+             ptrs(dwbs), (_I * (n + 1))(*dims), (ctypes.c_float * n)(*slopes),
+             _build.stream_handle(x))
+    _build.check(err, "mlp_chain_bwd", "mlp_chain_bwd")
+    mlp_chain_bwd.launches += 1
+    return dx, [d[:-1] for d in dwbs], [d[-1] for d in dwbs]
+
+
+mlp_chain_bwd.launches = 0
+
+
+# ------------------------------ K6b ------------------------------
+
+
+def sln_chain_bwd_ref(g: torch.Tensor, x: torch.Tensor, stages: Sequence[UpStage],
+                      out_kernel: torch.Tensor, out_bias: torch.Tensor, l_pool: int, *,
+                      need_dx: bool = True, pool: torch.Tensor | None = None):
+    """Plain version of K6b; ``pool`` as for fused.sln_chain_ref."""
+    params = [t for st in stages for t in st] + [out_kernel, out_bias]
+    n = len(stages)
+    dx, *rest = plain_grads(
+        lambda x_, *p: fused.sln_chain_ref(x_, [tuple(p[4 * j:4 * j + 4]) for j in range(n)],
+                                           p[-2], p[-1], l_pool, pool=pool),
+        [x, *params], g)
+    return ((dx if need_dx else None), [tuple(rest[4 * j:4 * j + 4]) for j in range(n)],
+            rest[-2], rest[-1])
+
+
+def sln_chain_bwd(g: torch.Tensor, x: torch.Tensor, stages: Sequence[UpStage],
+                  out_kernel: torch.Tensor, out_bias: torch.Tensor, l_pool: int, *,
+                  need_dx: bool = True):
+    """K6b: -> (dx, [(d(taps), dbias, dgamma, dbeta) per stage], d(out_kernel),
+    d(out_bias)) of fused.sln_chain."""
+    if g.device.type == "cpu":
+        return sln_chain_bwd_ref(g, x, stages, out_kernel, out_bias, l_pool, need_dx=need_dx)
+    params = [t for st in stages for t in st] + [out_kernel, out_bias]
+    fused.check_sln_chain(x, stages, out_kernel, out_bias, l_pool)
+    b, l0, c0 = x.shape
+    if g.shape != (b, l_pool):
+        raise ValueError(f"g must be ({b}, {l_pool}), got {tuple(g.shape)}")
+    _build.require_cuda_f32("sln_chain_bwd", g)
+    l_last = l0 << SLN_STAGES
+    # the input, four stage outputs and four conv outputs, the tanh output
+    # and the LayerNorm statistics, in shared memory
+    spb = _build.samples_per_block(b, 9 * l0 * c0 + _round4(l_last) + 3 * SLN_STAGES)
+    n_w = sum(t.numel() for t in params)
+    part = torch.empty(((b + spb - 1) // spb, n_w), device=x.device, dtype=x.dtype)
+    dw = torch.empty(n_w, device=x.device, dtype=x.dtype)
+    dx = torch.empty_like(x) if need_dx else None
+    fn = _build.function("sln_chain_bwd", "iins_sln_chain_bwd",
+                         [_P, _P, _P, _P, _P, _I, ctypes.POINTER(_P), ctypes.POINTER(_P),
+                          ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _I, _P, _P, _I, _I, _P])
+    ptrs = [(_P * SLN_STAGES)(*[st[i].data_ptr() for st in stages]) for i in range(4)]
+    err = fn(x.data_ptr(), g.data_ptr(), _ptr(dx), part.data_ptr(), dw.data_ptr(), b, *ptrs,
+             l0, c0, out_kernel.data_ptr(), out_bias.data_ptr(), l_pool, spb,
+             _build.stream_handle(x))
+    _build.check(err, "sln_chain_bwd", "sln_chain_bwd")
+    sln_chain_bwd.launches += 1
+    grads = _split(dw, [t.shape for t in params])
+    return dx, [tuple(grads[4 * j:4 * j + 4]) for j in range(len(stages))], grads[-2], grads[-1]
+
+
+sln_chain_bwd.launches = 0
+
+BACKWARD = (in_chain_bwd, conv_bias_act_bwd, strided_conv_bwd, mlp_chain_bwd,
+            adain_res_block_bwd, sln_chain_bwd)
+# each backward wrapper's plain version, which takes the same arguments
+PLAIN = {in_chain_bwd: in_chain_bwd_ref, conv_bias_act_bwd: conv_bias_act_bwd_ref,
+         strided_conv_bwd: strided_conv_bwd_ref, mlp_chain_bwd: mlp_chain_bwd_ref,
+         adain_res_block_bwd: adain_res_block_bwd_ref, sln_chain_bwd: sln_chain_bwd_ref}

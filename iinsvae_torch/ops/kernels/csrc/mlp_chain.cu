@@ -20,6 +20,11 @@
 // multiplied; each weight read from the tile serves all kRows samples from
 // registers. Narrow layers (5 or 16 outputs) split the input dimension
 // over up to 32 lanes and reduce with warp shuffles.
+//
+// Under autograd the launch may also write each layer's pre-activation
+// d_j (B, D_{j+1}) to device memory (``ds``; null when serving): K4's
+// backward (mlp_chain_bwd.cu) reads them, as the TPU backward reads the
+// d_j its forward saved (fused.py:1082). That is ~2 MB at batch 500.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -38,6 +43,7 @@ struct MlpArgs {
   const float* w[kMaxLayers];
   const float* b[kMaxLayers];
   float slope[kMaxLayers];
+  float* d[kMaxLayers];  // each layer's pre-activations (B, dims[j + 1]), or null
   int dims[kMaxLayers + 1];
   int n_layers;
   int width;  // max(dims): length of each activation buffer, in kRows-float rows
@@ -146,6 +152,7 @@ mlp_chain_kernel(const float* __restrict__ x, float* __restrict__ y, int batch, 
         for (int r = 0; r < kRows; ++r) {
           const float d = acc[c][r] + bias;
           const float v = d > 0.f ? d : slope * d;
+          if (a.d[j] && r < nr) a.d[j][static_cast<size_t>(r0 + r) * dout + col] = d;
           if (!last) {
             nxt[col * kRows + r] = v;
           } else if (r < nr) {
@@ -169,9 +176,11 @@ const char* iins_error_string(int err) {
 }
 
 // ws, bs: n_layers device pointers (host arrays); dims: n_layers + 1 widths;
-// slopes: n_layers LeakyReLU negative slopes.
+// slopes: n_layers LeakyReLU negative slopes; ds: null, or n_layers device
+// pointers (a host array) to write the pre-activations to.
 int iins_mlp_chain(const float* x, float* y, int batch, int n_layers, const void* const* ws,
-                   const void* const* bs, const int* dims, const float* slopes, void* stream) {
+                   const void* const* bs, const int* dims, const float* slopes,
+                   void* const* ds, void* stream) {
   if (batch <= 0 || n_layers < 1 || n_layers > kMaxLayers) return cudaErrorInvalidValue;
   MlpArgs a{};
   a.n_layers = n_layers;
@@ -187,6 +196,7 @@ int iins_mlp_chain(const float* x, float* y, int batch, int n_layers, const void
     a.w[j] = static_cast<const float*>(ws[j]);
     a.b[j] = static_cast<const float*>(bs[j]);
     a.slope[j] = slopes[j];
+    a.d[j] = ds ? static_cast<float*>(ds[j]) : nullptr;
   }
   const size_t smem = (2 * static_cast<size_t>(kRows) * a.width + kTileFloats) * sizeof(float);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;

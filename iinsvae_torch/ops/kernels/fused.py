@@ -1,6 +1,12 @@
 """K1 in_chain, K2 conv_bias_act, K4 mlp_chain, K5 adain_res_block and K6
 sln_chain: wrappers and plain versions.
 
+A wrapper runs the plain version on CPU tensors (autograd differentiates
+it). On CUDA tensors it launches its kernel: through the kernel's
+``torch.autograd.Function`` (autograd.py, whose backward launches the
+backward kernel of backward.py) when grad mode is on and an input requires
+grad, else directly, as under ``torch.inference_mode``.
+
 The CUDA sources are csrc/in_chain.cu (K1, K2, K5 and K3's kernel),
 csrc/mlp_chain.cu (K4) and csrc/sln_chain.cu (K6); each states the TPU
 entry it replaces, its bound on the H100 and what its design does about it.
@@ -29,7 +35,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _stage_rows(x: torch.Tensor, stages: Sequence[Stage]) -> tuple[list[int], int, int]:
+def wants_grad(*tensors: torch.Tensor) -> bool:
+    """True where the autograd Function has to carry a gradient."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def stage_rows(x: torch.Tensor, stages: Sequence[Stage]) -> tuple[list[int], int, int]:
     """Validate a conv chain on x (B, L, C); return the flat
     (k, stride, pad, reflect, l_in, c_in, l_out, c_out) rows and the
     chain's output (L, C)."""
@@ -73,9 +84,18 @@ def in_chain(x: torch.Tensor, stages: Sequence[Stage], *, residual: bool = False
     (iinsvae_tpu/ops/pallas/fused.py:361, :1320, :253)."""
     if x.device.type == "cpu":
         return in_chain_ref(x, stages, residual=residual)
+    taps = [s[0] for s in stages]
+    if wants_grad(x, *taps):
+        from iinsvae_torch.ops.kernels import autograd
+        return autograd.InChain.apply(x, tuple(s[1:] for s in stages), residual, *taps)
+    return launch_in_chain(x, stages, residual)
+
+
+def launch_in_chain(x: torch.Tensor, stages: Sequence[Stage], residual: bool) -> torch.Tensor:
+    """Check the operands, launch K1 and count the launch."""
     if not 1 <= len(stages) <= 2:
         raise ValueError(f"in_chain runs 1 or 2 stages, got {len(stages)}")
-    rows, l_out, c_out = _stage_rows(x, stages)
+    rows, l_out, c_out = stage_rows(x, stages)
     if residual and (len(stages) != 2 or (l_out, c_out) != tuple(x.shape[1:])):
         raise ValueError("a residual chain has two stages and keeps the input's shape")
     taps = [s[0] for s in stages]
@@ -115,6 +135,10 @@ def conv_bias_act(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor, *,
     Replaces fused_dense_layer(norm='none') (iinsvae_tpu/ops/pallas/fused.py:1320)."""
     if x.device.type == "cpu":
         return conv_bias_act_ref(x, taps, bias, stride=stride, padding=padding, pad_mode=pad_mode)
+    if wants_grad(x, taps, bias):
+        from iinsvae_torch.ops.kernels import autograd
+        return autograd.ConvBiasAct.apply(x, taps, bias, (stride, padding, pad_mode),
+                                          "conv_bias_act")
     y = launch_conv_bias_act(x, taps, bias, stride, padding, pad_mode)
     conv_bias_act.launches += 1
     return y
@@ -127,7 +151,7 @@ def launch_conv_bias_act(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor
                          stride: int, padding: int, pad_mode: str) -> torch.Tensor:
     """Check the operands and launch the conv + bias + ReLU kernel; counts
     nothing (K2 and K3 each count their own launches)."""
-    rows, l_out, c_out = _stage_rows(x, [(taps, stride, padding, pad_mode)])
+    rows, l_out, c_out = stage_rows(x, [(taps, stride, padding, pad_mode)])
     if bias.shape != (c_out,):
         raise ValueError(f"bias must be ({c_out},), got {tuple(bias.shape)}")
     _build.require_cuda_f32("conv_bias_act", x, taps, bias)
@@ -166,6 +190,17 @@ def mlp_chain(x: torch.Tensor, ws: Sequence[torch.Tensor], bs: Sequence[torch.Te
     Replaces fused_mlp_chain (iinsvae_tpu/ops/pallas/fused.py:1164)."""
     if x.device.type == "cpu":
         return mlp_chain_ref(x, ws, bs, slopes)
+    if wants_grad(x, *ws, *bs):
+        from iinsvae_torch.ops.kernels import autograd
+        return autograd.MlpChain.apply(x, tuple(slopes), len(ws), *ws, *bs)
+    return launch_mlp_chain(x, ws, bs, slopes)[0]
+
+
+def launch_mlp_chain(x: torch.Tensor, ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
+                     slopes: Sequence[float], save_pre: bool = False):
+    """Check the operands, launch K4 and count the launch. -> (y, ds): with
+    ``save_pre`` the kernel also writes each layer's pre-activation
+    d_j (B, D_{j+1}), which the backward kernel reads; else ds is []."""
     n = len(ws)
     if not (1 <= n <= _MAX_LAYERS and len(bs) == n and len(slopes) == n):
         raise ValueError(f"mlp_chain takes 1-{_MAX_LAYERS} layers with one bias and slope each")
@@ -179,15 +214,20 @@ def mlp_chain(x: torch.Tensor, ws: Sequence[torch.Tensor], bs: Sequence[torch.Te
         dims.append(w.shape[1])
     _build.require_cuda_f32("mlp_chain", x, *ws, *bs)
     y = torch.empty((x.shape[0], dims[-1]), device=x.device, dtype=x.dtype)
+    ds = [torch.empty((x.shape[0], d), device=x.device, dtype=x.dtype)
+          for d in dims[1:]] if save_pre else []
     fn = _build.function("mlp_chain", "iins_mlp_chain",
                          [_P, _P, _I, _I, ctypes.POINTER(_P), ctypes.POINTER(_P),
-                          ctypes.POINTER(_I), ctypes.POINTER(ctypes.c_float), _P])
+                          ctypes.POINTER(_I), ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_P),
+                          _P])
     err = fn(x.data_ptr(), y.data_ptr(), x.shape[0], n,
              (_P * n)(*[w.data_ptr() for w in ws]), (_P * n)(*[b.data_ptr() for b in bs]),
-             (_I * (n + 1))(*dims), (ctypes.c_float * n)(*slopes), _build.stream_handle(x))
+             (_I * (n + 1))(*dims), (ctypes.c_float * n)(*slopes),
+             (_P * n)(*[d.data_ptr() for d in ds]) if save_pre else None,
+             _build.stream_handle(x))
     _build.check(err, "mlp_chain", "mlp_chain")
     mlp_chain.launches += 1
-    return y
+    return y, ds
 
 
 mlp_chain.launches = 0
@@ -215,16 +255,33 @@ def adain_res_block(x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
     Replaces fused_adain_res_block (iinsvae_tpu/ops/pallas/fused.py:557)."""
     if x.device.type == "cpu":
         return adain_res_block_ref(x, k1, k2, g1, b1, g2, b2)
+    if wants_grad(x, k1, k2, g1, b1, g2, b2):
+        from iinsvae_torch.ops.kernels import autograd
+        return autograd.AdainResBlock.apply(x, k1, k2, g1, b1, g2, b2)
+    return launch_adain_res_block(x, k1, k2, g1, b1, g2, b2)
+
+
+def check_adain_res_block(x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
+                          *affine: torch.Tensor) -> None:
+    """Raise on what K5 (and its backward) does not take."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, L, C), got shape {tuple(x.shape)}")
     b, l, c = x.shape
     if k1.shape != (3, c, c) or k2.shape != (3, c, c):
         raise ValueError(f"taps must be (3, {c}, {c}), got {tuple(k1.shape)}, {tuple(k2.shape)}")
-    if any(t.shape != (b, c) for t in (g1, b1, g2, b2)):
+    if any(t.shape != (b, c) for t in affine):
         raise ValueError(f"gamma and beta must each be ({b}, {c})")
     if c % 4 or k1.data_ptr() % 16 or k2.data_ptr() % 16 or l < 2:
         raise ValueError("adain_res_block takes 16-byte aligned taps, C a multiple of 4, L >= 2")
-    _build.require_cuda_f32("adain_res_block", x, k1, k2, g1, b1, g2, b2)
+    _build.require_cuda_f32("adain_res_block", x, k1, k2, *affine)
+
+
+def launch_adain_res_block(x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
+                           g1: torch.Tensor, b1: torch.Tensor, g2: torch.Tensor,
+                           b2: torch.Tensor) -> torch.Tensor:
+    """Check the operands, launch K5 and count the launch."""
+    check_adain_res_block(x, k1, k2, g1, b1, g2, b2)
+    b, l, c = x.shape
     y = torch.empty_like(x)
     spb = _build.samples_per_block(b, 3 * l * c)  # input, mid-block and output in shared memory
     fn = _build.function("in_chain", "iins_adain_res_block",
@@ -274,6 +331,16 @@ def sln_chain(x: torch.Tensor, stages: Sequence[UpStage], out_kernel: torch.Tens
     Replaces fused_sln_chain (iinsvae_tpu/ops/pallas/fused.py:1027)."""
     if x.device.type == "cpu":
         return sln_chain_ref(x, stages, out_kernel, out_bias, l_pool)
+    params = [t for st in stages for t in st] + [out_kernel, out_bias]
+    if wants_grad(x, *params):
+        from iinsvae_torch.ops.kernels import autograd
+        return autograd.SlnChain.apply(x, l_pool, *params)
+    return launch_sln_chain(x, stages, out_kernel, out_bias, l_pool)
+
+
+def check_sln_chain(x: torch.Tensor, stages: Sequence[UpStage], out_kernel: torch.Tensor,
+                    out_bias: torch.Tensor, l_pool: int) -> None:
+    """Raise on what K6 (and its backward) does not take."""
     if len(stages) != SLN_STAGES:
         raise ValueError(f"sln_chain runs the decoder's {SLN_STAGES} stages, got {len(stages)}")
     if x.dim() != 3:
@@ -296,6 +363,13 @@ def sln_chain(x: torch.Tensor, stages: Sequence[UpStage], out_kernel: torch.Tens
         raise ValueError("sln_chain takes 16-byte aligned taps")
     _build.require_cuda_f32("sln_chain", x, *(t for st in stages for t in st), out_kernel,
                             out_bias)
+
+
+def launch_sln_chain(x: torch.Tensor, stages: Sequence[UpStage], out_kernel: torch.Tensor,
+                     out_bias: torch.Tensor, l_pool: int) -> torch.Tensor:
+    """Check the operands, launch K6 and count the launch."""
+    check_sln_chain(x, stages, out_kernel, out_bias, l_pool)
+    b, l0, c0 = x.shape
     y = torch.empty((b, l_pool), device=x.device, dtype=x.dtype)
     spb = _build.samples_per_block(b, 2 * l0 * c0)  # two ping-pong buffers a sample
     fn = _build.function("sln_chain", "iins_sln_chain",

@@ -3,7 +3,8 @@
 Replaces fused_strided_conv (iinsvae_tpu/ops/pallas/strided_conv.py:250).
 On the card it launches the conv + bias + ReLU kernel of csrc/in_chain.cu
 (K2's) at k4, stride 2, zero pad 1, and counts its own launches; that
-source states the bound on the H100. x is (B, L_in, C_in) channels-last,
+source states the bound on the H100. Under autograd it goes through
+autograd.ConvBiasAct, whose backward launches K2b (backward.strided_conv_bwd). x is (B, L_in, C_in) channels-last,
 taps (4, C_in, C_out), bias (C_out,).
 """
 
@@ -12,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from iinsvae_torch.ops.conv import conv1d
-from iinsvae_torch.ops.kernels.fused import launch_conv_bias_act
+from iinsvae_torch.ops.kernels.fused import launch_conv_bias_act, wants_grad
 
 
 def applicable(kernel_size: int, stride: int, padding: int, pad_mode: str) -> bool:
@@ -30,6 +31,9 @@ def strided_conv(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor) -> tor
         return strided_conv_ref(x, taps, bias)
     if taps.dim() != 3 or taps.shape[0] != 4:
         raise ValueError(f"taps must be (4, C_in, C_out), got {tuple(taps.shape)}")
+    if wants_grad(x, taps, bias):
+        from iinsvae_torch.ops.kernels import autograd
+        return autograd.ConvBiasAct.apply(x, taps, bias, (2, 1, "zero"), "strided_conv")
     y = launch_conv_bias_act(x, taps, bias, 2, 1, "zero")
     strided_conv.launches += 1
     return y

@@ -1,0 +1,71 @@
+"""Epoch loop (iinsvae_tpu/training/loop.py:22-133, without the checkpoint
+and evaluation hooks).
+
+The whole train split lives on the device; each epoch draws its
+permutation and every step's supervision mask there from one seeded
+``torch.Generator``, and the per-batch metrics stay on the device until the
+epoch ends: one host fetch an epoch.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from iinsvae_torch.training.steps import finalize_metrics, reduce_metrics
+
+
+def pad_to_batches(data: dict, batch_size: int) -> dict[str, torch.Tensor]:
+    """Pad every array (numpy or tensor) with zero rows to a multiple of
+    ``batch_size`` and add a 'weight' mask, 1 on real rows and 0 on padding,
+    so padded samples add nothing to losses or metrics."""
+    out = {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
+           for k, v in data.items()}
+    n = out["cir"].shape[0]
+    pad = -(-n // batch_size) * batch_size - n
+    out = {k: torch.cat([v, v.new_zeros((pad,) + tuple(v.shape[1:]))]) for k, v in out.items()}
+    weight = torch.zeros(n + pad, dtype=out["cir"].dtype, device=out["cir"].device)
+    weight[:n] = 1.0
+    out["weight"] = weight
+    return out
+
+
+def make_epoch_runner(train_step: Callable, batch_size: int, shuffle: bool = True) -> Callable:
+    """-> run_epoch(state, data, generator) -> exactly reduced epoch sums
+    (device tensors). ``data`` holds whole batches (pad_to_batches) on the
+    device; the permutation and the masks come from ``generator``."""
+
+    def run_epoch(state, data: dict, generator: torch.Generator) -> dict:
+        n = data["cir"].shape[0]
+        if n % batch_size:
+            raise ValueError(f"{n} rows are not whole batches of {batch_size}: pad_to_batches")
+        if shuffle:
+            perm = torch.randperm(n, generator=generator, device=generator.device)
+            data = {k: v[perm] for k, v in data.items()}
+        ms = [train_step(state, {k: v[i:i + batch_size] for k, v in data.items()}, generator)
+              for i in range(0, n, batch_size)]
+        return reduce_metrics({k: torch.stack([m[k] for m in ms]) for k in ms[0]},
+                              lambda v: v.sum(dim=0))
+
+    return run_epoch
+
+
+def train_epochs(state, run_epoch: Callable, data: dict, n_epochs: int, seed: int = 0,
+                 start_epoch: int = 0,
+                 log_fn: Optional[Callable[[int, dict], None]] = None) -> list[dict]:
+    """Run epochs ``start_epoch .. n_epochs - 1``; returns each epoch's
+    finalized metrics (host floats), which ``log_fn(epoch, metrics)`` also
+    receives."""
+    history = []
+    for epoch in range(start_epoch, n_epochs):
+        # each (seed, epoch) draws its permutation and masks from its own stream
+        gen = torch.Generator(device=data["cir"].device).manual_seed(seed * 1_000_003 + epoch)
+        metrics = finalize_metrics(run_epoch(state, data, gen))
+        values = torch.stack([v.float() for v in metrics.values()]).cpu().tolist()  # one fetch
+        metrics = dict(zip(metrics, values))
+        history.append(metrics)
+        if log_fn is not None:
+            log_fn(epoch, metrics)
+    return history

@@ -9,7 +9,14 @@ PyTorch (tests/conftest.py imports JAX, hence --noconftest):
 The kernels sum in another order than the plain versions, and
 InstanceNorm divides by a per-channel std, which can scale that rounding
 up: fp32 with rtol 1e-4 / atol 1e-4 per kernel call, 1e-3 / 1e-4 through
-the 12 launches of a forward without the decoder and the 17 with it.
+the 12 launches of a forward without the decoder and the 17 with it. A
+backward kernel's gradients: rtol 1e-3, atol 1e-4 of each gradient's
+largest magnitude (a weight gradient sums B*L products, and the norms'
+gradients scale by 1/std). A training step's gradients on the card and on
+the CPU (fp32) are each held against the CPU port's in float64: the card's
+largest error per parameter at most 10 times the CPU's plus 1e-4 of the
+gradient's largest magnitude (some weight gradients sum thousands of terms
+that cancel, so no per-tensor tolerance fits both fp32 orders).
 """
 
 import copy
@@ -19,8 +26,10 @@ import pytest
 import torch
 
 from iinsvae_torch.models.vae import IInsVAE
-from iinsvae_torch.ops.kernels import fused, strided_conv
+from iinsvae_torch.ops import kernels
+from iinsvae_torch.ops.kernels import backward, fused, strided_conv
 from iinsvae_torch.serving import Predictor
+from iinsvae_torch.training import steps
 
 RTOL, ATOL = 1e-4, 1e-4
 FLAGSHIP = dict(cir_len=157, num_classes=5, style_dim=16)
@@ -35,6 +44,10 @@ WRAPPED = [(fused, "in_chain", fused.in_chain_ref),
 NO_RECON = {"in_chain": 6, "conv_bias_act": 2, "strided_conv": 2, "mlp_chain": 2,
             "adain_res_block": 0, "sln_chain": 0}
 RECON = {**NO_RECON, "conv_bias_act": 3, "adain_res_block": 3, "sln_chain": 1}
+# backward launches of one training step: one for each forward launch
+TRAIN_BWD = {f"{k}_bwd": v for k, v in RECON.items()}
+BWD_RTOL, BWD_ATOL = 1e-3, 1e-4
+STEP_FACTOR, STEP_FLOOR = 10.0, 1e-4
 
 
 @pytest.fixture
@@ -152,3 +165,136 @@ def test_gpu_sln_chain_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):  # non-contiguous
         fused.sln_chain(x.transpose(1, 2).contiguous().transpose(1, 2), stages, ko, bo, 157)
     assert fused.sln_chain(x, stages, ko, bo, 157).shape == (x.shape[0], 157)
+
+
+def _train_batch(b, device, seed=0):
+    rng = np.random.default_rng(seed)
+    batch = {"cir": rng.normal(size=(b, 157)), "err": np.abs(0.3 * rng.normal(size=(b, 1))),
+             "label": rng.integers(0, 5, size=(b, 1)), "weight": np.ones(b)}
+    mask = (rng.random(b) < 0.5).astype(np.float32)
+    return ({k: torch.tensor(v, dtype=torch.float32, device=device) for k, v in batch.items()},
+            torch.tensor(mask, device=device))
+
+
+def _tensors(out):
+    if out is None:
+        return []
+    if torch.is_tensor(out):
+        return [out]
+    return [t for o in out for t in _tensors(o)]
+
+
+def _close_scaled(got, want, rtol, atol, what):
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol * scale,
+                               msg=lambda m: f"{what}: {m}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [37, 500])
+def test_gpu_every_backward_kernel_call_of_a_step_matches_plain(cuda, monkeypatch, batch):
+    """Record each backward wrapper call of one flagship training step (the
+    real activations and gradients at every shape the path gives), hold each
+    against its plain version on the same inputs, and count the step's
+    forward and backward launches."""
+    calls = []
+    for w in backward.BACKWARD:
+        def record(*args, _w=w, **kw):
+            out = _w(*args, **kw)
+            calls.append((_w.__name__, out, backward.PLAIN[_w](*args, **kw)))
+            return out
+        record.launches = 0  # the wrapper counts on its module name: the recorder here
+        monkeypatch.setattr(backward, w.__name__, record)
+    model = IInsVAE(**FLAGSHIP).to(cuda)
+    data, mask = _train_batch(batch, cuda)
+    kernels.reset_launch_counts()
+    metrics = steps.make_semi_grads_fn(0.5)(model, data, sup_mask=mask)
+    torch.cuda.synchronize()
+    assert torch.isfinite(metrics["loss"])
+    assert kernels.launch_counts() == RECON
+    assert {w.__name__: getattr(backward, w.__name__).launches
+            for w in backward.BACKWARD} == TRAIN_BWD
+    assert len(calls) == sum(TRAIN_BWD.values())
+    for name, got, want in calls:
+        got, want = _tensors(got), _tensors(want)
+        assert len(got) == len(want), name
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert torch.isfinite(a).all(), (name, i)
+            _close_scaled(a, b, BWD_RTOL, BWD_ATOL, f"{name} gradient {i}")
+
+
+@pytest.mark.gpu
+def test_gpu_training_step_gradients_match_cpu(cuda):
+    cpu = IInsVAE(**FLAGSHIP, generator=torch.Generator().manual_seed(9))
+    gpu = copy.deepcopy(cpu).to(cuda)
+    f64 = copy.deepcopy(cpu).double()
+    data, mask = _train_batch(64, cuda, seed=1)
+    grads_fn = steps.make_semi_grads_fn(0.5)
+    mg = grads_fn(gpu, data, sup_mask=mask)
+    grads_fn(cpu, {k: v.cpu() for k, v in data.items()}, sup_mask=mask.cpu())
+    m64 = grads_fn(f64, {k: v.cpu().double() for k, v in data.items()},
+                   sup_mask=mask.cpu().double())
+    for k in ("loss", "loss_ae", "loss_kl", "loss_res", "loss_env"):
+        assert mg[k].item() == pytest.approx(m64[k].item(), rel=1e-4, abs=1e-6), k
+    fp32, ref = dict(cpu.named_parameters()), dict(f64.named_parameters())
+    for name, p in gpu.named_parameters():
+        want = ref[name].grad
+        e_card = (p.grad.cpu().double() - want).abs().max().item()
+        e_cpu = (fp32[name].grad.double() - want).abs().max().item()
+        assert e_card <= STEP_FACTOR * e_cpu + STEP_FLOOR * want.abs().max().item(), name
+
+
+@pytest.mark.gpu
+def test_gpu_backward_is_bit_reproducible(cuda):
+    """No atomics: two backward passes give bit-equal weight gradients."""
+    model = IInsVAE(**FLAGSHIP).to(cuda)
+    data, mask = _train_batch(500, cuda, seed=2)
+    grads_fn = steps.make_semi_grads_fn(0.5)
+    grads_fn(model, data, sup_mask=mask)
+    first = {n: p.grad.clone() for n, p in model.named_parameters()}
+    grads_fn(model, data, sup_mask=mask)
+    for n, p in model.named_parameters():
+        assert torch.equal(p.grad, first[n]), n
+
+
+@pytest.mark.gpu
+def test_gpu_backward_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    m = IInsVAE(**FLAGSHIP).to(cuda)
+    re_, dec = m.encoder.range_encoder, m.decoder.decoder
+    x = torch.randn((4, 8, 64), device=cuda)
+    g = torch.randn((4, 8, 64), device=cuda)
+    block = [(re_.res0_kernel1, 1, 1, "reflect"), (re_.res0_kernel2, 1, 1, "reflect")]
+    with pytest.raises(ValueError):  # g of another shape than the output
+        backward.in_chain_bwd(g[:, :4].contiguous(), x, block, residual=True)
+    with pytest.raises(TypeError):
+        backward.in_chain_bwd(g.double(), x.double(), [(t.double(), *r) for t, *r in block],
+                              residual=True)
+    with pytest.raises(ValueError):  # three stages
+        backward.in_chain_bwd(g, x, block + block[:1])
+    with pytest.raises(ValueError):  # C_out not a multiple of 4
+        backward.in_chain_bwd(torch.zeros((4, 8, 2), device=cuda), x,
+                              [(re_.out_kernel.detach().repeat(3, 1, 1), 1, 1, "reflect")])
+    affine = [torch.randn((4, 64), device=cuda) for _ in range(4)]
+    with pytest.raises(ValueError):  # tables of another batch
+        backward.adain_res_block_bwd(g, x, dec.res0_kernel1, dec.res0_kernel2, affine[0][:3],
+                                     *affine[1:])
+    y = torch.zeros((4, 8, 2), device=cuda)
+    with pytest.raises(ValueError):  # y of another shape than g
+        backward.conv_bias_act_bwd(torch.zeros((4, 8, 2), device=cuda), x, re_.out_kernel,
+                                   re_.out_bias, y[:, :4])
+    with pytest.raises(ValueError):  # not a k4 conv
+        backward.strided_conv_bwd(g, x, re_.res0_kernel1, torch.zeros(64, device=cuda), g)
+    head = m.restorer.restorer
+    ws = [getattr(head, f"w{j}") for j in range(4)]
+    bs = [getattr(head, f"b{j}") for j in range(4)]
+    xr = torch.randn((4, 16), device=cuda)
+    with pytest.raises(ValueError):  # no saved pre-activations
+        backward.mlp_chain_bwd(torch.zeros((4, 1), device=cuda), xr, ws, bs, head.slopes, [])
+    stages = [tuple(getattr(dec, f"up{j}_{n}") for n in ("kernel", "bias", "gamma", "beta"))
+              for j in range(4)]
+    with pytest.raises(ValueError):  # g of another length than the pool
+        backward.sln_chain_bwd(torch.zeros((4, 150), device=cuda), x, stages, dec.out_kernel,
+                               dec.out_bias, 157)
+    with pytest.raises(ValueError):  # three stages
+        backward.sln_chain_bwd(torch.zeros((4, 157), device=cuda), x, stages[:3],
+                               dec.out_kernel, dec.out_bias, 157)

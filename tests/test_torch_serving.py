@@ -198,9 +198,10 @@ def test_other_conv_types_are_not_ported_yet():
 
 
 def _run(code_or_args, **kw):
+    # the time limit leaves room for a machine loaded by the suite's other workers
     env = {**os.environ, "PYTHONPATH": REPO, "CUDA_VISIBLE_DEVICES": ""}
     return subprocess.run([sys.executable, *code_or_args], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=120, **kw)
+                          capture_output=True, text=True, timeout=600, **kw)
 
 
 def test_port_serves_with_jax_and_the_jax_package_blocked():
