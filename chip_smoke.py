@@ -3,13 +3,15 @@
     python3 chip_smoke.py
 
 1. prints the card (nvidia-smi name and power limit) and the versions;
-2. builds the CUDA kernels from iinsvae_torch/ops/kernels/csrc with nvcc;
-3. at batch 500, calls every kernel at every shape the serving forward gives
-   it, holds the result against the kernel's plain PyTorch version on the
-   same inputs, and times kernel, plain version and (where one PyTorch call
-   computes the same conv) that call on the device: CUDA graphs of 20 calls
-   replayed between CUDA events after a warmup, median of 25 replays; the
-   kernel's eager back-to-back time (the host's dispatch) beside it;
+2. builds the CUDA kernels from iinsvae_torch/ops/kernels/csrc with nvcc,
+   one nvcc a source, all at once;
+3. at batch 500, calls every kernel at every shape the 1-D model's serving
+   forward gives it, holds the result against the kernel's plain PyTorch
+   version on the same inputs, and times kernel, plain version and (where
+   one PyTorch call computes the same conv) that call on the device: CUDA
+   graphs of 20 calls replayed between CUDA events after a warmup, median
+   of 25 replays; the kernel's eager back-to-back time (the host's
+   dispatch) beside it;
 4. serves the flagship 1-D model at full width (seeded weights) through
    ``Predictor(device="cuda")`` on two paths, each on 3 batches of 500 CIRs
    and a ragged 137 with every launch counter set to 0 just before and
@@ -34,20 +36,28 @@
    loss that falls from epoch 1 to epoch 3; then measures training CIR/s
    over 5 more epochs, and the device's busy time per step and idle share
    from a torch.profiler trace of 20 steps; and holds one step's gradients
-   on the card against the CPU port's on the same weights and mask.
+   on the card against the CPU port's on the same weights and mask;
+8. repeats 3-7 for the expanded 2-D model (conv_type=2, the same widths
+   and depth): K7 res_block_2d at the range encoder's IN blocks and the
+   decoder's AdaIN blocks and K4 at the 128->512 restorer, each beside one
+   cuDNN 3x3 conv of the block (TF32 off); serving without the decoder (5
+   launches a batch: 3 K7, 2 K4) and with it (8: 6 K7), at batch 500 over
+   40 batches; K7b and K4b at their sites; training with 8 forward and 8
+   backward launches a step.
 
-Prints a ``sites`` line (per call site), a ``serving`` line, a ``backward``
-line (per backward call site), a ``training`` line, a ``kernels`` line, the
-nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
-The whole result also goes to chiprun_out/chip_smoke.json. Any failure
-raises and exits non-zero; without a CUDA device it exits 2 and prints no
-result.
+Prints a ``sites`` line (per call site, both models), a ``serving`` line,
+a ``backward`` line (per backward call site), a ``training`` and a
+``training_2d`` line, a ``kernels`` line, the nvidia-smi line and, last,
+``{"ok": true, "device": {...}}``. The whole result also goes to
+chiprun_out/chip_smoke.json. Any failure raises and exits non-zero; without
+a CUDA device it exits 2 and prints no result.
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -63,7 +73,7 @@ from iinsvae_torch.config import Config
 from iinsvae_torch.models.vae import IInsVAE
 from iinsvae_torch.ops import kernels
 from iinsvae_torch.ops.conv import out_len
-from iinsvae_torch.ops.kernels import _build, backward, fused, strided_conv
+from iinsvae_torch.ops.kernels import _build, backward, fused, res2d, strided_conv
 from iinsvae_torch.ops.pooling import adaptive_avg_pool_matrix
 from iinsvae_torch.serving import Predictor
 from iinsvae_torch.training import loop, steps
@@ -85,13 +95,20 @@ SERVE_RTOL, SERVE_ATOL = 1e-3, 1e-4
 # env stages; mlp_chain 2 heads. The decoder adds its 1x1 in-conv
 # (conv_bias_act), 3 AdaIN blocks and the tail.
 EXPECTED_NO_RECON = {"in_chain": 6, "conv_bias_act": 2, "strided_conv": 2, "mlp_chain": 2,
-                     "adain_res_block": 0, "sln_chain": 0}
+                     "adain_res_block": 0, "sln_chain": 0, "res_block_2d": 0}
 EXPECTED_RECON = {**EXPECTED_NO_RECON, "conv_bias_act": 3, "adain_res_block": 3,
                   "sln_chain": 1}
 # launches of one training step: the recon forward's 17, and one backward
 # launch for each of them
 EXPECTED_TRAIN = dict(EXPECTED_RECON)
 EXPECTED_TRAIN_BWD = {f"{k}_bwd": v for k, v in EXPECTED_RECON.items()}
+# the expanded 2-D model (conv_type=2): K7 for the range encoder's 3 IN
+# blocks and the decoder's 3 AdaIN blocks, K4 for the 2 heads; everything
+# else on its path is plain tensor ops. A step: the recon forward's 8
+# launches and one backward launch for each.
+EXPECTED_2D_NO_RECON = {**{k: 0 for k in EXPECTED_NO_RECON}, "mlp_chain": 2, "res_block_2d": 3}
+EXPECTED_2D_RECON = {**EXPECTED_2D_NO_RECON, "res_block_2d": 6}
+EXPECTED_2D_TRAIN_BWD = {f"{k}_bwd": v for k, v in EXPECTED_2D_RECON.items()}
 # Backward kernel vs plain version, per gradient: rtol 1e-3 and atol 1e-4
 # times the gradient's largest magnitude. A weight gradient sums B*L
 # products over the batch (in another order than autograd's), and the
@@ -105,6 +122,11 @@ BWD_RTOL, BWD_ATOL = 1e-3, 1e-4
 # cancel to 1e-4 of their size, so two fp32 summation orders differ by
 # 1e-3 of the result.
 STEP_FACTOR, STEP_FLOOR = 10.0, 1e-4
+# The 2-D range encoder's conv biases before an InstanceNorm: their exact
+# gradient is 0, so each fp32 gradient is rounding noise; it is held below
+# ZERO_GRAD_SHARE of the model's largest gradient instead.
+ZERO_GRAD = re.compile(r"encoder\.range_encoder\.(in|down\d+)_bias")
+ZERO_GRAD_SHARE = 1e-6
 _CSRC = "iinsvae_torch/ops/kernels/csrc/"
 SOURCES = {
     "in_chain": _CSRC + "in_chain.cu",
@@ -119,9 +141,14 @@ SOURCES = {
     "mlp_chain_bwd": _CSRC + "mlp_chain_bwd.cu",
     "adain_res_block_bwd": _CSRC + "in_chain_bwd.cu",
     "sln_chain_bwd": _CSRC + "sln_chain_bwd.cu",
+    "res_block_2d": _CSRC + "res_block_2d.cu",
+    "res_block_2d_bwd": _CSRC + "res_block_2d_bwd.cu",
 }
 FLAGSHIP = dict(conv_type=1, cir_len=157, num_classes=5, style_dim=16, dim=4,
                 n_residual=3, n_downsample=4, range_dim=2)
+FLAGSHIP_2D = dict(FLAGSHIP, conv_type=2)
+MODELS = {1: FLAGSHIP, 2: FLAGSHIP_2D}
+RES2D = "iinsvae_tpu/ops/pallas/res2d.py"
 OUT = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke.json"
 
 
@@ -218,10 +245,28 @@ def ncl_conv(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor, stride: in
     return lambda: F.conv1d(xc, w, bias, stride=stride, padding=padding)
 
 
+def res2d_flops(b: int) -> float:
+    """One 3x3 conv of a (b, 8, 8, 64) field to 64 channels (reflect pad:
+    every tap reads data)."""
+    return 2.0 * b * 64 * 9 * 64 * 64
+
+
+def nchw_conv3x3(x: torch.Tensor, taps: torch.Tensor):
+    """One F.conv2d call (cuDNN, TF32 off) of the same 3x3 reflect-pad conv
+    on the same data as a channels-last NCHW view, reflect padding prepared
+    outside the timed call. No PyTorch call computes K7's whole block, so
+    this time of one of its two convs stands beside it, not as its library
+    time."""
+    xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect").contiguous(
+        memory_format=torch.channels_last)
+    w = taps.detach().permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    return lambda: F.conv2d(xp, w)
+
+
 def call_sites(model: IInsVAE, gen: torch.Generator) -> list[dict]:
     """Every kernel call of one serving forward with the reconstruction, at
     batch 500, with the model's own weights and seeded random inputs of the
-    right shape."""
+    right shape: the 1-D model's sites or the expanded 2-D model's."""
     re_, ee = model.encoder.range_encoder, model.encoder.env_encoder
     dec = model.decoder.decoder
     dev = next(model.parameters()).device
@@ -274,6 +319,19 @@ def call_sites(model: IInsVAE, gen: torch.Generator) -> list[dict]:
             flops=2.0 * BATCH * sum(w.numel() for w in ws)))
 
     fp = "iinsvae_tpu/ops/pallas/fused.py"
+    if model.encoder.conv_type == 2:
+        for name, mod, affine in (("range.res2d", re_, []),
+                                  ("dec.res2d", dec, [rand(BATCH, 64) for _ in range(4)])):
+            x, k1, k2 = rand(BATCH, 8, 8, 64), mod.res0_kernel1, mod.res0_kernel2
+            sites.append(dict(
+                name=name, kernel="res_block_2d", replaces=f"{RES2D}:339", calls_per_batch=3,
+                shape=f"{tuple(x.shape)}->{tuple(x.shape)}" + (" adain" if affine else " in"),
+                run=lambda x=x, k1=k1, k2=k2, a=affine: res2d.res_block_2d(x, k1, k2, *a),
+                plain=lambda x=x, k1=k1, k2=k2, a=affine: res2d.res_block_2d_ref(x, k1, k2, *a),
+                library=None, cudnn_conv=nchw_conv3x3(x, k1),
+                bytes=nbytes(x, k1, k2, *affine, x), flops=2 * res2d_flops(BATCH)))
+        add_mlp("restorer.2d", model.restorer.restorer, f"{fp}:1164")
+        return sites
     stages = [(re_.in_kernel, 1, 3, "reflect")] + [
         (getattr(re_, f"down{j}_kernel"), 2, 1, "zero") for j in range(4)]
     add_in_chain("range.pair0", rand(BATCH, 128, 1), stages[0:2], f"{fp}:361")
@@ -348,6 +406,7 @@ def check_and_time(sites: list[dict]) -> list[dict]:
             max_rel_err=rel, ms=device_ms(s["run"]), eager_ms=eager_ms(s["run"]),
             plain_ms=device_ms(s["plain"]),
             library_ms=device_ms(s["library"]) if s["library"] else None,
+            cudnn_conv_ms=device_ms(s["cudnn_conv"]) if "cudnn_conv" in s else None,
             bytes=s["bytes"], flops=s["flops"], bound_ms=max(bytes_ms, flops_ms),
             bound_by="bytes" if bytes_ms >= flops_ms else "operations"))
         r = rows[-1]
@@ -355,7 +414,8 @@ def check_and_time(sites: list[dict]) -> list[dict]:
               f"max_rel_err {r['max_rel_err']:.3e}  {r['ms'] * 1e3:8.2f} us (eager "
               f"{r['eager_ms'] * 1e3:.2f})  plain "
               f"{r['plain_ms'] * 1e3:8.2f} us  bound {r['bound_ms'] * 1e3:6.2f} us "
-              f"({r['bound_by']})", flush=True)
+              f"({r['bound_by']})" + (f"  cuDNN 3x3 conv {r['cudnn_conv_ms'] * 1e3:.2f} us"
+                                      if r["cudnn_conv_ms"] is not None else ""), flush=True)
     return rows
 
 
@@ -385,10 +445,11 @@ def kernel_rows(site_rows: list[dict], names, launches: dict[str, int], per: str
     return out
 
 
-def serve_main_path(model: IInsVAE, cpu_model: IInsVAE, recon: bool) -> tuple[dict, dict]:
+def serve_main_path(model: IInsVAE, cpu_model: IInsVAE, recon: bool,
+                    expected: dict[str, int]) -> tuple[dict, dict]:
     """3 batches of 500 and one of 137 through Predictor(device='cuda'),
-    without or with the reconstruction, counted, and compared with the CPU
-    Predictor on the same weights."""
+    without or with the reconstruction, counted (``expected`` launches a
+    batch), and compared with the CPU Predictor on the same weights."""
     rng = np.random.default_rng(0)
     requests = [rng.normal(size=(n, 157)).astype(np.float32) for n in (500, 500, 500, 137)]
     gpu = Predictor(model, batch_size=BATCH, return_recon=recon, device="cuda")
@@ -396,7 +457,6 @@ def serve_main_path(model: IInsVAE, cpu_model: IInsVAE, recon: bool) -> tuple[di
     outs = [gpu(r) for r in requests]
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
-    expected = EXPECTED_RECON if recon else EXPECTED_NO_RECON
     for name, per in expected.items():
         if launches[name] != per * len(requests):
             raise AssertionError(f"{name}: {launches[name]} launches on the main path "
@@ -417,7 +477,8 @@ def serve_main_path(model: IInsVAE, cpu_model: IInsVAE, recon: bool) -> tuple[di
         if (got.label[clear] != want.label[clear]).any():
             raise AssertionError("labels differ from the CPU path")
         label_mismatch += int((got.label != want.label).sum())
-    result = dict(recon=recon, requests=[len(r) for r in requests], launches=launches,
+    result = dict(conv_type=model.encoder.conv_type, recon=recon,
+                  requests=[len(r) for r in requests], launches=launches,
                   launches_per_batch=sum(launches.values()) // len(requests),
                   max_abs_err_vs_cpu=errs, label_mismatches_within_ties=label_mismatch)
     print(f"[serve] main path: {result}", flush=True)
@@ -442,7 +503,17 @@ def traced_idle_share(p: Predictor, batches: list[np.ndarray]) -> dict:
     n_events, busy_us = device_busy(prof)
     return dict(device_events=n_events, device_busy_us=busy_us, wall_us=wall_us,
                 device_busy_us_per_batch=busy_us / len(batches),
-                device_idle_share=1.0 - busy_us / wall_us if n_events else None)
+                device_idle_share=1.0 - busy_us / wall_us if n_events else None,
+                top_device_ops_per_batch=top_device_ops(prof, len(batches)))
+
+
+def top_device_ops(prof, per: int, top: int = 10) -> list[dict]:
+    """The ops (kernels and copies) that take the most device time in a
+    torch.profiler trace, per step or batch (``per`` of them traced)."""
+    events = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return [dict(name=e.key[:80], device_us=e.self_device_time_total / per, calls=e.count / per)
+            for e in events[:top]]
 
 
 def device_busy(prof) -> tuple[int, float]:
@@ -460,16 +531,15 @@ def device_busy(prof) -> tuple[int, float]:
     return len(spans), busy_us
 
 
-def throughput(model: IInsVAE, recon: bool) -> dict:
+def throughput(model: IInsVAE, recon: bool, sizes=(500, 256), n_batches: int = 120) -> dict:
     """Per-request path (host arrays in, host arrays out) at each batch size,
     without or with the reconstruction; one forward of that path on a
     resident batch, on the device (graph) and eager; the device's idle
     share over 40 served batches, from a trace."""
     rng = np.random.default_rng(1)
     res = {}
-    for bs in (500, 256):
+    for bs in sizes:
         p = Predictor(model, batch_size=bs, return_recon=recon, device="cuda")
-        n_batches = 120  # p90 then has 12 batches beyond it
         data = rng.normal(size=(n_batches * bs, 157)).astype(np.float32)
         p(data[:bs])
         lat = []
@@ -490,7 +560,8 @@ def throughput(model: IInsVAE, recon: bool) -> dict:
                        forward_device_ms=fwd_ms, forward_eager_ms=fwd_eager_ms,
                        batches=n_batches, trace=trace)
         idle = trace["device_idle_share"]
-        print(f"[serve] {'recon' if recon else 'no recon'} batch {bs}: "
+        print(f"[serve] conv_type {model.encoder.conv_type} "
+              f"{'recon' if recon else 'no recon'} batch {bs}: "
               f"{res[bs]['cir_per_s']:.1f} CIR/s, latency median "
               f"{median_lat:.3f} ms, forward {fwd_ms:.4f} ms on the device "
               f"({fwd_eager_ms:.4f} ms eager), device idle over 40 traced batches "
@@ -524,6 +595,21 @@ def conv_backward_call(x, taps, y, g, stride: int, padding: int, pad_mode: str, 
         [need_dx, True, True])
 
 
+def conv3x3_backward_call(x: torch.Tensor, taps: torch.Tensor, g: torch.Tensor):
+    """One aten.convolution_backward call (cuDNN, TF32 off) of one of K7's
+    3x3 reflect-pad convs on the same data as a channels-last NCHW view
+    (the padded input and the taps prepared outside the timed call; its dx
+    is the padded input's). It stands beside K7b as the time of one of the
+    six conv-sized products K7b computes, not as its library time."""
+    with torch.no_grad():
+        xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect").contiguous(
+            memory_format=torch.channels_last)
+        w = taps.detach().permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        gc = g.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    return lambda: torch.ops.aten.convolution_backward(
+        gc, xp, w, None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1, [True, True, False])
+
+
 def backward_sites(model: IInsVAE, gen: torch.Generator) -> list[dict]:
     """Every backward kernel call of one training step at batch 500: the
     forward call sites with the model's weights, seeded random inputs and
@@ -541,12 +627,12 @@ def backward_sites(model: IInsVAE, gen: torch.Generator) -> list[dict]:
         return torch.randn(shape, generator=gen).to(dev)
 
     def add(name, wrapper, replaces, calls, args, kw, nbytes_, flops, library=None,
-            plain_kw=None):
+            plain_kw=None, **more):
         plain = backward.PLAIN[wrapper]
         sites.append(dict(
             name=name, kernel=wrapper.__name__, replaces=replaces, calls_per_batch=calls,
             run=lambda: wrapper(*args, **kw), plain=lambda: plain(*args, **kw, **(plain_kw or {})),
-            library=library, bytes=nbytes_, flops=flops))
+            library=library, bytes=nbytes_, flops=flops, **more))
 
     def in_chain_site(name, x, stages, replaces, residual=False, calls=1, need_dx=True):
         l, conv = x.shape[1], 0.0
@@ -584,6 +670,16 @@ def backward_sites(model: IInsVAE, gen: torch.Generator) -> list[dict]:
         add(name, backward.mlp_chain_bwd, replaces, 1, (g, x, ws, bs, head.slopes, ds), {},
             nbytes(x, *ws, *ds, g, x, *ws, *bs), 2 * 2.0 * BATCH * sum(w.numel() for w in ws))
 
+    if model.encoder.conv_type == 2:
+        for name, mod, affine in (("range.res2d", re_, []),
+                                  ("dec.res2d", dec, [rand(BATCH, 64) for _ in range(4)])):
+            x, k1, k2, g = rand(BATCH, 8, 8, 64), mod.res0_kernel1, mod.res0_kernel2, \
+                rand(BATCH, 8, 8, 64)
+            add(name, backward.res_block_2d_bwd, f"{RES2D}:377", 3, (g, x, k1, k2, *affine), {},
+                nbytes(x, k1, k2, *affine[:3], g, x, k1, k2, *affine), 6 * res2d_flops(BATCH),
+                cudnn_conv=conv3x3_backward_call(x, k1, g))
+        mlp_site("restorer.2d", model.restorer.restorer, f"{fp}:1136")
+        return sites
     stages = [(re_.in_kernel, 1, 3, "reflect")] + [
         (getattr(re_, f"down{j}_kernel"), 2, 1, "zero") for j in range(4)]
     in_chain_site("range.pair0", rand(BATCH, 128, 1), stages[0:2], f"{fp}:333", need_dx=False)
@@ -660,6 +756,7 @@ def check_and_time_backward(sites: list[dict]) -> list[dict]:
             max_err_over_scale=max(scaled), grad_max_abs_errs=errs,
             ms=device_ms(s["run"]), eager_ms=eager_ms(s["run"]), plain_ms=device_ms(s["plain"]),
             library_ms=device_ms(s["library"]) if s["library"] else None,
+            cudnn_conv_ms=device_ms(s["cudnn_conv"]) if "cudnn_conv" in s else None,
             bytes=s["bytes"], flops=s["flops"], bound_ms=max(bytes_ms, flops_ms),
             bound_by="bytes" if bytes_ms >= flops_ms else "operations"))
         r = rows[-1]
@@ -667,14 +764,16 @@ def check_and_time_backward(sites: list[dict]) -> list[dict]:
         print(f"[backward] {r['name']:<13} {r['kernel']:<20} max_abs_err {r['max_abs_err']:.3e} "
               f"(/scale {r['max_err_over_scale']:.2e})  {r['ms'] * 1e3:8.2f} us (eager "
               f"{r['eager_ms'] * 1e3:.2f})  plain {r['plain_ms'] * 1e3:8.2f} us  library {lib} "
-              f"us  bound {r['bound_ms'] * 1e3:6.2f} us ({r['bound_by']})", flush=True)
+              f"us  bound {r['bound_ms'] * 1e3:6.2f} us ({r['bound_by']})"
+              + (f"  cuDNN 3x3 conv backward {r['cudnn_conv_ms'] * 1e3:.2f} us"
+                 if r["cudnn_conv_ms"] is not None else ""), flush=True)
     return rows
 
 
-def train_config() -> Config:
+def train_config(conv_type: int) -> Config:
     """bench.py's training setting on the synthetic room_full fixture."""
-    return Config(dataset_env="room_full", env_dim=16, synthetic_n=10000, batch_size=BATCH,
-                  n_epochs=500, decay_epoch=100, supervision_rate=0.1)
+    return Config(conv_type=conv_type, dataset_env="room_full", env_dim=16, synthetic_n=10000,
+                  batch_size=BATCH, n_epochs=500, decay_epoch=100, supervision_rate=0.1)
 
 
 def traced_train_steps(trainer, n: int) -> dict:
@@ -695,9 +794,13 @@ def traced_train_steps(trainer, n: int) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     n_events, busy_us = device_busy(prof)
+    top = top_device_ops(prof, n)
+    print("[train] device time a step by op (traced): " + ", ".join(
+        f"{o['name'][:48]} {o['device_us']:.1f} us x{o['calls']:g}" for o in top), flush=True)
     return dict(steps=n, device_events_per_step=n_events / n, device_busy_us_per_step=busy_us / n,
                 wall_us_per_step=wall_us / n,
-                device_idle_share=1.0 - busy_us / wall_us if n_events else None)
+                device_idle_share=1.0 - busy_us / wall_us if n_events else None,
+                top_device_ops_per_step=top)
 
 
 def host_profile(trainer, n: int = 5, top: int = 12) -> dict:
@@ -736,7 +839,7 @@ def _double(a):
     return a
 
 
-def step_calls_vs_f64(data: dict) -> dict:
+def step_calls_vs_f64(data: dict, conv_type: int) -> dict:
     """Every backward kernel call of one real training step (the fixture's
     first batch, seeded weights), recorded with its inputs; the kernel's and
     the plain version's (fp32) gradients each against the plain version in
@@ -753,7 +856,7 @@ def step_calls_vs_f64(data: dict) -> dict:
         record.launches = 0
         setattr(backward, w.__name__, record)
     try:
-        model = IInsVAE(**FLAGSHIP, generator=torch.Generator().manual_seed(3)).cuda()
+        model = IInsVAE(**MODELS[conv_type], generator=torch.Generator().manual_seed(3)).cuda()
         mask = steps.draw_sup_mask(BATCH, 0.1, "sample",
                                    torch.Generator(device="cuda").manual_seed(5))
         steps.make_semi_grads_fn(0.1)(model, {k: v[:BATCH] for k, v in data.items()},
@@ -779,11 +882,11 @@ def step_calls_vs_f64(data: dict) -> dict:
     return out
 
 
-def step_grads_vs_cpu(data: dict) -> dict:
+def step_grads_vs_cpu(data: dict, conv_type: int) -> dict:
     """One step's gradients on the card and on the CPU (fp32), on the same
     seeded weights, the first batch of the fixture and one injected mask,
     each against the CPU port's in float64."""
-    cpu = IInsVAE(**FLAGSHIP, generator=torch.Generator().manual_seed(3))
+    cpu = IInsVAE(**MODELS[conv_type], generator=torch.Generator().manual_seed(3))
     gpu = copy.deepcopy(cpu).cuda()
     f64 = copy.deepcopy(cpu).double()
     batch = {k: v[:BATCH] for k, v in data.items()}
@@ -800,11 +903,18 @@ def step_grads_vs_cpu(data: dict) -> dict:
         if not (np.isfinite(a) and abs(a - b) <= 1e-4 * abs(b) + 1e-6):
             raise AssertionError(f"{k}: {a} on the card, {b} in float64 on the CPU")
     cpu_params, ref = dict(cpu.named_parameters()), dict(f64.named_parameters())
-    rows = []
+    largest = max(p.grad.abs().max().item() for p in ref.values())
+    rows, zero_grad = [], {}
     for name, p in gpu.named_parameters():
         want = ref[name].grad
         scale = want.abs().max().item()
         e_card = (p.grad.cpu().double() - want).abs().max().item()
+        if ZERO_GRAD.fullmatch(name):
+            zero_grad[name] = e_card / largest
+            if not e_card <= ZERO_GRAD_SHARE * largest:
+                raise AssertionError(f"gradient {name} (exactly 0): {e_card:.3e} on the card, "
+                                     f"the model's largest gradient {largest:.3e}")
+            continue
         e_cpu = (cpu_params[name].grad.double() - want).abs().max().item()
         rows.append((e_card / max(e_cpu, 1e-300), e_card, e_cpu, scale, name))
     rows.sort(reverse=True)
@@ -819,15 +929,17 @@ def step_grads_vs_cpu(data: dict) -> dict:
     max_err = max(r[1] for r in rows)
     return dict(loss_card_cpu_f64=loss, max_abs_err_vs_f64=max_err,
                 worst_card_over_cpu_err=ratio, worst_param=ratio_name,
-                mask_labeled=int(mask.sum().item()),
+                mask_labeled=int(mask.sum().item()), zero_grad_err_over_largest=zero_grad,
                 err_over_scale_card_cpu={r[4]: [r[1] / (r[3] or 1.0), r[2] / (r[3] or 1.0)]
                                          for r in rows})
 
 
-def train_main_path() -> dict:
-    """The training main path: 3 epochs counted, then throughput, trace and
-    the card-vs-CPU gradients."""
-    cfg = train_config()
+def train_main_path(conv_type: int, expected: dict[str, int],
+                    expected_bwd: dict[str, int]) -> dict:
+    """The training main path of the 1-D or the expanded 2-D model: 3
+    epochs counted (``expected`` forward and ``expected_bwd`` backward
+    launches a step), then throughput, trace and the card-vs-CPU gradients."""
+    cfg = train_config(conv_type)
     trainer = train_semi.build(cfg, "cuda")
     data = trainer.data
     n_real = int(data["weight"].sum().item())
@@ -839,8 +951,8 @@ def train_main_path() -> dict:
     wall_3 = time.perf_counter() - t0
     fwd, bwd = kernels.launch_counts(), kernels.backward_launch_counts()
     n_steps = trainer.state.step
-    for counts, expected in ((fwd, EXPECTED_TRAIN), (bwd, EXPECTED_TRAIN_BWD)):
-        for name, per in expected.items():
+    for counts, want in ((fwd, expected), (bwd, expected_bwd)):
+        for name, per in want.items():
             if counts[name] != per * n_steps:
                 raise AssertionError(f"{name}: {counts[name]} launches in {n_steps} training "
                                      f"steps, expected {per} a step")
@@ -849,7 +961,8 @@ def train_main_path() -> dict:
         raise AssertionError(f"non-finite training metrics: {history}")
     if not losses[2] < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
-    print(f"[train] 3 epochs of {steps_per_epoch} steps ({n_real} CIRs, batch {cfg.batch_size}) "
+    print(f"[train] conv_type {conv_type}: 3 epochs of {steps_per_epoch} steps ({n_real} CIRs, "
+          f"batch {cfg.batch_size}) "
           f"in {wall_3:.3f} s; loss by epoch {losses}; launches a step: forward "
           f"{sum(fwd.values()) / n_steps:g}, backward {sum(bwd.values()) / n_steps:g}", flush=True)
     for epoch, h in enumerate(history):
@@ -864,10 +977,11 @@ def train_main_path() -> dict:
     cir_per_s = n_real * timed / wall
     trace = traced_train_steps(trainer, 20)
     host = host_profile(trainer)
-    grads = step_grads_vs_cpu(data)
-    calls_f64 = step_calls_vs_f64(data)
+    grads = step_grads_vs_cpu(data, conv_type)
+    calls_f64 = step_calls_vs_f64(data, conv_type)
     result = dict(
-        config=dict(synthetic_n=cfg.synthetic_n, train_cirs=n_real, batch=cfg.batch_size,
+        config=dict(conv_type=conv_type, synthetic_n=cfg.synthetic_n, train_cirs=n_real,
+                    batch=cfg.batch_size,
                     supervision_rate=cfg.supervision_rate, n_epochs_schedule=cfg.n_epochs,
                     decay_epoch=cfg.decay_epoch),
         history=history, steps=n_steps, launches=fwd, launches_bwd=bwd,
@@ -876,7 +990,8 @@ def train_main_path() -> dict:
         train_cir_per_s=cir_per_s, step_wall_ms=wall / (timed * steps_per_epoch) * 1e3,
         timed_epochs=timed, trace=trace, host_profile=host, grads_vs_cpu=grads,
         backward_calls_vs_f64=calls_f64)
-    print(f"[train] {cir_per_s:.1f} training CIR/s at batch {cfg.batch_size} over {timed} epochs "
+    print(f"[train] conv_type {conv_type}: {cir_per_s:.1f} training CIR/s at batch "
+          f"{cfg.batch_size} over {timed} epochs "
           f"(step {result['step_wall_ms']:.3f} ms host wall); traced 20 steps: device busy "
           f"{trace['device_busy_us_per_step']:.1f} us a step of {trace['wall_us_per_step']:.1f} us, "
           f"idle {trace['device_idle_share']}; grads vs float64: card max abs err "
@@ -895,6 +1010,7 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -911,40 +1027,76 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
+    # the 1-D model
     cpu_model = IInsVAE(**FLAGSHIP, generator=torch.Generator().manual_seed(0))
     model = copy.deepcopy(cpu_model).cuda()
-
     with torch.inference_mode():
         site_rows = check_and_time(call_sites(model, torch.Generator().manual_seed(1)))
-    main_path, launches_no_recon = serve_main_path(model, cpu_model, recon=False)
-    main_path_recon, launches = serve_main_path(model, cpu_model, recon=True)
+    main_path, launches_no_recon = serve_main_path(model, cpu_model, False, EXPECTED_NO_RECON)
+    main_path_recon, launches = serve_main_path(model, cpu_model, True, EXPECTED_RECON)
     serving = throughput(model, recon=False)
     serving_recon = throughput(model, recon=True)
     bwd_rows = check_and_time_backward(backward_sites(model, torch.Generator().manual_seed(2)))
-    training = train_main_path()
+    training = train_main_path(1, EXPECTED_TRAIN, EXPECTED_TRAIN_BWD)
+    del model, cpu_model
+
+    # the expanded 2-D model
+    cpu_2d = IInsVAE(**FLAGSHIP_2D, generator=torch.Generator().manual_seed(0))
+    model_2d = copy.deepcopy(cpu_2d).cuda()
+    with torch.inference_mode():
+        site_rows_2d = check_and_time(call_sites(model_2d, torch.Generator().manual_seed(3)))
+    main_path_2d, launches_2d_no_recon = serve_main_path(model_2d, cpu_2d, False,
+                                                         EXPECTED_2D_NO_RECON)
+    main_path_2d_recon, launches_2d = serve_main_path(model_2d, cpu_2d, True, EXPECTED_2D_RECON)
+    serving_2d = throughput(model_2d, recon=False, sizes=(500,), n_batches=40)
+    serving_2d_recon = throughput(model_2d, recon=True, sizes=(500,), n_batches=40)
+    bwd_rows_2d = check_and_time_backward(
+        backward_sites(model_2d, torch.Generator().manual_seed(4)))
+    training_2d = train_main_path(2, EXPECTED_2D_RECON, EXPECTED_2D_TRAIN_BWD)
+    del model_2d, cpu_2d
+
+    per_fwd = "one forward batch of 500 (sum over its call sites)"
+    per_step = "one training step at batch 500 (sum over its call sites)"
+    names_1d = [k for k, v in EXPECTED_RECON.items() if v]
     kernel_table = kernel_rows(
-        site_rows, EXPECTED_RECON, launches, "one forward batch of 500 (sum over its call sites)",
+        site_rows, names_1d, launches, per_fwd,
         {k: dict(launches_no_recon=launches_no_recon[k], launches_train=training["launches"][k])
-         for k in EXPECTED_RECON})
+         for k in names_1d})
     kernel_table += kernel_rows(
-        bwd_rows, EXPECTED_TRAIN_BWD, training["launches_bwd"],
-        "one training step at batch 500 (sum over its call sites)", {})
+        site_rows_2d, ["res_block_2d"], launches_2d, per_fwd + ", conv_type 2",
+        {"res_block_2d": dict(launches_no_recon=launches_2d_no_recon["res_block_2d"],
+                              launches_train=training_2d["launches"]["res_block_2d"],
+                              cudnn_conv_ms=sum(r["cudnn_conv_ms"] * r["calls_per_batch"]
+                                                for r in site_rows_2d if r["cudnn_conv_ms"]))})
+    kernel_table += kernel_rows(bwd_rows, [f"{k}_bwd" for k in names_1d],
+                                training["launches_bwd"], per_step, {})
+    kernel_table += kernel_rows(
+        bwd_rows_2d, ["res_block_2d_bwd"], training_2d["launches_bwd"],
+        per_step + ", conv_type 2",
+        {"res_block_2d_bwd": dict(cudnn_conv_backward_ms=sum(
+            r["cudnn_conv_ms"] * r["calls_per_batch"] for r in bwd_rows_2d if r["cudnn_conv_ms"]))})
 
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(dict(
         card=card, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
-        sites=site_rows, kernels=kernel_table, main_path=main_path,
+        sites=site_rows + site_rows_2d, kernels=kernel_table, main_path=main_path,
         main_path_recon=main_path_recon, serving=serving, serving_recon=serving_recon,
-        backward_sites=bwd_rows, training=training,
+        main_path_2d=main_path_2d, main_path_2d_recon=main_path_2d_recon,
+        serving_2d=serving_2d, serving_2d_recon=serving_2d_recon,
+        backward_sites=bwd_rows + bwd_rows_2d, training=training, training_2d=training_2d,
         kernel_tolerance=[KERNEL_RTOL, KERNEL_ATOL], serve_tolerance=[SERVE_RTOL, SERVE_ATOL],
-        backward_tolerance=[BWD_RTOL, BWD_ATOL], step_tolerance=[STEP_FACTOR, STEP_FLOOR]),
+        backward_tolerance=[BWD_RTOL, BWD_ATOL], step_tolerance=[STEP_FACTOR, STEP_FLOOR],
+        wall_s=time.perf_counter() - t_start),
         indent=1))
-    print(json.dumps({"sites": site_rows}), flush=True)
-    print(json.dumps({"serving": serving, "card": card}), flush=True)
-    print(json.dumps({"serving_recon": serving_recon, "card": card}), flush=True)
-    print(json.dumps({"backward": bwd_rows}), flush=True)
+    print(json.dumps({"sites": site_rows + site_rows_2d}), flush=True)
+    print(json.dumps({"serving": serving, "serving_recon": serving_recon,
+                      "serving_2d": serving_2d, "serving_2d_recon": serving_2d_recon,
+                      "card": card}), flush=True)
+    print(json.dumps({"backward": bwd_rows + bwd_rows_2d}), flush=True)
     print(json.dumps({"training": training, "card": card}), flush=True)
+    print(json.dumps({"training_2d": training_2d, "card": card}), flush=True)
     print(json.dumps({"kernels": kernel_table}), flush=True)
+    print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

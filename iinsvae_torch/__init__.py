@@ -1,12 +1,15 @@
 """iinsvae_torch — the PyTorch/CUDA port of iinsvae_tpu for one NVIDIA H100.
 
-It serves the 1-D IIns-VAE forward (range and env encoders, the Linear
+It serves the IIns-VAE forward (range and env encoders, the Linear
 restorer and classifier heads, and, with ``return_recon``, the AdaIN
 decoder's reconstruction) and trains it with the semi-supervised step
-(training/, cli/train_semi.py). Activations stay channels-last
-``(B, L, C)``, conv taps ``(k, C_in, C_out)`` and dense weights
-``(D_in, D_out)``, the JAX package's layouts, so parameters carry across
-without transposes (bridge.py). Every kernel on the path is hand-written
+(training/, cli/train_semi.py), for the 1-D model (conv_type=1) and the
+expanded 2-D model (conv_type=2: the encoders on the column-grouped square
+image, ops/colgroups.py; the decoder's subpixel 'fast' lowering,
+ops/subpixel.py). Activations stay channels-last ``(B, L, C)`` or
+``(B, H, W, C)``, conv taps ``(k, C_in, C_out)`` or ``(kh, kw, C_in,
+C_out)`` and dense weights ``(D_in, D_out)``, the JAX package's layouts, so
+parameters carry across without transposes (bridge.py). Every kernel on the path is hand-written
 CUDA for sm_90a (ops/kernels/csrc), built with nvcc at first use and bound
 by ctypes, and each has a hand-written backward kernel behind a
 ``torch.autograd.Function``; on CPU tensors each wrapper runs its plain

@@ -15,11 +15,16 @@ import re
 import numpy as np
 import torch
 
+# the 1-D model's keys, and the expanded 2-D model's (conv_type=2): its
+# biases before a norm and its residual blocks' biases, and its env
+# encoder's explicit taps
 _SERVED = re.compile(
     r"params/("
-    r"encoder/range_encoder/(in_kernel|down\d+_kernel|res\d+_kernel[12]|out_kernel|out_bias)"
-    r"|encoder/env_encoder/(ConvINAct_\d+|Conv1d_0)/(kernel|bias)"
-    r"|decoder/decoder/(in_kernel|in_bias|res\d+_kernel[12]|up\d+_(kernel|bias|gamma|beta)"
+    r"encoder/range_encoder/(in_kernel|in_bias|down\d+_(kernel|bias)|res\d+_(kernel|bias)[12]"
+    r"|out_kernel|out_bias)"
+    r"|encoder/env_encoder/((ConvINAct_\d+|Conv1d_0)/(kernel|bias)"
+    r"|in_kernel|in_bias|down\d+_(kernel|bias)|out_kernel|out_bias)"
+    r"|decoder/decoder/(in_kernel|in_bias|res\d+_(kernel|bias)[12]|up\d+_(kernel|bias|gamma|beta)"
     r"|out_kernel|out_bias|mlp/Dense_\d+/(kernel|bias))"
     r"|(restorer/restorer|classifier/classifier)/[wb]\d+"
     r")")
@@ -33,8 +38,8 @@ def from_flax_numpy(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
         if key.endswith(_EMPTY):
             continue
         if not _SERVED.fullmatch(key):
-            raise KeyError(f"unknown JAX parameter {key!r}: the port serves the 1-D "
-                           "model with Linear heads")
+            raise KeyError(f"unknown JAX parameter {key!r}: the port serves the 1-D and "
+                           "the expanded 2-D model with Linear heads")
         state[key[len("params/"):].replace("/", ".")] = torch.from_numpy(
             np.array(value, dtype=np.float32))
     return state
@@ -60,13 +65,17 @@ def load_npz(path: str) -> dict[str, torch.Tensor]:
 
 
 def model_geometry(state: dict[str, torch.Tensor]) -> dict[str, int]:
-    """The IInsVAE constructor fields that the weights fix (all but cir_len)."""
-    rk = "encoder.range_encoder."
+    """The IInsVAE constructor fields that the weights fix (all but
+    cir_len): conv_type 2 where the range encoder's taps are 2-D."""
+    rk, ek = "encoder.range_encoder.", "encoder.env_encoder."
+    conv_type = 2 if state[rk + "in_kernel"].dim() == 4 else 1
+    env_head = ek + ("out_kernel" if conv_type == 2 else "Conv1d_0.kernel")
     return dict(
+        conv_type=conv_type,
         dim=state[rk + "in_kernel"].shape[-1],
         n_downsample=sum(1 for k in state if re.fullmatch(rk + r"down\d+_kernel", k)),
         n_residual=sum(1 for k in state if re.fullmatch(rk + r"res\d+_kernel1", k)),
         range_dim=state[rk + "out_kernel"].shape[-1],
-        style_dim=state["encoder.env_encoder.Conv1d_0.kernel"].shape[-1],
+        style_dim=state[env_head].shape[-1],
         num_classes=state["classifier.classifier.w3"].shape[-1],
     )

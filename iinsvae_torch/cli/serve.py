@@ -4,10 +4,12 @@ Builds a ``Predictor`` from an export_serving ``weights.npz`` (``--npz``)
 or, without one, from the seeded initialisation, sends ``--selftest_n``
 random CIRs through it in padded batches of ``--serve_batch``, and prints a
 summary; with ``--recon`` the predictor also returns the reconstructed CIR
-and the summary gives its shape and range. The native batcher and the
-socket/TCP fronts are a later slice.
+and the summary gives its shape and range. ``--conv_type 2`` serves the
+expanded 2-D model. The native batcher and the socket/TCP fronts are a
+later slice.
 
     python -m iinsvae_torch.cli.serve --dataset_env room_full --serve_batch 256 --recon
+    python -m iinsvae_torch.cli.serve --dataset_env room_full --conv_type 2 --recon
 """
 
 from __future__ import annotations

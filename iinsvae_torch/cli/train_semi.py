@@ -1,5 +1,6 @@
 """`train_semi` entry of the port: semi-supervised training of the 1-D
-IIns-VAE on the synthetic fixture (iinsvae_tpu/cli/train_semi.py).
+IIns-VAE, or with ``--conv_type 2`` the expanded 2-D one, on the synthetic
+fixture (iinsvae_tpu/cli/train_semi.py).
 
 Builds the synthetic Zenodo fixture (``--synthetic_n`` CIRs, fixture v2),
 takes the 'full' split's train part (the first 80%), standardizes it, pads

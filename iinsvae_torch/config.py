@@ -59,6 +59,13 @@ class Config:
         return CIR_LEN[self.dataset_name]
 
     @property
+    def expand(self) -> bool:
+        """conv_type 2 runs on the expanded square image (the JAX model's
+        ``expand``, iinsvae_tpu/config.py:113-115); the port's IInsVAE
+        takes it from conv_type."""
+        return self.conv_type != 1
+
+    @property
     def num_classes(self) -> int:
         if self.dataset_name == "ewine":
             return 2

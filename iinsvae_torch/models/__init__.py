@@ -1,1 +1,1 @@
-"""The 1-D IIns-VAE serving modules (encoders, Linear heads, IInsVAE)."""
+"""The IIns-VAE modules, 1-D and expanded 2-D (encoders, decoders, Linear heads, IInsVAE)."""

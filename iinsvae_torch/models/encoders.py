@@ -1,12 +1,25 @@
-"""Encoders of the 1-D model: CIR -> (range_code, env_code stats).
+"""Encoders: CIR -> (range_code, env_code stats).
 
-Shapes as in iinsvae_tpu/models/encoders.py, channels-last:
+Shapes as in iinsvae_tpu/models/encoders.py, channels-last. The 1-D model
+(conv_type=1):
 
   pool 157 -> 128 (once, in the Encoder facade)
   RangeEncoder1d: (B, 128, 1) -> (B, 128, 4) -> 4x stride-2 -> (B, 8, 64)
                   -> 3x residual -> 1x1 conv -> (B, 8, 2)
   EnvEncoder1d:   (B, 128, 1) -> (B, 128, 16) -> 2x stride-2 -> (B, 32, 64)
                   -> mean over L -> 1x1 conv -> (B, style_dim) = (mu, log_sigma)
+
+The expanded 2-D model (conv_type=2) reads the square image
+``image[b, i, j] = cir[b, i]``, carried as a column-grouped field
+(ops/colgroups.py): every conv of the encoders is a 1-D conv over H of a
+few distinct columns, exactly the dense field's.
+
+  pool to (128, 128) (once, in the Encoder facade): one group
+  RangeEncoder2d: k7 reflect conv 1 -> 4, IN, ReLU -> 4x (k4 s2 conv, IN,
+                  ReLU) -> (B, 8, 8, 64), expanded -> 3x residual (K7)
+                  -> relu(1x1 conv) -> (B, 8, 8, 2)
+  EnvEncoder2d:   k7 reflect conv 1 -> 16, ReLU -> 2x (k4 s2 conv, ReLU)
+                  -> weighted mean over (H, W) -> dense 64 -> style_dim
 """
 
 from __future__ import annotations
@@ -15,7 +28,9 @@ import torch
 from torch import nn
 
 from iinsvae_torch.models.layers import Conv1d, ConvINAct, bias_uniform, conv_normal
-from iinsvae_torch.ops.kernels import fused
+from iinsvae_torch.ops import colgroups as cg
+from iinsvae_torch.ops.conv import conv2d
+from iinsvae_torch.ops.kernels import fused, res2d
 from iinsvae_torch.ops.pooling import adaptive_avg_pool_matrix
 
 POOLED_LEN = 128
@@ -82,6 +97,82 @@ class EnvEncoder1d(nn.Module):
         return cat.reshape(cat.shape[0], -1)
 
 
+class RangeEncoder2d(nn.Module):
+    """encoders.py:152-233, grouped lowering with the res2d branch (:204-212).
+
+    Takes the pooled one-group (B, 128, 1, 1) field. The normed stages keep
+    their conv biases, as the JAX module does: InstanceNorm removes them,
+    so their gradient is rounding noise. The residual blocks run on the
+    expanded (B, 8, 8, 64) field, one K7 res_block_2d launch each; their
+    ``res{i}_bias{1,2}`` parameters exist for the JAX parameter tree but
+    are no K7 input (the norm would remove them), so their gradient is
+    exactly 0. Parameters named as in the flax module."""
+
+    def __init__(self, dim: int = 4, n_residual: int = 3, n_downsample: int = 4,
+                 out_dim: int = 2, *, generator: torch.Generator):
+        super().__init__()
+        self.n_downsample, self.n_residual = n_downsample, n_residual
+        self.in_kernel = conv_normal((7, 7, 1, dim), generator)
+        self.in_bias = bias_uniform((dim,), 49, generator)
+        d = dim
+        for j in range(n_downsample):
+            setattr(self, f"down{j}_kernel", conv_normal((4, 4, d, d * 2), generator))
+            setattr(self, f"down{j}_bias", bias_uniform((d * 2,), d * 16, generator))
+            d *= 2
+        for i in range(n_residual):
+            for n in (1, 2):
+                setattr(self, f"res{i}_kernel{n}", conv_normal((3, 3, d, d), generator))
+                setattr(self, f"res{i}_bias{n}", bias_uniform((d,), d * 9, generator))
+        self.out_kernel = conv_normal((1, 1, d, out_dim), generator)
+        self.out_bias = bias_uniform((out_dim,), d, generator)
+
+    def forward(self, x: cg.GroupedField) -> torch.Tensor:
+        x = cg.relu_grouped(cg.instance_norm_grouped(
+            cg.conv2d_grouped(x, self.in_kernel, self.in_bias, padding=3, pad_mode="reflect")))
+        for j in range(self.n_downsample):
+            x = cg.relu_grouped(cg.instance_norm_grouped(cg.conv2d_grouped(
+                x, getattr(self, f"down{j}_kernel"), getattr(self, f"down{j}_bias"),
+                stride=2, padding=1)))
+        xd = x.expand()  # (B, 8, 8, 64)
+        for i in range(self.n_residual):
+            xd = res2d.res_block_2d(xd, getattr(self, f"res{i}_kernel1"),
+                                    getattr(self, f"res{i}_kernel2"))
+        return torch.relu(conv2d(xd, self.out_kernel, self.out_bias))  # (B, 8, 8, out_dim)
+
+
+class EnvEncoder2d(nn.Module):
+    """encoders.py:327-370, grouped lowering, reference init N(0, 0.02).
+    No norm; the global mean weights each group by its column count, and
+    the 1x1 head on the (B, 64) mean is a dense layer. Takes the pooled
+    one-group (B, 128, 1, 1) field."""
+
+    def __init__(self, dim: int = 16, n_downsample: int = 2, style_dim: int = 8, *,
+                 generator: torch.Generator):
+        super().__init__()
+        dims, d = [], dim
+        for _ in range(2):
+            dims.append((d, d * 2))
+            d *= 2
+        dims += [(d, d)] * (n_downsample - 2)
+        self.n_down = len(dims)
+        self.in_kernel = conv_normal((7, 7, 1, dim), generator)
+        self.in_bias = bias_uniform((dim,), 49, generator)
+        for j, (di, do) in enumerate(dims):
+            setattr(self, f"down{j}_kernel", conv_normal((4, 4, di, do), generator))
+            setattr(self, f"down{j}_bias", bias_uniform((do,), di * 16, generator))
+        self.out_kernel = conv_normal((1, 1, d, style_dim), generator)
+        self.out_bias = bias_uniform((style_dim,), d, generator)
+
+    def forward(self, x: cg.GroupedField) -> torch.Tensor:
+        x = cg.relu_grouped(cg.conv2d_grouped(x, self.in_kernel, self.in_bias, padding=3,
+                                              pad_mode="reflect"))
+        for j in range(self.n_down):
+            x = cg.relu_grouped(cg.conv2d_grouped(x, getattr(self, f"down{j}_kernel"),
+                                                  getattr(self, f"down{j}_bias"), stride=2,
+                                                  padding=1))
+        return cg.global_mean_grouped(x) @ self.out_kernel[0, 0] + self.out_bias
+
+
 def split_env_stats(cat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """cat (B, style_dim) -> (mu, log_sigma), each (B, style_dim // 2)."""
     half = cat.shape[-1] // 2
@@ -95,28 +186,36 @@ def env_kl(mu: torch.Tensor, log_sigma: torch.Tensor) -> torch.Tensor:
 
 
 class Encoder(nn.Module):
-    """Facade of encoders.py:400-477 for conv_type=1.
+    """Facade of encoders.py:400-477 for conv_type 1 and 2 (expanded).
 
-    forward(cir (B, L)) -> (range_code (B, 8, out_dim), env_code
-    (B, style_dim) = (mu, log_sigma)). The CIR is pooled to 128 taps once
-    and both encoders read it. Serving reads no KL, so the forward computes
-    none: ``env_kl(*split_env_stats(env_code))`` gives it where it is read."""
+    forward(cir (B, L)) -> (range_code (B, 8, out_dim) for conv_type 1,
+    (B, 8, 8, out_dim) for 2; env_code (B, style_dim) = (mu, log_sigma)).
+    The CIR is pooled to 128 taps once and both encoders read it: conv_type
+    2 reads it as the constant field of width 128, which is the adaptive
+    pool of the (L, L) expanded image to (128, 128) (colgroups.
+    pool_constant_field; encoders.py:449-450). Serving reads no KL, so the
+    forward computes none: ``env_kl(*split_env_stats(env_code))`` gives it
+    where it is read."""
 
     def __init__(self, conv_type: int = 1, dim: int = 4, n_residual: int = 3,
                  n_downsample: int = 4, style_dim: int = 8, out_dim: int = 2,
                  cir_len: int = 157, *, generator: torch.Generator):
         super().__init__()
-        if conv_type != 1:
+        encoders = {1: (RangeEncoder1d, EnvEncoder1d), 2: (RangeEncoder2d, EnvEncoder2d)}
+        if conv_type not in encoders:
             raise NotImplementedError(
-                f"conv_type={conv_type}: only the 1-D model (conv_type=1) is ported; "
-                "conv_type 2 and 3 are a later slice")
-        self.range_encoder = RangeEncoder1d(dim, n_residual, n_downsample, out_dim,
-                                            generator=generator)
-        self.env_encoder = EnvEncoder1d(dim * 4, n_downsample - 2, style_dim,
-                                        generator=generator)
+                f"conv_type={conv_type}: the port has the 1-D model (conv_type=1) and the "
+                "expanded 2-D model (conv_type=2); conv_type 3 is a later slice")
+        self.conv_type = conv_type
+        range_cls, env_cls = encoders[conv_type]
+        self.range_encoder = range_cls(dim, n_residual, n_downsample, out_dim,
+                                       generator=generator)
+        self.env_encoder = env_cls(dim * 4, n_downsample - 2, style_dim, generator=generator)
         self.register_buffer("pool", adaptive_avg_pool_matrix(cir_len, POOLED_LEN),
                              persistent=False)
 
     def forward(self, cir: torch.Tensor):
         x = (cir @ self.pool).unsqueeze(-1)  # (B, 128, 1)
+        if self.conv_type == 2:
+            x = cg.constant_field(x, POOLED_LEN)  # (B, 128, 1 group, 1)
         return self.range_encoder(x), self.env_encoder(x)

@@ -33,7 +33,8 @@ class _MLPChain(nn.Module):
 
 class RestorerLinear(_MLPChain):
     """flatten -> 512 -> 256 -> 256 (LeakyReLU 0.2) -> 1. The range code
-    (B, 8, 2) flattens l-major, c-minor, as the JAX reshape does."""
+    (B, 8, 2) flattens l-major, c-minor, and the 2-D code (B, 8, 8, 2) in
+    (h, w, c) order (128 wide), as the JAX reshape does (heads.py:61)."""
 
     def __init__(self, code_size: int = 16, *, generator: torch.Generator):
         super().__init__(code_size, (512, 256, 256, 1), (0.2, 0.2, 0.2, 1.0), generator)

@@ -29,7 +29,9 @@ class IInsVAE(nn.Module):
         self.cir_len, self.num_classes = cir_len, num_classes
         self.encoder = Encoder(conv_type, dim, n_residual, n_downsample, style_dim,
                                range_dim, cir_len, generator=generator)
-        code_size = (128 // 2**n_downsample) * range_dim
+        # the range code is (side, range_dim), or (side, side, range_dim) for conv_type 2
+        side = 128 // 2**n_downsample
+        code_size = side ** (2 if conv_type == 2 else 1) * range_dim
         self.restorer = Restorer(code_size, restorer_type, generator=generator)
         self.classifier = Classifier(style_dim, num_classes, net_type=classifier_type,
                                      generator=generator)
@@ -41,7 +43,7 @@ class IInsVAE(nn.Module):
     def forward(self, cir: torch.Tensor) -> dict[str, torch.Tensor]:
         """cir (B, cir_len) -> recon (B, cir_len), err_est (B, 1), logits
         (B, num_classes), env_code (B, style_dim), range_code (B, 8,
-        range_dim). The KL term of the JAX forward is
+        range_dim) or, for conv_type 2, (B, 8, 8, range_dim). The KL term of the JAX forward is
         ``encoders.env_kl(*split_env_stats(env_code))``: serving never reads
         it, so it is not computed here."""
         range_code, env_code = self.encode(cir)
@@ -54,7 +56,8 @@ class IInsVAE(nn.Module):
         }
 
     def encode(self, cir: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """-> (range_code (B, 8, range_dim), env_code (B, style_dim))."""
+        """-> (range_code (B, 8, range_dim) or (B, 8, 8, range_dim), env_code
+        (B, style_dim))."""
         return self.encoder(cir)
 
     def decode(self, range_code: torch.Tensor, env_code: torch.Tensor) -> torch.Tensor:

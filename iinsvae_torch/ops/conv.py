@@ -1,9 +1,16 @@
-"""Plain channels-last Conv1d: the building block of the kernels' plain versions.
+"""Plain channels-last Conv1d and Conv2d: the building blocks of the
+kernels' plain versions and of the 2-D model's plain convs.
 
 Padding follows iinsvae_tpu/ops/dense_conv.py:30-49: output ``o``'s tap
 ``t`` reads input ``u = o*stride + t - padding``; zero padding drops an
 out-of-range ``u``, reflect padding maps it to ``-u`` or ``2L-2-u`` (the
-edge itself is not repeated).
+edge itself is not repeated). Conv2d pads both spatial axes alike.
+
+Both are a window view and one einsum (a matmul), not cuDNN: a float32
+matmul runs in full fp32 under torch's default matmul precision, forward
+and backward, where cuDNN's float32 convolutions default to TF32
+(``torch.backends.cudnn.allow_tf32``) and would put ~1e-3 between the card
+and the CPU.
 """
 
 from __future__ import annotations
@@ -26,6 +33,39 @@ def upsample_nearest1d(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     """Nearest-neighbour upsampling of x (B, L, C) along L (torch
     nn.Upsample(scale_factor=factor)): row u of the output is row u // factor."""
     return x.repeat_interleave(factor, dim=1)
+
+
+def reflect_pad2d(x: torch.Tensor, padding: int) -> torch.Tensor:
+    """Reflection padding of the H and W axes of x (B, H, W, C)
+    (iinsvae_tpu/ops/conv.py:33, torch's ReflectionPad2d)."""
+    x = x[:, _reflect_index(x.shape[1], padding, x.device)]
+    return x[:, :, _reflect_index(x.shape[2], padding, x.device)]
+
+
+def conv2d(
+    x: torch.Tensor,
+    kernel: torch.Tensor,
+    bias: torch.Tensor | None = None,
+    *,
+    stride: int = 1,
+    padding: int = 0,
+    pad_mode: str = "zero",
+) -> torch.Tensor:
+    """x (B, H, W, C_in), kernel (kh, kw, C_in, C_out) -> (B, H_out, W_out,
+    C_out) (iinsvae_tpu/ops/conv.py:92 with one stride and padding for both axes)."""
+    if pad_mode not in ("zero", "reflect"):
+        raise ValueError(f"pad_mode must be 'zero' or 'reflect', got {pad_mode!r}")
+    kh, kw = kernel.shape[:2]
+    if padding:
+        if pad_mode == "reflect":
+            x = reflect_pad2d(x, padding)
+        else:
+            x = F.pad(x, (0, 0, padding, padding, padding, padding))
+    win = x.unfold(1, kh, stride).unfold(2, kw, stride)  # (B, H_out, W_out, C_in, kh, kw)
+    y = torch.einsum("bhwcij,ijcd->bhwd", win, kernel)
+    if bias is not None:
+        y = y + bias
+    return y
 
 
 def conv1d(

@@ -1,12 +1,12 @@
-"""Hand-written CUDA kernels of the 1-D model's forward and backward, and
-their plain versions.
+"""Hand-written CUDA kernels of the 1-D and expanded 2-D models' forward and
+backward, and their plain versions.
 
 Each wrapper runs its kernel on CUDA tensors and its plain PyTorch version
 (``*_ref``) on CPU tensors; it never falls back from one to the other. Each
 counts its kernel launches in a plain int attribute, ``<wrapper>.launches``.
 Under autograd the forward wrappers go through autograd.py's Functions,
 whose backward launches the backward wrappers of backward.py (K1b, K2b,
-K4b, K6b: one backward wrapper for each forward wrapper).
+K4b, K6b, K7b: one backward wrapper for each forward wrapper).
 
   K1 fused.in_chain          conv -> IN -> ReLU|skip, 1-2 stages
   K2 fused.conv_bias_act     conv + bias + ReLU
@@ -14,12 +14,13 @@ K4b, K6b: one backward wrapper for each forward wrapper).
   K4 fused.mlp_chain         Dense + LeakyReLU chain
   K5 fused.adain_res_block   AdaIN residual block (K1's kernel, per-sample affine)
   K6 fused.sln_chain         decoder tail: 4 x (up, conv, LayerNorm, ReLU), conv, tanh, pool
+  K7 res2d.res_block_2d      2-D IN or AdaIN residual block on (B, 8, 8, 64)
 """
 
-from iinsvae_torch.ops.kernels import backward, fused, strided_conv
+from iinsvae_torch.ops.kernels import backward, fused, res2d, strided_conv
 
 WRAPPERS = (fused.in_chain, fused.conv_bias_act, strided_conv.strided_conv, fused.mlp_chain,
-            fused.adain_res_block, fused.sln_chain)
+            fused.adain_res_block, fused.sln_chain, res2d.res_block_2d)
 BACKWARD = backward.BACKWARD
 
 

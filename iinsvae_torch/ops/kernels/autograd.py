@@ -1,4 +1,4 @@
-"""One ``torch.autograd.Function`` for each of K1-K6.
+"""One ``torch.autograd.Function`` for each of K1-K7.
 
 ``forward`` launches the forward kernel (fused.py, strided_conv.py) and
 saves its inputs (K2/K3 also their output, for the ReLU mask; K4 the
@@ -15,7 +15,7 @@ import torch
 from torch.autograd import Function
 from torch.autograd.function import once_differentiable
 
-from iinsvae_torch.ops.kernels import backward, fused, strided_conv
+from iinsvae_torch.ops.kernels import backward, fused, res2d, strided_conv
 
 
 class InChain(Function):
@@ -124,6 +124,21 @@ class SlnChain(Function):
             g.contiguous(), x, _stages(params), params[-2], params[-1], ctx.l_pool,
             need_dx=ctx.needs_input_grad[0])
         return (dx, None, *(t for st in dstages for t in st), dko, dbo)
+
+
+class ResBlock2d(Function):
+    """K7 / K7b. apply(x, k1, k2, *affine), affine () or (g1, b1, g2, b2)."""
+
+    @staticmethod
+    def forward(ctx, x, k1, k2, *affine):
+        ctx.save_for_backward(x, k1, k2, *affine)
+        return res2d.launch_res_block_2d(x, k1, k2, *affine)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return backward.res_block_2d_bwd(g.contiguous(), *ctx.saved_tensors,
+                                         need_dx=ctx.needs_input_grad[0])
 
 
 def _stages(params) -> list[tuple[torch.Tensor, ...]]:

@@ -1,11 +1,12 @@
-"""Backward wrappers of K1-K6 and their plain versions.
+"""Backward wrappers of K1-K7 and their plain versions.
 
-Four CUDA sources compute the gradients of the six forward wrappers:
+Five CUDA sources compute the gradients of the seven forward wrappers:
 
   K1b csrc/in_chain_bwd.cu        in_chain_bwd, adain_res_block_bwd (kAdain instance)
   K2b csrc/conv_bias_act_bwd.cu   conv_bias_act_bwd, strided_conv_bwd
   K4b csrc/mlp_chain_bwd.cu       mlp_chain_bwd
   K6b csrc/sln_chain_bwd.cu       sln_chain_bwd
+  K7b csrc/res_block_2d_bwd.cu    res_block_2d_bwd (IN and AdaIN)
 
 Each wrapper takes the upstream gradient ``g`` and the forward's inputs
 (K2b also its output, for the ReLU mask; K4b the pre-activations K4 saved)
@@ -25,7 +26,7 @@ from typing import Callable, Sequence
 
 import torch
 
-from iinsvae_torch.ops.kernels import _build, fused, strided_conv
+from iinsvae_torch.ops.kernels import _build, fused, res2d, strided_conv
 from iinsvae_torch.ops.kernels.fused import SLN_STAGES, Stage, UpStage
 
 _P = ctypes.c_void_p
@@ -334,9 +335,53 @@ def sln_chain_bwd(g: torch.Tensor, x: torch.Tensor, stages: Sequence[UpStage],
 
 sln_chain_bwd.launches = 0
 
+
+
+# ------------------------------ K7b ------------------------------
+
+
+def res_block_2d_bwd_ref(g: torch.Tensor, x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
+                         *affine: torch.Tensor, need_dx: bool = True):
+    """Plain version of K7b."""
+    dx, *rest = plain_grads(res2d.res_block_2d_ref, [x, k1, k2, *affine], g)
+    return ((dx if need_dx else None), *rest)
+
+
+def res_block_2d_bwd(g: torch.Tensor, x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
+                     *affine: torch.Tensor, need_dx: bool = True):
+    """K7b: -> (dx, dk1, dk2[, dgamma1, dbeta1, dgamma2, dbeta2]) of
+    res2d.res_block_2d; the affine gradients are (B, C) tables. One launch
+    is the kernel and the in-order sum of its blocks' d(taps) partials."""
+    if g.device.type == "cpu":
+        return res_block_2d_bwd_ref(g, x, k1, k2, *affine, need_dx=need_dx)
+    res2d.check_res_block_2d(x, k1, k2, *affine)
+    if g.shape != x.shape or g.data_ptr() % 16:
+        raise ValueError(f"g must be a 16-byte aligned {tuple(x.shape)}, got {tuple(g.shape)}")
+    _build.require_cuda_f32("res_block_2d_bwd", g, x)
+    b = x.shape[0]
+    grid = -(-b // res2d.SAMPLES_PER_BLOCK)
+    n_w = k1.numel() + k2.numel()
+    part = torch.empty((grid, n_w), device=x.device, dtype=x.dtype)
+    dk = torch.empty(n_w, device=x.device, dtype=x.dtype)
+    daffine = torch.empty((4, b, x.shape[3]), device=x.device, dtype=x.dtype) if affine else ()
+    dx = torch.empty_like(x) if need_dx else None
+    fn = _build.function("res_block_2d_bwd", "iins_res_block_2d_bwd", [_P] * 14 + [_I, _P])
+    tables = [t.data_ptr() for t in affine[:3]] if affine else [None] * 3
+    dtables = [t.data_ptr() for t in daffine] if affine else [None] * 4
+    err = fn(x.data_ptr(), k1.data_ptr(), k2.data_ptr(), *tables, g.data_ptr(), _ptr(dx),
+             part.data_ptr(), dk.data_ptr(), *dtables, b, _build.stream_handle(x))
+    _build.check(err, "res_block_2d_bwd", "res_block_2d_bwd")
+    res_block_2d_bwd.launches += 1
+    dk1, dk2 = _split(dk, [k1.shape, k2.shape])
+    return (dx, dk1, dk2, *daffine)
+
+
+res_block_2d_bwd.launches = 0
+
 BACKWARD = (in_chain_bwd, conv_bias_act_bwd, strided_conv_bwd, mlp_chain_bwd,
-            adain_res_block_bwd, sln_chain_bwd)
+            adain_res_block_bwd, sln_chain_bwd, res_block_2d_bwd)
 # each backward wrapper's plain version, which takes the same arguments
 PLAIN = {in_chain_bwd: in_chain_bwd_ref, conv_bias_act_bwd: conv_bias_act_bwd_ref,
          strided_conv_bwd: strided_conv_bwd_ref, mlp_chain_bwd: mlp_chain_bwd_ref,
-         adain_res_block_bwd: adain_res_block_bwd_ref, sln_chain_bwd: sln_chain_bwd_ref}
+         adain_res_block_bwd: adain_res_block_bwd_ref, sln_chain_bwd: sln_chain_bwd_ref,
+         res_block_2d_bwd: res_block_2d_bwd_ref}

@@ -1,0 +1,98 @@
+"""K7 res_block_2d: the expanded 2-D model's residual block, wrapper and
+plain version.
+
+    y = x + N2(conv3x3(relu(N1(conv3x3(x, k1))), k2))
+
+on x (B, 8, 8, 64) channels-last with (3, 3, C, C) taps, reflect pad 1 on
+both axes and no conv bias (a per-channel bias before the norm is removed
+by it, and its gradient is exactly 0). N is InstanceNorm over each sample's
+8x8 field (the range encoder's blocks) or, with the four (B, C) tables
+``affine = (gamma1, beta1, gamma2, beta2)``, AdaIN (the decoder's blocks).
+
+Replaces fused_res_block_2d (iinsvae_tpu/ops/pallas/res2d.py:434). The
+CUDA source is csrc/res_block_2d.cu (its backward K7b csrc/res_block_2d_bwd.cu,
+backward.res_block_2d_bwd); it states the kernel's bound on the H100 and
+what its design does about it. The wrapper runs the plain version on CPU
+tensors (autograd differentiates it); on CUDA tensors it launches the
+kernel, through autograd.ResBlock2d where a gradient is needed, or raises on
+what the kernel does not take. The TPU guard ``res2d.applicable`` (lane
+widths, the interpret-mode batch cap) has no counterpart: on the card every
+block of the model's shape launches K7.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from iinsvae_torch.ops.conv import conv2d
+from iinsvae_torch.ops.kernels import _build
+from iinsvae_torch.ops.kernels.fused import wants_grad
+from iinsvae_torch.ops.norms import adain, instance_norm
+
+# the only field the kernel takes: (8, 8) pixels of 64 channels
+FIELD = (8, 8, 64)
+# samples a block of K7 and K7b owns (kSamples of csrc/res_block_2d.cuh)
+SAMPLES_PER_BLOCK = 2
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def res_block_2d_ref(x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
+                     *affine: torch.Tensor) -> torch.Tensor:
+    """Plain version of K7: dense reflect-pad conv2d, two-pass InstanceNorm
+    (with the per-sample affine where ``affine`` is given), ReLU, the skip."""
+
+    def norm(y, i):
+        return adain(y, affine[2 * i], affine[2 * i + 1]) if affine else instance_norm(y)
+
+    y = torch.relu(norm(conv2d(x, k1, padding=1, pad_mode="reflect"), 0))
+    return x + norm(conv2d(y, k2, padding=1, pad_mode="reflect"), 1)
+
+
+def res_block_2d(x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
+                 *affine: torch.Tensor) -> torch.Tensor:
+    """K7: one whole residual block in one launch. x (B, 8, 8, 64); k1, k2
+    (3, 3, 64, 64); affine () for the IN block or (gamma1, beta1, gamma2,
+    beta2), each (B, 64), for the AdaIN block."""
+    if x.device.type == "cpu":
+        return res_block_2d_ref(x, k1, k2, *affine)
+    if wants_grad(x, k1, k2, *affine):
+        from iinsvae_torch.ops.kernels import autograd
+        return autograd.ResBlock2d.apply(x, k1, k2, *affine)
+    return launch_res_block_2d(x, k1, k2, *affine)
+
+
+def check_res_block_2d(x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
+                       *affine: torch.Tensor) -> None:
+    """Raise on what K7 (and its backward) does not take."""
+    if x.dim() != 4 or tuple(x.shape[1:]) != FIELD or x.shape[0] < 1:
+        raise ValueError(f"x must be (B, {', '.join(map(str, FIELD))}), got {tuple(x.shape)}")
+    b, c = x.shape[0], FIELD[2]
+    if k1.shape != (3, 3, c, c) or k2.shape != (3, 3, c, c):
+        raise ValueError(f"taps must be (3, 3, {c}, {c}), got {tuple(k1.shape)}, "
+                         f"{tuple(k2.shape)}")
+    if len(affine) not in (0, 4) or any(t.shape != (b, c) for t in affine):
+        raise ValueError(f"affine must be empty or four ({b}, {c}) tables")
+    if any(t.data_ptr() % 16 for t in (x, k1, k2, *affine)):
+        raise ValueError("res_block_2d takes 16-byte aligned tensors")
+    _build.require_cuda_f32("res_block_2d", x, k1, k2, *affine)
+
+
+def launch_res_block_2d(x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
+                        *affine: torch.Tensor) -> torch.Tensor:
+    """Check the operands, launch K7 and count the launch."""
+    check_res_block_2d(x, k1, k2, *affine)
+    y = torch.empty_like(x)
+    fn = _build.function("res_block_2d", "iins_res_block_2d", [_P] * 8 + [_I, _P])
+    tables = [t.data_ptr() for t in affine] if affine else [None] * 4
+    err = fn(x.data_ptr(), k1.data_ptr(), k2.data_ptr(), *tables, y.data_ptr(), x.shape[0],
+             _build.stream_handle(x))
+    _build.check(err, "res_block_2d", "res_block_2d")
+    res_block_2d.launches += 1
+    return y
+
+
+res_block_2d.launches = 0

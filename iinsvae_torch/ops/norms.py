@@ -1,6 +1,7 @@
 """Norms with the reference's numerics (iinsvae_tpu/ops/norms.py:32-90).
 
-* InstanceNorm: no affine, no running stats, biased variance, eps 1e-5.
+* InstanceNorm: no affine, no running stats, biased variance, eps 1e-5,
+  over every spatial axis: L of a (B, L, C) field, H and W of (B, H, W, C).
 * AdaIN: InstanceNorm with a per-sample (gamma, beta) of shape (B, C).
 * The reference's "LayerNorm" (sample layer norm): per-sample mean over all
   L*C values, torch's UNBIASED std (n - 1), denominator (std + eps) (not
@@ -19,17 +20,19 @@ EPS = 1e-5
 
 
 def instance_norm(x: torch.Tensor, eps: float = EPS) -> torch.Tensor:
-    """x (B, L, C): normalize each (sample, channel) over L."""
-    mean = x.mean(dim=1, keepdim=True)
+    """x (B, *spatial, C): normalize each (sample, channel) over the spatial axes."""
+    axes = tuple(range(1, x.dim() - 1))
+    mean = x.mean(dim=axes, keepdim=True)
     d = x - mean
-    var = (d * d).mean(dim=1, keepdim=True)
+    var = (d * d).mean(dim=axes, keepdim=True)
     return d * torch.rsqrt(var + eps)
 
 
 def adain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
           eps: float = EPS) -> torch.Tensor:
-    """x (B, L, C); gamma, beta (B, C): IN(x) * gamma + beta per sample."""
-    return instance_norm(x, eps) * gamma[:, None, :] + beta[:, None, :]
+    """x (B, *spatial, C); gamma, beta (B, C): IN(x) * gamma + beta per sample."""
+    shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+    return instance_norm(x, eps) * gamma.reshape(shape) + beta.reshape(shape)
 
 
 def sample_layer_norm_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

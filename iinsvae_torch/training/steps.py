@@ -105,6 +105,11 @@ def make_semi_grads_fn(supervision_rate: float = 1.0, lambda_res: float = 10.0,
         total, aux = semi_loss(out, cir, err, label, sup_mask, weight, lambda_res=lambda_res,
                                kl_free_bits=kl_free_bits)
         total.backward()
+        # a parameter the loss does not read has gradient 0: the 2-D residual
+        # blocks' conv biases, which K7 does not take (its norms remove them)
+        for p in model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         metrics = _metrics(out["err_est"].detach(), err, out["logits"].detach(), label, weight)
         metrics.update({k: v.detach() for k, v in aux.items()})
         # denominator of the supervised terms, for their exact reduction

@@ -9,17 +9,21 @@ PyTorch (tests/conftest.py imports JAX, hence --noconftest):
 The kernels sum in another order than the plain versions, and
 InstanceNorm divides by a per-channel std, which can scale that rounding
 up: fp32 with rtol 1e-4 / atol 1e-4 per kernel call, 1e-3 / 1e-4 through
-the 12 launches of a forward without the decoder and the 17 with it. A
+a whole forward (the 1-D model's 12 launches without the decoder and 17
+with it; the expanded 2-D model's 5 and 8, with its plain convs between). A
 backward kernel's gradients: rtol 1e-3, atol 1e-4 of each gradient's
 largest magnitude (a weight gradient sums B*L products, and the norms'
 gradients scale by 1/std). A training step's gradients on the card and on
 the CPU (fp32) are each held against the CPU port's in float64: the card's
 largest error per parameter at most 10 times the CPU's plus 1e-4 of the
 gradient's largest magnitude (some weight gradients sum thousands of terms
-that cancel, so no per-tensor tolerance fits both fp32 orders).
+that cancel, so no per-tensor tolerance fits both fp32 orders); a gradient
+that is exactly 0 in exact arithmetic (ZERO_GRAD) within 1e-6 of the
+model's largest.
 """
 
 import copy
+import re
 
 import numpy as np
 import pytest
@@ -27,27 +31,41 @@ import torch
 
 from iinsvae_torch.models.vae import IInsVAE
 from iinsvae_torch.ops import kernels
-from iinsvae_torch.ops.kernels import backward, fused, strided_conv
+from iinsvae_torch.ops.conv import conv2d
+from iinsvae_torch.ops.kernels import backward, fused, res2d, strided_conv
+from iinsvae_torch.ops.norms import adain, instance_norm
 from iinsvae_torch.serving import Predictor
 from iinsvae_torch.training import steps
 
 RTOL, ATOL = 1e-4, 1e-4
 FLAGSHIP = dict(cir_len=157, num_classes=5, style_dim=16)
+MODELS = {1: dict(FLAGSHIP), 2: dict(FLAGSHIP, conv_type=2)}
 # (module, wrapper, plain version); the models call each wrapper through its module
 WRAPPED = [(fused, "in_chain", fused.in_chain_ref),
            (fused, "conv_bias_act", fused.conv_bias_act_ref),
            (strided_conv, "strided_conv", strided_conv.strided_conv_ref),
            (fused, "mlp_chain", fused.mlp_chain_ref),
            (fused, "adain_res_block", fused.adain_res_block_ref),
-           (fused, "sln_chain", fused.sln_chain_ref)]
-# launches of one forward batch, without and with the decoder
-NO_RECON = {"in_chain": 6, "conv_bias_act": 2, "strided_conv": 2, "mlp_chain": 2,
-            "adain_res_block": 0, "sln_chain": 0}
-RECON = {**NO_RECON, "conv_bias_act": 3, "adain_res_block": 3, "sln_chain": 1}
+           (fused, "sln_chain", fused.sln_chain_ref),
+           (res2d, "res_block_2d", res2d.res_block_2d_ref)]
+# launches of one forward batch of each conv_type, without and with the decoder
+NO_RECON = {1: {"in_chain": 6, "conv_bias_act": 2, "strided_conv": 2, "mlp_chain": 2,
+                "adain_res_block": 0, "sln_chain": 0, "res_block_2d": 0},
+            2: {"in_chain": 0, "conv_bias_act": 0, "strided_conv": 0, "mlp_chain": 2,
+                "adain_res_block": 0, "sln_chain": 0, "res_block_2d": 3}}
+RECON = {1: {**NO_RECON[1], "conv_bias_act": 3, "adain_res_block": 3, "sln_chain": 1},
+         2: {**NO_RECON[2], "res_block_2d": 6}}
 # backward launches of one training step: one for each forward launch
-TRAIN_BWD = {f"{k}_bwd": v for k, v in RECON.items()}
+TRAIN_BWD = {t: {f"{k}_bwd": v for k, v in r.items()} for t, r in RECON.items()}
 BWD_RTOL, BWD_ATOL = 1e-3, 1e-4
 STEP_FACTOR, STEP_FLOOR = 10.0, 1e-4
+# a pre-ReLU value this close to 0, relative to its sample's largest, may get
+# its mask from the summation order (ten times the spread of fp32 orders seen)
+MASK_MARGIN = 1e-5
+# the 2-D range encoder's conv biases before an InstanceNorm: their exact
+# gradient is 0, so each fp32 gradient is rounding noise (~1e-7 of the
+# model's largest gradient) and is held below 1e-6 of it
+ZERO_GRAD = re.compile(r"encoder\.range_encoder\.(in|down\d+)_bias")
 
 
 @pytest.fixture
@@ -61,13 +79,16 @@ def cuda():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("conv_type", [1, 2])
 @pytest.mark.parametrize("recon", [False, True])
 @pytest.mark.parametrize("batch", [1, 7, 500])
-def test_gpu_every_kernel_call_of_the_forward_matches_plain(cuda, monkeypatch, batch, recon):
+def test_gpu_every_kernel_call_of_the_forward_matches_plain(cuda, monkeypatch, batch, recon,
+                                                            conv_type):
     """Record each wrapper call of one flagship forward (real activations at
-    every shape the path gives): the serving path without the decoder
-    (encode, restore, classify) or the whole forward with it. Then hold
-    each launch against the plain version on the same inputs."""
+    every shape the path gives), the 1-D model's or the expanded 2-D
+    model's: the serving path without the decoder (encode, restore,
+    classify) or the whole forward with it. Then hold each launch against
+    the plain version on the same inputs."""
     calls = []
     for mod, name, ref in WRAPPED:
         def record(*args, _kernel=getattr(mod, name), _ref=ref, _name=name, **kw):
@@ -77,7 +98,7 @@ def test_gpu_every_kernel_call_of_the_forward_matches_plain(cuda, monkeypatch, b
         # a wrapper counts on whatever its module name holds: the recorder here
         record.launches = 0
         monkeypatch.setattr(mod, name, record)
-    model = IInsVAE(**FLAGSHIP).to(cuda)
+    model = IInsVAE(**MODELS[conv_type]).to(cuda)
     x = torch.randn((batch, 157), generator=torch.Generator().manual_seed(batch)).to(cuda)
     with torch.inference_mode():
         if recon:
@@ -87,7 +108,7 @@ def test_gpu_every_kernel_call_of_the_forward_matches_plain(cuda, monkeypatch, b
             model.restore(range_code), model.classify(env_code)
     torch.cuda.synchronize()
     counts = {name: getattr(mod, name).launches for mod, name, _ in WRAPPED}
-    want = RECON if recon else NO_RECON
+    want = (RECON if recon else NO_RECON)[conv_type]
     assert counts == want
     assert len(calls) == sum(want.values())
     for name, got, want in calls:
@@ -96,9 +117,10 @@ def test_gpu_every_kernel_call_of_the_forward_matches_plain(cuda, monkeypatch, b
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("conv_type", [1, 2])
 @pytest.mark.parametrize("recon", [False, True])
-def test_gpu_predictor_matches_cpu_predictor(cuda, recon):
-    model = IInsVAE(**FLAGSHIP, generator=torch.Generator().manual_seed(5))
+def test_gpu_predictor_matches_cpu_predictor(cuda, recon, conv_type):
+    model = IInsVAE(**MODELS[conv_type], generator=torch.Generator().manual_seed(5))
     cpu = Predictor(copy.deepcopy(model), batch_size=8, return_recon=recon, device="cpu")
     gpu = Predictor(model, batch_size=8, return_recon=recon, device="cuda")
     cirs = np.random.default_rng(5).normal(size=(13, 157)).astype(np.float32)
@@ -190,33 +212,61 @@ def _close_scaled(got, want, rtol, atol, what):
                                msg=lambda m: f"{what}: {m}")
 
 
+def _clear_samples(x, k1, *affine) -> torch.Tensor:
+    """The samples of a K7 block whose ReLU mask is not decided by rounding:
+    every value a1 before the ReLU, in float64, at least MASK_MARGIN of the
+    sample's largest |a1| away from 0."""
+    d1 = conv2d(x.double(), k1.double(), padding=1, pad_mode="reflect")
+    a1 = adain(d1, affine[0].double(), affine[1].double()) if affine else instance_norm(d1)
+    a1 = a1.abs().flatten(1)
+    return (a1.amin(dim=1) >= MASK_MARGIN * a1.amax(dim=1)).nonzero().flatten()
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("conv_type", [1, 2])
 @pytest.mark.parametrize("batch", [37, 500])
-def test_gpu_every_backward_kernel_call_of_a_step_matches_plain(cuda, monkeypatch, batch):
+def test_gpu_every_backward_kernel_call_of_a_step_matches_plain(cuda, monkeypatch, batch,
+                                                                conv_type):
     """Record each backward wrapper call of one flagship training step (the
     real activations and gradients at every shape the path gives), hold each
     against its plain version on the same inputs, and count the step's
-    forward and backward launches."""
+    forward and backward launches.
+
+    A pre-ReLU value within rounding of 0 gets its mask, and the gradient
+    through it, from the summation order (a degenerate row, ROADMAP Queue
+    3); in the 2-D decoder at init one such value set K7b and its plain
+    version apart by far more than this tolerance, each as far from float64
+    as the other (chip run, PR 4). So each K7b call is held to its plain
+    version again on the samples whose every pre-ReLU value clears
+    MASK_MARGIN (at least half of them)."""
     calls = []
+    originals = {w.__name__: w for w in backward.BACKWARD}
     for w in backward.BACKWARD:
         def record(*args, _w=w, **kw):
             out = _w(*args, **kw)
-            calls.append((_w.__name__, out, backward.PLAIN[_w](*args, **kw)))
+            calls.append((_w.__name__, args, kw, out))
             return out
         record.launches = 0  # the wrapper counts on its module name: the recorder here
         monkeypatch.setattr(backward, w.__name__, record)
-    model = IInsVAE(**FLAGSHIP).to(cuda)
+    model = IInsVAE(**MODELS[conv_type]).to(cuda)
     data, mask = _train_batch(batch, cuda)
     kernels.reset_launch_counts()
     metrics = steps.make_semi_grads_fn(0.5)(model, data, sup_mask=mask)
     torch.cuda.synchronize()
     assert torch.isfinite(metrics["loss"])
-    assert kernels.launch_counts() == RECON
+    assert kernels.launch_counts() == RECON[conv_type]
     assert {w.__name__: getattr(backward, w.__name__).launches
-            for w in backward.BACKWARD} == TRAIN_BWD
-    assert len(calls) == sum(TRAIN_BWD.values())
-    for name, got, want in calls:
-        got, want = _tensors(got), _tensors(want)
+            for w in backward.BACKWARD} == TRAIN_BWD[conv_type]
+    assert len(calls) == sum(TRAIN_BWD[conv_type].values())
+    for name, args, kw, got in calls:
+        wrapper = originals[name]
+        if name == "res_block_2d_bwd":
+            g, x, k1, k2, *affine = args
+            keep = _clear_samples(x, k1, *affine)
+            assert 2 * len(keep) >= x.shape[0], f"{name}: {len(keep)} of {x.shape[0]} samples clear"
+            args = (g[keep], x[keep], k1, k2, *(t[keep] for t in affine))
+            got = wrapper(*args, **kw)
+        got, want = _tensors(got), _tensors(backward.PLAIN[wrapper](*args, **kw))
         assert len(got) == len(want), name
         for i, (a, b) in enumerate(zip(got, want)):
             assert torch.isfinite(a).all(), (name, i)
@@ -224,8 +274,9 @@ def test_gpu_every_backward_kernel_call_of_a_step_matches_plain(cuda, monkeypatc
 
 
 @pytest.mark.gpu
-def test_gpu_training_step_gradients_match_cpu(cuda):
-    cpu = IInsVAE(**FLAGSHIP, generator=torch.Generator().manual_seed(9))
+@pytest.mark.parametrize("conv_type", [1, 2])
+def test_gpu_training_step_gradients_match_cpu(cuda, conv_type):
+    cpu = IInsVAE(**MODELS[conv_type], generator=torch.Generator().manual_seed(9))
     gpu = copy.deepcopy(cpu).to(cuda)
     f64 = copy.deepcopy(cpu).double()
     data, mask = _train_batch(64, cuda, seed=1)
@@ -237,17 +288,22 @@ def test_gpu_training_step_gradients_match_cpu(cuda):
     for k in ("loss", "loss_ae", "loss_kl", "loss_res", "loss_env"):
         assert mg[k].item() == pytest.approx(m64[k].item(), rel=1e-4, abs=1e-6), k
     fp32, ref = dict(cpu.named_parameters()), dict(f64.named_parameters())
+    largest = max(p.grad.abs().max().item() for p in ref.values())
     for name, p in gpu.named_parameters():
         want = ref[name].grad
         e_card = (p.grad.cpu().double() - want).abs().max().item()
+        if ZERO_GRAD.fullmatch(name):
+            assert e_card <= 1e-6 * largest, name
+            continue
         e_cpu = (fp32[name].grad.double() - want).abs().max().item()
         assert e_card <= STEP_FACTOR * e_cpu + STEP_FLOOR * want.abs().max().item(), name
 
 
 @pytest.mark.gpu
-def test_gpu_backward_is_bit_reproducible(cuda):
+@pytest.mark.parametrize("conv_type", [1, 2])
+def test_gpu_backward_is_bit_reproducible(cuda, conv_type):
     """No atomics: two backward passes give bit-equal weight gradients."""
-    model = IInsVAE(**FLAGSHIP).to(cuda)
+    model = IInsVAE(**MODELS[conv_type]).to(cuda)
     data, mask = _train_batch(500, cuda, seed=2)
     grads_fn = steps.make_semi_grads_fn(0.5)
     grads_fn(model, data, sup_mask=mask)
@@ -298,3 +354,46 @@ def test_gpu_backward_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):  # three stages
         backward.sln_chain_bwd(torch.zeros((4, 157), device=cuda), x, stages[:3],
                                dec.out_kernel, dec.out_bias, 157)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("adain", [False, True])
+def test_gpu_res_block_2d_and_its_backward_match_plain(cuda, adain):
+    """K7 and K7b at a ragged batch (the last block holds one sample), IN and
+    AdaIN, against the plain version and autograd through it."""
+    gen = torch.Generator().manual_seed(3)
+    b = 5
+    x = torch.randn((b, 8, 8, 64), generator=gen).to(cuda)
+    k1, k2 = (0.05 * torch.randn((3, 3, 64, 64), generator=gen)).to(cuda), \
+        (0.05 * torch.randn((3, 3, 64, 64), generator=gen)).to(cuda)
+    affine = [torch.randn((b, 64), generator=gen).to(cuda) for _ in range(4)] if adain else []
+    g = torch.randn((b, 8, 8, 64), generator=gen).to(cuda)
+    torch.testing.assert_close(res2d.res_block_2d(x, k1, k2, *affine),
+                               res2d.res_block_2d_ref(x, k1, k2, *affine), rtol=RTOL, atol=ATOL)
+    got = backward.res_block_2d_bwd(g, x, k1, k2, *affine)
+    want = backward.res_block_2d_bwd_ref(g, x, k1, k2, *affine)
+    assert len(got) == len(want) == 3 + len(affine)
+    for i, (a, w) in enumerate(zip(got, want)):
+        _close_scaled(a, w, BWD_RTOL, BWD_ATOL, f"res_block_2d_bwd gradient {i}")
+    assert backward.res_block_2d_bwd(g, x, k1, k2, *affine, need_dx=False)[0] is None
+
+
+@pytest.mark.gpu
+def test_gpu_res_block_2d_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.randn((4, 8, 8, 64), device=cuda)
+    k = torch.randn((3, 3, 64, 64), device=cuda)
+    t = [torch.randn((4, 64), device=cuda) for _ in range(4)]
+    with pytest.raises(TypeError):
+        res2d.res_block_2d(x.double(), k.double(), k.double())
+    with pytest.raises(ValueError):  # another field than (8, 8, 64)
+        res2d.res_block_2d(x[:, :4].contiguous(), k, k)
+    with pytest.raises(ValueError):  # taps that are not (3, 3, 64, 64)
+        res2d.res_block_2d(x, k[:2], k)
+    with pytest.raises(ValueError):  # two tables, not four
+        res2d.res_block_2d(x, k, k, *t[:2])
+    with pytest.raises(ValueError):  # tables of another batch
+        res2d.res_block_2d(x, k, k, t[0][:3], *t[1:])
+    with pytest.raises(ValueError):  # non-contiguous
+        res2d.res_block_2d(x.transpose(1, 2), k, k)
+    with pytest.raises(ValueError):  # g of another shape than x
+        backward.res_block_2d_bwd(x[:3].contiguous(), x, k, k)

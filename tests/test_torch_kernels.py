@@ -24,7 +24,7 @@ from iinsvae_tpu.ops.pallas import strided_conv as psc
 from iinsvae_tpu.ops.pooling import adaptive_avg_pool_matrix
 from iinsvae_torch.ops import kernels, norms
 from iinsvae_torch.ops.conv import conv1d, upsample_nearest1d
-from iinsvae_torch.ops.kernels import fused, strided_conv
+from iinsvae_torch.ops.kernels import fused, res2d, strided_conv
 
 RTOL, ATOL = 5e-4, 5e-5
 B = 6
@@ -262,9 +262,11 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     x, stages, ko, bo = _sln_case()
     fused.sln_chain(torch.tensor(x), [tuple(map(torch.tensor, st)) for st in stages],
                     torch.tensor(ko), torch.tensor(bo), 157)
+    res2d.res_block_2d(torch.zeros((2, 8, 8, 64)), torch.zeros((3, 3, 64, 64)),
+                       torch.zeros((3, 3, 64, 64)))
     assert kernels.launch_counts() == {
         "in_chain": 0, "conv_bias_act": 0, "strided_conv": 0, "mlp_chain": 0,
-        "adain_res_block": 0, "sln_chain": 0}
+        "adain_res_block": 0, "sln_chain": 0, "res_block_2d": 0}
 
 
 def test_conv1d_reflect_padding_excludes_the_edge():

@@ -157,7 +157,7 @@ def test_bridge_ignores_decoder_and_rejects_unknown_keys(exported):
     assert set(state) == set(port)
     assert all(state[k].shape == port[k].shape for k in state)
     assert bridge.model_geometry(state) == dict(
-        dim=4, n_downsample=4, n_residual=3, range_dim=2, style_dim=16, num_classes=5)
+        conv_type=1, dim=4, n_downsample=4, n_residual=3, range_dim=2, style_dim=16, num_classes=5)
     with pytest.raises(KeyError, match="unknown JAX parameter"):
         bridge.from_flax_numpy({**flat, "params/restorer/restorer/Conv1d_0/kernel": np.zeros(1)})
     with pytest.raises(KeyError, match="unknown JAX parameter"):
@@ -194,7 +194,7 @@ def test_recon_is_the_decoder_slice():
 
 def test_other_conv_types_are_not_ported_yet():
     with pytest.raises(NotImplementedError, match="conv_type"):
-        IInsVAE(conv_type=2)
+        IInsVAE(conv_type=3)
 
 
 def _run(code_or_args, **kw):
