@@ -37,7 +37,23 @@
    over 5 more epochs, and the device's busy time per step and idle share
    from a torch.profiler trace of 20 steps; and holds one step's gradients
    on the card against the CPU port's on the same weights and mask;
-8. repeats 3-7 for the expanded 2-D model (conv_type=2, the same widths
+8. [one_stage] runs the one-stage decoder ops, which no model calls (each
+   at 0 launches on the serving and training paths above), at batch 500 on
+   the flagship decoder's weights: K8 adain_layer as the AdaIN block's two
+   halves on (500, 8, 64), K9 sln_layer at the four upsample stages
+   (8, 64) -> (16, 32) -> (32, 16) -> (64, 8) -> (128, 4), K10 tanh_pool at
+   the tail (128, 4) -> k7 reflect -> pool 157, and their backward K8b-K10b:
+   first that chain under autograd, on the inputs of two seeds, each time
+   with every launch counter set to 0 just before and read just after (7
+   forward, 7 backward launches), output and gradients held against the
+   plain chain in float64 (one_stage_path); then each
+   call held against its plain version at batch 500 and 5 and timed beside
+   its bound, its plain version and one cuDNN conv (or conv backward) of
+   the same data (TF32 off; marked with a double dagger, since no single
+   PyTorch call computes the op); and two cross-checks: two K8 calls equal
+   one K5 adain_res_block, four K9 calls and K10 with the adaptive pool
+   matrix equal K6 sln_chain with zero stage biases;
+9. repeats 3-7 for the expanded 2-D model (conv_type=2, the same widths
    and depth): K7 res_block_2d at the range encoder's IN blocks and the
    decoder's AdaIN blocks and K4 at the 128->512 restorer, each beside one
    cuDNN 3x3 conv of the block (TF32 off); serving without the decoder (5
@@ -47,7 +63,7 @@
 
 Prints a ``sites`` line (per call site, both models), a ``serving`` line,
 a ``backward`` line (per backward call site), a ``training`` and a
-``training_2d`` line, a ``kernels`` line, the nvidia-smi line and, last,
+``training_2d`` line, a ``one_stage`` line, a ``kernels`` line, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. The whole result also goes to
 chiprun_out/chip_smoke.json. Any failure raises and exits non-zero; without
 a CUDA device it exits 2 and prints no result.
@@ -57,6 +73,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -72,8 +89,9 @@ from iinsvae_torch.cli import train_semi
 from iinsvae_torch.config import Config
 from iinsvae_torch.models.vae import IInsVAE
 from iinsvae_torch.ops import kernels
-from iinsvae_torch.ops.conv import out_len
+from iinsvae_torch.ops.conv import conv1d, out_len, upsample_nearest1d
 from iinsvae_torch.ops.kernels import _build, backward, fused, res2d, strided_conv
+from iinsvae_torch.ops.norms import adain, sample_layer_norm
 from iinsvae_torch.ops.pooling import adaptive_avg_pool_matrix
 from iinsvae_torch.serving import Predictor
 from iinsvae_torch.training import loop, steps
@@ -95,7 +113,8 @@ SERVE_RTOL, SERVE_ATOL = 1e-3, 1e-4
 # env stages; mlp_chain 2 heads. The decoder adds its 1x1 in-conv
 # (conv_bias_act), 3 AdaIN blocks and the tail.
 EXPECTED_NO_RECON = {"in_chain": 6, "conv_bias_act": 2, "strided_conv": 2, "mlp_chain": 2,
-                     "adain_res_block": 0, "sln_chain": 0, "res_block_2d": 0}
+                     "adain_res_block": 0, "sln_chain": 0, "res_block_2d": 0,
+                     "adain_layer": 0, "sln_layer": 0, "tanh_pool": 0}
 EXPECTED_RECON = {**EXPECTED_NO_RECON, "conv_bias_act": 3, "adain_res_block": 3,
                   "sln_chain": 1}
 # launches of one training step: the recon forward's 17, and one backward
@@ -109,6 +128,18 @@ EXPECTED_TRAIN_BWD = {f"{k}_bwd": v for k, v in EXPECTED_RECON.items()}
 EXPECTED_2D_NO_RECON = {**{k: 0 for k in EXPECTED_NO_RECON}, "mlp_chain": 2, "res_block_2d": 3}
 EXPECTED_2D_RECON = {**EXPECTED_2D_NO_RECON, "res_block_2d": 6}
 EXPECTED_2D_TRAIN_BWD = {f"{k}_bwd": v for k, v in EXPECTED_2D_RECON.items()}
+# the one-stage phase's chain: the AdaIN block as two K8 calls, four K9
+# up-stages, the K10 tail; under autograd one backward launch for each
+ONE_STAGE = {"adain_layer": 2, "sln_layer": 4, "tanh_pool": 1}
+ONE_STAGE_BWD = {f"{k}_bwd": v for k, v in ONE_STAGE.items()}
+# a value before a ReLU this close to 0, relative to its sample's largest,
+# may take its mask from the summation order (tests/test_torch_gpu.py)
+MASK_MARGIN = 1e-5
+# The one-stage chain held to float64 (one_stage_path): at least this share
+# of a batch must have no ReLU input within MASK_MARGIN of 0 (409 and 424 of
+# 500 at seeds 11 and 15 on the H100); the chain's outputs with a row a sample
+CLEAR_SHARE = 0.75
+PER_SAMPLE = ("y", "x", "gamma1", "beta1", "gamma2", "beta2")
 # Backward kernel vs plain version, per gradient: rtol 1e-3 and atol 1e-4
 # times the gradient's largest magnitude. A weight gradient sums B*L
 # products over the batch (in another order than autograd's), and the
@@ -143,6 +174,12 @@ SOURCES = {
     "sln_chain_bwd": _CSRC + "sln_chain_bwd.cu",
     "res_block_2d": _CSRC + "res_block_2d.cu",
     "res_block_2d_bwd": _CSRC + "res_block_2d_bwd.cu",
+    "adain_layer": _CSRC + "in_chain.cu",
+    "sln_layer": _CSRC + "sln_layer.cu",
+    "tanh_pool": _CSRC + "sln_layer.cu",
+    "adain_layer_bwd": _CSRC + "in_chain_bwd.cu",
+    "sln_layer_bwd": _CSRC + "sln_layer_bwd.cu",
+    "tanh_pool_bwd": _CSRC + "sln_layer_bwd.cu",
 }
 FLAGSHIP = dict(conv_type=1, cir_len=157, num_classes=5, style_dim=16, dim=4,
                 n_residual=3, n_downsample=4, range_dim=2)
@@ -387,34 +424,66 @@ def call_sites(model: IInsVAE, gen: torch.Generator) -> list[dict]:
     return sites
 
 
-def check_and_time(sites: list[dict]) -> list[dict]:
+def compare_forward(s: dict, what: str = "") -> tuple[float, float]:
+    """A forward site's kernel output against its plain version: finite and
+    within KERNEL_RTOL / KERNEL_ATOL. Returns the largest absolute and
+    relative errors."""
+    got, want = s["run"](), s["plain"]()
+    torch.cuda.synchronize()
+    name = f"{s['name']}{what}"
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    torch.testing.assert_close(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
+                               msg=lambda m: f"{name} kernel vs plain: {m}")
+    err = (got - want).abs()
+    return err.max().item(), (err / want.abs().clamp_min(1e-12)).max().item()
+
+
+def compare_backward(s: dict, what: str = "") -> tuple[list[float], list[float]]:
+    """Every gradient of a backward site against the plain version's: as many,
+    of the same shapes, finite, and within BWD_RTOL and BWD_ATOL of the plain
+    gradient's largest magnitude. Returns each gradient's largest absolute
+    error and that error over the magnitude."""
+    got, want = _tensors(s["run"]()), _tensors(s["plain"]())
+    torch.cuda.synchronize()
+    name = f"{s['name']}{what}"
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} gradients, plain {len(want)}")
+    errs, scaled = [], []
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"{name} gradient {i}: shape {tuple(a.shape)} "
+                                 f"(plain {tuple(b.shape)}) or non-finite")
+        scale = b.abs().max().item()
+        torch.testing.assert_close(a, b, rtol=BWD_RTOL, atol=BWD_ATOL * scale,
+                                   msg=lambda m: f"{name} gradient {i}: {m}")
+        errs.append((a - b).abs().max().item())
+        scaled.append(errs[-1] / scale if scale else 0.0)
+    return errs, scaled
+
+
+def check_and_time(sites: list[dict], tag: str = "kernel") -> list[dict]:
     rows = []
     for s in sites:
-        got, want = s["run"](), s["plain"]()
-        torch.cuda.synchronize()
-        err = (got - want).abs()
-        rel = (err / want.abs().clamp_min(1e-12)).max().item()
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"{s['name']}: non-finite kernel output")
-        torch.testing.assert_close(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
-                                   msg=lambda m: f"{s['name']} kernel vs plain: {m}")
+        abs_err, rel = compare_forward(s)
         bytes_ms = s["bytes"] / PEAK_BYTES_PER_S * 1e3
         flops_ms = s["flops"] / PEAK_FP32_FLOP_PER_S * 1e3
         rows.append(dict(
             name=s["name"], kernel=s["kernel"], shape=s["shape"], replaces=s["replaces"],
-            calls_per_batch=s["calls_per_batch"], max_abs_err=err.max().item(),
-            max_rel_err=rel, ms=device_ms(s["run"]), eager_ms=eager_ms(s["run"]),
+            calls_per_batch=s["calls_per_batch"], max_abs_err=abs_err, max_rel_err=rel,
+            ms=device_ms(s["run"]), eager_ms=eager_ms(s["run"]),
             plain_ms=device_ms(s["plain"]),
             library_ms=device_ms(s["library"]) if s["library"] else None,
             cudnn_conv_ms=device_ms(s["cudnn_conv"]) if "cudnn_conv" in s else None,
             bytes=s["bytes"], flops=s["flops"], bound_ms=max(bytes_ms, flops_ms),
             bound_by="bytes" if bytes_ms >= flops_ms else "operations"))
         r = rows[-1]
-        print(f"[kernel] {r['name']:<16} {r['shape']:<34} max_abs_err {r['max_abs_err']:.3e} "
+        print(f"[{tag}] {r['name']:<16} {r['shape']:<34} max_abs_err {r['max_abs_err']:.3e} "
               f"max_rel_err {r['max_rel_err']:.3e}  {r['ms'] * 1e3:8.2f} us (eager "
               f"{r['eager_ms'] * 1e3:.2f})  plain "
               f"{r['plain_ms'] * 1e3:8.2f} us  bound {r['bound_ms'] * 1e3:6.2f} us "
-              f"({r['bound_by']})" + (f"  cuDNN 3x3 conv {r['cudnn_conv_ms'] * 1e3:.2f} us"
+              f"({r['bound_by']})" + (f"  cuDNN conv (double dagger) "
+                                      f"{r['cudnn_conv_ms'] * 1e3:.2f} us"
                                       if r["cudnn_conv_ms"] is not None else ""), flush=True)
     return rows
 
@@ -728,26 +797,13 @@ def backward_sites(model: IInsVAE, gen: torch.Generator) -> list[dict]:
     return sites
 
 
-def check_and_time_backward(sites: list[dict]) -> list[dict]:
+def check_and_time_backward(sites: list[dict], tag: str = "backward") -> list[dict]:
     """Each backward site: every gradient of the kernel against the plain
-    version's (BWD_RTOL, BWD_ATOL of its largest magnitude), then device
-    times of kernel, plain version and library call (CUDA-graph replay)."""
+    version's (compare_backward), then device times of kernel, plain version
+    and library call (CUDA-graph replay)."""
     rows = []
     for s in sites:
-        got, want = _tensors(s["run"]()), _tensors(s["plain"]())
-        torch.cuda.synchronize()
-        if len(got) != len(want):
-            raise AssertionError(f"{s['name']}: {len(got)} gradients, plain {len(want)}")
-        errs, scaled = [], []
-        for i, (a, b) in enumerate(zip(got, want)):
-            if a.shape != b.shape or not torch.isfinite(a).all():
-                raise AssertionError(f"{s['name']} gradient {i}: shape {tuple(a.shape)} "
-                                     f"(plain {tuple(b.shape)}) or non-finite")
-            scale = b.abs().max().item()
-            torch.testing.assert_close(a, b, rtol=BWD_RTOL, atol=BWD_ATOL * scale,
-                                       msg=lambda m: f"{s['name']} gradient {i}: {m}")
-            errs.append((a - b).abs().max().item())
-            scaled.append(errs[-1] / scale if scale else 0.0)
+        errs, scaled = compare_backward(s)
         bytes_ms = s["bytes"] / PEAK_BYTES_PER_S * 1e3
         flops_ms = s["flops"] / PEAK_FP32_FLOP_PER_S * 1e3
         rows.append(dict(
@@ -761,11 +817,11 @@ def check_and_time_backward(sites: list[dict]) -> list[dict]:
             bound_by="bytes" if bytes_ms >= flops_ms else "operations"))
         r = rows[-1]
         lib = f"{r['library_ms'] * 1e3:8.2f}" if r["library_ms"] is not None else "       -"
-        print(f"[backward] {r['name']:<13} {r['kernel']:<20} max_abs_err {r['max_abs_err']:.3e} "
+        print(f"[{tag}] {r['name']:<13} {r['kernel']:<20} max_abs_err {r['max_abs_err']:.3e} "
               f"(/scale {r['max_err_over_scale']:.2e})  {r['ms'] * 1e3:8.2f} us (eager "
               f"{r['eager_ms'] * 1e3:.2f})  plain {r['plain_ms'] * 1e3:8.2f} us  library {lib} "
               f"us  bound {r['bound_ms'] * 1e3:6.2f} us ({r['bound_by']})"
-              + (f"  cuDNN 3x3 conv backward {r['cudnn_conv_ms'] * 1e3:.2f} us"
+              + (f"  cuDNN conv backward (double dagger) {r['cudnn_conv_ms'] * 1e3:.2f} us"
                  if r["cudnn_conv_ms"] is not None else ""), flush=True)
     return rows
 
@@ -1005,6 +1061,266 @@ def train_main_path(conv_type: int, expected: dict[str, int],
     return result
 
 
+def decoder_weights(model: IInsVAE) -> dict:
+    """The 1-D decoder's weights that the one-stage ops take, detached: the
+    AdaIN block's taps, each up-stage's taps, gamma and beta (the one-stage
+    op has no conv bias) and the tail conv."""
+    dec = model.decoder.decoder
+    return dict(k1=dec.res0_kernel1.detach(), k2=dec.res0_kernel2.detach(),
+                ups=[tuple(getattr(dec, f"up{j}_{n}").detach()
+                           for n in ("kernel", "gamma", "beta")) for j in range(4)],
+                ko=dec.out_kernel.detach(), bo=dec.out_bias.detach())
+
+
+def one_stage_chain(w: dict, x: torch.Tensor, tables, pool: torch.Tensor,
+                    plain: bool = False) -> torch.Tensor:
+    """The one-stage phase's chain: x (B, 8, 64) -> the AdaIN block as two
+    K8 calls (relu; none with x as the residual) -> four K9 up-stages -> the
+    K10 tail -> (B, 157); the plain versions with ``plain``."""
+    adain_layer = fused.adain_layer_ref if plain else fused.adain_layer
+    sln_layer = fused.sln_layer_ref if plain else fused.sln_layer
+    tanh_pool = fused.tanh_pool_ref if plain else fused.tanh_pool
+    geo = dict(padding=1, pad_mode="reflect")
+    y = adain_layer(x, w["k1"], tables[0], tables[1], act="relu", **geo)
+    y = adain_layer(y, w["k2"], tables[2], tables[3], act="none", residual=x, **geo)
+    for taps, gamma, beta in w["ups"]:
+        y = sln_layer(y, taps, gamma, beta)
+    return tanh_pool(y, w["ko"], w["bo"], pool, padding=3, pad_mode="reflect")
+
+
+def chain_clear_samples(w: dict, x: torch.Tensor, tables) -> torch.Tensor:
+    """Whether each sample's every value before a ReLU of the one-stage chain
+    (K8's relu stage, the four K9 stages), in float64, is at least
+    MASK_MARGIN of the sample's largest such value away from 0: there the
+    mask does not depend on the summation order."""
+    geo = dict(padding=1, pad_mode="reflect")
+    xd, td = x.double(), [t.double() for t in tables]
+    h = adain(conv1d(xd, w["k1"].double(), **geo), td[0], td[1])
+    pre = [h]
+    y = adain(conv1d(torch.relu(h), w["k2"].double(), **geo), td[2], td[3]) + xd
+    for taps, gamma, beta in w["ups"]:
+        h = sample_layer_norm(conv1d(upsample_nearest1d(y, 2), taps.double(), padding=2),
+                              gamma.double(), beta.double())
+        pre.append(h)
+        y = torch.relu(h)
+    clear = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+    for h in pre:
+        a = h.abs().flatten(1)
+        clear &= a.amin(dim=1) >= MASK_MARGIN * a.amax(dim=1)
+    return clear
+
+
+def one_stage_path(w: dict, seed: int) -> dict:
+    """The one-stage chain once at batch 500 under autograd (inputs drawn
+    from ``seed``), every launch counter set to 0 just before and read just
+    after (ONE_STAGE forward and ONE_STAGE_BWD backward launches, none of any
+    other kernel). Its output and the gradients of its input, taps and
+    tables on the card and of the plain chain in fp32, each against the
+    plain chain in float64, are held to the step limit (the card's largest
+    error at most STEP_FACTOR times the plain fp32 one's plus STEP_FLOOR of
+    the largest magnitude):
+    - every tensor, on the samples whose ReLU masks the summation order
+      cannot flip (chain_clear_samples), which must be at least CLEAR_SHARE
+      of the batch;
+    - on the whole batch, sample by sample, the tensors with a row a sample
+      (PER_SAMPLE): a sample over the limit must be one whose masks may flip
+      (ROADMAP Queue 3, degenerate rows).
+    The whole batch's largest errors, card and plain fp32, are reported."""
+    gen = torch.Generator().manual_seed(seed)
+    dev = w["k1"].device
+    x = torch.randn((BATCH, 8, 64), generator=gen).to(dev)
+    tables = [torch.randn((BATCH, 64), generator=gen).to(dev) for _ in range(4)]
+    gout = torch.randn((BATCH, 157), generator=gen).to(dev)
+    pool = adaptive_avg_pool_matrix(128, 157, device=dev)
+    names = ["y", "x", "k1", "k2", "gamma1", "beta1", "gamma2", "beta2"] + [
+        f"up{j}_{n}" for j in range(4) for n in ("kernel", "gamma", "beta")] + ["ko", "bo"]
+
+    def run(dtype, plain, keep=None):
+        rows = [x, *tables] if keep is None else [t[keep] for t in (x, *tables)]
+        leaves = [t.detach().to(dtype).requires_grad_(True) for t in
+                  [rows[0], w["k1"], w["k2"], *rows[1:], *(t for up in w["ups"] for t in up),
+                   w["ko"], w["bo"]]]
+        lw = dict(k1=leaves[1], k2=leaves[2], ko=leaves[-2], bo=leaves[-1],
+                  ups=[tuple(leaves[7 + 3 * j:10 + 3 * j]) for j in range(4)])
+        y = one_stage_chain(lw, leaves[0], leaves[3:7], pool.to(dtype), plain=plain)
+        g = gout if keep is None else gout[keep]
+        return [y.detach()] + list(torch.autograd.grad(y, leaves, g.to(dtype)))
+
+    def errors(card, plain32, ref):
+        out = {}
+        for name, a, b, c in zip(names, card, plain32, ref):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"one-stage chain: non-finite {name}")
+            out[name] = ((a.double() - c).abs().max().item(), (b.double() - c).abs().max().item(),
+                         c.abs().max().item())
+        return out
+
+    kernels.reset_launch_counts()
+    card = run(torch.float32, False)
+    torch.cuda.synchronize()
+    fwd, bwd = kernels.launch_counts(), kernels.backward_launch_counts()
+    want_fwd = {k: ONE_STAGE.get(k, 0) for k in fwd}
+    want_bwd = {k: ONE_STAGE_BWD.get(k, 0) for k in bwd}
+    if fwd != want_fwd or bwd != want_bwd:
+        raise AssertionError(f"one-stage chain: launches {fwd}, {bwd}; expected {ONE_STAGE}, "
+                             f"{ONE_STAGE_BWD} and no other kernel")
+    plain32, ref = run(torch.float32, True), run(torch.float64, True)
+    whole = errors(card, plain32, ref)
+    clear = chain_clear_samples(w, x, tables)
+    keep = clear.nonzero().flatten()
+    if len(keep) < CLEAR_SHARE * BATCH:
+        raise AssertionError(f"one-stage chain (seed {seed}): only {len(keep)} of {BATCH} "
+                             f"samples clear, fewer than {CLEAR_SHARE:g} of the batch")
+    held = errors(run(torch.float32, False, keep), run(torch.float32, True, keep),
+                  run(torch.float64, True, keep))
+    for name, (e_card, e_plain, scale) in held.items():
+        if not e_card <= STEP_FACTOR * e_plain + STEP_FLOOR * scale:
+            raise AssertionError(f"one-stage chain {name}: card off float64 by {e_card:.3e}, "
+                                 f"the plain fp32 chain by {e_plain:.3e} (scale {scale:.3e}), "
+                                 f"on the {len(keep)} clear samples (seed {seed})")
+    over = torch.zeros(BATCH, dtype=torch.bool, device=dev)
+    for name, a, b, c in zip(names, card, plain32, ref):
+        if name in PER_SAMPLE:
+            e_card = (a.double() - c).abs().flatten(1).amax(dim=1)
+            e_plain = (b.double() - c).abs().flatten(1).amax(dim=1)
+            over |= e_card > STEP_FACTOR * e_plain + STEP_FLOOR * c.abs().max()
+    if (over & clear).any():
+        raise AssertionError(f"one-stage chain (seed {seed}): {int((over & clear).sum())} "
+                             f"samples with no ReLU input within {MASK_MARGIN:g} of 0 are off "
+                             f"float64 beyond the step limit on the whole batch's run")
+
+    def over_scale(errs):
+        return {k: [e_card / (scale or 1.0), e_plain / (scale or 1.0)]
+                for k, (e_card, e_plain, scale) in errs.items()}
+
+    whole, held = over_scale(whole), over_scale(held)
+    w_card, w_plain, w_held = (max(e, key=lambda k, i=i: e[k][i])
+                               for e, i in ((whole, 0), (whole, 1), (held, 0)))
+    print(f"[one_stage] chain at batch {BATCH}, seed {seed}: launches {ONE_STAGE} forward, "
+          f"{ONE_STAGE_BWD} backward; largest error vs float64 over scale, whole batch: card "
+          f"{whole[w_card][0]:.2e} ({w_card}; plain fp32 {whole[w_card][1]:.2e} there), plain "
+          f"fp32 {whole[w_plain][1]:.2e} ({w_plain}); {int(over.sum())} samples over the step "
+          f"limit, none of the {len(keep)} with no ReLU input within {MASK_MARGIN:g} of 0, on "
+          f"which: card {held[w_held][0]:.2e} ({w_held}), plain fp32 {held[w_held][1]:.2e}",
+          flush=True)
+    return dict(seed=seed, launches=fwd, launches_bwd=bwd, clear_samples=len(keep),
+                samples_over_limit=int(over.sum()), err_over_scale_card_plain_whole=whole,
+                err_over_scale_card_plain_clear=held)
+
+
+def one_stage_sites(w: dict, b: int, gen: torch.Generator) -> tuple[list[dict], list[dict]]:
+    """Each K8-K10 call of the one-stage chain (seeded inputs of its shape
+    at batch b) as a forward site and a backward site, the way call_sites
+    and backward_sites build theirs; beside each, one cuDNN conv (or its
+    backward) of the same data (TF32 off), marked with a double dagger in
+    PERF.md: no single PyTorch call computes the op."""
+    dev = w["k1"].device
+    fp = "iinsvae_tpu/ops/pallas/fused.py"
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    fwd, bwd = [], []
+
+    def add(name, kernel, replaces, args, kw, bwd_kw, out_shape, in_bytes, flops, bwd_flops,
+            yard, yard_bwd):
+        """args: the inputs both the forward and the backward wrapper take;
+        kw: the forward's keywords (the residual: a forward input only)."""
+        f, f_ref = getattr(fused, kernel), getattr(fused, f"{kernel}_ref")
+        bw = getattr(backward, f"{kernel}_bwd")
+        g = rand(*out_shape)
+        grads_bytes = nbytes(*args[:-1]) if kernel == "tanh_pool" else nbytes(*args)
+        fwd.append(dict(
+            name=name, kernel=kernel, replaces=f"{fp}:{replaces[0]}", calls_per_batch=1,
+            shape=f"{tuple(args[0].shape)}->{tuple(out_shape)}",
+            run=lambda: f(*args, **kw), plain=lambda: f_ref(*args, **kw), library=None,
+            cudnn_conv=yard, bytes=in_bytes + 4 * math.prod(out_shape), flops=flops))
+        bwd.append(dict(
+            name=name, kernel=f"{kernel}_bwd", replaces=f"{fp}:{replaces[1]}",
+            calls_per_batch=1, run=lambda: bw(g, *args, **bwd_kw),
+            plain=lambda: backward.PLAIN[bw](g, *args, **bwd_kw), library=None,
+            cudnn_conv=yard_bwd, bytes=nbytes(g, *args) + grads_bytes, flops=bwd_flops))
+
+    def conv_bwd(x, taps, padding, pad_mode):
+        """The conv's backward (dx and d(taps)) on a random output gradient,
+        no ReLU mask."""
+        l_out = out_len(x.shape[1], taps.shape[0], 1, padding)
+        g = rand(b, l_out, taps.shape[2])
+        return conv_backward_call(x, taps, torch.ones_like(g), g, 1, padding, pad_mode, True)
+
+    x, y = rand(b, 8, 64), rand(b, 8, 64)
+    conv = conv_flops(b, 8, w["k1"], 1, 1, "reflect")
+    for name, inp, taps, act, res in (("adain.relu", x, w["k1"], "relu", None),
+                                      ("adain.res", y, w["k2"], "none", x)):
+        args = (inp, taps, rand(b, 64), rand(b, 64))
+        geo = dict(padding=1, pad_mode="reflect", act=act)
+        add(name, "adain_layer", (828, 686), args, dict(geo, residual=res), geo,
+            (b, 8, 64), nbytes(*args, *([res] if res is not None else [])), conv, 3 * conv,
+            ncl_conv(inp, taps, None, 1, 1, "reflect"), conv_bwd(inp, taps, 1, "reflect"))
+    l, c = 8, 64
+    for j, (taps, gamma, beta) in enumerate(w["ups"]):
+        xs = rand(b, l, c)
+        up = upsample_nearest1d(xs, 2)
+        flops = 2.0 * b * upsampled_rows(l, 5, 2) * c * (c // 2)
+        add(f"sln{j}", "sln_layer", (844, 753), (xs, taps, gamma, beta), {}, {},
+            (b, 2 * l, c // 2), nbytes(xs, taps, gamma, beta), flops, 3 * flops,
+            ncl_conv(up, taps, None, 1, 2, "zero"), conv_bwd(up, taps, 2, "zero"))
+        l, c = 2 * l, c // 2
+    xt = rand(b, l, c)
+    pool = adaptive_avg_pool_matrix(l, 157, device=dev)
+    geo = dict(padding=3, pad_mode="reflect")
+    # the pool's operations: its nonzeros (1 or 2 a column), not the dense product
+    conv, pooling = conv_flops(b, l, w["ko"], 1, 3, "reflect"), 2.0 * b * int((pool != 0).sum())
+    add("tail", "tanh_pool", (855, 799), (xt, w["ko"], w["bo"], pool), geo, geo, (b, 157),
+        nbytes(xt, w["ko"], w["bo"], pool), conv + pooling, 3 * conv + pooling,
+        ncl_conv(xt, w["ko"], w["bo"], 1, 3, "reflect"), conv_bwd(xt, w["ko"], 3, "reflect"))
+    return fwd, bwd
+
+
+def one_stage_phase(model: IInsVAE) -> dict:
+    """[one_stage]: the chain under autograd with its launches counted, every
+    call at batch 500 checked and timed, the ragged batch of 5, and the
+    cross-checks K8 o K8 = K5 and K9^4 o K10 = K6 (zero stage biases)."""
+    w = decoder_weights(model)
+    paths = [one_stage_path(w, seed) for seed in (11, 15)]
+    fwd_sites, bwd_sites = one_stage_sites(w, BATCH, torch.Generator().manual_seed(12))
+    with torch.inference_mode():
+        fwd_rows = check_and_time(fwd_sites, tag="one_stage")
+    bwd_rows = check_and_time_backward(bwd_sites, tag="one_stage")
+    fwd5, bwd5 = one_stage_sites(w, 5, torch.Generator().manual_seed(13))
+    ragged = {s["name"]: compare_forward(s, " (batch 5)")[0] for s in fwd5}
+    ragged.update({f"{s['kernel']}:{s['name']}": max(compare_backward(s, " (batch 5)")[0])
+                   for s in bwd5})
+    print(f"[one_stage] batch 5 (ragged tiles): every call within tolerance of its plain "
+          f"version, largest error {max(ragged.values()):.3e}", flush=True)
+
+    gen = torch.Generator().manual_seed(14)
+    dev = w["k1"].device
+    x = torch.randn((BATCH, 8, 64), generator=gen).to(dev)
+    g1, b1, g2, b2 = (torch.randn((BATCH, 64), generator=gen).to(dev) for _ in range(4))
+    zero = [(t, torch.zeros_like(gm), gm, bt) for t, gm, bt in w["ups"]]
+    pool = adaptive_avg_pool_matrix(128, 157, device=dev)
+    with torch.inference_mode():
+        geo = dict(padding=1, pad_mode="reflect")
+        y = fused.adain_layer(x, w["k1"], g1, b1, act="relu", **geo)
+        y = fused.adain_layer(y, w["k2"], g2, b2, act="none", residual=x, **geo)
+        k5 = fused.adain_res_block(x, w["k1"], w["k2"], g1, b1, g2, b2)
+        z = x
+        for taps, _, gamma, beta in zero:
+            z = fused.sln_layer(z, taps, gamma, beta)
+        k10 = fused.tanh_pool(z, w["ko"], w["bo"], pool, padding=3, pad_mode="reflect")
+        k6 = fused.sln_chain(x, zero, w["ko"], w["bo"], 157)
+    cross = {}
+    for name, a, b in (("adain_layer x2 vs adain_res_block", y, k5),
+                       ("sln_layer x4 + tanh_pool vs sln_chain", k10, k6)):
+        torch.testing.assert_close(a, b, rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
+                                   msg=lambda m: f"cross-check {name}: {m}")
+        cross[name] = (a - b).abs().max().item()
+        print(f"[one_stage] cross-check {name}: max abs err {cross[name]:.3e}", flush=True)
+    return dict(paths=paths, sites=fwd_rows, backward_sites=bwd_rows, ragged_max_abs_err=ragged,
+                cross_checks=cross)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script runs on the card",
@@ -1038,6 +1354,7 @@ def main() -> int:
     serving_recon = throughput(model, recon=True)
     bwd_rows = check_and_time_backward(backward_sites(model, torch.Generator().manual_seed(2)))
     training = train_main_path(1, EXPECTED_TRAIN, EXPECTED_TRAIN_BWD)
+    one_stage = one_stage_phase(model)
     del model, cpu_model
 
     # the expanded 2-D model
@@ -1075,6 +1392,23 @@ def main() -> int:
         per_step + ", conv_type 2",
         {"res_block_2d_bwd": dict(cudnn_conv_backward_ms=sum(
             r["cudnn_conv_ms"] * r["calls_per_batch"] for r in bwd_rows_2d if r["cudnn_conv_ms"]))})
+    # K8-K10 run on no model path (0 launches there): their launches are the
+    # one-stage chain's
+    per_chain = "the one-stage phase's chain at batch 500 (sum over its call sites)"
+    kernel_table += kernel_rows(
+        one_stage["sites"], list(ONE_STAGE), one_stage["paths"][0]["launches"], per_chain,
+        {k: dict(launches_serving=launches[k], launches_serving_2d=launches_2d[k],
+                 launches_train=training["launches"][k],
+                 launches_train_2d=training_2d["launches"][k],
+                 cudnn_conv_ms=sum(r["cudnn_conv_ms"] for r in one_stage["sites"]
+                                   if r["kernel"] == k)) for k in ONE_STAGE})
+    kernel_table += kernel_rows(
+        one_stage["backward_sites"], list(ONE_STAGE_BWD), one_stage["paths"][0]["launches_bwd"],
+        per_chain,
+        {k: dict(launches_train=training["launches_bwd"][k],
+                 launches_train_2d=training_2d["launches_bwd"][k],
+                 cudnn_conv_backward_ms=sum(r["cudnn_conv_ms"] for r in one_stage["backward_sites"]
+                                            if r["kernel"] == k)) for k in ONE_STAGE_BWD})
 
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(dict(
@@ -1084,6 +1418,7 @@ def main() -> int:
         main_path_2d=main_path_2d, main_path_2d_recon=main_path_2d_recon,
         serving_2d=serving_2d, serving_2d_recon=serving_2d_recon,
         backward_sites=bwd_rows + bwd_rows_2d, training=training, training_2d=training_2d,
+        one_stage=one_stage,
         kernel_tolerance=[KERNEL_RTOL, KERNEL_ATOL], serve_tolerance=[SERVE_RTOL, SERVE_ATOL],
         backward_tolerance=[BWD_RTOL, BWD_ATOL], step_tolerance=[STEP_FACTOR, STEP_FLOOR],
         wall_s=time.perf_counter() - t_start),
@@ -1095,6 +1430,7 @@ def main() -> int:
     print(json.dumps({"backward": bwd_rows + bwd_rows_2d}), flush=True)
     print(json.dumps({"training": training, "card": card}), flush=True)
     print(json.dumps({"training_2d": training_2d, "card": card}), flush=True)
+    print(json.dumps({"one_stage": one_stage, "card": card}), flush=True)
     print(json.dumps({"kernels": kernel_table}), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)

@@ -6,7 +6,7 @@ Each wrapper runs its kernel on CUDA tensors and its plain PyTorch version
 counts its kernel launches in a plain int attribute, ``<wrapper>.launches``.
 Under autograd the forward wrappers go through autograd.py's Functions,
 whose backward launches the backward wrappers of backward.py (K1b, K2b,
-K4b, K6b, K7b: one backward wrapper for each forward wrapper).
+K4b, K6b, K7b, K8b-K10b: one backward wrapper for each forward wrapper).
 
   K1 fused.in_chain          conv -> IN -> ReLU|skip, 1-2 stages
   K2 fused.conv_bias_act     conv + bias + ReLU
@@ -15,12 +15,20 @@ K4b, K6b, K7b: one backward wrapper for each forward wrapper).
   K5 fused.adain_res_block   AdaIN residual block (K1's kernel, per-sample affine)
   K6 fused.sln_chain         decoder tail: 4 x (up, conv, LayerNorm, ReLU), conv, tanh, pool
   K7 res2d.res_block_2d      2-D IN or AdaIN residual block on (B, 8, 8, 64)
+  K8 fused.adain_layer       conv -> AdaIN -> ReLU|none [+ residual] (K1's kernel, one stage)
+  K9 fused.sln_layer         x2 upsample, conv k5, LayerNorm, ReLU (one stage of K6)
+  K10 fused.tanh_pool        conv + bias -> tanh -> pool matrix (K6's tail)
+
+K8-K10 are the counterparts of the one-stage Pallas entries
+(fused_adain_layer, fused_sln_layer, fused_tanh_pool_layer); no model calls
+them.
 """
 
 from iinsvae_torch.ops.kernels import backward, fused, res2d, strided_conv
 
 WRAPPERS = (fused.in_chain, fused.conv_bias_act, strided_conv.strided_conv, fused.mlp_chain,
-            fused.adain_res_block, fused.sln_chain, res2d.res_block_2d)
+            fused.adain_res_block, fused.sln_chain, res2d.res_block_2d, fused.adain_layer,
+            fused.sln_layer, fused.tanh_pool)
 BACKWARD = backward.BACKWARD
 
 

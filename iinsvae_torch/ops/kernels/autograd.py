@@ -1,4 +1,4 @@
-"""One ``torch.autograd.Function`` for each of K1-K7.
+"""One ``torch.autograd.Function`` for each of K1-K10.
 
 ``forward`` launches the forward kernel (fused.py, strided_conv.py) and
 saves its inputs (K2/K3 also their output, for the ReLU mask; K4 the
@@ -139,6 +139,62 @@ class ResBlock2d(Function):
     def backward(ctx, g):
         return backward.res_block_2d_bwd(g.contiguous(), *ctx.saved_tensors,
                                          need_dx=ctx.needs_input_grad[0])
+
+
+class AdainLayer(Function):
+    """K8 / K8b. apply(x, taps, gamma, beta, residual or None, (stride,
+    padding, pad_mode, act)); the residual's gradient is g, with no launch."""
+
+    @staticmethod
+    def forward(ctx, x, taps, gamma, beta, residual, geometry):
+        ctx.geometry = geometry
+        ctx.save_for_backward(x, taps, gamma, beta)
+        return fused.launch_adain_layer(x, taps, gamma, beta, residual, *geometry)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        stride, padding, pad_mode, act = ctx.geometry
+        g = g.contiguous()
+        dx, dtaps, dgamma, dbeta = backward.adain_layer_bwd(
+            g, *ctx.saved_tensors, stride=stride, padding=padding, pad_mode=pad_mode, act=act,
+            need_dx=ctx.needs_input_grad[0])
+        return dx, dtaps, dgamma, dbeta, (g if ctx.needs_input_grad[4] else None), None
+
+
+class SlnLayer(Function):
+    """K9 / K9b. apply(x, taps, gamma, beta)."""
+
+    @staticmethod
+    def forward(ctx, x, taps, gamma, beta):
+        ctx.save_for_backward(x, taps, gamma, beta)
+        return fused.launch_sln_layer(x, taps, gamma, beta)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return backward.sln_layer_bwd(g.contiguous(), *ctx.saved_tensors,
+                                      need_dx=ctx.needs_input_grad[0])
+
+
+class TanhPool(Function):
+    """K10 / K10b. apply(x, taps, bias, pool, (padding, pad_mode)); pool gets
+    no gradient, as in the Pallas entry."""
+
+    @staticmethod
+    def forward(ctx, x, taps, bias, pool, geometry):
+        ctx.geometry = geometry
+        ctx.save_for_backward(x, taps, bias, pool)
+        return fused.launch_tanh_pool(x, taps, bias, pool, *geometry)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        padding, pad_mode = ctx.geometry
+        dx, dtaps, dbias = backward.tanh_pool_bwd(
+            g.contiguous(), *ctx.saved_tensors, padding=padding, pad_mode=pad_mode,
+            need_dx=ctx.needs_input_grad[0])
+        return dx, dtaps, dbias, None, None
 
 
 def _stages(params) -> list[tuple[torch.Tensor, ...]]:

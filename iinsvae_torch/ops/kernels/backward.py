@@ -1,12 +1,14 @@
-"""Backward wrappers of K1-K7 and their plain versions.
+"""Backward wrappers of K1-K10 and their plain versions.
 
-Five CUDA sources compute the gradients of the seven forward wrappers:
+Six CUDA sources compute the gradients of the ten forward wrappers:
 
-  K1b csrc/in_chain_bwd.cu        in_chain_bwd, adain_res_block_bwd (kAdain instance)
+  K1b csrc/in_chain_bwd.cu        in_chain_bwd, adain_res_block_bwd and (K8b)
+                                  adain_layer_bwd (kAdain instances)
   K2b csrc/conv_bias_act_bwd.cu   conv_bias_act_bwd, strided_conv_bwd
   K4b csrc/mlp_chain_bwd.cu       mlp_chain_bwd
   K6b csrc/sln_chain_bwd.cu       sln_chain_bwd
   K7b csrc/res_block_2d_bwd.cu    res_block_2d_bwd (IN and AdaIN)
+  K9b, K10b csrc/sln_layer_bwd.cu sln_layer_bwd, tanh_pool_bwd
 
 Each wrapper takes the upstream gradient ``g`` and the forward's inputs
 (K2b also its output, for the ReLU mask; K4b the pre-activations K4 saved)
@@ -27,7 +29,7 @@ from typing import Callable, Sequence
 import torch
 
 from iinsvae_torch.ops.kernels import _build, fused, res2d, strided_conv
-from iinsvae_torch.ops.kernels.fused import SLN_STAGES, Stage, UpStage
+from iinsvae_torch.ops.kernels.fused import SLN_STAGES, Stage, UpStage, _round4
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -55,10 +57,6 @@ def _split(flat: torch.Tensor, shapes) -> list[torch.Tensor]:
         out.append(flat[i:i + n].view(shape))
         i += n
     return out
-
-
-def _round4(n: int) -> int:
-    return (n + 3) // 4 * 4
 
 
 # --------------------------- K1b: K1 and K5 ---------------------------
@@ -336,7 +334,6 @@ def sln_chain_bwd(g: torch.Tensor, x: torch.Tensor, stages: Sequence[UpStage],
 sln_chain_bwd.launches = 0
 
 
-
 # ------------------------------ K7b ------------------------------
 
 
@@ -378,10 +375,147 @@ def res_block_2d_bwd(g: torch.Tensor, x: torch.Tensor, k1: torch.Tensor, k2: tor
 
 res_block_2d_bwd.launches = 0
 
+
+
+# ------------------------------ K8b ------------------------------
+
+
+def adain_layer_bwd_ref(g: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
+                        gamma: torch.Tensor, beta: torch.Tensor, *, stride: int = 1,
+                        padding: int = 0, pad_mode: str = "zero", act: str = "none",
+                        need_dx: bool = True):
+    """Plain version of K8b."""
+    dx, dt, dg, db = plain_grads(
+        lambda x_, t_, g_, b_: fused.adain_layer_ref(x_, t_, g_, b_, stride=stride,
+                                                     padding=padding, pad_mode=pad_mode,
+                                                     act=act),
+        [x, taps, gamma, beta], g)
+    return (dx if need_dx else None), dt, dg, db
+
+
+def adain_layer_bwd(g: torch.Tensor, x: torch.Tensor, taps: torch.Tensor, gamma: torch.Tensor,
+                    beta: torch.Tensor, *, stride: int = 1, padding: int = 0,
+                    pad_mode: str = "zero", act: str = "none", need_dx: bool = True):
+    """K8b (K1b's one-stage kAdain instance): -> (dx, d(taps), dgamma, dbeta)
+    of fused.adain_layer; dgamma and dbeta are (B, C) tables. The residual's
+    gradient is g itself: autograd.AdainLayer returns it, with no launch."""
+    if g.device.type == "cpu":
+        return adain_layer_bwd_ref(g, x, taps, gamma, beta, stride=stride, padding=padding,
+                                   pad_mode=pad_mode, act=act, need_dx=need_dx)
+    rows = fused.check_adain_layer(x, taps, gamma, beta, None, stride, padding, pad_mode, act)
+    b, l_out, c_out = x.shape[0], rows[6], rows[7]
+    if g.shape != (b, l_out, c_out):
+        raise ValueError(f"g must be {(b, l_out, c_out)}, got {tuple(g.shape)}")
+    _build.require_cuda_f32("adain_layer_bwd", g)
+    spb = _build.samples_per_block(b, _round4(rows[4] * rows[5]) + l_out * c_out)
+    part = torch.empty(((b + spb - 1) // spb, taps.numel()), device=x.device, dtype=x.dtype)
+    dtaps = torch.empty_like(taps)
+    daffine = torch.empty((2, b, c_out), device=x.device, dtype=x.dtype)
+    dx = torch.empty_like(x) if need_dx else None
+    fn = _build.function("in_chain_bwd", "iins_adain_layer_bwd",
+                         [_P] * 10 + [_I, ctypes.POINTER(_I), _I, _I, _P])
+    err = fn(x.data_ptr(), taps.data_ptr(), gamma.data_ptr(), beta.data_ptr(), g.data_ptr(),
+             _ptr(dx), part.data_ptr(), dtaps.data_ptr(), daffine[0].data_ptr(),
+             daffine[1].data_ptr(), b, (_I * 8)(*rows), int(act == "relu"), spb,
+             _build.stream_handle(x))
+    _build.check(err, "in_chain_bwd", "adain_layer_bwd")
+    adain_layer_bwd.launches += 1
+    return dx, dtaps, daffine[0], daffine[1]
+
+
+adain_layer_bwd.launches = 0
+
+
+# ------------------------------ K9b ------------------------------
+
+
+def sln_layer_bwd_ref(g: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
+                      gamma: torch.Tensor, beta: torch.Tensor, *, need_dx: bool = True):
+    """Plain version of K9b."""
+    dx, *rest = plain_grads(fused.sln_layer_ref, [x, taps, gamma, beta], g)
+    return ((dx if need_dx else None), *rest)
+
+
+def sln_layer_bwd(g: torch.Tensor, x: torch.Tensor, taps: torch.Tensor, gamma: torch.Tensor,
+                  beta: torch.Tensor, *, need_dx: bool = True):
+    """K9b: -> (dx, d(taps), dgamma, dbeta) of fused.sln_layer; dgamma and
+    dbeta summed over the batch and the rows."""
+    if g.device.type == "cpu":
+        return sln_layer_bwd_ref(g, x, taps, gamma, beta, need_dx=need_dx)
+    width = fused.check_sln_layer(x, taps, gamma, beta)
+    b, l, c_in = x.shape
+    c_out = taps.shape[2]
+    if g.shape != (b, 2 * l, c_out):
+        raise ValueError(f"g must be {(b, 2 * l, c_out)}, got {tuple(g.shape)}")
+    _build.require_cuda_f32("sln_layer_bwd", g)
+    # the input, the conv output and g, and the LayerNorm statistics
+    spb = _build.samples_per_block(b, 3 * width + 3)
+    n_w = taps.numel() + 2 * c_out
+    part = torch.empty(((b + spb - 1) // spb, n_w), device=x.device, dtype=x.dtype)
+    dw = torch.empty(n_w, device=x.device, dtype=x.dtype)
+    dx = torch.empty_like(x) if need_dx else None
+    fn = _build.function("sln_layer_bwd", "iins_sln_layer_bwd", [_P] * 8 + [_I] * 5 + [_P])
+    err = fn(x.data_ptr(), taps.data_ptr(), gamma.data_ptr(), beta.data_ptr(), g.data_ptr(),
+             _ptr(dx), part.data_ptr(), dw.data_ptr(), b, l, c_in, c_out, spb,
+             _build.stream_handle(x))
+    _build.check(err, "sln_layer_bwd", "sln_layer_bwd")
+    sln_layer_bwd.launches += 1
+    return (dx, *_split(dw, [taps.shape, gamma.shape, beta.shape]))
+
+
+sln_layer_bwd.launches = 0
+
+
+# ------------------------------ K10b ------------------------------
+
+
+def tanh_pool_bwd_ref(g: torch.Tensor, x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor,
+                      pool: torch.Tensor, *, padding: int = 0, pad_mode: str = "zero",
+                      need_dx: bool = True):
+    """Plain version of K10b (pool gets no gradient)."""
+    dx, dt, db = plain_grads(
+        lambda x_, t_, b_: fused.tanh_pool_ref(x_, t_, b_, pool, padding=padding,
+                                               pad_mode=pad_mode),
+        [x, taps, bias], g)
+    return (dx if need_dx else None), dt, db
+
+
+def tanh_pool_bwd(g: torch.Tensor, x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor,
+                  pool: torch.Tensor, *, padding: int = 0, pad_mode: str = "zero",
+                  need_dx: bool = True):
+    """K10b: -> (dx, d(taps), dbias) of fused.tanh_pool; the pool matrix gets
+    no gradient, as in the Pallas entry."""
+    if g.device.type == "cpu":
+        return tanh_pool_bwd_ref(g, x, taps, bias, pool, padding=padding, pad_mode=pad_mode,
+                                 need_dx=need_dx)
+    rows = fused.check_tanh_pool(x, taps, bias, pool, padding, pad_mode)
+    b, n_out = x.shape[0], pool.shape[1]
+    if g.shape != (b, n_out):
+        raise ValueError(f"g must be {(b, n_out)}, got {tuple(g.shape)}")
+    _build.require_cuda_f32("tanh_pool_bwd", g)
+    spb = _build.samples_per_block(b, _round4(rows[4] * rows[5]) + _round4(rows[6] * rows[7]))
+    n_w = taps.numel() + bias.numel()
+    part = torch.empty(((b + spb - 1) // spb, n_w), device=x.device, dtype=x.dtype)
+    dw = torch.empty(n_w, device=x.device, dtype=x.dtype)
+    dx = torch.empty_like(x) if need_dx else None
+    fn = _build.function("sln_layer_bwd", "iins_tanh_pool_bwd",
+                         [_P] * 8 + [_I, ctypes.POINTER(_I), _I, _I, _P])
+    err = fn(x.data_ptr(), taps.data_ptr(), bias.data_ptr(), pool.data_ptr(), g.data_ptr(),
+             _ptr(dx), part.data_ptr(), dw.data_ptr(), b, (_I * 8)(*rows), n_out, spb,
+             _build.stream_handle(x))
+    _build.check(err, "sln_layer_bwd", "tanh_pool_bwd")
+    tanh_pool_bwd.launches += 1
+    return (dx, *_split(dw, [taps.shape, bias.shape]))
+
+
+tanh_pool_bwd.launches = 0
+
 BACKWARD = (in_chain_bwd, conv_bias_act_bwd, strided_conv_bwd, mlp_chain_bwd,
-            adain_res_block_bwd, sln_chain_bwd, res_block_2d_bwd)
+            adain_res_block_bwd, sln_chain_bwd, res_block_2d_bwd, adain_layer_bwd,
+            sln_layer_bwd, tanh_pool_bwd)
 # each backward wrapper's plain version, which takes the same arguments
 PLAIN = {in_chain_bwd: in_chain_bwd_ref, conv_bias_act_bwd: conv_bias_act_bwd_ref,
          strided_conv_bwd: strided_conv_bwd_ref, mlp_chain_bwd: mlp_chain_bwd_ref,
          adain_res_block_bwd: adain_res_block_bwd_ref, sln_chain_bwd: sln_chain_bwd_ref,
-         res_block_2d_bwd: res_block_2d_bwd_ref}
+         res_block_2d_bwd: res_block_2d_bwd_ref, adain_layer_bwd: adain_layer_bwd_ref,
+         sln_layer_bwd: sln_layer_bwd_ref, tanh_pool_bwd: tanh_pool_bwd_ref}

@@ -1,5 +1,6 @@
 // Device helpers of the conv backward kernels (in_chain_bwd.cu,
-// conv_bias_act_bwd.cu, sln_chain_bwd.cu): the channels-last Conv1d stage
+// conv_bias_act_bwd.cu, sln_chain_bwd.cu, sln_layer_bwd.cu; sln_stage.cuh
+// builds on them): the channels-last Conv1d stage
 // and its padding rule (as in_chain.cu has them), the conv's input-gradient
 // gather, the per-block weight-gradient partial and the fixed-order
 // reduction of those partials.

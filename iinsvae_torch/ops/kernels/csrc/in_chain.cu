@@ -39,6 +39,17 @@
 // TFLOP/s fp32), bound by operations. The TPU body's per-sample (B, L*C)
 // tiles of gamma and beta are a layout device: the kernel reads (B, C).
 //
+// K8 adain_layer replaces fused_adain_layer (fused.py:828, kernels
+// _fwd_adain_kernel :573, layer factory _make_adain_layer :664): one conv ->
+// InstanceNorm -> per-sample affine -> (ReLU) stage with an optional
+// residual added after the activation, read from its own (B, L, C) array.
+// It is the one-stage kAdain instance of the same kernel: the last stage's
+// ReLU and its skip are two independent settings (K1 and K5 set them as
+// before: ReLU, or the chain input's skip without ReLU). No model calls
+// it. At the decoder's (500, 8, 64) k3 reflect shape it does 98 MFLOP (1.5
+// us at 67 TFLOP/s fp32) over 1.1-1.7 MB (0.3-0.5 us): bound by
+// operations, like one half of K5.
+//
 // InstanceNorm statistics are two-pass per (sample, channel): the mean,
 // then the mean of (x - mean)^2. No E[x^2] - mean^2, which cancels below
 // zero on near-constant channels. There is no conv bias before the norm:
@@ -123,9 +134,10 @@ __device__ __forceinline__ float group_sum(float v, int g) {
 }
 
 // In place over y (ns, L, C): IN, then (kAdain) the per-sample affine
-// g[s, c], b[s, c] of (ns, C) tables, then ReLU, or + skip (same shape) when given.
+// g[s, c], b[s, c] of (ns, C) tables, then ReLU when `relu`, then + skip
+// (same shape) when given.
 template <bool kAdain>
-__device__ void norm_stage(float* y, const float* skip, int l, int c, int ns,
+__device__ void norm_stage(float* y, const float* skip, bool relu, int l, int c, int ns,
                            const float* __restrict__ g, const float* __restrict__ b) {
   const int lanes = norm_lanes(l), lane = threadIdx.x % lanes;
   const int slots = blockDim.x / lanes, pairs = ns * c;
@@ -157,7 +169,8 @@ __device__ void norm_stage(float* y, const float* skip, int l, int c, int ns,
       for (int i = lane; i < l; i += lanes) {
         float v = (ys[i * c] - mean) * rs;
         if constexpr (kAdain) v = fmaf(v, ga, be);
-        ys[i * c] = ks ? v + ks[i * c] : fmaxf(v, 0.f);
+        if (relu) v = fmaxf(v, 0.f);
+        ys[i * c] = ks ? v + ks[i * c] : v;
       }
     }
   }
@@ -169,12 +182,15 @@ struct Affine {
 };
 
 // Shared memory: a0 (spb, L0*C0) chain input, a1 (spb, L1*C1), a2 (spb, L2*C2).
-// A residual chain has two stages; the second adds a0.
+// A first stage of two ends in a ReLU; the last stage ends in a ReLU when
+// relu_last, then adds a0 (residual: two stages) or res (B, L_last,
+// C_last) when given.
 template <bool kAdain>
 __global__ void __launch_bounds__(kThreads)
 in_chain_kernel(const float* __restrict__ x, const float* __restrict__ w1,
                 const float* __restrict__ w2, float* __restrict__ y, int batch,
-                Stage s1, Stage s2, int n_stages, int residual, int spb, Affine af) {
+                Stage s1, Stage s2, int n_stages, int residual, int relu_last,
+                const float* __restrict__ res, int spb, Affine af) {
   extern __shared__ float smem[];
   const int s0 = blockIdx.x * spb;
   const int ns = min(spb, batch - s0);
@@ -194,19 +210,21 @@ in_chain_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   for (int i = threadIdx.x; i < ns * n0; i += blockDim.x) a0[i] = xg[i];
   __syncthreads();
 
+  const bool two = n_stages == 2;
+  const int n_last = two ? n2 : n1;
+  const float* skip = residual ? a0 : (res ? res + static_cast<size_t>(s0) * n_last : nullptr);
   conv_stage<4>(a0, w1, a1, s1, ns);
   __syncthreads();
-  norm_stage<kAdain>(a1, nullptr, s1.l_out, s1.c_out, ns, af.g1, af.b1);
+  norm_stage<kAdain>(a1, two ? nullptr : skip, two || relu_last, s1.l_out, s1.c_out, ns, af.g1,
+                     af.b1);
   __syncthreads();
   const float* last = a1;
-  int n_last = n1;
-  if (n_stages == 2) {
+  if (two) {
     conv_stage<4>(a1, w2, a2, s2, ns);
     __syncthreads();
-    norm_stage<kAdain>(a2, residual ? a0 : nullptr, s2.l_out, s2.c_out, ns, af.g2, af.b2);
+    norm_stage<kAdain>(a2, skip, relu_last, s2.l_out, s2.c_out, ns, af.g2, af.b2);
     __syncthreads();
     last = a2;
-    n_last = n2;
   }
   float* yg = y + static_cast<size_t>(s0) * n_last;
   for (int i = threadIdx.x; i < ns * n_last; i += blockDim.x) yg[i] = last[i];
@@ -255,15 +273,15 @@ constexpr size_t kMaxSmem = 48 * 1024;
 // Validate a 1-2 stage chain (stage rows as iins_in_chain takes them) and launch it.
 template <bool kAdain>
 int launch_chain(const float* x, const float* w1, const float* w2, float* y, int batch,
-                 const int* stages, int n_stages, int residual, int spb, Affine af,
-                 void* stream) {
+                 const int* stages, int n_stages, int residual, int relu_last,
+                 const float* res, int spb, Affine af, void* stream) {
   if (batch <= 0 || spb <= 0 || n_stages < 1 || n_stages > 2) return cudaErrorInvalidValue;
   const Stage s1 = make_stage(stages, w1);
   const Stage s2 = n_stages == 2 ? make_stage(stages + 8, w2) : Stage{};
   if (!stage_ok(s1) || s1.vec != 4) return cudaErrorInvalidValue;
   if (n_stages == 2 && (!stage_ok(s2) || s2.vec != 4 || s2.l_in != s1.l_out ||
                         s2.c_in != s1.c_out)) return cudaErrorInvalidValue;
-  if (residual && (n_stages != 2 || s2.l_out != s1.l_in || s2.c_out != s1.c_in))
+  if (residual && (n_stages != 2 || s2.l_out != s1.l_in || s2.c_out != s1.c_in || res))
     return cudaErrorInvalidValue;
   const size_t per = static_cast<size_t>(s1.l_in) * s1.c_in + s1.l_out * s1.c_out +
                      (n_stages == 2 ? s2.l_out * s2.c_out : 0);
@@ -271,7 +289,7 @@ int launch_chain(const float* x, const float* w1, const float* w2, float* y, int
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   const int grid = (batch + spb - 1) / spb;
   in_chain_kernel<kAdain><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, w1, w2, y, batch, s1, s2, n_stages, residual, spb, af);
+      x, w1, w2, y, batch, s1, s2, n_stages, residual, relu_last, res, spb, af);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -286,8 +304,8 @@ const char* iins_error_string(int err) {
 // stages: n_stages rows of (k, stride, pad, reflect, l_in, c_in, l_out, c_out).
 int iins_in_chain(const float* x, const float* w1, const float* w2, float* y, int batch,
                   const int* stages, int n_stages, int residual, int spb, void* stream) {
-  return launch_chain<false>(x, w1, w2, y, batch, stages, n_stages, residual, spb, Affine{},
-                             stream);
+  return launch_chain<false>(x, w1, w2, y, batch, stages, n_stages, residual, !residual,
+                             nullptr, spb, Affine{}, stream);
 }
 
 // K5: x, y (B, L, C); w1, w2 (3, C, C), reflect pad 1; g1, b1, g2, b2 (B, C).
@@ -296,8 +314,19 @@ int iins_adain_res_block(const float* x, const float* w1, const float* w2, const
                          int batch, int l, int c, int spb, void* stream) {
   const int stages[16] = {3, 1, 1, 1, l, c, l, c, 3, 1, 1, 1, l, c, l, c};
   if (!g1 || !b1 || !g2 || !b2) return cudaErrorInvalidValue;
-  return launch_chain<true>(x, w1, w2, y, batch, stages, 2, 1, spb, Affine{g1, b1, g2, b2},
-                            stream);
+  return launch_chain<true>(x, w1, w2, y, batch, stages, 2, 1, 0, nullptr, spb,
+                            Affine{g1, b1, g2, b2}, stream);
+}
+
+// K8: x (B, l_in, c_in) -> y (B, l, c); stage (k, stride, pad, reflect,
+// l_in, c_in, l, c); w (k, c_in, c); g, b (B, c); res (B, l, c), added
+// after the activation, or null; relu 1 (ReLU) or 0 (none).
+int iins_adain_layer(const float* x, const float* w, const float* g, const float* b,
+                     const float* res, float* y, int batch, const int* stage, int relu,
+                     int spb, void* stream) {
+  if (!g || !b) return cudaErrorInvalidValue;
+  return launch_chain<true>(x, w, w, y, batch, stage, 1, 0, relu != 0, res, spb,
+                            Affine{g, b, nullptr, nullptr}, stream);
 }
 
 // stage: (k, stride, pad, reflect, l_in, c_in, l_out, c_out).

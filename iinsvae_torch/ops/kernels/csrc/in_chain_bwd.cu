@@ -1,12 +1,13 @@
 // K1b in_chain_bwd: the backward of K1's 1-2 stage conv -> InstanceNorm ->
-// (ReLU | + chain input) chain and, as its kAdain template instance, of
-// K5's AdaIN residual block.
+// (ReLU | + chain input) chain and, as its kAdain template instances, of
+// K5's AdaIN residual block and (K8b) of K8's one AdaIN stage.
 //
 // Replaces the backward bodies of fused_in_pair (iinsvae_tpu/ops/pallas/
 // fused.py:333, kernel _bwd_in_pair_kernel :286), fused_dense_layer(norm=
 // 'in') (:1201, _bwd_in_kernel :121), fused_res_block (:225,
 // _bwd_resblock_kernel :186) and fused_adain_res_block (:524,
-// _bwd_adain_block_kernel :397). The Pallas bodies read the saved pre-norm
+// _bwd_adain_block_kernel :397), and as K8b that of fused_adain_layer
+// (:686, _bwd_adain_kernel :591). The Pallas bodies read the saved pre-norm
 // activations and return the gradient of the dense, pre-centred conv
 // matrix; this kernel saves nothing in the forward (K1 and K5 run
 // unchanged) and recomputes the chain from the saved input in shared
@@ -14,8 +15,10 @@
 // (k, C_in, C_out) taps directly.
 //
 // Per stage, backward from the stage output's gradient g:
-//   gh  = g where h > 0 (ReLU, fused.py:127) or g (the skip, which also
-//         adds g to dx, fused.py:204); h = yh [* gamma + beta]
+//   gh  = g where h > 0 (ReLU, fused.py:127) or g (no ReLU; the chain
+//         input's skip also adds g to dx, fused.py:204; K8's residual
+//         is not a kernel input: its gradient is g, fused.py:712);
+//         h = yh [* gamma + beta]
 //   kAdain: dgamma[s, c] = sum_l gh * yh, dbeta[s, c] = sum_l gh, the
 //         (B, C) tables (the TPU's (B, L*C) tiles summed over L); gyh = gh * gamma
 //   gz  = r * (gyh - mean_l(gyh) - yh * mean_l(gyh * yh)), the
@@ -178,7 +181,8 @@ __global__ void __launch_bounds__(kThreads)
 in_chain_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
                     const float* __restrict__ w2, const float* __restrict__ g,
                     float* __restrict__ dx, float* __restrict__ part, int batch, Stage s1,
-                    Stage s2, int n_stages, int residual, int spb, Affine af, AffineGrad ag) {
+                    Stage s2, int n_stages, int residual, int relu_last, int spb, Affine af,
+                    AffineGrad ag) {
   extern __shared__ __align__(16) float smem[];
   const int s0 = blockIdx.x * spb;
   const int ns = min(spb, batch - s0);
@@ -218,7 +222,7 @@ in_chain_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
     __syncthreads();
     conv_stage4(y1, n1, w2, z2, n2, s2, ns);
     __syncthreads();
-    norm_backward<kAdain>(z2, gg, n2, !residual, s2.l_out, s2.c_out, ns, n2, af.g2, nullptr,
+    norm_backward<kAdain>(z2, gg, n2, relu_last, s2.l_out, s2.c_out, ns, n2, af.g2, nullptr,
                           ag.dg2, ag.db2);
     __syncthreads();
     taps_grad_partial(y1, n1, z2, n2, s2, ns, mine + n_w1);
@@ -228,8 +232,8 @@ in_chain_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
     norm_backward<kAdain>(z1, y1, n1, true, s1.l_out, s1.c_out, ns, n1, af.g1, af.b1, ag.dg1,
                           ag.db1);
   } else {
-    norm_backward<kAdain>(z1, gg, n1, true, s1.l_out, s1.c_out, ns, n1, af.g1, af.b1, ag.dg1,
-                          ag.db1);
+    norm_backward<kAdain>(z1, gg, n1, relu_last, s1.l_out, s1.c_out, ns, n1, af.g1, af.b1,
+                          ag.dg1, ag.db1);
   }
   __syncthreads();
   taps_grad_partial(a0, n0, z1, n1, s1, ns, mine);
@@ -242,8 +246,8 @@ in_chain_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 template <bool kAdain>
 int launch_chain_bwd(const float* x, const float* w1, const float* w2, const float* g,
                      float* dx, float* part, float* dw, int batch, const int* stages,
-                     int n_stages, int residual, int spb, Affine af, AffineGrad ag,
-                     void* stream) {
+                     int n_stages, int residual, int relu_last, int spb, Affine af,
+                     AffineGrad ag, void* stream) {
   if (batch <= 0 || spb <= 0 || n_stages < 1 || n_stages > 2) return cudaErrorInvalidValue;
   const Stage s1 = make_stage(stages);
   const Stage s2 = n_stages == 2 ? make_stage(stages + 8) : Stage{};
@@ -260,8 +264,8 @@ int launch_chain_bwd(const float* x, const float* w1, const float* w2, const flo
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   const int grid = (batch + spb - 1) / spb;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  in_chain_bwd_kernel<kAdain><<<grid, kThreads, smem, s>>>(x, w1, w2, g, dx, part, batch, s1,
-                                                           s2, n_stages, residual, spb, af, ag);
+  in_chain_bwd_kernel<kAdain><<<grid, kThreads, smem, s>>>(
+      x, w1, w2, g, dx, part, batch, s1, s2, n_stages, residual, relu_last, spb, af, ag);
   const int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   const int n_w = s1.k * s1.c_in * s1.c_out + (n_stages == 2 ? s2.k * s2.c_in * s2.c_out : 0);
@@ -283,7 +287,7 @@ int iins_in_chain_bwd(const float* x, const float* w1, const float* w2, const fl
                       float* dx, float* part, float* dw, int batch, const int* stages,
                       int n_stages, int residual, int spb, void* stream) {
   return launch_chain_bwd<false>(x, w1, w2, g, dx, part, dw, batch, stages, n_stages, residual,
-                                 spb, Affine{}, AffineGrad{}, stream);
+                                 !residual, spb, Affine{}, AffineGrad{}, stream);
 }
 
 // K5's backward: x, g, dx (B, L, C); w1, w2 (3, C, C), reflect pad 1;
@@ -295,8 +299,22 @@ int iins_adain_res_block_bwd(const float* x, const float* w1, const float* w2,
                              void* stream) {
   const int stages[16] = {3, 1, 1, 1, l, c, l, c, 3, 1, 1, 1, l, c, l, c};
   if (!g1 || !b1 || !g2 || !dg1 || !db1 || !dg2 || !db2) return cudaErrorInvalidValue;
-  return launch_chain_bwd<true>(x, w1, w2, g, dx, part, dw, batch, stages, 2, 1, spb,
+  return launch_chain_bwd<true>(x, w1, w2, g, dx, part, dw, batch, stages, 2, 1, 0, spb,
                                 Affine{g1, b1, g2}, AffineGrad{dg1, db1, dg2, db2}, stream);
+}
+
+// K8b, K8's backward: x (B, l_in, c_in); stage (k, stride, pad, reflect,
+// l_in, c_in, l, c); w (k, c_in, c); gam, bet (B, c) the forward's tables;
+// relu as K8 took it; g (B, l, c); dx or null; part (ceil(B / spb),
+// k*c_in*c) scratch; dw (k, c_in, c); dgam, dbet (B, c) out.
+int iins_adain_layer_bwd(const float* x, const float* w, const float* gam, const float* bet,
+                         const float* g, float* dx, float* part, float* dw, float* dgam,
+                         float* dbet, int batch, const int* stage, int relu, int spb,
+                         void* stream) {
+  if (!gam || !bet || !dgam || !dbet) return cudaErrorInvalidValue;
+  return launch_chain_bwd<true>(x, w, w, g, dx, part, dw, batch, stage, 1, 0, relu != 0, spb,
+                                Affine{gam, bet, nullptr},
+                                AffineGrad{dgam, dbet, nullptr, nullptr}, stream);
 }
 
 }  // extern "C"

@@ -26,33 +26,31 @@
 // tail, and device memory sees the input once and the pooled output once
 // (the TPU kernel kept the chain in VMEM, fused.py:863-869).
 //
-// Design:
-// - The upsample is folded into the indexing: output l, tap t reads
-//   pre-upsample row (l + t - 2) >> 1 when 0 <= l + t - 2 < 2L, else zero.
-//   The 2L-long input is never built.
+// Design (the up-stages' device code is sln_stage.cuh's, shared with K6b
+// and the one-stage K9 and K9b):
+// - The upsample is folded into the indexing; the 2L-long input is never
+//   built.
+// - The tail keeps its fixed k7 reflect conv (out_stage below): K10's
+//   runtime-geometry version of it spilled registers here (ptxas -v) and
+//   made K6 slower on the H100.
 // - A thread computes four consecutive output channels of one position from
 //   float4 loads of the taps. The taps (~54 KB at the flagship, 40 KB of it
 //   the first stage's) are read through the read-only cache, not staged in
 //   shared memory, so a block needs only the default 48 KB.
 // - The LayerNorm statistics of a sample are reduced by one warp with
-//   shuffles, two-pass: the mean first, then the squared deviations from it
-//   (no E[x^2] - mean^2).
+//   shuffles, two-pass (no E[x^2] - mean^2).
 // - Only the flagship's four stages are taken, with every stage's C_out a
 //   multiple of 4 and at most 2048 floats a sample; anything else is
 //   rejected at launch.
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "sln_stage.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using namespace iins;
+
 constexpr int kStages = 4;
-constexpr int kK = 5, kPad = 2;        // up-conv taps, zero pad
 constexpr int kKOut = 7, kPadOut = 3;  // out-conv taps, reflect pad
 constexpr int kMaxFloats = 2048;       // floats a sample, per stage
-constexpr float kEps = 1e-5f;
-constexpr size_t kMaxSmem = 48 * 1024;
 
 struct ChainArgs {
   const float* w[kStages];      // (5, C_in, C_in / 2)
@@ -65,69 +63,6 @@ struct ChainArgs {
   int l_pool;
   int width;  // floats a sample in each ping-pong buffer
 };
-
-// out (ns, 2L, C/2) = conv(upsample(in)) + bias; in (ns, L, C), samples
-// `width` floats apart.
-__device__ void up_conv_stage(const float* in, float* out, const float* __restrict__ w,
-                              const float* __restrict__ bias, int l_in, int c_in, int ns,
-                              int width) {
-  const int l_out = 2 * l_in, c_out = c_in / 2, groups = c_out / 4, per = l_out * groups;
-  for (int o = threadIdx.x; o < ns * per; o += blockDim.x) {
-    const int s = o / per, r = o - s * per;
-    const int l = r / groups, co = (r - l * groups) * 4;
-    const float* xs = in + s * width;
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-    for (int t = 0; t < kK; ++t) {
-      const int u = l + t - kPad;  // row of the upsampled input
-      if (u < 0 || u >= l_out) continue;
-      const float* xr = xs + (u >> 1) * c_in;
-      const float* wr = w + t * c_in * c_out + co;
-#pragma unroll 4
-      for (int ci = 0; ci < c_in; ++ci) {
-        const float xv = xr[ci];
-        const float4 wv = __ldg(reinterpret_cast<const float4*>(wr + ci * c_out));
-        a0 = fmaf(xv, wv.x, a0);
-        a1 = fmaf(xv, wv.y, a1);
-        a2 = fmaf(xv, wv.z, a2);
-        a3 = fmaf(xv, wv.w, a3);
-      }
-    }
-    float* dst = out + s * width + l * c_out + co;
-    dst[0] = a0 + __ldg(bias + co);
-    dst[1] = a1 + __ldg(bias + co + 1);
-    dst[2] = a2 + __ldg(bias + co + 2);
-    dst[3] = a3 + __ldg(bias + co + 3);
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// In place over y (ns, n = L*C): per-sample LayerNorm, affine, ReLU; one
-// warp a sample.
-__device__ void sln_stage(float* y, const float* __restrict__ gamma,
-                          const float* __restrict__ beta, int n, int c, int ns, int width) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, n_warps = blockDim.x >> 5;
-  const float inv_n = 1.f / static_cast<float>(n), inv_n1 = 1.f / static_cast<float>(n - 1);
-  for (int s = warp; s < ns; s += n_warps) {  // warp-uniform: full warps shuffle
-    float* ys = y + s * width;
-    float sum = 0.f;
-    for (int i = lane; i < n; i += 32) sum += ys[i];
-    const float mean = warp_sum(sum) * inv_n;
-    float sq = 0.f;
-    for (int i = lane; i < n; i += 32) {
-      const float d = ys[i] - mean;
-      sq = fmaf(d, d, sq);
-    }
-    const float rs = 1.f / (sqrtf(warp_sum(sq) * inv_n1) + kEps);
-    for (int i = lane; i < n; i += 32) {
-      const int ch = i % c;
-      ys[i] = fmaxf(fmaf((ys[i] - mean) * rs, __ldg(gamma + ch), __ldg(beta + ch)), 0.f);
-    }
-  }
-}
 
 // out (ns, L) = tanh(conv_k7_reflect(in (ns, L, C)) + b).
 __device__ void out_stage(const float* in, float* out, const float* __restrict__ w, float b,
@@ -177,10 +112,11 @@ sln_chain_kernel(const float* __restrict__ x, float* __restrict__ y, int batch, 
   __syncthreads();
 #pragma unroll
   for (int j = 0; j < kStages; ++j) {
-    up_conv_stage(cur, nxt, a.w[j], a.bias[j], a.l_in[j], a.c_in[j], ns, a.width);
-    __syncthreads();
     const int c_out = a.c_in[j] / 2;
-    sln_stage(nxt, a.gamma[j], a.beta[j], 2 * a.l_in[j] * c_out, c_out, ns, a.width);
+    up_conv_stage<true>(cur, nxt, a.w[j], a.bias[j], a.l_in[j], a.c_in[j], c_out, ns, a.width);
+    __syncthreads();
+    sln_relu(nxt, nxt, nullptr, a.gamma[j], a.beta[j], 2 * a.l_in[j] * c_out, c_out, ns,
+             a.width);
     __syncthreads();
     float* t = cur;
     cur = nxt;
@@ -191,8 +127,6 @@ sln_chain_kernel(const float* __restrict__ x, float* __restrict__ y, int batch, 
   __syncthreads();
   pool_stage(nxt, y + static_cast<size_t>(s0) * a.l_pool, l, a.l_pool, ns, a.width);
 }
-
-bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 

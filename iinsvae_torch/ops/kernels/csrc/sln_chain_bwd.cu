@@ -28,23 +28,24 @@
 // memory: 19 KB a sample at the flagship, 2 samples a block in the default
 // 48 KB. Per-channel gradients (taps, bias, gamma, beta) are summed over
 // the block's samples into its row of a (grid, n) buffer that a second
-// kernel sums in order: deterministic, no atomics.
+// kernel sums in order: deterministic, no atomics. The up-stages' code is
+// sln_stage.cuh's (shared with K6, K9 and K9b); the fixed k7 reflect tail
+// stays here: the runtime-geometry conv helpers K10b uses
+// (conv_bwd_common.cuh) made K6b slower on the H100.
 //
 // Bound on the H100 at batch 500 (flagship): the forward recompute, d(taps)
 // and the input gradients each need the forward's 177,024 multiply-adds a
 // sample (counting the upsample's row pairs once): 0.53 GFLOP, 7.9 us at 67
 // TFLOP/s fp32; ~1.4 MB moved: bound by operations.
-#include "conv_bwd_common.cuh"
+#include "sln_stage.cuh"
 
 namespace {
 
 using namespace iins;
 
 constexpr int kStages = 4;
-constexpr int kK = 5, kPad = 2;        // up-conv taps, zero pad
 constexpr int kKOut = 7, kPadOut = 3;  // out-conv taps, reflect pad
 constexpr int kMaxFloats = 2048;       // floats a sample, per stage
-constexpr float kEps = 1e-5f;
 
 struct ChainArgs {
   const float* w[kStages];      // (5, C_in, C_in / 2)
@@ -61,197 +62,6 @@ struct ChainArgs {
   int width;   // floats a sample in each activation buffer (L0 * C0)
   int th_len;  // L_last rounded up to 4
 };
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// out (ns, 2L, C/2) = conv(upsample(in)) + bias (sln_chain.cu's arithmetic).
-__device__ void up_conv_stage(const float* in, float* out, const float* __restrict__ w,
-                              const float* __restrict__ bias, int l_in, int c_in, int ns,
-                              int width) {
-  const int l_out = 2 * l_in, c_out = c_in / 2, groups = c_out / 4, per = l_out * groups;
-  for (int o = threadIdx.x; o < ns * per; o += blockDim.x) {
-    const int s = o / per, r = o - s * per;
-    const int l = r / groups, co = (r - l * groups) * 4;
-    const float* xs = in + s * width;
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-    for (int t = 0; t < kK; ++t) {
-      const int u = l + t - kPad;  // row of the upsampled input
-      if (u < 0 || u >= l_out) continue;
-      const float* xr = xs + (u >> 1) * c_in;
-      const float* wr = w + t * c_in * c_out + co;
-#pragma unroll 4
-      for (int ci = 0; ci < c_in; ++ci) {
-        const float xv = xr[ci];
-        const float4 wv = __ldg(reinterpret_cast<const float4*>(wr + ci * c_out));
-        a0 = fmaf(xv, wv.x, a0);
-        a1 = fmaf(xv, wv.y, a1);
-        a2 = fmaf(xv, wv.z, a2);
-        a3 = fmaf(xv, wv.w, a3);
-      }
-    }
-    float* dst = out + s * width + l * c_out + co;
-    dst[0] = a0 + __ldg(bias + co);
-    dst[1] = a1 + __ldg(bias + co + 1);
-    dst[2] = a2 + __ldg(bias + co + 2);
-    dst[3] = a3 + __ldg(bias + co + 3);
-  }
-}
-
-// y = relu(LN(z) * gamma + beta) per sample, one warp a sample, z kept;
-// stats[s] = (mean, std, 1 / (std + eps)).
-__device__ void sln_forward(const float* z, float* y, float* stats,
-                            const float* __restrict__ gamma, const float* __restrict__ beta,
-                            int n, int c, int ns, int width) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, n_warps = blockDim.x >> 5;
-  const float inv_n = 1.f / static_cast<float>(n), inv_n1 = 1.f / static_cast<float>(n - 1);
-  for (int s = warp; s < ns; s += n_warps) {
-    const float* zs = z + s * width;
-    float sum = 0.f;
-    for (int i = lane; i < n; i += 32) sum += zs[i];
-    const float mean = warp_sum(sum) * inv_n;
-    float sq = 0.f;
-    for (int i = lane; i < n; i += 32) {
-      const float d = zs[i] - mean;
-      sq = fmaf(d, d, sq);
-    }
-    const float sd = sqrtf(warp_sum(sq) * inv_n1);
-    const float rs = 1.f / (sd + kEps);
-    float* ys = y + s * width;
-    for (int i = lane; i < n; i += 32) {
-      const int ch = i % c;
-      ys[i] = fmaxf(fmaf((zs[i] - mean) * rs, __ldg(gamma + ch), __ldg(beta + ch)), 0.f);
-    }
-    if (lane == 0) {
-      stats[3 * s] = mean;
-      stats[3 * s + 1] = sd;
-      stats[3 * s + 2] = rs;
-    }
-  }
-}
-
-// part[c], part[C + c] = sum over samples and rows of gh * yh and gh, with
-// gh = ga where h > 0: this block's dgamma, dbeta.
-__device__ void affine_grad_partial(const float* z, const float* ga, const float* stats,
-                                    const float* __restrict__ gamma,
-                                    const float* __restrict__ beta, int n, int c, int ns,
-                                    int width, float* __restrict__ part) {
-  for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
-    const float gm = __ldg(gamma + ch), bt = __ldg(beta + ch);
-    float dg = 0.f, db = 0.f;
-    for (int s = 0; s < ns; ++s) {
-      const float mean = stats[3 * s], rs = stats[3 * s + 2];
-      for (int i = ch; i < n; i += c) {
-        const float yh = (z[s * width + i] - mean) * rs;
-        if (fmaf(yh, gm, bt) > 0.f) {
-          const float gh = ga[s * width + i];
-          dg = fmaf(gh, yh, dg);
-          db += gh;
-        }
-      }
-    }
-    part[ch] = dg;
-    part[c + ch] = db;
-  }
-}
-
-// In place z <- gz, the gradient of the stage's conv output, from ga, the
-// gradient of its ReLU output; one warp a sample.
-__device__ void sln_backward(float* z, const float* ga, const float* stats,
-                             const float* __restrict__ gamma, const float* __restrict__ beta,
-                             int n, int c, int ns, int width) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, n_warps = blockDim.x >> 5;
-  const float inv_n = 1.f / static_cast<float>(n);
-  for (int s = warp; s < ns; s += n_warps) {
-    float* zs = z + s * width;
-    const float* gs = ga + s * width;
-    const float mean = stats[3 * s], sd = stats[3 * s + 1], rs = stats[3 * s + 2];
-    // gyh at element i, and the centred d
-    auto grad_at = [&](int i, float& d, float& gyh) {
-      const int ch = i % c;
-      const float gm = __ldg(gamma + ch);
-      d = zs[i] - mean;
-      gyh = fmaf(d * rs, gm, __ldg(beta + ch)) > 0.f ? gs[i] * gm : 0.f;
-    };
-    float sg = 0.f, sgt = 0.f, sdd = 0.f;
-    for (int i = lane; i < n; i += 32) {
-      float d, gyh;
-      grad_at(i, d, gyh);
-      sg += gyh;
-      sgt = fmaf(gyh, d, sgt);
-      sdd += d;
-    }
-    sg = warp_sum(sg);
-    sgt = warp_sum(sgt);
-    sdd = warp_sum(sdd);
-    const float gss = sgt * -(rs * rs) / (2.f * sd);
-    const float coef = 2.f * gss / static_cast<float>(n - 1);
-    const float mean_gd = (rs * sg + coef * sdd) * inv_n;
-    for (int i = lane; i < n; i += 32) {
-      float d, gyh;
-      grad_at(i, d, gyh);
-      zs[i] = fmaf(d, coef, gyh * rs) - mean_gd;
-    }
-  }
-}
-
-// part: this block's d(taps) (5, C_in, C_out) and dbias (C_out) of stage j.
-__device__ void up_conv_grad_partial(const float* in, const float* gz, int l_in, int c_in,
-                                     int ns, int width, float* __restrict__ part) {
-  const int l_out = 2 * l_in, c_out = c_in / 2, n = kK * c_in * c_out;
-  for (int o = threadIdx.x; o < n + c_out; o += blockDim.x) {
-    float acc = 0.f;
-    if (o < n) {
-      const int co = o % c_out, r = o / c_out;
-      const int ci = r % c_in, t = r / c_in;
-      for (int s = 0; s < ns; ++s) {
-        const float* xs = in + s * width + ci;
-        const float* gs = gz + s * width + co;
-        for (int l = 0; l < l_out; ++l) {
-          const int u = l + t - kPad;
-          if (u >= 0 && u < l_out) acc = fmaf(xs[(u >> 1) * c_in], gs[l * c_out], acc);
-        }
-      }
-    } else {
-      const int co = o - n;
-      for (int s = 0; s < ns; ++s)
-        for (int l = 0; l < l_out; ++l) acc += gz[s * width + l * c_out + co];
-    }
-    part[o] = acc;
-  }
-}
-
-// out[s, u, ci] = the gradient of the stage input: its two upsampled rows
-// 2u, 2u+1 are read by output l through tap t = v + 2 - l.
-__device__ void up_conv_input_grad(const float* gz, const float* __restrict__ w, int l_in,
-                                   int c_in, int ns, int width, float* out, int out_stride) {
-  const int l_out = 2 * l_in, c_out = c_in / 2, per = l_in * c_in;
-  for (int o = threadIdx.x; o < ns * per; o += blockDim.x) {
-    const int s = o / per, r = o - s * per;
-    const int u = r / c_in, ci = r - u * c_in;
-    const float* gs = gz + s * width;
-    float acc = 0.f;
-    for (int v = 2 * u; v < 2 * u + 2; ++v) {
-      for (int t = 0; t < kK; ++t) {
-        const int l = v + kPad - t;
-        if (l < 0 || l >= l_out) continue;
-        const float* gr = gs + l * c_out;
-        const float* wr = w + (t * c_in + ci) * c_out;
-        for (int co = 0; co < c_out; co += 4) {
-          const float4 wv = __ldg(reinterpret_cast<const float4*>(wr + co));
-          const float4 gv = *reinterpret_cast<const float4*>(gr + co);
-          acc = fmaf(gv.x, wv.x, acc);
-          acc = fmaf(gv.y, wv.y, acc);
-          acc = fmaf(gv.z, wv.z, acc);
-          acc = fmaf(gv.w, wv.w, acc);
-        }
-      }
-    }
-    out[s * out_stride + r] = acc;
-  }
-}
 
 __device__ __forceinline__ int reflect(int u, int l) {
   return u < 0 ? -u : (u >= l ? 2 * l - 2 - u : u);
@@ -283,10 +93,11 @@ sln_chain_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
   }
   __syncthreads();
   for (int j = 0; j < kStages; ++j) {
-    up_conv_stage(act[j], z[j], a.w[j], a.bias[j], a.l_in[j], a.c_in[j], ns, wd);
+    const int c_out = a.c_in[j] / 2;
+    up_conv_stage<true>(act[j], z[j], a.w[j], a.bias[j], a.l_in[j], a.c_in[j], c_out, ns, wd);
     __syncthreads();
-    sln_forward(z[j], act[j + 1], stats + 3 * j * spb, a.gamma[j], a.beta[j],
-                2 * a.l_in[j] * (a.c_in[j] / 2), a.c_in[j] / 2, ns, wd);
+    sln_relu(z[j], act[j + 1], stats + 3 * j * spb, a.gamma[j], a.beta[j],
+             2 * a.l_in[j] * c_out, c_out, ns, wd);
     __syncthreads();
   }
   const int l = 2 * a.l_in[kStages - 1], c = a.c_in[kStages - 1] / 2;
@@ -357,20 +168,20 @@ sln_chain_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
     const int c_out = a.c_in[j] / 2, n = 2 * a.l_in[j] * c_out;
     const float* st = stats + 3 * j * spb;
     float* pj = mine + a.off[j];
-    const int n_taps = kK * a.c_in[j] * c_out;
+    const int n_taps = kUpK * a.c_in[j] * c_out;
     affine_grad_partial(z[j], act[j + 1], st, a.gamma[j], a.beta[j], n, c_out, ns, wd,
                         pj + n_taps + c_out);
     __syncthreads();
     sln_backward(z[j], act[j + 1], st, a.gamma[j], a.beta[j], n, c_out, ns, wd);
     __syncthreads();
-    up_conv_grad_partial(act[j], z[j], a.l_in[j], a.c_in[j], ns, wd, pj);
+    up_conv_grad_partial<true>(act[j], z[j], a.l_in[j], a.c_in[j], c_out, true, ns, wd, pj);
     __syncthreads();
     if (j > 0) {
-      up_conv_input_grad(z[j], a.w[j], a.l_in[j], a.c_in[j], ns, wd, act[j], wd);
+      up_conv_input_grad<true>(z[j], a.w[j], a.l_in[j], a.c_in[j], c_out, ns, wd, act[j], wd);
       __syncthreads();
     } else if (dx) {
-      up_conv_input_grad(z[0], a.w[0], a.l_in[0], a.c_in[0], ns, wd,
-                         dx + static_cast<size_t>(s0) * n0, n0);
+      up_conv_input_grad<true>(z[0], a.w[0], a.l_in[0], a.c_in[0], c_out, ns, wd,
+                               dx + static_cast<size_t>(s0) * n0, n0);
     }
   }
 }
@@ -405,7 +216,7 @@ int iins_sln_chain_bwd(const float* x, const float* g, float* dx, float* part, f
     a.l_in[j] = l;
     a.c_in[j] = c;
     a.off[j] = off;
-    off += kK * c * (c / 2) + 3 * (c / 2);
+    off += kUpK * c * (c / 2) + 3 * (c / 2);
     l *= 2;
     c /= 2;
   }

@@ -1,5 +1,6 @@
-"""K1 in_chain, K2 conv_bias_act, K4 mlp_chain, K5 adain_res_block and K6
-sln_chain: wrappers and plain versions.
+"""K1 in_chain, K2 conv_bias_act, K4 mlp_chain, K5 adain_res_block, K6
+sln_chain and the one-stage decoder entries K8 adain_layer, K9 sln_layer and
+K10 tanh_pool: wrappers and plain versions.
 
 A wrapper runs the plain version on CPU tensors (autograd differentiates
 it). On CUDA tensors it launches its kernel: through the kernel's
@@ -7,9 +8,12 @@ it). On CUDA tensors it launches its kernel: through the kernel's
 backward kernel of backward.py) when grad mode is on and an input requires
 grad, else directly, as under ``torch.inference_mode``.
 
-The CUDA sources are csrc/in_chain.cu (K1, K2, K5 and K3's kernel),
-csrc/mlp_chain.cu (K4) and csrc/sln_chain.cu (K6); each states the TPU
-entry it replaces, its bound on the H100 and what its design does about it.
+The CUDA sources are csrc/in_chain.cu (K1, K2, K5, K8 and K3's kernel),
+csrc/mlp_chain.cu (K4), csrc/sln_chain.cu (K6) and csrc/sln_layer.cu (K9,
+K10); each states the TPU entry it replaces, its bound on the H100 and what
+its design does about it. No model calls K8-K10: they are the counterparts
+of the Pallas entries fused_adain_layer, fused_sln_layer and
+fused_tanh_pool_layer.
 Layouts are the JAX package's: activations (B, L, C), conv taps
 (k, C_in, C_out), dense weights (D_in, D_out).
 
@@ -384,3 +388,210 @@ def launch_sln_chain(x: torch.Tensor, stages: Sequence[UpStage], out_kernel: tor
 
 
 sln_chain.launches = 0
+
+
+# ------------------------------ K8 adain_layer ------------------------------
+
+ACTS = ("none", "relu")
+
+
+def adain_layer_ref(x: torch.Tensor, taps: torch.Tensor, gamma: torch.Tensor,
+                    beta: torch.Tensor, *, stride: int = 1, padding: int = 0,
+                    pad_mode: str = "zero", act: str = "none",
+                    residual: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of K8: act(adain(conv1d(x, taps), gamma, beta)) [+ residual];
+    the conv has no bias (the InstanceNorm would remove it)."""
+    if act not in ACTS:
+        raise ValueError(f"act must be one of {ACTS}, got {act!r}")
+    y = adain(conv1d(x, taps, stride=stride, padding=padding, pad_mode=pad_mode), gamma, beta)
+    if act == "relu":
+        y = torch.relu(y)
+    return y if residual is None else y + residual
+
+
+def adain_layer(x: torch.Tensor, taps: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                *, stride: int = 1, padding: int = 0, pad_mode: str = "zero",
+                act: str = "none", residual: torch.Tensor | None = None) -> torch.Tensor:
+    """K8: one conv -> AdaIN -> act stage in one launch (K1's kernel, its
+    one-stage kAdain instance), the residual added after the activation.
+    x (B, L_in, C_in); taps (k, C_in, C_out); gamma, beta (B, C_out);
+    residual (B, L_out, C_out) or None; act 'none' or 'relu'.
+
+    Replaces fused_adain_layer (iinsvae_tpu/ops/pallas/fused.py:828)."""
+    if x.device.type == "cpu":
+        return adain_layer_ref(x, taps, gamma, beta, stride=stride, padding=padding,
+                               pad_mode=pad_mode, act=act, residual=residual)
+    geometry = (stride, padding, pad_mode, act)
+    if wants_grad(x, taps, gamma, beta, *(() if residual is None else (residual,))):
+        from iinsvae_torch.ops.kernels import autograd
+        return autograd.AdainLayer.apply(x, taps, gamma, beta, residual, geometry)
+    return launch_adain_layer(x, taps, gamma, beta, residual, *geometry)
+
+
+def check_adain_layer(x: torch.Tensor, taps: torch.Tensor, gamma: torch.Tensor,
+                      beta: torch.Tensor, residual: torch.Tensor | None, stride: int,
+                      padding: int, pad_mode: str, act: str) -> list[int]:
+    """Raise on what K8 (and its backward) does not take; -> the stage row."""
+    if act not in ACTS:
+        raise ValueError(f"act must be one of {ACTS}, got {act!r}")
+    rows, l_out, c_out = stage_rows(x, [(taps, stride, padding, pad_mode)])
+    b = x.shape[0]
+    if gamma.shape != (b, c_out) or beta.shape != (b, c_out):
+        raise ValueError(f"gamma and beta must each be ({b}, {c_out})")
+    if residual is not None and residual.shape != (b, l_out, c_out):
+        raise ValueError(f"residual must be {(b, l_out, c_out)}, got {tuple(residual.shape)}")
+    if c_out % 4 or taps.data_ptr() % 16:
+        raise ValueError("adain_layer takes 16-byte aligned taps with C_out a multiple of 4")
+    _build.require_cuda_f32("adain_layer", x, taps, gamma, beta,
+                            *(() if residual is None else (residual,)))
+    return rows
+
+
+def launch_adain_layer(x: torch.Tensor, taps: torch.Tensor, gamma: torch.Tensor,
+                       beta: torch.Tensor, residual: torch.Tensor | None, stride: int,
+                       padding: int, pad_mode: str, act: str) -> torch.Tensor:
+    """Check the operands, launch K8 and count the launch."""
+    rows = check_adain_layer(x, taps, gamma, beta, residual, stride, padding, pad_mode, act)
+    b, l_out, c_out = x.shape[0], rows[6], rows[7]
+    y = torch.empty((b, l_out, c_out), device=x.device, dtype=x.dtype)
+    spb = _build.samples_per_block(b, rows[4] * rows[5] + l_out * c_out)
+    fn = _build.function("in_chain", "iins_adain_layer",
+                         [_P] * 6 + [_I, ctypes.POINTER(_I), _I, _I, _P])
+    err = fn(x.data_ptr(), taps.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+             None if residual is None else residual.data_ptr(), y.data_ptr(), b,
+             (_I * 8)(*rows), int(act == "relu"), spb, _build.stream_handle(x))
+    _build.check(err, "in_chain", "adain_layer")
+    adain_layer.launches += 1
+    return y
+
+
+adain_layer.launches = 0
+
+
+# ------------------------------ K9 sln_layer ------------------------------
+
+
+def sln_layer_ref(x: torch.Tensor, taps: torch.Tensor, gamma: torch.Tensor,
+                  beta: torch.Tensor) -> torch.Tensor:
+    """Plain version of K9: relu(sample_layer_norm(conv1d(upsample_x2(x), taps,
+    zero pad 2), gamma, beta)); no conv bias."""
+    return torch.relu(sample_layer_norm(conv1d(upsample_nearest1d(x, 2), taps, padding=2),
+                                        gamma, beta))
+
+
+def sln_layer(x: torch.Tensor, taps: torch.Tensor, gamma: torch.Tensor,
+              beta: torch.Tensor) -> torch.Tensor:
+    """K9: one decoder up-stage in one launch (one stage of K6), (B, L, C_in)
+    -> (B, 2L, C_out): x2 nearest upsample, conv k5 zero pad 2 without bias,
+    the per-sample LayerNorm, per-channel gamma, beta (C_out,), ReLU.
+    taps (5, C_in, C_out).
+
+    Replaces fused_sln_layer (iinsvae_tpu/ops/pallas/fused.py:844)."""
+    if x.device.type == "cpu":
+        return sln_layer_ref(x, taps, gamma, beta)
+    if wants_grad(x, taps, gamma, beta):
+        from iinsvae_torch.ops.kernels import autograd
+        return autograd.SlnLayer.apply(x, taps, gamma, beta)
+    return launch_sln_layer(x, taps, gamma, beta)
+
+
+def check_sln_layer(x: torch.Tensor, taps: torch.Tensor, gamma: torch.Tensor,
+                    beta: torch.Tensor) -> int:
+    """Raise on what K9 (and its backward) does not take; -> the floats a
+    sample takes in each of the kernel's shared buffers (its input or its
+    output, rounded up to 4)."""
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, L, C), got shape {tuple(x.shape)}")
+    _, l, c_in = x.shape
+    if taps.dim() != 3 or taps.shape[:2] != (5, c_in):
+        raise ValueError(f"taps must be (5, {c_in}, C_out), got {tuple(taps.shape)}")
+    c_out = taps.shape[2]
+    if gamma.shape != (c_out,) or beta.shape != (c_out,):
+        raise ValueError(f"gamma and beta must each be ({c_out},)")
+    if c_out % 4 or taps.data_ptr() % 16:
+        raise ValueError("sln_layer takes 16-byte aligned taps with C_out a multiple of 4")
+    _build.require_cuda_f32("sln_layer", x, taps, gamma, beta)
+    return _round4(max(l * c_in, 2 * l * c_out))
+
+
+def launch_sln_layer(x: torch.Tensor, taps: torch.Tensor, gamma: torch.Tensor,
+                     beta: torch.Tensor) -> torch.Tensor:
+    """Check the operands, launch K9 and count the launch."""
+    width = check_sln_layer(x, taps, gamma, beta)
+    b, l, c_in = x.shape
+    c_out = taps.shape[2]
+    y = torch.empty((b, 2 * l, c_out), device=x.device, dtype=x.dtype)
+    spb = _build.samples_per_block(b, 2 * width)  # input and output in shared memory
+    fn = _build.function("sln_layer", "iins_sln_layer", [_P] * 5 + [_I] * 5 + [_P])
+    err = fn(x.data_ptr(), taps.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), b,
+             l, c_in, c_out, spb, _build.stream_handle(x))
+    _build.check(err, "sln_layer", "sln_layer")
+    sln_layer.launches += 1
+    return y
+
+
+sln_layer.launches = 0
+
+
+# ------------------------------ K10 tanh_pool ------------------------------
+
+
+def tanh_pool_ref(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor, pool: torch.Tensor,
+                  *, padding: int = 0, pad_mode: str = "zero") -> torch.Tensor:
+    """Plain version of K10: tanh(conv1d(x, taps) + bias) flattened over
+    (L, C_mid), times ``pool``. ``pool`` is a constant: it gets no gradient,
+    as in the Pallas entry (iinsvae_tpu/ops/pallas/fused.py:822)."""
+    th = torch.tanh(conv1d(x, taps, bias, padding=padding, pad_mode=pad_mode))
+    return th.reshape(th.shape[0], -1) @ pool.detach()
+
+
+def tanh_pool(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor, pool: torch.Tensor, *,
+              padding: int = 0, pad_mode: str = "zero") -> torch.Tensor:
+    """K10: the decoder's tail in one launch (K6's tail with a pool matrix):
+    x (B, L, C) -> tanh(conv stride 1 + bias) (B, L_out, C_mid) -> flattened
+    @ pool (L_out * C_mid, n_out) -> (B, n_out). taps (k, C, C_mid), bias
+    (C_mid,).
+
+    Replaces fused_tanh_pool_layer (iinsvae_tpu/ops/pallas/fused.py:855)."""
+    if x.device.type == "cpu":
+        return tanh_pool_ref(x, taps, bias, pool, padding=padding, pad_mode=pad_mode)
+    if wants_grad(x, taps, bias):
+        from iinsvae_torch.ops.kernels import autograd
+        return autograd.TanhPool.apply(x, taps, bias, pool, (padding, pad_mode))
+    return launch_tanh_pool(x, taps, bias, pool, padding, pad_mode)
+
+
+def check_tanh_pool(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor, pool: torch.Tensor,
+                    padding: int, pad_mode: str) -> list[int]:
+    """Raise on what K10 (and its backward) does not take; -> the stage row."""
+    rows, l_out, c_mid = stage_rows(x, [(taps, 1, padding, pad_mode)])
+    if bias.shape != (c_mid,):
+        raise ValueError(f"bias must be ({c_mid},), got {tuple(bias.shape)}")
+    if pool.dim() != 2 or pool.shape[0] != l_out * c_mid:
+        raise ValueError(f"pool must be ({l_out * c_mid}, n_out), got {tuple(pool.shape)}")
+    _build.require_cuda_f32("tanh_pool", x, taps, bias, pool)
+    return rows
+
+
+def launch_tanh_pool(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor,
+                     pool: torch.Tensor, padding: int, pad_mode: str) -> torch.Tensor:
+    """Check the operands, launch K10 and count the launch."""
+    rows = check_tanh_pool(x, taps, bias, pool, padding, pad_mode)
+    b, n_out = x.shape[0], pool.shape[1]
+    y = torch.empty((b, n_out), device=x.device, dtype=x.dtype)
+    # the input and the tanh output in shared memory
+    spb = _build.samples_per_block(b, _round4(rows[4] * rows[5]) + _round4(rows[6] * rows[7]))
+    fn = _build.function("sln_layer", "iins_tanh_pool",
+                         [_P] * 5 + [_I, ctypes.POINTER(_I), _I, _I, _P])
+    err = fn(x.data_ptr(), taps.data_ptr(), bias.data_ptr(), pool.data_ptr(), y.data_ptr(), b,
+             (_I * 8)(*rows), n_out, spb, _build.stream_handle(x))
+    _build.check(err, "sln_layer", "tanh_pool")
+    tanh_pool.launches += 1
+    return y
+
+
+tanh_pool.launches = 0
+
+
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4

@@ -34,6 +34,7 @@ from iinsvae_torch.ops import kernels
 from iinsvae_torch.ops.conv import conv2d
 from iinsvae_torch.ops.kernels import backward, fused, res2d, strided_conv
 from iinsvae_torch.ops.norms import adain, instance_norm
+from iinsvae_torch.ops.pooling import adaptive_avg_pool_matrix
 from iinsvae_torch.serving import Predictor
 from iinsvae_torch.training import steps
 
@@ -47,12 +48,17 @@ WRAPPED = [(fused, "in_chain", fused.in_chain_ref),
            (fused, "mlp_chain", fused.mlp_chain_ref),
            (fused, "adain_res_block", fused.adain_res_block_ref),
            (fused, "sln_chain", fused.sln_chain_ref),
-           (res2d, "res_block_2d", res2d.res_block_2d_ref)]
+           (res2d, "res_block_2d", res2d.res_block_2d_ref),
+           (fused, "adain_layer", fused.adain_layer_ref),
+           (fused, "sln_layer", fused.sln_layer_ref),
+           (fused, "tanh_pool", fused.tanh_pool_ref)]
 # launches of one forward batch of each conv_type, without and with the decoder
+# (the one-stage ops K8-K10 run on no model path)
+STANDALONE = {"adain_layer": 0, "sln_layer": 0, "tanh_pool": 0}
 NO_RECON = {1: {"in_chain": 6, "conv_bias_act": 2, "strided_conv": 2, "mlp_chain": 2,
-                "adain_res_block": 0, "sln_chain": 0, "res_block_2d": 0},
+                "adain_res_block": 0, "sln_chain": 0, "res_block_2d": 0, **STANDALONE},
             2: {"in_chain": 0, "conv_bias_act": 0, "strided_conv": 0, "mlp_chain": 2,
-                "adain_res_block": 0, "sln_chain": 0, "res_block_2d": 3}}
+                "adain_res_block": 0, "sln_chain": 0, "res_block_2d": 3, **STANDALONE}}
 RECON = {1: {**NO_RECON[1], "conv_bias_act": 3, "adain_res_block": 3, "sln_chain": 1},
          2: {**NO_RECON[2], "res_block_2d": 6}}
 # backward launches of one training step: one for each forward launch
@@ -397,3 +403,140 @@ def test_gpu_res_block_2d_rejects_what_the_kernel_does_not_take(cuda):
         res2d.res_block_2d(x.transpose(1, 2), k, k)
     with pytest.raises(ValueError):  # g of another shape than x
         backward.res_block_2d_bwd(x[:3].contiguous(), x, k, k)
+
+
+def _one_stage_ops(cuda, b):
+    """K8-K10 at the flagship decoder's shapes, seeded decoder weights and
+    inputs at batch b: the AdaIN block's two halves (relu; none with the
+    block input as residual), the four up-stages (8, 64) -> (16, 32) -> (32,
+    16) -> (64, 8) -> (128, 4), the tail (128, 4) -> k7 reflect -> pool 157.
+    name -> (forward, its plain version, backward(g, need_dx), its plain
+    version)."""
+    dec = IInsVAE(**FLAGSHIP, generator=torch.Generator().manual_seed(4)).decoder.decoder
+    dec = dec.to(cuda).requires_grad_(False)
+    gen = torch.Generator().manual_seed(b)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen).to(cuda)
+
+    def op(fwd, fwd_ref, bwd, bwd_ref, args, kw, bwd_kw):
+        return (lambda: fwd(*args, **kw), lambda: fwd_ref(*args, **kw),
+                lambda g, need_dx=True: bwd(g, *args, **bwd_kw, need_dx=need_dx),
+                lambda g, need_dx=True: bwd_ref(g, *args, **bwd_kw, need_dx=need_dx))
+
+    x, y = rand(b, 8, 64), rand(b, 8, 64)
+    ops = {}
+    for name, inp, taps, act, res in (("adain_relu", x, dec.res0_kernel1, "relu", None),
+                                      ("adain_res", y, dec.res0_kernel2, "none", x)):
+        geo = dict(padding=1, pad_mode="reflect", act=act)
+        ops[name] = op(fused.adain_layer, fused.adain_layer_ref, backward.adain_layer_bwd,
+                       backward.adain_layer_bwd_ref, (inp, taps, rand(b, 64), rand(b, 64)),
+                       dict(geo, residual=res), geo)
+    l, c = 8, 64
+    for j in range(4):
+        args = (rand(b, l, c), *(getattr(dec, f"up{j}_{n}") for n in ("kernel", "gamma", "beta")))
+        ops[f"sln{j}"] = op(fused.sln_layer, fused.sln_layer_ref, backward.sln_layer_bwd,
+                            backward.sln_layer_bwd_ref, args, {}, {})
+        l, c = 2 * l, c // 2
+    geo = dict(padding=3, pad_mode="reflect")
+    ops["tail"] = op(fused.tanh_pool, fused.tanh_pool_ref, backward.tanh_pool_bwd,
+                     backward.tanh_pool_bwd_ref,
+                     (rand(b, l, c), dec.out_kernel, dec.out_bias,
+                      adaptive_avg_pool_matrix(l, 157, device=cuda)), geo, geo)
+    return ops
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [5, 500])
+def test_gpu_one_stage_kernels_and_their_backward_match_plain(cuda, batch):
+    """K8-K10 and K8b-K10b at every flagship decoder shape against the plain
+    versions (at batch 5 a block holds a ragged tile), each backward
+    bit-reproducible across two calls."""
+    gen = torch.Generator().manual_seed(batch + 1)
+    for name, (fwd, fwd_ref, bwd, bwd_ref) in _one_stage_ops(cuda, batch).items():
+        got = fwd()
+        assert torch.isfinite(got).all(), name
+        torch.testing.assert_close(got, fwd_ref(), rtol=RTOL, atol=ATOL,
+                                   msg=lambda m: f"{name}: {m}")
+        g = torch.randn(got.shape, generator=gen).to(cuda)
+        first, want = _tensors(bwd(g)), _tensors(bwd_ref(g))
+        assert len(first) == len(want), name
+        for i, (a, w) in enumerate(zip(first, want)):
+            assert torch.isfinite(a).all(), (name, i)
+            _close_scaled(a, w, BWD_RTOL, BWD_ATOL, f"{name} gradient {i}")
+        for i, (a, b) in enumerate(zip(first, _tensors(bwd(g)))):
+            assert torch.equal(a, b), (name, i)
+        assert bwd(g, need_dx=False)[0] is None
+
+
+@pytest.mark.gpu
+def test_gpu_one_stage_kernels_compose_into_adain_res_block_and_sln_chain(cuda):
+    """Two K8 calls (relu; none with the block input as residual) are one K5
+    call; four K9 calls and K10 with the adaptive pool matrix are K6 with
+    zero stage biases."""
+    dec, x, (g1, b1, g2, b2), stages = _decoder_inputs(cuda, b=37)
+    k1, k2, ko, bo = dec.res0_kernel1, dec.res0_kernel2, dec.out_kernel, dec.out_bias
+    with torch.no_grad():
+        geo = dict(padding=1, pad_mode="reflect")
+        y = fused.adain_layer(x, k1, g1, b1, act="relu", **geo)
+        y = fused.adain_layer(y, k2, g2, b2, act="none", residual=x, **geo)
+        torch.testing.assert_close(y, fused.adain_res_block(x, k1, k2, g1, b1, g2, b2),
+                                   rtol=RTOL, atol=ATOL)
+        zero = [(t, torch.zeros_like(bias), g, b) for t, bias, g, b in stages]
+        z = x
+        for taps, _, gamma, beta in zero:
+            z = fused.sln_layer(z, taps, gamma, beta)
+        pool = adaptive_avg_pool_matrix(z.shape[1], 157, device=cuda)
+        torch.testing.assert_close(fused.tanh_pool(z, ko, bo, pool, padding=3, pad_mode="reflect"),
+                                   fused.sln_chain(x, zero, ko, bo, 157), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_gpu_one_stage_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x, k = torch.randn((4, 8, 64), device=cuda), torch.randn((3, 64, 64), device=cuda)
+    t = torch.randn((4, 64), device=cuda)
+    geo = dict(padding=1, pad_mode="reflect")
+    with pytest.raises(TypeError):
+        fused.adain_layer(x.double(), k.double(), t.double(), t.double(), **geo)
+    with pytest.raises(ValueError):  # tables of another batch
+        fused.adain_layer(x, k, t[:3], t, **geo)
+    with pytest.raises(ValueError):  # C_out not a multiple of 4
+        fused.adain_layer(x, k[:, :, :62].contiguous(), t[:, :62].contiguous(),
+                          t[:, :62].contiguous(), **geo)
+    with pytest.raises(ValueError):  # a residual of another shape than the output
+        fused.adain_layer(x, k, t, t, residual=x[:, :4].contiguous(), **geo)
+    with pytest.raises(ValueError):
+        fused.adain_layer(x, k, t, t, act="gelu", **geo)
+    with pytest.raises(ValueError):  # non-contiguous
+        fused.adain_layer(x.transpose(1, 2).contiguous().transpose(1, 2), k, t, t, **geo)
+    with pytest.raises(ValueError):  # g of another shape than the output
+        backward.adain_layer_bwd(x[:3].contiguous(), x, k, t, t, **geo)
+    assert torch.isfinite(fused.adain_layer(x, k, t, t, act="relu", residual=x, **geo)).all()
+
+    up, v = torch.randn((5, 64, 32), device=cuda), torch.randn(32, device=cuda)
+    with pytest.raises(TypeError):
+        fused.sln_layer(x.double(), up.double(), v.double(), v.double())
+    with pytest.raises(ValueError):  # not a k5 conv
+        fused.sln_layer(x, up[:3].contiguous(), v, v)
+    with pytest.raises(ValueError):  # gamma of another width than C_out
+        fused.sln_layer(x, up, v[:16].contiguous(), v)
+    with pytest.raises(ValueError):  # C_out not a multiple of 4
+        fused.sln_layer(x, up[:, :, :30].contiguous(), v[:30].contiguous(), v[:30].contiguous())
+    with pytest.raises(ValueError):  # g of another shape than the output
+        backward.sln_layer_bwd(x, x, up, v, v)
+    assert fused.sln_layer(x, up, v, v).shape == (4, 16, 32)
+
+    xt, ko = torch.randn((4, 128, 4), device=cuda), torch.randn((7, 4, 1), device=cuda)
+    bo, pool = torch.randn(1, device=cuda), torch.randn((128, 157), device=cuda)
+    tail = dict(padding=3, pad_mode="reflect")
+    with pytest.raises(TypeError):
+        fused.tanh_pool(xt.double(), ko.double(), bo.double(), pool.double(), **tail)
+    with pytest.raises(ValueError):  # a pool matrix of another height than L * C_mid
+        fused.tanh_pool(xt, ko, bo, pool[:100], **tail)
+    with pytest.raises(ValueError):  # bias of another width than C_mid
+        fused.tanh_pool(xt, ko, torch.zeros(2, device=cuda), pool, **tail)
+    with pytest.raises(ValueError):  # a reflect pad as long as the input
+        fused.tanh_pool(xt[:, :3].contiguous(), ko, bo, pool[:3], **tail)
+    with pytest.raises(ValueError):  # g of another length than the pool's
+        backward.tanh_pool_bwd(torch.zeros((4, 150), device=cuda), xt, ko, bo, pool, **tail)
+    assert fused.tanh_pool(xt, ko, bo, pool, **tail).shape == (4, 157)

@@ -264,9 +264,15 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                     torch.tensor(ko), torch.tensor(bo), 157)
     res2d.res_block_2d(torch.zeros((2, 8, 8, 64)), torch.zeros((3, 3, 64, 64)),
                        torch.zeros((3, 3, 64, 64)))
+    xd, tab = torch.zeros((2, 8, 64)), torch.zeros((2, 64))
+    fused.adain_layer(xd, torch.zeros((3, 64, 64)), tab, tab, padding=1, pad_mode="reflect")
+    fused.sln_layer(xd, torch.zeros((5, 64, 32)), torch.zeros(32), torch.zeros(32))
+    fused.tanh_pool(torch.zeros((2, 128, 4)), torch.zeros((7, 4, 1)), torch.zeros(1),
+                    torch.zeros((128, 157)), padding=3, pad_mode="reflect")
     assert kernels.launch_counts() == {
         "in_chain": 0, "conv_bias_act": 0, "strided_conv": 0, "mlp_chain": 0,
-        "adain_res_block": 0, "sln_chain": 0, "res_block_2d": 0}
+        "adain_res_block": 0, "sln_chain": 0, "res_block_2d": 0, "adain_layer": 0,
+        "sln_layer": 0, "tanh_pool": 0}
 
 
 def test_conv1d_reflect_padding_excludes_the_edge():
