@@ -23,10 +23,12 @@
    reconstruction, and the device's idle share of served batches from a
    torch.profiler trace of the card;
 6. at each of the 17 forward call sites of a training step, at batch 500,
-   calls the backward kernel (K1b, K2b, K4b, K6b through their six
+   calls the backward kernel (K1b, K2b, K3b, K4b, K6b through their six
    wrappers) and holds every gradient against autograd of the plain
    version, and times both, with cuDNN's conv backward
-   (``aten.convolution_backward``, TF32 off) beside K2b's sites;
+   (``aten.convolution_backward``, TF32 off) beside K2b's and K3b's sites;
+   then holds every 1-D forward and backward kernel call at the ragged
+   batches 5 and 261 against its plain version (``[ragged]`` lines);
 7. trains the flagship (seeded weights) on the synthetic room_full fixture
    (10000 CIRs, the 'full' split's 8000 train CIRs standardized, batch 500)
    through ``cli.train_semi.build`` and ``training.loop.train_epochs``:
@@ -97,6 +99,9 @@ from iinsvae_torch.serving import Predictor
 from iinsvae_torch.training import loop, steps
 
 BATCH = 500
+# batches for the ragged checks: no whole number of tiles of any kernel
+# (K3's tiles are 64-128 rows of 32-64 a sample, K3b's 128-256 row pairs)
+RAGGED = (5, 261)
 # H100 SXM data-sheet peaks: HBM bytes/s, and
 # float32 outside the tensor cores (the kernels use fp32 FMAs)
 PEAK_BYTES_PER_S = 3.35e12
@@ -162,13 +167,13 @@ _CSRC = "iinsvae_torch/ops/kernels/csrc/"
 SOURCES = {
     "in_chain": _CSRC + "in_chain.cu",
     "conv_bias_act": _CSRC + "in_chain.cu",
-    "strided_conv": _CSRC + "in_chain.cu",
+    "strided_conv": _CSRC + "strided_conv.cu",
     "mlp_chain": _CSRC + "mlp_chain.cu",
     "adain_res_block": _CSRC + "in_chain.cu",
     "sln_chain": _CSRC + "sln_chain.cu",
     "in_chain_bwd": _CSRC + "in_chain_bwd.cu",
     "conv_bias_act_bwd": _CSRC + "conv_bias_act_bwd.cu",
-    "strided_conv_bwd": _CSRC + "conv_bias_act_bwd.cu",
+    "strided_conv_bwd": _CSRC + "strided_conv_bwd.cu",
     "mlp_chain_bwd": _CSRC + "mlp_chain_bwd.cu",
     "adain_res_block_bwd": _CSRC + "in_chain_bwd.cu",
     "sln_chain_bwd": _CSRC + "sln_chain_bwd.cu",
@@ -300,9 +305,9 @@ def nchw_conv3x3(x: torch.Tensor, taps: torch.Tensor):
     return lambda: F.conv2d(xp, w)
 
 
-def call_sites(model: IInsVAE, gen: torch.Generator) -> list[dict]:
+def call_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list[dict]:
     """Every kernel call of one serving forward with the reconstruction, at
-    batch 500, with the model's own weights and seeded random inputs of the
+    batch b (500 unless a ragged check asks for another), with the model's own weights and seeded random inputs of the
     right shape: the 1-D model's sites or the expanded 2-D model's."""
     re_, ee = model.encoder.range_encoder, model.encoder.env_encoder
     dec = model.decoder.decoder
@@ -316,12 +321,12 @@ def call_sites(model: IInsVAE, gen: torch.Generator) -> list[dict]:
     def add_in_chain(name, x, stages, replaces, residual=False, calls=1):
         l, flops = x.shape[1], 0.0
         for taps, s, p, mode in stages:
-            flops += conv_flops(BATCH, l, taps, s, p, mode)
+            flops += conv_flops(b, l, taps, s, p, mode)
             l = out_len(l, taps.shape[0], s, p)
-        y_numel = BATCH * l * stages[-1][0].shape[2]
+        y_numel = b * l * stages[-1][0].shape[2]
         sites.append(dict(
             name=name, kernel="in_chain", replaces=replaces, calls_per_batch=calls,
-            shape=f"{tuple(x.shape)}->({BATCH}, {l}, {stages[-1][0].shape[2]})",
+            shape=f"{tuple(x.shape)}->({b}, {l}, {stages[-1][0].shape[2]})",
             run=lambda: fused.in_chain(x, stages, residual=residual),
             plain=lambda: fused.in_chain_ref(x, stages, residual=residual), library=None,
             bytes=nbytes(x, *[s[0] for s in stages]) + 4 * y_numel, flops=flops))
@@ -337,89 +342,89 @@ def call_sites(model: IInsVAE, gen: torch.Generator) -> list[dict]:
                                                     pad_mode=mode)
         sites.append(dict(
             name=name, kernel=kernel, replaces=replaces, calls_per_batch=1,
-            shape=f"{tuple(x.shape)}->({BATCH}, {l_out}, {taps.shape[2]})",
+            shape=f"{tuple(x.shape)}->({b}, {l_out}, {taps.shape[2]})",
             run=run, plain=plain, library=ncl_conv(x, taps, bias, s, p, mode),
-            bytes=nbytes(x, taps, bias) + 4 * BATCH * l_out * taps.shape[2],
-            flops=conv_flops(BATCH, x.shape[1], taps, s, p, mode)))
+            bytes=nbytes(x, taps, bias) + 4 * b * l_out * taps.shape[2],
+            flops=conv_flops(b, x.shape[1], taps, s, p, mode)))
 
     def add_mlp(name, head, replaces):
         n = len(head.slopes)
         ws = [getattr(head, f"w{j}") for j in range(n)]
         bs = [getattr(head, f"b{j}") for j in range(n)]
-        x = rand(BATCH, ws[0].shape[0])
+        x = rand(b, ws[0].shape[0])
         sites.append(dict(
             name=name, kernel="mlp_chain", replaces=replaces, calls_per_batch=1,
             shape="->".join(str(d) for d in [ws[0].shape[0]] + [w.shape[1] for w in ws]),
             run=lambda: fused.mlp_chain(x, ws, bs, head.slopes),
             plain=lambda: fused.mlp_chain_ref(x, ws, bs, head.slopes), library=None,
-            bytes=nbytes(x, *ws, *bs) + 4 * BATCH * ws[-1].shape[1],
-            flops=2.0 * BATCH * sum(w.numel() for w in ws)))
+            bytes=nbytes(x, *ws, *bs) + 4 * b * ws[-1].shape[1],
+            flops=2.0 * b * sum(w.numel() for w in ws)))
 
     fp = "iinsvae_tpu/ops/pallas/fused.py"
     if model.encoder.conv_type == 2:
         for name, mod, affine in (("range.res2d", re_, []),
-                                  ("dec.res2d", dec, [rand(BATCH, 64) for _ in range(4)])):
-            x, k1, k2 = rand(BATCH, 8, 8, 64), mod.res0_kernel1, mod.res0_kernel2
+                                  ("dec.res2d", dec, [rand(b, 64) for _ in range(4)])):
+            x, k1, k2 = rand(b, 8, 8, 64), mod.res0_kernel1, mod.res0_kernel2
             sites.append(dict(
                 name=name, kernel="res_block_2d", replaces=f"{RES2D}:339", calls_per_batch=3,
                 shape=f"{tuple(x.shape)}->{tuple(x.shape)}" + (" adain" if affine else " in"),
                 run=lambda x=x, k1=k1, k2=k2, a=affine: res2d.res_block_2d(x, k1, k2, *a),
                 plain=lambda x=x, k1=k1, k2=k2, a=affine: res2d.res_block_2d_ref(x, k1, k2, *a),
                 library=None, cudnn_conv=nchw_conv3x3(x, k1),
-                bytes=nbytes(x, k1, k2, *affine, x), flops=2 * res2d_flops(BATCH)))
+                bytes=nbytes(x, k1, k2, *affine, x), flops=2 * res2d_flops(b)))
         add_mlp("restorer.2d", model.restorer.restorer, f"{fp}:1164")
         return sites
     stages = [(re_.in_kernel, 1, 3, "reflect")] + [
         (getattr(re_, f"down{j}_kernel"), 2, 1, "zero") for j in range(4)]
-    add_in_chain("range.pair0", rand(BATCH, 128, 1), stages[0:2], f"{fp}:361")
-    add_in_chain("range.pair1", rand(BATCH, 64, 8), stages[2:4], f"{fp}:361")
-    add_in_chain("range.single", rand(BATCH, 16, 32), stages[4:5], f"{fp}:1320")
-    add_in_chain("range.res", rand(BATCH, 8, 64),
+    add_in_chain("range.pair0", rand(b, 128, 1), stages[0:2], f"{fp}:361")
+    add_in_chain("range.pair1", rand(b, 64, 8), stages[2:4], f"{fp}:361")
+    add_in_chain("range.single", rand(b, 16, 32), stages[4:5], f"{fp}:1320")
+    add_in_chain("range.res", rand(b, 8, 64),
                  [(re_.res0_kernel1, 1, 1, "reflect"), (re_.res0_kernel2, 1, 1, "reflect")],
                  f"{fp}:253", residual=True, calls=3)
-    add_conv("range.out", "conv_bias_act", rand(BATCH, 8, 64), re_.out_kernel, re_.out_bias,
+    add_conv("range.out", "conv_bias_act", rand(b, 8, 64), re_.out_kernel, re_.out_bias,
              1, 0, "zero", f"{fp}:1320")
     c0, c1, c2 = ee.ConvINAct_0, ee.ConvINAct_1, ee.ConvINAct_2
-    add_conv("env.in", "conv_bias_act", rand(BATCH, 128, 1), c0.kernel, c0.bias, 1, 3,
+    add_conv("env.in", "conv_bias_act", rand(b, 128, 1), c0.kernel, c0.bias, 1, 3,
              "reflect", f"{fp}:1320")
     sc = "iinsvae_tpu/ops/pallas/strided_conv.py:250"
-    add_conv("env.down0", "strided_conv", rand(BATCH, 128, 16), c1.kernel, c1.bias, 2, 1,
+    add_conv("env.down0", "strided_conv", rand(b, 128, 16), c1.kernel, c1.bias, 2, 1,
              "zero", sc)
-    add_conv("env.down1", "strided_conv", rand(BATCH, 64, 32), c2.kernel, c2.bias, 2, 1,
+    add_conv("env.down1", "strided_conv", rand(b, 64, 32), c2.kernel, c2.bias, 2, 1,
              "zero", sc)
     add_mlp("restorer", model.restorer.restorer, f"{fp}:1164")
     add_mlp("classifier", model.classifier.classifier, f"{fp}:1164")
 
-    add_conv("dec.in", "conv_bias_act", rand(BATCH, 8, 2), dec.in_kernel, dec.in_bias, 1, 0,
+    add_conv("dec.in", "conv_bias_act", rand(b, 8, 2), dec.in_kernel, dec.in_bias, 1, 0,
              "zero", f"{fp}:1320")
-    x, k1, k2 = rand(BATCH, 8, 64), dec.res0_kernel1, dec.res0_kernel2
-    affine = [rand(BATCH, 64) for _ in range(4)]
+    x, k1, k2 = rand(b, 8, 64), dec.res0_kernel1, dec.res0_kernel2
+    affine = [rand(b, 64) for _ in range(4)]
     sites.append(dict(
         name="dec.res", kernel="adain_res_block", replaces=f"{fp}:557", calls_per_batch=3,
         shape=f"{tuple(x.shape)}->{tuple(x.shape)}",
         run=lambda: fused.adain_res_block(x, k1, k2, *affine),
         plain=lambda: fused.adain_res_block_ref(x, k1, k2, *affine), library=None,
         bytes=nbytes(x, k1, k2, *affine, x),
-        flops=2 * conv_flops(BATCH, 8, k1, 1, 1, "reflect")))
-    xt = rand(BATCH, 8, 64)
+        flops=2 * conv_flops(b, 8, k1, 1, 1, "reflect")))
+    xt = rand(b, 8, 64)
     stages = [tuple(getattr(dec, f"up{j}_{n}") for n in ("kernel", "bias", "gamma", "beta"))
               for j in range(4)]
     flops, l = 0.0, xt.shape[1]
     for taps, *_ in stages:  # x2 upsample, then a k5 zero-pad-2 conv
         k, c_in, c_out = taps.shape
-        flops += 2.0 * BATCH * upsampled_rows(l, k, 2) * c_in * c_out
+        flops += 2.0 * b * upsampled_rows(l, k, 2) * c_in * c_out
         l *= 2
-    flops += conv_flops(BATCH, l, dec.out_kernel, 1, 3, "reflect")
+    flops += conv_flops(b, l, dec.out_kernel, 1, 3, "reflect")
     pool = adaptive_avg_pool_matrix(l, 157, device=dev)  # a buffer, as the encoder's is
     sites.append(dict(
         name="dec.tail", kernel="sln_chain", replaces=f"{fp}:1027", calls_per_batch=1,
-        shape=f"{tuple(xt.shape)}->({BATCH}, 157)",
+        shape=f"{tuple(xt.shape)}->({b}, 157)",
         run=lambda: fused.sln_chain(xt, stages, dec.out_kernel, dec.out_bias, 157),
         plain=lambda: fused.sln_chain_ref(xt, stages, dec.out_kernel, dec.out_bias, 157,
                                           pool=pool),
         library=None,
         bytes=nbytes(xt, *[t for st in stages for t in st], dec.out_kernel, dec.out_bias)
-        + 4 * BATCH * 157,
+        + 4 * b * 157,
         flops=flops))
     return sites
 
@@ -679,8 +684,9 @@ def conv3x3_backward_call(x: torch.Tensor, taps: torch.Tensor, g: torch.Tensor):
         gc, xp, w, None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1, [True, True, False])
 
 
-def backward_sites(model: IInsVAE, gen: torch.Generator) -> list[dict]:
-    """Every backward kernel call of one training step at batch 500: the
+def backward_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list[dict]:
+    """Every backward kernel call of one training step at batch b (500 unless
+    a ragged check asks for another): the
     forward call sites with the model's weights, seeded random inputs and
     upstream gradients of the right shape, and the input gradient only where
     the step needs one (not at the two convs that read the pooled CIR).
@@ -706,11 +712,11 @@ def backward_sites(model: IInsVAE, gen: torch.Generator) -> list[dict]:
     def in_chain_site(name, x, stages, replaces, residual=False, calls=1, need_dx=True):
         l, conv = x.shape[1], 0.0
         for taps, st, pd, mode in stages:
-            conv += conv_flops(BATCH, l, taps, st, pd, mode)
+            conv += conv_flops(b, l, taps, st, pd, mode)
             l = out_len(l, taps.shape[0], st, pd)
         taps = [st[0] for st in stages]
-        g = rand(BATCH, l, taps[-1].shape[2])
-        first = conv_flops(BATCH, x.shape[1], *stages[0])
+        g = rand(b, l, taps[-1].shape[2])
+        first = conv_flops(b, x.shape[1], *stages[0])
         add(name, backward.in_chain_bwd, replaces, calls, (g, x, stages),
             dict(residual=residual, need_dx=need_dx),
             nbytes(x, g, *taps, *taps) + (nbytes(x) if need_dx else 0),
@@ -725,76 +731,97 @@ def backward_sites(model: IInsVAE, gen: torch.Generator) -> list[dict]:
             kw.update(stride=st, padding=pd, pad_mode=mode)
         add(name, wrapper, replaces, 1, (g, x, taps, bias, y), kw,
             nbytes(x, taps, bias, y, g, taps, bias) + (nbytes(x) if need_dx else 0),
-            (2 if need_dx else 1) * conv_flops(BATCH, x.shape[1], taps, st, pd, mode),
+            (2 if need_dx else 1) * conv_flops(b, x.shape[1], taps, st, pd, mode),
             library=conv_backward_call(x, taps, y, g, st, pd, mode, need_dx))
 
     def mlp_site(name, head, replaces):
         n = len(head.slopes)
         ws = [getattr(head, f"w{j}") for j in range(n)]
         bs = [getattr(head, f"b{j}") for j in range(n)]
-        x = rand(BATCH, ws[0].shape[0])
+        x = rand(b, ws[0].shape[0])
         with torch.no_grad():
             _, ds = fused.launch_mlp_chain(x, ws, bs, head.slopes, save_pre=True)
-        g = rand(BATCH, ws[-1].shape[1])
+        g = rand(b, ws[-1].shape[1])
         add(name, backward.mlp_chain_bwd, replaces, 1, (g, x, ws, bs, head.slopes, ds), {},
-            nbytes(x, *ws, *ds, g, x, *ws, *bs), 2 * 2.0 * BATCH * sum(w.numel() for w in ws))
+            nbytes(x, *ws, *ds, g, x, *ws, *bs), 2 * 2.0 * b * sum(w.numel() for w in ws))
 
     if model.encoder.conv_type == 2:
         for name, mod, affine in (("range.res2d", re_, []),
-                                  ("dec.res2d", dec, [rand(BATCH, 64) for _ in range(4)])):
-            x, k1, k2, g = rand(BATCH, 8, 8, 64), mod.res0_kernel1, mod.res0_kernel2, \
-                rand(BATCH, 8, 8, 64)
+                                  ("dec.res2d", dec, [rand(b, 64) for _ in range(4)])):
+            x, k1, k2, g = rand(b, 8, 8, 64), mod.res0_kernel1, mod.res0_kernel2, \
+                rand(b, 8, 8, 64)
             add(name, backward.res_block_2d_bwd, f"{RES2D}:377", 3, (g, x, k1, k2, *affine), {},
-                nbytes(x, k1, k2, *affine[:3], g, x, k1, k2, *affine), 6 * res2d_flops(BATCH),
+                nbytes(x, k1, k2, *affine[:3], g, x, k1, k2, *affine), 6 * res2d_flops(b),
                 cudnn_conv=conv3x3_backward_call(x, k1, g))
         mlp_site("restorer.2d", model.restorer.restorer, f"{fp}:1136")
         return sites
     stages = [(re_.in_kernel, 1, 3, "reflect")] + [
         (getattr(re_, f"down{j}_kernel"), 2, 1, "zero") for j in range(4)]
-    in_chain_site("range.pair0", rand(BATCH, 128, 1), stages[0:2], f"{fp}:333", need_dx=False)
-    in_chain_site("range.pair1", rand(BATCH, 64, 8), stages[2:4], f"{fp}:333")
-    in_chain_site("range.single", rand(BATCH, 16, 32), stages[4:5], f"{fp}:1201")
-    in_chain_site("range.res", rand(BATCH, 8, 64),
+    in_chain_site("range.pair0", rand(b, 128, 1), stages[0:2], f"{fp}:333", need_dx=False)
+    in_chain_site("range.pair1", rand(b, 64, 8), stages[2:4], f"{fp}:333")
+    in_chain_site("range.single", rand(b, 16, 32), stages[4:5], f"{fp}:1201")
+    in_chain_site("range.res", rand(b, 8, 64),
                   [(re_.res0_kernel1, 1, 1, "reflect"), (re_.res0_kernel2, 1, 1, "reflect")],
                   f"{fp}:225", residual=True, calls=3)
-    conv_site("range.out", backward.conv_bias_act_bwd, rand(BATCH, 8, 64), re_.out_kernel,
+    conv_site("range.out", backward.conv_bias_act_bwd, rand(b, 8, 64), re_.out_kernel,
               re_.out_bias, 1, 0, "zero", f"{fp}:1268")
     c0, c1, c2 = ee.ConvINAct_0, ee.ConvINAct_1, ee.ConvINAct_2
-    conv_site("env.in", backward.conv_bias_act_bwd, rand(BATCH, 128, 1), c0.kernel, c0.bias, 1,
+    conv_site("env.in", backward.conv_bias_act_bwd, rand(b, 128, 1), c0.kernel, c0.bias, 1,
               3, "reflect", f"{fp}:1268", need_dx=False)
     sc = "iinsvae_tpu/ops/pallas/strided_conv.py:211"
-    conv_site("env.down0", backward.strided_conv_bwd, rand(BATCH, 128, 16), c1.kernel, c1.bias,
+    conv_site("env.down0", backward.strided_conv_bwd, rand(b, 128, 16), c1.kernel, c1.bias,
               2, 1, "zero", sc)
-    conv_site("env.down1", backward.strided_conv_bwd, rand(BATCH, 64, 32), c2.kernel, c2.bias,
+    conv_site("env.down1", backward.strided_conv_bwd, rand(b, 64, 32), c2.kernel, c2.bias,
               2, 1, "zero", sc)
     mlp_site("restorer", model.restorer.restorer, f"{fp}:1136")
     mlp_site("classifier", model.classifier.classifier, f"{fp}:1136")
-    conv_site("dec.in", backward.conv_bias_act_bwd, rand(BATCH, 8, 2), dec.in_kernel,
+    conv_site("dec.in", backward.conv_bias_act_bwd, rand(b, 8, 2), dec.in_kernel,
               dec.in_bias, 1, 0, "zero", f"{fp}:1268")
 
-    x, k1, k2 = rand(BATCH, 8, 64), dec.res0_kernel1, dec.res0_kernel2
-    affine = [rand(BATCH, 64) for _ in range(4)]
-    g = rand(BATCH, 8, 64)
+    x, k1, k2 = rand(b, 8, 64), dec.res0_kernel1, dec.res0_kernel2
+    affine = [rand(b, 64) for _ in range(4)]
+    g = rand(b, 8, 64)
     add("dec.res", backward.adain_res_block_bwd, f"{fp}:524", 3, (g, x, k1, k2, *affine), {},
         nbytes(x, k1, k2, *affine[:3], g, x, k1, k2, *affine),
-        3 * 2 * conv_flops(BATCH, 8, k1, 1, 1, "reflect"))
+        3 * 2 * conv_flops(b, 8, k1, 1, 1, "reflect"))
 
-    xt = rand(BATCH, 8, 64)
+    xt = rand(b, 8, 64)
     up = [tuple(getattr(dec, f"up{j}_{n}") for n in ("kernel", "bias", "gamma", "beta"))
           for j in range(4)]
     flops, l = 0.0, xt.shape[1]
     for taps, *_ in up:
         k, c_in, c_out = taps.shape
-        flops += 2.0 * BATCH * upsampled_rows(l, k, 2) * c_in * c_out
+        flops += 2.0 * b * upsampled_rows(l, k, 2) * c_in * c_out
         l *= 2
-    flops += conv_flops(BATCH, l, dec.out_kernel, 1, 3, "reflect")
+    flops += conv_flops(b, l, dec.out_kernel, 1, 3, "reflect")
     params = [t for st in up for t in st] + [dec.out_kernel, dec.out_bias]
-    g = rand(BATCH, 157)
+    g = rand(b, 157)
     add("dec.tail", backward.sln_chain_bwd, f"{fp}:996", 1,
         (g, xt, up, dec.out_kernel, dec.out_bias, 157), {},
         nbytes(xt, *params, g, xt, *params), 3 * flops,
         plain_kw=dict(pool=adaptive_avg_pool_matrix(l, 157, device=dev)))
     return sites
+
+
+def ragged_checks(model: IInsVAE) -> dict:
+    """Every 1-D forward and backward kernel call at the batches in RAGGED,
+    none a whole number of any kernel's tiles of samples or rows, held to
+    its plain version (compare_forward, compare_backward). Returns the
+    largest absolute error by batch and call site."""
+    out = {}
+    for b in RAGGED:
+        gen = torch.Generator().manual_seed(20 + b)
+        with torch.inference_mode():
+            errs = {f"{s['kernel']}:{s['name']}": compare_forward(s, f" (batch {b})")[0]
+                    for s in call_sites(model, gen, b)}
+        errs.update({f"{s['kernel']}:{s['name']}": max(compare_backward(s, f" (batch {b})")[0])
+                     for s in backward_sites(model, gen, b)})
+        out[b] = errs
+        k3 = max(v for k, v in errs.items() if k.startswith("strided_conv"))
+        print(f"[ragged] batch {b}: all {len(errs)} 1-D kernel calls within tolerance of their "
+              f"plain versions, largest error {max(errs.values()):.3e} (K3, K3b: {k3:.3e})",
+              flush=True)
+    return out
 
 
 def check_and_time_backward(sites: list[dict], tag: str = "backward") -> list[dict]:
@@ -1353,6 +1380,7 @@ def main() -> int:
     serving = throughput(model, recon=False)
     serving_recon = throughput(model, recon=True)
     bwd_rows = check_and_time_backward(backward_sites(model, torch.Generator().manual_seed(2)))
+    ragged = ragged_checks(model)
     training = train_main_path(1, EXPECTED_TRAIN, EXPECTED_TRAIN_BWD)
     one_stage = one_stage_phase(model)
     del model, cpu_model
@@ -1417,7 +1445,8 @@ def main() -> int:
         main_path_recon=main_path_recon, serving=serving, serving_recon=serving_recon,
         main_path_2d=main_path_2d, main_path_2d_recon=main_path_2d_recon,
         serving_2d=serving_2d, serving_2d_recon=serving_2d_recon,
-        backward_sites=bwd_rows + bwd_rows_2d, training=training, training_2d=training_2d,
+        backward_sites=bwd_rows + bwd_rows_2d, ragged_max_abs_err=ragged, training=training,
+        training_2d=training_2d,
         one_stage=one_stage,
         kernel_tolerance=[KERNEL_RTOL, KERNEL_ATOL], serve_tolerance=[SERVE_RTOL, SERVE_ATOL],
         backward_tolerance=[BWD_RTOL, BWD_ATOL], step_tolerance=[STEP_FACTOR, STEP_FLOOR],

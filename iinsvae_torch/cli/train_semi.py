@@ -49,7 +49,8 @@ def build(cfg: Config, device: str | torch.device = "cuda") -> Trainer:
     """The fixture's train split on ``device``, the seeded model, Adam with
     the schedule, the step and the epoch runner."""
     device = resolve_device(device)
-    cir, err, label, _ = synthetic_arrays(cfg.synthetic_n, cfg.seed, cfg.dataset_env)
+    cir, err, label, _ = synthetic_arrays(cfg.synthetic_n, cfg.seed, cfg.dataset_env,
+                                          cfg.dataset_name)
     (train_cir, train_err, train_label), _ = full_split(cir, err, label)
     data = pad_to_batches({"cir": train_cir, "err": train_err, "label": train_label},
                           cfg.batch_size)

@@ -78,10 +78,15 @@ def synthetic_zenodo_arrays(n: int = 4096, seed: int = 0) -> dict[str, np.ndarra
             "obstacle": np.where(is_los, -1, obstacle_idx)}
 
 
-def synthetic_arrays(n: int = 4096, seed: int = 0, option: str = "room_full"):
+def synthetic_arrays(n: int = 4096, seed: int = 0, option: str = "room_full",
+                     dataset_name: str = "zenodo"):
     """(cir, err, label, room), shapes (N, 157), (N, 1), (N, 1), (N, 1),
     float64, in the order zenodo.load_pkl_data gives them: the selected rows
     shuffled by ``default_rng(seed).permutation``."""
+    if dataset_name != "zenodo":
+        raise NotImplementedError(
+            f"dataset_name {dataset_name!r}: only the zenodo fixture is ported; the eWine "
+            "fixture (152 taps) comes with the data pipeline slice")
     if option != "room_full":
         raise NotImplementedError(
             f"dataset_env {option!r}: only room_full is ported; the other environments "

@@ -6,11 +6,11 @@ Each wrapper runs its kernel on CUDA tensors and its plain PyTorch version
 counts its kernel launches in a plain int attribute, ``<wrapper>.launches``.
 Under autograd the forward wrappers go through autograd.py's Functions,
 whose backward launches the backward wrappers of backward.py (K1b, K2b,
-K4b, K6b, K7b, K8b-K10b: one backward wrapper for each forward wrapper).
+K3b, K4b, K6b, K7b, K8b-K10b: one backward wrapper for each forward wrapper).
 
   K1 fused.in_chain          conv -> IN -> ReLU|skip, 1-2 stages
   K2 fused.conv_bias_act     conv + bias + ReLU
-  K3 strided_conv.strided_conv  k4 s2 zero-pad-1 conv + bias + ReLU (K2's kernel)
+  K3 strided_conv.strided_conv  k4 s2 zero-pad-1 conv + bias + ReLU (window product)
   K4 fused.mlp_chain         Dense + LeakyReLU chain
   K5 fused.adain_res_block   AdaIN residual block (K1's kernel, per-sample affine)
   K6 fused.sln_chain         decoder tail: 4 x (up, conv, LayerNorm, ReLU), conv, tanh, pool

@@ -23,9 +23,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "iinsvae_torch"
-SOURCES = ("in_chain", "mlp_chain", "sln_chain", "res_block_2d", "sln_layer",
-           "in_chain_bwd", "conv_bias_act_bwd", "mlp_chain_bwd", "sln_chain_bwd",
-           "res_block_2d_bwd", "sln_layer_bwd")
+SOURCES = ("in_chain", "strided_conv", "mlp_chain", "sln_chain", "res_block_2d", "sln_layer",
+           "in_chain_bwd", "conv_bias_act_bwd", "strided_conv_bwd", "mlp_chain_bwd",
+           "sln_chain_bwd", "res_block_2d_bwd", "sln_layer_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

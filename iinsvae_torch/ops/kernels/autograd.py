@@ -1,7 +1,7 @@
 """One ``torch.autograd.Function`` for each of K1-K10.
 
 ``forward`` launches the forward kernel (fused.py, strided_conv.py) and
-saves its inputs (K2/K3 also their output, for the ReLU mask; K4 the
+saves its inputs (K2 and K3 also their output, for the ReLU mask; K4 the
 pre-activations its kernel writes under autograd); ``backward`` launches
 the backward kernel (backward.py). The public wrappers take these only for
 CUDA tensors, with grad mode on and an input that requires grad; the input
@@ -39,17 +39,13 @@ class InChain(Function):
 
 
 class ConvBiasAct(Function):
-    """K2 or K3 (``kind`` 'conv_bias_act' or 'strided_conv') / K2b.
-    apply(x, taps, bias, (stride, padding, pad_mode), kind)."""
+    """K2 / K2b. apply(x, taps, bias, (stride, padding, pad_mode))."""
 
     @staticmethod
-    def forward(ctx, x, taps, bias, geometry, kind):
+    def forward(ctx, x, taps, bias, geometry):
         y = fused.launch_conv_bias_act(x, taps, bias, *geometry)
-        if kind == "strided_conv":
-            strided_conv.strided_conv.launches += 1
-        else:
-            fused.conv_bias_act.launches += 1
-        ctx.geometry, ctx.kind = geometry, kind
+        fused.conv_bias_act.launches += 1
+        ctx.geometry = geometry
         ctx.save_for_backward(x, taps, bias, y)
         return y
 
@@ -57,16 +53,29 @@ class ConvBiasAct(Function):
     @once_differentiable
     def backward(ctx, g):
         x, taps, bias, y = ctx.saved_tensors
-        need_dx = ctx.needs_input_grad[0]
-        if ctx.kind == "strided_conv":
-            dx, dtaps, dbias = backward.strided_conv_bwd(g.contiguous(), x, taps, bias, y,
-                                                         need_dx=need_dx)
-        else:
-            stride, padding, pad_mode = ctx.geometry
-            dx, dtaps, dbias = backward.conv_bias_act_bwd(
-                g.contiguous(), x, taps, bias, y, stride=stride, padding=padding,
-                pad_mode=pad_mode, need_dx=need_dx)
-        return dx, dtaps, dbias, None, None
+        stride, padding, pad_mode = ctx.geometry
+        dx, dtaps, dbias = backward.conv_bias_act_bwd(
+            g.contiguous(), x, taps, bias, y, stride=stride, padding=padding,
+            pad_mode=pad_mode, need_dx=ctx.needs_input_grad[0])
+        return dx, dtaps, dbias, None
+
+
+class StridedConv(Function):
+    """K3 / K3b. apply(x, taps, bias)."""
+
+    @staticmethod
+    def forward(ctx, x, taps, bias):
+        y = strided_conv.launch_strided_conv(x, taps, bias)
+        strided_conv.strided_conv.launches += 1
+        ctx.save_for_backward(x, taps, bias, y)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, taps, bias, y = ctx.saved_tensors
+        return backward.strided_conv_bwd(g.contiguous(), x, taps, bias, y,
+                                         need_dx=ctx.needs_input_grad[0])
 
 
 class MlpChain(Function):

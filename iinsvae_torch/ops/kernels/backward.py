@@ -1,18 +1,19 @@
 """Backward wrappers of K1-K10 and their plain versions.
 
-Six CUDA sources compute the gradients of the ten forward wrappers:
+Seven CUDA sources compute the gradients of the ten forward wrappers:
 
   K1b csrc/in_chain_bwd.cu        in_chain_bwd, adain_res_block_bwd and (K8b)
                                   adain_layer_bwd (kAdain instances)
-  K2b csrc/conv_bias_act_bwd.cu   conv_bias_act_bwd, strided_conv_bwd
+  K2b csrc/conv_bias_act_bwd.cu   conv_bias_act_bwd
+  K3b csrc/strided_conv_bwd.cu    strided_conv_bwd
   K4b csrc/mlp_chain_bwd.cu       mlp_chain_bwd
   K6b csrc/sln_chain_bwd.cu       sln_chain_bwd
   K7b csrc/res_block_2d_bwd.cu    res_block_2d_bwd (IN and AdaIN)
   K9b, K10b csrc/sln_layer_bwd.cu sln_layer_bwd, tanh_pool_bwd
 
 Each wrapper takes the upstream gradient ``g`` and the forward's inputs
-(K2b also its output, for the ReLU mask; K4b the pre-activations K4 saved)
-and returns the gradients of those inputs: the input's (None without
+(K2b and K3b also the forward's output, for the ReLU mask; K4b the
+pre-activations K4 saved) and returns the gradients of those inputs: the input's (None without
 ``need_dx``), then the parameters' in the forward's argument order. On CPU
 tensors it returns its plain version's (``*_bwd_ref``, autograd through
 the forward's ``*_ref``, on any device); on CUDA tensors it launches its kernel and counts the launch in
@@ -150,30 +151,7 @@ def adain_res_block_bwd(g: torch.Tensor, x: torch.Tensor, k1: torch.Tensor, k2: 
 adain_res_block_bwd.launches = 0
 
 
-# --------------------------- K2b: K2 and K3 ---------------------------
-
-
-def launch_conv_bias_act_bwd(what: str, g, x, taps, bias, y, stride, padding, pad_mode,
-                              need_dx):
-    """Check the operands and launch K2b; counts nothing (K2's and K3's
-    backward wrappers count their own launches)."""
-    rows, l_out, c_out = fused.stage_rows(x, [(taps, stride, padding, pad_mode)])
-    b = x.shape[0]
-    if bias.shape != (c_out,) or g.shape != (b, l_out, c_out) or y.shape != g.shape:
-        raise ValueError(f"{what}: bias must be ({c_out},), g and y {(b, l_out, c_out)}")
-    _build.require_cuda_f32(what, g, x, taps, bias, y)
-    spb = _build.samples_per_block(b, _round4(rows[4] * rows[5]) + l_out * c_out)
-    n_w = taps.numel() + c_out
-    part = torch.empty(((b + spb - 1) // spb, n_w), device=x.device, dtype=x.dtype)
-    dw = torch.empty(n_w, device=x.device, dtype=x.dtype)
-    dx = torch.empty_like(x) if need_dx else None
-    fn = _build.function("conv_bias_act_bwd", "iins_conv_bias_act_bwd",
-                         [_P] * 7 + [_I, ctypes.POINTER(_I), _I, _P])
-    err = fn(x.data_ptr(), taps.data_ptr(), y.data_ptr(), g.data_ptr(), _ptr(dx),
-             part.data_ptr(), dw.data_ptr(), b, (_I * 8)(*rows), spb, _build.stream_handle(x))
-    _build.check(err, "conv_bias_act_bwd", what)
-    dtaps, dbias = _split(dw, [taps.shape, bias.shape])
-    return dx, dtaps, dbias
+# ------------------------------ K2b and K3b ------------------------------
 
 
 def conv_bias_act_bwd_ref(g: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
@@ -194,10 +172,25 @@ def conv_bias_act_bwd(g: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
     if g.device.type == "cpu":
         return conv_bias_act_bwd_ref(g, x, taps, bias, y, stride=stride, padding=padding,
                                      pad_mode=pad_mode, need_dx=need_dx)
-    out = launch_conv_bias_act_bwd("conv_bias_act_bwd", g, x, taps, bias, y, stride, padding,
-                                    pad_mode, need_dx)
+    rows, l_out, c_out = fused.stage_rows(x, [(taps, stride, padding, pad_mode)])
+    b = x.shape[0]
+    if bias.shape != (c_out,) or g.shape != (b, l_out, c_out) or y.shape != g.shape:
+        raise ValueError(f"conv_bias_act_bwd: bias must be ({c_out},), g and y "
+                         f"{(b, l_out, c_out)}")
+    _build.require_cuda_f32("conv_bias_act_bwd", g, x, taps, bias, y)
+    spb = _build.samples_per_block(b, _round4(rows[4] * rows[5]) + l_out * c_out)
+    n_w = taps.numel() + c_out
+    part = torch.empty(((b + spb - 1) // spb, n_w), device=x.device, dtype=x.dtype)
+    dw = torch.empty(n_w, device=x.device, dtype=x.dtype)
+    dx = torch.empty_like(x) if need_dx else None
+    fn = _build.function("conv_bias_act_bwd", "iins_conv_bias_act_bwd",
+                         [_P] * 7 + [_I, ctypes.POINTER(_I), _I, _P])
+    err = fn(x.data_ptr(), taps.data_ptr(), y.data_ptr(), g.data_ptr(), _ptr(dx),
+             part.data_ptr(), dw.data_ptr(), b, (_I * 8)(*rows), spb, _build.stream_handle(x))
+    _build.check(err, "conv_bias_act_bwd", "conv_bias_act_bwd")
     conv_bias_act_bwd.launches += 1
-    return out
+    dtaps, dbias = _split(dw, [taps.shape, bias.shape])
+    return dx, dtaps, dbias
 
 
 conv_bias_act_bwd.launches = 0
@@ -212,16 +205,29 @@ def strided_conv_bwd_ref(g: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
 
 def strided_conv_bwd(g: torch.Tensor, x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor,
                      y: torch.Tensor, *, need_dx: bool = True):
-    """K2b at k4 s2 zero pad 1: -> (dx, d(taps), dbias) of
-    strided_conv.strided_conv, whose output was y."""
+    """K3b: -> (dx, d(taps), dbias) of strided_conv.strided_conv, whose
+    output was y."""
     if g.device.type == "cpu":
         return strided_conv_bwd_ref(g, x, taps, bias, y, need_dx=need_dx)
-    if taps.dim() != 3 or taps.shape[0] != 4:
-        raise ValueError(f"taps must be (4, C_in, C_out), got {tuple(taps.shape)}")
-    out = launch_conv_bias_act_bwd("strided_conv_bwd", g, x, taps, bias, y, 2, 1, "zero",
-                                    need_dx)
+    b, l_in, c_in, c_out = strided_conv.check_operands("strided_conv_bwd", "strided_conv_bwd",
+                                                       x, taps, bias, g, y)
+    if g.shape != (b, l_in // 2, c_out) or y.shape != g.shape:
+        raise ValueError(f"strided_conv_bwd: g and y must be {(b, l_in // 2, c_out)}, got "
+                         f"{tuple(g.shape)} and {tuple(y.shape)}")
+    n_w = taps.numel() + c_out
+    # at most one block a SM, each writing one partial row
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    part = torch.empty((sms, n_w), device=x.device, dtype=x.dtype)
+    dw = torch.empty(n_w, device=x.device, dtype=x.dtype)
+    dx = torch.empty_like(x) if need_dx else None
+    fn = _build.function("strided_conv_bwd", "iins_strided_conv_bwd", [_P] * 7 + [_I] * 5 + [_P])
+    err = fn(x.data_ptr(), taps.data_ptr(), y.data_ptr(), g.data_ptr(), _ptr(dx),
+             part.data_ptr(), dw.data_ptr(), b, l_in, c_in, c_out, part.shape[0],
+             _build.stream_handle(x))
+    _build.check(err, "strided_conv_bwd", "strided_conv_bwd")
     strided_conv_bwd.launches += 1
-    return out
+    dtaps, dbias = _split(dw, [taps.shape, bias.shape])
+    return dx, dtaps, dbias
 
 
 strided_conv_bwd.launches = 0

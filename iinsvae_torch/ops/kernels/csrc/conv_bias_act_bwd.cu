@@ -1,12 +1,10 @@
 // K2b conv_bias_act_bwd: the backward of y = relu(conv1d(x, taps) + bias),
-// K2's and K3's function.
+// K2's function.
 //
 // Replaces the backward of fused_dense_layer(norm='none')
-// (iinsvae_tpu/ops/pallas/fused.py:1268, kernel _bwd_nonorm_kernel :150)
-// and of fused_strided_conv (iinsvae_tpu/ops/pallas/strided_conv.py:211,
-// kernel _bwd_kernel :140): dx, d(taps) and dbias. The Pallas bodies return
-// the gradient of the dense conv matrix (or of the prev/cur/next W3 lane
-// block); this kernel computes the composed path's gradient of the
+// (iinsvae_tpu/ops/pallas/fused.py:1268, kernel _bwd_nonorm_kernel :150):
+// dx, d(taps) and dbias. The Pallas body returns the gradient of the dense
+// conv matrix; this kernel computes the composed path's gradient of the
 // (k, C_in, C_out) taps directly. The ReLU mask comes from the saved output
 // (y > 0, fused.py:158); a stride-2 zero pad scatters to l*s - p + t, a
 // reflect pad folds the edge rows back (conv_bwd_common.cuh).
@@ -16,11 +14,8 @@
 // dbias to its row of a (grid, n) buffer; a second kernel sums the rows in
 // order (deterministic: no atomics).
 //
-// Bound on the H100 at batch 500: the env's second stride-2 stage
-// ((64, 32) -> (32, 64), the largest) needs 2 x 131 M multiply-adds (dx
-// and d(taps)), 0.52 GFLOP, 7.8 us at 67 TFLOP/s, and moves x, y, g in and
-// dx out (~16 MB, 4.9 us at 3.35 TB/s): bound by operations; the 1x1 and
-// k7 sites are bound by bytes.
+// Bound on the H100 at batch 500: K2's sites (the 1x1 convs and the env's
+// k7 reflect in-conv) are bound by bytes.
 #include "conv_bwd_common.cuh"
 
 namespace {

@@ -5,19 +5,15 @@
 //   _make_in_layer :1179) and fused_res_block (:253).
 // It runs 1 or 2 stages of conv -> InstanceNorm -> (ReLU | + chain input)
 // on a tile of samples. K2 replaces fused_dense_layer(norm='none') (:1320,
-// kernel _make_nonorm_layer :1248): one stage of conv + bias + ReLU. K3
-// launches the same conv + bias + ReLU kernel at k4, stride 2, zero pad 1,
-// in place of fused_strided_conv (iinsvae_tpu/ops/pallas/strided_conv.py:250),
-// whose 128-lane row tiles and prev/cur/next W3 assembly are TPU devices.
+// kernel _make_nonorm_layer :1248): one stage of conv + bias + ReLU.
 //
 // Bound on the H100: one sample's activation is at most 2048 floats here,
 // so a block keeps its tile of samples in shared memory through the whole
 // chain and device memory sees the chain input once and its output once
 // (1-4 MB per launch at batch 500: about a microsecond at 3.35 TB/s). The
 // residual block does 192 multiply-adds per output, ~196 MFLOP per launch
-// at batch 500, so it is bound by fp32 operations (2.9 us at 67 TFLOP/s),
-// as is K3's second stride-2 stage (128 per output); the other stages are
-// bound by bytes. At these sizes a launch is latency-bound, so
+// at batch 500, so it is bound by fp32 operations (2.9 us at 67 TFLOP/s);
+// the other stages are bound by bytes. At these sizes a launch is latency-bound, so
 // the design is about instruction-level parallelism: the mid-chain
 // activation stays on chip (the TPU kernel's point, fused.py:265-270), a
 // thread computes four consecutive output channels from one float4 load of

@@ -141,8 +141,7 @@ def conv_bias_act(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor, *,
         return conv_bias_act_ref(x, taps, bias, stride=stride, padding=padding, pad_mode=pad_mode)
     if wants_grad(x, taps, bias):
         from iinsvae_torch.ops.kernels import autograd
-        return autograd.ConvBiasAct.apply(x, taps, bias, (stride, padding, pad_mode),
-                                          "conv_bias_act")
+        return autograd.ConvBiasAct.apply(x, taps, bias, (stride, padding, pad_mode))
     y = launch_conv_bias_act(x, taps, bias, stride, padding, pad_mode)
     conv_bias_act.launches += 1
     return y
@@ -154,7 +153,7 @@ conv_bias_act.launches = 0
 def launch_conv_bias_act(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor,
                          stride: int, padding: int, pad_mode: str) -> torch.Tensor:
     """Check the operands and launch the conv + bias + ReLU kernel; counts
-    nothing (K2 and K3 each count their own launches)."""
+    nothing (conv_bias_act and autograd.ConvBiasAct count)."""
     rows, l_out, c_out = stage_rows(x, [(taps, stride, padding, pad_mode)])
     if bias.shape != (c_out,):
         raise ValueError(f"bias must be ({c_out},), got {tuple(bias.shape)}")

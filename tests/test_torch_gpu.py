@@ -152,6 +152,59 @@ def test_gpu_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fused.in_chain(x.float(), [(taps.float(), 2, 1, "zero")], residual=True)
     with pytest.raises(ValueError):
         strided_conv.strided_conv(x.float(), taps.float(), torch.zeros(63, device=cuda))
+    bias = torch.zeros(64, device=cuda)
+    with pytest.raises(TypeError):
+        strided_conv.strided_conv(x, taps, bias.double())
+    with pytest.raises(ValueError):  # C_in not a multiple of 4
+        strided_conv.strided_conv(x.float()[:, :, :30].contiguous(),
+                                  taps.float()[:, :30].contiguous(), bias)
+    with pytest.raises(ValueError):  # C_out not a multiple of 4
+        strided_conv.strided_conv(x.float(), taps.float()[:, :, :62].contiguous(), bias[:62])
+    with pytest.raises(ValueError):  # non-contiguous
+        strided_conv.strided_conv(x.float().transpose(0, 1).contiguous().transpose(0, 1),
+                                  taps.float(), bias)
+    with pytest.raises(ValueError):  # not a k4 conv
+        strided_conv.strided_conv(x.float(), taps.float()[:3].contiguous(), bias)
+    assert strided_conv.strided_conv(x.float(), taps.float(), bias).shape == (4, 8, 64)
+
+
+# (L_in, C_in, C_out) of K3 and K3b: the env encoder's two stride-2 stages,
+# the constant-depth stage the Pallas entry also takes, and an odd length
+STRIDED = {"env.down0": (128, 16, 32), "env.down1": (64, 32, 64), "const": (32, 64, 64),
+           "odd": (9, 8, 12)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", list(STRIDED))
+@pytest.mark.parametrize("batch", [5, 261, 500])
+def test_gpu_strided_conv_and_its_backward_match_plain(cuda, batch, shape):
+    """K3 and K3b against their plain versions; a batch of 5 or 261 leaves a
+    ragged last tile of rows. K3b also without dx, and bit-reproducible
+    over two calls. K3b takes its ReLU mask from the saved output, the
+    plain backward from its own forward: both get the plain forward's
+    output, since a pre-activation within rounding of 0 (about one in a
+    million here) may be cut by one and not by the other."""
+    l_in, c_in, c_out = STRIDED[shape]
+    gen = torch.Generator().manual_seed(batch)
+    x = torch.randn((batch, l_in, c_in), generator=gen).to(cuda)
+    taps = (torch.randn((4, c_in, c_out), generator=gen) / (4 * c_in) ** 0.5).to(cuda)
+    bias = (0.1 * torch.randn(c_out, generator=gen)).to(cuda)
+    g = torch.randn((batch, l_in // 2, c_out), generator=gen).to(cuda)
+    with torch.no_grad():
+        got = strided_conv.strided_conv(x, taps, bias)
+        y = strided_conv.strided_conv_ref(x, taps, bias)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, y, rtol=RTOL, atol=ATOL)
+    first = backward.strided_conv_bwd(g, x, taps, bias, y)
+    want = backward.strided_conv_bwd_ref(g, x, taps, bias, y)
+    for i, (a, w) in enumerate(zip(first, want)):
+        assert torch.isfinite(a).all(), i
+        _close_scaled(a, w, BWD_RTOL, BWD_ATOL, f"{shape} gradient {i}")
+    for a, b in zip(first, backward.strided_conv_bwd(g, x, taps, bias, y)):
+        assert torch.equal(a, b)
+    no_dx = backward.strided_conv_bwd(g, x, taps, bias, y, need_dx=False)
+    assert no_dx[0] is None
+    assert torch.equal(no_dx[1], first[1]) and torch.equal(no_dx[2], first[2])
 
 
 def _decoder_inputs(cuda, b=4):
@@ -346,6 +399,19 @@ def test_gpu_backward_wrappers_reject_what_the_kernels_do_not_take(cuda):
                                    re_.out_bias, y[:, :4])
     with pytest.raises(ValueError):  # not a k4 conv
         backward.strided_conv_bwd(g, x, re_.res0_kernel1, torch.zeros(64, device=cuda), g)
+    xs, taps = torch.randn((4, 16, 32), device=cuda), torch.randn((4, 32, 64), device=cuda)
+    gs, bias = torch.randn((4, 8, 64), device=cuda), torch.zeros(64, device=cuda)
+    with pytest.raises(ValueError):  # g of another length than the output
+        backward.strided_conv_bwd(gs[:, :4].contiguous(), xs, taps, bias, gs[:, :4].contiguous())
+    with pytest.raises(TypeError):
+        backward.strided_conv_bwd(gs.double(), xs.double(), taps.double(), bias.double(),
+                                  gs.double())
+    with pytest.raises(ValueError):  # C_in not a multiple of 4
+        backward.strided_conv_bwd(gs, xs[:, :, :30].contiguous(), taps[:, :30].contiguous(),
+                                  bias, gs)
+    with pytest.raises(ValueError):  # non-contiguous
+        backward.strided_conv_bwd(gs.transpose(0, 1).contiguous().transpose(0, 1), xs, taps,
+                                  bias, gs)
     head = m.restorer.restorer
     ws = [getattr(head, f"w{j}") for j in range(4)]
     bs = [getattr(head, f"b{j}") for j in range(4)]

@@ -43,6 +43,7 @@ from iinsvae_tpu.training import optim as joptim
 from iinsvae_tpu.training import state as jstate
 from iinsvae_tpu.training import steps as jsteps
 from iinsvae_torch import bridge
+from iinsvae_torch.cli import train_semi
 from iinsvae_torch.data.splits import Standardizer
 from iinsvae_torch.data.synthetic import synthetic_arrays
 from iinsvae_torch.models.vae import IInsVAE
@@ -234,6 +235,18 @@ def test_synthetic_fixture_is_bit_equal_to_jax():
             np.testing.assert_array_equal(a, b)
     with pytest.raises(NotImplementedError, match="room_full"):
         synthetic_arrays(10, 0, "nlos")
+
+
+def test_cli_rejects_ewine_before_building_a_model(monkeypatch):
+    """The eWine fixture (152 taps) is not ported: training on it stops with a
+    NotImplementedError before the model is built, not at the first step."""
+    def no_model(*args, **kwargs):
+        raise AssertionError("a model was built")
+    monkeypatch.setattr(train_semi, "IInsVAE", no_model)
+    with pytest.raises(NotImplementedError, match="eWine"):
+        train_semi.main(["--device", "cpu", "--dataset_name", "ewine", "--dataset_env",
+                         "room_full", "--n_epochs", "1", "--synthetic_n", "1000",
+                         "--batch_size", "100"])
 
 
 def test_standardizer_matches_jax():
