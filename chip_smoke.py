@@ -318,7 +318,7 @@ def call_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list[dic
 
     sites = []
 
-    def add_in_chain(name, x, stages, replaces, residual=False, calls=1):
+    def add_in_chain(name, x, stages, replaces, residual=False, calls=1, **more):
         l, flops = x.shape[1], 0.0
         for taps, s, p, mode in stages:
             flops += conv_flops(b, l, taps, s, p, mode)
@@ -329,7 +329,7 @@ def call_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list[dic
             shape=f"{tuple(x.shape)}->({b}, {l}, {stages[-1][0].shape[2]})",
             run=lambda: fused.in_chain(x, stages, residual=residual),
             plain=lambda: fused.in_chain_ref(x, stages, residual=residual), library=None,
-            bytes=nbytes(x, *[s[0] for s in stages]) + 4 * y_numel, flops=flops))
+            bytes=nbytes(x, *[s[0] for s in stages]) + 4 * y_numel, flops=flops, **more))
 
     def add_conv(name, kernel, x, taps, bias, s, p, mode, replaces):
         l_out = out_len(x.shape[1], taps.shape[0], s, p)
@@ -379,9 +379,11 @@ def call_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list[dic
     add_in_chain("range.pair0", rand(b, 128, 1), stages[0:2], f"{fp}:361")
     add_in_chain("range.pair1", rand(b, 64, 8), stages[2:4], f"{fp}:361")
     add_in_chain("range.single", rand(b, 16, 32), stages[4:5], f"{fp}:1320")
-    add_in_chain("range.res", rand(b, 8, 64),
+    x = rand(b, 8, 64)
+    add_in_chain("range.res", x,
                  [(re_.res0_kernel1, 1, 1, "reflect"), (re_.res0_kernel2, 1, 1, "reflect")],
-                 f"{fp}:253", residual=True, calls=3)
+                 f"{fp}:253", residual=True, calls=3,
+                 cudnn_conv=ncl_conv(x, re_.res0_kernel1, None, 1, 1, "reflect"))
     add_conv("range.out", "conv_bias_act", rand(b, 8, 64), re_.out_kernel, re_.out_bias,
              1, 0, "zero", f"{fp}:1320")
     c0, c1, c2 = ee.ConvINAct_0, ee.ConvINAct_1, ee.ConvINAct_2
@@ -404,7 +406,7 @@ def call_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list[dic
         shape=f"{tuple(x.shape)}->{tuple(x.shape)}",
         run=lambda: fused.adain_res_block(x, k1, k2, *affine),
         plain=lambda: fused.adain_res_block_ref(x, k1, k2, *affine), library=None,
-        bytes=nbytes(x, k1, k2, *affine, x),
+        cudnn_conv=ncl_conv(x, k1, None, 1, 1, "reflect"), bytes=nbytes(x, k1, k2, *affine, x),
         flops=2 * conv_flops(b, 8, k1, 1, 1, "reflect")))
     xt = rand(b, 8, 64)
     stages = [tuple(getattr(dec, f"up{j}_{n}") for n in ("kernel", "bias", "gamma", "beta"))
@@ -491,6 +493,14 @@ def check_and_time(sites: list[dict], tag: str = "kernel") -> list[dict]:
                                       f"{r['cudnn_conv_ms'] * 1e3:.2f} us"
                                       if r["cudnn_conv_ms"] is not None else ""), flush=True)
     return rows
+
+
+def conv_yardstick(site_rows: list[dict], kernel: str, key: str) -> dict:
+    """{key: the double-dagger cuDNN conv time of a kernel's call sites, each times its calls
+    per batch} over the sites that have one; {} where none has."""
+    ms = [r["cudnn_conv_ms"] * r["calls_per_batch"] for r in site_rows
+          if r["kernel"] == kernel and r["cudnn_conv_ms"] is not None]
+    return {key: sum(ms)} if ms else {}
 
 
 def kernel_rows(site_rows: list[dict], names, launches: dict[str, int], per: str,
@@ -709,7 +719,8 @@ def backward_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list
             run=lambda: wrapper(*args, **kw), plain=lambda: plain(*args, **kw, **(plain_kw or {})),
             library=library, bytes=nbytes_, flops=flops, **more))
 
-    def in_chain_site(name, x, stages, replaces, residual=False, calls=1, need_dx=True):
+    def in_chain_site(name, x, stages, replaces, residual=False, calls=1, need_dx=True,
+                      **more):
         l, conv = x.shape[1], 0.0
         for taps, st, pd, mode in stages:
             conv += conv_flops(b, l, taps, st, pd, mode)
@@ -720,7 +731,7 @@ def backward_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list
         add(name, backward.in_chain_bwd, replaces, calls, (g, x, stages),
             dict(residual=residual, need_dx=need_dx),
             nbytes(x, g, *taps, *taps) + (nbytes(x) if need_dx else 0),
-            3 * conv - (0 if need_dx else first))
+            3 * conv - (0 if need_dx else first), **more)
 
     def conv_site(name, wrapper, x, taps, bias, st, pd, mode, replaces, need_dx=True):
         with torch.no_grad():
@@ -760,9 +771,12 @@ def backward_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list
     in_chain_site("range.pair0", rand(b, 128, 1), stages[0:2], f"{fp}:333", need_dx=False)
     in_chain_site("range.pair1", rand(b, 64, 8), stages[2:4], f"{fp}:333")
     in_chain_site("range.single", rand(b, 16, 32), stages[4:5], f"{fp}:1201")
-    in_chain_site("range.res", rand(b, 8, 64),
+    x = rand(b, 8, 64)
+    in_chain_site("range.res", x,
                   [(re_.res0_kernel1, 1, 1, "reflect"), (re_.res0_kernel2, 1, 1, "reflect")],
-                  f"{fp}:225", residual=True, calls=3)
+                  f"{fp}:225", residual=True, calls=3,
+                  cudnn_conv=conv_backward_call(x, re_.res0_kernel1, torch.ones_like(x),
+                                                torch.randn_like(x), 1, 1, "reflect", True))
     conv_site("range.out", backward.conv_bias_act_bwd, rand(b, 8, 64), re_.out_kernel,
               re_.out_bias, 1, 0, "zero", f"{fp}:1268")
     c0, c1, c2 = ee.ConvINAct_0, ee.ConvINAct_1, ee.ConvINAct_2
@@ -783,7 +797,8 @@ def backward_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list
     g = rand(b, 8, 64)
     add("dec.res", backward.adain_res_block_bwd, f"{fp}:524", 3, (g, x, k1, k2, *affine), {},
         nbytes(x, k1, k2, *affine[:3], g, x, k1, k2, *affine),
-        3 * 2 * conv_flops(b, 8, k1, 1, 1, "reflect"))
+        3 * 2 * conv_flops(b, 8, k1, 1, 1, "reflect"),
+        cudnn_conv=conv_backward_call(x, k1, torch.ones_like(g), g, 1, 1, "reflect", True))
 
     xt = rand(b, 8, 64)
     up = [tuple(getattr(dec, f"up{j}_{n}") for n in ("kernel", "bias", "gamma", "beta"))
@@ -1405,21 +1420,22 @@ def main() -> int:
     names_1d = [k for k, v in EXPECTED_RECON.items() if v]
     kernel_table = kernel_rows(
         site_rows, names_1d, launches, per_fwd,
-        {k: dict(launches_no_recon=launches_no_recon[k], launches_train=training["launches"][k])
-         for k in names_1d})
+        {k: dict(launches_no_recon=launches_no_recon[k], launches_train=training["launches"][k],
+                 **conv_yardstick(site_rows, k, "cudnn_conv_ms")) for k in names_1d})
     kernel_table += kernel_rows(
         site_rows_2d, ["res_block_2d"], launches_2d, per_fwd + ", conv_type 2",
         {"res_block_2d": dict(launches_no_recon=launches_2d_no_recon["res_block_2d"],
                               launches_train=training_2d["launches"]["res_block_2d"],
-                              cudnn_conv_ms=sum(r["cudnn_conv_ms"] * r["calls_per_batch"]
-                                                for r in site_rows_2d if r["cudnn_conv_ms"]))})
-    kernel_table += kernel_rows(bwd_rows, [f"{k}_bwd" for k in names_1d],
-                                training["launches_bwd"], per_step, {})
+                              **conv_yardstick(site_rows_2d, "res_block_2d", "cudnn_conv_ms"))})
+    kernel_table += kernel_rows(
+        bwd_rows, [f"{k}_bwd" for k in names_1d], training["launches_bwd"], per_step,
+        {f"{k}_bwd": conv_yardstick(bwd_rows, f"{k}_bwd", "cudnn_conv_backward_ms")
+         for k in names_1d})
     kernel_table += kernel_rows(
         bwd_rows_2d, ["res_block_2d_bwd"], training_2d["launches_bwd"],
         per_step + ", conv_type 2",
-        {"res_block_2d_bwd": dict(cudnn_conv_backward_ms=sum(
-            r["cudnn_conv_ms"] * r["calls_per_batch"] for r in bwd_rows_2d if r["cudnn_conv_ms"]))})
+        {"res_block_2d_bwd": conv_yardstick(bwd_rows_2d, "res_block_2d_bwd",
+                                            "cudnn_conv_backward_ms")})
     # K8-K10 run on no model path (0 launches there): their launches are the
     # one-stage chain's
     per_chain = "the one-stage phase's chain at batch 500 (sum over its call sites)"
@@ -1428,15 +1444,14 @@ def main() -> int:
         {k: dict(launches_serving=launches[k], launches_serving_2d=launches_2d[k],
                  launches_train=training["launches"][k],
                  launches_train_2d=training_2d["launches"][k],
-                 cudnn_conv_ms=sum(r["cudnn_conv_ms"] for r in one_stage["sites"]
-                                   if r["kernel"] == k)) for k in ONE_STAGE})
+                 **conv_yardstick(one_stage["sites"], k, "cudnn_conv_ms")) for k in ONE_STAGE})
     kernel_table += kernel_rows(
         one_stage["backward_sites"], list(ONE_STAGE_BWD), one_stage["paths"][0]["launches_bwd"],
         per_chain,
         {k: dict(launches_train=training["launches_bwd"][k],
                  launches_train_2d=training_2d["launches_bwd"][k],
-                 cudnn_conv_backward_ms=sum(r["cudnn_conv_ms"] for r in one_stage["backward_sites"]
-                                            if r["kernel"] == k)) for k in ONE_STAGE_BWD})
+                 **conv_yardstick(one_stage["backward_sites"], k, "cudnn_conv_backward_ms"))
+         for k in ONE_STAGE_BWD})
 
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(dict(

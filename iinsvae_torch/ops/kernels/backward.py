@@ -63,6 +63,52 @@ def _split(flat: torch.Tensor, shapes) -> list[torch.Tensor]:
 # --------------------------- K1b: K1 and K5 ---------------------------
 
 
+# K1b's and K5b's residual-block path (csrc/in_chain_bwd.cu, namespace res), at the model's
+# residual blocks (L, C) = (8, 64), both convs k3, stride 1, reflect pad 1: tiles of RES_TILE
+# samples, at most one persistent block a SM, RES_SMEM bytes of shared memory a block (both
+# convs' taps, rows of RES_C + 4 floats, and the tile's buffers), as the source lays them out.
+RES_L, RES_C, RES_TILE = 8, 64, 4
+RES_SMEM = 4 * (RES_C + 4) * (2 * 3 * RES_C + RES_TILE * (2 * (RES_L + 2) + 3 * RES_L))
+RES_STAGE = [3, 1, 1, 1, RES_L, RES_C, RES_L, RES_C]
+
+
+def chain_floats(rows: Sequence[int]) -> int:
+    """Floats of shared memory a sample takes on K1b's general path, for 1 or 2 stage rows
+    (k, stride, pad, reflect, l_in, c_in, l_out, c_out): its input (rounded up to 4), each
+    stage's conv output and, with two stages, the mid-chain activation."""
+    n1 = rows[6] * rows[7]
+    return _round4(rows[4] * rows[5]) + n1 + (n1 + rows[14] * rows[15] if len(rows) > 8 else 0)
+
+
+def res_block_plan(batch: int, sms: int) -> tuple[int, int]:
+    """-> (tiles, blocks) of the residual-block path: block j of the grid takes tiles j,
+    j + blocks, ..., tile t the samples t * RES_TILE .. (t + 1) * RES_TILE - 1 below batch."""
+    tiles = -(-batch // RES_TILE)
+    return tiles, min(tiles, sms)
+
+
+def _res_block_bwd(what: str, g: torch.Tensor, x: torch.Tensor, k1: torch.Tensor,
+                   k2: torch.Tensor, tables, need_dx: bool):
+    """Launch the residual-block path: K1b's (tables None) or K5b's (tables g1, b1, g2); ->
+    (dx or None, [dk1, dk2], the (4, B, C) affine gradients or None)."""
+    b = x.shape[0]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    _, blocks = res_block_plan(b, sms)
+    n_w = k1.numel() + k2.numel()
+    part = torch.empty((blocks, n_w), device=x.device, dtype=x.dtype)
+    dw = torch.empty(n_w, device=x.device, dtype=x.dtype)
+    dx = torch.empty_like(x) if need_dx else None
+    affine = torch.empty((4, b, RES_C), device=x.device, dtype=x.dtype) if tables else None
+    fn = _build.function("in_chain_bwd", "iins_res_block_bwd", [_P] * 14 + [_I] * 6 + [_P])
+    err = fn(x.data_ptr(), k1.data_ptr(), k2.data_ptr(),
+             *((t.data_ptr() for t in tables) if tables else (None,) * 3), g.data_ptr(),
+             _ptr(dx), part.data_ptr(), dw.data_ptr(),
+             *((a.data_ptr() for a in affine) if tables else (None,) * 4), b, RES_L, RES_C,
+             RES_TILE, blocks, RES_SMEM, _build.stream_handle(x))
+    _build.check(err, "in_chain_bwd", what)
+    return dx, _split(dw, [k1.shape, k2.shape]), affine
+
+
 def in_chain_bwd_ref(g: torch.Tensor, x: torch.Tensor, stages: Sequence[Stage], *,
                      residual: bool = False, need_dx: bool = True):
     """Plain version of K1b."""
@@ -91,10 +137,11 @@ def in_chain_bwd(g: torch.Tensor, x: torch.Tensor, stages: Sequence[Stage], *,
     if any(t.shape[2] % 4 or t.data_ptr() % 16 for t in taps):
         raise ValueError("in_chain_bwd takes 16-byte aligned taps with C_out a multiple of 4")
     _build.require_cuda_f32("in_chain_bwd", g, x, *taps)
-    n1 = rows[6] * rows[7]
-    per_sample = _round4(rows[4] * rows[5]) + n1 + (n1 + rows[14] * rows[15]
-                                                     if len(stages) == 2 else 0)
-    spb = _build.samples_per_block(b, per_sample)
+    if residual and rows == 2 * RES_STAGE:
+        dx, dtaps, _ = _res_block_bwd("in_chain_bwd", g, x, *taps, None, need_dx)
+        in_chain_bwd.launches += 1
+        return dx, dtaps
+    spb = _build.samples_per_block(b, chain_floats(rows))
     n_w = sum(t.numel() for t in taps)
     part = torch.empty(((b + spb - 1) // spb, n_w), device=x.device, dtype=x.dtype)
     dw = torch.empty(n_w, device=x.device, dtype=x.dtype)
@@ -132,7 +179,12 @@ def adain_res_block_bwd(g: torch.Tensor, x: torch.Tensor, k1: torch.Tensor, k2: 
         raise ValueError(f"g must be {tuple(x.shape)}, got {tuple(g.shape)}")
     _build.require_cuda_f32("adain_res_block_bwd", g)
     b, l, c = x.shape
-    spb = _build.samples_per_block(b, _round4(l * c) + 3 * l * c)
+    if (l, c) == (RES_L, RES_C):
+        dx, (dk1, dk2), affine = _res_block_bwd("adain_res_block_bwd", g, x, k1, k2,
+                                                (g1, b1, g2), need_dx)
+        adain_res_block_bwd.launches += 1
+        return (dx, dk1, dk2, *affine)
+    spb = _build.samples_per_block(b, chain_floats([3, 1, 1, 1, l, c, l, c] * 2))
     part = torch.empty(((b + spb - 1) // spb, 2 * k1.numel()), device=x.device, dtype=x.dtype)
     dw = torch.empty(2 * k1.numel(), device=x.device, dtype=x.dtype)
     affine = torch.empty((4, b, c), device=x.device, dtype=x.dtype)
@@ -413,7 +465,7 @@ def adain_layer_bwd(g: torch.Tensor, x: torch.Tensor, taps: torch.Tensor, gamma:
     if g.shape != (b, l_out, c_out):
         raise ValueError(f"g must be {(b, l_out, c_out)}, got {tuple(g.shape)}")
     _build.require_cuda_f32("adain_layer_bwd", g)
-    spb = _build.samples_per_block(b, _round4(rows[4] * rows[5]) + l_out * c_out)
+    spb = _build.samples_per_block(b, chain_floats(rows))
     part = torch.empty(((b + spb - 1) // spb, taps.numel()), device=x.device, dtype=x.dtype)
     dtaps = torch.empty_like(taps)
     daffine = torch.empty((2, b, c_out), device=x.device, dtype=x.dtype)

@@ -178,4 +178,31 @@ inline int launch_reduce(const float* part, int n_parts, int n, float* out, cuda
   return static_cast<int>(cudaGetLastError());
 }
 
+// out[i] = sum over p of part[p, i], in one fixed order, for many partial
+// rows (one a persistent block): a block of 256 threads takes 32 consecutive
+// i, warp w sums the rows p = w, w + 8, ... (128 contiguous bytes a row),
+// then the eight warps' sums are added in order.
+__global__ void __launch_bounds__(256)
+reduce_rows_kernel(const float* __restrict__ part, int n_parts, int n, float* __restrict__ out) {
+  __shared__ float sums[256];
+  const int ln = threadIdx.x & 31, wp = threadIdx.x >> 5;
+  const int i = blockIdx.x * 32 + ln;
+  float s = 0.f;
+  if (i < n)
+    for (int p = wp; p < n_parts; p += 8) s += __ldg(part + static_cast<size_t>(p) * n + i);
+  sums[threadIdx.x] = s;
+  __syncthreads();
+  if (wp == 0 && i < n) {
+    float t = 0.f;
+    for (int k = 0; k < 8; ++k) t += sums[k * 32 + ln];
+    out[i] = t;
+  }
+}
+
+inline int launch_reduce_rows(const float* part, int n_parts, int n, float* out,
+                              cudaStream_t s) {
+  reduce_rows_kernel<<<(n + 31) / 32, 256, 0, s>>>(part, n_parts, n, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace iins

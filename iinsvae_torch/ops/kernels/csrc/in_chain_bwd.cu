@@ -27,17 +27,51 @@
 //         centred d; the centring's own adjoint adds -mean_l)
 //   d(taps) += in^T gz over the block's samples and rows; g_in = conv^T(gz).
 //
-// A block keeps its tile of samples' input, conv outputs and mid-chain
-// activation in shared memory. Its partial sums of d(taps) go to its row
-// of a (grid, n) buffer that a second kernel sums in order (deterministic:
-// no atomics; at batch 500, 250 blocks x a residual block's 2 x 3*64*64
-// taps is 24.6 MB). Input gradients are skipped where the caller needs
-// none (the range encoder's first stage reads the pooled CIR).
+// Two paths. The residual block at the model's shape, (L, C) = (8, 64) with
+// both convs k3, stride 1, reflect pad 1 (K1's three range-encoder blocks and
+// K5's three decoder blocks: 6 of a 1-D training step's 9 K1b/K5b launches),
+// runs its own kernel (namespace res below). Every other chain (the range
+// encoder's pairs and stage 5, K8b, other shapes) runs the general kernel.
 //
-// Bound on the H100 at batch 500: the residual block (K1's and K5's
-// largest) recomputes its two convs (2 x 24.6 M multiply-adds) and runs
-// dx and d(taps) of each (4 x 24.6 M): 0.29 GFLOP, 4.4 us at 67 TFLOP/s
-// fp32, over ~8 MB moved (2.4 us at 3.35 TB/s): bound by operations.
+// Bound on the H100 at batch 500: the residual block recomputes its two convs
+// and runs dx and d(taps) of each, six products of 500 * 8 * 64 outputs x 192
+// multiply-adds (49.2 M each): 0.59 GFLOP, 8.8 us at 67 TFLOP/s fp32, over
+// 3.3-3.6 MB moved (x, g, dx, taps, K5's tables; 1.1 us at 3.35 TB/s): bound
+// by operations.
+//
+// The general kernel: a block keeps its tile of samples' input, conv outputs
+// and mid-chain activation in shared memory and computes each output with
+// one thread, reading the taps from global memory. Its partial sums of
+// d(taps) go to its row of a (grid, n) buffer that a second kernel sums in
+// order (deterministic: no atomics). Input gradients are skipped where the
+// caller needs none (the range encoder's first stage reads the pooled CIR).
+// At the residual block it took 293 us at batch 500 (phase_times.py, H100):
+// 173 in the d(taps) partials (250 blocks of 2 samples, two shared loads a
+// multiply-add, 24.6 MB of partial rows), 77 in dx (each thread reads a taps
+// row of its own from global memory, 256 B apart across a warp), about 25
+// in the recomputes.
+//
+// The residual block's kernel (res):
+// - both convs' taps sit in shared memory (2 x 51 KB: rows of C + 4 floats,
+//   so a warp's reads of 32 rows hit distinct banks), staged once a block
+//   with cp.async, the second conv's landing behind the first conv;
+// - one persistent block a SM (512 threads) walks tiles of 4 whole samples
+//   (the IN statistics couple a sample's rows); x and g of a tile are staged
+//   with the reflect halo rows, so each window is contiguous and unmasked;
+// - the products are register-tiled so that a multiply-add takes few bytes
+//   from shared memory, which delivers 128 B a clock to an SM's lanes: the
+//   recomputes 4 rows x 4 channels a thread (warps 0-3, 2 B a multiply-add),
+//   each output one fmaf chain over t, then ci ascending, as K1's
+//   conv_points sums it, so the ReLU masks and IN statistics are the
+//   forward's bit for bit; dx 8 rows x 1 channel a thread (warps 0-7), the
+//   reflect fold fixed at compile time; d(taps) 3 taps x 2 input x 4 output
+//   channels a thread (all 16 warps), kept in registers over all the
+//   block's tiles;
+// - a block writes one partial row of both convs' d(taps) (125 rows, 12.3 MB
+//   at batch 500), coalesced through shared memory, summed in a fixed order
+//   by a second kernel: bit-reproducible, no atomics. Full fp32 FMAs, no
+//   TF32.
+#include "async_smem.cuh"
 #include "conv_bwd_common.cuh"
 
 namespace {
@@ -274,6 +308,378 @@ int launch_chain_bwd(const float* x, const float* w1, const float* w2, const flo
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// The residual block's path: K1's residual block (IN) and K5 (AdaIN) at the
+// model's shape, (L, C) = (8, 64), both convs k3, stride 1, reflect pad 1.
+namespace res {
+
+using iins::aligned16;
+
+constexpr int kL = 8, kC = 64;  // rows and channels a sample
+constexpr int kS = 4;           // samples a tile
+constexpr int kH = kL + 2;      // staged rows a sample: row 1 above it, row L-2 below (reflect)
+constexpr int kLd = kC + 4;     // floats a staged row: 16-byte rows, 8 rows on distinct banks
+constexpr int kThreads = 512;
+constexpr int kTaps = 3 * kC * kC;
+constexpr int kWFloats = 3 * kC * kLd;     // one conv's taps (t, ci, co), a ci row kLd floats
+constexpr int kHaloFloats = kS * kH * kLd;  // a tile with its halo rows
+constexpr int kTileFloats = kS * kL * kLd;
+constexpr int kSmemBytes =
+    (2 * kWFloats + 2 * kHaloFloats + 3 * kTileFloats) * static_cast<int>(sizeof(float));
+constexpr float kInvL = 1.f / kL;
+// the thread layouts below are written for this shape: a (sample, channel) row of a norm to
+// each thread pair, 4 warps x 32 lanes of 4 x 4 recomputed outputs, 4 x 64 dx rows
+static_assert(kL == 8 && kC == 64 && kS == 4 && kThreads == 2 * kS * kC, "res layouts");
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// The row that tap t of output row l reads (reflect pad 1).
+__host__ __device__ constexpr int reflect(int v) {
+  return v < 0 ? -v : v >= kL ? 2 * kL - 2 - v : v;
+}
+
+// One conv's taps (3, C, C) into w, cp.async.
+__device__ void stage_taps(const float* __restrict__ w, float* ws) {
+  constexpr int q = kC / 4;
+  for (int i = threadIdx.x; i < 3 * kC * q; i += kThreads) {
+    const int r = i / q, c = (i - r * q) * 4;  // r = t * C + ci
+    cp_async16(ws + r * kLd + c, w + r * kC + c, true);
+  }
+}
+
+// The tile's samples s0 .. s0+ns-1, cp.async: x with its halo rows at xs, g at gs; the rows of
+// samples past the batch are zero (they then add exactly 0 to every sum).
+__device__ void stage_tile(const float* __restrict__ x, const float* __restrict__ g, int s0,
+                           int ns, float* xs, float* gs) {
+  constexpr int q = kC / 4;
+  for (int i = threadIdx.x; i < kS * kH * q; i += kThreads) {
+    const int r = i / q, c = (i - r * q) * 4, j = r / kH;
+    const bool ok = j < ns;
+    const int u = reflect(r - j * kH - 1);
+    cp_async16(xs + r * kLd + c, x + (static_cast<size_t>(s0 + (ok ? j : 0)) * kL + u) * kC + c,
+               ok);
+  }
+  for (int i = threadIdx.x; i < kS * kL * q; i += kThreads) {
+    const int r = i / q, c = (i - r * q) * 4;
+    const bool ok = r / kL < ns;
+    cp_async16(gs + r * kLd + c, g + (static_cast<size_t>(s0) * kL + (ok ? r : 0)) * kC + c, ok);
+  }
+}
+
+// z (the tile's rows, kLd floats apart) = conv(a, w), a staged with its halo rows. Warps 0-3:
+// lane (l, q) of warp wp computes row l of all kS samples at channels 16 wp + 4q .. +3 (per
+// step of 4 input channels 4 + 4 float4 loads for 64 multiply-adds). Each output is one fmaf
+// chain over t, then ci ascending, K1's conv_points order, so z is the forward's bit for bit.
+__device__ void conv_tile(const float* a, const float* w, float* z) {
+  const int wp = threadIdx.x >> 5, ln = threadIdx.x & 31;
+  const int l = ln >> 2, co = 16 * wp + 4 * (ln & 3);
+  const float* as = a + l * kLd;
+  float acc[kS][4] = {};
+#pragma unroll 1
+  for (int t = 0; t < 3; ++t) {
+    const float* wt = w + t * kC * kLd + co;
+#pragma unroll 4
+    for (int ci = 0; ci < kC; ci += 4) {
+      float4 xv[kS], wv[4];
+#pragma unroll
+      for (int s = 0; s < kS; ++s) xv[s] = lds4(as + (s * kH + t) * kLd + ci);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wv[j] = lds4(wt + (ci + j) * kLd);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int s = 0; s < kS; ++s) {
+          const float v = lane4(xv[s], j);
+          acc[s][0] = fmaf(v, wv[j].x, acc[s][0]);
+          acc[s][1] = fmaf(v, wv[j].y, acc[s][1]);
+          acc[s][2] = fmaf(v, wv[j].z, acc[s][2]);
+          acc[s][3] = fmaf(v, wv[j].w, acc[s][3]);
+        }
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < kS; ++s)
+    *reinterpret_cast<float4*>(z + (s * kL + l) * kLd + co) =
+        make_float4(acc[s][0], acc[s][1], acc[s][2], acc[s][3]);
+}
+
+// One (sample, channel) row of a norm, held by the thread pair (2p, 2p+1) of the block, as K1's
+// norm_stage holds it at L = 8: the even lane the rows 0, 2, 4, 6, the odd lane the rest. yh the
+// normalised values of the lane's rows.
+struct RowNorm {
+  float yh[kL / 2], rs;
+};
+
+// Statistics of the lane's (sample, channel) row of z with norm_stage's order of operations.
+__device__ __forceinline__ RowNorm row_norm(const float* z) {
+  float v[kL / 2], sum = 0.f;
+#pragma unroll
+  for (int k = 0; k < kL / 2; ++k) {
+    v[k] = z[2 * k * kLd];
+    sum += v[k];
+  }
+  const float mean = (sum + __shfl_xor_sync(0xffffffffu, sum, 1)) * kInvL;
+  float sq = 0.f;
+#pragma unroll
+  for (int k = 0; k < kL / 2; ++k) {
+    const float d = v[k] - mean;
+    sq = fmaf(d, d, sq);
+  }
+  RowNorm n;
+  n.rs = rsqrtf((sq + __shfl_xor_sync(0xffffffffu, sq, 1)) * kInvL + kEps);
+#pragma unroll
+  for (int k = 0; k < kL / 2; ++k) n.yh[k] = (v[k] - mean) * n.rs;
+  return n;
+}
+
+// gz = the norm's backward of gh (= gsrc, masked by h = yh * ga + be > 0 when kRelu) over the
+// lane's rows; kAdain: dga = sum gh * yh and dbe = sum gh of the row (the even lane writes).
+template <bool kAdain, bool kRelu>
+__device__ __forceinline__ void norm_bwd(const RowNorm& n, float ga, float be, const float* gsrc,
+                                         float* gz, float* dga, float* dbe) {
+  float gh[kL / 2], sgh = 0.f, sghy = 0.f;
+#pragma unroll
+  for (int k = 0; k < kL / 2; ++k) {
+    const float h = kAdain ? fmaf(n.yh[k], ga, be) : n.yh[k];
+    gh[k] = (!kRelu || h > 0.f) ? gsrc[2 * k * kLd] : 0.f;
+    sgh += gh[k];
+    sghy = fmaf(gh[k], n.yh[k], sghy);
+  }
+  sgh += __shfl_xor_sync(0xffffffffu, sgh, 1);
+  sghy += __shfl_xor_sync(0xffffffffu, sghy, 1);
+  if (kAdain && dga) {
+    *dga = sghy;
+    *dbe = sgh;
+  }
+  const float mg = sgh * ga * kInvL, mgy = sghy * ga * kInvL;
+#pragma unroll
+  for (int k = 0; k < kL / 2; ++k) gz[2 * k * kLd] = n.rs * (gh[k] * ga - mg - n.yh[k] * mgy);
+}
+
+// dw[h][t][v] += sum over the tile's rows l of a[s, reflect(l + t - 1), ci + 32 h] *
+// gz[s, l, co + v]: thread (ci, co / 4) of the block, ci < 32, its 24 entries of d(taps) in
+// registers (per row 1 float4 of gz, broadcast across the warp, for 24 multiply-adds).
+__device__ __forceinline__ void taps_grad(const float* a, const float* gz, int ns,
+                                          float (&dw)[2][3][4]) {
+  const int ci = threadIdx.x & 31, co = 4 * (threadIdx.x >> 5);
+#pragma unroll 1
+  for (int s = 0; s < ns; ++s) {
+    float av[2][kH];
+#pragma unroll
+    for (int r = 0; r < kH; ++r) {
+      av[0][r] = a[(s * kH + r) * kLd + ci];
+      av[1][r] = a[(s * kH + r) * kLd + ci + 32];
+    }
+#pragma unroll
+    for (int l = 0; l < kL; ++l) {
+      const float4 gv = lds4(gz + (s * kL + l) * kLd + co);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int t = 0; t < 3; ++t) {
+          const float v = av[h][l + t];
+          dw[h][t][0] = fmaf(v, gv.x, dw[h][t][0]);
+          dw[h][t][1] = fmaf(v, gv.y, dw[h][t][1]);
+          dw[h][t][2] = fmaf(v, gv.z, dw[h][t][2]);
+          dw[h][t][3] = fmaf(v, gv.w, dw[h][t][3]);
+        }
+    }
+  }
+}
+
+// acc[u] = the conv's input gradient at row u, channel ci of sample s, thread (s, ci) of warps
+// 0-7: sum over the gz rows r and taps t with reflect(r + t - 1) == u of gz[s, r] . w[t, ci].
+// Each gz row reaches three rows; the reflect pad folds tap 0 of row 0 onto row 1 and tap 2 of
+// row L-1 onto row L-2, fixed at compile time.
+__device__ __forceinline__ void input_grad(const float* gz, const float* w, float (&acc)[kL]) {
+  const int s = threadIdx.x / kC, ci = threadIdx.x & (kC - 1);
+#pragma unroll
+  for (int u = 0; u < kL; ++u) acc[u] = 0.f;
+  const float* wc = w + ci * kLd;
+  const float* gs = gz + s * kL * kLd;
+#pragma unroll 2
+  for (int co = 0; co < kC; co += 4) {
+    float4 wt[3];
+#pragma unroll
+    for (int t = 0; t < 3; ++t) wt[t] = lds4(wc + t * kC * kLd + co);
+#pragma unroll
+    for (int r = 0; r < kL; ++r) {
+      const float4 gv = lds4(gs + r * kLd + co);
+#pragma unroll
+      for (int t = 0; t < 3; ++t) {
+        const int u = reflect(r + t - 1);
+        acc[u] = fmaf(gv.x, wt[t].x, acc[u]);
+        acc[u] = fmaf(gv.y, wt[t].y, acc[u]);
+        acc[u] = fmaf(gv.z, wt[t].z, acc[u]);
+        acc[u] = fmaf(gv.w, wt[t].w, acc[u]);
+      }
+    }
+  }
+}
+
+// A thread's 24 entries of one conv's d(taps) into dst, (t, ci, co) in rows of kLd floats
+// (a warp's 32 input channels on distinct banks).
+__device__ __forceinline__ void put_taps(float* dst, const float (&dw)[2][3][4]) {
+  const int ci = threadIdx.x & 31, co = 4 * (threadIdx.x >> 5);
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int t = 0; t < 3; ++t)
+      *reinterpret_cast<float4*>(dst + (t * kC + ci + 32 * h) * kLd + co) =
+          make_float4(dw[h][t][0], dw[h][t][1], dw[h][t][2], dw[h][t][3]);
+}
+
+// One persistent block a SM walks tiles of kS samples (tile b, b + grid, ...). Per tile, from
+// x and g staged in shared memory beside both convs' taps:
+//   (1) z1 = conv(x, W1)                       (2) y1 = relu(IN(z1) [* g1 + b1]), yh1 kept
+//   (3) z2 = conv(y1, W2)                      (4) gz2 = IN backward of g [* g2]
+//   (5) dW2 += window(y1)^T gz2, gy1 = conv2^T(gz2)
+//   (6) gz1 = IN backward of gy1 masked by h1 > 0
+//   (7) dW1 += window(x)^T gz1, dx = conv1^T(gz1) + g.
+// The block keeps its d(taps) in registers over all its tiles and writes one partial row.
+template <bool kAdain>
+__global__ void __launch_bounds__(kThreads, 1)
+res_block_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+                     const float* __restrict__ w2, const float* __restrict__ g,
+                     float* __restrict__ dx, float* __restrict__ part, int batch, int n_tiles,
+                     Affine af, AffineGrad ag) {
+  extern __shared__ __align__(16) float smem[];
+  float* w1s = smem;
+  float* w2s = w1s + kWFloats;
+  float* xs = w2s + kWFloats;   // x with halo rows
+  float* y1 = xs + kHaloFloats;  // y1 with halo rows
+  float* gs = y1 + kHaloFloats;  // g
+  float* z2 = gs + kTileFloats;  // z2, then gz2
+  float* gy = z2 + kTileFloats;  // z1, then gy1, then gz1
+  const bool recompute = threadIdx.x < 128, dgrad = threadIdx.x < 256;  // warps 0-3, 0-7
+  // the thread's norm rows: rows par, par + 2, ... of (sample sn, channel cn)
+  const int pr = threadIdx.x >> 1, par = threadIdx.x & 1;
+  const int sn = pr / kC, cn = pr & (kC - 1), nrow = (sn * kL + par) * kLd + cn;
+  float dw1[2][3][4] = {}, dw2[2][3][4] = {};
+
+  int tile = blockIdx.x;
+  stage_taps(w1, w1s);
+  stage_tile(x, g, tile * kS, min(kS, batch - tile * kS), xs, gs);
+  cp_async_commit();
+  stage_taps(w2, w2s);
+  cp_async_commit();
+  cp_async_wait<1>();  // W1 and the first tile; W2 lands behind (1) and (2)
+  for (bool first = true; tile < n_tiles; tile += gridDim.x, first = false) {
+    const int s0 = tile * kS, ns = min(kS, batch - s0);
+    const bool real = sn < ns;
+    const size_t tab = static_cast<size_t>(s0 + (real ? sn : 0)) * kC + cn;
+    if (!first) {
+      __syncthreads();  // the last tile's reads of xs and gs are done
+      stage_tile(x, g, s0, ns, xs, gs);
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (recompute) conv_tile(xs, w1s, gy);  // (1)
+    __syncthreads();
+    // (2); row 1's lane also writes its copy above the sample, row L-2's lane below it
+    const RowNorm n1 = row_norm(gy + nrow);
+    float ga1 = 1.f, be1 = 0.f;
+    if (kAdain) {
+      ga1 = real ? __ldg(af.g1 + tab) : 0.f;
+      be1 = real ? __ldg(af.b1 + tab) : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < kL / 2; ++k) {
+      float v = n1.yh[k];
+      if (kAdain) v = fmaf(v, ga1, be1);
+      v = fmaxf(v, 0.f);
+      const int l = par + 2 * k;
+      float* dst = y1 + (sn * kH + l + 1) * kLd + cn;
+      *dst = v;
+      if (l == 1) dst[-2 * kLd] = v;
+      if (l == kL - 2) dst[2 * kLd] = v;
+    }
+    if (first) cp_async_wait<0>();
+    __syncthreads();
+    if (recompute) conv_tile(y1, w2s, z2);  // (3)
+    __syncthreads();
+    {  // (4)
+      const RowNorm n2 = row_norm(z2 + nrow);
+      const float ga2 = kAdain ? (real ? __ldg(af.g2 + tab) : 0.f) : 1.f;
+      const bool out = kAdain && real && par == 0;
+      norm_bwd<kAdain, false>(n2, ga2, 0.f, gs + nrow, z2 + nrow, out ? ag.dg2 + tab : nullptr,
+                              out ? ag.db2 + tab : nullptr);
+    }
+    __syncthreads();
+    if (dgrad) {  // (5)
+      float acc[kL];
+      input_grad(z2, w2s, acc);
+      const int s = threadIdx.x / kC, ci = threadIdx.x & (kC - 1);
+#pragma unroll
+      for (int u = 0; u < kL; ++u) gy[(s * kL + u) * kLd + ci] = acc[u];
+    }
+    taps_grad(y1, z2, ns, dw2);
+    __syncthreads();
+    {  // (6)
+      const bool out = kAdain && real && par == 0;
+      norm_bwd<kAdain, true>(n1, ga1, be1, gy + nrow, gy + nrow, out ? ag.dg1 + tab : nullptr,
+                             out ? ag.db1 + tab : nullptr);
+    }
+    __syncthreads();
+    if (dgrad && dx) {  // (7)
+      float acc[kL];
+      input_grad(gy, w1s, acc);
+      const int s = threadIdx.x / kC, ci = threadIdx.x & (kC - 1);
+      if (s < ns) {
+        float* d = dx + (static_cast<size_t>(s0 + s) * kL) * kC + ci;
+#pragma unroll
+        for (int u = 0; u < kL; ++u) d[u * kC] = acc[u] + gs[(s * kL + u) * kLd + ci];
+      }
+    }
+    taps_grad(xs, gy, ns, dw1);
+  }
+
+  // the block's partial row, d(taps1) then d(taps2): through the taps' shared memory (the
+  // two regions are 2 * 3 * C rows of kLd floats), then out in contiguous float4s
+  __syncthreads();
+  put_taps(w1s, dw1);
+  put_taps(w2s, dw2);
+  __syncthreads();
+  float* row = part + static_cast<size_t>(blockIdx.x) * 2 * kTaps;
+  for (int i = threadIdx.x; i < 2 * kTaps / 4; i += kThreads) {
+    const int r = i / (kC / 4), c = (i - r * (kC / 4)) * 4;
+    *reinterpret_cast<float4*>(row + r * kC + c) = lds4(smem + r * kLd + c);
+  }
+}
+
+int smem_set[2] = {0, 0};
+
+template <bool kAdain>
+int launch(const float* x, const float* w1, const float* w2, const float* g, float* dx,
+           float* part, float* dw, int batch, int l, int c, int tile, int grid, int smem,
+           Affine af, AffineGrad ag, void* stream) {
+  const int n_tiles = batch > 0 ? (batch + kS - 1) / kS : 0;
+  if (batch <= 0 || l != kL || c != kC || tile != kS || grid < 1 || grid > n_tiles ||
+      smem != kSmemBytes)
+    return cudaErrorInvalidValue;
+  for (const void* p : {static_cast<const void*>(x), static_cast<const void*>(w1),
+                        static_cast<const void*>(w2), static_cast<const void*>(g),
+                        static_cast<const void*>(dx)})
+    if (!aligned16(p)) return cudaErrorInvalidValue;
+  int err = allow_smem(res_block_bwd_kernel<kAdain>, smem, &smem_set[kAdain]);
+  if (err) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  res_block_bwd_kernel<kAdain><<<grid, kThreads, smem, s>>>(x, w1, w2, g, dx, part, batch,
+                                                            n_tiles, af, ag);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  return iins::launch_reduce_rows(part, grid, 2 * kTaps, dw, s);
+}
+
+}  // namespace res
+
 extern "C" {
 
 const char* iins_error_string(int err) {
@@ -315,6 +721,24 @@ int iins_adain_layer_bwd(const float* x, const float* w, const float* gam, const
   return launch_chain_bwd<true>(x, w, w, g, dx, part, dw, batch, stage, 1, 0, relu != 0, spb,
                                 Affine{gam, bet, nullptr},
                                 AffineGrad{dgam, dbet, nullptr, nullptr}, stream);
+}
+
+// K1's residual block (IN: g1 null) or K5 (AdaIN) at (l, c) = (8, 64) on the residual
+// block's own path: x, g (B, 8, 64); dx (B, 8, 64) or null; w1, w2 (3, 64, 64); K5's tables
+// g1, b1, g2 and its gradients dg1, db1, dg2, db2 (B, 64). tile (samples a tile), grid (the
+// persistent blocks, 1 .. ceil(B / tile)) and smem (a block's dynamic shared memory) as
+// backward.res_block_plan gives them; the launch refuses any other. part (grid, 2*3*64*64)
+// scratch; dw (2*3*64*64): d(taps1), then d(taps2).
+int iins_res_block_bwd(const float* x, const float* w1, const float* w2, const float* g1,
+                       const float* b1, const float* g2, const float* g, float* dx, float* part,
+                       float* dw, float* dg1, float* db1, float* dg2, float* db2, int batch,
+                       int l, int c, int tile, int grid, int smem, void* stream) {
+  if (!g1)
+    return res::launch<false>(x, w1, w2, g, dx, part, dw, batch, l, c, tile, grid, smem,
+                              Affine{}, AffineGrad{}, stream);
+  if (!b1 || !g2 || !dg1 || !db1 || !dg2 || !db2) return cudaErrorInvalidValue;
+  return res::launch<true>(x, w1, w2, g, dx, part, dw, batch, l, c, tile, grid, smem,
+                           Affine{g1, b1, g2}, AffineGrad{dg1, db1, dg2, db2}, stream);
 }
 
 }  // extern "C"

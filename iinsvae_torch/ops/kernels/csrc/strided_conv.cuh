@@ -28,6 +28,8 @@
 
 #include <cstdint>
 
+#include "async_smem.cuh"
+
 namespace iins_sc {
 
 // the most dynamic shared memory a block may opt in to on the H100
@@ -47,27 +49,6 @@ inline bool shape_ok(int batch, int l_in, int c_in, int c_out) {
 
 // The most segments a tile of tm rows can touch, P rows a sample.
 __host__ __device__ inline int max_segments(int tm, int p) { return (tm - 1) / p + 2; }
-
-// Opt the kernel in to `bytes` of dynamic shared memory where that is over
-// the default 48 KB; the attribute is set once for each size.
-template <typename Kernel>
-int allow_smem(Kernel kernel, int bytes, int* set_to) {
-  if (bytes <= 48 * 1024 || bytes <= *set_to) return 0;
-  const int err = static_cast<int>(
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
-  if (!err) *set_to = bytes;
-  return err;
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
 
 // Segment j of the tile [q0, q0 + n): its tile rows [a, b) and its first
 // row m_a within sample s0 + j.

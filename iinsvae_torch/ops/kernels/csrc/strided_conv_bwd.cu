@@ -49,6 +49,7 @@
 #include <algorithm>
 #include <initializer_list>
 
+#include "conv_bwd_common.cuh"
 #include "strided_conv.cuh"
 
 namespace {
@@ -336,26 +337,6 @@ strided_conv_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w
   }
 }
 
-// out[i] = sum over p of part[p, i], in one fixed order: warp w of a block
-// sums the rows p = w, w + 8, ... for 32 consecutive i, then the eight
-// warps' sums are added in order.
-__global__ void __launch_bounds__(kThreads)
-reduce_rows_kernel(const float* __restrict__ part, int n_parts, int n, float* __restrict__ out) {
-  extern __shared__ __align__(16) float smem[];
-  const int ln = threadIdx.x & 31, wp = threadIdx.x >> 5;
-  const int i = blockIdx.x * 32 + ln;
-  float s = 0.f;
-  if (i < n)
-    for (int p = wp; p < n_parts; p += kThreads / 32) s += __ldg(part + static_cast<size_t>(p) * n + i);
-  smem[wp * 32 + ln] = s;
-  __syncthreads();
-  if (wp == 0 && i < n) {
-    float t = 0.f;
-    for (int k = 0; k < kThreads / 32; ++k) t += smem[k * 32 + ln];
-    out[i] = t;
-  }
-}
-
 int smem_set = 0;
 
 }  // namespace
@@ -400,9 +381,7 @@ int iins_strided_conv_bwd(const float* x, const float* w, const float* y, const 
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   const int n = 4 * c_in * c_out + c_out;
-  reduce_rows_kernel<<<(n + 31) / 32, kThreads, kThreads * sizeof(float), s>>>(part, grid, n,
-                                                                                dwb);
-  return static_cast<int>(cudaGetLastError());
+  return iins::launch_reduce_rows(part, grid, n, dwb, s);
 }
 
 }  // extern "C"

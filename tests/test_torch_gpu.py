@@ -373,6 +373,39 @@ def test_gpu_backward_is_bit_reproducible(cuda, conv_type):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 261])
+def test_gpu_res_block_backward_matches_plain_on_a_partial_tile(cuda, batch):
+    """K1b at the range encoder's residual block and K5b at the decoder's, on the residual
+    block's own path (persistent blocks over tiles of backward.RES_TILE samples): at 261 the
+    last tile holds one sample, at 1 the only tile does. Each held against its plain version,
+    bit-equal over two calls, without dx too, one launch a call."""
+    assert batch % backward.RES_TILE
+    m = IInsVAE(**FLAGSHIP).to(cuda)
+    re_, dec = m.encoder.range_encoder, m.decoder.decoder
+    gen = torch.Generator().manual_seed(batch)
+    x, g = (torch.randn((batch, 8, 64), generator=gen).to(cuda) for _ in range(2))
+    tables = [torch.randn((batch, 64), generator=gen).to(cuda) for _ in range(4)]
+    block = [(re_.res0_kernel1, 1, 1, "reflect"), (re_.res0_kernel2, 1, 1, "reflect")]
+    for wrapper, args, kw in ((backward.in_chain_bwd, (g, x, block), dict(residual=True)),
+                              (backward.adain_res_block_bwd,
+                               (g, x, dec.res0_kernel1, dec.res0_kernel2, *tables), {})):
+        n = wrapper.launches
+        got = _tensors(wrapper(*args, **kw))
+        assert wrapper.launches == n + 1
+        want = _tensors(backward.PLAIN[wrapper](*args, **kw))
+        assert len(got) == len(want)
+        for i, (a, w) in enumerate(zip(got, want)):
+            assert torch.isfinite(a).all(), (wrapper.__name__, i)
+            _close_scaled(a, w, BWD_RTOL, BWD_ATOL, f"{wrapper.__name__} gradient {i}")
+        for a, b in zip(got, _tensors(wrapper(*args, **kw))):
+            assert torch.equal(a, b)
+        no_dx = wrapper(*args, **kw, need_dx=False)
+        assert no_dx[0] is None
+        for a, b in zip(got[1:], _tensors(no_dx)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
 def test_gpu_backward_wrappers_reject_what_the_kernels_do_not_take(cuda):
     m = IInsVAE(**FLAGSHIP).to(cuda)
     re_, dec = m.encoder.range_encoder, m.decoder.decoder

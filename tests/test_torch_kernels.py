@@ -24,7 +24,7 @@ from iinsvae_tpu.ops.pallas import strided_conv as psc
 from iinsvae_tpu.ops.pooling import adaptive_avg_pool_matrix
 from iinsvae_torch.ops import kernels, norms
 from iinsvae_torch.ops.conv import conv1d, upsample_nearest1d
-from iinsvae_torch.ops.kernels import fused, res2d, strided_conv
+from iinsvae_torch.ops.kernels import _build, backward, fused, res2d, strided_conv
 
 RTOL, ATOL = 5e-4, 5e-5
 B = 6
@@ -37,6 +37,9 @@ IN_CHAINS = {
     "single": (16, 32, [(4, 64, 2, 1, "zero")]),
     "res": (8, 64, [(3, 64, 1, 1, "reflect"), (3, 64, 1, 1, "reflect")]),
 }
+# K1b's, K5b's and K8b's shapes: K1b's at IN_CHAINS (its "res" shape is also K5b's decoder
+# block) and K8b's one AdaIN stage of the decoder block
+BWD_SHAPES = {**IN_CHAINS, "adain": (8, 64, [(3, 64, 1, 1, "reflect")])}
 # (l_in, c_in, k, c_out, padding, pad_mode) — K2 call sites
 CONV_BIAS_ACT = {
     "range_out": (8, 64, 1, 2, 0, "zero"),
@@ -282,3 +285,32 @@ def test_conv1d_reflect_padding_excludes_the_edge():
     y = conv1d(x, taps, padding=1, pad_mode="reflect").flatten()
     assert y[0].item() == 1 * 1 + 10 * 0 + 100 * 1
     assert y[7].item() == 1 * 6 + 10 * 7 + 100 * 6
+
+
+@pytest.mark.parametrize("batch", [1, 5, 37, 261, 500])
+def test_k1b_tiles_cover_every_sample_once_within_shared_memory(batch):
+    """K1b's and K5b's residual-block path: block j of the grid takes tiles j, j + blocks, ...
+    (csrc/in_chain_bwd.cu), so every sample must lie in exactly one of those tiles, with the
+    H100's 132 SMs and with fewer SMs than tiles. And every K1b, K5b and K8b launch at these
+    shapes stays within the 227 KB of shared memory a block can have on the H100."""
+    for sms in (132, 7):
+        tiles, blocks = backward.res_block_plan(batch, sms)
+        assert 1 <= blocks <= min(sms, tiles)
+        seen = np.zeros(batch, dtype=int)
+        for j in range(blocks):
+            for t in range(j, tiles, blocks):
+                assert t * backward.RES_TILE < batch
+                seen[t * backward.RES_TILE:(t + 1) * backward.RES_TILE] += 1
+        assert (seen == 1).all()
+    for name, (l_in, c_in, stages) in BWD_SHAPES.items():
+        c_ins = [c_in] + [st[1] for st in stages]
+        rows, _, _ = fused.stage_rows(torch.zeros((batch, l_in, c_in)),
+                                      [(torch.zeros((k, c, c_out)), s, p, m)
+                                       for (k, c_out, s, p, m), c in zip(stages, c_ins)])
+        if name == "res":
+            assert rows == 2 * backward.RES_STAGE
+            smem = backward.RES_SMEM
+        else:
+            floats = backward.chain_floats(rows)
+            smem = 4 * floats * _build.samples_per_block(batch, floats)
+        assert smem <= 227 * 1024, name
