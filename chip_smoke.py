@@ -11,7 +11,10 @@
    one PyTorch call computes the same conv) that call on the device: CUDA
    graphs of 20 calls replayed between CUDA events after a warmup, median
    of 25 replays; the kernel's eager back-to-back time (the host's
-   dispatch) beside it;
+   dispatch) beside it; where no call computes the whole op, one cuDNN
+   conv of the same data (TF32 off) is timed as a yardstick, marked with a
+   double dagger: one k3 reflect conv of K1's and K5's residual blocks,
+   stage 0's k5 conv of K6 on the upsampled input (500, 64, 16);
 4. serves the flagship 1-D model at full width (seeded weights) through
    ``Predictor(device="cuda")`` on two paths, each on 3 batches of 500 CIRs
    and a ragged 137 with every launch counter set to 0 just before and
@@ -26,7 +29,9 @@
    calls the backward kernel (K1b, K2b, K3b, K4b, K6b through their six
    wrappers) and holds every gradient against autograd of the plain
    version, and times both, with cuDNN's conv backward
-   (``aten.convolution_backward``, TF32 off) beside K2b's and K3b's sites;
+   (``aten.convolution_backward``, TF32 off) beside K2b's and K3b's sites
+   and, as the double-dagger yardstick, beside K1b's and K5b's residual
+   blocks and K6b's decoder tail (the forward's yardstick conv);
    then holds every 1-D forward and backward kernel call at the ragged
    batches 5 and 261 against its plain version (``[ragged]`` lines);
 7. trains the flagship (seeded weights) on the synthetic room_full fixture
@@ -424,7 +429,7 @@ def call_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list[dic
         run=lambda: fused.sln_chain(xt, stages, dec.out_kernel, dec.out_bias, 157),
         plain=lambda: fused.sln_chain_ref(xt, stages, dec.out_kernel, dec.out_bias, 157,
                                           pool=pool),
-        library=None,
+        library=None, cudnn_conv=ncl_conv(upsample_nearest1d(xt, 2), *stages[0][:2], 1, 2, "zero"),
         bytes=nbytes(xt, *[t for st in stages for t in st], dec.out_kernel, dec.out_bias)
         + 4 * b * 157,
         flops=flops))
@@ -811,10 +816,13 @@ def backward_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list
     flops += conv_flops(b, l, dec.out_kernel, 1, 3, "reflect")
     params = [t for st in up for t in st] + [dec.out_kernel, dec.out_bias]
     g = rand(b, 157)
+    xu = upsample_nearest1d(xt, 2)  # stage 0's conv input, (B, 16, 64)
     add("dec.tail", backward.sln_chain_bwd, f"{fp}:996", 1,
         (g, xt, up, dec.out_kernel, dec.out_bias, 157), {},
         nbytes(xt, *params, g, xt, *params), 3 * flops,
-        plain_kw=dict(pool=adaptive_avg_pool_matrix(l, 157, device=dev)))
+        plain_kw=dict(pool=adaptive_avg_pool_matrix(l, 157, device=dev)),
+        cudnn_conv=conv_backward_call(xu, up[0][0], torch.ones_like(xu[..., :32]),
+                                      torch.randn_like(xu[..., :32]), 1, 2, "zero", True))
     return sites
 
 

@@ -355,11 +355,47 @@ def sln_chain_bwd_ref(g: torch.Tensor, x: torch.Tensor, stages: Sequence[UpStage
             rest[-2], rest[-1])
 
 
+# K6b's path at the decoder's shape (csrc/sln_chain_bwd.cu, namespace tail): input (8, 64),
+# four up-stages to (128, 4): tiles of SLN_TAIL_TILE samples, at most one persistent block a SM,
+# SLN_TAIL_SMEM bytes of shared memory a block, as the source lays them out.
+SLN_TAIL_L, SLN_TAIL_C, SLN_TAIL_TILE = 8, 64, 4
+
+
+def _sln_tail_floats() -> int:
+    """Floats of shared memory a block of the tail path takes, as the source lays them out."""
+    ls = [SLN_TAIL_L << j for j in range(SLN_STAGES)]  # stage j: (ls[j], cs[j]) -> x2 rows, C / 2
+    cs = [SLN_TAIL_C >> j for j in range(SLN_STAGES)]
+    # the taps in rows of C_out + 4 floats (C_out >= 8), the out conv's 28 (32 kept)
+    taps = sum(5 * c * (c // 2 + 4 if c // 2 >= 8 else c // 2) for c in cs) + 32
+    # per sample: each stage's input with a zero row above and below (rows of C + 4), the out
+    # conv's input (128, 4), each conv output with two zero rows above and below, each 4 floats
+    # longer; the out conv's gradient (128 + 4)
+    acts = sum((l + 2) * (c + 4) + 4 for l, c in zip(ls, cs)) + 2 * ls[-1] * (cs[-1] // 2) + 4
+    zs = sum((2 * l + 4) * (c // 2) + 4 for l, c in zip(ls, cs))
+    tile = SLN_TAIL_TILE * (acts + zs + 2 * ls[-1] + 4)
+    # statistics, per-warp sums (16 warps), the block's per-channel gradients, the out conv's
+    # partials (128 threads x 29) and per-sample sums, the block's d(taps) of stage 0
+    rest = SLN_STAGES * SLN_TAIL_TILE * 4 + 16 * 3 * 32 + 16 * 4 + SLN_STAGES * 3 * 32 + 32 \
+        + 128 * 29 + 128 + 5 * cs[0] * cs[0] // 2
+    return taps + tile + rest
+
+
+SLN_TAIL_SMEM = 4 * _sln_tail_floats()
+
+
+def sln_tail_plan(batch: int, sms: int) -> tuple[int, int]:
+    """-> (tiles, blocks) of K6b's tail path: block j of the grid takes tiles j, j + blocks,
+    ..., tile t the samples t * SLN_TAIL_TILE .. (t + 1) * SLN_TAIL_TILE - 1 below batch."""
+    tiles = -(-batch // SLN_TAIL_TILE)
+    return tiles, min(tiles, sms)
+
+
 def sln_chain_bwd(g: torch.Tensor, x: torch.Tensor, stages: Sequence[UpStage],
                   out_kernel: torch.Tensor, out_bias: torch.Tensor, l_pool: int, *,
                   need_dx: bool = True):
     """K6b: -> (dx, [(d(taps), dbias, dgamma, dbeta) per stage], d(out_kernel),
-    d(out_bias)) of fused.sln_chain."""
+    d(out_bias)) of fused.sln_chain. The decoder's shape, input (8, 64), runs the tail path
+    (persistent blocks, sln_tail_plan); any other shape the general kernel."""
     if g.device.type == "cpu":
         return sln_chain_bwd_ref(g, x, stages, out_kernel, out_bias, l_pool, need_dx=need_dx)
     params = [t for st in stages for t in st] + [out_kernel, out_bias]
@@ -368,20 +404,27 @@ def sln_chain_bwd(g: torch.Tensor, x: torch.Tensor, stages: Sequence[UpStage],
     if g.shape != (b, l_pool):
         raise ValueError(f"g must be ({b}, {l_pool}), got {tuple(g.shape)}")
     _build.require_cuda_f32("sln_chain_bwd", g)
-    l_last = l0 << SLN_STAGES
-    # the input, four stage outputs and four conv outputs, the tanh output
-    # and the LayerNorm statistics, in shared memory
-    spb = _build.samples_per_block(b, 9 * l0 * c0 + _round4(l_last) + 3 * SLN_STAGES)
     n_w = sum(t.numel() for t in params)
-    part = torch.empty(((b + spb - 1) // spb, n_w), device=x.device, dtype=x.dtype)
     dw = torch.empty(n_w, device=x.device, dtype=x.dtype)
     dx = torch.empty_like(x) if need_dx else None
-    fn = _build.function("sln_chain_bwd", "iins_sln_chain_bwd",
-                         [_P, _P, _P, _P, _P, _I, ctypes.POINTER(_P), ctypes.POINTER(_P),
-                          ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _I, _P, _P, _I, _I, _P])
     ptrs = [(_P * SLN_STAGES)(*[st[i].data_ptr() for st in stages]) for i in range(4)]
+    head = [_P, _P, _P, _P, _P, _I] + [ctypes.POINTER(_P)] * 4 + [_I, _I, _P, _P, _I]
+    if (l0, c0) == (SLN_TAIL_L, SLN_TAIL_C):
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        _, blocks = sln_tail_plan(b, sms)
+        part = torch.empty((blocks, n_w), device=x.device, dtype=x.dtype)
+        fn = _build.function("sln_chain_bwd", "iins_sln_tail_bwd", head + [_I, _I, _I, _P])
+        plan = (SLN_TAIL_TILE, blocks, SLN_TAIL_SMEM)
+    else:
+        # the general kernel: per sample the input, four stage outputs and four conv outputs,
+        # the tanh output and the LayerNorm statistics, in the default 48 KB of shared memory
+        l_last = l0 << SLN_STAGES
+        spb = _build.samples_per_block(b, 9 * l0 * c0 + _round4(l_last) + 3 * SLN_STAGES)
+        part = torch.empty(((b + spb - 1) // spb, n_w), device=x.device, dtype=x.dtype)
+        fn = _build.function("sln_chain_bwd", "iins_sln_chain_bwd", head + [_I, _P])
+        plan = (spb,)
     err = fn(x.data_ptr(), g.data_ptr(), _ptr(dx), part.data_ptr(), dw.data_ptr(), b, *ptrs,
-             l0, c0, out_kernel.data_ptr(), out_bias.data_ptr(), l_pool, spb,
+             l0, c0, out_kernel.data_ptr(), out_bias.data_ptr(), l_pool, *plan,
              _build.stream_handle(x))
     _build.check(err, "sln_chain_bwd", "sln_chain_bwd")
     sln_chain_bwd.launches += 1

@@ -23,20 +23,53 @@
 //           dbias += sum_l gz, d(taps) += up(a)^T gz, and the input's
 //           gradient, the upsample's adjoint summing each row pair.
 //
-// A block keeps, per sample, the input, the four stage outputs and the four
-// pre-norm conv outputs (9 x L0*C0 floats) and the tanh output in shared
-// memory: 19 KB a sample at the flagship, 2 samples a block in the default
-// 48 KB. Per-channel gradients (taps, bias, gamma, beta) are summed over
-// the block's samples into its row of a (grid, n) buffer that a second
-// kernel sums in order: deterministic, no atomics. The up-stages' code is
-// sln_stage.cuh's (shared with K6, K9 and K9b); the fixed k7 reflect tail
-// stays here: the runtime-geometry conv helpers K10b uses
-// (conv_bwd_common.cuh) made K6b slower on the H100.
+// Two paths. The decoder's shape, input (8, 64) (the only one Decoder1d gives K6; one call a
+// 1-D training step), runs its own kernel (namespace tail below); every other shape the
+// general kernel.
 //
 // Bound on the H100 at batch 500 (flagship): the forward recompute, d(taps)
 // and the input gradients each need the forward's 177,024 multiply-adds a
 // sample (counting the upsample's row pairs once): 0.53 GFLOP, 7.9 us at 67
 // TFLOP/s fp32; ~1.4 MB moved: bound by operations.
+//
+// The general kernel keeps, per sample, the input, the four stage outputs and the four
+// pre-norm conv outputs (9 x L0*C0 floats) and the tanh output in shared memory: 19 KB a
+// sample at the flagship, 2 samples a block in the default 48 KB. Per-channel gradients
+// (taps, bias, gamma, beta) are summed over the block's samples into its row of a (grid, n)
+// buffer that a second kernel sums in order: deterministic, no atomics. The up-stages' code
+// is sln_stage.cuh's (shared with K6, K9 and K9b); the fixed k7 reflect tail stays here: the
+// runtime-geometry conv helpers K10b uses (conv_bwd_common.cuh) made K6b slower on the H100.
+// At the decoder's shape it took 362-366 us at batch 500 (phase_times.py, H100): 148 in the
+// d(taps) partials (one thread a tap entry, serial over 2 samples' rows, two shared loads a
+// multiply-add, 250 partial rows of 13,809 floats), 108 in the input gradients (each thread
+// reads a taps row of its own from device memory), about 80 in the recompute.
+//
+// The decoder's kernel (tail):
+// - one persistent block a SM (512 threads) walks tiles of 4 whole samples (the LayerNorm
+//   couples a sample's values); all four stages' taps (rows of C_out + 4 floats, so a warp's
+//   reads of 32 input channels' rows hit distinct banks) and the out conv's sit in shared
+//   memory, staged once a block with cp.async, stages 1-3's landing behind stage 0's
+//   recompute; 215 KB a block;
+// - each stage's input and conv output keep zero rows past their edges, so every tap reads
+//   data and no product is masked;
+// - the recompute is K6's bit for bit (the ReLU masks and LayerNorm statistics depend on it):
+//   each output one fmaf chain over t, then ci ascending, the bias added last (a tap that reads
+//   a zero row adds exactly 0), the statistics with sln_relu's warp-a-sample reduction, the
+//   tail in sln_chain.cu's out_stage order; 2 samples x a row pair (which share their input
+//   rows at even taps) x 4 channels a thread;
+// - the products are register-tiled so that a multiply-add takes few bytes from shared
+//   memory, which gives an SM's lanes 128 B a clock: d(taps) and the input gradients in the
+//   upsample's phase form (E[m] = gz row 2m, O[m] = row 2m + 1 read input rows m-1, m, m+1
+//   through 3 folded taps each, 6 products where the plain form has 10); d(taps) 6 sums x 1
+//   input x 1-4 output channels a thread over a split of the tile's row pairs, dx 8 rows x 1
+//   channel a thread from the folded taps formed in registers;
+// - the LayerNorm backward and the affine and bias gradients on all 16 warps (4 a sample);
+//   per-channel gradients summed a tile at a time into shared memory in a fixed order, stage
+//   0's d(taps) too, stages 1-3's kept in registers over the block's tiles;
+// - a block writes one partial row, coalesced (125 at batch 500: 125 tiles on 132 SMs; was
+//   250), summed in a fixed order by a second kernel: bit-reproducible, no atomics. Full fp32
+//   FMAs, no TF32.
+#include "async_smem.cuh"
 #include "sln_stage.cuh"
 
 namespace {
@@ -188,6 +221,729 @@ sln_chain_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// The decoder's own path: input (8, 64), four up-stages to (128, 4), the k7 reflect conv,
+// tanh and any pool length, the only shape Decoder1d gives K6.
+namespace tail {
+
+using iins::kLnEps;
+using iins::kUpK;
+using iins::warp_sum;
+
+constexpr int kS = 4;            // samples a tile
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kStages = 4;
+constexpr int kL0 = 8, kC0 = 64;  // the input (L, C); stage j: (8 << j, 64 >> j) -> x2 rows, C / 2
+constexpr int kN = kL0 * kC0;     // floats a sample at every stage
+constexpr int kLast = kL0 << kStages;  // the out conv's rows (128, 4 channels)
+constexpr int kKOut = 7, kPadOut = 3;
+
+// Shared memory, in floats. Stage j's input act[j] keeps a zero row above and below each sample
+// (rows of C + 4 floats: a warp's reads of its rows spread over the banks); its conv output z[j]
+// (then its gradient gz) two zero rows above and below (rows of D = C / 2 floats, contiguous
+// inside); act[4], the out conv's input, 128 rows of 4. Every sample's block is 4 floats longer
+// than its rows, so that the tile's samples start on different banks.
+__host__ __device__ constexpr int rows_in(int j) { return kL0 << j; }
+__host__ __device__ constexpr int chans(int j) { return kC0 >> j; }
+__host__ __device__ constexpr int act_stride(int j) {
+  return j < kStages ? chans(j) + 4 : chans(j);
+}
+__host__ __device__ constexpr int act_floats(int j) {
+  return (j < kStages ? rows_in(j) + 2 : rows_in(j)) * act_stride(j) + 4;
+}
+__host__ __device__ constexpr int z_floats(int j) {
+  return (2 * rows_in(j) + 4) * (chans(j) / 2) + 4;
+}
+// the taps (t, ci, co) of stage j in rows of D + 4 floats (D >= 8; 4 at D = 4), so that the
+// input gradient's lanes, one input channel each, read distinct banks
+__host__ __device__ constexpr int tap_stride(int j) {
+  return chans(j) / 2 >= 8 ? chans(j) / 2 + 4 : chans(j) / 2;
+}
+__host__ __device__ constexpr int tap_off(int j) {
+  return j == 0 ? 0 : tap_off(j - 1) + kUpK * chans(j - 1) * tap_stride(j - 1);
+}
+constexpr int kTapOut = tap_off(kStages);  // the out conv's 28 taps (32 floats kept)
+__host__ __device__ constexpr int act_off(int j) {
+  return j == 0 ? kTapOut + 32 : act_off(j - 1) + kS * act_floats(j - 1);
+}
+__host__ __device__ constexpr int z_off(int j) {
+  return j == 0 ? act_off(kStages + 1) : z_off(j - 1) + kS * z_floats(j - 1);
+}
+constexpr int kGzoStride = kLast + 4;
+constexpr int kGzo = z_off(kStages);                // the out conv's gz, (S, 128)
+constexpr int kActs = kGzo + kS * kGzoStride - act_off(0);  // the tile's buffers
+constexpr int kStats = kGzo + kS * kGzoStride;      // (stage, sample): mean, std, 1 / (std + eps)
+constexpr int kRed = kStats + kStages * kS * 4;     // per warp: dbias, dgamma, dbeta of 32 channels
+constexpr int kRed2 = kRed + kWarps * 3 * 32;       // per warp: the LayerNorm backward's three sums
+constexpr int kSmall = kRed2 + kWarps * 4;          // the block's dbias, dgamma, dbeta a stage
+constexpr int kSmallOut = kSmall + kStages * 3 * 32;  // the out conv's d(taps) and dbias (29)
+constexpr int kScr = kSmallOut + 32;                // the out conv's per-thread partials
+constexpr int kOutParts = 29;
+constexpr int kRedOut = kScr + 128 * kOutParts;     // the out conv's per-sample sums (4 x 29)
+constexpr int kDw0 = kRedOut + 128;                 // the block's d(taps) of stage 0, (5, 64, 32)
+constexpr int kFloats = kDw0 + kUpK * kC0 * kC0 / 2;
+constexpr int kSmemBytes = kFloats * static_cast<int>(sizeof(float));
+static_assert(kSmemBytes <= 232448, "over the 227 KB a block can have");
+static_assert(kS * kOutParts <= 128, "the per-sample sums fit their region");
+// threads of the recompute (2 samples x 2 rows x 4 channels a thread) and of the input
+// gradients (kDxRows rows x 1 channel a thread)
+constexpr int kDxRows = 8;
+constexpr int kUpThreads = kS / 2 * kN / 8, kDxThreads = kS * kN / kDxRows;
+static_assert(kS * kLast == kThreads && kUpThreads <= kThreads && kDxThreads <= kThreads,
+              "thread layouts");
+
+// A partial row: per stage j, d(taps) (5, C, D), dbias, dgamma, dbeta (D each), then the out
+// conv's d(taps) (7, 4) and dbias.
+__host__ __device__ constexpr int row_off(int j) {
+  return j == 0 ? 0
+                : row_off(j - 1) + (kUpK * chans(j - 1) + 3) * (chans(j - 1) / 2);
+}
+constexpr int kRowFloats = row_off(kStages) + kOutParts;
+
+struct Args {
+  const float* w[kStages];
+  const float* bias[kStages];
+  const float* gamma[kStages];
+  const float* beta[kStages];
+  const float* w_out;
+  const float* b_out;
+  int l_pool;
+};
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+template <int N>
+__device__ __forceinline__ void load_n(const float* p, float (&v)[N]) {
+  if constexpr (N == 4) {
+    const float4 q = lds4(p);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else if constexpr (N == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+__device__ __forceinline__ int reflect_out(int u) {
+  return u < 0 ? -u : (u >= kLast ? 2 * kLast - 2 - u : u);
+}
+
+// The zero rows of act[j] (above and below each sample) and of z[j] (two above, two below):
+// the rows that the tile's phases read but never write.
+template <int J>
+__device__ void zero_rows(float* sm) {
+  constexpr int L = rows_in(J), P = act_stride(J), D = chans(J) / 2;
+  for (int i = threadIdx.x; i < kS * 2 * P; i += kThreads) {
+    const int s = i / (2 * P), r = i - s * 2 * P;  // r < P: row 0, else row L + 1
+    sm[act_off(J) + s * act_floats(J) + (r < P ? r : L * P + r)] = 0.f;
+  }
+  for (int i = threadIdx.x; i < kS * 4 * D; i += kThreads) {
+    const int s = i / (4 * D), r = i - s * 4 * D;  // rows 0, 1 and 2L + 2, 2L + 3
+    sm[z_off(J) + s * z_floats(J) + (r < 2 * D ? r : 2 * L * D + r)] = 0.f;
+  }
+}
+
+// Stage j's taps (5, C, D) into rows of tap_stride(j) floats, cp.async.
+template <int J>
+__device__ void stage_taps(const float* __restrict__ w, float* sm) {
+  constexpr int C = chans(J), D = C / 2, q = D / 4, TS = tap_stride(J);
+  float* dst = sm + tap_off(J);
+  for (int i = threadIdx.x; i < kUpK * C * q; i += kThreads) {
+    const int r = i / q, c = (i - r * q) * 4;  // r = t * C + ci
+    cp_async16(dst + r * TS + c, w + r * D + c, true);
+  }
+}
+
+// The tile's samples s0 .. s0 + ns - 1 of x into act[0]'s inner rows, cp.async; the rows of
+// samples past the batch are zero.
+__device__ void stage_x(const float* __restrict__ x, int s0, int ns, float* sm) {
+  constexpr int q = kC0 / 4, P = act_stride(0);
+  float* a0 = sm + act_off(0);
+  for (int i = threadIdx.x; i < kS * kL0 * q; i += kThreads) {
+    const int r = i / q, c = (i - r * q) * 4, s = r / kL0, l = r - s * kL0;
+    const bool ok = s < ns;
+    cp_async16(a0 + s * act_floats(0) + (l + 1) * P + c,
+               x + (static_cast<size_t>(s0 + (ok ? s : 0)) * kL0 + l) * kC0 + c, ok);
+  }
+}
+
+// z[j] = conv(upsample(act[j])) + bias, threads 0 .. kUpThreads - 1: (sample pair, row pair 2m,
+// 2m + 1, 4 channels). Output row l's tap t reads input row (l + t - 2) >> 1, staged row (l + t)
+// >> 1, so the pair's rows read the same input row at even t and neighbouring rows at odd t.
+// Each output is one fmaf chain over t, then ci ascending, as sln_stage.cuh's up_conv_stage sums
+// it (a tap that reads a zero row adds fmaf(0, w, acc) = acc, exactly K6's skipped tap), so z is
+// K6's bit for bit.
+template <int J>
+__device__ void up_conv(float* sm, const float* __restrict__ bias) {
+  constexpr int L = rows_in(J), C = chans(J), D = C / 2, G = D / 4, P = act_stride(J);
+  constexpr int TS = tap_stride(J), AF = act_floats(J), ZF = z_floats(J);
+  const int sp = threadIdx.x / (L * G), rem = threadIdx.x - sp * (L * G);
+  const int m = rem / G, co = (rem - m * G) * 4;
+  const float* as = sm + act_off(J) + 2 * sp * AF;
+  float acc[2][2][4] = {};  // [sample][row 2m, 2m + 1][channel]
+#pragma unroll
+  for (int t = 0; t < kUpK; ++t) {
+    const float* xe = as + (m + t / 2) * P;        // staged row of output 2m's tap t
+    const float* xo = as + (m + (t + 1) / 2) * P;  // and of output 2m + 1's
+    const float* wt = sm + tap_off(J) + t * C * TS + co;
+#pragma unroll 2
+    for (int ci = 0; ci < C; ci += 4) {
+      float4 ve[2], vo[2], wv[4];
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        ve[s] = lds4(xe + s * AF + ci);
+        vo[s] = t % 2 ? lds4(xo + s * AF + ci) : ve[s];
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) wv[k] = lds4(wt + (ci + k) * TS);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float v = lane4(r ? vo[s] : ve[s], k);
+            acc[s][r][0] = fmaf(v, wv[k].x, acc[s][r][0]);
+            acc[s][r][1] = fmaf(v, wv[k].y, acc[s][r][1]);
+            acc[s][r][2] = fmaf(v, wv[k].z, acc[s][r][2]);
+            acc[s][r][3] = fmaf(v, wv[k].w, acc[s][r][3]);
+          }
+    }
+  }
+  const float b0 = __ldg(bias + co), b1 = __ldg(bias + co + 1), b2 = __ldg(bias + co + 2),
+              b3 = __ldg(bias + co + 3);
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float4*>(sm + z_off(J) + (2 * sp + s) * ZF + (2 * m + r + 2) * D + co) =
+          make_float4(acc[s][r][0] + b0, acc[s][r][1] + b1, acc[s][r][2] + b2,
+                      acc[s][r][3] + b3);
+}
+
+// The LayerNorm statistics of z[j], warp s for sample s, with sln_relu's reduction (lane-strided
+// two-pass sums, the xor butterfly), so mean, std and 1 / (std + eps) are K6's bit for bit.
+template <int J>
+__device__ void ln_stats(float* sm) {
+  constexpr int D = chans(J) / 2;
+  const int s = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* zs = sm + z_off(J) + s * z_floats(J) + 2 * D;
+  const float inv_n = 1.f / static_cast<float>(kN), inv_n1 = 1.f / static_cast<float>(kN - 1);
+  float sum = 0.f;
+  for (int i = lane; i < kN; i += 32) sum += zs[i];
+  const float mean = warp_sum(sum) * inv_n;
+  float sq = 0.f;
+  for (int i = lane; i < kN; i += 32) {
+    const float d = zs[i] - mean;
+    sq = fmaf(d, d, sq);
+  }
+  const float sd = sqrtf(warp_sum(sq) * inv_n1);
+  if (lane == 0) {
+    float* st = sm + kStats + (J * kS + s) * 4;
+    st[0] = mean;
+    st[1] = sd;
+    st[2] = 1.f / (sd + kLnEps);
+  }
+}
+
+// act[j + 1] = relu(LN(z[j]) * gamma + beta), sln_relu's expression; thread (sample s, r) takes
+// the sample's values r, r + 128, r + 256, r + 384 (all of channel r % D).
+template <int J>
+__device__ void ln_relu(float* sm, const float* __restrict__ gamma,
+                        const float* __restrict__ beta) {
+  constexpr int D = chans(J) / 2, P = act_stride(J + 1), H = J + 1 < kStages ? 1 : 0;
+  const int s = threadIdx.x >> 7, r = threadIdx.x & 127, c = r % D;
+  const float* zs = sm + z_off(J) + s * z_floats(J) + 2 * D;
+  float* ys = sm + act_off(J + 1) + s * act_floats(J + 1);
+  const float* st = sm + kStats + (J * kS + s) * 4;
+  const float mean = st[0], rs = st[2], gm = __ldg(gamma + c), bt = __ldg(beta + c);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int i = r + 128 * k, l = i / D;
+    ys[(l + H) * P + c] = fmaxf(fmaf((zs[i] - mean) * rs, gm, bt), 0.f);
+  }
+}
+
+// The out conv and tanh, as sln_chain.cu's out_stage sums them, then the pool's transpose and
+// tanh's derivative: gzo[s, p] for thread (s, p).
+__device__ void tail_forward(float* sm, const float* __restrict__ g, int s0, int ns, float b_out,
+                             int l_pool) {
+  const int s = threadIdx.x >> 7, p = threadIdx.x & 127;
+  const float* xs = sm + act_off(kStages) + s * act_floats(kStages);
+  const float* w = sm + kTapOut;
+  float acc = 0.f;
+#pragma unroll
+  for (int t = 0; t < kKOut; ++t) {
+    const float4 xv = lds4(xs + reflect_out(p + t - kPadOut) * 4);
+    acc = fmaf(xv.x, w[t * 4], acc);
+    acc = fmaf(xv.y, w[t * 4 + 1], acc);
+    acc = fmaf(xv.z, w[t * 4 + 2], acc);
+    acc = fmaf(xv.w, w[t * 4 + 3], acc);
+  }
+  const float th = tanhf(acc + b_out);
+  float gth = 0.f;
+  if (s < ns) {
+    const float* gg = g + static_cast<size_t>(s0 + s) * l_pool;
+    for (int i = (p * l_pool) / kLast; i <= ((p + 1) * l_pool - 1) / kLast && i < l_pool; ++i) {
+      const int start = (i * kLast) / l_pool, end = ((i + 1) * kLast + l_pool - 1) / l_pool;
+      if (start <= p && p < end) gth += __ldg(gg + i) / static_cast<float>(end - start);
+    }
+  }
+  sm[kGzo + s * kGzoStride + p] = gth * (1.f - th * th);
+}
+
+// The out conv's d(taps) (7, 4) and dbias over the tile, threads 0-127: (sample s, rows 4q ..
+// 4q + 3) sums its 29 values in registers into kScr.
+__device__ void tail_taps_grad(float* sm) {
+  const int s = threadIdx.x >> 5, p0 = (threadIdx.x & 31) * 4;
+  const float* xs = sm + act_off(kStages) + s * act_floats(kStages);
+  const float4 gv = lds4(sm + kGzo + s * kGzoStride + p0);
+  float acc[kOutParts] = {};
+#pragma unroll
+  for (int pp = 0; pp < 4; ++pp) {
+    const float gz = lane4(gv, pp);
+#pragma unroll
+    for (int t = 0; t < kKOut; ++t) {
+      const float4 xv = lds4(xs + reflect_out(p0 + pp + t - kPadOut) * 4);
+      acc[t * 4] = fmaf(xv.x, gz, acc[t * 4]);
+      acc[t * 4 + 1] = fmaf(xv.y, gz, acc[t * 4 + 1]);
+      acc[t * 4 + 2] = fmaf(xv.z, gz, acc[t * 4 + 2]);
+      acc[t * 4 + 3] = fmaf(xv.w, gz, acc[t * 4 + 3]);
+    }
+    acc[kOutParts - 1] += gz;
+  }
+  float* dst = sm + kScr + threadIdx.x * kOutParts;
+#pragma unroll
+  for (int o = 0; o < kOutParts; ++o) dst[o] = acc[o];
+}
+
+// act[4] <- the out conv's input gradient, thread (s, u): row u is read through the virtual rows
+// u, -u and 2L - 2 - u by output p = v + 3 - t.
+__device__ void tail_input_grad(float* sm) {
+  const int s = threadIdx.x >> 7, u = threadIdx.x & 127;
+  const float* gz = sm + kGzo + s * kGzoStride;
+  const float* w = sm + kTapOut;
+  const int vs[3] = {u, -u, 2 * kLast - 2 - u};
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    if ((q == 1 && u < 1) || (q == 2 && u > kLast - 2)) continue;
+#pragma unroll
+    for (int t = 0; t < kKOut; ++t) {
+      const int p = vs[q] + kPadOut - t;
+      if (p < 0 || p >= kLast) continue;
+      const float gv = gz[p];
+      a0 = fmaf(gv, w[t * 4], a0);
+      a1 = fmaf(gv, w[t * 4 + 1], a1);
+      a2 = fmaf(gv, w[t * 4 + 2], a2);
+      a3 = fmaf(gv, w[t * 4 + 3], a3);
+    }
+  }
+  *reinterpret_cast<float4*>(sm + act_off(kStages) + s * act_floats(kStages) + u * 4) =
+      make_float4(a0, a1, a2, a3);
+}
+
+// In place z[j] <- gz from ga (the gradient of act[j + 1], in act[j + 1]'s rows), thread (s, r)
+// on the sample's values r + 128 k as in ln_relu: gh = ga where h > 0; the LayerNorm with
+// unbiased std and /(std + eps) as sln_stage.cuh's sln_backward: gt = sum gyh * d, gss = gt *
+// (-t^2) / (2s), gd = gyh * t + d * 2 gss / (n - 1), gz = gd - mean(gd); the sample's sums over
+// its four warps. Samples past the batch get gz = 0. Each warp leaves its channels' sums of gz,
+// gh * yh and gh in kRed (lanes 0 .. D - 1).
+template <int J>
+__device__ void ln_backward(float* sm, const float* __restrict__ gamma,
+                            const float* __restrict__ beta, int ns) {
+  constexpr int D = chans(J) / 2, P = act_stride(J + 1), H = J + 1 < kStages ? 1 : 0;
+  const int s = threadIdx.x >> 7, r = threadIdx.x & 127, c = r % D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* zs = sm + z_off(J) + s * z_floats(J) + 2 * D;
+  const float* gs = sm + act_off(J + 1) + s * act_floats(J + 1);
+  const float* st = sm + kStats + (J * kS + s) * 4;
+  const float mean = st[0], sd = st[1], rs = st[2];
+  const float gm = __ldg(gamma + c), bt = __ldg(beta + c);
+  float d[4], gyh[4], dg = 0.f, db = 0.f, sg = 0.f, sgt = 0.f, sdd = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int i = r + 128 * k, l = i / D;
+    d[k] = zs[i] - mean;
+    const float yh = d[k] * rs;
+    const float gh = fmaf(yh, gm, bt) > 0.f ? gs[(l + H) * P + c] : 0.f;
+    dg = fmaf(gh, yh, dg);
+    db += gh;
+    gyh[k] = gh * gm;
+    sg += gyh[k];
+    sgt = fmaf(gyh[k], d[k], sgt);
+    sdd += d[k];
+  }
+  sg = warp_sum(sg);
+  sgt = warp_sum(sgt);
+  sdd = warp_sum(sdd);
+  float* red2 = sm + kRed2;
+  if (lane == 0) {
+    red2[warp * 4] = sg;
+    red2[warp * 4 + 1] = sgt;
+    red2[warp * 4 + 2] = sdd;
+  }
+  __syncthreads();
+  sg = sgt = sdd = 0.f;
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    sg += red2[(4 * s + w) * 4];
+    sgt += red2[(4 * s + w) * 4 + 1];
+    sdd += red2[(4 * s + w) * 4 + 2];
+  }
+  const float gss = sgt * -(rs * rs) / (2.f * sd);
+  const float coef = 2.f * gss / static_cast<float>(kN - 1);
+  const float mean_gd = (rs * sg + coef * sdd) * (1.f / static_cast<float>(kN));
+  float dbias = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float gz = s < ns ? fmaf(d[k], coef, gyh[k] * rs) - mean_gd : 0.f;
+    zs[r + 128 * k] = gz;
+    dbias += gz;
+  }
+#pragma unroll
+  for (int off = D; off < 32; off <<= 1) {
+    dbias += __shfl_xor_sync(0xffffffffu, dbias, off);
+    dg += __shfl_xor_sync(0xffffffffu, dg, off);
+    db += __shfl_xor_sync(0xffffffffu, db, off);
+  }
+  float* red = sm + kRed + warp * 3 * 32;
+  if (lane < D) {
+    red[lane] = dbias;
+    red[32 + lane] = dg;
+    red[64 + lane] = db;
+  }
+}
+
+// The block's dbias, dgamma, dbeta of stage j += the 16 warps' sums, in order.
+template <int J>
+__device__ void fold_channels(float* sm) {
+  constexpr int D = chans(J) / 2;
+  if (threadIdx.x >= 3 * D) return;
+  const int q = threadIdx.x / D, c = threadIdx.x - q * D;
+  float v = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) v += sm[kRed + (w * 3 + q) * 32 + c];
+  sm[kSmall + (J * 3 + q) * 32 + c] += v;
+}
+
+// Stage j's d(taps) in the upsample's phase form: with E[m] = gz row 2m and O[m] = row 2m + 1,
+// pa[0..5] += a[m-1] E, a[m-1] O, a[m] E, a[m] O, a[m+1] E, a[m+1] O over the thread's rows, and
+// at the end dW0 = pa0 + pa1, dW1 = pa0 + pa3, dW2 = pa2 + pa3, dW3 = pa2 + pa5, dW4 = pa4 + pa5.
+// Thread (split k, input channel ci, NCO output channels); the KS = 512 / cells splits cut the
+// tile's (sample, m) pairs into equal runs. The caller keeps pa over the block's tiles
+// (stages 1-3) or sums it into shared memory a tile at a time (stage 0).
+template <int J, int NCO>
+struct TapsGrad {
+  static constexpr int L = rows_in(J), C = chans(J), D = C / 2, H = D / NCO, CELLS = C * H;
+  static constexpr int KS = kThreads / CELLS, PPS = kS * L / KS, MB = PPS < L ? PPS : L;
+  static_assert(KS * CELLS == kThreads && KS * PPS == kS * L && PPS % MB == 0, "splits");
+};
+
+template <int J, int NCO>
+__device__ __forceinline__ void taps_grad(const float* sm, float (&pa)[6][NCO]) {
+  using T = TapsGrad<J, NCO>;
+  constexpr int L = T::L, D = T::D, P = act_stride(J);
+  const int k = threadIdx.x / T::CELLS, cell = threadIdx.x - k * T::CELLS;
+  const int ci = cell / T::H, co = (cell - ci * T::H) * NCO;
+#pragma unroll 1
+  for (int idx = k * T::PPS; idx < (k + 1) * T::PPS; idx += T::MB) {
+    const int s = idx / L, m0 = idx - s * L;
+    const float* as = sm + act_off(J) + s * act_floats(J) + ci;  // row m at as[(m + 1) * P]
+    const float* zs = sm + z_off(J) + s * z_floats(J) + co;     // row l at zs[(l + 2) * D]
+    float am = as[m0 * P], a0 = as[(m0 + 1) * P];
+#pragma unroll
+    for (int mm = 0; mm < T::MB; ++mm) {
+      const int m = m0 + mm;
+      const float ap = as[(m + 2) * P];
+      float e[NCO], o[NCO];
+      load_n(zs + (2 * m + 2) * D, e);
+      load_n(zs + (2 * m + 3) * D, o);
+#pragma unroll
+      for (int n = 0; n < NCO; ++n) {
+        pa[0][n] = fmaf(am, e[n], pa[0][n]);
+        pa[1][n] = fmaf(am, o[n], pa[1][n]);
+        pa[2][n] = fmaf(a0, e[n], pa[2][n]);
+        pa[3][n] = fmaf(a0, o[n], pa[3][n]);
+        pa[4][n] = fmaf(ap, e[n], pa[4][n]);
+        pa[5][n] = fmaf(ap, o[n], pa[5][n]);
+      }
+      am = a0;
+      a0 = ap;
+    }
+  }
+}
+
+// d(taps) of tap t at output channel n from the phase-form sums.
+template <int NCO>
+__device__ __forceinline__ float dtap(const float (&pa)[6][NCO], int t, int n) {
+  constexpr int a[5] = {0, 0, 2, 2, 4}, b[5] = {1, 3, 3, 5, 5};
+  return pa[a[t]][n] + pa[b[t]][n];
+}
+
+// Stage j's input gradient in the upsample's phase form: input row m gets E[m-1] w4 + O[m-1]
+// (w3 + w4) + E[m] (w2 + w3) + O[m] (w1 + w2) + E[m+1] (w0 + w1) + O[m+1] w0, the folded taps
+// formed in registers from the staged ones. Threads 0 .. kDxThreads - 1: (row block, sample,
+// input channel), kDxRows rows a thread, 4 output channels a step. j > 0: into act[j]'s inner
+// rows (the gradient of stage j - 1's output); j = 0: dx, where given.
+template <int J>
+__device__ void input_grad(float* sm, float* __restrict__ dx, int s0, int ns) {
+  constexpr int L = rows_in(J), C = chans(J), D = C / 2, TS = tap_stride(J), R = kDxRows;
+  const int ci = threadIdx.x % C, s = (threadIdx.x / C) % kS, m0 = threadIdx.x / (C * kS) * R;
+  const float* wc = sm + tap_off(J) + ci * TS;
+  const float* zs = sm + z_off(J) + s * z_floats(J);
+  float acc[R] = {};
+#pragma unroll 1
+  for (int co = 0; co < D; co += 4) {
+    float4 w[kUpK];
+#pragma unroll
+    for (int t = 0; t < kUpK; ++t) w[t] = lds4(wc + t * C * TS + co);
+    const float4 f[6] = {
+        w[4],
+        make_float4(w[3].x + w[4].x, w[3].y + w[4].y, w[3].z + w[4].z, w[3].w + w[4].w),
+        make_float4(w[2].x + w[3].x, w[2].y + w[3].y, w[2].z + w[3].z, w[2].w + w[3].w),
+        make_float4(w[1].x + w[2].x, w[1].y + w[2].y, w[1].z + w[2].z, w[1].w + w[2].w),
+        make_float4(w[0].x + w[1].x, w[0].y + w[1].y, w[0].z + w[1].z, w[0].w + w[1].w),
+        w[0]};
+#pragma unroll
+    for (int k = -1; k <= R; ++k) {  // E and O of m = m0 + k (the zero rows past the edges)
+      const float4 e = lds4(zs + (2 * (m0 + k) + 2) * D + co);
+      const float4 o = lds4(zs + (2 * (m0 + k) + 3) * D + co);
+#pragma unroll
+      for (int h = 0; h < 3; ++h) {  // row m0 + k + 1 - h gets E f[2h] + O f[2h + 1]
+        const int u = k + 1 - h;
+        if (u < 0 || u >= R) continue;
+        float v = acc[u];
+        v = fmaf(e.x, f[2 * h].x, v);
+        v = fmaf(e.y, f[2 * h].y, v);
+        v = fmaf(e.z, f[2 * h].z, v);
+        v = fmaf(e.w, f[2 * h].w, v);
+        v = fmaf(o.x, f[2 * h + 1].x, v);
+        v = fmaf(o.y, f[2 * h + 1].y, v);
+        v = fmaf(o.z, f[2 * h + 1].z, v);
+        v = fmaf(o.w, f[2 * h + 1].w, v);
+        acc[u] = v;
+      }
+    }
+  }
+  if constexpr (J > 0) {
+    float* out = sm + act_off(J) + s * act_floats(J) + ci;
+#pragma unroll
+    for (int u = 0; u < R; ++u) out[(m0 + u + 1) * act_stride(J)] = acc[u];
+  } else {
+    if (dx && s < ns) {
+      float* out = dx + (static_cast<size_t>(s0 + s) * L + m0) * C + ci;
+#pragma unroll
+      for (int u = 0; u < R; ++u) out[u * C] = acc[u];
+    }
+  }
+}
+
+template <int J>
+__device__ __forceinline__ void forward_stage(float* sm, const float* __restrict__ bias,
+                                              const float* __restrict__ gamma,
+                                              const float* __restrict__ beta) {
+  if (threadIdx.x < kUpThreads) up_conv<J>(sm, bias);
+  __syncthreads();
+  if (threadIdx.x < kS * 32) ln_stats<J>(sm);
+  __syncthreads();
+  ln_relu<J>(sm, gamma, beta);
+  __syncthreads();
+}
+
+// Stage j's d(taps) of the whole block (j = 1..3) into its partial row: the splits' sums
+// through the tile buffers (free at the end) at scratch, each entry summed over the splits in
+// order.
+template <int J, int NCO>
+__device__ __forceinline__ void put_taps(const float (&pa)[6][NCO], float* scratch) {
+  using T = TapsGrad<J, NCO>;
+  constexpr int C = T::C, D = T::D;
+  const int k = threadIdx.x / T::CELLS, cell = threadIdx.x - k * T::CELLS;
+  const int ci = cell / T::H, co = (cell - ci * T::H) * NCO;
+#pragma unroll
+  for (int t = 0; t < kUpK; ++t)
+#pragma unroll
+    for (int n = 0; n < NCO; ++n)
+      scratch[k * kUpK * C * D + (t * C + ci) * D + co + n] = dtap(pa, t, n);
+}
+
+template <int J, int NCO>
+__device__ __forceinline__ void sum_taps(const float* scratch, float* __restrict__ row) {
+  using T = TapsGrad<J, NCO>;
+  constexpr int n = kUpK * T::C * T::D;
+  for (int o = threadIdx.x; o < n; o += kThreads) {
+    float v = 0.f;
+#pragma unroll
+    for (int k = 0; k < T::KS; ++k) v += scratch[k * n + o];
+    row[row_off(J) + o] = v;
+  }
+}
+
+// One persistent block a SM walks tiles of kS samples (tile b, b + grid, ...). Per tile, from x
+// staged beside all four stages' taps:
+//   forward, j = 0..3: z[j] = conv(up(act[j])) + bias, its statistics, act[j+1] = relu(...)
+//   tail: the out conv and tanh, the pool's transpose and tanh', the out conv's d(taps),
+//         dbias and input gradient (into act[4])
+//   backward, j = 3..0: gz[j] (in place of z[j]), dbias, dgamma, dbeta; d(taps); the input
+//         gradient (into act[j], or dx)
+// Per-channel gradients are summed a tile at a time into kSmall in a fixed order; d(taps) stay
+// in registers over the block's tiles (stage 0's in kDw0). The block writes one partial row.
+__global__ void __launch_bounds__(kThreads, 1)
+tail_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g, float* __restrict__ dx,
+                float* __restrict__ part, int batch, int n_tiles, Args a) {
+  extern __shared__ __align__(16) float sm[];
+  zero_rows<0>(sm);
+  zero_rows<1>(sm);
+  zero_rows<2>(sm);
+  zero_rows<3>(sm);
+  for (int i = threadIdx.x; i < kStages * 3 * 32 + 32; i += kThreads) sm[kSmall + i] = 0.f;
+  if (threadIdx.x < kKOut * 4) sm[kTapOut + threadIdx.x] = __ldg(a.w_out + threadIdx.x);
+  int tile = blockIdx.x;
+  stage_taps<0>(a.w[0], sm);
+  stage_x(x, tile * kS, min(kS, batch - tile * kS), sm);
+  cp_async_commit();
+  stage_taps<1>(a.w[1], sm);  // stages 1-3's taps land behind stage 0's recompute
+  stage_taps<2>(a.w[2], sm);
+  stage_taps<3>(a.w[3], sm);
+  cp_async_commit();
+  cp_async_wait<1>();
+  const float b_out = __ldg(a.b_out);
+  float pa1[6][2] = {}, pa2[6][2] = {}, pa3[6][1] = {};
+  for (bool first = true; tile < n_tiles; tile += gridDim.x, first = false) {
+    const int s0 = tile * kS, ns = min(kS, batch - s0);
+    if (!first) {
+      __syncthreads();  // the last tile's reads of act[0] are done
+      stage_x(x, s0, ns, sm);
+      cp_async_wait_all();
+    }
+    __syncthreads();
+    forward_stage<0>(sm, a.bias[0], a.gamma[0], a.beta[0]);
+    if (first) {
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    forward_stage<1>(sm, a.bias[1], a.gamma[1], a.beta[1]);
+    forward_stage<2>(sm, a.bias[2], a.gamma[2], a.beta[2]);
+    forward_stage<3>(sm, a.bias[3], a.gamma[3], a.beta[3]);
+    tail_forward(sm, g, s0, ns, b_out, a.l_pool);
+    __syncthreads();
+    if (threadIdx.x < 128) tail_taps_grad(sm);
+    __syncthreads();
+    tail_input_grad(sm);
+    if (threadIdx.x < kS * kOutParts) {  // per sample: the sum of its 32 threads' partials
+      const int s = threadIdx.x / kOutParts, o = threadIdx.x - s * kOutParts;
+      float v = 0.f;
+      for (int q = 0; q < 32; ++q) v += sm[kScr + (s * 32 + q) * kOutParts + o];
+      sm[kRedOut + threadIdx.x] = v;
+    }
+    __syncthreads();
+    if (threadIdx.x < kOutParts) {
+      float v = sm[kSmallOut + threadIdx.x];
+#pragma unroll
+      for (int s = 0; s < kS; ++s) v += sm[kRedOut + s * kOutParts + threadIdx.x];
+      sm[kSmallOut + threadIdx.x] = v;
+    }
+    // backward, j = 3..0; input_grad<j> overwrites act[j], which taps_grad<j> reads (but dx
+    // at j = 0)
+    ln_backward<3>(sm, a.gamma[3], a.beta[3], ns);
+    __syncthreads();
+    fold_channels<3>(sm);
+    taps_grad<3, 1>(sm, pa3);
+    __syncthreads();
+    if (threadIdx.x < kDxThreads) input_grad<3>(sm, dx, s0, ns);
+    __syncthreads();
+    ln_backward<2>(sm, a.gamma[2], a.beta[2], ns);
+    __syncthreads();
+    fold_channels<2>(sm);
+    taps_grad<2, 2>(sm, pa2);
+    __syncthreads();
+    if (threadIdx.x < kDxThreads) input_grad<2>(sm, dx, s0, ns);
+    __syncthreads();
+    ln_backward<1>(sm, a.gamma[1], a.beta[1], ns);
+    __syncthreads();
+    fold_channels<1>(sm);
+    taps_grad<1, 2>(sm, pa1);
+    __syncthreads();
+    if (threadIdx.x < kDxThreads) input_grad<1>(sm, dx, s0, ns);
+    __syncthreads();
+    ln_backward<0>(sm, a.gamma[0], a.beta[0], ns);
+    __syncthreads();
+    fold_channels<0>(sm);
+    {  // stage 0's d(taps) (no splits: a thread owns its entries) into kDw0, a tile at a time
+      float pa0[6][4] = {};
+      taps_grad<0, 4>(sm, pa0);
+      float* dw = sm + kDw0 + (threadIdx.x >> 3) * (kC0 / 2) + (threadIdx.x & 7) * 4;
+#pragma unroll
+      for (int t = 0; t < kUpK; ++t) {
+        float4 v = first ? make_float4(0.f, 0.f, 0.f, 0.f) : lds4(dw + t * kC0 * kC0 / 2);
+        v.x += dtap(pa0, t, 0);
+        v.y += dtap(pa0, t, 1);
+        v.z += dtap(pa0, t, 2);
+        v.w += dtap(pa0, t, 3);
+        *reinterpret_cast<float4*>(dw + t * kC0 * kC0 / 2) = v;
+      }
+    }
+    if (threadIdx.x < kDxThreads) input_grad<0>(sm, dx, s0, ns);
+  }
+
+  // the block's partial row (13,809 floats: rows are not 16-byte aligned), a float a thread,
+  // coalesced: stage 0's d(taps) from kDw0, the other stages' through the tile buffers (their
+  // splits' sums), the per-channel gradients from kSmall
+  __syncthreads();
+  float* row = part + static_cast<size_t>(blockIdx.x) * kRowFloats;
+  float* scratch = sm + act_off(0);
+  constexpr int n1 = TapsGrad<1, 2>::KS * kUpK * chans(1) * chans(1) / 2;
+  constexpr int n2 = TapsGrad<2, 2>::KS * kUpK * chans(2) * chans(2) / 2;
+  constexpr int n3 = TapsGrad<3, 1>::KS * kUpK * chans(3) * chans(3) / 2;
+  static_assert(n1 + n2 + n3 <= kActs, "the tile buffers hold the splits' sums");
+  put_taps<1, 2>(pa1, scratch);
+  put_taps<2, 2>(pa2, scratch + n1);
+  put_taps<3, 1>(pa3, scratch + n1 + n2);
+  __syncthreads();
+  for (int i = threadIdx.x; i < kUpK * kC0 * kC0 / 2; i += kThreads) row[i] = sm[kDw0 + i];
+  sum_taps<1, 2>(scratch, row);
+  sum_taps<2, 2>(scratch + n1, row);
+  sum_taps<3, 1>(scratch + n1 + n2, row);
+  for (int i = threadIdx.x; i < kStages * 3 * 32; i += kThreads) {
+    const int j = i / 96, q = (i / 32) % 3, c = i % 32, d = chans(j) / 2;
+    if (c < d) row[row_off(j) + kUpK * chans(j) * d + q * d + c] = sm[kSmall + i];
+  }
+  if (threadIdx.x < kOutParts) row[row_off(kStages) + threadIdx.x] = sm[kSmallOut + threadIdx.x];
+}
+
+int smem_set = 0;
+
+int launch(const float* x, const float* g, float* dx, float* part, float* dw, int batch,
+           const Args& a, int tile, int grid, int smem, void* stream) {
+  const int n_tiles = batch > 0 ? (batch + kS - 1) / kS : 0;
+  if (batch <= 0 || tile != kS || grid < 1 || grid > n_tiles || smem != kSmemBytes)
+    return cudaErrorInvalidValue;
+  if (!iins::aligned16(x)) return cudaErrorInvalidValue;
+  for (int j = 0; j < kStages; ++j)
+    if (!iins::aligned16(a.w[j])) return cudaErrorInvalidValue;
+  int err = allow_smem(tail_bwd_kernel, smem, &smem_set);
+  if (err) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  tail_bwd_kernel<<<grid, kThreads, smem, s>>>(x, g, dx, part, batch, n_tiles, a);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  return iins::launch_reduce_rows(part, grid, kRowFloats, dw, s);
+}
+
+}  // namespace tail
+
 extern "C" {
 
 const char* iins_error_string(int err) {
@@ -237,6 +993,30 @@ int iins_sln_chain_bwd(const float* x, const float* g, float* dx, float* part, f
   const int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   return launch_reduce(part, grid, a.n_part, dw, s);
+}
+
+// K6b on the decoder's own path (namespace tail): x (B, 8, 64), g (B, l_pool), dx (B, 8, 64) or
+// null; ws, biases, gammas, betas, w_out, b_out as for iins_sln_chain_bwd. tile (samples a
+// tile), grid (the persistent blocks, 1 .. ceil(B / tile)) and smem (a block's dynamic shared
+// memory) as backward.sln_tail_plan gives them; the launch refuses any other. part (grid, n)
+// scratch; dw (n) as for iins_sln_chain_bwd.
+int iins_sln_tail_bwd(const float* x, const float* g, float* dx, float* part, float* dw,
+                      int batch, const void* const* ws, const void* const* biases,
+                      const void* const* gammas, const void* const* betas, int l0, int c0,
+                      const float* w_out, const float* b_out, int l_pool, int tile, int grid,
+                      int smem, void* stream) {
+  if (l0 != tail::kL0 || c0 != tail::kC0 || l_pool <= 0) return cudaErrorInvalidValue;
+  tail::Args a{};
+  for (int j = 0; j < tail::kStages; ++j) {
+    a.w[j] = static_cast<const float*>(ws[j]);
+    a.bias[j] = static_cast<const float*>(biases[j]);
+    a.gamma[j] = static_cast<const float*>(gammas[j]);
+    a.beta[j] = static_cast<const float*>(betas[j]);
+  }
+  a.w_out = w_out;
+  a.b_out = b_out;
+  a.l_pool = l_pool;
+  return tail::launch(x, g, dx, part, dw, batch, a, tile, grid, smem, stream);
 }
 
 }  // extern "C"

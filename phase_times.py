@@ -1,22 +1,28 @@
-"""Where K1b's residual-block backward spends its time, phase by phase, on one NVIDIA card.
+"""Where a redesigned backward kernel spends its time, phase by phase, on one NVIDIA card.
 
-    python3 phase_times.py [--tree DIR] [--out FILE]
+    python3 phase_times.py [--kernel res|tail] [--tree DIR] [--out FILE]
 
-Reads DIR's ``iinsvae_torch/ops/kernels/csrc/in_chain_bwd.cu`` (DIR defaults to this
-checkout) and builds one variant of it for each phase of the residual block's backward, which
-stops the kernel after that phase (one nvcc each, all at once, under ``build/phases/``). Then
-it times each variant through DIR's own wrappers at the two residual-block sites of a 1-D
-training step at batch 500: K1b at the range encoder's IN block (``in_chain_bwd``) and K5b at
-the decoder's AdaIN block (``adain_res_block_bwd``), with the flagship's seeded weights and
+``--kernel res`` (the default): K1b's residual-block backward, from DIR's
+``iinsvae_torch/ops/kernels/csrc/in_chain_bwd.cu``, timed through DIR's own wrappers at the two
+residual-block sites of a 1-D training step: K1b at the range encoder's IN block
+(``in_chain_bwd``) and K5b at the decoder's AdaIN block (``adain_res_block_bwd``).
+``--kernel tail``: K6b, the decoder tail's backward, from DIR's ``csrc/sln_chain_bwd.cu``, timed
+through ``sln_chain_bwd`` at the decoder tail (``dec.tail``: (500, 8, 64) -> 157).
+
+DIR defaults to this checkout. The script builds one variant of the source for each phase,
+which stops the kernel after that phase (one nvcc each, all at once, under
+``build/phases/``), and times each variant at batch 500 with the flagship's seeded weights and
 seeded inputs, by chip_smoke.py's CUDA-graph replay (median of 25). A variant's time less the
 one before is its phase's time; the first row (the kernel returns at once) is the launch and
 the fixed-order reduction of the partial rows. Every variant computes garbage past its cut,
 so nothing is checked here: chip_smoke.py holds the whole kernel to its plain version.
 
-The cut points are written for two designs of the kernel, named by the kernel that runs the
-residual block: ``in_chain_bwd_kernel`` (one kernel for every K1b site, before the residual
-block got its own path) and ``res_block_bwd_kernel``. Prints one JSON line and writes it to
-FILE (default ``build/phase_times.json``). Needs one CUDA card and nvcc.
+The cut points are written for two designs of each kernel, named by the kernel function that
+runs the site: ``in_chain_bwd_kernel`` (one kernel for every K1b site, before the residual
+block got its own path) and ``res_block_bwd_kernel``; ``sln_chain_bwd_kernel`` (K6b's kernel
+for every shape, before the decoder's shape got its own path) and ``tail_bwd_kernel``. Prints
+one JSON line and writes it to FILE (default ``build/phase_times.json``). Needs one CUDA card
+and nvcc.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -74,10 +81,95 @@ CUTS = {
 }
 
 
-def variants(src: str) -> tuple[str, list[tuple[str, str]]]:
+def _stage_cuts(phases, stages) -> list[tuple]:
+    """Cuts inside a loop over the stages j: for each j of ``stages`` in turn, each (label,
+    anchor) of ``phases`` as (f"{label} {j}", anchor, f"if (j == {j}) return;")."""
+    return [(f"{label} {j}", anchor, f"if (j == {j}) return;")
+            for j in stages for label, anchor in phases]
+
+
+# K6b before the decoder's shape got its own path: the forward loop over the stages j = 0..3,
+# the tail, then the backward loop j = 3..0; the last cut is the whole kernel.
+_K6B_FWD = [
+    ("up-conv recompute", "    up_conv_stage<true>(act[j], z[j], a.w[j], a.bias[j], a.l_in[j], "
+     "a.c_in[j], c_out, ns, wd);\n    __syncthreads();\n"),
+    ("LayerNorm + ReLU recompute",
+     "             2 * a.l_in[j] * c_out, c_out, ns, wd);\n    __syncthreads();\n"),
+]
+_K6B_BWD = [
+    ("dgamma, dbeta partial", "                        pj + n_taps + c_out);\n"
+     "    __syncthreads();\n"),
+    ("LayerNorm backward", "    sln_backward(z[j], act[j + 1], st, a.gamma[j], a.beta[j], n, "
+     "c_out, ns, wd);\n    __syncthreads();\n"),
+    ("d(taps), dbias partial", "    up_conv_grad_partial<true>(act[j], z[j], a.l_in[j], a.c_in[j], "
+     "c_out, true, ns, wd, pj);\n    __syncthreads();\n"),
+    ("input gradient", "      up_conv_input_grad<true>(z[j], a.w[j], a.l_in[j], a.c_in[j], "
+     "c_out, ns, wd, act[j], wd);\n      __syncthreads();\n"),
+]
+CUTS["sln_chain_bwd_kernel"] = [
+    ("launch + reduce",
+     "  float* mine = part + static_cast<size_t>(blockIdx.x) * a.n_part;\n"),
+    ("stage x", "    act[0][s * wd + (i - s * n0)] = xg[i];\n  }\n  __syncthreads();\n"),
+    *_stage_cuts(_K6B_FWD, range(4)),
+    ("tail recompute: conv k7, tanh",
+     "    th[s * a.th_len + p] = tanhf(acc + b_out);\n  }\n  __syncthreads();\n"),
+    ("pool^T, tanh'", "    th[s * a.th_len + u] = gth * (1.f - t * t);\n  }\n  __syncthreads();\n"),
+    ("out conv d(taps), dbias", "    mine[a.off_out + o] = acc;\n  }\n  __syncthreads();\n"),
+    ("out conv dx", "    act[kStages][s * wd + r] = acc;\n  }\n  __syncthreads();\n"),
+    *_stage_cuts(_K6B_BWD, (3, 2, 1)),
+    *_stage_cuts(_K6B_BWD[:3], (0,)),
+    ("input gradient 0 (dx): the whole kernel", None),
+]
+# K6b's tail path: the tile loop's phases as the kernel body lists them. A cut continues to the
+# block's partial-row write (the d(taps) sums are registers the compiler would otherwise drop),
+# so every row from the second on includes that write.
+_TAIL_CONT = "continue;"
+
+
+def _tail_stage_phases(j: int) -> list[tuple[str, str]]:
+    """(label, anchor) of the tail path's backward stage j (stage 0 sums its d(taps) into
+    shared memory right after computing them)."""
+    taps = (f"    taps_grad<{j}, {2 if j in (1, 2) else 1}>(sm, pa{j});\n" if j else
+            "        *reinterpret_cast<float4*>(dw + t * kC0 * kC0 / 2) = v;\n      }\n    }\n")
+    return [(f"LayerNorm backward, dgamma, dbeta, dbias {j}",
+             f"    ln_backward<{j}>(sm, a.gamma[{j}], a.beta[{j}], ns);\n    __syncthreads();\n"
+             f"    fold_channels<{j}>(sm);\n"),
+            (f"d(taps) {j}", taps),
+            (f"input gradient {j}",
+             f"    if (threadIdx.x < kDxThreads) input_grad<{j}>(sm, dx, s0, ns);\n")]
+
+
+CUTS["tail_bwd_kernel"] = [
+    ("launch + reduce", "  extern __shared__ __align__(16) float sm[];\n", "return;"),
+    ("zero, stage taps and x, write the row",
+     "      cp_async_wait_all();\n    }\n    __syncthreads();\n",
+     "{ cp_async_wait<0>(); continue; }"),
+    ("forward stage 0: conv, LayerNorm, ReLU",
+     "    forward_stage<0>(sm, a.bias[0], a.gamma[0], a.beta[0]);\n    if (first) {\n"
+     "      cp_async_wait<0>();\n      __syncthreads();\n    }\n", _TAIL_CONT),
+    *[(f"forward stage {j}: conv, LayerNorm, ReLU",
+       f"    forward_stage<{j}>(sm, a.bias[{j}], a.gamma[{j}], a.beta[{j}]);\n", _TAIL_CONT)
+      for j in range(1, 4)],
+    ("tail: conv k7, tanh, pool^T, tanh'",
+     "    tail_forward(sm, g, s0, ns, b_out, a.l_pool);\n    __syncthreads();\n", _TAIL_CONT),
+    ("out conv d(taps), dbias",
+     "    if (threadIdx.x < 128) tail_taps_grad(sm);\n    __syncthreads();\n", _TAIL_CONT),
+    ("out conv dx", "      sm[kSmallOut + threadIdx.x] = v;\n    }\n", _TAIL_CONT),
+    *[(label, anchor, _TAIL_CONT) for j in (3, 2, 1, 0) for label, anchor in
+      _tail_stage_phases(j)][:-1],
+    ("input gradient 0 (dx): the whole kernel", None),
+]
+# which source each --kernel reads, and its designs, newest first
+KERNELS = {
+    "res": ("in_chain_bwd", ("res_block_bwd_kernel", "in_chain_bwd_kernel")),
+    "tail": ("sln_chain_bwd", ("tail_bwd_kernel", "sln_chain_bwd_kernel")),
+}
+
+
+def variants(src: str, kernel: str) -> tuple[str, list[tuple[str, str]]]:
     """-> (the design's kernel name, [(phase, variant source)]). A cut without a statement of
     its own returns."""
-    name = "res_block_bwd_kernel" if "res_block_bwd_kernel" in src else "in_chain_bwd_kernel"
+    name = next(d for d in KERNELS[kernel][1] if re.search(rf"\b{d}\(", src))
     out = []
     for phase, anchor, *stop in CUTS[name]:
         if anchor is None:
@@ -93,6 +185,7 @@ def variants(src: str) -> tuple[str, list[tuple[str, str]]]:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=sorted(KERNELS), default="res")
     ap.add_argument("--tree", type=Path, default=HERE)
     ap.add_argument("--out", type=Path, default=HERE / "build" / "phase_times.json")
     args = ap.parse_args()
@@ -107,15 +200,16 @@ def main() -> int:
     from iinsvae_torch.ops.kernels import _build, backward
 
     torch.backends.cudnn.allow_tf32 = False
-    src = (tree / CSRC / "in_chain_bwd.cu").read_text()
-    kernel, vs = variants(src)
+    lib = KERNELS[args.kernel][0]
+    src = (tree / CSRC / f"{lib}.cu").read_text()
+    kernel, vs = variants(src, args.kernel)
     out_dir = HERE / "build" / "phases" / tree.name
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
     for i, (phase, text) in enumerate(vs):
-        cu = out_dir / f"in_chain_bwd_{i}.cu"
+        cu = out_dir / f"{lib}_{i}.cu"
         cu.write_text(text)
-        so = out_dir / f"in_chain_bwd_{i}.so"
+        so = out_dir / f"{lib}_{i}.so"
         procs.append((so, subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(tree / CSRC), "-o", str(so), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -133,21 +227,28 @@ def main() -> int:
         return torch.randn(shape, generator=gen).cuda()
 
     b = 500
-    x, g = rand(b, 8, 64), rand(b, 8, 64)
-    block = [(re_.res0_kernel1, 1, 1, "reflect"), (re_.res0_kernel2, 1, 1, "reflect")]
-    tables = [rand(b, 64) for _ in range(4)]
-    sites = {
-        "range.res": lambda: backward.in_chain_bwd(g, x, block, residual=True),
-        "dec.res": lambda: backward.adain_res_block_bwd(g, x, dec.res0_kernel1,
-                                                        dec.res0_kernel2, *tables),
-    }
+    if args.kernel == "res":
+        x, g = rand(b, 8, 64), rand(b, 8, 64)
+        block = [(re_.res0_kernel1, 1, 1, "reflect"), (re_.res0_kernel2, 1, 1, "reflect")]
+        tables = [rand(b, 64) for _ in range(4)]
+        sites = {
+            "range.res": lambda: backward.in_chain_bwd(g, x, block, residual=True),
+            "dec.res": lambda: backward.adain_res_block_bwd(g, x, dec.res0_kernel1,
+                                                            dec.res0_kernel2, *tables),
+        }
+    else:
+        x, g = rand(b, 8, 64), rand(b, 157)
+        up = [tuple(getattr(dec, f"up{j}_{n}") for n in ("kernel", "bias", "gamma", "beta"))
+              for j in range(4)]
+        sites = {"dec.tail": lambda: backward.sln_chain_bwd(g, x, up, dec.out_kernel,
+                                                             dec.out_bias, 157)}
     rows = []
     with torch.no_grad():
         for (phase, _), (so, _) in zip(vs, procs):
             _build._fns.clear()
-            _build._libs["in_chain_bwd"] = ctypes.CDLL(str(so))
+            _build._libs[lib] = ctypes.CDLL(str(so))
             rows.append(dict(phase=phase, **{f"{k}_ms": device_ms(f) for k, f in sites.items()}))
-            print(f"[phase] {phase:<30} " + "  ".join(
+            print(f"[phase] {phase:<42} " + "  ".join(
                 f"{k} {rows[-1][f'{k}_ms'] * 1e3:8.2f} us" for k in sites), flush=True)
     res = dict(card=card_line(), torch=torch.__version__, tree=str(tree), kernel=kernel,
                batch=b, phases=rows)

@@ -405,6 +405,57 @@ def test_gpu_res_block_backward_matches_plain_on_a_partial_tile(cuda, batch):
             assert torch.equal(a, b)
 
 
+def _tail_grads_match(args, what):
+    """Hold K6b's gradients against its plain version's, bit-equal over two calls and without
+    dx, one launch a call."""
+    n = backward.sln_chain_bwd.launches
+    got = _tensors(backward.sln_chain_bwd(*args))
+    assert backward.sln_chain_bwd.launches == n + 1
+    want = _tensors(backward.sln_chain_bwd_ref(*args))
+    assert len(got) == len(want)
+    for i, (a, w) in enumerate(zip(got, want)):
+        assert torch.isfinite(a).all(), (what, i)
+        _close_scaled(a, w, BWD_RTOL, BWD_ATOL, f"{what} gradient {i}")
+    for a, b in zip(got, _tensors(backward.sln_chain_bwd(*args))):
+        assert torch.equal(a, b)
+    no_dx = backward.sln_chain_bwd(*args, need_dx=False)
+    assert no_dx[0] is None
+    for a, b in zip(got[1:], _tensors(no_dx)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 5, 261])
+def test_gpu_sln_chain_backward_matches_plain_on_a_partial_tile(cuda, batch):
+    """K6b at the decoder tail, input (8, 64), on the decoder shape's own path (persistent
+    blocks over tiles of backward.SLN_TAIL_TILE samples): at 5 and 261 the last tile holds one
+    sample, at 1 the only tile does."""
+    assert batch % backward.SLN_TAIL_TILE
+    dec, _, _, stages = _decoder_inputs(cuda)
+    gen = torch.Generator().manual_seed(batch)
+    x = torch.randn((batch, 8, 64), generator=gen).to(cuda)
+    g = torch.randn((batch, 157), generator=gen).to(cuda)
+    _tail_grads_match((g, x, stages, dec.out_kernel, dec.out_bias, 157), f"batch {batch}")
+
+
+@pytest.mark.gpu
+def test_gpu_sln_chain_backward_general_path_matches_plain(cuda):
+    """K6b's general kernel, which every shape but the decoder's (8, 64) runs: input (16, 64),
+    four up-stages to (256, 4), the pool 256 -> 157, seeded weights, a ragged batch."""
+    gen = torch.Generator().manual_seed(11)
+
+    def rand(*shape, scale=1.0, shift=0.0):
+        return (shift + scale * torch.randn(shape, generator=gen)).to(cuda)
+
+    stages, c = [], 64
+    for _ in range(4):
+        stages.append((rand(5, c, c // 2, scale=0.2), rand(c // 2, scale=0.1),
+                       rand(c // 2, scale=0.1, shift=1.0), rand(c // 2, scale=0.1)))
+        c //= 2
+    x, g = rand(7, 16, 64), rand(7, 157)
+    _tail_grads_match((g, x, stages, rand(7, c, 1, scale=0.3), rand(1), 157), "general path")
+
+
 @pytest.mark.gpu
 def test_gpu_backward_wrappers_reject_what_the_kernels_do_not_take(cuda):
     m = IInsVAE(**FLAGSHIP).to(cuda)

@@ -314,3 +314,22 @@ def test_k1b_tiles_cover_every_sample_once_within_shared_memory(batch):
             floats = backward.chain_floats(rows)
             smem = 4 * floats * _build.samples_per_block(batch, floats)
         assert smem <= 227 * 1024, name
+
+
+@pytest.mark.parametrize("batch", [1, 5, 37, 261, 500])
+def test_k6b_tiles_cover_every_sample_once_within_shared_memory(batch):
+    """K6b's path at the decoder's shape (csrc/sln_chain_bwd.cu, namespace tail): block j of the
+    grid takes tiles j, j + blocks, ..., so every sample must lie in exactly one of those tiles,
+    with the H100's 132 SMs and with fewer SMs than tiles. And a block's shared memory (the
+    four stages' taps, the tile's buffers, the per-channel sums) stays within the 227 KB a block
+    can have on the H100."""
+    for sms in (132, 7):
+        tiles, blocks = backward.sln_tail_plan(batch, sms)
+        assert 1 <= blocks <= min(sms, tiles)
+        seen = np.zeros(batch, dtype=int)
+        for j in range(blocks):
+            for t in range(j, tiles, blocks):
+                assert t * backward.SLN_TAIL_TILE < batch
+                seen[t * backward.SLN_TAIL_TILE:(t + 1) * backward.SLN_TAIL_TILE] += 1
+        assert (seen == 1).all()
+    assert backward.SLN_TAIL_SMEM <= 227 * 1024
