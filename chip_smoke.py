@@ -30,8 +30,11 @@
    wrappers) and holds every gradient against autograd of the plain
    version, and times both, with cuDNN's conv backward
    (``aten.convolution_backward``, TF32 off) beside K2b's and K3b's sites
-   and, as the double-dagger yardstick, beside K1b's and K5b's residual
-   blocks and K6b's decoder tail (the forward's yardstick conv);
+   and, as the double-dagger yardstick, beside K1b's range chains (the
+   chain's widest conv) and residual blocks, K5b's blocks and K6b's decoder
+   tail (the forward's yardstick conv), and two fp32 torch.mm calls (dx and
+   dW of the head's largest layer) beside K4b; each call bit-equal over two
+   calls, and the device kernels it launches named (the path it took);
    then holds every 1-D forward and backward kernel call at the ragged
    batches 5 and 261 against its plain version (``[ragged]`` lines);
 7. trains the flagship (seeded weights) on the synthetic room_full fixture
@@ -716,6 +719,11 @@ def backward_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list
     def rand(*shape):
         return torch.randn(shape, generator=gen).to(dev)
 
+    yard_gen = torch.Generator().manual_seed(99)  # the yardsticks' data, apart from the sites'
+
+    def rand_yard(*shape):
+        return torch.randn(shape, generator=yard_gen).to(dev)
+
     def add(name, wrapper, replaces, calls, args, kw, nbytes_, flops, library=None,
             plain_kw=None, **more):
         plain = backward.PLAIN[wrapper]
@@ -726,13 +734,22 @@ def backward_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list
 
     def in_chain_site(name, x, stages, replaces, residual=False, calls=1, need_dx=True,
                       **more):
-        l, conv = x.shape[1], 0.0
+        l, conv, widest = x.shape[1], 0.0, (0.0, None)
         for taps, st, pd, mode in stages:
-            conv += conv_flops(b, l, taps, st, pd, mode)
+            f = conv_flops(b, l, taps, st, pd, mode)
+            conv += f
+            widest = max(widest, (f, (l, taps, st, pd, mode)), key=lambda w: w[0])
             l = out_len(l, taps.shape[0], st, pd)
         taps = [st[0] for st in stages]
         g = rand(b, l, taps[-1].shape[2])
         first = conv_flops(b, x.shape[1], *stages[0])
+        if "cudnn_conv" not in more:  # the widest conv's backward, input gradient included
+            l_w, t_w, st_w, pd_w, mode_w = widest[1]
+            x_w = rand_yard(b, l_w, t_w.shape[1])
+            y_w = torch.ones((b, out_len(l_w, t_w.shape[0], st_w, pd_w), t_w.shape[2]),
+                             device=dev)
+            more["cudnn_conv"] = conv_backward_call(x_w, t_w, y_w, rand_yard(*y_w.shape), st_w,
+                                                    pd_w, mode_w, True)
         add(name, backward.in_chain_bwd, replaces, calls, (g, x, stages),
             dict(residual=residual, need_dx=need_dx),
             nbytes(x, g, *taps, *taps) + (nbytes(x) if need_dx else 0),
@@ -758,8 +775,15 @@ def backward_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list
         with torch.no_grad():
             _, ds = fused.launch_mlp_chain(x, ws, bs, head.slopes, save_pre=True)
         g = rand(b, ws[-1].shape[1])
+        # the yardstick: dx and dW of the largest layer (the restorers' 512 -> 256), two
+        # fp32 torch.mm calls on the same batch
+        j = max(range(n), key=lambda i: ws[i].numel())
+        y_j, gd_j = rand_yard(b, ws[j].shape[0]), rand_yard(b, ws[j].shape[1])
+        w_t = ws[j].detach().t()
         add(name, backward.mlp_chain_bwd, replaces, 1, (g, x, ws, bs, head.slopes, ds), {},
-            nbytes(x, *ws, *ds, g, x, *ws, *bs), 2 * 2.0 * b * sum(w.numel() for w in ws))
+            nbytes(x, *ws, *ds, g, x, *ws, *bs), 2 * 2.0 * b * sum(w.numel() for w in ws),
+            cudnn_conv=lambda: (torch.mm(gd_j, w_t), torch.mm(y_j.t(), gd_j)),
+            yardstick=f"torch.mm pair (dx, dW) of its {ws[j].shape[0]}->{ws[j].shape[1]} layer")
 
     if model.encoder.conv_type == 2:
         for name, mod, affine in (("range.res2d", re_, []),
@@ -847,22 +871,55 @@ def ragged_checks(model: IInsVAE) -> dict:
     return out
 
 
+def device_kernels(fn, calls: int = 3) -> dict[str, int]:
+    """The device kernels a call of ``fn`` launches and how many of each, from a torch.profiler
+    trace of ``calls`` calls: each name without its namespace's anonymous part, template
+    arguments and parameters. A trace can miss a kernel's first records, never add one, so
+    each count is the calls' mean rounded up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, int] = {}
+    for e in sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start):
+        name = re.split(r"[<(]", re.sub(r"^void ", "", e.name.replace("(anonymous namespace)::",
+                                                                      "")))[0]
+        out[name] = out.get(name, 0) + 1
+    return {k: -(-n // calls) for k, n in out.items()}
+
+
+def bit_equal_calls(fn) -> bool:
+    """Whether two calls of ``fn`` give bit-equal tensors."""
+    a, b = _tensors(fn()), _tensors(fn())
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def check_and_time_backward(sites: list[dict], tag: str = "backward") -> list[dict]:
     """Each backward site: every gradient of the kernel against the plain
-    version's (compare_backward), then device times of kernel, plain version
-    and library call (CUDA-graph replay)."""
+    version's (compare_backward), bit-equal over two calls, the device kernels a
+    call launches, then device times of kernel, plain version and library call
+    (CUDA-graph replay)."""
     rows = []
     for s in sites:
         errs, scaled = compare_backward(s)
+        if not bit_equal_calls(s["run"]):
+            raise AssertionError(f"{s['name']}: two calls of the kernel are not bit-equal")
         bytes_ms = s["bytes"] / PEAK_BYTES_PER_S * 1e3
         flops_ms = s["flops"] / PEAK_FP32_FLOP_PER_S * 1e3
         rows.append(dict(
             name=s["name"], kernel=s["kernel"], replaces=s["replaces"],
             calls_per_batch=s["calls_per_batch"], max_abs_err=max(errs),
-            max_err_over_scale=max(scaled), grad_max_abs_errs=errs,
+            max_err_over_scale=max(scaled), grad_max_abs_errs=errs, bit_equal_over_two_calls=True,
+            device_kernels=device_kernels(s["run"]),
             ms=device_ms(s["run"]), eager_ms=eager_ms(s["run"]), plain_ms=device_ms(s["plain"]),
             library_ms=device_ms(s["library"]) if s["library"] else None,
             cudnn_conv_ms=device_ms(s["cudnn_conv"]) if "cudnn_conv" in s else None,
+            yardstick=s.get("yardstick", "cuDNN conv backward") if "cudnn_conv" in s else None,
             bytes=s["bytes"], flops=s["flops"], bound_ms=max(bytes_ms, flops_ms),
             bound_by="bytes" if bytes_ms >= flops_ms else "operations"))
         r = rows[-1]
@@ -871,8 +928,10 @@ def check_and_time_backward(sites: list[dict], tag: str = "backward") -> list[di
               f"(/scale {r['max_err_over_scale']:.2e})  {r['ms'] * 1e3:8.2f} us (eager "
               f"{r['eager_ms'] * 1e3:.2f})  plain {r['plain_ms'] * 1e3:8.2f} us  library {lib} "
               f"us  bound {r['bound_ms'] * 1e3:6.2f} us ({r['bound_by']})"
-              + (f"  cuDNN conv backward (double dagger) {r['cudnn_conv_ms'] * 1e3:.2f} us"
-                 if r["cudnn_conv_ms"] is not None else ""), flush=True)
+              + (f"  {r['yardstick']} (double dagger) {r['cudnn_conv_ms'] * 1e3:.2f} us"
+                 if r["cudnn_conv_ms"] is not None else "")
+              + "  kernels " + ", ".join(f"{k} x{v}" for k, v in r["device_kernels"].items()),
+              flush=True)
     return rows
 
 
@@ -1437,8 +1496,8 @@ def main() -> int:
                               **conv_yardstick(site_rows_2d, "res_block_2d", "cudnn_conv_ms"))})
     kernel_table += kernel_rows(
         bwd_rows, [f"{k}_bwd" for k in names_1d], training["launches_bwd"], per_step,
-        {f"{k}_bwd": conv_yardstick(bwd_rows, f"{k}_bwd", "cudnn_conv_backward_ms")
-         for k in names_1d})
+        {f"{k}_bwd": conv_yardstick(bwd_rows, f"{k}_bwd", "mm_pair_ms" if k == "mlp_chain"
+                                    else "cudnn_conv_backward_ms") for k in names_1d})
     kernel_table += kernel_rows(
         bwd_rows_2d, ["res_block_2d_bwd"], training_2d["launches_bwd"],
         per_step + ", conv_type 2",

@@ -3,7 +3,8 @@
 Seven CUDA sources compute the gradients of the ten forward wrappers:
 
   K1b csrc/in_chain_bwd.cu        in_chain_bwd, adain_res_block_bwd and (K8b)
-                                  adain_layer_bwd (kAdain instances)
+                                  adain_layer_bwd (kAdain instances); its residual
+                                  blocks and range chains run paths of their own
   K2b csrc/conv_bias_act_bwd.cu   conv_bias_act_bwd
   K3b csrc/strided_conv_bwd.cu    strided_conv_bwd
   K4b csrc/mlp_chain_bwd.cu       mlp_chain_bwd
@@ -17,9 +18,9 @@ pre-activations K4 saved) and returns the gradients of those inputs: the input's
 ``need_dx``), then the parameters' in the forward's argument order. On CPU
 tensors it returns its plain version's (``*_bwd_ref``, autograd through
 the forward's ``*_ref``, on any device); on CUDA tensors it launches its kernel and counts the launch in
-``<wrapper>.launches`` (one launch = the kernel and its in-order reduction
-of the per-block weight-gradient partials). Weight gradients are summed
-without atomics, so two runs give bit-equal gradients.
+``<wrapper>.launches`` (one launch = one call: the kernel, for K4b's restorers one a layer
+and the weight gradient's, and the in-order reduction of the per-block weight-gradient
+partials). Weight gradients are summed without atomics, so two runs give bit-equal gradients.
 """
 
 from __future__ import annotations
@@ -87,6 +88,60 @@ def res_block_plan(batch: int, sms: int) -> tuple[int, int]:
     return tiles, min(tiles, sms)
 
 
+# K1b's path at the range encoder's stride-2 chains (csrc/in_chain_bwd.cu, namespace down): the
+# flagship's three sites by their stage rows, each stage conv -> IN -> ReLU; tiles of DOWN_TILE
+# samples, at most one persistent block a SM (down_chain_plan), DOWN_SMEM[site] bytes of shared
+# memory a block, as the source lays them out. range.pair0's first stage reads the pooled CIR
+# (reflect pad): that path computes no dx there.
+DOWN_TILE = 4
+DOWN_SITES = {"range.pair0": [7, 1, 3, 1, 128, 1, 128, 4, 4, 2, 1, 0, 128, 4, 64, 8],
+              "range.pair1": [4, 2, 1, 0, 64, 8, 32, 16, 4, 2, 1, 0, 32, 16, 16, 32],
+              "range.single": [4, 2, 1, 0, 16, 32, 8, 64]}
+
+
+def down_floats(rows: Sequence[int]) -> int:
+    """Floats of shared memory a block of the stride-2 chains' path takes for 1 or 2 stage rows:
+    each stage's taps (rows of C_out + 4 floats) and, where it computes its input gradient, the
+    taps transposed (rows of C_in + 4); per sample of a tile, each stage's input with its pad
+    rows (rows of C_in + 4 floats, or C_in where that is not a multiple of 4), its conv output
+    with a zero row each side (rows of C_out + 4) and, at a second stage, its input's gradient."""
+    n = 0
+    for j in range(0, len(rows), 8):
+        k, _, pad, reflect, l_in, c_in, l_out, c_out = rows[j:j + 8]
+        ld_in = c_in if c_in % 4 else c_in + 4
+        n += k * c_in * (c_out + 4) + (0 if reflect else k * c_out * (c_in + 4))
+        n += DOWN_TILE * ((l_in + 2 * pad) * ld_in + (l_out + 2) * (c_out + 4)
+                          + (l_in * (c_in + 4) if j else 0))
+    return n
+
+
+DOWN_SMEM = {name: 4 * down_floats(rows) for name, rows in DOWN_SITES.items()}
+
+
+def down_chain_plan(batch: int, sms: int) -> tuple[int, int]:
+    """-> (tiles, blocks) of the stride-2 chains' path: block j of the grid takes tiles j,
+    j + blocks, ..., tile t the samples t * DOWN_TILE .. (t + 1) * DOWN_TILE - 1 below batch."""
+    tiles = -(-batch // DOWN_TILE)
+    return tiles, min(tiles, sms)
+
+
+def _down_chain_bwd(g: torch.Tensor, x: torch.Tensor, taps, name: str, need_dx: bool):
+    """Launch the stride-2 chains' path at site ``name``; -> (dx or None, [d(taps)])."""
+    b = x.shape[0]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    _, blocks = down_chain_plan(b, sms)
+    n_w = sum(t.numel() for t in taps)
+    part = torch.empty((blocks, n_w), device=x.device, dtype=x.dtype)
+    dw = torch.empty(n_w, device=x.device, dtype=x.dtype)
+    dx = torch.empty_like(x) if need_dx else None
+    fn = _build.function("in_chain_bwd", "iins_down_chain_bwd", [_P] * 7 + [_I] * 5 + [_P])
+    err = fn(x.data_ptr(), taps[0].data_ptr(), taps[-1].data_ptr(), g.data_ptr(), _ptr(dx),
+             part.data_ptr(), dw.data_ptr(), b, list(DOWN_SITES).index(name), DOWN_TILE, blocks,
+             DOWN_SMEM[name], _build.stream_handle(x))
+    _build.check(err, "in_chain_bwd", "in_chain_bwd")
+    return dx, _split(dw, [t.shape for t in taps])
+
+
 def _res_block_bwd(what: str, g: torch.Tensor, x: torch.Tensor, k1: torch.Tensor,
                    k2: torch.Tensor, tables, need_dx: bool):
     """Launch the residual-block path: K1b's (tables None) or K5b's (tables g1, b1, g2); ->
@@ -122,7 +177,9 @@ def in_chain_bwd_ref(g: torch.Tensor, x: torch.Tensor, stages: Sequence[Stage], 
 
 def in_chain_bwd(g: torch.Tensor, x: torch.Tensor, stages: Sequence[Stage], *,
                  residual: bool = False, need_dx: bool = True):
-    """K1b: -> (dx, [d(taps) per stage]) of fused.in_chain."""
+    """K1b: -> (dx, [d(taps) per stage]) of fused.in_chain. The residual block at (8, 64)
+    runs the residual-block path, the range encoder's stride-2 chains (DOWN_SITES; range.pair0
+    without dx) theirs, any other chain the general kernel."""
     if g.device.type == "cpu":
         return in_chain_bwd_ref(g, x, stages, residual=residual, need_dx=need_dx)
     if not 1 <= len(stages) <= 2:
@@ -139,6 +196,11 @@ def in_chain_bwd(g: torch.Tensor, x: torch.Tensor, stages: Sequence[Stage], *,
     _build.require_cuda_f32("in_chain_bwd", g, x, *taps)
     if residual and rows == 2 * RES_STAGE:
         dx, dtaps, _ = _res_block_bwd("in_chain_bwd", g, x, *taps, None, need_dx)
+        in_chain_bwd.launches += 1
+        return dx, dtaps
+    down = next((k for k, v in DOWN_SITES.items() if v == rows), None)
+    if not residual and down is not None and not (need_dx and rows[3]):
+        dx, dtaps = _down_chain_bwd(g, x, taps, down, need_dx)
         in_chain_bwd.launches += 1
         return dx, dtaps
     spb = _build.samples_per_block(b, chain_floats(rows))
@@ -288,6 +350,25 @@ strided_conv_bwd.launches = 0
 # ------------------------------ K4b ------------------------------
 
 
+# K4b's weight gradient sums the batch in chunks, each into its own partial row, then the rows
+# in order (csrc/mlp_chain_bwd.cu): where every width is at most MLP_SMALL_WIDTH (the
+# classifier) one block a tile of MLP_SMALL_ROWS samples runs the whole backward; else (the
+# restorers) at least MLP_MIN_SPLIT chunks of at most MLP_CHUNK_ROWS samples.
+MLP_SMALL_WIDTH, MLP_SMALL_ROWS, MLP_MIN_SPLIT, MLP_CHUNK_ROWS = 64, 8, 4, 128
+
+
+def mlp_split_plan(batch: int, dims: Sequence[int]) -> list[tuple[int, int]]:
+    """-> each chunk's [start, end) of the batch, as the kernel splits it for a chain of the
+    widths ``dims`` (the last chunks may be short or empty)."""
+    if max(dims) <= MLP_SMALL_WIDTH:
+        per = MLP_SMALL_ROWS
+        split = -(-batch // per)
+    else:
+        split = max(MLP_MIN_SPLIT, -(-batch // MLP_CHUNK_ROWS))
+        per = -(-batch // split)
+    return [(min(batch, c * per), min(batch, (c + 1) * per)) for c in range(split)]
+
+
 def mlp_chain_bwd_ref(g: torch.Tensor, x: torch.Tensor, ws: Sequence[torch.Tensor],
                       bs: Sequence[torch.Tensor], slopes: Sequence[float],
                       ds: Sequence[torch.Tensor], *, need_dx: bool = True):
@@ -302,7 +383,9 @@ def mlp_chain_bwd(g: torch.Tensor, x: torch.Tensor, ws: Sequence[torch.Tensor],
                   bs: Sequence[torch.Tensor], slopes: Sequence[float],
                   ds: Sequence[torch.Tensor], *, need_dx: bool = True):
     """K4b: -> (dx, [dW_j], [db_j]) of fused.mlp_chain; ``ds`` are the
-    pre-activations d_j that K4 saved (fused.launch_mlp_chain(save_pre=True))."""
+    pre-activations d_j that K4 saved (fused.launch_mlp_chain(save_pre=True)). Where every
+    width is at most MLP_SMALL_WIDTH one kernel a tile of samples runs the whole backward, else
+    one kernel a layer and one for the weight gradient (csrc/mlp_chain_bwd.cu)."""
     if g.device.type == "cpu":
         return mlp_chain_bwd_ref(g, x, ws, bs, slopes, ds, need_dx=need_dx)
     n = len(ws)
@@ -315,24 +398,27 @@ def mlp_chain_bwd(g: torch.Tensor, x: torch.Tensor, ws: Sequence[torch.Tensor],
                          f"the widths {dims}")
     _build.require_cuda_f32("mlp_chain_bwd", g, x, *ws, *ds)
     b = x.shape[0]
-    gds = [torch.empty_like(d) for d in ds]
-    dwbs = [torch.empty((a + 1, k), device=x.device, dtype=x.dtype)
-            for a, k in zip(dims, dims[1:])]
+    gds = [torch.empty_like(d) for d in ds] if max(dims) > MLP_SMALL_WIDTH else []
+    shapes = [(a + 1, k) for a, k in zip(dims, dims[1:])]
+    total = sum(a * k for a, k in shapes)
+    dwb = torch.empty(total, device=x.device, dtype=x.dtype)
+    part = torch.empty((len(mlp_split_plan(b, dims)), total), device=x.device, dtype=x.dtype)
     dx = torch.empty_like(x) if need_dx else None
     fn = _build.function("mlp_chain_bwd", "iins_mlp_chain_bwd",
                          [_P, _P, _P, _I, _I, ctypes.POINTER(_P), ctypes.POINTER(_P),
-                          ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_I),
+                          ctypes.POINTER(_P), _P, _P, _I, ctypes.POINTER(_I),
                           ctypes.POINTER(ctypes.c_float), _P])
 
     def ptrs(ts):
-        return (_P * n)(*[t.data_ptr() for t in ts])
+        return (_P * max(1, len(ts)))(*[t.data_ptr() for t in ts])
 
     err = fn(g.data_ptr(), x.data_ptr(), _ptr(dx), b, n, ptrs(ws), ptrs(ds), ptrs(gds),
-             ptrs(dwbs), (_I * (n + 1))(*dims), (ctypes.c_float * n)(*slopes),
-             _build.stream_handle(x))
+             dwb.data_ptr(), part.data_ptr(), part.shape[0], (_I * (n + 1))(*dims),
+             (ctypes.c_float * n)(*slopes), _build.stream_handle(x))
     _build.check(err, "mlp_chain_bwd", "mlp_chain_bwd")
     mlp_chain_bwd.launches += 1
-    return dx, [d[:-1] for d in dwbs], [d[-1] for d in dwbs]
+    views = _split(dwb, shapes)
+    return dx, [d[:-1] for d in views], [d[-1] for d in views]
 
 
 mlp_chain_bwd.launches = 0

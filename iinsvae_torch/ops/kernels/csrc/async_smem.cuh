@@ -1,6 +1,7 @@
-// Dynamic shared memory above the default 48 KB, and 16-byte cp.async copies
-// into it: the staging of K3 and K3b (strided_conv.cuh) and of K1b's
-// residual-block path (in_chain_bwd.cu). Pointers are 16-byte aligned.
+// Dynamic shared memory above the default 48 KB, and 16-byte (or 4-byte)
+// cp.async copies into it: the staging of K3 and K3b (strided_conv.cuh), of
+// K1b's residual-block and range-chain paths (in_chain_bwd.cu) and of K4b
+// (mlp_chain_bwd.cu). Pointers of 16-byte copies are 16-byte aligned.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -21,6 +22,13 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool va
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
                "r"(valid ? 16 : 0));
+}
+
+// Copy 4 bytes from src (global) to dst (shared), or zero dst where !valid.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

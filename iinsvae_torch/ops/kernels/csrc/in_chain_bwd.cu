@@ -27,17 +27,26 @@
 //         centred d; the centring's own adjoint adds -mean_l)
 //   d(taps) += in^T gz over the block's samples and rows; g_in = conv^T(gz).
 //
-// Two paths. The residual block at the model's shape, (L, C) = (8, 64) with
+// Three paths. The residual block at the model's shape, (L, C) = (8, 64) with
 // both convs k3, stride 1, reflect pad 1 (K1's three range-encoder blocks and
 // K5's three decoder blocks: 6 of a 1-D training step's 9 K1b/K5b launches),
-// runs its own kernel (namespace res below). Every other chain (the range
-// encoder's pairs and stage 5, K8b, other shapes) runs the general kernel.
+// runs its own kernel (namespace res below). The range encoder's three
+// stride-2 chains at the flagship's shapes (fused_in_pair's two sites, :333 /
+// _bwd_in_pair_kernel :286, and fused_dense_layer(norm='in')'s stage 5, :1201 /
+// _bwd_in_kernel :121: the step's other 3 launches) run theirs (namespace down).
+// Every other chain (K8b's one AdaIN stage, other widths or depths, range.pair0
+// where dx is asked for) runs the general kernel.
 //
 // Bound on the H100 at batch 500: the residual block recomputes its two convs
 // and runs dx and d(taps) of each, six products of 500 * 8 * 64 outputs x 192
 // multiply-adds (49.2 M each): 0.59 GFLOP, 8.8 us at 67 TFLOP/s fp32, over
 // 3.3-3.6 MB moved (x, g, dx, taps, K5's tables; 1.1 us at 3.35 TB/s): bound
 // by operations.
+//
+// Bound of the range chains on the H100 at batch 500 (the forward recomputed,
+// d(taps) and dx where the step needs it, over the taps that read data): 31.7,
+// 143 and 184 MFLOP at range.pair0, pair1 and single, 0.47, 2.14 and 2.75 us at
+// 67 TFLOP/s fp32, over 1.3-2.6 MB (x, g, dx, taps): bound by operations.
 //
 // The general kernel: a block keeps its tile of samples' input, conv outputs
 // and mid-chain activation in shared memory and computes each output with
@@ -50,6 +59,11 @@
 // multiply-add, 24.6 MB of partial rows), 77 in dx (each thread reads a taps
 // row of its own from global memory, 256 B apart across a warp), about 25
 // in the recomputes.
+//
+// It took 51-103 us at the range chains (H100, batch 500), for the same
+// reasons: 250 blocks of 2 samples, the taps read from global memory by every
+// output thread, two shared loads a multiply-add in d(taps), and 250 partial
+// rows (8.2 MB at stage 5).
 //
 // The residual block's kernel (res):
 // - both convs' taps sit in shared memory (2 x 51 KB: rows of C + 4 floats,
@@ -71,6 +85,25 @@
 //   at batch 500), coalesced through shared memory, summed in a fixed order
 //   by a second kernel: bit-reproducible, no atomics. Full fp32 FMAs, no
 //   TF32.
+// The range chains' kernel (down), one template instance a site, the shapes
+// fixed at compile time:
+// - one persistent block a SM (256 threads) walks tiles of 4 whole samples; the
+//   stages' taps are staged once a block by cp.async in rows of C_out + 4
+//   floats, and transposed for dx (rows of C_in + 4) by the warps that the
+//   first recompute leaves idle; x and the mid-chain activation are staged with
+//   their zero (or reflect) pad rows, the conv outputs between two zero rows, so
+//   every window is contiguous and unmasked;
+// - the recomputes run 4 samples x 4 output channels a thread, each output one
+//   fmaf chain over t, then ci ascending (a tap on a zero row adds exactly 0),
+//   and the IN statistics run on K1's own rows and lanes: the ReLU masks are the
+//   forward's bit for bit;
+// - d(taps) sits in registers over all the block's tiles, a thread a cell of
+//   (ci, 4 output channels) and every tap (where a stage has fewer cells than
+//   threads, up to 32 threads share a cell over interleaved rows); a block writes
+//   one partial row, the repeats and then the rows summed in a fixed order;
+// - dx runs 4 input rows x 4 channels a thread: the stride-2 k4 windows overlap
+//   by two rows, so a thread's 4 rows read 4 gz rows and the taps that reach
+//   each row are fixed at compile time.
 #include "async_smem.cuh"
 #include "conv_bwd_common.cuh"
 
@@ -79,6 +112,14 @@ namespace {
 using namespace iins;
 
 constexpr float kEps = 1e-5f;
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
 
 // Lanes that share one (sample, channel) row of length l (in_chain.cu's rule).
 __device__ __forceinline__ int norm_lanes(int l) {
@@ -330,14 +371,6 @@ constexpr float kInvL = 1.f / kL;
 // the thread layouts below are written for this shape: a (sample, channel) row of a norm to
 // each thread pair, 4 warps x 32 lanes of 4 x 4 recomputed outputs, 4 x 64 dx rows
 static_assert(kL == 8 && kC == 64 && kS == 4 && kThreads == 2 * kS * kC, "res layouts");
-
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float lane4(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
 
 // The row that tap t of output row l reads (reflect pad 1).
 __host__ __device__ constexpr int reflect(int v) {
@@ -680,6 +713,472 @@ int launch(const float* x, const float* w1, const float* w2, const float* g, flo
 
 }  // namespace res
 
+// ---------------------------------------------------------------------------
+// The range encoder's stride-2 chains at the flagship's shapes, every stage conv -> IN -> ReLU:
+// range.pair0 ((128, 1) k7 reflect 3 -> (128, 4), k4 s2 zero 1 -> (64, 8); no dx), range.pair1
+// ((64, 8) -> (32, 16) -> (16, 32), both k4 s2 zero 1) and range.single ((16, 32) -> (8, 64)).
+namespace down {
+
+using iins::aligned16;
+
+constexpr int kS = 4;  // samples a tile
+constexpr int kThreads = 256;
+constexpr int kRB = 4;        // input rows of a dx thread
+constexpr int kMaxReps = 32;  // threads that share one d(taps) cell, each over its own rows
+
+__host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ constexpr int floor_div(int a, int b) {
+  return a >= 0 ? a / b : -((-a + b - 1) / b);
+}
+
+// One stage (k taps, stride, pad, reflect; (l_in, c_in) -> (l_out, c_out)) and its shared
+// memory: the input staged with its pad rows (rows c_in + 4 floats, so a warp's reads of rows
+// a stride apart fall on distinct banks), the conv output between two zero rows, the taps in
+// rows of c_out + 4 floats and, for dx, transposed in rows of c_in + 4.
+template <int K_, int S_, int P_, bool R_, int LI_, int CI_, int CO_>
+struct Stage {
+  static constexpr int K = K_, S = S_, P = P_, LI = LI_, CI = CI_, CO = CO_;
+  static constexpr bool R = R_;
+  static constexpr int LO = (LI + 2 * P - K) / S + 1;
+  static constexpr int LdI = CI % 4 ? CI : CI + 4, XS = (LI + 2 * P) * LdI;
+  static constexpr int LdZ = CO + 4, ZS = (LO + 2) * LdZ;
+  static constexpr int LdW = CO + 4, WFloats = K * CI * LdW;
+  static constexpr int LdT = CI + 4, TFloats = K * CO * LdT;
+  static constexpr int NTaps = K * CI * CO;
+  // d(taps) in registers: cells of (ci, 4 output channels), Cpt cells a thread, or Reps
+  // threads a cell, each summing every Reps-th (sample, row) of the tile
+  static constexpr int Cells = CI * CO / 4;
+  static constexpr int Cpt = Cells > kThreads ? Cells / kThreads : 1;
+  static constexpr int Reps =
+      Cells >= kThreads ? 1 : cmin(cmin(kThreads / Cells, kMaxReps), kS * LO);
+  static constexpr int Active = Reps * cmin(Cells, kThreads);
+  static_assert(CO % 4 == 0 && (Cells <= kThreads || Cells % kThreads == 0) &&
+                    (Cpt == 1 || kThreads % CI == 0),
+                "d(taps) cells");
+};
+
+// A chain of one or two stages (S2 unused with one), site kId of iins_down_chain_bwd, and the
+// block's shared memory: taps, transposed taps, x, z1, y1 (stage 2's input), z2 and gy1 (the
+// gradient of y1), each region a multiple of 4 floats.
+template <int kId_, class S1_, class S2_, bool kTwo_>
+struct Chain {
+  using S1 = S1_;
+  using S2 = S2_;
+  static constexpr int kId = kId_;
+  static constexpr bool kTwo = kTwo_, kDx = !S1::R;  // a reflect first stage reads the CIR
+  static constexpr int kGyLd = S2::CI + 4, kGyS = S2::LI * kGyLd;
+  static constexpr int kW1t = S1::WFloats;
+  static constexpr int kW2s = kW1t + (kDx ? S1::TFloats : 0);
+  static constexpr int kW2t = kW2s + (kTwo ? S2::WFloats : 0);
+  static constexpr int kXs = kW2t + (kTwo ? S2::TFloats : 0);
+  static constexpr int kZ1 = kXs + kS * S1::XS;
+  static constexpr int kY1 = kZ1 + kS * S1::ZS;
+  static constexpr int kZ2 = kY1 + (kTwo ? kS * S2::XS : 0);
+  static constexpr int kGy = kZ2 + (kTwo ? kS * S2::ZS : 0);
+  static constexpr int kFloats = kGy + (kTwo ? kS * kGyS : 0);
+  static constexpr int kSmemBytes = kFloats * static_cast<int>(sizeof(float));
+  static constexpr int kNTaps = S1::NTaps + (kTwo ? S2::NTaps : 0);
+  static constexpr int kGS = kTwo ? S2::LO * S2::CO : S1::LO * S1::CO;  // g floats a sample
+  static constexpr int kConv = (S1::LO * S1::CO / 4 + 31) / 32 * 32;  // threads of (1)
+  static_assert(kW1t % 4 == 0 && kW2s % 4 == 0 && kW2t % 4 == 0 && kXs % 4 == 0 &&
+                    kZ1 % 4 == 0 && kY1 % 4 == 0 && kZ2 % 4 == 0 && kGy % 4 == 0,
+                "16-byte regions");
+  static_assert(S1::Reps * S1::NTaps + (kTwo ? S2::Reps * S2::NTaps : 0) <= kFloats,
+                "the d(taps) sums fit where the tile was");
+  static_assert(kSmemBytes <= 227 * 1024, "a block's shared memory");
+  static_assert(!kTwo || (S2::LI == S1::LO && S2::CI == S1::CO && !S2::R), "a chain");
+  static_assert(kConv <= kThreads - 64, "threads left to transpose the taps during (1)");
+};
+
+using Pair0 = Chain<0, Stage<7, 1, 3, true, 128, 1, 4>, Stage<4, 2, 1, false, 128, 4, 8>, true>;
+using Pair1 = Chain<1, Stage<4, 2, 1, false, 64, 8, 16>, Stage<4, 2, 1, false, 32, 16, 32>, true>;
+using Single = Chain<2, Stage<4, 2, 1, false, 16, 32, 64>, Stage<4, 2, 1, false, 16, 32, 64>,
+                     false>;
+
+// The tile's samples s0 .. s0+ns-1 into xs with each sample's pad rows: reflected rows, or zero
+// rows; the samples past the batch are zero. cp.async where rows are whole float4s.
+template <class T>
+__device__ void stage_input(const float* __restrict__ x, int s0, int ns, float* xs) {
+  constexpr int kH = T::LI + 2 * T::P, kQ = T::CI % 4 ? T::CI : T::CI / 4;
+  for (int i = threadIdx.x; i < kS * kH * kQ; i += kThreads) {
+    const int r = i / kQ, c = (i - r * kQ) * (T::CI % 4 ? 1 : 4), s = r / kH, v = r - s * kH;
+    int u = v - T::P;
+    bool ok = s < ns;
+    if (T::R)
+      u = u < 0 ? -u : u >= T::LI ? 2 * T::LI - 2 - u : u;
+    else
+      ok = ok && u >= 0 && u < T::LI;
+    const float* src =
+        x + (static_cast<size_t>(s0 + (ok ? s : 0)) * T::LI + (ok ? u : 0)) * T::CI + c;
+    float* dst = xs + s * T::XS + v * T::LdI + c;
+    if constexpr (T::CI % 4 == 0)
+      cp_async16(dst, src, ok);
+    else
+      *dst = ok ? __ldg(src) : 0.f;
+  }
+}
+
+// One stage's taps (K, C_in, C_out) into ws by cp.async.
+template <class T>
+__device__ void stage_taps(const float* __restrict__ w, float* ws) {
+  constexpr int kQ = T::CO / 4;
+  for (int i = threadIdx.x; i < T::K * T::CI * kQ; i += kThreads) {
+    const int r = i / kQ, c = (i - r * kQ) * 4;  // r = t * C_in + ci
+    cp_async16(ws + r * T::LdW + c, w + r * T::CO + c, true);
+  }
+}
+
+// One stage's taps transposed into wt (K, C_out, C_in) by the threads t0 .. kThreads-1 (those
+// the first recompute leaves idle): a float4 of 4 output channels a thread, C_in fastest across
+// threads, 8 loads in flight before their stores.
+template <class T>
+__device__ void transpose_taps(const float* __restrict__ w, float* wt, int t0) {
+  constexpr int kQ = T::CO / 4, kN = T::K * T::CI * kQ, kB = 8;
+  const int nt = kThreads - t0;
+  for (int base = threadIdx.x - t0; base < kN; base += kB * nt) {
+    float4 v[kB];
+#pragma unroll
+    for (int b = 0; b < kB; ++b) {
+      const int i = base + b * nt;
+      if (i >= kN) break;
+      const int ci = i % T::CI, r = i / T::CI, t = r / kQ, c = (r - t * kQ) * 4;
+      v[b] = __ldg(reinterpret_cast<const float4*>(w + (t * T::CI + ci) * T::CO + c));
+    }
+#pragma unroll
+    for (int b = 0; b < kB; ++b) {
+      const int i = base + b * nt;
+      if (i >= kN) break;
+      const int ci = i % T::CI, r = i / T::CI, t = r / kQ, c = (r - t * kQ) * 4;
+      float* d = wt + (t * T::CO + c) * T::LdT + ci;
+      d[0] = v[b].x;
+      d[T::LdT] = v[b].y;
+      d[2 * T::LdT] = v[b].z;
+      d[3 * T::LdT] = v[b].w;
+    }
+  }
+}
+
+// z (rows 1..L_out of each sample's conv output) = conv(a), a staged with its pad rows. Thread
+// (l, 4 output channels) computes them for all kS samples (per step of 4 input channels kS + 4
+// float4 loads for 16 kS multiply-adds). Each output is one fmaf chain over t, then ci
+// ascending, K1's conv_points order: a tap on a zero pad row adds fmaf(0, w, acc) = acc, which
+// K1 skips, so z is K1's bit for bit.
+template <class T>
+__device__ void conv_fwd(const float* a, const float* ws, float* z) {
+  constexpr int kQ = T::CO / 4;
+  for (int it = threadIdx.x; it < T::LO * kQ; it += kThreads) {
+    const int l = it / kQ, co = (it - l * kQ) * 4;
+    float acc[kS][4];
+#pragma unroll
+    for (int s = 0; s < kS; ++s) acc[s][0] = acc[s][1] = acc[s][2] = acc[s][3] = 0.f;
+#pragma unroll
+    for (int t = 0; t < T::K; ++t) {
+      const float* ar = a + (l * T::S + t) * T::LdI;
+      const float* wt = ws + t * T::CI * T::LdW + co;
+      if constexpr (T::CI % 4 == 0) {
+#pragma unroll 4
+        for (int ci = 0; ci < T::CI; ci += 4) {
+          float4 xv[kS], wv[4];
+#pragma unroll
+          for (int s = 0; s < kS; ++s) xv[s] = lds4(ar + s * T::XS + ci);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) wv[j] = lds4(wt + (ci + j) * T::LdW);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int s = 0; s < kS; ++s) {
+              const float v = lane4(xv[s], j);
+              acc[s][0] = fmaf(v, wv[j].x, acc[s][0]);
+              acc[s][1] = fmaf(v, wv[j].y, acc[s][1]);
+              acc[s][2] = fmaf(v, wv[j].z, acc[s][2]);
+              acc[s][3] = fmaf(v, wv[j].w, acc[s][3]);
+            }
+        }
+      } else {
+#pragma unroll
+        for (int ci = 0; ci < T::CI; ++ci) {
+          const float4 wv = lds4(wt + ci * T::LdW);
+#pragma unroll
+          for (int s = 0; s < kS; ++s) {
+            const float v = ar[s * T::XS + ci];
+            acc[s][0] = fmaf(v, wv.x, acc[s][0]);
+            acc[s][1] = fmaf(v, wv.y, acc[s][1]);
+            acc[s][2] = fmaf(v, wv.z, acc[s][2]);
+            acc[s][3] = fmaf(v, wv.w, acc[s][3]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kS; ++s)
+      *reinterpret_cast<float4*>(z + s * T::ZS + (1 + l) * T::LdZ + co) =
+          make_float4(acc[s][0], acc[s][1], acc[s][2], acc[s][3]);
+  }
+}
+
+// y1 (stage B's input rows, after its zero pad rows) = relu(IN(z1)), with K1's norm_stage rows,
+// lanes and arithmetic, so y1 is the forward's mid-chain activation bit for bit.
+template <class A, class B>
+__device__ void norm_relu(const float* z, float* y, int ns) {
+  for_rows(A::LO, A::CO, ns, [&](int, int s, int ch, bool valid, int lane, int lanes) {
+    const float* zs = z + s * A::ZS + A::LdZ + ch;
+    float mean, rs;
+    row_stats(zs, A::LO, A::LdZ, valid, lane, lanes, mean, rs);
+    if (!valid) return;
+    float* ys = y + s * B::XS + B::P * B::LdI + ch;
+    for (int i = lane; i < A::LO; i += lanes)
+      ys[i * B::LdI] = fmaxf((zs[i * A::LdZ] - mean) * rs, 0.f);
+  });
+}
+
+// In place over z (the stage's conv output rows): z <- gz, the IN backward of gh = g where the
+// recomputed relu input is > 0; g (sample s, row i, channel c) at gsrc[s * g_ss + i * g_ld + c].
+template <class T>
+__device__ void norm_grad(float* z, const float* gsrc, int g_ss, int g_ld, int ns) {
+  const float inv_l = 1.f / static_cast<float>(T::LO);
+  for_rows(T::LO, T::CO, ns, [&](int, int s, int ch, bool valid, int lane, int lanes) {
+    float* zs = z + s * T::ZS + T::LdZ + ch;
+    const float* gs = gsrc + s * g_ss + ch;
+    float mean, rs;
+    row_stats(zs, T::LO, T::LdZ, valid, lane, lanes, mean, rs);
+    float sgh = 0.f, sghy = 0.f;
+    if (valid)
+      for (int i = lane; i < T::LO; i += lanes) {
+        const float yh = (zs[i * T::LdZ] - mean) * rs;
+        const float gh = yh > 0.f ? gs[i * g_ld] : 0.f;
+        sgh += gh;
+        sghy = fmaf(gh, yh, sghy);
+      }
+    sgh = group_sum(sgh, lanes);
+    sghy = group_sum(sghy, lanes);
+    if (!valid) return;
+    const float mg = sgh * inv_l, mgy = sghy * inv_l;
+    for (int i = lane; i < T::LO; i += lanes) {
+      const float yh = (zs[i * T::LdZ] - mean) * rs;
+      const float gh = yh > 0.f ? gs[i * g_ld] : 0.f;
+      zs[i * T::LdZ] = rs * (gh - mg - yh * mgy);
+    }
+  });
+}
+
+// The thread's d(taps) cell: its repeat (which (sample, row)s it sums), input channel and first
+// output channel; false where the thread has none.
+template <class T>
+__device__ __forceinline__ bool taps_cell(int& rep, int& ci, int& co) {
+  const int tid = threadIdx.x;
+  if (tid >= T::Active) return false;
+  const int cell = T::Cells >= kThreads ? tid : tid % T::Cells;
+  rep = T::Cells >= kThreads ? 0 : tid / T::Cells;
+  ci = cell % T::CI;
+  co = cell / T::CI * 4;
+  return true;
+}
+
+// acc[c][t][v] += sum over the tile's (sample, row) of a[s, l*S + t, ci] * gz[s, l, co_c + v],
+// the cell's d(taps) (per row K broadcast-free loads of a and Cpt float4s of gz for 4 K Cpt
+// multiply-adds), kept in registers over the block's tiles.
+template <class T>
+__device__ void taps_grad(const float* a, const float* gz, int ns,
+                          float (&acc)[T::Cpt][T::K][4]) {
+  int rep, ci, co;
+  if (!taps_cell<T>(rep, ci, co)) return;
+  for (int p = rep; p < ns * T::LO; p += T::Reps) {
+    const int s = p / T::LO, l = p - s * T::LO;
+    float xv[T::K];
+#pragma unroll
+    for (int t = 0; t < T::K; ++t) xv[t] = a[s * T::XS + (l * T::S + t) * T::LdI + ci];
+#pragma unroll
+    for (int c = 0; c < T::Cpt; ++c) {
+      const float4 gv = lds4(gz + s * T::ZS + (1 + l) * T::LdZ + co + c * (kThreads / T::CI) * 4);
+#pragma unroll
+      for (int t = 0; t < T::K; ++t) {
+        acc[c][t][0] = fmaf(xv[t], gv.x, acc[c][t][0]);
+        acc[c][t][1] = fmaf(xv[t], gv.y, acc[c][t][1]);
+        acc[c][t][2] = fmaf(xv[t], gv.z, acc[c][t][2]);
+        acc[c][t][3] = fmaf(xv[t], gv.w, acc[c][t][3]);
+      }
+    }
+  }
+}
+
+// The cells' d(taps) into scr, repeat r's (K, C_in, C_out) at scr + r * NTaps.
+template <class T>
+__device__ void put_taps(float* scr, const float (&acc)[T::Cpt][T::K][4]) {
+  int rep, ci, co;
+  if (!taps_cell<T>(rep, ci, co)) return;
+#pragma unroll
+  for (int c = 0; c < T::Cpt; ++c)
+#pragma unroll
+    for (int t = 0; t < T::K; ++t)
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+        scr[rep * T::NTaps + (t * T::CI + ci) * T::CO + co + c * (kThreads / T::CI) * 4 + v] =
+            acc[c][t][v];
+}
+
+// row[e] = the repeats' sums of entry e, added in order.
+template <class T>
+__device__ void sum_taps(const float* scr, float* __restrict__ row) {
+  for (int e = threadIdx.x; e < T::NTaps; e += kThreads) {
+    float v = scr[e];
+    for (int r = 1; r < T::Reps; ++r) v += scr[r * T::NTaps + e];
+    row[e] = v;
+  }
+}
+
+// The stage's input gradient (zero pad), out[s, u, ci] = sum over (l, t) with l*S + t - P == u
+// of gz[s, l] . wt[t, :, ci]: thread (s, kRB rows, 4 input channels) reads, per 4 output
+// channels, the gz rows its rows need (the pad's zero rows past each end) and 4 K float4s of the
+// transposed taps; which taps reach which row is fixed at compile time.
+template <class T>
+__device__ void input_grad(const float* gz, const float* wt, float* out, int out_ss, int out_ld,
+                           int ns) {
+  constexpr int kQ = T::CI / 4, kUB = T::LI / kRB;
+  constexpr int kLmin = floor_div(T::P - T::K + 1, T::S), kLmax = floor_div(kRB - 1 + T::P, T::S);
+  constexpr int kNR = kLmax - kLmin + 1;
+  static_assert(!T::R && T::CI % 4 == 0 && T::LI % kRB == 0 && kRB % T::S == 0 && kLmin >= -1 &&
+                    (T::LI - kRB) / T::S + kLmax <= T::LO,
+                "dx rows");
+  for (int it = threadIdx.x; it < kS * kUB * kQ; it += kThreads) {
+    const int q = it % kQ, r = it / kQ, ub = r % kUB, s = r / kUB;
+    if (s >= ns) continue;
+    const int u0 = ub * kRB, ci = 4 * q;
+    const float* gs = gz + s * T::ZS + (1 + u0 / T::S + kLmin) * T::LdZ;
+    float acc[kRB][4];
+#pragma unroll
+    for (int j = 0; j < kRB; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll 2
+    for (int co = 0; co < T::CO; co += 4) {
+      float4 gr[kNR];
+#pragma unroll
+      for (int k = 0; k < kNR; ++k) gr[k] = lds4(gs + k * T::LdZ + co);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float4 wv[T::K];
+#pragma unroll
+        for (int t = 0; t < T::K; ++t) wv[t] = lds4(wt + (t * T::CO + co + e) * T::LdT + ci);
+#pragma unroll
+        for (int j = 0; j < kRB; ++j)
+#pragma unroll
+          for (int t = 0; t < T::K; ++t) {
+            const int num = j + T::P - t;
+            if (num % T::S) continue;
+            const float gv = lane4(gr[num / T::S - kLmin], e);
+            acc[j][0] = fmaf(gv, wv[t].x, acc[j][0]);
+            acc[j][1] = fmaf(gv, wv[t].y, acc[j][1]);
+            acc[j][2] = fmaf(gv, wv[t].z, acc[j][2]);
+            acc[j][3] = fmaf(gv, wv[t].w, acc[j][3]);
+          }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kRB; ++j)
+      *reinterpret_cast<float4*>(out + s * out_ss + (u0 + j) * out_ld + ci) =
+          make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+  }
+}
+
+// One persistent block a SM walks tiles of kS samples (tile b, b + grid, ...). Per tile, from x
+// staged with its pad rows beside the taps staged once a block:
+//   (1) z1 = conv(x, W1)                 two stages: (2) y1 = relu(IN(z1)), (3) z2 = conv(y1, W2),
+//   (4) gz2 = IN backward of g masked by the recomputed relu input, (5) dW2 += window(y1)^T gz2
+//   and gy1 = conv2^T(gz2), (6) gz1 = IN backward of gy1 masked;  one stage: (6) gz1 from g
+//   (7) dW1 += window(x)^T gz1 and, where asked, dx = conv1^T(gz1).
+// The block keeps its d(taps) in registers over all its tiles and writes one partial row.
+template <class C>
+__global__ void __launch_bounds__(kThreads, 1)
+down_chain_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+                      const float* __restrict__ w2, const float* __restrict__ g,
+                      float* __restrict__ dx, float* __restrict__ part, int batch, int n_tiles) {
+  using S1 = typename C::S1;
+  using S2 = typename C::S2;
+  extern __shared__ __align__(16) float sm[];
+  float* w1s = sm;
+  float* w1t = sm + C::kW1t;
+  float* w2s = sm + C::kW2s;
+  float* w2t = sm + C::kW2t;
+  float* xs = sm + C::kXs;
+  float* z1 = sm + C::kZ1;  // z1, then gz1
+  float* y1 = sm + C::kY1;
+  float* z2 = sm + C::kZ2;  // z2, then gz2
+  float* gy = sm + C::kGy;
+  // the conv outputs' and y1's pad rows stay zero: no phase writes them
+  for (int i = threadIdx.x; i < C::kGy - C::kZ1; i += kThreads) z1[i] = 0.f;
+  stage_taps<S1>(w1, w1s);
+  if constexpr (C::kTwo) stage_taps<S2>(w2, w2s);
+  float acc1[S1::Cpt][S1::K][4] = {}, acc2[S2::Cpt][S2::K][4] = {};
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int s0 = tile * kS, ns = min(kS, batch - s0);
+    const float* gg = g + static_cast<size_t>(s0) * C::kGS;
+    __syncthreads();  // the last tile's reads of xs are done
+    stage_input<S1>(x, s0, ns, xs);
+    cp_async_wait_all();
+    __syncthreads();
+    if (threadIdx.x < C::kConv) {
+      conv_fwd<S1>(xs, w1s, z1);  // (1)
+    } else if (tile == static_cast<int>(blockIdx.x)) {  // meanwhile, once a block: dx's taps
+      if constexpr (C::kDx) transpose_taps<S1>(w1, w1t, C::kConv);
+      if constexpr (C::kTwo) transpose_taps<S2>(w2, w2t, C::kConv);
+    }
+    __syncthreads();
+    if constexpr (C::kTwo) {
+      norm_relu<S1, S2>(z1, y1, ns);  // (2)
+      __syncthreads();
+      conv_fwd<S2>(y1, w2s, z2);  // (3)
+      __syncthreads();
+      norm_grad<S2>(z2, gg, S2::LO * S2::CO, S2::CO, ns);  // (4)
+      __syncthreads();
+      taps_grad<S2>(y1, z2, ns, acc2);  // (5)
+      input_grad<S2>(z2, w2t, gy, C::kGyS, C::kGyLd, ns);
+      __syncthreads();
+      norm_grad<S1>(z1, gy, C::kGyS, C::kGyLd, ns);  // (6)
+    } else {
+      norm_grad<S1>(z1, gg, S1::LO * S1::CO, S1::CO, ns);  // (6)
+    }
+    __syncthreads();
+    taps_grad<S1>(xs, z1, ns, acc1);  // (7)
+    if constexpr (C::kDx)
+      if (dx)
+        input_grad<S1>(z1, w1t, dx + static_cast<size_t>(s0) * S1::LI * S1::CI,
+                       S1::LI * S1::CI, S1::CI, ns);
+  }
+
+  // the block's partial row, d(taps1) then d(taps2): each cell's repeats summed in order
+  __syncthreads();
+  float* scr2 = sm + S1::Reps * S1::NTaps;
+  put_taps<S1>(sm, acc1);
+  if constexpr (C::kTwo) put_taps<S2>(scr2, acc2);
+  __syncthreads();
+  float* row = part + static_cast<size_t>(blockIdx.x) * C::kNTaps;
+  sum_taps<S1>(sm, row);
+  if constexpr (C::kTwo) sum_taps<S2>(scr2, row + S1::NTaps);
+}
+
+int smem_set[3] = {0, 0, 0};
+
+template <class C>
+int launch(const float* x, const float* w1, const float* w2, const float* g, float* dx,
+           float* part, float* dw, int batch, int tile, int grid, int smem, void* stream) {
+  const int n_tiles = batch > 0 ? (batch + kS - 1) / kS : 0;
+  if (batch <= 0 || tile != kS || grid < 1 || grid > n_tiles || smem != C::kSmemBytes ||
+      (dx && !C::kDx))
+    return cudaErrorInvalidValue;
+  for (const void* p : {static_cast<const void*>(x), static_cast<const void*>(w1),
+                        static_cast<const void*>(w2), static_cast<const void*>(g),
+                        static_cast<const void*>(dx)})
+    if (!aligned16(p)) return cudaErrorInvalidValue;
+  int err = allow_smem(down_chain_bwd_kernel<C>, smem, &smem_set[C::kId]);
+  if (err) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  down_chain_bwd_kernel<C><<<grid, kThreads, smem, s>>>(x, w1, w2, g, dx, part, batch, n_tiles);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  return iins::launch_reduce_rows(part, grid, C::kNTaps, dw, s);
+}
+
+}  // namespace down
+
 extern "C" {
 
 const char* iins_error_string(int err) {
@@ -739,6 +1238,31 @@ int iins_res_block_bwd(const float* x, const float* w1, const float* w2, const f
   if (!b1 || !g2 || !dg1 || !db1 || !dg2 || !db2) return cudaErrorInvalidValue;
   return res::launch<true>(x, w1, w2, g, dx, part, dw, batch, l, c, tile, grid, smem,
                            Affine{g1, b1, g2}, AffineGrad{dg1, db1, dg2, db2}, stream);
+}
+
+// K1b at the range encoder's stride-2 chains on their own path: site 0 range.pair0, 1
+// range.pair1, 2 range.single (shapes at the top of namespace down). x (B, l_in, c_in); w1, w2
+// the stages' taps (w2 unused at site 2); g (B, l_out, c_out) of the chain output; dx (B,
+// l_in, c_in) or null (always null at site 0). tile (samples a tile), grid (the persistent
+// blocks, 1 .. ceil(B / tile)) and smem (a block's dynamic shared memory) as
+// backward.down_chain_plan and DOWN_SMEM give them; the launch refuses any other. part (grid,
+// n_w) scratch; dw (n_w): d(taps1), then d(taps2).
+int iins_down_chain_bwd(const float* x, const float* w1, const float* w2, const float* g,
+                        float* dx, float* part, float* dw, int batch, int site, int tile,
+                        int grid, int smem, void* stream) {
+  switch (site) {
+    case 0:
+      return down::launch<down::Pair0>(x, w1, w2, g, dx, part, dw, batch, tile, grid, smem,
+                                       stream);
+    case 1:
+      return down::launch<down::Pair1>(x, w1, w2, g, dx, part, dw, batch, tile, grid, smem,
+                                       stream);
+    case 2:
+      return down::launch<down::Single>(x, w1, w1, g, dx, part, dw, batch, tile, grid, smem,
+                                        stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 """Where a redesigned backward kernel spends its time, phase by phase, on one NVIDIA card.
 
-    python3 phase_times.py [--kernel res|tail] [--tree DIR] [--out FILE]
+    python3 phase_times.py [--kernel res|tail|chain|mlp] [--tree DIR] [--out FILE]
 
 ``--kernel res`` (the default): K1b's residual-block backward, from DIR's
 ``iinsvae_torch/ops/kernels/csrc/in_chain_bwd.cu``, timed through DIR's own wrappers at the two
@@ -8,6 +8,10 @@ residual-block sites of a 1-D training step: K1b at the range encoder's IN block
 (``in_chain_bwd``) and K5b at the decoder's AdaIN block (``adain_res_block_bwd``).
 ``--kernel tail``: K6b, the decoder tail's backward, from DIR's ``csrc/sln_chain_bwd.cu``, timed
 through ``sln_chain_bwd`` at the decoder tail (``dec.tail``: (500, 8, 64) -> 157).
+``--kernel chain``: K1b at the range encoder's three stride-2 chains (``range.pair0`` without
+dx, ``range.pair1``, ``range.single``), from ``csrc/in_chain_bwd.cu``, through ``in_chain_bwd``.
+``--kernel mlp``: K4b, from ``csrc/mlp_chain_bwd.cu``, through ``mlp_chain_bwd`` at the 1-D
+restorer, the classifier and the 2-D restorer, with the pre-activations K4 saves.
 
 DIR defaults to this checkout. The script builds one variant of the source for each phase,
 which stops the kernel after that phase (one nvcc each, all at once, under
@@ -19,8 +23,13 @@ so nothing is checked here: chip_smoke.py holds the whole kernel to its plain ve
 
 The cut points are written for two designs of each kernel, named by the kernel function that
 runs the site: ``in_chain_bwd_kernel`` (one kernel for every K1b site, before the residual
-block got its own path) and ``res_block_bwd_kernel``; ``sln_chain_bwd_kernel`` (K6b's kernel
-for every shape, before the decoder's shape got its own path) and ``tail_bwd_kernel``. Prints
+block, and later the range chains, got their own paths), ``res_block_bwd_kernel`` and
+``down_chain_bwd_kernel``; ``sln_chain_bwd_kernel`` (K6b's kernel for every shape, before the
+decoder's shape got its own path) and ``tail_bwd_kernel``; K4b's ``mlp_bwd_chain_kernel`` (a
+chain kernel and a weight-gradient kernel) and ``small_kernel`` (the classifier's one-block
+chain, beside the restorers' launch a layer and weight-gradient launch).
+A kernel that launches several kernels a call is split by name too: each site's device time a
+call of each kernel, from a torch.profiler trace of the whole call (``[split]`` lines). Prints
 one JSON line and writes it to FILE (default ``build/phase_times.json``). Needs one CUDA card
 and nvcc.
 """
@@ -159,28 +168,96 @@ CUTS["tail_bwd_kernel"] = [
       _tail_stage_phases(j)][:-1],
     ("input gradient 0 (dx): the whole kernel", None),
 ]
+# K1b's path at the range encoder's stride-2 chains: the tile loop's phases. A cut continues to
+# the next tile and the block's partial-row write, so every row from the second on includes that
+# write; range.single (one stage) never reaches the cuts of stage 2: those rows time its whole
+# kernel.
+_DOWN_CONT = "continue;"
+CUTS["down_chain_bwd_kernel"] = [
+    ("launch + reduce", "  float* gy = sm + C::kGy;\n", "return;"),
+    ("zero, stage taps and x, write the row",
+     "    stage_input<S1>(x, s0, ns, xs);\n    cp_async_wait_all();\n    __syncthreads();\n",
+     _DOWN_CONT),
+    ("(1) z1 = conv(x); dx's taps transposed",
+     "      if constexpr (C::kTwo) transpose_taps<S2>(w2, w2t, C::kConv);\n    }\n"
+     "    __syncthreads();\n", _DOWN_CONT),
+    ("(2) y1 = relu(IN(z1))",
+     "      norm_relu<S1, S2>(z1, y1, ns);  // (2)\n      __syncthreads();\n", _DOWN_CONT),
+    ("(3) z2 = conv(y1)", "      conv_fwd<S2>(y1, w2s, z2);  // (3)\n      __syncthreads();\n",
+     _DOWN_CONT),
+    ("(4) gz2", "      norm_grad<S2>(z2, gg, S2::LO * S2::CO, S2::CO, ns);  // (4)\n"
+     "      __syncthreads();\n", _DOWN_CONT),
+    ("(5) dW2, gy1", "      input_grad<S2>(z2, w2t, gy, C::kGyS, C::kGyLd, ns);\n"
+     "      __syncthreads();\n", _DOWN_CONT),
+    ("(6) gz1", "      norm_grad<S1>(z1, gg, S1::LO * S1::CO, S1::CO, ns);  // (6)\n    }\n"
+     "    __syncthreads();\n", _DOWN_CONT),
+    ("(7a) dW1", "    taps_grad<S1>(xs, z1, ns, acc1);  // (7)\n", _DOWN_CONT),
+    ("(7b) dx: the whole kernel", None),
+]
+# K4b: which of its kernels runs. Before the redesign a chain kernel and a weight-gradient kernel;
+# now one kernel a layer (chain tiles and weight-gradient tiles) and the chunks' sum.
+CUTS["mlp_bwd_chain_kernel"] = [
+    ("chain kernel; the weight-gradient kernel returns at once",
+     "  __shared__ float gs[kTile][kTile + 1];  // [b][k]\n"),
+    ("chain and weight-gradient kernels: the whole call", None),
+]
+_MLP_SMALL = "             float* __restrict__ part, int batch, Args a) {\n"
+_MLP_CHAIN = "__global__ void __launch_bounds__(kChainThreads) chain_kernel(Chain a) {\n"
+_MLP_WGRAD = ("__global__ void __launch_bounds__(kChainThreads) wgrad_kernel(Wgrad a, "
+              "float* __restrict__ part) {\n")
+CUTS["small_kernel"] = [
+    ("launches and the partial rows' sum", (_MLP_SMALL, _MLP_CHAIN, _MLP_WGRAD)),
+    ("staging and the chain; no weight gradient",
+     ("  // the block's rows' share of every extended weight gradient, summed over its rows in "
+      "order\n", _MLP_WGRAD)),
+    ("the whole call", None),
+]
 # which source each --kernel reads, and its designs, newest first
 KERNELS = {
     "res": ("in_chain_bwd", ("res_block_bwd_kernel", "in_chain_bwd_kernel")),
     "tail": ("sln_chain_bwd", ("tail_bwd_kernel", "sln_chain_bwd_kernel")),
+    "chain": ("in_chain_bwd", ("down_chain_bwd_kernel", "in_chain_bwd_kernel")),
+    "mlp": ("mlp_chain_bwd", ("small_kernel", "mlp_bwd_chain_kernel")),
 }
 
 
 def variants(src: str, kernel: str) -> tuple[str, list[tuple[str, str]]]:
     """-> (the design's kernel name, [(phase, variant source)]). A cut without a statement of
-    its own returns."""
+    its own returns; a cut of several anchors stops after each."""
     name = next(d for d in KERNELS[kernel][1] if re.search(rf"\b{d}\(", src))
     out = []
     for phase, anchor, *stop in CUTS[name]:
-        if anchor is None:
-            out.append((phase, src))
-            continue
-        if src.count(anchor) != 1:
-            raise SystemExit(f"phase_times: the cut after {phase!r} is not in the source once")
-        j = src.index(anchor) + len(anchor)
-        out.append((phase, src[:j] + f"{stop[0] if stop else 'return;'}  // phase_times\n"
-                    + src[j:]))
+        text = src
+        for a in (() if anchor is None else anchor if isinstance(anchor, tuple) else (anchor,)):
+            if text.count(a) != 1:
+                raise SystemExit(f"phase_times: the cut after {phase!r} is not in the source once")
+            j = text.index(a) + len(a)
+            text = text[:j] + f"{stop[0] if stop else 'return;'}  // phase_times\n" + text[j:]
+        out.append((phase, text))
     return name, out
+
+
+def kernel_split(fn, calls: int = 20) -> dict[str, float]:
+    """Device time a call of each kernel launch that ``fn`` makes, in us, from a torch.profiler
+    trace of ``calls`` calls after a warm-up: "<i> <name>" for the i-th launch of a call, names
+    cut to 60 characters."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    per = len(events) // calls
+    out = {}
+    for i, e in enumerate(events[:per * calls]):
+        key = f"{i % per} {e.name[:60]}"
+        out[key] = out.get(key, 0.0) + (e.time_range.end - e.time_range.start) / calls
+    return out
 
 
 def main() -> int:
@@ -197,7 +274,7 @@ def main() -> int:
         return 2
     from chip_smoke import card_line, device_ms
     from iinsvae_torch.models.vae import IInsVAE
-    from iinsvae_torch.ops.kernels import _build, backward
+    from iinsvae_torch.ops.kernels import _build, backward, fused
 
     torch.backends.cudnn.allow_tf32 = False
     lib = KERNELS[args.kernel][0]
@@ -227,7 +304,38 @@ def main() -> int:
         return torch.randn(shape, generator=gen).cuda()
 
     b = 500
-    if args.kernel == "res":
+    if args.kernel == "chain":
+        re_ = model.encoder.range_encoder
+        st = [(re_.in_kernel, 1, 3, "reflect")] + [
+            (getattr(re_, f"down{j}_kernel"), 2, 1, "zero") for j in range(4)]
+        sites = {}
+        for name, (l, c, first, n, need_dx) in {
+                "range.pair0": (128, 1, 0, 2, False), "range.pair1": (64, 8, 2, 2, True),
+                "range.single": (16, 32, 4, 1, True)}.items():
+            stages = st[first:first + n]
+            x = rand(b, l, c)
+            with torch.no_grad():
+                y = fused.in_chain(x, stages)
+            g = rand(*y.shape)
+            sites[name] = (lambda g=g, x=x, stages=stages, need_dx=need_dx:
+                           backward.in_chain_bwd(g, x, stages, need_dx=need_dx))
+    elif args.kernel == "mlp":
+        model_2d = IInsVAE(cir_len=157, num_classes=5, style_dim=16, conv_type=2,
+                           generator=torch.Generator().manual_seed(0)).cuda()
+        sites = {}
+        for name, head in (("restorer", model.restorer.restorer),
+                           ("classifier", model.classifier.classifier),
+                           ("restorer.2d", model_2d.restorer.restorer)):
+            n = len(head.slopes)
+            ws = [getattr(head, f"w{j}") for j in range(n)]
+            bs = [getattr(head, f"b{j}") for j in range(n)]
+            x = rand(b, ws[0].shape[0])
+            with torch.no_grad():
+                _, ds = fused.launch_mlp_chain(x, ws, bs, head.slopes, save_pre=True)
+            g = rand(b, ws[-1].shape[1])
+            sites[name] = (lambda g=g, x=x, ws=ws, bs=bs, sl=head.slopes, ds=ds:
+                           backward.mlp_chain_bwd(g, x, ws, bs, sl, ds))
+    elif args.kernel == "res":
         x, g = rand(b, 8, 64), rand(b, 8, 64)
         block = [(re_.res0_kernel1, 1, 1, "reflect"), (re_.res0_kernel2, 1, 1, "reflect")]
         tables = [rand(b, 64) for _ in range(4)]
@@ -250,8 +358,12 @@ def main() -> int:
             rows.append(dict(phase=phase, **{f"{k}_ms": device_ms(f) for k, f in sites.items()}))
             print(f"[phase] {phase:<42} " + "  ".join(
                 f"{k} {rows[-1][f'{k}_ms'] * 1e3:8.2f} us" for k in sites), flush=True)
+        split = {k: kernel_split(f) for k, f in sites.items()}  # the whole kernel, last built
+    for k, ops in split.items():
+        print(f"[split] {k}: " + ", ".join(f"{n} {us:.2f} us" for n, us in ops.items()),
+              flush=True)
     res = dict(card=card_line(), torch=torch.__version__, tree=str(tree), kernel=kernel,
-               batch=b, phases=rows)
+               batch=b, phases=rows, device_us_by_kernel=split)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(res, indent=1))
     print(json.dumps(res), flush=True)

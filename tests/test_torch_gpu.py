@@ -456,6 +456,139 @@ def test_gpu_sln_chain_backward_general_path_matches_plain(cuda):
     _tail_grads_match((g, x, stages, rand(7, c, 1, scale=0.3), rand(1), 157), "general path")
 
 
+def _grads_match(wrapper, args, kw, what, need_dx=True, same_without_dx=True):
+    """Hold a backward wrapper's gradients against its plain version's, one launch a call,
+    bit-equal over two calls; with need_dx also without dx (the other gradients bit-equal where
+    same_without_dx: both calls take one path)."""
+    n = wrapper.launches
+    got = _tensors(wrapper(*args, **kw, need_dx=need_dx))
+    assert wrapper.launches == n + 1
+    want = _tensors(backward.PLAIN[wrapper](*args, **kw, need_dx=need_dx))
+    assert len(got) == len(want)
+    for i, (a, w) in enumerate(zip(got, want)):
+        assert torch.isfinite(a).all(), (what, i)
+        _close_scaled(a, w, BWD_RTOL, BWD_ATOL, f"{what} gradient {i}")
+    for a, b in zip(got, _tensors(wrapper(*args, **kw, need_dx=need_dx))):
+        assert torch.equal(a, b), what
+    if need_dx and same_without_dx:
+        no_dx = wrapper(*args, **kw, need_dx=False)
+        assert no_dx[0] is None
+        for a, b in zip(got[1:], _tensors(no_dx)):
+            assert torch.equal(a, b), what
+
+
+def _spy(monkeypatch, name):
+    """Count the calls of backward.<name> (a path's launcher) in a list."""
+    calls, fn = [], getattr(backward, name)
+
+    def spy(*args, **kw):
+        calls.append(args)
+        return fn(*args, **kw)
+    monkeypatch.setattr(backward, name, spy)
+    return calls
+
+
+# (input (L, C), first stage, stage count) of the range encoder's three stride-2 chains
+RANGE_CHAINS = {"range.pair0": ((128, 1), 0, 2), "range.pair1": ((64, 8), 2, 2),
+                "range.single": ((16, 32), 4, 1)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("site", list(RANGE_CHAINS))
+@pytest.mark.parametrize("batch", [1, 5, 261, 500])
+def test_gpu_range_chain_backward_matches_plain(cuda, monkeypatch, batch, site):
+    """K1b at the range encoder's stride-2 chains, on their own path (persistent blocks over
+    tiles of backward.DOWN_TILE samples; at 1, 5 and 261 the last tile is short): against the
+    plain version, bit-equal over two calls, range.pair0 without dx as the step calls it."""
+    (l, c), first, n = RANGE_CHAINS[site]
+    re_ = IInsVAE(**FLAGSHIP).encoder.range_encoder.to(cuda)
+    stages = ([(re_.in_kernel, 1, 3, "reflect")]
+              + [(getattr(re_, f"down{j}_kernel"), 2, 1, "zero") for j in range(4)])
+    stages = stages[first:first + n]
+    gen = torch.Generator().manual_seed(batch)
+    x = torch.randn((batch, l, c), generator=gen).to(cuda)
+    rows, lo, co = fused.stage_rows(x, stages)
+    assert rows == backward.DOWN_SITES[site]
+    g = torch.randn((batch, lo, co), generator=gen).to(cuda)
+    calls = _spy(monkeypatch, "_down_chain_bwd")
+    _grads_match(backward.in_chain_bwd, (g, x, stages), {}, f"{site} batch {batch}",
+                 need_dx=site != "range.pair0")
+    assert len(calls) == (2 if site == "range.pair0" else 3)
+
+
+@pytest.mark.gpu
+def test_gpu_in_chain_backward_general_path_matches_plain(cuda, monkeypatch):
+    """K1b's general kernel, which every chain but the residual block and the three range
+    chains runs: a stride-2 pair at half the flagship's width ((64, 4) -> (32, 8) -> (16, 16)),
+    a ragged batch, and range.pair0 with dx (its path computes none). Neither touches the range
+    chains' path."""
+    gen = torch.Generator().manual_seed(12)
+    x = torch.randn((7, 64, 4), generator=gen).to(cuda)
+    stages = [((torch.randn((4, 4, 8), generator=gen) / 4).to(cuda), 2, 1, "zero"),
+              ((torch.randn((4, 8, 16), generator=gen) / 6).to(cuda), 2, 1, "zero")]
+    g = torch.randn((7, 16, 16), generator=gen).to(cuda)
+    calls = _spy(monkeypatch, "_down_chain_bwd")
+    _grads_match(backward.in_chain_bwd, (g, x, stages), {}, "stride-2 pair")
+    re_ = IInsVAE(**FLAGSHIP).encoder.range_encoder.to(cuda)
+    pair0 = [(re_.in_kernel, 1, 3, "reflect"), (re_.down0_kernel, 2, 1, "zero")]
+    x0 = torch.randn((7, 128, 1), generator=gen).to(cuda)
+    g0 = torch.randn((7, 64, 8), generator=gen).to(cuda)
+    _grads_match(backward.in_chain_bwd, (g0, x0, pair0), {}, "range.pair0 with dx",
+                 same_without_dx=False)
+    assert not calls
+
+
+# K4b's call sites: the 1-D restorer, the classifier and the 2-D restorer
+MLP_HEADS = {"restorer": (1, "restorer"), "classifier": (1, "classifier"),
+             "restorer.2d": (2, "restorer")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head", list(MLP_HEADS))
+@pytest.mark.parametrize("batch", [1, 5, 261, 500])
+def test_gpu_mlp_chain_backward_matches_plain(cuda, batch, head):
+    """K4b at its three heads, batches that leave the tiles of samples and the chunks of the
+    weight gradient short: against the plain version, bit-equal over two calls and without dx,
+    from the pre-activations K4 saved."""
+    conv_type, attr = MLP_HEADS[head]
+    model = IInsVAE(**MODELS[conv_type]).to(cuda)
+    mod = getattr(getattr(model, attr), attr)
+    n = len(mod.slopes)
+    ws = [getattr(mod, f"w{j}") for j in range(n)]
+    bs = [getattr(mod, f"b{j}") for j in range(n)]
+    gen = torch.Generator().manual_seed(batch)
+    x = torch.randn((batch, ws[0].shape[0]), generator=gen).to(cuda)
+    with torch.no_grad():
+        _, ds = fused.launch_mlp_chain(x, ws, bs, mod.slopes, save_pre=True)
+    g = torch.randn((batch, ws[-1].shape[1]), generator=gen).to(cuda)
+    _grads_match(backward.mlp_chain_bwd, (g, x, ws, bs, mod.slopes, ds), {},
+                 f"{head} batch {batch}")
+
+
+# (widths, slopes) of chains no head has, on K4b's layer path (a width over 64): a last layer
+# 12 wide, one layer 9 or 4 wide, and widths no multiple of 4 (4-byte staging) with 16-input
+# chain tiles
+MLP_OTHER = {"wide_out": ((32, 96, 12), (0.2, 0.1)), "one_wide": ((80, 9), (0.3,)),
+             "one_narrow": ((100, 4), (0.3,)), "two_narrow": ((20, 70, 3), (0.2, 1.0))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chain", list(MLP_OTHER))
+@pytest.mark.parametrize("batch", [7, 300])
+def test_gpu_mlp_chain_backward_other_widths_match_plain(cuda, batch, chain):
+    """K4b's layer path at widths the heads do not give, against the plain version, bit-equal
+    over two calls and without dx."""
+    dims, slopes = MLP_OTHER[chain]
+    gen = torch.Generator().manual_seed(batch)
+    ws = [(torch.randn((a, k), generator=gen) / a ** 0.5).to(cuda) for a, k in zip(dims, dims[1:])]
+    bs = [(0.1 * torch.randn(k, generator=gen)).to(cuda) for k in dims[1:]]
+    x = torch.randn((batch, dims[0]), generator=gen).to(cuda)
+    with torch.no_grad():
+        _, ds = fused.launch_mlp_chain(x, ws, bs, slopes, save_pre=True)
+    g = torch.randn((batch, dims[-1]), generator=gen).to(cuda)
+    _grads_match(backward.mlp_chain_bwd, (g, x, ws, bs, slopes, ds), {}, f"{chain} batch {batch}")
+
+
 @pytest.mark.gpu
 def test_gpu_backward_wrappers_reject_what_the_kernels_do_not_take(cuda):
     m = IInsVAE(**FLAGSHIP).to(cuda)

@@ -333,3 +333,55 @@ def test_k6b_tiles_cover_every_sample_once_within_shared_memory(batch):
                 seen[t * backward.SLN_TAIL_TILE:(t + 1) * backward.SLN_TAIL_TILE] += 1
         assert (seen == 1).all()
     assert backward.SLN_TAIL_SMEM <= 227 * 1024
+
+
+@pytest.mark.parametrize("batch", [1, 5, 37, 261, 500])
+def test_k1b_range_chain_tiles_cover_every_sample_once_within_shared_memory(batch):
+    """K1b's path at the range encoder's stride-2 chains (csrc/in_chain_bwd.cu, namespace
+    down): block j of the grid takes tiles j, j + blocks, ..., so every sample must lie in
+    exactly one of those tiles, with the H100's 132 SMs and with fewer SMs than tiles. Its
+    three sites are the rows the flagship's range chains give (IN_CHAINS), and a block's shared
+    memory stays within the 227 KB a block can have on the H100."""
+    for sms in (132, 7):
+        tiles, blocks = backward.down_chain_plan(batch, sms)
+        assert 1 <= blocks <= min(sms, tiles)
+        seen = np.zeros(batch, dtype=int)
+        for j in range(blocks):
+            for t in range(j, tiles, blocks):
+                assert t * backward.DOWN_TILE < batch
+                seen[t * backward.DOWN_TILE:(t + 1) * backward.DOWN_TILE] += 1
+        assert (seen == 1).all()
+    for name in ("pair0", "pair1", "single"):
+        l_in, c_in, stages = IN_CHAINS[name]
+        c_ins = [c_in] + [st[1] for st in stages]
+        rows, _, _ = fused.stage_rows(torch.zeros((batch, l_in, c_in)),
+                                      [(torch.zeros((k, c, c_out)), s, p, m)
+                                       for (k, c_out, s, p, m), c in zip(stages, c_ins)])
+        assert rows == backward.DOWN_SITES[f"range.{name}"]
+        assert backward.DOWN_SMEM[f"range.{name}"] == 4 * backward.down_floats(rows)
+        assert backward.DOWN_SMEM[f"range.{name}"] <= 227 * 1024, name
+
+
+@pytest.mark.parametrize("batch", [1, 5, 37, 261, 500, 1001])
+@pytest.mark.parametrize("head", list(MLPS) + ["restorer_2d"])
+def test_k4b_batch_split_covers_every_row_once(batch, head):
+    """K4b's weight gradient sums the batch in chunks, each into its own partial row
+    (csrc/mlp_chain_bwd.cu): the chunks are in order, contiguous, cover every sample exactly
+    once, and hold at most the samples a block stages; the partial rows of the largest head
+    (the 2-D restorer, 128 -> 512 -> 256 -> 256 -> 1) stay a few MB at batch 500."""
+    dims = MLPS[head][0] if head in MLPS else (128, 512, 256, 256, 1)
+    chunks = backward.mlp_split_plan(batch, dims)
+    small = max(dims) <= backward.MLP_SMALL_WIDTH
+    assert small == (head == "classifier")
+    limit = backward.MLP_SMALL_ROWS if small else backward.MLP_CHUNK_ROWS
+    assert len(chunks) >= (1 if small else backward.MLP_MIN_SPLIT)
+    seen = np.zeros(batch, dtype=int)
+    end = 0
+    for a, b in chunks:
+        assert a == end and a <= b <= min(batch, a + limit)
+        seen[a:b] += 1
+        end = b
+    assert (seen == 1).all()
+    total = sum((a + 1) * k for a, k in zip(dims, dims[1:]))
+    if batch <= 500:
+        assert 4 * len(chunks) * total < 8 * 2 ** 20
