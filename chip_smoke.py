@@ -13,8 +13,14 @@
    of 25 replays; the kernel's eager back-to-back time (the host's
    dispatch) beside it; where no call computes the whole op, one cuDNN
    conv of the same data (TF32 off) is timed as a yardstick, marked with a
-   double dagger: one k3 reflect conv of K1's and K5's residual blocks,
-   stage 0's k5 conv of K6 on the upsampled input (500, 64, 16);
+   double dagger: the widest conv of K1's range chains, one k3 reflect conv
+   of K1's and K5's residual blocks, stage 0's k5 conv of K6 on the
+   upsampled input (500, 64, 16), and for K4 one fp32 torch.mm of the
+   head's largest layer; at the residual blocks (``range.res``,
+   ``dec.res``) also the device kernel a call launches (their own kernel,
+   ``res::res_block_kernel``), two calls bit-equal, and the output bit-equal
+   to the general kernel's on the same inputs (a second oracle; a mismatch
+   fails the run);
 4. serves the flagship 1-D model at full width (seeded weights) through
    ``Predictor(device="cuda")`` on two paths, each on 3 batches of 500 CIRs
    and a ragged 137 with every launch counter set to 0 just before and
@@ -36,7 +42,9 @@
    dW of the head's largest layer) beside K4b; each call bit-equal over two
    calls, and the device kernels it launches named (the path it took);
    then holds every 1-D forward and backward kernel call at the ragged
-   batches 5 and 261 against its plain version (``[ragged]`` lines);
+   batches 5 and 261 against its plain version, the residual blocks'
+   forward also bit for bit against the general kernel (``[ragged]``
+   lines);
 7. trains the flagship (seeded weights) on the synthetic room_full fixture
    (10000 CIRs, the 'full' split's 8000 train CIRs standardized, batch 500)
    through ``cli.train_semi.build`` and ``training.loop.train_epochs``:
@@ -324,13 +332,24 @@ def call_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list[dic
     def rand(*shape):
         return torch.randn(shape, generator=gen).to(dev)
 
+    yard_gen = torch.Generator().manual_seed(98)  # the yardsticks' data, apart from the sites'
+
+    def rand_yard(*shape):
+        return torch.randn(shape, generator=yard_gen).to(dev)
+
     sites = []
 
     def add_in_chain(name, x, stages, replaces, residual=False, calls=1, **more):
-        l, flops = x.shape[1], 0.0
+        l, flops, widest = x.shape[1], 0.0, (0.0, None)
         for taps, s, p, mode in stages:
-            flops += conv_flops(b, l, taps, s, p, mode)
+            f = conv_flops(b, l, taps, s, p, mode)
+            flops += f
+            widest = max(widest, (f, (l, taps, s, p, mode)), key=lambda w: w[0])
             l = out_len(l, taps.shape[0], s, p)
+        if "cudnn_conv" not in more:  # the chain's widest conv
+            l_w, t_w, s_w, p_w, mode_w = widest[1]
+            more["cudnn_conv"] = ncl_conv(rand_yard(b, l_w, t_w.shape[1]), t_w, None, s_w, p_w,
+                                          mode_w)
         y_numel = b * l * stages[-1][0].shape[2]
         sites.append(dict(
             name=name, kernel="in_chain", replaces=replaces, calls_per_batch=calls,
@@ -360,11 +379,15 @@ def call_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list[dic
         ws = [getattr(head, f"w{j}") for j in range(n)]
         bs = [getattr(head, f"b{j}") for j in range(n)]
         x = rand(b, ws[0].shape[0])
+        j = max(range(n), key=lambda i: ws[i].numel())  # the yardstick: the largest layer's mm
+        x_j, w_j = rand_yard(b, ws[j].shape[0]), ws[j].detach()
         sites.append(dict(
             name=name, kernel="mlp_chain", replaces=replaces, calls_per_batch=1,
             shape="->".join(str(d) for d in [ws[0].shape[0]] + [w.shape[1] for w in ws]),
             run=lambda: fused.mlp_chain(x, ws, bs, head.slopes),
             plain=lambda: fused.mlp_chain_ref(x, ws, bs, head.slopes), library=None,
+            cudnn_conv=lambda: torch.mm(x_j, w_j),
+            yardstick=f"torch.mm of its {ws[j].shape[0]}->{ws[j].shape[1]} layer",
             bytes=nbytes(x, *ws, *bs) + 4 * b * ws[-1].shape[1],
             flops=2.0 * b * sum(w.numel() for w in ws)))
 
@@ -388,10 +411,10 @@ def call_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list[dic
     add_in_chain("range.pair1", rand(b, 64, 8), stages[2:4], f"{fp}:361")
     add_in_chain("range.single", rand(b, 16, 32), stages[4:5], f"{fp}:1320")
     x = rand(b, 8, 64)
-    add_in_chain("range.res", x,
-                 [(re_.res0_kernel1, 1, 1, "reflect"), (re_.res0_kernel2, 1, 1, "reflect")],
-                 f"{fp}:253", residual=True, calls=3,
-                 cudnn_conv=ncl_conv(x, re_.res0_kernel1, None, 1, 1, "reflect"))
+    block = [(re_.res0_kernel1, 1, 1, "reflect"), (re_.res0_kernel2, 1, 1, "reflect")]
+    add_in_chain("range.res", x, block, f"{fp}:253", residual=True, calls=3,
+                 cudnn_conv=ncl_conv(x, re_.res0_kernel1, None, 1, 1, "reflect"),
+                 general=lambda x=x: fused.launch_in_chain(x, block, True, general=True))
     add_conv("range.out", "conv_bias_act", rand(b, 8, 64), re_.out_kernel, re_.out_bias,
              1, 0, "zero", f"{fp}:1320")
     c0, c1, c2 = ee.ConvINAct_0, ee.ConvINAct_1, ee.ConvINAct_2
@@ -414,6 +437,7 @@ def call_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list[dic
         shape=f"{tuple(x.shape)}->{tuple(x.shape)}",
         run=lambda: fused.adain_res_block(x, k1, k2, *affine),
         plain=lambda: fused.adain_res_block_ref(x, k1, k2, *affine), library=None,
+        general=lambda: fused.launch_adain_res_block(x, k1, k2, *affine, general=True),
         cudnn_conv=ncl_conv(x, k1, None, 1, 1, "reflect"), bytes=nbytes(x, k1, k2, *affine, x),
         flops=2 * conv_flops(b, 8, k1, 1, 1, "reflect")))
     xt = rand(b, 8, 64)
@@ -441,13 +465,17 @@ def call_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list[dic
 
 def compare_forward(s: dict, what: str = "") -> tuple[float, float]:
     """A forward site's kernel output against its plain version: finite and
-    within KERNEL_RTOL / KERNEL_ATOL. Returns the largest absolute and
-    relative errors."""
+    within KERNEL_RTOL / KERNEL_ATOL; where the site has a second oracle
+    (``general``: the general kernel at the residual blocks), bit-equal to
+    it. Returns the largest absolute and relative errors."""
     got, want = s["run"](), s["plain"]()
     torch.cuda.synchronize()
     name = f"{s['name']}{what}"
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: non-finite kernel output")
+    if "general" in s and not torch.equal(got, s["general"]()):
+        raise AssertionError(f"{name}: the kernel's output is not bit-equal to the general "
+                             f"kernel's")
     torch.testing.assert_close(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
                                msg=lambda m: f"{name} kernel vs plain: {m}")
     err = (got - want).abs()
@@ -481,6 +509,12 @@ def check_and_time(sites: list[dict], tag: str = "kernel") -> list[dict]:
     rows = []
     for s in sites:
         abs_err, rel = compare_forward(s)
+        oracle = {}
+        if "general" in s:  # compare_forward held it bit for bit to the general kernel
+            if not bit_equal_calls(s["run"]):
+                raise AssertionError(f"{s['name']}: two calls of the kernel are not bit-equal")
+            oracle = dict(bit_equal_to_general=True, bit_equal_over_two_calls=True,
+                          general_ms=device_ms(s["general"]))
         bytes_ms = s["bytes"] / PEAK_BYTES_PER_S * 1e3
         flops_ms = s["flops"] / PEAK_FP32_FLOP_PER_S * 1e3
         rows.append(dict(
@@ -490,16 +524,26 @@ def check_and_time(sites: list[dict], tag: str = "kernel") -> list[dict]:
             plain_ms=device_ms(s["plain"]),
             library_ms=device_ms(s["library"]) if s["library"] else None,
             cudnn_conv_ms=device_ms(s["cudnn_conv"]) if "cudnn_conv" in s else None,
+            yardstick=s.get("yardstick", "cuDNN conv") if "cudnn_conv" in s else None,
             bytes=s["bytes"], flops=s["flops"], bound_ms=max(bytes_ms, flops_ms),
-            bound_by="bytes" if bytes_ms >= flops_ms else "operations"))
+            bound_by="bytes" if bytes_ms >= flops_ms else "operations", **oracle))
         r = rows[-1]
         print(f"[{tag}] {r['name']:<16} {r['shape']:<34} max_abs_err {r['max_abs_err']:.3e} "
               f"max_rel_err {r['max_rel_err']:.3e}  {r['ms'] * 1e3:8.2f} us (eager "
               f"{r['eager_ms'] * 1e3:.2f})  plain "
               f"{r['plain_ms'] * 1e3:8.2f} us  bound {r['bound_ms'] * 1e3:6.2f} us "
-              f"({r['bound_by']})" + (f"  cuDNN conv (double dagger) "
+              f"({r['bound_by']})" + (f"  {r['yardstick']} (double dagger) "
                                       f"{r['cudnn_conv_ms'] * 1e3:.2f} us"
-                                      if r["cudnn_conv_ms"] is not None else ""), flush=True)
+                                      if r["cudnn_conv_ms"] is not None else "")
+              + (f"  bit-equal to the general kernel ({r['general_ms'] * 1e3:.2f} us) and over "
+                 "two calls" if oracle else ""), flush=True)
+    # the device kernels of the sites with a second oracle, traced once every site is timed: the
+    # device times of small kernels read a few tenths of a us longer after a profiler session
+    for r, s in zip(rows, sites):
+        if "general" in s:
+            r["device_kernels"] = device_kernels(s["run"])
+            print(f"[{tag}] {r['name']}: kernels " + ", ".join(
+                f"{k} x{v}" for k, v in r["device_kernels"].items()), flush=True)
     return rows
 
 
@@ -866,8 +910,8 @@ def ragged_checks(model: IInsVAE) -> dict:
         out[b] = errs
         k3 = max(v for k, v in errs.items() if k.startswith("strided_conv"))
         print(f"[ragged] batch {b}: all {len(errs)} 1-D kernel calls within tolerance of their "
-              f"plain versions, largest error {max(errs.values()):.3e} (K3, K3b: {k3:.3e})",
-              flush=True)
+              f"plain versions, largest error {max(errs.values()):.3e} (K3, K3b: {k3:.3e}); "
+              "K1 and K5 at the residual blocks bit-equal to the general kernel", flush=True)
     return out
 
 
@@ -1488,7 +1532,8 @@ def main() -> int:
     kernel_table = kernel_rows(
         site_rows, names_1d, launches, per_fwd,
         {k: dict(launches_no_recon=launches_no_recon[k], launches_train=training["launches"][k],
-                 **conv_yardstick(site_rows, k, "cudnn_conv_ms")) for k in names_1d})
+                 **conv_yardstick(site_rows, k, "mm_ms" if k == "mlp_chain" else "cudnn_conv_ms"))
+         for k in names_1d})
     kernel_table += kernel_rows(
         site_rows_2d, ["res_block_2d"], launches_2d, per_fwd + ", conv_type 2",
         {"res_block_2d": dict(launches_no_recon=launches_2d_no_recon["res_block_2d"],

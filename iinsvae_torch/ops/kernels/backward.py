@@ -31,7 +31,8 @@ from typing import Callable, Sequence
 import torch
 
 from iinsvae_torch.ops.kernels import _build, fused, res2d, strided_conv
-from iinsvae_torch.ops.kernels.fused import SLN_STAGES, Stage, UpStage, _round4
+from iinsvae_torch.ops.kernels.fused import (RES_C, RES_L, RES_STAGE, SLN_STAGES, Stage, UpStage,
+                                             _round4)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -68,9 +69,8 @@ def _split(flat: torch.Tensor, shapes) -> list[torch.Tensor]:
 # residual blocks (L, C) = (8, 64), both convs k3, stride 1, reflect pad 1: tiles of RES_TILE
 # samples, at most one persistent block a SM, RES_SMEM bytes of shared memory a block (both
 # convs' taps, rows of RES_C + 4 floats, and the tile's buffers), as the source lays them out.
-RES_L, RES_C, RES_TILE = 8, 64, 4
+RES_TILE = 4
 RES_SMEM = 4 * (RES_C + 4) * (2 * 3 * RES_C + RES_TILE * (2 * (RES_L + 2) + 3 * RES_L))
-RES_STAGE = [3, 1, 1, 1, RES_L, RES_C, RES_L, RES_C]
 
 
 def chain_floats(rows: Sequence[int]) -> int:
@@ -86,6 +86,24 @@ def res_block_plan(batch: int, sms: int) -> tuple[int, int]:
     j + blocks, ..., tile t the samples t * RES_TILE .. (t + 1) * RES_TILE - 1 below batch."""
     tiles = -(-batch // RES_TILE)
     return tiles, min(tiles, sms)
+
+
+# K1's and K5's forward at the residual blocks (csrc/in_chain.cu, namespace res): tiles of 4
+# samples, or of 2 where tiles of 4 would leave more than half the SMs without one; at most one
+# persistent block a SM; RES_FWD_SMEM[tile] bytes of shared memory a block (both convs' taps,
+# unpadded; x and the mid-block activation with their halo rows, and the conv output, in rows of
+# RES_C + 4 floats; four 8-byte mbarriers), as the source lays them out.
+RES_FWD_SMEM = {t: 4 * (6 * RES_C * RES_C + t * (3 * RES_L + 4) * (RES_C + 4) + 8)
+                for t in (2, 4)}
+
+
+def res_fwd_plan(batch: int, sms: int) -> tuple[int, int, int]:
+    """-> (tile, tiles, blocks) of K1's and K5's residual-block kernel: block j of the grid
+    takes tiles j, j + blocks, ..., tile t the samples t * tile .. (t + 1) * tile - 1 below
+    batch."""
+    tile = 4 if -(-batch // 4) > sms // 2 else 2
+    tiles = -(-batch // tile)
+    return tile, tiles, min(tiles, sms)
 
 
 # K1b's path at the range encoder's stride-2 chains (csrc/in_chain_bwd.cu, namespace down): the

@@ -1,7 +1,10 @@
 // Dynamic shared memory above the default 48 KB, and 16-byte (or 4-byte)
 // cp.async copies into it: the staging of K3 and K3b (strided_conv.cuh), of
 // K1b's residual-block and range-chain paths (in_chain_bwd.cu) and of K4b
-// (mlp_chain_bwd.cu). Pointers of 16-byte copies are 16-byte aligned.
+// (mlp_chain_bwd.cu). Pointers of 16-byte copies are 16-byte aligned. And
+// bulk copies (one instruction a block of bytes, the copy engine's 1-D form)
+// that complete on an mbarrier: the taps of K1's and K5's residual blocks
+// (in_chain.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -44,4 +47,53 @@ __device__ __forceinline__ void cp_async_wait() {
 // Commit this thread's copies and wait for all of them.
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// An mbarrier of one arrival, for a block's bulk copies; then fence.mbarrier_init and a
+// __syncthreads before any copy names it.
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// The barrier's one arrival, expecting `bytes` of bulk copies before its phase 0 completes.
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until phase 0 of the barrier completes: its copies have landed and are visible to the
+// waiting thread. Traps after about 2 s at the H100's clock rather than hang.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar) {
+  const long long start = clock64();
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar))
+        : "memory");
+    if (done) return;
+    if (clock64() - start > 4000000000LL) __trap();
+  }
+}
+
+// Copy `bytes` (a multiple of 16, both ends 16-byte aligned) from src (global) to dst (shared)
+// as one bulk copy that completes its bytes on bar.
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }

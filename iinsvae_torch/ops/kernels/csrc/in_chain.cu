@@ -50,9 +50,46 @@
 // then the mean of (x - mean)^2. No E[x^2] - mean^2, which cancels below
 // zero on near-constant channels. There is no conv bias before the norm:
 // the norm would remove it.
+//
+// The residual block at the model's shape, (L, C) = (8, 64), two k3 reflect-
+// pad-1 convs (K1's three range-encoder blocks, fused_res_block's pallas_call
+// :215, kernel _fwd_resblock_kernel :172; K5's three decoder blocks, :508,
+// _fwd_adain_block_kernel :382), runs its own kernel (namespace res below);
+// every other shape (K1's range chains, K8) runs the general kernel. There the
+// general kernel took 27.3-28.2 us at batch 500 (H100), 9.5x its bound: 250
+// blocks of 2 samples under the 48 KB default, each re-reading both convs'
+// taps, and every output thread reading its taps from global memory (a float4
+// for 4 multiply-adds). The res kernel:
+// - both convs' taps sit in shared memory (2 x 48 KB, unpadded: a warp reads
+//   64 contiguous bytes of a row), staged once a block as six bulk copies of
+//   16 KB, each W1 tap on an mbarrier of its own, so conv 1 starts on tap 0
+//   while the rest lands (6,144 cp.async copies of 16 B a block staged them
+//   slower, and a cluster multicast of the copies slower still);
+// - one persistent block a SM (256 threads) walks tiles of 4 whole samples,
+//   or of 2 where tiles of 4 would leave more than half the SMs without one
+//   (backward.res_fwd_plan: 125 blocks at batch 500, 128 at 256); x and the
+//   mid-block activation sit in shared memory with their reflect halo rows
+//   (rows of C + 4 floats, so a warp's 8 rows fall on distinct banks), so
+//   every window is contiguous and unmasked;
+// - the convs run on warps 0-3, a thread 1 row x 4 channels of every sample
+//   of the tile, its operands loaded into registers one step ahead
+//   (res_block.cuh's conv_tile: kTile + 4 float4 loads for 16 kTile
+//   multiply-adds). The phase times read as if a 128-bit shared load costs
+//   about 4 cycles of the SM's shared-memory pipe whatever its broadcast, so
+//   at 4 samples an SM the loads, not the FMAs, set the pace: 1 x 4 of 2
+//   samples a thread on all 8 warps was slower. Full fp32 FMAs, no TF32;
+// - IN, K5's affine, the ReLU and the skip run in registers on K1's own two
+//   lanes a row, on all 8 warps; y is written once, in contiguous float4s;
+// - every sum in the general kernel's order (each conv output one fmaf chain
+//   from 0 over t, then ci; the IN statistics two-pass on two lanes; the skip
+//   one __fadd_rn, spelled out in both), so its output is the general
+//   kernel's bit for bit, and K1b/K5b's recompute, which shares res_block.cuh,
+//   is the forward's.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "res_block.cuh"
 
 namespace {
 
@@ -166,7 +203,7 @@ __device__ void norm_stage(float* y, const float* skip, bool relu, int l, int c,
         float v = (ys[i * c] - mean) * rs;
         if constexpr (kAdain) v = fmaf(v, ga, be);
         if (relu) v = fmaxf(v, 0.f);
-        ys[i * c] = ks ? v + ks[i * c] : v;
+        ys[i * c] = ks ? __fadd_rn(v, ks[i * c]) : v;  // as res::res_block_kernel: no FMA
       }
     }
   }
@@ -291,6 +328,177 @@ int launch_chain(const float* x, const float* w1, const float* w2, float* y, int
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// The residual block's path: K1's residual block (IN) and K5 (AdaIN) at the model's shape,
+// (L, C) = (8, 64), both convs k3, stride 1, reflect pad 1 (res_block.cuh).
+namespace res {
+
+constexpr int kThreads = 256;
+constexpr int kTapFloats = kC * kC;  // one tap's (C, C) taps
+
+// Floats of a block's shared memory at tiles of kTile samples: both convs' taps (unpadded), x
+// and y1 with their halo rows, the conv output, and four mbarriers.
+template <int kTile>
+constexpr int smem_floats() {
+  return 6 * kTapFloats + kTile * (2 * kH + kL) * kLd + 8;
+}
+
+// One persistent block a SM walks tiles of kTile samples (tile b, b + grid, ...). Per tile:
+//   (1) z = conv(x, W1)               warps 0-3: 1 row x 4 channels x the kTile samples a thread
+//   (2) y1 = relu(IN(z) [* g1 + b1])  all 8 warps: a (sample, channel) row a thread pair
+//   (3) z = conv(y1, W2)              warps 0-3
+//   (4) z = IN(z) [* g2 + b2] + x, in place
+//   (5) y = z, in contiguous float4s.
+// The taps arrive as six bulk copies, one a tap, each W1 tap on a barrier of its own: (1)
+// starts on tap 0 while taps 1-2 land, W2 lands behind (1) and (2). The last stage's sum is
+// __fadd_rn(v, x), as the general kernel's norm_stage spells it, so neither may contract it
+// into an FMA and both give the same bits.
+template <bool kAdain, int kTile>
+__global__ void __launch_bounds__(kThreads, 1)
+res_block_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+                 const float* __restrict__ w2, float* __restrict__ y, int batch, int n_tiles,
+                 Affine af) {
+  constexpr int kPairs = kThreads / 2;            // thread pairs
+  constexpr int kPasses = kTile * kC / kPairs;    // norm rows a thread pair
+  static_assert(kL == 8 && kThreads == 256 && (kTile == 2 || kTile == 4), "res layouts");
+  extern __shared__ __align__(16) float smem[];
+  float* w1s = smem;                  // (t, ci, co), rows of C floats
+  float* w2s = w1s + 3 * kTapFloats;
+  float* xs = w2s + 3 * kTapFloats;   // x with halo rows
+  float* y1 = xs + kTile * kH * kLd;  // y1 with halo rows
+  float* z = y1 + kTile * kH * kLd;   // z1, then z2, then y
+  // bars[t]: W1's tap t; bars[3]: W2
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(z + kTile * kL * kLd);
+  const int pr = threadIdx.x >> 1, par = threadIdx.x & 1;
+  const bool conv = threadIdx.x < 128;  // warps 0-3
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 4; ++i) mbar_init(bars + i);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {  // the taps, a bulk copy a tap
+    for (int t = 0; t < 3; ++t) mbar_expect_tx(bars + t, kTapFloats * 4);
+    mbar_expect_tx(bars + 3, 3 * kTapFloats * 4);
+    for (int t = 0; t < 6; ++t)
+      bulk_copy(w1s + t * kTapFloats, t < 3 ? w1 + t * kTapFloats : w2 + (t - 3) * kTapFloats,
+                kTapFloats * 4, bars + (t < 3 ? t : 3));
+  }
+  int tile = blockIdx.x;
+  stage_halo<kTile, kThreads>(x, tile * kTile, min(kTile, batch - tile * kTile), xs);
+  cp_async_commit();
+  for (bool first = true; tile < n_tiles; tile += gridDim.x, first = false) {
+    const int s0 = tile * kTile, ns = min(kTile, batch - s0);
+    // the thread pair's rows: pass j holds (sample sn[j], channel cn[j]); K5's tables of them,
+    // loaded ahead of the norms
+    int sn[kPasses], cn[kPasses];
+    float ga1[kPasses], be1[kPasses], ga2[kPasses], be2[kPasses];
+#pragma unroll
+    for (int j = 0; j < kPasses; ++j) {
+      const int p = pr + j * kPairs;
+      sn[j] = p / kC;
+      cn[j] = p % kC;
+      if constexpr (kAdain) {
+        const bool real = sn[j] < ns;
+        const size_t tab = static_cast<size_t>(s0 + (real ? sn[j] : 0)) * kC + cn[j];
+        ga1[j] = real ? __ldg(af.g1 + tab) : 0.f;
+        be1[j] = real ? __ldg(af.b1 + tab) : 0.f;
+        ga2[j] = real ? __ldg(af.g2 + tab) : 0.f;
+        be2[j] = real ? __ldg(af.b2 + tab) : 0.f;
+      }
+    }
+    if (!first) {
+      __syncthreads();  // the last tile's reads of xs and z are done
+      stage_halo<kTile, kThreads>(x, s0, ns, xs);
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    // (1) on warps 0-3; the first tile tap by tap, the other warps at the same barriers
+    const auto tap = [&](int t) {
+      if (first) {
+        if (t == 0) {
+          cp_async_wait<0>();
+          __syncthreads();
+        }
+        mbar_wait(bars + t);
+      }
+    };
+    if (conv)
+      conv_tile<kTile, true, kC>(xs, w1s, z, tap);
+    else
+      for (int t = 0; t < 3; ++t) tap(t);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kPasses; ++j) {  // (2); row 1's lane also writes its copy above the
+      // sample, row L-2's lane below it
+      const RowNorm n = row_norm(z + (sn[j] * kL + par) * kLd + cn[j]);
+#pragma unroll
+      for (int k = 0; k < kL / 2; ++k) {
+        float v = n.yh[k];
+        if constexpr (kAdain) v = fmaf(v, ga1[j], be1[j]);
+        v = fmaxf(v, 0.f);
+        const int l = par + 2 * k;
+        float* dst = y1 + (sn[j] * kH + l + 1) * kLd + cn[j];
+        *dst = v;
+        if (l == 1) dst[-2 * kLd] = v;
+        if (l == kL - 2) dst[2 * kLd] = v;
+      }
+    }
+    if (first) mbar_wait(bars + 3);
+    __syncthreads();
+    if (conv) conv_tile<kTile, true, kC>(y1, w2s, z, [](int) {});  // (3)
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kPasses; ++j) {  // (4)
+      float* zs = z + (sn[j] * kL + par) * kLd + cn[j];
+      const float* xr = xs + (sn[j] * kH + par + 1) * kLd + cn[j];
+      const RowNorm n = row_norm(zs);
+#pragma unroll
+      for (int k = 0; k < kL / 2; ++k) {
+        float v = n.yh[k];
+        if constexpr (kAdain) v = fmaf(v, ga2[j], be2[j]);
+        zs[2 * k * kLd] = __fadd_rn(v, xr[2 * k * kLd]);
+      }
+    }
+    __syncthreads();
+    float* yg = y + static_cast<size_t>(s0) * kL * kC;  // (5)
+    for (int i = threadIdx.x; i < ns * kL * kC / 4; i += kThreads) {
+      const int r = i / (kC / 4), c = (i - r * (kC / 4)) * 4;
+      *reinterpret_cast<float4*>(yg + r * kC + c) = lds4(z + r * kLd + c);
+    }
+  }
+}
+
+int smem_set[2][2] = {};
+
+template <bool kAdain, int kTile>
+int launch_tile(const float* x, const float* w1, const float* w2, float* y, int batch,
+                int n_tiles, int grid, Affine af, cudaStream_t s) {
+  constexpr int smem = smem_floats<kTile>() * static_cast<int>(sizeof(float));
+  const int err =
+      allow_smem(res_block_kernel<kAdain, kTile>, smem, &smem_set[kAdain][kTile == 4]);
+  if (err) return err;
+  res_block_kernel<kAdain, kTile><<<grid, kThreads, smem, s>>>(x, w1, w2, y, batch, n_tiles, af);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kAdain>
+int launch(const float* x, const float* w1, const float* w2, float* y, int batch, int l, int c,
+           int tile, int grid, int smem, Affine af, void* stream) {
+  if (batch <= 0 || l != kL || c != kC || (tile != 2 && tile != 4)) return cudaErrorInvalidValue;
+  const int n_tiles = (batch + tile - 1) / tile;
+  const int want = (tile == 4 ? smem_floats<4>() : smem_floats<2>()) * sizeof(float);
+  if (grid < 1 || grid > n_tiles || smem != want) return cudaErrorInvalidValue;
+  for (const void* p : {static_cast<const void*>(x), static_cast<const void*>(w1),
+                        static_cast<const void*>(w2), static_cast<const void*>(y)})
+    if (reinterpret_cast<std::uintptr_t>(p) % 16) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return tile == 4 ? launch_tile<kAdain, 4>(x, w1, w2, y, batch, n_tiles, grid, af, s)
+                   : launch_tile<kAdain, 2>(x, w1, w2, y, batch, n_tiles, grid, af, s);
+}
+
+}  // namespace res
+
 extern "C" {
 
 const char* iins_error_string(int err) {
@@ -323,6 +531,21 @@ int iins_adain_layer(const float* x, const float* w, const float* g, const float
   if (!g || !b) return cudaErrorInvalidValue;
   return launch_chain<true>(x, w, w, y, batch, stage, 1, 0, relu != 0, res, spb,
                             Affine{g, b, nullptr, nullptr}, stream);
+}
+
+// K1's residual block (IN: every table null) or K5 (AdaIN) at (l, c) = (8, 64) on the
+// residual block's own path: x, y (B, 8, 64); w1, w2 (3, 64, 64), reflect pad 1; K5's tables
+// g1, b1, g2, b2 (B, 64). tile (2 or 4 samples), grid (the persistent blocks, 1 ..
+// ceil(B / tile)) and smem (a block's dynamic shared memory) as backward.res_fwd_plan and
+// RES_FWD_SMEM give them; the launch refuses any other.
+int iins_res_block(const float* x, const float* w1, const float* w2, const float* g1,
+                   const float* b1, const float* g2, const float* b2, float* y, int batch, int l,
+                   int c, int tile, int grid, int smem, void* stream) {
+  if (!g1 && !b1 && !g2 && !b2)
+    return res::launch<false>(x, w1, w2, y, batch, l, c, tile, grid, smem, Affine{}, stream);
+  if (!g1 || !b1 || !g2 || !b2) return cudaErrorInvalidValue;
+  return res::launch<true>(x, w1, w2, y, batch, l, c, tile, grid, smem, Affine{g1, b1, g2, b2},
+                           stream);
 }
 
 // stage: (k, stride, pad, reflect, l_in, c_in, l_out, c_out).

@@ -9,10 +9,12 @@
 // _bwd_adain_block_kernel :397), and as K8b that of fused_adain_layer
 // (:686, _bwd_adain_kernel :591). The Pallas bodies read the saved pre-norm
 // activations and return the gradient of the dense, pre-centred conv
-// matrix; this kernel saves nothing in the forward (K1 and K5 run
-// unchanged) and recomputes the chain from the saved input in shared
+// matrix; this kernel saves nothing in the forward (K1 and K5 save only
+// their input) and recomputes the chain from the saved input in shared
 // memory, as the forward computed it, then returns the gradient of the
-// (k, C_in, C_out) taps directly.
+// (k, C_in, C_out) taps directly. At the residual block the recompute and
+// K1's and K5's forward kernel share res_block.cuh's staging, conv and norm
+// statistics.
 //
 // Per stage, backward from the stage output's gradient g:
 //   gh  = g where h > 0 (ReLU, fused.py:127) or g (no ReLU; the chain
@@ -74,11 +76,11 @@
 //   with the reflect halo rows, so each window is contiguous and unmasked;
 // - the products are register-tiled so that a multiply-add takes few bytes
 //   from shared memory, which delivers 128 B a clock to an SM's lanes: the
-//   recomputes 4 rows x 4 channels a thread (warps 0-3, 2 B a multiply-add),
-//   each output one fmaf chain over t, then ci ascending, as K1's
-//   conv_points sums it, so the ReLU masks and IN statistics are the
-//   forward's bit for bit; dx 8 rows x 1 channel a thread (warps 0-7), the
-//   reflect fold fixed at compile time; d(taps) 3 taps x 2 input x 4 output
+//   recomputes 4 samples x 4 channels a thread (warps 0-3, 2 B a
+//   multiply-add), each output one fmaf chain over t, then ci ascending, as
+//   K1's kernels sum it (res_block.cuh), so the ReLU masks and IN
+//   statistics are the forward's bit for bit; dx 8 rows x 1 channel a thread
+//   (warps 0-7), the reflect fold fixed at compile time; d(taps) 3 taps x 2 input x 4 output
 //   channels a thread (all 16 warps), kept in registers over all the
 //   block's tiles;
 // - a block writes one partial row of both convs' d(taps) (125 rows, 12.3 MB
@@ -106,6 +108,7 @@
 //   each row are fixed at compile time.
 #include "async_smem.cuh"
 #include "conv_bwd_common.cuh"
+#include "res_block.cuh"
 
 namespace {
 
@@ -356,26 +359,15 @@ namespace res {
 
 using iins::aligned16;
 
-constexpr int kL = 8, kC = 64;  // rows and channels a sample
-constexpr int kS = 4;           // samples a tile
-constexpr int kH = kL + 2;      // staged rows a sample: row 1 above it, row L-2 below (reflect)
-constexpr int kLd = kC + 4;     // floats a staged row: 16-byte rows, 8 rows on distinct banks
+constexpr int kS = 4;  // samples a tile
 constexpr int kThreads = 512;
-constexpr int kTaps = 3 * kC * kC;
-constexpr int kWFloats = 3 * kC * kLd;     // one conv's taps (t, ci, co), a ci row kLd floats
 constexpr int kHaloFloats = kS * kH * kLd;  // a tile with its halo rows
 constexpr int kTileFloats = kS * kL * kLd;
 constexpr int kSmemBytes =
     (2 * kWFloats + 2 * kHaloFloats + 3 * kTileFloats) * static_cast<int>(sizeof(float));
-constexpr float kInvL = 1.f / kL;
 // the thread layouts below are written for this shape: a (sample, channel) row of a norm to
 // each thread pair, 4 warps x 32 lanes of 4 x 4 recomputed outputs, 4 x 64 dx rows
 static_assert(kL == 8 && kC == 64 && kS == 4 && kThreads == 2 * kS * kC, "res layouts");
-
-// The row that tap t of output row l reads (reflect pad 1).
-__host__ __device__ constexpr int reflect(int v) {
-  return v < 0 ? -v : v >= kL ? 2 * kL - 2 - v : v;
-}
 
 // One conv's taps (3, C, C) into w, cp.async.
 __device__ void stage_taps(const float* __restrict__ w, float* ws) {
@@ -391,13 +383,7 @@ __device__ void stage_taps(const float* __restrict__ w, float* ws) {
 __device__ void stage_tile(const float* __restrict__ x, const float* __restrict__ g, int s0,
                            int ns, float* xs, float* gs) {
   constexpr int q = kC / 4;
-  for (int i = threadIdx.x; i < kS * kH * q; i += kThreads) {
-    const int r = i / q, c = (i - r * q) * 4, j = r / kH;
-    const bool ok = j < ns;
-    const int u = reflect(r - j * kH - 1);
-    cp_async16(xs + r * kLd + c, x + (static_cast<size_t>(s0 + (ok ? j : 0)) * kL + u) * kC + c,
-               ok);
-  }
+  stage_halo<kS, kThreads>(x, s0, ns, xs);
   for (int i = threadIdx.x; i < kS * kL * q; i += kThreads) {
     const int r = i / q, c = (i - r * q) * 4;
     const bool ok = r / kL < ns;
@@ -405,70 +391,10 @@ __device__ void stage_tile(const float* __restrict__ x, const float* __restrict_
   }
 }
 
-// z (the tile's rows, kLd floats apart) = conv(a, w), a staged with its halo rows. Warps 0-3:
-// lane (l, q) of warp wp computes row l of all kS samples at channels 16 wp + 4q .. +3 (per
-// step of 4 input channels 4 + 4 float4 loads for 64 multiply-adds). Each output is one fmaf
-// chain over t, then ci ascending, K1's conv_points order, so z is the forward's bit for bit.
-__device__ void conv_tile(const float* a, const float* w, float* z) {
-  const int wp = threadIdx.x >> 5, ln = threadIdx.x & 31;
-  const int l = ln >> 2, co = 16 * wp + 4 * (ln & 3);
-  const float* as = a + l * kLd;
-  float acc[kS][4] = {};
-#pragma unroll 1
-  for (int t = 0; t < 3; ++t) {
-    const float* wt = w + t * kC * kLd + co;
-#pragma unroll 4
-    for (int ci = 0; ci < kC; ci += 4) {
-      float4 xv[kS], wv[4];
-#pragma unroll
-      for (int s = 0; s < kS; ++s) xv[s] = lds4(as + (s * kH + t) * kLd + ci);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wv[j] = lds4(wt + (ci + j) * kLd);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int s = 0; s < kS; ++s) {
-          const float v = lane4(xv[s], j);
-          acc[s][0] = fmaf(v, wv[j].x, acc[s][0]);
-          acc[s][1] = fmaf(v, wv[j].y, acc[s][1]);
-          acc[s][2] = fmaf(v, wv[j].z, acc[s][2]);
-          acc[s][3] = fmaf(v, wv[j].w, acc[s][3]);
-        }
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < kS; ++s)
-    *reinterpret_cast<float4*>(z + (s * kL + l) * kLd + co) =
-        make_float4(acc[s][0], acc[s][1], acc[s][2], acc[s][3]);
-}
-
-// One (sample, channel) row of a norm, held by the thread pair (2p, 2p+1) of the block, as K1's
-// norm_stage holds it at L = 8: the even lane the rows 0, 2, 4, 6, the odd lane the rest. yh the
-// normalised values of the lane's rows.
-struct RowNorm {
-  float yh[kL / 2], rs;
-};
-
-// Statistics of the lane's (sample, channel) row of z with norm_stage's order of operations.
-__device__ __forceinline__ RowNorm row_norm(const float* z) {
-  float v[kL / 2], sum = 0.f;
-#pragma unroll
-  for (int k = 0; k < kL / 2; ++k) {
-    v[k] = z[2 * k * kLd];
-    sum += v[k];
-  }
-  const float mean = (sum + __shfl_xor_sync(0xffffffffu, sum, 1)) * kInvL;
-  float sq = 0.f;
-#pragma unroll
-  for (int k = 0; k < kL / 2; ++k) {
-    const float d = v[k] - mean;
-    sq = fmaf(d, d, sq);
-  }
-  RowNorm n;
-  n.rs = rsqrtf((sq + __shfl_xor_sync(0xffffffffu, sq, 1)) * kInvL + kEps);
-#pragma unroll
-  for (int k = 0; k < kL / 2; ++k) n.yh[k] = (v[k] - mean) * n.rs;
-  return n;
+// The recomputes: z = conv(a, w) on warps 0-3, 4 samples x 4 channels a thread
+// (res_block.cuh's conv_tile), the operands loaded in step.
+__device__ __forceinline__ void conv_tile(const float* a, const float* w, float* z) {
+  conv_tile<kS, false>(a, w, z, [](int) {});
 }
 
 // gz = the norm's backward of gh (= gsrc, masked by h = yh * ga + be > 0 when kRelu) over the

@@ -68,6 +68,11 @@ def stage_rows(x: torch.Tensor, stages: Sequence[Stage]) -> tuple[list[int], int
 
 # ------------------------------ K1 in_chain ------------------------------
 
+# The model's residual block, which K1, K5 and their backward run on kernels of their own:
+# (L, C) = (8, 64), two k3 stride-1 reflect-pad-1 convs (each stage's row as stage_rows gives it).
+RES_L, RES_C = 8, 64
+RES_STAGE = [3, 1, 1, 1, RES_L, RES_C, RES_L, RES_C]
+
 
 def in_chain_ref(x: torch.Tensor, stages: Sequence[Stage], *,
                  residual: bool = False) -> torch.Tensor:
@@ -82,7 +87,8 @@ def in_chain_ref(x: torch.Tensor, stages: Sequence[Stage], *,
 
 def in_chain(x: torch.Tensor, stages: Sequence[Stage], *, residual: bool = False) -> torch.Tensor:
     """K1: 1 or 2 conv -> IN -> ReLU stages in one launch, the mid-chain
-    activation kept in shared memory (residual: the last stage adds x).
+    activation kept in shared memory (residual: the last stage adds x; the
+    model's residual block at (8, 64) runs a kernel of its own).
 
     Replaces fused_in_pair, fused_dense_layer(norm='in') and fused_res_block
     (iinsvae_tpu/ops/pallas/fused.py:361, :1320, :253)."""
@@ -95,8 +101,11 @@ def in_chain(x: torch.Tensor, stages: Sequence[Stage], *, residual: bool = False
     return launch_in_chain(x, stages, residual)
 
 
-def launch_in_chain(x: torch.Tensor, stages: Sequence[Stage], residual: bool) -> torch.Tensor:
-    """Check the operands, launch K1 and count the launch."""
+def launch_in_chain(x: torch.Tensor, stages: Sequence[Stage], residual: bool, *,
+                    general: bool = False) -> torch.Tensor:
+    """Check the operands, launch K1 and count the launch. The residual block at (8, 64) runs
+    its own kernel (_res_block); ``general`` runs the general kernel there instead, the
+    second oracle of the GPU tests and chip_smoke.py."""
     if not 1 <= len(stages) <= 2:
         raise ValueError(f"in_chain runs 1 or 2 stages, got {len(stages)}")
     rows, l_out, c_out = stage_rows(x, stages)
@@ -106,6 +115,10 @@ def launch_in_chain(x: torch.Tensor, stages: Sequence[Stage], residual: bool) ->
     if any(t.shape[2] % 4 or t.data_ptr() % 16 for t in taps):
         raise ValueError("in_chain takes 16-byte aligned taps with C_out a multiple of 4")
     _build.require_cuda_f32("in_chain", x, *taps)
+    if residual and not general and rows == 2 * RES_STAGE:
+        y = _res_block("in_chain", x, *taps, None)
+        in_chain.launches += 1
+        return y
     b = x.shape[0]
     y = torch.empty((b, l_out, c_out), device=x.device, dtype=x.dtype)
     # the chain input plus each stage's output stay in shared memory
@@ -251,7 +264,8 @@ def adain_res_block_ref(x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
 def adain_res_block(x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
                     g1: torch.Tensor, b1: torch.Tensor, g2: torch.Tensor,
                     b2: torch.Tensor) -> torch.Tensor:
-    """K5: the decoder's AdaIN residual block in one launch (K1's kernel
+    """K5: the decoder's AdaIN residual block in one launch (at the model's
+    (8, 64) the residual block's own kernel, else K1's general kernel, each
     with a per-sample affine after each InstanceNorm). x (B, L, C); k1, k2
     (3, C, C); g1, b1, g2, b2 (B, C), contiguous.
 
@@ -281,10 +295,16 @@ def check_adain_res_block(x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
 
 def launch_adain_res_block(x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
                            g1: torch.Tensor, b1: torch.Tensor, g2: torch.Tensor,
-                           b2: torch.Tensor) -> torch.Tensor:
-    """Check the operands, launch K5 and count the launch."""
+                           b2: torch.Tensor, *, general: bool = False) -> torch.Tensor:
+    """Check the operands, launch K5 and count the launch. At (L, C) = (8, 64) it runs the
+    residual block's own kernel (_res_block); ``general`` runs K1's general kernel there
+    instead, the second oracle of the GPU tests and chip_smoke.py."""
     check_adain_res_block(x, k1, k2, g1, b1, g2, b2)
     b, l, c = x.shape
+    if not general and (l, c) == (RES_L, RES_C):
+        y = _res_block("adain_res_block", x, k1, k2, (g1, b1, g2, b2))
+        adain_res_block.launches += 1
+        return y
     y = torch.empty_like(x)
     spb = _build.samples_per_block(b, 3 * l * c)  # input, mid-block and output in shared memory
     fn = _build.function("in_chain", "iins_adain_res_block",
@@ -297,6 +317,27 @@ def launch_adain_res_block(x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
 
 
 adain_res_block.launches = 0
+
+
+def _res_block(what: str, x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
+               tables: Sequence[torch.Tensor] | None) -> torch.Tensor:
+    """Launch K1's (tables None) or K5's (tables g1, b1, g2, b2) residual-block kernel at
+    (8, 64), csrc/in_chain.cu's namespace res, on the grid of backward.res_fwd_plan; counts
+    nothing (the caller counts)."""
+    from iinsvae_torch.ops.kernels import backward
+    if x.data_ptr() % 16:
+        raise ValueError(f"{what}: the residual block's kernel takes a 16-byte aligned x")
+    b = x.shape[0]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    tile, _, blocks = backward.res_fwd_plan(b, sms)
+    y = torch.empty_like(x)
+    fn = _build.function("in_chain", "iins_res_block", [_P] * 8 + [_I] * 6 + [_P])
+    err = fn(x.data_ptr(), k1.data_ptr(), k2.data_ptr(),
+             *((t.data_ptr() for t in tables) if tables else (None,) * 4), y.data_ptr(), b,
+             RES_L, RES_C, tile, blocks, backward.RES_FWD_SMEM[tile],
+             _build.stream_handle(x))
+    _build.check(err, "in_chain", what)
+    return y
 
 
 # ------------------------------ K6 sln_chain ------------------------------

@@ -1,6 +1,6 @@
-"""Where a redesigned backward kernel spends its time, phase by phase, on one NVIDIA card.
+"""Where a redesigned kernel spends its time, phase by phase, on one NVIDIA card.
 
-    python3 phase_times.py [--kernel res|tail|chain|mlp] [--tree DIR] [--out FILE]
+    python3 phase_times.py [--kernel res|res_fwd|tail|chain|mlp] [--tree DIR] [--out FILE]
 
 ``--kernel res`` (the default): K1b's residual-block backward, from DIR's
 ``iinsvae_torch/ops/kernels/csrc/in_chain_bwd.cu``, timed through DIR's own wrappers at the two
@@ -12,14 +12,18 @@ through ``sln_chain_bwd`` at the decoder tail (``dec.tail``: (500, 8, 64) -> 157
 dx, ``range.pair1``, ``range.single``), from ``csrc/in_chain_bwd.cu``, through ``in_chain_bwd``.
 ``--kernel mlp``: K4b, from ``csrc/mlp_chain_bwd.cu``, through ``mlp_chain_bwd`` at the 1-D
 restorer, the classifier and the 2-D restorer, with the pre-activations K4 saves.
+``--kernel res_fwd``: the forward of the residual blocks, from ``csrc/in_chain.cu``, through
+``in_chain`` at the range encoder's IN block (K1) and ``adain_res_block`` at the decoder's AdaIN
+block (K5).
 
 DIR defaults to this checkout. The script builds one variant of the source for each phase,
 which stops the kernel after that phase (one nvcc each, all at once, under
 ``build/phases/``), and times each variant at batch 500 with the flagship's seeded weights and
 seeded inputs, by chip_smoke.py's CUDA-graph replay (median of 25). A variant's time less the
-one before is its phase's time; the first row (the kernel returns at once) is the launch and
-the fixed-order reduction of the partial rows. Every variant computes garbage past its cut,
-so nothing is checked here: chip_smoke.py holds the whole kernel to its plain version.
+one before is its phase's time; the first row (the kernel returns at once) is the launch and,
+for a backward, the fixed-order reduction of the partial rows. Every variant computes garbage
+past its cut, so nothing is checked here: chip_smoke.py holds the whole kernel to its plain
+version.
 
 The cut points are written for two designs of each kernel, named by the kernel function that
 runs the site: ``in_chain_bwd_kernel`` (one kernel for every K1b site, before the residual
@@ -27,7 +31,9 @@ block, and later the range chains, got their own paths), ``res_block_bwd_kernel`
 ``down_chain_bwd_kernel``; ``sln_chain_bwd_kernel`` (K6b's kernel for every shape, before the
 decoder's shape got its own path) and ``tail_bwd_kernel``; K4b's ``mlp_bwd_chain_kernel`` (a
 chain kernel and a weight-gradient kernel) and ``small_kernel`` (the classifier's one-block
-chain, beside the restorers' launch a layer and weight-gradient launch).
+chain, beside the restorers' launch a layer and weight-gradient launch); K1's and K5's
+forward at the residual blocks: ``in_chain_kernel`` (the general kernel, which ran them before
+they got a kernel of their own) and ``res_block_kernel``.
 A kernel that launches several kernels a call is split by name too: each site's device time a
 call of each kernel, from a torch.profiler trace of the whole call (``[split]`` lines). Prints
 one JSON line and writes it to FILE (default ``build/phase_times.json``). Needs one CUDA card
@@ -212,9 +218,44 @@ CUTS["small_kernel"] = [
       "order\n", _MLP_WGRAD)),
     ("the whole call", None),
 ]
+# K1 and K5 at the residual blocks: the general kernel (every K1, K5 and K8 shape, before the
+# residual block got its own kernel) and res_block_kernel. A cut of the new kernel waits for the
+# block's copies in flight (x by cp.async, the taps by bulk copies) before it returns.
+CUTS["in_chain_kernel"] = [
+    ("launch", "  const int n0 = s1.l_in * s1.c_in, n1 = s1.l_out * s1.c_out;\n"),
+    ("stage x", "i < ns * n0; i += blockDim.x) a0[i] = xg[i];\n  __syncthreads();\n"),
+    ("(1) z1 = conv(x, W1)", "  conv_stage<4>(a0, w1, a1, s1, ns);\n  __syncthreads();\n"),
+    ("(2) y1 = relu(IN(z1) [* g1 + b1])", "                     af.b1);\n  __syncthreads();\n"),
+    ("(3) z2 = conv(y1, W2)", "    conv_stage<4>(a1, w2, a2, s2, ns);\n    __syncthreads();\n"),
+    ("(4) IN(z2) [* g2 + b2] + x",
+     "    norm_stage<kAdain>(a2, skip, relu_last, s2.l_out, s2.c_out, ns, af.g2, af.b2);\n"
+     "    __syncthreads();\n"),
+    ("(5) y out: the whole kernel", None),
+]
+_RES_FWD_STOP = "{ cp_async_wait<0>(); mbar_wait(bars + 3); return; }"
+CUTS["res_block_kernel"] = [
+    ("launch", "  const int pr = threadIdx.x >> 1, par = threadIdx.x & 1;\n"),
+    ("stage x, W1 and W2 (not overlapped)",
+     "  stage_halo<kTile, kThreads>(x, tile * kTile, min(kTile, batch - tile * kTile), xs);\n"
+     "  cp_async_commit();\n",
+     "{ cp_async_wait<0>(); for (int i = 0; i < 4; ++i) mbar_wait(bars + i); __syncthreads(); "
+     "return; }"),
+    ("(1) z = conv(x, W1)", "      for (int t = 0; t < 3; ++t) tap(t);\n    __syncthreads();\n",
+     _RES_FWD_STOP),
+    ("(2) y1 = relu(IN(z) [* g1 + b1])",
+     "    if (first) mbar_wait(bars + 3);\n    __syncthreads();\n"),
+    ("(3) z = conv(y1, W2)",
+     "    if (conv) conv_tile<kTile, true, kC>(y1, w2s, z, [](int) {});  // (3)\n"
+     "    __syncthreads();\n"),
+    ("(4) IN(z) [* g2 + b2] + x",
+     "        zs[2 * k * kLd] = __fadd_rn(v, xr[2 * k * kLd]);\n      }\n    }\n"
+     "    __syncthreads();\n"),
+    ("(5) y out: the whole kernel", None),
+]
 # which source each --kernel reads, and its designs, newest first
 KERNELS = {
     "res": ("in_chain_bwd", ("res_block_bwd_kernel", "in_chain_bwd_kernel")),
+    "res_fwd": ("in_chain", ("res_block_kernel", "in_chain_kernel")),
     "tail": ("sln_chain_bwd", ("tail_bwd_kernel", "sln_chain_bwd_kernel")),
     "chain": ("in_chain_bwd", ("down_chain_bwd_kernel", "in_chain_bwd_kernel")),
     "mlp": ("mlp_chain_bwd", ("small_kernel", "mlp_bwd_chain_kernel")),
@@ -335,6 +376,15 @@ def main() -> int:
             g = rand(b, ws[-1].shape[1])
             sites[name] = (lambda g=g, x=x, ws=ws, bs=bs, sl=head.slopes, ds=ds:
                            backward.mlp_chain_bwd(g, x, ws, bs, sl, ds))
+    elif args.kernel == "res_fwd":
+        x = rand(b, 8, 64)
+        block = [(re_.res0_kernel1, 1, 1, "reflect"), (re_.res0_kernel2, 1, 1, "reflect")]
+        tables = [rand(b, 64) for _ in range(4)]
+        sites = {
+            "range.res": lambda: fused.in_chain(x, block, residual=True),
+            "dec.res": lambda: fused.adain_res_block(x, dec.res0_kernel1, dec.res0_kernel2,
+                                                     *tables),
+        }
     elif args.kernel == "res":
         x, g = rand(b, 8, 64), rand(b, 8, 64)
         block = [(re_.res0_kernel1, 1, 1, "reflect"), (re_.res0_kernel2, 1, 1, "reflect")]

@@ -232,6 +232,92 @@ def test_gpu_adain_res_block_rejects_what_the_kernel_does_not_take(cuda):
     assert torch.isfinite(fused.adain_res_block(x, k1, k2, g1, b1, g2, b2)).all()
 
 
+def _res_block_forward(cuda, batch, which):
+    """(wrapper, kernel call, general kernel call, plain version) of K1 at the range encoder's
+    residual block (which 'in_chain') or K5 at the decoder's ('adain_res_block'), on the
+    flagship's seeded weights and seeded inputs at the batch."""
+    m = IInsVAE(**FLAGSHIP, generator=torch.Generator().manual_seed(6)).to(cuda)
+    re_, dec = m.encoder.range_encoder, m.decoder.decoder
+    gen = torch.Generator().manual_seed(batch)
+    x = torch.randn((batch, 8, 64), generator=gen).to(cuda)
+    if which == "in_chain":
+        block = [(re_.res0_kernel1, 1, 1, "reflect"), (re_.res0_kernel2, 1, 1, "reflect")]
+        return (fused.in_chain, lambda: fused.in_chain(x, block, residual=True),
+                lambda: fused.launch_in_chain(x, block, True, general=True),
+                lambda: fused.in_chain_ref(x, block, residual=True))
+    args = (x, dec.res0_kernel1, dec.res0_kernel2,
+            *(torch.randn((batch, 64), generator=gen).to(cuda) for _ in range(4)))
+    return (fused.adain_res_block, lambda: fused.adain_res_block(*args),
+            lambda: fused.launch_adain_res_block(*args, general=True),
+            lambda: fused.adain_res_block_ref(*args))
+
+
+def _device_kernel_names(fn, calls: int = 3) -> set[str]:
+    """The device kernels ``calls`` calls of ``fn`` launch, from a torch.profiler trace, each
+    name without ``void``, the anonymous namespace, template arguments and parameters (as
+    chip_smoke.device_kernels names them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {re.split(r"[<(]", re.sub(r"^void ", "", e.name.replace("(anonymous namespace)::",
+                                                                    "")))[0]
+            for e in prof.events() if e.device_type == DeviceType.CUDA}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["in_chain", "adain_res_block"])
+@pytest.mark.parametrize("batch", [1, 5, 261, 500])
+def test_gpu_res_block_forward_matches_plain_and_the_general_kernel(cuda, batch, which):
+    """K1 and K5 at the residual blocks run a kernel of their own (csrc/in_chain.cu, namespace
+    res; tiles of 2 samples at 1, 5 and 261, of 4 at 500, the last tile short at 1, 5 and 261):
+    one launch a call, within tolerance of the plain version, bit-equal to the general kernel
+    on the same inputs (the backward's recompute relies on it) and over two calls."""
+    wrapper, run, general, plain = _res_block_forward(cuda, batch, which)
+    with torch.no_grad():
+        n = wrapper.launches
+        got = run()
+        assert wrapper.launches == n + 1
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, plain(), rtol=RTOL, atol=ATOL)
+        assert torch.equal(got, general())
+        assert torch.equal(got, run())
+        assert _device_kernel_names(run) == {"res::res_block_kernel"}
+
+
+@pytest.mark.gpu
+def test_gpu_res_block_forward_rejects_what_the_kernel_does_not_take(cuda):
+    """The residual block's wrappers raise, rather than launch another kernel, on unaligned
+    taps, an unaligned x and K5 tables of the wrong shape."""
+    dec, x, tables, _ = _decoder_inputs(cuda, b=5)
+    k = dec.res0_kernel1.detach()
+
+    def unaligned(t):
+        u = torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape)
+        return u.copy_(t)
+
+    block = [(k, 1, 1, "reflect"), (k, 1, 1, "reflect")]
+    with torch.no_grad():
+        with pytest.raises(ValueError):  # unaligned taps
+            fused.in_chain(x, [(unaligned(k), 1, 1, "reflect"), block[1]], residual=True)
+        with pytest.raises(ValueError):
+            fused.adain_res_block(x, k, unaligned(k), *tables)
+        with pytest.raises(ValueError):  # an unaligned x
+            fused.in_chain(unaligned(x), block, residual=True)
+        with pytest.raises(ValueError):
+            fused.adain_res_block(unaligned(x), k, k, *tables)
+        with pytest.raises(ValueError):  # tables of the wrong width or batch
+            fused.adain_res_block(x, k, k, tables[0][:, :32].contiguous(), *tables[1:])
+        with pytest.raises(ValueError):
+            fused.adain_res_block(x, k, k, *tables[:3], tables[3][:4])
+        assert torch.equal(fused.in_chain(x, block, residual=True),
+                           fused.launch_in_chain(x, block, True, general=True))
+
+
 @pytest.mark.gpu
 def test_gpu_sln_chain_rejects_what_the_kernel_does_not_take(cuda):
     dec, x, _, stages = _decoder_inputs(cuda)

@@ -316,6 +316,30 @@ def test_k1b_tiles_cover_every_sample_once_within_shared_memory(batch):
         assert smem <= 227 * 1024, name
 
 
+@pytest.mark.parametrize("batch", [1, 5, 37, 256, 261, 500])
+def test_k1_k5_res_block_tiles_cover_every_sample_once_within_shared_memory(batch):
+    """K1's and K5's forward at the residual blocks (csrc/in_chain.cu, namespace res): block j
+    of the grid takes tiles j, j + blocks, ..., so every sample must lie in exactly one of those
+    tiles, with the H100's 132 SMs and with fewer SMs than tiles. Tiles of 4 samples, or of 2
+    where tiles of 4 would leave more than half the SMs without one, so that the training and
+    Predictor batch (500) and serve.py's (256) both spread over at least 90% of the H100's SMs.
+    And a block's shared memory stays within the 227 KB a block can have on the H100."""
+    for sms in (132, 7):
+        tile, tiles, blocks = backward.res_fwd_plan(batch, sms)
+        assert tile in (2, 4) and tiles == -(-batch // tile)
+        assert (tile == 4) == (-(-batch // 4) > sms // 2)
+        assert 1 <= blocks <= min(sms, tiles)
+        seen = np.zeros(batch, dtype=int)
+        for j in range(blocks):
+            for t in range(j, tiles, blocks):
+                assert t * tile < batch
+                seen[t * tile:(t + 1) * tile] += 1
+        assert (seen == 1).all()
+        assert backward.RES_FWD_SMEM[tile] <= 227 * 1024
+    if batch in (256, 500):
+        assert backward.res_fwd_plan(batch, 132)[2] >= 0.9 * 132
+
+
 @pytest.mark.parametrize("batch", [1, 5, 37, 261, 500])
 def test_k6b_tiles_cover_every_sample_once_within_shared_memory(batch):
     """K6b's path at the decoder's shape (csrc/sln_chain_bwd.cu, namespace tail): block j of the
