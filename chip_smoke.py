@@ -77,7 +77,12 @@
    cuDNN 3x3 conv of the block (TF32 off); serving without the decoder (5
    launches a batch: 3 K7, 2 K4) and with it (8: 6 K7), at batch 500 over
    40 batches; K7b and K4b at their sites; training with 8 forward and 8
-   backward launches a step.
+   backward launches a step. K7 is also timed as training launches it, writing
+   the pre-norm conv outputs d1, d2 (``save_ms``): its y bit-equal to the
+   serving launch's, d1 and d2 within tolerance of the plain convs. K7b reads
+   the d1, d2 of such a K7 call; its bound is its four conv-sized products as
+   3xTF32 on the tensor cores (the route it takes), the fp32-FMA figure
+   beside it.
 
 Prints a ``sites`` line (per call site, both models), a ``serving`` line,
 a ``backward`` line (per backward call site), a ``training`` and a
@@ -118,10 +123,12 @@ BATCH = 500
 # batches for the ragged checks: no whole number of tiles of any kernel
 # (K3's tiles are 64-128 rows of 32-64 a sample, K3b's 128-256 row pairs)
 RAGGED = (5, 261)
-# H100 SXM data-sheet peaks: HBM bytes/s, and
-# float32 outside the tensor cores (the kernels use fp32 FMAs)
+# H100 SXM data-sheet peaks: HBM bytes/s, float32 outside the tensor cores
+# (the kernels use fp32 FMAs), and dense TF32 on the tensor cores (K7b's
+# products, three TF32 products for each fp32 one: 3xTF32)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_TF32_FLOP_PER_S = 495e12
 # Kernel vs plain version on the card: both fp32, but the kernels sum in
 # another order (conv sums of up to 192 terms, dense sums of up to 512) and
 # InstanceNorm divides by a per-channel std, which can scale that rounding up.
@@ -402,6 +409,10 @@ def call_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list[dic
                 run=lambda x=x, k1=k1, k2=k2, a=affine: res2d.res_block_2d(x, k1, k2, *a),
                 plain=lambda x=x, k1=k1, k2=k2, a=affine: res2d.res_block_2d_ref(x, k1, k2, *a),
                 library=None, cudnn_conv=nchw_conv3x3(x, k1),
+                save=lambda x=x, k1=k1, k2=k2, a=affine: res2d.launch_res_block_2d(
+                    x, k1, k2, *a, save=True),
+                save_plain=lambda x=x, k1=k1, k2=k2, a=affine: res2d.res_block_2d_ref(
+                    x, k1, k2, *a, save=True),
                 bytes=nbytes(x, k1, k2, *affine, x), flops=2 * res2d_flops(b)))
         add_mlp("restorer.2d", model.restorer.restorer, f"{fp}:1164")
         return sites
@@ -505,6 +516,22 @@ def compare_backward(s: dict, what: str = "") -> tuple[list[float], list[float]]
     return errs, scaled
 
 
+def compare_saves(s: dict) -> dict:
+    """K7 as training launches it: y bit-equal to the serving launch's, and the saved d1, d2
+    within KERNEL_RTOL / KERNEL_ATOL of the plain convs. Returns their largest errors and the
+    launch's device time (save_ms)."""
+    (y, d1, d2), (_, p1, p2) = s["save"](), s["save_plain"]()
+    torch.cuda.synchronize()
+    if not torch.equal(y, s["run"]()):
+        raise AssertionError(f"{s['name']}: K7's y differs when it saves d1 and d2")
+    errs = {}
+    for k, got, want in (("d1", d1, p1), ("d2", d2, p2)):
+        torch.testing.assert_close(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
+                                   msg=lambda m: f"{s['name']} saved {k} vs plain: {m}")
+        errs[f"saved_{k}_max_abs_err"] = (got - want).abs().max().item()
+    return dict(y_bit_equal_when_saving=True, **errs, save_ms=device_ms(s["save"]))
+
+
 def check_and_time(sites: list[dict], tag: str = "kernel") -> list[dict]:
     rows = []
     for s in sites:
@@ -515,6 +542,8 @@ def check_and_time(sites: list[dict], tag: str = "kernel") -> list[dict]:
                 raise AssertionError(f"{s['name']}: two calls of the kernel are not bit-equal")
             oracle = dict(bit_equal_to_general=True, bit_equal_over_two_calls=True,
                           general_ms=device_ms(s["general"]))
+        if "save" in s:
+            oracle = compare_saves(s)
         bytes_ms = s["bytes"] / PEAK_BYTES_PER_S * 1e3
         flops_ms = s["flops"] / PEAK_FP32_FLOP_PER_S * 1e3
         rows.append(dict(
@@ -536,7 +565,10 @@ def check_and_time(sites: list[dict], tag: str = "kernel") -> list[dict]:
                                       f"{r['cudnn_conv_ms'] * 1e3:.2f} us"
                                       if r["cudnn_conv_ms"] is not None else "")
               + (f"  bit-equal to the general kernel ({r['general_ms'] * 1e3:.2f} us) and over "
-                 "two calls" if oracle else ""), flush=True)
+                 "two calls" if "general" in s else "")
+              + (f"  saving d1, d2 {r['save_ms'] * 1e3:.2f} us (y bit-equal, d1 / d2 max_abs_err "
+                 f"{r['saved_d1_max_abs_err']:.3e} / {r['saved_d2_max_abs_err']:.3e})"
+                 if "save" in s else ""), flush=True)
     # the device kernels of the sites with a second oracle, traced once every site is timed: the
     # device times of small kernels read a few tenths of a us longer after a profiler session
     for r, s in zip(rows, sites):
@@ -553,6 +585,11 @@ def conv_yardstick(site_rows: list[dict], kernel: str, key: str) -> dict:
     ms = [r["cudnn_conv_ms"] * r["calls_per_batch"] for r in site_rows
           if r["kernel"] == kernel and r["cudnn_conv_ms"] is not None]
     return {key: sum(ms)} if ms else {}
+
+
+def per_call_sum(site_rows: list[dict], kernel: str, key: str) -> float:
+    """The sum of ``key`` over a kernel's call sites, each times its calls per batch."""
+    return sum(r[key] * r["calls_per_batch"] for r in site_rows if r["kernel"] == kernel)
 
 
 def kernel_rows(site_rows: list[dict], names, launches: dict[str, int], per: str,
@@ -735,8 +772,8 @@ def conv3x3_backward_call(x: torch.Tensor, taps: torch.Tensor, g: torch.Tensor):
     """One aten.convolution_backward call (cuDNN, TF32 off) of one of K7's
     3x3 reflect-pad convs on the same data as a channels-last NCHW view
     (the padded input and the taps prepared outside the timed call; its dx
-    is the padded input's). It stands beside K7b as the time of one of the
-    six conv-sized products K7b computes, not as its library time."""
+    is the padded input's). It stands beside K7b as the time of two of the
+    four conv-sized products K7b computes, not as its library time."""
     with torch.no_grad():
         xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect").contiguous(
             memory_format=torch.channels_last)
@@ -834,9 +871,13 @@ def backward_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list
                                   ("dec.res2d", dec, [rand(b, 64) for _ in range(4)])):
             x, k1, k2, g = rand(b, 8, 8, 64), mod.res0_kernel1, mod.res0_kernel2, \
                 rand(b, 8, 8, 64)
-            add(name, backward.res_block_2d_bwd, f"{RES2D}:377", 3, (g, x, k1, k2, *affine), {},
-                nbytes(x, k1, k2, *affine[:3], g, x, k1, k2, *affine), 6 * res2d_flops(b),
-                cudnn_conv=conv3x3_backward_call(x, k1, g))
+            with torch.no_grad():  # the pre-norm conv outputs K7 saves for K7b
+                _, d1, d2 = res2d.launch_res_block_2d(x, k1, k2, *affine, save=True)
+            # four conv-sized products: dk2, dy1, dk1, dx
+            add(name, backward.res_block_2d_bwd, f"{RES2D}:377", 3, (g, x, k1, k2, *affine),
+                dict(saved=(d1, d2)),
+                nbytes(x, d1, d2, k1, k2, *affine[:3], g, x, k1, k2, *affine),
+                4 * res2d_flops(b), tf32x3=True, cudnn_conv=conv3x3_backward_call(x, k1, g))
         mlp_site("restorer.2d", model.restorer.restorer, f"{fp}:1136")
         return sites
     stages = [(re_.in_kernel, 1, 3, "reflect")] + [
@@ -954,7 +995,11 @@ def check_and_time_backward(sites: list[dict], tag: str = "backward") -> list[di
         if not bit_equal_calls(s["run"]):
             raise AssertionError(f"{s['name']}: two calls of the kernel are not bit-equal")
         bytes_ms = s["bytes"] / PEAK_BYTES_PER_S * 1e3
-        flops_ms = s["flops"] / PEAK_FP32_FLOP_PER_S * 1e3
+        flops_ms = fma_ms = s["flops"] / PEAK_FP32_FLOP_PER_S * 1e3
+        more = {}
+        if s.get("tf32x3"):  # the products on the tensor cores, three TF32 products each
+            flops_ms = 3 * s["flops"] / PEAK_TF32_FLOP_PER_S * 1e3
+            more = dict(tf32x3_bound_ms=flops_ms, fp32_fma_bound_ms=fma_ms)
         rows.append(dict(
             name=s["name"], kernel=s["kernel"], replaces=s["replaces"],
             calls_per_batch=s["calls_per_batch"], max_abs_err=max(errs),
@@ -965,13 +1010,14 @@ def check_and_time_backward(sites: list[dict], tag: str = "backward") -> list[di
             cudnn_conv_ms=device_ms(s["cudnn_conv"]) if "cudnn_conv" in s else None,
             yardstick=s.get("yardstick", "cuDNN conv backward") if "cudnn_conv" in s else None,
             bytes=s["bytes"], flops=s["flops"], bound_ms=max(bytes_ms, flops_ms),
-            bound_by="bytes" if bytes_ms >= flops_ms else "operations"))
+            bound_by="bytes" if bytes_ms >= flops_ms else "operations", **more))
         r = rows[-1]
         lib = f"{r['library_ms'] * 1e3:8.2f}" if r["library_ms"] is not None else "       -"
         print(f"[{tag}] {r['name']:<13} {r['kernel']:<20} max_abs_err {r['max_abs_err']:.3e} "
               f"(/scale {r['max_err_over_scale']:.2e})  {r['ms'] * 1e3:8.2f} us (eager "
               f"{r['eager_ms'] * 1e3:.2f})  plain {r['plain_ms'] * 1e3:8.2f} us  library {lib} "
-              f"us  bound {r['bound_ms'] * 1e3:6.2f} us ({r['bound_by']})"
+              f"us  bound {r['bound_ms'] * 1e3:6.2f} us ({r['bound_by']}"
+              + (f", 3xTF32; as fp32 FMAs {fma_ms * 1e3:.2f} us" if more else "") + ")"
               + (f"  {r['yardstick']} (double dagger) {r['cudnn_conv_ms'] * 1e3:.2f} us"
                  if r["cudnn_conv_ms"] is not None else "")
               + "  kernels " + ", ".join(f"{k} x{v}" for k, v in r["device_kernels"].items()),
@@ -1538,6 +1584,7 @@ def main() -> int:
         site_rows_2d, ["res_block_2d"], launches_2d, per_fwd + ", conv_type 2",
         {"res_block_2d": dict(launches_no_recon=launches_2d_no_recon["res_block_2d"],
                               launches_train=training_2d["launches"]["res_block_2d"],
+                              save_ms=per_call_sum(site_rows_2d, "res_block_2d", "save_ms"),
                               **conv_yardstick(site_rows_2d, "res_block_2d", "cudnn_conv_ms"))})
     kernel_table += kernel_rows(
         bwd_rows, [f"{k}_bwd" for k in names_1d], training["launches_bwd"], per_step,
@@ -1546,8 +1593,10 @@ def main() -> int:
     kernel_table += kernel_rows(
         bwd_rows_2d, ["res_block_2d_bwd"], training_2d["launches_bwd"],
         per_step + ", conv_type 2",
-        {"res_block_2d_bwd": conv_yardstick(bwd_rows_2d, "res_block_2d_bwd",
-                                            "cudnn_conv_backward_ms")})
+        {"res_block_2d_bwd": dict(
+            bound="3xTF32 on the tensor cores",
+            fp32_fma_bound_ms=per_call_sum(bwd_rows_2d, "res_block_2d_bwd", "fp32_fma_bound_ms"),
+            **conv_yardstick(bwd_rows_2d, "res_block_2d_bwd", "cudnn_conv_backward_ms"))})
     # K8-K10 run on no model path (0 launches there): their launches are the
     # one-stage chain's
     per_chain = "the one-stage phase's chain at batch 500 (sum over its call sites)"

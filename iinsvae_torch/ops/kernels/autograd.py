@@ -1,8 +1,9 @@
 """One ``torch.autograd.Function`` for each of K1-K10.
 
-``forward`` launches the forward kernel (fused.py, strided_conv.py) and
-saves its inputs (K2 and K3 also their output, for the ReLU mask; K4 the
-pre-activations its kernel writes under autograd); ``backward`` launches
+``forward`` launches the forward kernel (fused.py, strided_conv.py,
+res2d.py) and saves its inputs (K2 and K3 also their output, for the ReLU
+mask; K4 the pre-activations and K7 the pre-norm conv outputs its kernel
+writes under autograd); ``backward`` launches
 the backward kernel (backward.py). The public wrappers take these only for
 CUDA tensors, with grad mode on and an input that requires grad; the input
 gradient is computed only where autograd asks for it
@@ -136,17 +137,20 @@ class SlnChain(Function):
 
 
 class ResBlock2d(Function):
-    """K7 / K7b. apply(x, k1, k2, *affine), affine () or (g1, b1, g2, b2)."""
+    """K7 / K7b. apply(x, k1, k2, *affine), affine () or (g1, b1, g2, b2);
+    K7 saves the pre-norm conv outputs d1, d2 that K7b reads."""
 
     @staticmethod
     def forward(ctx, x, k1, k2, *affine):
-        ctx.save_for_backward(x, k1, k2, *affine)
-        return res2d.launch_res_block_2d(x, k1, k2, *affine)
+        y, d1, d2 = res2d.launch_res_block_2d(x, k1, k2, *affine, save=True)
+        ctx.save_for_backward(x, d1, d2, k1, k2, *affine)
+        return y
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        return backward.res_block_2d_bwd(g.contiguous(), *ctx.saved_tensors,
+        x, d1, d2, *params = ctx.saved_tensors
+        return backward.res_block_2d_bwd(g.contiguous(), x, *params, saved=(d1, d2),
                                          need_dx=ctx.needs_input_grad[0])
 
 

@@ -14,7 +14,8 @@ Seven CUDA sources compute the gradients of the ten forward wrappers:
 
 Each wrapper takes the upstream gradient ``g`` and the forward's inputs
 (K2b and K3b also the forward's output, for the ReLU mask; K4b the
-pre-activations K4 saved) and returns the gradients of those inputs: the input's (None without
+pre-activations K4 saved; K7b the pre-norm conv outputs K7 saved) and
+returns the gradients of those inputs: the input's (None without
 ``need_dx``), then the parameters' in the forward's argument order. On CPU
 tensors it returns its plain version's (``*_bwd_ref``, autograd through
 the forward's ``*_ref``, on any device); on CUDA tensors it launches its kernel and counts the launch in
@@ -30,9 +31,11 @@ from typing import Callable, Sequence
 
 import torch
 
+from iinsvae_torch.ops.conv import reflect_pad2d
 from iinsvae_torch.ops.kernels import _build, fused, res2d, strided_conv
 from iinsvae_torch.ops.kernels.fused import (RES_C, RES_L, RES_STAGE, SLN_STAGES, Stage, UpStage,
                                              _round4)
+from iinsvae_torch.ops.norms import EPS, adain, instance_norm
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -542,36 +545,109 @@ sln_chain_bwd.launches = 0
 # ------------------------------ K7b ------------------------------
 
 
+def res2d_bwd_plan(batch: int, sms: int) -> tuple[int, int]:
+    """-> (tiles, blocks) of K7b: tiles of res2d.SAMPLES_PER_BLOCK samples, block j of the
+    persistent grid (at most one a SM) takes tiles j, j + blocks, ..., and owns row j of the
+    weight-gradient partials."""
+    tiles = -(-batch // res2d.SAMPLES_PER_BLOCK)
+    return tiles, min(tiles, sms)
+
+
 def res_block_2d_bwd_ref(g: torch.Tensor, x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
-                         *affine: torch.Tensor, need_dx: bool = True):
-    """Plain version of K7b."""
+                         *affine: torch.Tensor, saved=None, need_dx: bool = True):
+    """Plain version of K7b: autograd through the plain forward from x (``saved``, which the
+    kernel reads, is taken and not read)."""
     dx, *rest = plain_grads(res2d.res_block_2d_ref, [x, k1, k2, *affine], g)
     return ((dx if need_dx else None), *rest)
 
 
+def _in_grad(ga: torch.Tensor, d: torch.Tensor, gamma: torch.Tensor | None):
+    """-> (gd, sum ga * xn, sum ga) for a = IN(d) [* gamma + beta], per (sample, channel) over
+    the 8 x 8 pixels: gd = rstd * gamma * (ga - mean(ga) - xn * mean(ga * xn)), with the
+    forward's two-pass statistics of d (gamma 1 for IN)."""
+    dev = d - d.mean(dim=(1, 2), keepdim=True)
+    rstd = torch.rsqrt((dev * dev).mean(dim=(1, 2), keepdim=True) + EPS)
+    xn = dev * rstd
+    sx, sa = (ga * xn).sum(dim=(1, 2)), ga.sum(dim=(1, 2))
+    scale = rstd if gamma is None else rstd * gamma[:, None, None, :]
+    n = d.shape[1] * d.shape[2]
+    return scale * (ga - sa[:, None, None] / n - xn * sx[:, None, None] / n), sx, sa
+
+
+def _taps_grad_2d(a: torch.Tensor, gd: torch.Tensor) -> torch.Tensor:
+    """d(taps) (3, 3, C_in, C_out) of conv3x3(a, k), reflect pad 1, from its output's gradient:
+    dk[dh, dw] = sum over samples and pixels of a's reflect-shifted window^T . gd."""
+    ap, h, w = reflect_pad2d(a, 1), gd.shape[1], gd.shape[2]
+    return torch.stack([torch.stack([torch.einsum("bhwi,bhwo->io", ap[:, i:i + h, j:j + w], gd)
+                                     for j in range(3)]) for i in range(3)])
+
+
+def _conv3x3_t(gd: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """conv3x3^T(gd, k): the gradient of a reflect-pad-1 3x3 conv's input from the gradient gd
+    of its output. Each tap's product lands on the padded (H + 2, W + 2) grid; the border rows
+    and columns are then folded onto the rows and columns they reflect (padded 0 onto 2,
+    H + 1 onto H - 1), rows first."""
+    b, h, w, _ = gd.shape
+    gp = gd.new_zeros((b, h + 2, w + 2, k.shape[2]))
+    for i in range(3):
+        for j in range(3):
+            gp[:, i:i + h, j:j + w] += gd @ k[i, j].T
+    gp[:, 2] += gp[:, 0]
+    gp[:, h - 1] += gp[:, h + 1]
+    gp[:, :, 2] += gp[:, :, 0]
+    gp[:, :, w - 1] += gp[:, :, w + 1]
+    return gp[:, 1:h + 1, 1:w + 1]
+
+
+def res_block_2d_bwd_closed(g: torch.Tensor, x: torch.Tensor, k1: torch.Tensor,
+                            k2: torch.Tensor, *affine: torch.Tensor, saved,
+                            need_dx: bool = True):
+    """K7b's formulas in plain PyTorch, from g, x and ``saved`` = (d1, d2), the forward's
+    pre-norm conv outputs, with no conv of the forward recomputed: gd2 from g and d2, y1 =
+    relu(N1(d1)), dk2, dy1 = conv3x3^T(gd2, k2), ga1 = dy1 where y1 > 0, gd1, dk1, dx = g +
+    conv3x3^T(gd1, k1). -> what res_block_2d_bwd returns."""
+    d1, d2 = saved
+    gam1, bet1, gam2 = affine[:3] if affine else (None, None, None)
+    gd2, dg2, db2 = _in_grad(g, d2, gam2)
+    y1 = torch.relu(adain(d1, gam1, bet1) if affine else instance_norm(d1))
+    dk2 = _taps_grad_2d(y1, gd2)
+    gd1, dg1, db1 = _in_grad(_conv3x3_t(gd2, k2) * (y1 > 0), d1, gam1)
+    dk1 = _taps_grad_2d(x, gd1)
+    dx = g + _conv3x3_t(gd1, k1) if need_dx else None
+    return (dx, dk1, dk2, *((dg1, db1, dg2, db2) if affine else ()))
+
+
 def res_block_2d_bwd(g: torch.Tensor, x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
-                     *affine: torch.Tensor, need_dx: bool = True):
+                     *affine: torch.Tensor, saved=None, need_dx: bool = True):
     """K7b: -> (dx, dk1, dk2[, dgamma1, dbeta1, dgamma2, dbeta2]) of
-    res2d.res_block_2d; the affine gradients are (B, C) tables. One launch
-    is the kernel and the in-order sum of its blocks' d(taps) partials."""
+    res2d.res_block_2d; the affine gradients are (B, C) tables. On CUDA tensors it reads
+    ``saved`` = (d1, d2), the pre-norm conv outputs K7 wrote
+    (``res2d.launch_res_block_2d(..., save=True)``), and raises without them. One launch is
+    the kernel and the in-order sum of its blocks' d(taps) partial rows."""
     if g.device.type == "cpu":
-        return res_block_2d_bwd_ref(g, x, k1, k2, *affine, need_dx=need_dx)
+        return res_block_2d_bwd_ref(g, x, k1, k2, *affine, saved=saved, need_dx=need_dx)
     res2d.check_res_block_2d(x, k1, k2, *affine)
     if g.shape != x.shape or g.data_ptr() % 16:
         raise ValueError(f"g must be a 16-byte aligned {tuple(x.shape)}, got {tuple(g.shape)}")
-    _build.require_cuda_f32("res_block_2d_bwd", g, x)
+    if saved is None or len(saved) != 2 or any(t.shape != x.shape or t.data_ptr() % 16
+                                               for t in saved):
+        raise ValueError(f"res_block_2d_bwd reads K7's saved d1, d2: two 16-byte aligned "
+                         f"{tuple(x.shape)}")
+    d1, d2 = saved
+    _build.require_cuda_f32("res_block_2d_bwd", g, x, d1, d2)
     b = x.shape[0]
-    grid = -(-b // res2d.SAMPLES_PER_BLOCK)
+    _, blocks = res2d_bwd_plan(b, torch.cuda.get_device_properties(x.device).multi_processor_count)
     n_w = k1.numel() + k2.numel()
-    part = torch.empty((grid, n_w), device=x.device, dtype=x.dtype)
+    part = torch.empty((blocks, n_w), device=x.device, dtype=x.dtype)
     dk = torch.empty(n_w, device=x.device, dtype=x.dtype)
     daffine = torch.empty((4, b, x.shape[3]), device=x.device, dtype=x.dtype) if affine else ()
     dx = torch.empty_like(x) if need_dx else None
-    fn = _build.function("res_block_2d_bwd", "iins_res_block_2d_bwd", [_P] * 14 + [_I, _P])
+    fn = _build.function("res_block_2d_bwd", "iins_res_block_2d_bwd", [_P] * 16 + [_I, _I, _P])
     tables = [t.data_ptr() for t in affine[:3]] if affine else [None] * 3
     dtables = [t.data_ptr() for t in daffine] if affine else [None] * 4
-    err = fn(x.data_ptr(), k1.data_ptr(), k2.data_ptr(), *tables, g.data_ptr(), _ptr(dx),
-             part.data_ptr(), dk.data_ptr(), *dtables, b, _build.stream_handle(x))
+    err = fn(x.data_ptr(), d1.data_ptr(), d2.data_ptr(), k1.data_ptr(), k2.data_ptr(), *tables,
+             g.data_ptr(), _ptr(dx), part.data_ptr(), dk.data_ptr(), *dtables, b, blocks,
+             _build.stream_handle(x))
     _build.check(err, "res_block_2d_bwd", "res_block_2d_bwd")
     res_block_2d_bwd.launches += 1
     dk1, dk2 = _split(dk, [k1.shape, k2.shape])

@@ -1,10 +1,10 @@
 // Dynamic shared memory above the default 48 KB, and 16-byte (or 4-byte)
 // cp.async copies into it: the staging of K3 and K3b (strided_conv.cuh), of
-// K1b's residual-block and range-chain paths (in_chain_bwd.cu) and of K4b
-// (mlp_chain_bwd.cu). Pointers of 16-byte copies are 16-byte aligned. And
-// bulk copies (one instruction a block of bytes, the copy engine's 1-D form)
-// that complete on an mbarrier: the taps of K1's and K5's residual blocks
-// (in_chain.cu).
+// K1b's residual-block and range-chain paths (in_chain_bwd.cu), of K4b
+// (mlp_chain_bwd.cu) and of K7b (res_block_2d_bwd.cu). Pointers of 16-byte
+// copies are 16-byte aligned. And bulk copies (one instruction a block of
+// bytes, the copy engine's 1-D form) that complete on an mbarrier: the taps
+// of K1's and K5's residual blocks (in_chain.cu). And a prefetch into L2.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -96,4 +96,9 @@ __device__ __forceinline__ void bulk_copy(float* dst, const float* src, unsigned
           "r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// Ask L2 to fetch `bytes` (a multiple of 16, src 16-byte aligned) ahead of plain loads.
+__device__ __forceinline__ void prefetch_l2(const float* src, unsigned bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(src), "r"(bytes) : "memory");
 }

@@ -1,14 +1,16 @@
-// Device code shared by K7 res_block_2d (res_block_2d.cu) and its backward
-// K7b (res_block_2d_bwd.cu): the 3x3 reflect-pad-1 conv of an 8x8x64 field
-// with the taps streamed through shared memory one (dh, dw) slice at a
-// time, the InstanceNorm statistics and the AdaIN / ReLU epilogue. K7b
-// recomputes the forward with these same functions, so its activations and
-// ReLU masks are the forward's bit for bit.
+// Device code of K7 res_block_2d (res_block_2d.cu), part of it shared with
+// its backward K7b (res_block_2d_bwd.cu): the 3x3 reflect-pad-1 conv of an
+// 8x8x64 field with the taps streamed through shared memory one (dh, dw)
+// slice at a time, the InstanceNorm statistics and the AdaIN / ReLU
+// epilogue. K7b takes the statistics of the conv outputs K7 saved, and y1
+// from them, with these same functions (channel_stats, norm_relu), so its
+// ReLU mask is the forward's bit for bit.
 //
 // Layout: x (B, 8, 8, 64) channels-last, taps (3, 3, C_in, C_out). In
 // shared memory a sample's field is 64 pixel rows of kPS floats (64
 // channels and 4 of padding, so the four pixels that four neighbouring
-// thread groups read lie in four different bank groups).
+// thread groups read lie in four different bank groups); K7b's rows are
+// wider (its Ld template argument).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -47,21 +49,11 @@ __device__ __forceinline__ Tile my_tile() {
 
 __device__ __forceinline__ int tile_pixel(const Tile& t, int p) { return (t.h0 + p) * kW + t.w; }
 
-// One (dh, dw) slice of the taps (C_in, C_out) into the shared tile W:
-// W[ci][co] as stored, or with ``transpose`` W[co][ci] (the input
-// gradient's product contracts over C_out).
-__device__ void load_tap_tile(float* W, const float* __restrict__ k, bool transpose) {
+// One (dh, dw) slice of the taps (C_in, C_out) into the shared tile W[ci][co].
+__device__ void load_tap_tile(float* W, const float* __restrict__ k) {
   for (int i = threadIdx.x; i < kTapFloats / 4; i += blockDim.x) {
     const int r = i >> 4, c = (i & 15) * 4;
-    const float4 v = __ldg(reinterpret_cast<const float4*>(k) + i);
-    if (!transpose) {
-      *reinterpret_cast<float4*>(W + r * kWS + c) = v;
-    } else {
-      W[c * kWS + r] = v.x;
-      W[(c + 1) * kWS + r] = v.y;
-      W[(c + 2) * kWS + r] = v.z;
-      W[(c + 3) * kWS + r] = v.w;
-    }
+    *reinterpret_cast<float4*>(W + r * kWS + c) = __ldg(reinterpret_cast<const float4*>(k) + i);
   }
 }
 
@@ -115,7 +107,7 @@ __device__ void conv3x3(const float* field, const float* __restrict__ k, float* 
   zero(acc);
   for (int tap = 0; tap < kTaps; ++tap) {
     __syncthreads();  // the previous slice is no longer read; the field is written
-    load_tap_tile(W, k + tap * kTapFloats, false);
+    load_tap_tile(W, k + tap * kTapFloats);
     __syncthreads();
     const int dh = tap / 3, dw = tap % 3;
     const int sw = reflect8(t.w + dw - 1);
@@ -137,18 +129,20 @@ __device__ __forceinline__ void store_tile(float* out, const Tile& t, const floa
 }
 
 // mean and 1/sqrt(var + eps) of each (sample, channel) of the block's
-// fields over the 64 pixels, two-pass, biased: two lanes a pair. Indexed
-// s * kC + c. Every thread calls it.
+// fields (kSamples of them, pixel rows of Ld floats) over the 64 pixels,
+// two-pass, biased: two lanes a pair. Indexed s * kC + c. Every thread
+// calls it.
+template <int Ld = kPS>
 __device__ void channel_stats(const float* fields, float* mean, float* rstd) {
   const int pair = threadIdx.x >> 1, lane = threadIdx.x & 1;
-  const float* f = fields + (pair / kC) * kField + pair % kC;
+  const float* f = fields + (pair / kC) * (kPix * Ld) + pair % kC;
   float sum = 0.f;
-  for (int i = lane; i < kPix; i += 2) sum += f[i * kPS];
+  for (int i = lane; i < kPix; i += 2) sum += f[i * Ld];
   sum += __shfl_xor_sync(kFull, sum, 1);
   const float m = sum * (1.f / kPix);
   float sq = 0.f;
   for (int i = lane; i < kPix; i += 2) {
-    const float d = f[i * kPS] - m;
+    const float d = f[i * Ld] - m;
     sq = fmaf(d, d, sq);
   }
   sq += __shfl_xor_sync(kFull, sq, 1);
@@ -179,13 +173,16 @@ __device__ __forceinline__ void for_each4(int ns, Fn fn) {
   }
 }
 
-// out[s][pix][c] = relu(norm_affine(in[s][pix][c])) for the first ns samples.
+// out[s][pix][c] = relu(norm_affine(in[s][pix][c])) for the first ns samples
+// (pixel rows of Ld floats).
+template <int Ld = kPS>
 __device__ void norm_relu(const float* in, float* out, int ns, const float* mean,
                           const float* rstd, const float* g, const float* b) {
   for_each4(ns, [&](int s, int pix, int c) {
-    const float4 v = *reinterpret_cast<const float4*>(in + s * kField + pix * kPS + c);
+    const int f = (s * kPix + pix) * Ld + c;
+    const float4 v = *reinterpret_cast<const float4*>(in + f);
     const int q = s * kC + c;
-    *reinterpret_cast<float4*>(out + s * kField + pix * kPS + c) = make_float4(
+    *reinterpret_cast<float4*>(out + f) = make_float4(
         fmaxf(norm_affine(v.x, q, mean, rstd, g, b), 0.f),
         fmaxf(norm_affine(v.y, q + 1, mean, rstd, g, b), 0.f),
         fmaxf(norm_affine(v.z, q + 2, mean, rstd, g, b), 0.f),

@@ -15,9 +15,12 @@ backward.res_block_2d_bwd); it states the kernel's bound on the H100 and
 what its design does about it. The wrapper runs the plain version on CPU
 tensors (autograd differentiates it); on CUDA tensors it launches the
 kernel, through autograd.ResBlock2d where a gradient is needed, or raises on
-what the kernel does not take. The TPU guard ``res2d.applicable`` (lane
-widths, the interpret-mode batch cap) has no counterpart: on the card every
-block of the model's shape launches K7.
+what the kernel does not take. Under autograd K7 also writes the pre-norm
+conv outputs d1 = conv3x3(x, k1) and d2 = conv3x3(y1, k2), which K7b reads
+instead of recomputing them (``save=True``); serving writes neither. The
+TPU guard ``res2d.applicable`` (lane widths, the interpret-mode batch cap)
+has no counterpart: on the card every block of the model's shape launches
+K7.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from iinsvae_torch.ops.norms import adain, instance_norm
 
 # the only field the kernel takes: (8, 8) pixels of 64 channels
 FIELD = (8, 8, 64)
-# samples a block of K7 and K7b owns (kSamples of csrc/res_block_2d.cuh)
+# samples a block of K7, and a tile of K7b, owns (kSamples of csrc/res_block_2d.cuh)
 SAMPLES_PER_BLOCK = 2
 
 _P = ctypes.c_void_p
@@ -41,15 +44,18 @@ _I = ctypes.c_int
 
 
 def res_block_2d_ref(x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
-                     *affine: torch.Tensor) -> torch.Tensor:
+                     *affine: torch.Tensor, save: bool = False):
     """Plain version of K7: dense reflect-pad conv2d, two-pass InstanceNorm
-    (with the per-sample affine where ``affine`` is given), ReLU, the skip."""
+    (with the per-sample affine where ``affine`` is given), ReLU, the skip.
+    -> y, or with ``save`` (y, d1, d2), the pre-norm conv outputs."""
 
     def norm(y, i):
         return adain(y, affine[2 * i], affine[2 * i + 1]) if affine else instance_norm(y)
 
-    y = torch.relu(norm(conv2d(x, k1, padding=1, pad_mode="reflect"), 0))
-    return x + norm(conv2d(y, k2, padding=1, pad_mode="reflect"), 1)
+    d1 = conv2d(x, k1, padding=1, pad_mode="reflect")
+    d2 = conv2d(torch.relu(norm(d1, 0)), k2, padding=1, pad_mode="reflect")
+    y = x + norm(d2, 1)
+    return (y, d1, d2) if save else y
 
 
 def res_block_2d(x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
@@ -82,17 +88,20 @@ def check_res_block_2d(x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
 
 
 def launch_res_block_2d(x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
-                        *affine: torch.Tensor) -> torch.Tensor:
-    """Check the operands, launch K7 and count the launch."""
+                        *affine: torch.Tensor, save: bool = False):
+    """Check the operands, launch K7 and count the launch. -> y, or with
+    ``save`` (y, d1, d2): the same y, and the pre-norm conv outputs K7b reads."""
     check_res_block_2d(x, k1, k2, *affine)
     y = torch.empty_like(x)
-    fn = _build.function("res_block_2d", "iins_res_block_2d", [_P] * 8 + [_I, _P])
+    saved = (torch.empty_like(x), torch.empty_like(x)) if save else ()
+    fn = _build.function("res_block_2d", "iins_res_block_2d", [_P] * 10 + [_I, _P])
     tables = [t.data_ptr() for t in affine] if affine else [None] * 4
-    err = fn(x.data_ptr(), k1.data_ptr(), k2.data_ptr(), *tables, y.data_ptr(), x.shape[0],
+    err = fn(x.data_ptr(), k1.data_ptr(), k2.data_ptr(), *tables, y.data_ptr(),
+             *([t.data_ptr() for t in saved] if save else [None] * 2), x.shape[0],
              _build.stream_handle(x))
     _build.check(err, "res_block_2d", "res_block_2d")
     res_block_2d.launches += 1
-    return y
+    return (y, *saved) if save else y
 
 
 res_block_2d.launches = 0

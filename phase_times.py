@@ -1,6 +1,7 @@
 """Where a redesigned kernel spends its time, phase by phase, on one NVIDIA card.
 
-    python3 phase_times.py [--kernel res|res_fwd|tail|chain|mlp] [--tree DIR] [--out FILE]
+    python3 phase_times.py [--kernel res|res_fwd|tail|chain|mlp|res2d_bwd] [--tree DIR]
+                           [--out FILE]
 
 ``--kernel res`` (the default): K1b's residual-block backward, from DIR's
 ``iinsvae_torch/ops/kernels/csrc/in_chain_bwd.cu``, timed through DIR's own wrappers at the two
@@ -15,6 +16,9 @@ restorer, the classifier and the 2-D restorer, with the pre-activations K4 saves
 ``--kernel res_fwd``: the forward of the residual blocks, from ``csrc/in_chain.cu``, through
 ``in_chain`` at the range encoder's IN block (K1) and ``adain_res_block`` at the decoder's AdaIN
 block (K5).
+``--kernel res2d_bwd``: K7b, the 2-D residual block's backward, from ``csrc/res_block_2d_bwd.cu``,
+through ``res_block_2d_bwd`` at the expanded 2-D model's range encoder IN block (``range.res2d``)
+and decoder AdaIN block (``dec.res2d``), with the d1, d2 that K7 saves.
 
 DIR defaults to this checkout. The script builds one variant of the source for each phase,
 which stops the kernel after that phase (one nvcc each, all at once, under
@@ -33,7 +37,9 @@ decoder's shape got its own path) and ``tail_bwd_kernel``; K4b's ``mlp_bwd_chain
 chain kernel and a weight-gradient kernel) and ``small_kernel`` (the classifier's one-block
 chain, beside the restorers' launch a layer and weight-gradient launch); K1's and K5's
 forward at the residual blocks: ``in_chain_kernel`` (the general kernel, which ran them before
-they got a kernel of their own) and ``res_block_kernel``.
+they got a kernel of their own) and ``res_block_kernel``; K7b's ``res2d_bwd_tc_kernel``, whose
+cuts set its ``kLastPhase`` (every copy, wait and __syncthreads stays, the phases after it do no
+work), and the row before them returns at once.
 A kernel that launches several kernels a call is split by name too: each site's device time a
 call of each kernel, from a torch.profiler trace of the whole call (``[split]`` lines). Prints
 one JSON line and writes it to FILE (default ``build/phase_times.json``). Needs one CUDA card
@@ -252,6 +258,17 @@ CUTS["res_block_kernel"] = [
      "    __syncthreads();\n"),
     ("(5) y out: the whole kernel", None),
 ]
+# K7b on the tensor cores: the variant of each row computes the tile's phases up to its
+# kLastPhase; the first returns at once (the launch and the partial rows' sum).
+_RES2D_LAST = "constexpr int kLastPhase = 6;"
+CUTS["res2d_bwd_tc_kernel"] = [
+    ("launch + reduce",
+     "  float* part = a.part + static_cast<size_t>(blockIdx.x) * 2 * kTapGrads;\n"),
+    *[(phase, {_RES2D_LAST: f"constexpr int kLastPhase = {j};"}) for j, phase in enumerate(
+        ("staging: every copy, wait and __syncthreads", "(1) gd2 = N2'(g, d2), y1",
+         "(2) dk2", "(3) dy1, ga1", "(4) gd1 = N1'(ga1, d1)", "(5) dk1"))],
+    ("(6) dx: the whole kernel", None),
+]
 # which source each --kernel reads, and its designs, newest first
 KERNELS = {
     "res": ("in_chain_bwd", ("res_block_bwd_kernel", "in_chain_bwd_kernel")),
@@ -259,16 +276,27 @@ KERNELS = {
     "tail": ("sln_chain_bwd", ("tail_bwd_kernel", "sln_chain_bwd_kernel")),
     "chain": ("in_chain_bwd", ("down_chain_bwd_kernel", "in_chain_bwd_kernel")),
     "mlp": ("mlp_chain_bwd", ("small_kernel", "mlp_bwd_chain_kernel")),
+    "res2d_bwd": ("res_block_2d_bwd", ("res2d_bwd_tc_kernel",)),
 }
 
 
 def variants(src: str, kernel: str) -> tuple[str, list[tuple[str, str]]]:
     """-> (the design's kernel name, [(phase, variant source)]). A cut without a statement of
-    its own returns; a cut of several anchors stops after each."""
-    name = next(d for d in KERNELS[kernel][1] if re.search(rf"\b{d}\(", src))
+    its own returns; a cut of several anchors stops after each; a cut given as a dict replaces
+    each key's text by its value."""
+    name = next((d for d in KERNELS[kernel][1] if re.search(rf"\b{d}\(", src)), None)
+    if name is None:
+        raise SystemExit(f"phase_times: no design of --kernel {kernel} in the source")
     out = []
     for phase, anchor, *stop in CUTS[name]:
         text = src
+        if isinstance(anchor, dict):
+            for old, new in anchor.items():
+                if text.count(old) != 1:
+                    raise SystemExit(f"phase_times: {old!r} is not in the source once")
+                text = text.replace(old, new)
+            out.append((phase, text))
+            continue
         for a in (() if anchor is None else anchor if isinstance(anchor, tuple) else (anchor,)):
             if text.count(a) != 1:
                 raise SystemExit(f"phase_times: the cut after {phase!r} is not in the source once")
@@ -385,6 +413,20 @@ def main() -> int:
             "dec.res": lambda: fused.adain_res_block(x, dec.res0_kernel1, dec.res0_kernel2,
                                                      *tables),
         }
+    elif args.kernel == "res2d_bwd":
+        from iinsvae_torch.ops.kernels import res2d
+
+        model_2d = IInsVAE(cir_len=157, num_classes=5, style_dim=16, conv_type=2,
+                           generator=torch.Generator().manual_seed(0)).cuda()
+        sites = {}
+        for name, mod, tables in (("range.res2d", model_2d.encoder.range_encoder, []),
+                                  ("dec.res2d", model_2d.decoder.decoder,
+                                   [rand(b, 64) for _ in range(4)])):
+            x, g, k1, k2 = rand(b, 8, 8, 64), rand(b, 8, 8, 64), mod.res0_kernel1, mod.res0_kernel2
+            with torch.no_grad():
+                _, d1, d2 = res2d.launch_res_block_2d(x, k1, k2, *tables, save=True)
+            sites[name] = (lambda g=g, x=x, k1=k1, k2=k2, t=tables, s=(d1, d2):
+                           backward.res_block_2d_bwd(g, x, k1, k2, *t, saved=s))
     elif args.kernel == "res":
         x, g = rand(b, 8, 64), rand(b, 8, 64)
         block = [(re_.res0_kernel1, 1, 1, "reflect"), (re_.res0_kernel2, 1, 1, "reflect")]

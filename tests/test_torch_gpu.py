@@ -410,6 +410,7 @@ def test_gpu_every_backward_kernel_call_of_a_step_matches_plain(cuda, monkeypatc
             keep = _clear_samples(x, k1, *affine)
             assert 2 * len(keep) >= x.shape[0], f"{name}: {len(keep)} of {x.shape[0]} samples clear"
             args = (g[keep], x[keep], k1, k2, *(t[keep] for t in affine))
+            kw = dict(kw, saved=tuple(t[keep] for t in kw["saved"]))
             got = wrapper(*args, **kw)
         got, want = _tensors(got), _tensors(backward.PLAIN[wrapper](*args, **kw))
         assert len(got) == len(want), name
@@ -733,11 +734,17 @@ def test_gpu_backward_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("adain", [False, True])
-def test_gpu_res_block_2d_and_its_backward_match_plain(cuda, adain):
-    """K7 and K7b at a ragged batch (the last block holds one sample), IN and
-    AdaIN, against the plain version and autograd through it."""
+@pytest.mark.parametrize("b", [500, 261, 5, 1])
+def test_gpu_res_block_2d_and_its_backward_match_plain(cuda, b, adain):
+    """K7 and K7b at batches with a whole number of tiles of two samples, a
+    ragged last tile and one sample, IN and AdaIN. K7 against the plain
+    version; when it saves d1 and d2 its y is bit-equal and d1, d2 match the
+    plain convs. K7b reading them is bit-equal over two calls, gives no dx
+    without need_dx (and the same other gradients), and matches autograd
+    through the plain block on the samples whose ReLU mask rounding cannot
+    decide (_clear_samples, at least half of the batch; where some are not
+    clear, K7b runs again on the clear ones alone)."""
     gen = torch.Generator().manual_seed(3)
-    b = 5
     x = torch.randn((b, 8, 8, 64), generator=gen).to(cuda)
     k1, k2 = (0.05 * torch.randn((3, 3, 64, 64), generator=gen)).to(cuda), \
         (0.05 * torch.randn((3, 3, 64, 64), generator=gen)).to(cuda)
@@ -745,12 +752,26 @@ def test_gpu_res_block_2d_and_its_backward_match_plain(cuda, adain):
     g = torch.randn((b, 8, 8, 64), generator=gen).to(cuda)
     torch.testing.assert_close(res2d.res_block_2d(x, k1, k2, *affine),
                                res2d.res_block_2d_ref(x, k1, k2, *affine), rtol=RTOL, atol=ATOL)
-    got = backward.res_block_2d_bwd(g, x, k1, k2, *affine)
+    y, d1, d2 = res2d.launch_res_block_2d(x, k1, k2, *affine, save=True)
+    assert torch.equal(y, res2d.launch_res_block_2d(x, k1, k2, *affine))
+    _, p1, p2 = res2d.res_block_2d_ref(x, k1, k2, *affine, save=True)
+    torch.testing.assert_close(d1, p1, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(d2, p2, rtol=RTOL, atol=ATOL)
+    got = backward.res_block_2d_bwd(g, x, k1, k2, *affine, saved=(d1, d2))
+    again = backward.res_block_2d_bwd(g, x, k1, k2, *affine, saved=(d1, d2))
+    assert len(got) == 3 + len(affine)
+    assert all(torch.isfinite(a).all() and torch.equal(a, c) for a, c in zip(got, again))
+    no_dx = backward.res_block_2d_bwd(g, x, k1, k2, *affine, saved=(d1, d2), need_dx=False)
+    assert no_dx[0] is None and all(torch.equal(a, c) for a, c in zip(no_dx[1:], got[1:]))
+    keep = _clear_samples(x, k1, *affine)
+    assert 2 * len(keep) >= b, f"{len(keep)} of {b} samples clear"
+    if len(keep) < b:
+        x, g, d1, d2 = (t[keep] for t in (x, g, d1, d2))
+        affine = [t[keep] for t in affine]
+        got = backward.res_block_2d_bwd(g, x, k1, k2, *affine, saved=(d1, d2))
     want = backward.res_block_2d_bwd_ref(g, x, k1, k2, *affine)
-    assert len(got) == len(want) == 3 + len(affine)
     for i, (a, w) in enumerate(zip(got, want)):
         _close_scaled(a, w, BWD_RTOL, BWD_ATOL, f"res_block_2d_bwd gradient {i}")
-    assert backward.res_block_2d_bwd(g, x, k1, k2, *affine, need_dx=False)[0] is None
 
 
 @pytest.mark.gpu
@@ -771,7 +792,19 @@ def test_gpu_res_block_2d_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):  # non-contiguous
         res2d.res_block_2d(x.transpose(1, 2), k, k)
     with pytest.raises(ValueError):  # g of another shape than x
-        backward.res_block_2d_bwd(x[:3].contiguous(), x, k, k)
+        backward.res_block_2d_bwd(x[:3].contiguous(), x, k, k, saved=(x, x))
+    with pytest.raises(ValueError):  # no saved d1, d2
+        backward.res_block_2d_bwd(x, x, k, k)
+    with pytest.raises(ValueError):  # d1 of another batch
+        backward.res_block_2d_bwd(x, x, k, k, saved=(x[:3].contiguous(), x))
+    with pytest.raises(ValueError):  # d2 of another field
+        backward.res_block_2d_bwd(x, x, k, k, saved=(x, x[:, :4].contiguous()))
+    with pytest.raises(ValueError):  # one tensor, not the pair
+        backward.res_block_2d_bwd(x, x, k, k, saved=(x,))
+    with pytest.raises(TypeError):  # float64 saves
+        backward.res_block_2d_bwd(x, x, k, k, saved=(x.double(), x.double()))
+    with pytest.raises(ValueError):  # non-contiguous d1
+        backward.res_block_2d_bwd(x, x, k, k, saved=(x.transpose(1, 2), x))
 
 
 def _one_stage_ops(cuda, b):
