@@ -133,6 +133,9 @@ PEAK_TF32_FLOP_PER_S = 495e12
 # another order (conv sums of up to 192 terms, dense sums of up to 512) and
 # InstanceNorm divides by a per-channel std, which can scale that rounding up.
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-4
+# K7's y, d1 and d2 (3xTF32 on the tensor cores) against the float64 block: an error at most
+# this many times the plain fp32 block's, the plain block's own rounding being the yardstick.
+F64_FACTOR = 2.0
 # Predictor on the card vs on the CPU: 12 (17) launches' reorderings compound.
 SERVE_RTOL, SERVE_ATOL = 1e-3, 1e-4
 # launches per forward batch of the flagship (n_downsample 4, n_residual 3)
@@ -413,7 +416,9 @@ def call_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list[dic
                     x, k1, k2, *a, save=True),
                 save_plain=lambda x=x, k1=k1, k2=k2, a=affine: res2d.res_block_2d_ref(
                     x, k1, k2, *a, save=True),
-                bytes=nbytes(x, k1, k2, *affine, x), flops=2 * res2d_flops(b)))
+                save_f64=lambda x=x, k1=k1, k2=k2, a=affine: res2d.res_block_2d_ref(
+                    *(t.double() for t in (x, k1, k2, *a)), save=True),
+                bytes=nbytes(x, k1, k2, *affine, x), flops=2 * res2d_flops(b), tf32x3=True))
         add_mlp("restorer.2d", model.restorer.restorer, f"{fp}:1164")
         return sites
     stages = [(re_.in_kernel, 1, 3, "reflect")] + [
@@ -518,18 +523,36 @@ def compare_backward(s: dict, what: str = "") -> tuple[list[float], list[float]]
 
 def compare_saves(s: dict) -> dict:
     """K7 as training launches it: y bit-equal to the serving launch's, and the saved d1, d2
-    within KERNEL_RTOL / KERNEL_ATOL of the plain convs. Returns their largest errors and the
-    launch's device time (save_ms)."""
-    (y, d1, d2), (_, p1, p2) = s["save"](), s["save_plain"]()
+    within KERNEL_RTOL / KERNEL_ATOL of the plain convs; y, d1 and d2 against the float64 block,
+    each with an error at most F64_FACTOR times the plain fp32 block's. Returns their errors and
+    the launch's device time (save_ms)."""
+    got, plain, f64 = s["save"](), s["save_plain"](), s["save_f64"]()
     torch.cuda.synchronize()
-    if not torch.equal(y, s["run"]()):
+    if not torch.equal(got[0], s["run"]()):
         raise AssertionError(f"{s['name']}: K7's y differs when it saves d1 and d2")
     errs = {}
-    for k, got, want in (("d1", d1, p1), ("d2", d2, p2)):
-        torch.testing.assert_close(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
-                                   msg=lambda m: f"{s['name']} saved {k} vs plain: {m}")
-        errs[f"saved_{k}_max_abs_err"] = (got - want).abs().max().item()
+    for k, a, p, w in zip(("y", "d1", "d2"), got, plain, f64):
+        if k != "y":
+            torch.testing.assert_close(a, p, rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
+                                       msg=lambda m: f"{s['name']} saved {k} vs plain: {m}")
+            errs[f"saved_{k}_max_abs_err"] = (a - p).abs().max().item()
+        e, e_plain = ((t.double() - w).abs().max().item() for t in (a, p))
+        if e > F64_FACTOR * e_plain:
+            raise AssertionError(f"{s['name']}: {k}'s error against float64 {e:.3e} is over "
+                                 f"{F64_FACTOR} x the plain fp32 block's {e_plain:.3e}")
+        errs[f"{k}_err_vs_f64"], errs[f"plain_{k}_err_vs_f64"] = e, e_plain
     return dict(y_bit_equal_when_saving=True, **errs, save_ms=device_ms(s["save"]))
+
+
+def ops_bound_ms(s: dict) -> tuple[float, float, dict]:
+    """A site's operations over the card's peak: -> (the bound, the fp32-FMA time, the row's
+    extra fields). A site with ``tf32x3`` runs its products on the tensor cores, three TF32
+    products each; its bound is theirs, the FMA time reported beside it."""
+    fma_ms = s["flops"] / PEAK_FP32_FLOP_PER_S * 1e3
+    if not s.get("tf32x3"):
+        return fma_ms, fma_ms, {}
+    tf32_ms = 3 * s["flops"] / PEAK_TF32_FLOP_PER_S * 1e3
+    return tf32_ms, fma_ms, dict(tf32x3_bound_ms=tf32_ms, fp32_fma_bound_ms=fma_ms)
 
 
 def check_and_time(sites: list[dict], tag: str = "kernel") -> list[dict]:
@@ -545,7 +568,8 @@ def check_and_time(sites: list[dict], tag: str = "kernel") -> list[dict]:
         if "save" in s:
             oracle = compare_saves(s)
         bytes_ms = s["bytes"] / PEAK_BYTES_PER_S * 1e3
-        flops_ms = s["flops"] / PEAK_FP32_FLOP_PER_S * 1e3
+        flops_ms, fma_ms, more = ops_bound_ms(s)
+        oracle.update(more)
         rows.append(dict(
             name=s["name"], kernel=s["kernel"], shape=s["shape"], replaces=s["replaces"],
             calls_per_batch=s["calls_per_batch"], max_abs_err=abs_err, max_rel_err=rel,
@@ -561,13 +585,18 @@ def check_and_time(sites: list[dict], tag: str = "kernel") -> list[dict]:
               f"max_rel_err {r['max_rel_err']:.3e}  {r['ms'] * 1e3:8.2f} us (eager "
               f"{r['eager_ms'] * 1e3:.2f})  plain "
               f"{r['plain_ms'] * 1e3:8.2f} us  bound {r['bound_ms'] * 1e3:6.2f} us "
-              f"({r['bound_by']})" + (f"  {r['yardstick']} (double dagger) "
+              f"({r['bound_by']}" + (f", 3xTF32; as fp32 FMAs {fma_ms * 1e3:.2f} us"
+                                     if s.get("tf32x3") else "") + ")"
+              + (f"  {r['yardstick']} (double dagger) "
                                       f"{r['cudnn_conv_ms'] * 1e3:.2f} us"
                                       if r["cudnn_conv_ms"] is not None else "")
               + (f"  bit-equal to the general kernel ({r['general_ms'] * 1e3:.2f} us) and over "
                  "two calls" if "general" in s else "")
               + (f"  saving d1, d2 {r['save_ms'] * 1e3:.2f} us (y bit-equal, d1 / d2 max_abs_err "
-                 f"{r['saved_d1_max_abs_err']:.3e} / {r['saved_d2_max_abs_err']:.3e})"
+                 f"{r['saved_d1_max_abs_err']:.3e} / {r['saved_d2_max_abs_err']:.3e}; vs float64 "
+                 + ", ".join(f"{k} {r[f'{k}_err_vs_f64']:.2e} "
+                             f"(plain {r[f'plain_{k}_err_vs_f64']:.2e})"
+                             for k in ("y", "d1", "d2")) + ")"
                  if "save" in s else ""), flush=True)
     # the device kernels of the sites with a second oracle, traced once every site is timed: the
     # device times of small kernels read a few tenths of a us longer after a profiler session
@@ -995,11 +1024,7 @@ def check_and_time_backward(sites: list[dict], tag: str = "backward") -> list[di
         if not bit_equal_calls(s["run"]):
             raise AssertionError(f"{s['name']}: two calls of the kernel are not bit-equal")
         bytes_ms = s["bytes"] / PEAK_BYTES_PER_S * 1e3
-        flops_ms = fma_ms = s["flops"] / PEAK_FP32_FLOP_PER_S * 1e3
-        more = {}
-        if s.get("tf32x3"):  # the products on the tensor cores, three TF32 products each
-            flops_ms = 3 * s["flops"] / PEAK_TF32_FLOP_PER_S * 1e3
-            more = dict(tf32x3_bound_ms=flops_ms, fp32_fma_bound_ms=fma_ms)
+        flops_ms, fma_ms, more = ops_bound_ms(s)
         rows.append(dict(
             name=s["name"], kernel=s["kernel"], replaces=s["replaces"],
             calls_per_batch=s["calls_per_batch"], max_abs_err=max(errs),
@@ -1585,6 +1610,11 @@ def main() -> int:
         {"res_block_2d": dict(launches_no_recon=launches_2d_no_recon["res_block_2d"],
                               launches_train=training_2d["launches"]["res_block_2d"],
                               save_ms=per_call_sum(site_rows_2d, "res_block_2d", "save_ms"),
+                              bound="3xTF32 on the tensor cores",
+                              tf32x3_bound_ms=per_call_sum(site_rows_2d, "res_block_2d",
+                                                           "tf32x3_bound_ms"),
+                              fp32_fma_bound_ms=per_call_sum(site_rows_2d, "res_block_2d",
+                                                             "fp32_fma_bound_ms"),
                               **conv_yardstick(site_rows_2d, "res_block_2d", "cudnn_conv_ms"))})
     kernel_table += kernel_rows(
         bwd_rows, [f"{k}_bwd" for k in names_1d], training["launches_bwd"], per_step,

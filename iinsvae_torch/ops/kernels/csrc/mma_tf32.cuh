@@ -1,4 +1,4 @@
-// fp32 products on the tensor cores in 3xTF32 (K7b, res_block_2d_bwd.cu).
+// fp32 products on the tensor cores in 3xTF32 (K7 res_block_2d.cu, K7b res_block_2d_bwd.cu).
 //
 // An fp32 operand v splits in registers into hi = tf32(v) and lo = tf32(v - hi), each rounded
 // to nearest (ties away), the rounding of cvt.rna.tf32.f32; hi + lo carries about 21 of v's 24
@@ -17,6 +17,8 @@
 // callers choose both so that a lane's operands are pairs of neighbouring floats (one 8-byte
 // shared load) and the loads of a warp are free of bank conflicts.
 #pragma once
+
+#include <cuda_runtime.h>
 
 #include <cstdint>
 
@@ -47,6 +49,16 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// c = a b on one 16 x 8 x 8 tile: no accumulator is read.
+__device__ __forceinline__ void mma_fresh(float (&c)[4], const uint32_t (&a)[4],
+                                          const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%10, %10, %10, %10};"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
+}
+
 // One operand fragment of n registers, split.
 template <int n>
 struct Frag {
@@ -54,16 +66,40 @@ struct Frag {
   __device__ __forceinline__ void set(int i, float v) { split(v, hi[i], lo[i]); }
 };
 
-// c[m][n] += a[m] b[n] for every tile of a warp's M x N tiles in 3xTF32: the two small terms,
-// then the large one, each over all tiles in turn, so that neighbouring mma's write different
-// accumulators and none waits on the one before.
-template <int M, int N>
+// A B fragment's pair (b[0], b[1]) split ahead of its use, as one 16-byte word (hi[0], hi[1],
+// lo[0], lo[1]): K7 stages its tap slices so, each value split once a block, and a lane reads
+// its fragment with one 16-byte load.
+__device__ __forceinline__ uint4 split_pair(float b0, float b1) {
+  uint4 v;
+  split(b0, v.x, v.z);
+  split(b1, v.y, v.w);
+  return v;
+}
+
+__device__ __forceinline__ Frag<2> frag(const uint4& v) {
+  Frag<2> f;
+  f.hi[0] = v.x;
+  f.hi[1] = v.y;
+  f.lo[0] = v.z;
+  f.lo[1] = v.w;
+  return f;
+}
+
+// c[m][n] += a[m] b[n] (kFresh: c[m][n] = a[m] b[n]) for every tile of a warp's M x N tiles in
+// 3xTF32: the two small terms, then the large one, each over all tiles in turn, so that
+// neighbouring mma's write different accumulators and none waits on the one before.
+template <bool kFresh = false, int M, int N>
 __device__ __forceinline__ void mma3(float (&c)[M][N][4], const Frag<4> (&a)[M],
                                      const Frag<2> (&b)[N]) {
 #pragma unroll
   for (int m = 0; m < M; ++m)
 #pragma unroll
-    for (int n = 0; n < N; ++n) mma(c[m][n], a[m].lo, b[n].hi);
+    for (int n = 0; n < N; ++n) {
+      if (kFresh)
+        mma_fresh(c[m][n], a[m].lo, b[n].hi);
+      else
+        mma(c[m][n], a[m].lo, b[n].hi);
+    }
 #pragma unroll
   for (int m = 0; m < M; ++m)
 #pragma unroll

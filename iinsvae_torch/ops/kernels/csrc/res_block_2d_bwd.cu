@@ -69,9 +69,6 @@ namespace {
 using namespace res2d;
 using tf32x3::Frag;
 
-constexpr int kLd = kC + 8;                 // floats between two pixel rows (or tap rows)
-constexpr int kFieldB = kPix * kLd;         // one sample's field in shared memory
-constexpr int kPair = kSamples * kFieldB;   // a tile's field
 constexpr int kSlice = kC * kLd;            // one (dh, dw) slice of the taps, rows ci
 constexpr int kTapGrads = kTaps * kC * kC;  // one conv's d(taps)
 constexpr int kStats = 6 * kSamples * kC;
@@ -89,41 +86,6 @@ static_assert(2 * kSlice == kPair, "the tap ring takes one field's room");
 // kernel computes them up to kLastPhase; phase_times.py builds variants with an earlier last
 // phase, which keep every copy, wait and __syncthreads of the whole kernel.
 constexpr int kLastPhase = 6;
-
-__device__ __forceinline__ float2 ld2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-
-// Every thread: its 16-byte cp.async copies of n rows of kC floats from src (consecutive in
-// device memory) into dst rows of kLd floats.
-__device__ void copy_rows(float* dst, const float* __restrict__ src, int n) {
-  for (int i = threadIdx.x; i < n * (kC / 4); i += kThreads) {
-    const int r = i >> 4, c = (i & 15) * 4;
-    cp_async16(dst + r * kLd + c, src + r * kC + c, true);
-  }
-}
-
-// The block's copies in flight as cp.async groups, numbered in commit order; every thread
-// commits the same groups. wait(g) returns once this thread's copies of group g (and of every
-// group before it) have landed; a __syncthreads then makes every thread's visible.
-struct Groups {
-  int committed = 0;
-
-  __device__ int commit() {
-    cp_async_commit();
-    return committed++;
-  }
-
-  __device__ void wait(int g) const {
-    switch (min(committed - 1 - g, 4)) {  // groups after g that may stay in flight
-      case 0: cp_async_wait<0>(); break;
-      case 1: cp_async_wait<1>(); break;
-      case 2: cp_async_wait<2>(); break;
-      case 3: cp_async_wait<3>(); break;
-      default: cp_async_wait<4>(); break;
-    }
-  }
-};
 
 // The tap slices a block reads, in order: for each of its tiles k2's nine and, with dx, k1's
 // nine. Slice n goes to ring slot n % 2 as one group.
@@ -165,7 +127,7 @@ __device__ void edge_sums(const float* gd, float* E, int ns) {
   constexpr int kRows = kZero;  // the zero pixel is written once
   for (int i = threadIdx.x; i < ns * kRows * (kC / 4); i += kThreads) {
     const int s = i / (kRows * (kC / 4)), r = (i / (kC / 4)) % kRows, c = (i & 15) * 4;
-    const float* f = gd + s * kFieldB + c;
+    const float* f = gd + s * kField + c;
     auto px = [&](int h, int w) {
       return *reinterpret_cast<const float4*>(f + (h * kW + w) * kLd);
     };
@@ -197,16 +159,7 @@ __device__ __forceinline__ const float* operand_row(const float* gd, const float
   if (rm >= 0 && cm >= 0) return e + (kCorner + 2 * rm + cm) * kLd;
   if (rm >= 0) return e + (kR0 + rm * kW + c) * kLd;
   if (cm >= 0) return e + (kC0 + cm * kH + r) * kLd;
-  return gd + s * kFieldB + (r * kW + c) * kLd;
-}
-
-// The warp's share of an input gradient: rows x_row0() + 16 mt (+ 8) of the tile's (sample,
-// pixel) rows, columns (C_in) x_col0() + 8 nt (+ 1), as the mma's C lays them out.
-__device__ __forceinline__ int x_row0() {
-  return (threadIdx.x >> 6) * 32 + ((threadIdx.x & 31) >> 2);
-}
-__device__ __forceinline__ int x_col0() {
-  return ((threadIdx.x >> 5) & 1) * 32 + 2 * (threadIdx.x & 3);
+  return gd + s * kField + (r * kW + c) * kLd;
 }
 
 // acc = the warp's 32 x 32 of conv3x3^T(gd, k) on the tile: for each tap, acc += T . slice^T,
@@ -297,12 +250,12 @@ __device__ void taps_grad_round(const float* in, const float* gd, int ns, float*
   float acc[M][4][4] = {};
   for (int s = 0; s < ns; ++s) {
     for (int h = 0; h < kH; ++h) {  // a step: image row h of sample s
-      const float* br = gd + s * kFieldB + (h * kW + t) * kLd + co0 + g;
+      const float* br = gd + s * kField + (h * kW + t) * kLd + co0 + g;
       Frag<4> a[M];
       Frag<2> b[4];
 #pragma unroll
       for (int i = 0; i < M; ++i) {
-        const float* ar = in + s * kFieldB + reflect8(h + dh[i] - 1) * kW * kLd;
+        const float* ar = in + s * kField + reflect8(h + dh[i] - 1) * kW * kLd;
         const float2 u = ld2(ar + ca[i]), v = ld2(ar + cb[i]);
         a[i].set(0, u.x);
         a[i].set(1, u.y);

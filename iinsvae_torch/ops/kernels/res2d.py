@@ -12,7 +12,11 @@ by it, and its gradient is exactly 0). N is InstanceNorm over each sample's
 Replaces fused_res_block_2d (iinsvae_tpu/ops/pallas/res2d.py:434). The
 CUDA source is csrc/res_block_2d.cu (its backward K7b csrc/res_block_2d_bwd.cu,
 backward.res_block_2d_bwd); it states the kernel's bound on the H100 and
-what its design does about it. The wrapper runs the plain version on CPU
+what its design does about it. Both convs run on the tensor cores in
+3xTF32 (csrc/mma_tf32.cuh), with partial sums and inputs centred per
+(sample, channel) that keep the plain fp32 block's accuracy against
+float64 (tests/test_torch_res2d_saved.py emulates it, tests/test_torch_gpu.py
+checks it on the card). The wrapper runs the plain version on CPU
 tensors (autograd differentiates it); on CUDA tensors it launches the
 kernel, through autograd.ResBlock2d where a gradient is needed, or raises on
 what the kernel does not take. Under autograd K7 also writes the pre-norm

@@ -1,6 +1,6 @@
 """Where a redesigned kernel spends its time, phase by phase, on one NVIDIA card.
 
-    python3 phase_times.py [--kernel res|res_fwd|tail|chain|mlp|res2d_bwd] [--tree DIR]
+    python3 phase_times.py [--kernel res|res_fwd|tail|chain|mlp|res2d|res2d_bwd] [--tree DIR]
                            [--out FILE]
 
 ``--kernel res`` (the default): K1b's residual-block backward, from DIR's
@@ -16,6 +16,9 @@ restorer, the classifier and the 2-D restorer, with the pre-activations K4 saves
 ``--kernel res_fwd``: the forward of the residual blocks, from ``csrc/in_chain.cu``, through
 ``in_chain`` at the range encoder's IN block (K1) and ``adain_res_block`` at the decoder's AdaIN
 block (K5).
+``--kernel res2d``: K7, the 2-D residual block's forward, from ``csrc/res_block_2d.cu``, through
+``res_block_2d`` (the serving instance, which saves nothing) at the expanded 2-D model's range
+encoder IN block (``range.res2d``) and decoder AdaIN block (``dec.res2d``).
 ``--kernel res2d_bwd``: K7b, the 2-D residual block's backward, from ``csrc/res_block_2d_bwd.cu``,
 through ``res_block_2d_bwd`` at the expanded 2-D model's range encoder IN block (``range.res2d``)
 and decoder AdaIN block (``dec.res2d``), with the d1, d2 that K7 saves.
@@ -39,7 +42,10 @@ chain, beside the restorers' launch a layer and weight-gradient launch); K1's an
 forward at the residual blocks: ``in_chain_kernel`` (the general kernel, which ran them before
 they got a kernel of their own) and ``res_block_kernel``; K7b's ``res2d_bwd_tc_kernel``, whose
 cuts set its ``kLastPhase`` (every copy, wait and __syncthreads stays, the phases after it do no
-work), and the row before them returns at once.
+work), and the row before them returns at once; K7's ``res_block_2d_kernel`` (fp32 FMAs, before
+the tensor cores) and ``res2d_tc_kernel``, whose first row stops once x and the first tap slice
+are in place and whose others set its ``kLastPhase`` as K7b's do (the second row keeps only the
+copies, waits and __syncthreads).
 A kernel that launches several kernels a call is split by name too: each site's device time a
 call of each kernel, from a torch.profiler trace of the whole call (``[split]`` lines). Prints
 one JSON line and writes it to FILE (default ``build/phase_times.json``). Needs one CUDA card
@@ -269,6 +275,25 @@ CUTS["res2d_bwd_tc_kernel"] = [
          "(2) dk2", "(3) dy1, ga1", "(4) gd1 = N1'(ga1, d1)", "(5) dk1"))],
     ("(6) dx: the whole kernel", None),
 ]
+# K7: the fp32-FMA kernel (the SIMT conv), and the kernel on the tensor cores, whose rows after
+# the first set its kLastPhase (0: only the copies, waits and __syncthreads).
+CUTS["res_block_2d_kernel"] = [
+    ("launch", "  float acc[4][8];\n"),
+    ("stage x", "  load_fields(x + off, fa, ns);\n"),
+    ("(1) conv 1", "  if (kSave && t.s < ns) save_tile(d1 + off, t, acc);\n  __syncthreads();\n"),
+    ("(2) statistics, norm_relu", "  norm_relu(fb, fb, ns, mean, rstd, g1, b1);\n"),
+    ("(3) conv 2", "  if (kSave && t.s < ns) save_tile(d2 + off, t, acc);\n  __syncthreads();\n"),
+    ("(4) statistics, epilogue: the whole kernel", None),
+]
+_RES2D_FWD_LAST = "constexpr int kLastPhase = 5;"
+CUTS["res2d_tc_kernel"] = [
+    ("launch, x and the first tap slice", "  st.land();  // x and slice 0 in place\n",
+     "{ cp_async_wait<0>(); return; }"),
+    *[(phase, {_RES2D_FWD_LAST: f"constexpr int kLastPhase = {j};"}) for j, phase in enumerate(
+        ("copies, waits and __syncthreads only", "(1) the taps' split, centring",
+         "(2) conv 1's products", "(3) statistics, norm_relu", "(4) conv 2's products"))],
+    ("(5) statistics, epilogue: the whole kernel", None),
+]
 # which source each --kernel reads, and its designs, newest first
 KERNELS = {
     "res": ("in_chain_bwd", ("res_block_bwd_kernel", "in_chain_bwd_kernel")),
@@ -276,6 +301,7 @@ KERNELS = {
     "tail": ("sln_chain_bwd", ("tail_bwd_kernel", "sln_chain_bwd_kernel")),
     "chain": ("in_chain_bwd", ("down_chain_bwd_kernel", "in_chain_bwd_kernel")),
     "mlp": ("mlp_chain_bwd", ("small_kernel", "mlp_bwd_chain_kernel")),
+    "res2d": ("res_block_2d", ("res2d_tc_kernel", "res_block_2d_kernel")),
     "res2d_bwd": ("res_block_2d_bwd", ("res2d_bwd_tc_kernel",)),
 }
 
@@ -413,6 +439,17 @@ def main() -> int:
             "dec.res": lambda: fused.adain_res_block(x, dec.res0_kernel1, dec.res0_kernel2,
                                                      *tables),
         }
+    elif args.kernel == "res2d":
+        from iinsvae_torch.ops.kernels import res2d
+
+        model_2d = IInsVAE(cir_len=157, num_classes=5, style_dim=16, conv_type=2,
+                           generator=torch.Generator().manual_seed(0)).cuda()
+        sites = {}
+        for name, mod, tables in (("range.res2d", model_2d.encoder.range_encoder, []),
+                                  ("dec.res2d", model_2d.decoder.decoder,
+                                   [rand(b, 64) for _ in range(4)])):
+            x, k1, k2 = rand(b, 8, 8, 64), mod.res0_kernel1, mod.res0_kernel2
+            sites[name] = (lambda x=x, k1=k1, k2=k2, t=tables: res2d.res_block_2d(x, k1, k2, *t))
     elif args.kernel == "res2d_bwd":
         from iinsvae_torch.ops.kernels import res2d
 

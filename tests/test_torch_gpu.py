@@ -775,6 +775,27 @@ def test_gpu_res_block_2d_and_its_backward_match_plain(cuda, b, adain):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("adain", [False, True])
+@pytest.mark.parametrize("b", [500, 261, 5, 1])
+def test_gpu_res_block_2d_is_as_accurate_as_the_plain_fp32_block(cuda, b, adain):
+    """K7 runs both convs on the tensor cores in 3xTF32. The d1 it saves, and its d2 and y,
+    against the float64 block: each largest error at most twice the plain fp32 block's on the
+    card (its convs fp32 matrix products, TF32 off)."""
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((b, 8, 8, 64), generator=gen).to(cuda)
+    k1, k2 = (0.05 * torch.randn((3, 3, 64, 64), generator=gen)).to(cuda), \
+        (0.05 * torch.randn((3, 3, 64, 64), generator=gen)).to(cuda)
+    affine = [torch.randn((b, 64), generator=gen).to(cuda) for _ in range(4)] if adain else []
+    got = res2d.launch_res_block_2d(x, k1, k2, *affine, save=True)
+    plain = res2d.res_block_2d_ref(x, k1, k2, *affine, save=True)
+    want = res2d.res_block_2d_ref(*(t.double() for t in (x, k1, k2, *affine)), save=True)
+    for name, a, p, w in zip(("y", "d1", "d2"), got, plain, want):
+        err, err_plain = ((t.double() - w).abs().max().item() for t in (a, p))
+        assert err <= 2 * err_plain, \
+            f"{name}: {err:.3e} against float64, plain fp32 {err_plain:.3e}"
+
+
+@pytest.mark.gpu
 def test_gpu_res_block_2d_rejects_what_the_kernel_does_not_take(cuda):
     x = torch.randn((4, 8, 8, 64), device=cuda)
     k = torch.randn((3, 3, 64, 64), device=cuda)

@@ -19,7 +19,13 @@ products on the tensor cores in 3xTF32 (csrc/res_block_2d_bwd.cu). Here:
     (576 x 64), and its taps'-gradient shape, (576 x B*64) . (B*64 x 64), at B = 4 with
     normal data and taps 0.1*N(0, 1): its largest error against float64, over the result's
     largest magnitude, is within twice the plain fp32 product's, while plain TF32 (one
-    product of the hi parts) is not.
+    product of the hi parts) is not;
+(c) the same at the block: the plain block with both convs run as K7 runs them (each input
+    centred per (sample, channel), the 3xTF32 products with K7's partial sums every
+    K7_FLUSH k-steps, conv(mean) added back), IN and AdaIN at C = 64, B = 2 and 4: y, d1 and
+    d2 each within twice the plain fp32 block's error against float64, and 1xTF32 not. The
+    emulation sums each 8-deep step exactly; the card's tensor cores truncate, which
+    tests/test_torch_gpu.py measures.
 
 The card's kernels are held to the plain versions by tests/test_torch_gpu.py and
 chip_smoke.py.
@@ -112,15 +118,19 @@ def _tf32(v: np.ndarray) -> np.ndarray:
     return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
 
 
-def _mma_product(pairs, m: int, n: int, k: int) -> np.ndarray:
+def _mma_product(pairs, m: int, n: int, k: int, flush: int | None = None) -> np.ndarray:
     """sum over the (a, b) pairs of a . b, accumulated in fp32 an 8-deep step at a time, the
-    pairs in order within a step: each step's products summed exactly, the sum rounded once."""
-    acc = np.zeros((m, n), np.float32)
-    for k0 in range(0, k, 8):
+    pairs in order within a step: each step's products summed exactly, the sum rounded once.
+    With ``flush``, the steps run in a partial sum of their own that is added (fp32) to the
+    result every ``flush`` steps and then starts from zero, as K7's partial sums do."""
+    acc = part = np.zeros((m, n), np.float32)
+    for i, k0 in enumerate(range(0, k, 8)):
         for a, b in pairs:
             step = a[:, k0:k0 + 8].astype(np.float64) @ b[k0:k0 + 8].astype(np.float64)
-            acc = (acc.astype(np.float64) + step).astype(np.float32)
-    return acc
+            part = (part.astype(np.float64) + step).astype(np.float32)
+        if flush and (i + 1) % flush == 0:
+            acc, part = acc + part, np.zeros_like(part)
+    return acc + part
 
 
 def _errors(a: np.ndarray, b: np.ndarray) -> dict[str, float]:
@@ -159,3 +169,63 @@ def test_3xtf32_keeps_fp32_accuracy_at_k7b_shapes(product):
         err = _errors(np.ascontiguousarray(win.T), gd)
     assert err["3xtf32"] <= 2 * err["fp32"], err
     assert err["1xtf32"] > 2 * err["fp32"], err
+
+
+# k-steps K7's partial sums run before they are added to the conv's sums (kFlush of
+# csrc/res_block_2d.cu)
+K7_FLUSH = 2
+
+
+def _emulated_conv(terms: str):
+    """A stand-in for ops.conv.conv2d (3x3, reflect pad 1) that runs the conv as K7 does on the
+    tensor cores: the field less its mean per (sample, channel), c; its (B*64 x 9C) windows
+    times the (9C x C) taps, tap-major, an 8-deep step at a time; plus conv(c), one value a
+    (sample, output channel) (summed in float64 here, in fp32 on the card). ``terms``
+    "3xtf32": lo*hi, hi*lo, hi*hi in that order, with K7's partial sums; "1xtf32": hi*hi
+    alone."""
+
+    def conv(x, k, padding, pad_mode):
+        assert padding == 1 and pad_mode == "reflect"
+        f = x.numpy()
+        c = f.mean(axis=(1, 2), keepdims=True, dtype=np.float32)
+        a = _windows(f - c)
+        w = np.ascontiguousarray(k.numpy().reshape(-1, k.shape[-1]))
+        ah, wh = _tf32(a), _tf32(w)
+        pairs = [(_tf32(a - ah), wh), (ah, _tf32(w - wh)), (ah, wh)] if terms == "3xtf32" \
+            else [(ah, wh)]
+        out = _mma_product(pairs, a.shape[0], w.shape[1], a.shape[1],
+                           K7_FLUSH if terms == "3xtf32" else None)
+        kc = np.einsum("bc,tcd->bd", c[:, 0, 0].astype(np.float64),
+                       w.reshape(9, f.shape[-1], -1).astype(np.float64)).astype(np.float32)
+        return torch.from_numpy(out.reshape(*x.shape[:3], w.shape[1]) + kc[:, None, None, :])
+
+    return conv
+
+
+@pytest.mark.parametrize("adain", [False, True])
+@pytest.mark.parametrize("b", [2, 4])
+def test_3xtf32_block_keeps_fp32_accuracy_at_k7_shapes(monkeypatch, b, adain):
+    """The whole block with both convs as K7 runs them in 3xTF32 (the plain block, its conv
+    replaced by the emulation): y, d1 and d2 against the float64 block, each within twice the
+    plain fp32 block's error (largest error over the largest magnitude). The same block with
+    1xTF32 products is not: its errors are 500-1,000 times the plain block's."""
+    rng = np.random.default_rng(13 + b)
+    c = 64
+    x = rng.standard_normal((b, 8, 8, c)).astype(np.float32)
+    k1, k2 = ((0.1 * rng.standard_normal((3, 3, c, c))).astype(np.float32) for _ in range(2))
+    affine = [rng.standard_normal((b, c)).astype(np.float32) for _ in range(4)] if adain else []
+    t = [torch.from_numpy(a) for a in (x, k1, k2, *affine)]
+    want = res2d.res_block_2d_ref(*(a.double() for a in t), save=True)
+
+    def errors(conv=None):
+        if conv is not None:
+            monkeypatch.setattr(res2d, "conv2d", conv)
+        got = res2d.res_block_2d_ref(*t, save=True)
+        return {k: float((g.double() - w).abs().max() / w.abs().max())
+                for k, g, w in zip(("y", "d1", "d2"), got, want)}
+
+    plain = errors()
+    x3, x1 = errors(_emulated_conv("3xtf32")), errors(_emulated_conv("1xtf32"))
+    for k in plain:
+        assert x3[k] <= 2 * plain[k], (k, x3, plain)
+        assert x1[k] > 2 * plain[k], (k, x1, plain)
