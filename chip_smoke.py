@@ -391,15 +391,17 @@ def call_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list[dic
         x = rand(b, ws[0].shape[0])
         j = max(range(n), key=lambda i: ws[i].numel())  # the yardstick: the largest layer's mm
         x_j, w_j = rand_yard(b, ws[j].shape[0]), ws[j].detach()
+        dims = [ws[0].shape[0]] + [w.shape[1] for w in ws]
         sites.append(dict(
             name=name, kernel="mlp_chain", replaces=replaces, calls_per_batch=1,
-            shape="->".join(str(d) for d in [ws[0].shape[0]] + [w.shape[1] for w in ws]),
+            shape="->".join(str(d) for d in dims),
             run=lambda: fused.mlp_chain(x, ws, bs, head.slopes),
             plain=lambda: fused.mlp_chain_ref(x, ws, bs, head.slopes), library=None,
             cudnn_conv=lambda: torch.mm(x_j, w_j),
             yardstick=f"torch.mm of its {ws[j].shape[0]}->{ws[j].shape[1]} layer",
             bytes=nbytes(x, *ws, *bs) + 4 * b * ws[-1].shape[1],
-            flops=2.0 * b * sum(w.numel() for w in ws)))
+            flops=2.0 * b * sum(w.numel() for w in ws), traced=True,
+            weights_l2=mlp_weight_l2_bytes(dims, b, dev)))
 
     fp = "iinsvae_tpu/ops/pallas/fused.py"
     if model.encoder.conv_type == 2:
@@ -472,11 +474,28 @@ def call_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list[dic
         run=lambda: fused.sln_chain(xt, stages, dec.out_kernel, dec.out_bias, 157),
         plain=lambda: fused.sln_chain_ref(xt, stages, dec.out_kernel, dec.out_bias, 157,
                                           pool=pool),
+        general=lambda: fused.launch_sln_chain(xt, stages, dec.out_kernel, dec.out_bias, 157,
+                                               general=True),
         library=None, cudnn_conv=ncl_conv(upsample_nearest1d(xt, 2), *stages[0][:2], 1, 2, "zero"),
         bytes=nbytes(xt, *[t for st in stages for t in st], dec.out_kernel, dec.out_bias)
         + 4 * b * 157,
         flops=flops))
     return sites
+
+
+def mlp_weight_l2_bytes(dims, b: int, dev) -> tuple[int, str]:
+    """(bytes of weights and biases one K4 call reads from L2, what reads them) as the kernel's
+    path stages them: the restorer path once a cluster (with all of W0 in each of its blocks
+    where layer 0 runs whole in every block), the general kernel once for each block of 4
+    samples."""
+    wb = 4 * sum(a * k + k for a, k in zip(dims, dims[1:]))
+    if fused.takes_mlp_cluster(dims):
+        _, _, clusters, _ = fused.mlp_cluster_plan(b, dims[0],
+                                                   fused.mlp_cluster_slots(dev, dims[0]))
+        whole0 = (fused.MLP_CLUSTER - 1) * 4 * (dims[0] + 1) * dims[1]
+        return clusters * (wb + (whole0 if dims[0] <= fused.MLP_CLUSTER_WHOLE_L0 else 0)), \
+            f"{clusters} clusters of {fused.MLP_CLUSTER}"
+    return -(-b // 4) * wb, f"{-(-b // 4)} blocks"
 
 
 def compare_forward(s: dict, what: str = "") -> tuple[float, float]:
@@ -560,11 +579,14 @@ def check_and_time(sites: list[dict], tag: str = "kernel") -> list[dict]:
     for s in sites:
         abs_err, rel = compare_forward(s)
         oracle = {}
-        if "general" in s:  # compare_forward held it bit for bit to the general kernel
+        if "general" in s or s.get("traced"):
             if not bit_equal_calls(s["run"]):
                 raise AssertionError(f"{s['name']}: two calls of the kernel are not bit-equal")
-            oracle = dict(bit_equal_to_general=True, bit_equal_over_two_calls=True,
-                          general_ms=device_ms(s["general"]))
+            oracle = dict(bit_equal_over_two_calls=True)
+        if "general" in s:  # compare_forward held it bit for bit to the general kernel
+            oracle.update(bit_equal_to_general=True, general_ms=device_ms(s["general"]))
+        if "weights_l2" in s:
+            oracle.update(weights_l2_bytes=s["weights_l2"][0], weights_l2_readers=s["weights_l2"][1])
         if "save" in s:
             oracle = compare_saves(s)
         bytes_ms = s["bytes"] / PEAK_BYTES_PER_S * 1e3
@@ -590,8 +612,11 @@ def check_and_time(sites: list[dict], tag: str = "kernel") -> list[dict]:
               + (f"  {r['yardstick']} (double dagger) "
                                       f"{r['cudnn_conv_ms'] * 1e3:.2f} us"
                                       if r["cudnn_conv_ms"] is not None else "")
+              + (f"  weights read from L2 {r['weights_l2_bytes'] / 1e6:.2f} MB a call "
+                 f"({r['weights_l2_readers']})" if "weights_l2" in s else "")
               + (f"  bit-equal to the general kernel ({r['general_ms'] * 1e3:.2f} us) and over "
                  "two calls" if "general" in s else "")
+              + ("  bit-equal over two calls" if s.get("traced") else "")
               + (f"  saving d1, d2 {r['save_ms'] * 1e3:.2f} us (y bit-equal, d1 / d2 max_abs_err "
                  f"{r['saved_d1_max_abs_err']:.3e} / {r['saved_d2_max_abs_err']:.3e}; vs float64 "
                  + ", ".join(f"{k} {r[f'{k}_err_vs_f64']:.2e} "
@@ -601,7 +626,7 @@ def check_and_time(sites: list[dict], tag: str = "kernel") -> list[dict]:
     # the device kernels of the sites with a second oracle, traced once every site is timed: the
     # device times of small kernels read a few tenths of a us longer after a profiler session
     for r, s in zip(rows, sites):
-        if "general" in s:
+        if "general" in s or s.get("traced"):
             r["device_kernels"] = device_kernels(s["run"])
             print(f"[{tag}] {r['name']}: kernels " + ", ".join(
                 f"{k} x{v}" for k, v in r["device_kernels"].items()), flush=True)
@@ -981,7 +1006,8 @@ def ragged_checks(model: IInsVAE) -> dict:
         k3 = max(v for k, v in errs.items() if k.startswith("strided_conv"))
         print(f"[ragged] batch {b}: all {len(errs)} 1-D kernel calls within tolerance of their "
               f"plain versions, largest error {max(errs.values()):.3e} (K3, K3b: {k3:.3e}); "
-              "K1 and K5 at the residual blocks bit-equal to the general kernel", flush=True)
+              "K1 and K5 at the residual blocks and K6 at the decoder tail bit-equal to the "
+              "general kernel", flush=True)
     return out
 
 

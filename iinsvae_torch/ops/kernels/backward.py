@@ -462,39 +462,25 @@ def sln_chain_bwd_ref(g: torch.Tensor, x: torch.Tensor, stages: Sequence[UpStage
             rest[-2], rest[-1])
 
 
-# K6b's path at the decoder's shape (csrc/sln_chain_bwd.cu, namespace tail): input (8, 64),
-# four up-stages to (128, 4): tiles of SLN_TAIL_TILE samples, at most one persistent block a SM,
-# SLN_TAIL_SMEM bytes of shared memory a block, as the source lays them out.
-SLN_TAIL_L, SLN_TAIL_C, SLN_TAIL_TILE = 8, 64, 4
+# K6b's path at the decoder's shape (csrc/sln_chain_bwd.cu, namespace tail): fused.sln_tail_plan's
+# tiles and blocks, SLN_TAIL_SMEM bytes of shared memory a block: K6's forward's
+# (fused.SLN_TAIL_FWD_SMEM), then the backward's, as the source lays them out.
+SLN_TAIL_L, SLN_TAIL_C, SLN_TAIL_TILE = fused.SLN_TAIL_L, fused.SLN_TAIL_C, fused.SLN_TAIL_TILE
+sln_tail_plan = fused.sln_tail_plan
 
 
 def _sln_tail_floats() -> int:
-    """Floats of shared memory a block of the tail path takes, as the source lays them out."""
-    ls = [SLN_TAIL_L << j for j in range(SLN_STAGES)]  # stage j: (ls[j], cs[j]) -> x2 rows, C / 2
-    cs = [SLN_TAIL_C >> j for j in range(SLN_STAGES)]
-    # the taps in rows of C_out + 4 floats (C_out >= 8), the out conv's 28 (32 kept)
-    taps = sum(5 * c * (c // 2 + 4 if c // 2 >= 8 else c // 2) for c in cs) + 32
-    # per sample: each stage's input with a zero row above and below (rows of C + 4), the out
-    # conv's input (128, 4), each conv output with two zero rows above and below, each 4 floats
-    # longer; the out conv's gradient (128 + 4)
-    acts = sum((l + 2) * (c + 4) + 4 for l, c in zip(ls, cs)) + 2 * ls[-1] * (cs[-1] // 2) + 4
-    zs = sum((2 * l + 4) * (c // 2) + 4 for l, c in zip(ls, cs))
-    tile = SLN_TAIL_TILE * (acts + zs + 2 * ls[-1] + 4)
-    # statistics, per-warp sums (16 warps), the block's per-channel gradients, the out conv's
-    # partials (128 threads x 29) and per-sample sums, the block's d(taps) of stage 0
-    rest = SLN_STAGES * SLN_TAIL_TILE * 4 + 16 * 3 * 32 + 16 * 4 + SLN_STAGES * 3 * 32 + 32 \
-        + 128 * 29 + 128 + 5 * cs[0] * cs[0] // 2
-    return taps + tile + rest
+    """Floats of shared memory a block of K6b's tail path takes, as the source lays them out."""
+    # the out conv's gradient (128 + 4 a sample), per-warp sums (16 warps), the block's
+    # per-channel gradients, the out conv's partials (128 threads x 29) and per-sample sums,
+    # the block's d(taps) of stage 0
+    last, c = SLN_TAIL_L << SLN_STAGES, SLN_TAIL_C
+    gzo = SLN_TAIL_TILE * (last + 4)
+    rest = 16 * 3 * 32 + 16 * 4 + SLN_STAGES * 3 * 32 + 32 + 128 * 29 + 128 + 5 * c * c // 2
+    return fused.sln_tail_fwd_floats() + gzo + rest
 
 
 SLN_TAIL_SMEM = 4 * _sln_tail_floats()
-
-
-def sln_tail_plan(batch: int, sms: int) -> tuple[int, int]:
-    """-> (tiles, blocks) of K6b's tail path: block j of the grid takes tiles j, j + blocks,
-    ..., tile t the samples t * SLN_TAIL_TILE .. (t + 1) * SLN_TAIL_TILE - 1 below batch."""
-    tiles = -(-batch // SLN_TAIL_TILE)
-    return tiles, min(tiles, sms)
 
 
 def sln_chain_bwd(g: torch.Tensor, x: torch.Tensor, stages: Sequence[UpStage],

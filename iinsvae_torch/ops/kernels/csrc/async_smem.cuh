@@ -4,7 +4,8 @@
 // (mlp_chain_bwd.cu) and of K7b (res_block_2d_bwd.cu). Pointers of 16-byte
 // copies are 16-byte aligned. And bulk copies (one instruction a block of
 // bytes, the copy engine's 1-D form) that complete on an mbarrier: the taps
-// of K1's and K5's residual blocks (in_chain.cu). And a prefetch into L2.
+// of K1's and K5's residual blocks (in_chain.cu), the tile's x of K4's
+// restorer path (mlp_chain.cu). And a prefetch into L2.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -70,17 +71,18 @@ __device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, unsigned
                : "memory");
 }
 
-// Wait until phase 0 of the barrier completes: its copies have landed and are visible to the
-// waiting thread. Traps after about 2 s at the H100's clock rather than hang.
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar) {
+// Wait until the barrier's phase of the given parity (0: its first) completes: its copies have
+// landed and are visible to the waiting thread. Traps after about 2 s at the H100's clock
+// rather than hang.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity = 0) {
   const long long start = clock64();
   for (;;) {
     unsigned done;
     asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
         " selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done)
-        : "r"(smem_u32(bar))
+        : "r"(smem_u32(bar)), "r"(parity)
         : "memory");
     if (done) return;
     if (clock64() - start > 4000000000LL) __trap();

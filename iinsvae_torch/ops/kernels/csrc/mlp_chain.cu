@@ -25,9 +25,45 @@
 // d_j (B, D_{j+1}) to device memory (``ds``; null when serving): K4's
 // backward (mlp_chain_bwd.cu) reads them, as the TPU backward reads the
 // d_j its forward saved (fused.py:1082). That is ~2 MB at batch 500.
+//
+// Two paths. The kernel above (mlp_chain_kernel) takes every chain: the
+// classifier and any other widths. At the restorers it took 41.8 us (1-D)
+// and 53.8 us (2-D) at batch 500 on the H100, slower than four torch.mm
+// calls: its 125 blocks each read every weight from L2 once for 4 samples,
+// 103 MB (1-D) and 132 MB (2-D) a call, a 32 KB tile at a time in series.
+// The restorers, D0 -> 512 -> 256 -> 256 -> 1 (D0 = 16 or 128, a multiple of
+// 16 up to 128), run mlp_cluster_kernel below instead:
+// - A cluster of 8 blocks owns a tile of 12, 24 or 36 samples (the least
+//   with which the clusters the card holds at once, 15 on the H100, take
+//   the batch in one round), and each block an eighth of every layer's
+//   output columns, whose weights it keeps in shared memory, staged once
+//   with cp.async. A cluster walks its tiles with the weights resident, so
+//   each weight is read from L2 once a cluster: about 14 MB a call at batch
+//   500 (14 clusters), against the general kernel's 103 / 132 MB.
+// - After layers 0 and 1 each block copies its columns of the activation to
+//   every other block of the cluster (bulk copies between the blocks'
+//   shared memory, each completing on the receiver's mbarrier), once every
+//   block is done reading its own (the cluster's barrier). The next layer's
+//   products take each block's rows as they land, the block's own first.
+// - Layer 0 of the 1-D restorer (16 inputs) runs whole in every block (0.3
+//   MFLOP a block): that costs less than the exchange it saves.
+// - The 256 -> 1 layer is a partial dot product in each block, summed by
+//   rank 0 in rank order.
+// - The products are fp32 FMAs in register tiles of 12 samples x 8 columns
+//   (96 FMAs for 5 16-byte shared loads), 8 lanes a tile over interleaved
+//   rows of the input width (rows 4 banks apart), summed in a fixed
+//   shuffle tree and then over the width's parts in order: the output is
+//   the same bit for bit from call to call. 3xTF32 would not pay: the
+//   products are about 3 us a call.
+// It takes 19.2-19.6 us (1-D) and 23.0-23.4 us (2-D) a call at batch 500 on
+// the H100 (PERF.md), 6-7x its bound: the staging of layer 0's inputs and
+// the exchanges take a third (1-D) to a half (2-D) of it (phase_times.py).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "async_smem.cuh"
 
 namespace {
 
@@ -169,6 +205,438 @@ mlp_chain_kernel(const float* __restrict__ x, float* __restrict__ y, int batch, 
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// The restorers' path: a cluster of kCluster blocks a tile of samples, each block its share of
+// every layer's output columns.
+namespace cluster {
+
+namespace cg = cooperative_groups;
+
+constexpr int kCluster = 8;
+constexpr int kThreads = 384;  // 12 warps, 3 an SM sub-partition
+constexpr int kD1 = 512, kD2 = 256, kD3 = 256;  // the restorers' widths after D0; the last is 1
+constexpr int kN0 = kD1 / kCluster, kN1 = kD2 / kCluster, kN2 = kD3 / kCluster;  // columns a block
+constexpr int kMaxD0 = 128, kMaxS = 36;  // tiles of 12, 24 or 36 samples
+constexpr int kTs = 12, kTc = 8, kLanes = 8;  // a thread's samples, columns, lanes a tile
+constexpr int kP = kThreads * kTs;  // the split products' partial sums, in floats
+
+struct Args {
+  const float* w[4];
+  const float* b[4];
+  float slope[4];
+  float* d[4];  // each layer's pre-activations (B, D_{j+1}), or null
+  int d0;
+};
+
+// Shared memory, in floats: the block's weight slices W1 (512, 32) and W2 (256, 32) in rows of
+// 36 floats, W3's 32 rows and its biases (b0's 64, or all 512 where every block runs layer 0;
+// b1's and b2's 32; b3); the layer input A (k, S)
+// in rows of as(S) floats: x with W0's slice (D0, 64) behind it in rows of 68 (both dead once
+// layer 0's products are done, staged again for a cluster's next tile), then each layer's
+// output, every block's columns at its rank's rows; the split products' partial sums P (part,
+// column, sample); this block's outputs of layers 0 and 1 (64, as(S)) and (32, as(S)), which
+// bulk copies take to every block's A; the 256 -> 1 layer's partial sums of every block (rank,
+// S), read by rank 0; an mbarrier for each layer 0 and 1 and each other block, on which that
+// block's copy of its outputs into A completes, one for x's copy (the tile's x lands in P,
+// row-major, and is placed k-major from there).
+// Rows of W and A are 4 banks apart (a row length of 4 mod 8 floats), so that the 8 lanes that
+// read 8 consecutive rows at the same column read distinct banks.
+constexpr int kBias = kD1 + kN1 + kN2 + 4;  // b0 (all of it, or this block's 64), b1, b2, b3
+__host__ __device__ constexpr int ld(int n) { return n + 4; }
+__host__ __device__ constexpr int as(int s) { return s % 8 ? s : s + 4; }
+__host__ __device__ constexpr int max_of(int a, int b) { return a > b ? a : b; }
+constexpr int kW2 = kD1 * ld(kN1), kW3 = kW2 + kD2 * ld(kN2), kB = kW3 + kN2, kA = kB + kBias;
+__host__ __device__ constexpr int a_floats(int d0, int s) {
+  return max_of(kD1 * as(s), d0 * (as(s) + ld(kN0)));
+}
+__host__ __device__ constexpr int p_off(int d0, int s) { return kA + a_floats(d0, s); }
+__host__ __device__ constexpr int o_off(int d0, int s) { return p_off(d0, s) + kP; }
+__host__ __device__ constexpr int p3_off(int d0, int s) {
+  return o_off(d0, s) + (kN0 + kN1) * as(s);
+}
+__host__ __device__ constexpr int bar_off(int d0, int s) { return p3_off(d0, s) + kCluster * s; }
+__host__ __device__ constexpr int smem_floats(int d0, int s) {
+  return bar_off(d0, s) + 4 * kCluster + 4;  // 17 mbarriers and room for an 18th
+}
+static_assert(smem_floats(kMaxD0, kMaxS) * 4 <= 232448, "over the 227 KB a block can have");
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// A copy of `bytes` (a multiple of 16) from this block's shared memory at src into block
+// `rank`'s at the same offset as dst, completing its bytes on that block's mbarrier at the
+// offset of bar (the copy engine's bulk copy between the blocks of a cluster).
+__device__ __forceinline__ void copy_to_block(float* dst, const float* src, unsigned bytes,
+                                              unsigned long long* bar, int rank) {
+  unsigned d, b;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(d) : "r"(smem_u32(dst)), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(b) : "r"(smem_u32(bar)), "r"(rank));
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];" ::"r"(d),
+      "r"(smem_u32(src)), "r"(bytes), "r"(b)
+      : "memory");
+}
+
+// The cluster's barrier in two halves: arrive (release) once this thread is done with what
+// the peers may overwrite; wait (acquire) before touching what they were done with.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Rows [0, rows) of a weight slice: `cols` floats a row from w + k * ld_w, into dst (rows,
+// ld_d floats apart).
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ w, int rows,
+                                           int cols, int ld_w, int ld_d) {
+  const int q = cols / 4;
+  for (int i = threadIdx.x; i < rows * q; i += kThreads) {
+    const int k = i / q, c = (i - k * q) * 4;
+    cp_async16(dst + k * ld_d + c, w + static_cast<size_t>(k) * ld_w + c, true);
+  }
+}
+
+// The tile's samples row0 .. row0 + ns - 1 of x (B, D0), one bulk copy into P (row-major),
+// which completes on xbar; thread 0 issues it.
+__device__ __forceinline__ void fetch_x(float* p, const float* __restrict__ x, int d0, int row0,
+                                        int ns, unsigned long long* xbar) {
+  if (threadIdx.x == 0) {
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // P's earlier reads first
+    mbar_expect_tx(xbar, ns * d0 * 4);
+    bulk_copy(p, x + static_cast<size_t>(row0) * d0, ns * d0 * 4, xbar);
+  }
+}
+
+// x from P into dst (D0, S), k-major in rows of as(S) floats; samples past the batch zero.
+__device__ __forceinline__ void place_x(float* dst, const float* p, int d0, int s_tile, int ns) {
+  const int sa = as(s_tile);
+  for (int i = threadIdx.x; i < s_tile * d0; i += kThreads) {
+    const int s = i / d0, k = i - s * d0;
+    dst[k * sa + s] = s < ns ? p[i] : 0.f;
+  }
+}
+
+// This block's slice of W0 (D0, 64) in rows of 68 floats, or all of it (D0, 512), to dst.
+__device__ __forceinline__ void stage_w0(float* dst, const float* __restrict__ w0, int d0,
+                                        bool all) {
+  if (all)
+    stage_rows(dst, w0, d0, kD1, kD1, kD1);
+  else
+    stage_rows(dst, w0, d0, kN0, kD1, ld(kN0));
+}
+
+// A layer's split of its input width K into `parts` parts: (part, tile) pairs, a tile 12
+// samples x 8 columns, each kLanes lanes of one warp.
+__device__ __forceinline__ int parts_of(int n, int s_tile) {
+  return kThreads / (n / kTc * (s_tile / kTs) * kLanes);
+}
+
+// v[2h + b][r] of the lane whose bit `off` is b: its half (columns h) plus the partner's, so
+// that after rounds of 4, 2 and 1 lane l holds column l summed over the 8 lanes.
+template <int H>
+__device__ __forceinline__ void halve(const float (&v)[2 * H][kTs], float (&out)[H][kTs], int off,
+                                      bool hi) {
+#pragma unroll
+  for (int h = 0; h < H; ++h)
+#pragma unroll
+    for (int r = 0; r < kTs; ++r) {
+      const float keep = hi ? v[H + h][r] : v[h][r], send = hi ? v[h][r] : v[H + h][r];
+      out[h][r] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
+}
+
+// One layer's products: out (S, N) = A (K, S)^T W (K, N). With `bars`, A's K rows are the
+// kCluster blocks' slices of K / kCluster rows, which land one by one (bars[r] completes when
+// block r's has): where the split's parts divide a slice into whole rounds of the 8 lanes, each
+// part takes its share of every slice, this block's own slice first, then the others in the
+// order their copies are sent (block rank - 1 first); else, and without `bars`, the part takes
+// its share of the K rows (once every slice has landed). Each part goes to its own warps; in a warp,
+// each 8 lanes take a tile of 12 samples x 8 columns, lane l every 8th of the part's rows from
+// the l-th, a fmaf chain an output over them; the 8 lanes' sums are added in a fixed tree
+// (shuffles), leaving lane l column l of the tile, which it writes to P (part, column, sample).
+__device__ __forceinline__ void products(const float* a, const float* w, float* p, int k_len,
+                                         int n, int s_tile, unsigned long long* bars,
+                                         unsigned parity, int rank) {
+  const int cgs = n / kTc, tiles = cgs * (s_tile / kTs), parts = parts_of(n, s_tile);
+  const int lane = threadIdx.x & (kLanes - 1), g = threadIdx.x / kLanes;
+  const int part = g / tiles, tile = g - part * tiles;
+  const int c0 = (tile % cgs) * kTc, s0 = tile / cgs * kTs, sa = as(s_tile), wl = ld(n);
+  if (part >= parts) return;  // warp-uniform: tiles * kLanes is a multiple of 32
+  // slice by slice where each lane's share of a part's slice is whole rounds of kLanes rows;
+  // else every slice waited for first
+  const bool by_slice = bars && k_len / kCluster % (parts * kLanes) == 0;
+  if (bars && !by_slice)
+    for (int r = 0; r < kCluster; ++r)
+      if (r != rank) mbar_wait(bars + r, parity);
+  const int chunks = by_slice ? kCluster : 1, rows = k_len / chunks;
+  const int kb = part * rows / parts, ke = (part + 1) * rows / parts;
+  const float* ap = a + s0;
+  const float* wp = w + c0;
+  float acc[kTc][kTs] = {};
+  for (int i = 0; i < chunks; ++i) {
+    const int r = (rank - i + kCluster) % kCluster, base = by_slice ? r * rows : 0;
+    if (i > 0) mbar_wait(bars + r, parity);
+#pragma unroll 2
+    for (int k = base + kb + lane; k < base + ke; k += kLanes) {
+      const float4 x0 = lds4(ap + k * sa), x1 = lds4(ap + k * sa + 4), x2 = lds4(ap + k * sa + 8);
+      const float4 wa = lds4(wp + k * wl), wb = lds4(wp + k * wl + 4);
+      const float xs[kTs] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y,
+                             x1.z, x1.w, x2.x, x2.y, x2.z, x2.w};
+      const float ws[kTc] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+      for (int q = 0; q < kTc; ++q)
+#pragma unroll
+        for (int r2 = 0; r2 < kTs; ++r2) acc[q][r2] = fmaf(xs[r2], ws[q], acc[q][r2]);
+    }
+  }
+  float h4[4][kTs], h2[2][kTs], h1[1][kTs];
+  halve<4>(acc, h4, 4, lane & 4);
+  halve<2>(h4, h2, 2, lane & 2);
+  halve<1>(h2, h1, 1, lane & 1);
+  float* pp = p + (part * n + c0 + lane) * s_tile + s0;
+#pragma unroll
+  for (int r = 0; r < kTs; r += 4)
+    *reinterpret_cast<float4*>(pp + r) = make_float4(h1[0][r], h1[0][r + 1], h1[0][r + 2],
+                                                     h1[0][r + 3]);
+}
+
+// Layer 0 of a narrow input (D0 <= kRepD0, the 1-D restorer), every column in every block: no
+// exchange. A (512, S) = leaky(x W0 + b0) from x (D0, S) and all of W0 (D0, 512) staged at xw;
+// thread (sample group g, column c) the columns c + 128 q, q < 4, of 12 samples, one fmaf chain
+// an output over k ascending. Writes this block's columns' pre-activations to ds where given.
+constexpr int kRepD0 = 16;
+static_assert(kRepD0 * (as(kMaxS) + kD1) <= kD2 * ld(kN2), "x and all of W0 fit in W2's place");
+
+__device__ __forceinline__ void layer0_all(const float* xw, float* a, int d0, int s_tile,
+                                           const float* b0, float slope,
+                                           float* __restrict__ ds, int rank, int row0, int ns) {
+  const int c = threadIdx.x % 128, g = threadIdx.x / 128, s0 = g * kTs, sa = as(s_tile);
+  if (s0 >= s_tile) return;
+  const float* xp = xw + s0;
+  const float* wp = xw + d0 * sa + c;
+  float acc[4][kTs] = {};
+  for (int k = 0; k < d0; ++k) {
+    const float4 x0 = lds4(xp + k * sa), x1 = lds4(xp + k * sa + 4), x2 = lds4(xp + k * sa + 8);
+    const float xs[kTs] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w, x2.x, x2.y, x2.z, x2.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float wv = wp[k * kD1 + 128 * q];
+#pragma unroll
+      for (int r = 0; r < kTs; ++r) acc[q][r] = fmaf(xs[r], wv, acc[q][r]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int col = c + 128 * q;
+    const float b = b0[col];
+    float v[kTs];
+#pragma unroll
+    for (int r = 0; r < kTs; ++r) {
+      const float d = acc[q][r] + b;
+      if (ds && col / kN0 == rank && s0 + r < ns) ds[static_cast<size_t>(row0 + s0 + r) * kD1 + col] = d;
+      v[r] = d > 0.f ? d : slope * d;
+    }
+#pragma unroll
+    for (int r = 0; r < kTs; r += 4)
+      *reinterpret_cast<float4*>(a + col * sa + s0 + r) = make_float4(v[r], v[r + 1], v[r + 2],
+                                                                      v[r + 3]);
+  }
+}
+
+// The layer's outputs from the partial sums P: d = the parts summed in order + bias (the
+// block's N, staged), written to ds (rows row0 .. row0 + ns - 1, columns col0 ..) where given;
+// out (N, S) = leaky(d), in rows of as(S) floats, and the same in out2 where given.
+__device__ __forceinline__ void finish(const float* p, float* out, float* out2, int n,
+                                       int s_tile, const float* bias, float slope,
+                                       float* __restrict__ ds, int dout, int col0, int row0,
+                                       int ns) {
+  const int parts = parts_of(n, s_tile), len = n * s_tile, sa = as(s_tile);
+  for (int o = threadIdx.x; o < len; o += kThreads) {
+    const int c = o / s_tile, s = o - c * s_tile;
+    float v = p[o];
+    for (int q = 1; q < parts; ++q) v += p[q * len + o];
+    const float d = v + bias[c];
+    if (ds && s < ns) ds[static_cast<size_t>(row0 + s) * dout + col0 + c] = d;
+    const float v_out = d > 0.f ? d : slope * d;
+    out[c * sa + s] = v_out;
+    if (out2) out2[c * sa + s] = v_out;
+  }
+}
+
+// A layer's exchange, after its products: this block's outputs into O and into its rank's rows
+// of A (the next layer's input), then, once every block is done reading its A (the cluster's
+// barrier, which warp 0 awaits here and the others before their next arrival), one bulk copy
+// of O to each other block's A, completing on that block's mbarrier bars[rank] (armed before
+// this block's arrival, so that no copy completes on it before). On a block's first tile it
+// also waits for all but kPending of its weights' copy groups.
+template <int kPending>
+__device__ __forceinline__ void exchange(float* a, float* p, float* o, const float* bias, int n,
+                                         int s_tile, float slope, float* ds, int dout, int rank,
+                                         int row0, int ns, unsigned long long* bars, bool first) {
+  const int slice = n * as(s_tile);
+  if (threadIdx.x == 0)
+    for (int r = 0; r < kCluster; ++r)
+      if (r != rank) mbar_expect_tx(bars + r, slice * 4);
+  cluster_arrive();  // this thread is done reading A
+  __syncthreads();
+  finish(p, o, a + rank * slice, n, s_tile, bias, slope, ds, dout, rank * n, row0, ns);
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // O, for the copy engine
+  if (first) cp_async_wait<kPending>();  // the next layer's weights, on a block's first tile
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    cluster_wait();  // every block is done reading its A
+    if (threadIdx.x > 0 && threadIdx.x < kCluster)
+      copy_to_block(a + rank * slice, o, slice * 4, bars + rank, (rank + threadIdx.x) % kCluster);
+  }
+}
+
+// Cluster c walks tiles c, c + clusters, ... of s_tile samples; block rank r of the cluster
+// owns columns [r N_j, (r + 1) N_j) of layers 0-2 and rows [r N_2, (r + 1) N_2) of the last
+// layer's weight.
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
+mlp_cluster_kernel(const float* __restrict__ x, float* __restrict__ y, int batch, int s_tile,
+                   int n_tiles, Args a) {
+  extern __shared__ __align__(16) float sm[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = static_cast<int>(cl.block_rank());
+  const int clusters = gridDim.x / kCluster;
+  const int d0 = a.d0, sa = as(s_tile);
+  float* act = sm + kA;
+  float* p = sm + p_off(d0, s_tile);
+  float* p3 = sm + p3_off(d0, s_tile);
+  float* o = sm + o_off(d0, s_tile);
+  auto* bars = reinterpret_cast<unsigned long long*>(sm + bar_off(d0, s_tile));
+  const float* bias = sm + kB;
+  const float* w0 = a.w[0] + rank * kN0;
+  unsigned long long* xbar = bars + 2 * kCluster;
+  if (threadIdx.x <= 2 * kCluster) {
+    mbar_init(bars + threadIdx.x);
+    mbar_fence_init();  // before this block's first arrival at the cluster's barrier
+  }
+  __syncthreads();  // the barriers, before x's copy and any wait
+
+  // layer 0 of a narrow input runs in every block (layer0_all): x and all of W0 then sit in
+  // W2's place, and W2 is staged once they are done with
+  const bool all0 = d0 <= kRepD0;
+  float* xw = sm + kW2;
+  int tile = blockIdx.x / kCluster;
+  // layer 0's inputs first, then the later layers' weights, which land behind layer 0
+  float* x_at = all0 ? xw : act;  // x (D0, S), then W0 behind it
+  fetch_x(p, x, d0, tile * s_tile, min(s_tile, batch - tile * s_tile), xbar);
+  stage_w0(x_at + d0 * sa, all0 ? a.w[0] : w0, d0, all0);
+  stage_rows(sm + kW3, a.w[3] + rank * kN2, 1, kN2, 0, 0);
+  stage_rows(sm + kB, a.b[0] + (all0 ? 0 : rank * kN0), 1, all0 ? kD1 : kN0, 0, 0);
+  stage_rows(sm + kB + kD1, a.b[1] + rank * kN1, 1, kN1, 0, 0);
+  stage_rows(sm + kB + kD1 + kN1, a.b[2] + rank * kN2, 1, kN2, 0, 0);
+  if (threadIdx.x == 0) cp_async4(sm + kB + kD1 + kN1 + kN2, a.b[3], true);
+  cp_async_wait_all();
+  stage_rows(sm, a.w[1] + rank * kN1, kD1, kN1, kD2, ld(kN1));
+  cp_async_commit();
+  if (!all0) {
+    stage_rows(sm + kW2, a.w[2] + rank * kN2, kD2, kN2, kD3, ld(kN2));
+    cp_async_commit();
+  }
+  unsigned parity = 0;
+  for (bool first = true; tile < n_tiles; tile += clusters, first = false, parity ^= 1) {
+    const int row0 = tile * s_tile, ns = min(s_tile, batch - row0);
+    if (!first) {
+      fetch_x(p, x, d0, row0, ns, xbar);
+      stage_w0(x_at + d0 * sa, all0 ? a.w[0] : w0, d0, all0);
+      cp_async_wait_all();
+    }
+    mbar_wait(xbar, parity);
+    place_x(x_at, p, d0, s_tile, ns);
+    __syncthreads();
+    if (all0) {
+      // layer 0: x (D0, S) -> A (512, S), all of it here
+      layer0_all(xw, act, d0, s_tile, bias, a.slope[0], a.d[0], rank, row0, ns);
+      __syncthreads();
+      stage_rows(sm + kW2, a.w[2] + rank * kN2, kD2, kN2, kD3, ld(kN2));
+      cp_async_commit();
+      if (first) cp_async_wait<1>();  // W1
+      __syncthreads();
+      // layer 1: (512, S) -> A (256, S)
+      products(act, sm, p, kD1, kN1, s_tile, nullptr, parity, rank);
+    } else {
+      // layer 0: x (D0, S) -> A (512, S)
+      products(act, act + d0 * sa, p, d0, kN0, s_tile, nullptr, parity, rank);
+      exchange<1>(act, p, o, bias, kN0, s_tile, a.slope[0], a.d[0], kD1, rank, row0, ns, bars,
+                  first);
+      // layer 1: (512, S) -> A (256, S), each block's rows of the input as they land
+      products(act, sm, p, kD1, kN1, s_tile, bars, parity, rank);
+      if (threadIdx.x >= 32) cluster_wait();  // the last exchange's barrier, long complete
+    }
+    exchange<0>(act, p, o + kN0 * sa, bias + kD1, kN1, s_tile, a.slope[1], a.d[1], kD2, rank,
+                row0, ns, bars + kCluster, first || all0);
+    // layer 2: (256, S) -> this block's columns (32, S), then layer 3: its rows of the dot
+    // product, into rank 0's partial sums, which rank 0 sums in rank order
+    products(act, sm + kW2, p, kD2, kN2, s_tile, bars + kCluster, parity, rank);
+    __syncthreads();
+    finish(p, act, nullptr, kN2, s_tile, bias + kD1 + kN1, a.slope[2], a.d[2], kD3, rank * kN2,
+           row0, ns);
+    __syncthreads();
+    if (static_cast<int>(threadIdx.x) < kLanes * s_tile) {  // 8 lanes a sample, 4 rows each
+      const int s3 = threadIdx.x / kLanes, j = threadIdx.x % kLanes;
+      const float* w3 = sm + kW3 + 4 * j;
+      const float* x3 = act + 4 * j * sa + s3;
+      float v = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) v = fmaf(x3[c * sa], w3[c], v);
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      if (j == 0) cl.map_shared_rank(p3, 0)[rank * s_tile + s3] = v;
+    }
+    if (threadIdx.x >= 32) cluster_wait();  // the last exchange's barrier, long complete
+    cl.sync();  // rank 0 holds every block's partial sums; every copy of this tile is done
+    if (rank == 0 && static_cast<int>(threadIdx.x) < ns) {
+      float v = 0.f;
+#pragma unroll
+      for (int r = 0; r < kCluster; ++r) v += p3[r * s_tile + threadIdx.x];
+      const float d = v + bias[kD1 + kN1 + kN2];
+      if (a.d[3]) a.d[3][row0 + threadIdx.x] = d;
+      y[row0 + threadIdx.x] = d > 0.f ? d : a.slope[3] * d;
+    }
+  }
+}
+
+int smem_set = 0;
+
+// The clusters of blocks of `smem` bytes that the card holds at once.
+int slots(int smem, int* out) {
+  int err = allow_smem(mlp_cluster_kernel, smem, &smem_set);
+  if (err) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster * 64);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(out, mlp_cluster_kernel, &cfg));
+}
+
+int launch(const float* x, float* y, int batch, const Args& a, int s_tile, int clusters,
+           int smem, void* stream) {
+  const int n_tiles = batch > 0 ? (batch + s_tile - 1) / s_tile : 0;
+  if (batch <= 0 || s_tile < kTs || s_tile > kMaxS || s_tile % kTs || clusters < 1 ||
+      clusters > n_tiles || a.d0 < 16 || a.d0 > kMaxD0 || a.d0 % 16 ||
+      smem != smem_floats(a.d0, s_tile) * 4)
+    return cudaErrorInvalidValue;
+  if (reinterpret_cast<std::uintptr_t>(x) % 16) return cudaErrorInvalidValue;
+  for (int j = 0; j < 4; ++j)
+    if (reinterpret_cast<std::uintptr_t>(a.w[j]) % 16 ||
+        (j < 3 && reinterpret_cast<std::uintptr_t>(a.b[j]) % 16))
+      return cudaErrorInvalidValue;
+  const int err = allow_smem(mlp_cluster_kernel, smem, &smem_set);
+  if (err) return err;
+  mlp_cluster_kernel<<<clusters * kCluster, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, y, batch, s_tile, n_tiles, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace cluster
+
 extern "C" {
 
 const char* iins_error_string(int err) {
@@ -204,5 +672,27 @@ int iins_mlp_chain(const float* x, float* y, int batch, int n_layers, const void
   mlp_chain_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(x, y, batch, a);
   return static_cast<int>(cudaGetLastError());
 }
+
+// K4 on the restorers' path (namespace cluster): x (B, d0) -> y (B, 1) through d0 -> 512 -> 256
+// -> 256 -> 1; ws, bs, slopes, ds as for iins_mlp_chain (4 layers). tile (12, 24 or 36 samples),
+// clusters (1 .. ceil(B / tile)) and smem (a block's dynamic shared memory) as
+// fused.mlp_cluster_plan gives them; the launch refuses any other.
+int iins_mlp_cluster(const float* x, float* y, int batch, int d0, const void* const* ws,
+                     const void* const* bs, const float* slopes, void* const* ds, int tile,
+                     int clusters, int smem, void* stream) {
+  cluster::Args a{};
+  a.d0 = d0;
+  for (int j = 0; j < 4; ++j) {
+    a.w[j] = static_cast<const float*>(ws[j]);
+    a.b[j] = static_cast<const float*>(bs[j]);
+    a.slope[j] = slopes[j];
+    a.d[j] = ds ? static_cast<float*>(ds[j]) : nullptr;
+  }
+  return cluster::launch(x, y, batch, a, tile, clusters, smem, stream);
+}
+
+// *out = the clusters of the restorers' path that the card holds at once, its blocks taking
+// smem bytes of shared memory each.
+int iins_mlp_cluster_slots(int smem, int* out) { return cluster::slots(smem, out); }
 
 }  // extern "C"

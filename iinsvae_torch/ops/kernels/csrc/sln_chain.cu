@@ -42,7 +42,23 @@
 // - Only the flagship's four stages are taken, with every stage's C_out a
 //   multiple of 4 and at most 2048 floats a sample; anything else is
 //   rejected at launch.
+//
+// Two paths. The general kernel above (sln_chain_kernel) takes every shape. It
+// took 62 us at the decoder's shape at batch 500 on the H100, 23x its bound:
+// each output quad is one fmaf chain of 160-320 steps, and every step waits
+// on a 16-byte tap load through the read-only cache; 2 of its 8 warps run the
+// LayerNorms. The decoder's shape, input (8, 64) (the only one Decoder1d gives
+// K6), runs the tail kernel below on sln_tail.cuh, the forward recompute of
+// K6b's own path: one persistent block of 512 threads a SM over tiles of 4
+// samples, every stage's taps staged once a block in shared memory (stages
+// 1-3 landing behind stage 0), 2 samples x a row pair x 4 channels a thread
+// from shared-memory float4s, then the out conv, tanh and the pool. Each
+// output is summed in the general kernel's order, so y is its bit for bit,
+// and K6b's recompute stays K6's. It takes 20.3-20.5 us (PERF.md), 7.7x its
+// bound: the four up-convs are most of it, each output quad still one
+// fmaf chain of 160-320 steps on 4 of the block's 16 warps.
 #include "sln_stage.cuh"
+#include "sln_tail.cuh"
 
 namespace {
 
@@ -130,6 +146,82 @@ sln_chain_kernel(const float* __restrict__ x, float* __restrict__ y, int batch, 
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// The decoder's own path: input (8, 64), four up-stages to (128, 4), the k7 reflect conv, tanh
+// and the pool (sln_tail.cuh).
+namespace tail {
+
+// The tanh output th (S, 128) goes to z[0]'s inner rows, free once stage 0's LayerNorm is done.
+constexpr int kTh = z_off(0) + 2 * chans(0) / 2;
+constexpr int kFwdSmemBytes = kFwdFloats * static_cast<int>(sizeof(float));
+static_assert(kFwdSmemBytes <= 232448, "over the 227 KB a block can have");
+
+// y (ns, l_pool) of the tile: output i averages th[floor(i L / L_pool), ceil((i + 1) L / L_pool)),
+// summed in the general kernel's pool_stage order.
+__device__ void pool_tile(const float* sm, float* __restrict__ y, int s0, int ns, int l_pool) {
+  for (int o = threadIdx.x; o < ns * l_pool; o += kThreads) {
+    const int s = o / l_pool, i = o - s * l_pool;
+    const int start = (i * kLast) / l_pool, end = ((i + 1) * kLast + l_pool - 1) / l_pool;
+    const float* th = sm + kTh + s * z_floats(0);
+    float sum = 0.f;
+    for (int u = start; u < end; ++u) sum += th[u];
+    y[static_cast<size_t>(s0 + s) * l_pool + i] = sum / static_cast<float>(end - start);
+  }
+}
+
+// One persistent block a SM walks tiles of kS samples (tile b, b + grid, ...): the four forward
+// stages, then the out conv and tanh (thread (s, p)) and the pool.
+__global__ void __launch_bounds__(kThreads, 1)
+tail_fwd_kernel(const float* __restrict__ x, float* __restrict__ y, int batch, int n_tiles,
+                Args a) {
+  extern __shared__ __align__(16) float sm[];
+  int tile = blockIdx.x;
+  stage_block(sm, a, x, tile, batch);
+  const float b_out = __ldg(a.b_out);
+  for (bool first = true; tile < n_tiles; tile += gridDim.x, first = false) {
+    const int s0 = tile * kS, ns = min(kS, batch - s0);
+    if (!first) {
+      __syncthreads();  // the last tile's reads of act[0] and th are done
+      stage_x(x, s0, ns, sm);
+      cp_async_wait_all();
+    }
+    __syncthreads();
+    forward_stage<0>(sm, a.bias[0], a.gamma[0], a.beta[0]);
+    if (first) {
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    forward_stage<1>(sm, a.bias[1], a.gamma[1], a.beta[1]);
+    forward_stage<2>(sm, a.bias[2], a.gamma[2], a.beta[2]);
+    forward_stage<3>(sm, a.bias[3], a.gamma[3], a.beta[3]);
+    {
+      const int s = threadIdx.x >> 7, p = threadIdx.x & 127;
+      sm[kTh + s * z_floats(0) + p] = out_tanh(sm, s, p, b_out);
+    }
+    __syncthreads();
+    pool_tile(sm, y, s0, ns, a.l_pool);
+  }
+}
+
+int fwd_smem_set = 0;
+
+int launch_fwd(const float* x, float* y, int batch, const Args& a, int tile, int grid, int smem,
+               void* stream) {
+  const int n_tiles = batch > 0 ? (batch + kS - 1) / kS : 0;
+  if (batch <= 0 || tile != kS || grid < 1 || grid > n_tiles || smem != kFwdSmemBytes)
+    return cudaErrorInvalidValue;
+  if (!iins::aligned16(x)) return cudaErrorInvalidValue;
+  for (int j = 0; j < kStages; ++j)
+    if (!iins::aligned16(a.w[j])) return cudaErrorInvalidValue;
+  const int err = allow_smem(tail_fwd_kernel, smem, &fwd_smem_set);
+  if (err) return err;
+  tail_fwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(x, y, batch,
+                                                                               n_tiles, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tail
+
 extern "C" {
 
 const char* iins_error_string(int err) {
@@ -169,6 +261,28 @@ int iins_sln_chain(const float* x, float* y, int batch, const void* const* ws,
   sln_chain_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(x, y, batch,
                                                                                spb, a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K6 on the decoder's own path (namespace tail): x (B, 8, 64) -> y (B, l_pool); ws, biases,
+// gammas, betas, w_out, b_out as for iins_sln_chain. tile (samples a tile), grid (the persistent
+// blocks, 1 .. ceil(B / tile)) and smem (a block's dynamic shared memory) as fused.sln_tail_plan
+// and fused.SLN_TAIL_FWD_SMEM give them; the launch refuses any other.
+int iins_sln_tail(const float* x, float* y, int batch, const void* const* ws,
+                  const void* const* biases, const void* const* gammas, const void* const* betas,
+                  int l0, int c0, const float* w_out, const float* b_out, int l_pool, int tile,
+                  int grid, int smem, void* stream) {
+  if (l0 != tail::kL0 || c0 != tail::kC0 || l_pool <= 0) return cudaErrorInvalidValue;
+  tail::Args a{};
+  for (int j = 0; j < tail::kStages; ++j) {
+    a.w[j] = static_cast<const float*>(ws[j]);
+    a.bias[j] = static_cast<const float*>(biases[j]);
+    a.gamma[j] = static_cast<const float*>(gammas[j]);
+    a.beta[j] = static_cast<const float*>(betas[j]);
+  }
+  a.w_out = w_out;
+  a.b_out = b_out;
+  a.l_pool = l_pool;
+  return tail::launch_fwd(x, y, batch, a, tile, grid, smem, stream);
 }
 
 }  // extern "C"

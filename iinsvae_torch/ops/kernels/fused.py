@@ -212,11 +212,84 @@ def mlp_chain(x: torch.Tensor, ws: Sequence[torch.Tensor], bs: Sequence[torch.Te
     return launch_mlp_chain(x, ws, bs, slopes)[0]
 
 
+# K4's path at the restorers (csrc/mlp_chain.cu, namespace cluster): widths D0 -> 512 -> 256 ->
+# 256 -> 1 with D0 a multiple of 16 up to 128 (the 1-D restorer's 16, the 2-D one's 128). A
+# cluster of MLP_CLUSTER blocks takes a tile of samples, each block 1 / MLP_CLUSTER of every
+# layer's output columns (mlp_cluster_columns), with those columns' weights in shared memory.
+MLP_CLUSTER = 8
+MLP_CLUSTER_WIDTHS = (512, 256, 256, 1)
+MLP_CLUSTER_TILE = 12  # samples a tile: 12, 24 or 36
+MLP_CLUSTER_WHOLE_L0 = 16  # up to this many inputs layer 0 runs whole in every block
+
+
+def takes_mlp_cluster(dims: Sequence[int]) -> bool:
+    """Whether a chain of the widths ``dims`` runs K4's restorer path."""
+    return (tuple(dims[1:]) == MLP_CLUSTER_WIDTHS and dims[0] % 16 == 0
+            and 16 <= dims[0] <= 128)
+
+
+def mlp_cluster_columns(dims: Sequence[int]) -> list[list[tuple[int, int]]]:
+    """-> per layer, each block rank's [start, end) of the layer's output columns; at the last
+    layer (one column) each rank's rows of the weight, the partial dot product it sums."""
+    out = []
+    for j, d in enumerate(dims[1:]):
+        n = (d if j < len(dims) - 2 else dims[-2]) // MLP_CLUSTER
+        out.append([(r * n, (r + 1) * n) for r in range(MLP_CLUSTER)])
+    return out
+
+
+def mlp_cluster_smem(d0: int, tile: int) -> int:
+    """Bytes of shared memory a block of K4's restorer path takes, as the source lays them out:
+    its slices of W1 and W2 in rows of 36 floats, W3's 32 rows, room for all of b0, its 32 of
+    b1 and of b2, and b3; the layer input (512, tile) in rows of tile (+ 4 where tile is a
+    multiple of 8) floats, which first holds x (d0, tile) and its slice of W0 in rows of 68;
+    the split products' partial sums (12 a thread of 384); its outputs of layers 0 and 1 in
+    rows of the same length; every block's partial dot products (8, tile); room for 18 8-byte
+    mbarriers."""
+    d1, d2, d3, _ = MLP_CLUSTER_WIDTHS
+    c = MLP_CLUSTER
+    weights = d1 * (d2 // c + 4) + d2 * (d3 // c + 4) + d3 // c + d1 + (d2 + d3) // c + 4
+    row = tile if tile % 8 else tile + 4
+    act = max(d1 * row, d0 * (row + d1 // c + 4))
+    return 4 * (weights + act + 12 * 384 + (d1 + d2) // c * row + c * tile + 4 * c + 4)
+
+
+def mlp_cluster_plan(batch: int, d0: int, slots: int) -> tuple[int, int, int, int]:
+    """-> (tile, tiles, clusters, smem) of K4's restorer path: cluster c takes the tiles c,
+    c + clusters, ..., tile t the samples t * tile .. (t + 1) * tile - 1 below batch. The tile is
+    the least of 12, 24 and 36 samples with which the ``slots`` clusters the card holds at once
+    take the batch in one round, else 36; at most ``slots`` clusters."""
+    t = MLP_CLUSTER_TILE
+    tile = min(3 * t, t * -(-batch // (t * slots)))
+    tiles = -(-batch // tile)
+    return tile, tiles, min(tiles, slots), mlp_cluster_smem(d0, tile)
+
+
+_cluster_slots: dict[tuple[int, int], int] = {}
+
+
+def mlp_cluster_slots(device: torch.device, d0: int) -> int:
+    """The clusters of K4's restorer path that the card holds at once (at the largest tile's
+    shared memory), asked of the CUDA runtime once a device and D0."""
+    key = (device.index if device.index is not None else torch.cuda.current_device(), d0)
+    if key not in _cluster_slots:
+        n = ctypes.c_int(0)
+        fn = _build.function("mlp_chain", "iins_mlp_cluster_slots", [_I, ctypes.POINTER(_I)])
+        with torch.cuda.device(key[0]):
+            _build.check(fn(mlp_cluster_smem(d0, 3 * MLP_CLUSTER_TILE), ctypes.byref(n)),
+                         "mlp_chain", "mlp_chain cluster occupancy")
+        if n.value < 1:
+            raise RuntimeError("mlp_chain: the card holds no cluster of the restorer path")
+        _cluster_slots[key] = n.value
+    return _cluster_slots[key]
+
+
 def launch_mlp_chain(x: torch.Tensor, ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
                      slopes: Sequence[float], save_pre: bool = False):
     """Check the operands, launch K4 and count the launch. -> (y, ds): with
     ``save_pre`` the kernel also writes each layer's pre-activation
-    d_j (B, D_{j+1}), which the backward kernel reads; else ds is []."""
+    d_j (B, D_{j+1}), which the backward kernel reads; else ds is []. The restorers' widths
+    (takes_mlp_cluster) run the cluster kernel (mlp_cluster_plan), any other the general one."""
     n = len(ws)
     if not (1 <= n <= _MAX_LAYERS and len(bs) == n and len(slopes) == n):
         raise ValueError(f"mlp_chain takes 1-{_MAX_LAYERS} layers with one bias and slope each")
@@ -232,6 +305,23 @@ def launch_mlp_chain(x: torch.Tensor, ws: Sequence[torch.Tensor], bs: Sequence[t
     y = torch.empty((x.shape[0], dims[-1]), device=x.device, dtype=x.dtype)
     ds = [torch.empty((x.shape[0], d), device=x.device, dtype=x.dtype)
           for d in dims[1:]] if save_pre else []
+    if takes_mlp_cluster(dims):
+        if any(t.data_ptr() % 16 for t in (x, *ws, *bs[:-1])):
+            raise ValueError("mlp_chain: the restorer path takes 16-byte aligned x, weights and "
+                             "biases")
+        tile, _, clusters, smem = mlp_cluster_plan(x.shape[0], dims[0],
+                                                   mlp_cluster_slots(x.device, dims[0]))
+        fn = _build.function("mlp_chain", "iins_mlp_cluster",
+                             [_P, _P, _I, _I, ctypes.POINTER(_P), ctypes.POINTER(_P),
+                              ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_P), _I, _I, _I, _P])
+        err = fn(x.data_ptr(), y.data_ptr(), x.shape[0], dims[0],
+                 (_P * n)(*[w.data_ptr() for w in ws]), (_P * n)(*[b.data_ptr() for b in bs]),
+                 (ctypes.c_float * n)(*slopes),
+                 (_P * n)(*[d.data_ptr() for d in ds]) if save_pre else None,
+                 tile, clusters, smem, _build.stream_handle(x))
+        _build.check(err, "mlp_chain", "mlp_chain")
+        mlp_chain.launches += 1
+        return y, ds
     fn = _build.function("mlp_chain", "iins_mlp_chain",
                          [_P, _P, _I, _I, ctypes.POINTER(_P), ctypes.POINTER(_P),
                           ctypes.POINTER(_I), ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_P),
@@ -409,19 +499,60 @@ def check_sln_chain(x: torch.Tensor, stages: Sequence[UpStage], out_kernel: torc
                             out_bias)
 
 
+# K6's and K6b's path at the decoder's shape (csrc/sln_chain.cu's and csrc/sln_chain_bwd.cu's
+# namespace tail, on csrc/sln_tail.cuh): input (8, 64), four up-stages to (128, 4); tiles of
+# SLN_TAIL_TILE samples, at most one persistent block a SM (sln_tail_plan); the forward's
+# SLN_TAIL_FWD_SMEM bytes of shared memory a block, as the source lays them out (K6b's
+# backward.SLN_TAIL_SMEM goes on after them).
+SLN_TAIL_L, SLN_TAIL_C, SLN_TAIL_TILE = 8, 64, 4
+
+
+def sln_tail_fwd_floats() -> int:
+    """Floats of shared memory a block of the tail path's forward takes."""
+    ls = [SLN_TAIL_L << j for j in range(SLN_STAGES)]  # stage j: (ls[j], cs[j]) -> x2 rows, C / 2
+    cs = [SLN_TAIL_C >> j for j in range(SLN_STAGES)]
+    # the taps in rows of C_out + 4 floats (C_out >= 8), the out conv's 28 (32 kept)
+    taps = sum(5 * c * (c // 2 + 4 if c // 2 >= 8 else c // 2) for c in cs) + 32
+    # per sample: each stage's input with a zero row above and below (rows of C + 4), the out
+    # conv's input (128, 4), each conv output with two zero rows above and below, each 4 floats
+    # longer; then the LayerNorm statistics, 4 floats a stage and sample
+    acts = sum((l + 2) * (c + 4) + 4 for l, c in zip(ls, cs)) + 2 * ls[-1] * (cs[-1] // 2) + 4
+    zs = sum((2 * l + 4) * (c // 2) + 4 for l, c in zip(ls, cs))
+    return taps + SLN_TAIL_TILE * (acts + zs) + SLN_STAGES * SLN_TAIL_TILE * 4
+
+
+SLN_TAIL_FWD_SMEM = 4 * sln_tail_fwd_floats()
+
+
+def sln_tail_plan(batch: int, sms: int) -> tuple[int, int]:
+    """-> (tiles, blocks) of the tail path: block j of the grid takes tiles j, j + blocks, ...,
+    tile t the samples t * SLN_TAIL_TILE .. (t + 1) * SLN_TAIL_TILE - 1 below batch."""
+    tiles = -(-batch // SLN_TAIL_TILE)
+    return tiles, min(tiles, sms)
+
+
 def launch_sln_chain(x: torch.Tensor, stages: Sequence[UpStage], out_kernel: torch.Tensor,
-                     out_bias: torch.Tensor, l_pool: int) -> torch.Tensor:
-    """Check the operands, launch K6 and count the launch."""
+                     out_bias: torch.Tensor, l_pool: int, *, general: bool = False) -> torch.Tensor:
+    """Check the operands, launch K6 and count the launch. The decoder's shape, input (8, 64),
+    runs the tail kernel (sln_tail_plan); ``general`` runs the general kernel there instead,
+    the second oracle of the GPU tests and chip_smoke.py."""
     check_sln_chain(x, stages, out_kernel, out_bias, l_pool)
     b, l0, c0 = x.shape
     y = torch.empty((b, l_pool), device=x.device, dtype=x.dtype)
-    spb = _build.samples_per_block(b, 2 * l0 * c0)  # two ping-pong buffers a sample
-    fn = _build.function("sln_chain", "iins_sln_chain",
-                         [_P, _P, _I, ctypes.POINTER(_P), ctypes.POINTER(_P),
-                          ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _I, _P, _P, _I, _I, _P])
+    head = [_P, _P, _I] + [ctypes.POINTER(_P)] * 4 + [_I, _I, _P, _P, _I]
+    if not general and (l0, c0) == (SLN_TAIL_L, SLN_TAIL_C):
+        if x.data_ptr() % 16:
+            raise ValueError("sln_chain: the tail kernel takes a 16-byte aligned x")
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        _, blocks = sln_tail_plan(b, sms)
+        fn = _build.function("sln_chain", "iins_sln_tail", head + [_I, _I, _I, _P])
+        plan = (SLN_TAIL_TILE, blocks, SLN_TAIL_FWD_SMEM)
+    else:
+        fn = _build.function("sln_chain", "iins_sln_chain", head + [_I, _P])
+        plan = (_build.samples_per_block(b, 2 * l0 * c0),)  # two ping-pong buffers a sample
     ptrs = [(_P * SLN_STAGES)(*[st[i].data_ptr() for st in stages]) for i in range(4)]
     err = fn(x.data_ptr(), y.data_ptr(), b, *ptrs, l0, c0, out_kernel.data_ptr(),
-             out_bias.data_ptr(), l_pool, spb, _build.stream_handle(x))
+             out_bias.data_ptr(), l_pool, *plan, _build.stream_handle(x))
     _build.check(err, "sln_chain", "sln_chain")
     sln_chain.launches += 1
     return y

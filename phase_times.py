@@ -1,7 +1,7 @@
 """Where a redesigned kernel spends its time, phase by phase, on one NVIDIA card.
 
-    python3 phase_times.py [--kernel res|res_fwd|tail|chain|mlp|res2d|res2d_bwd] [--tree DIR]
-                           [--out FILE]
+    python3 phase_times.py [--kernel res|res_fwd|tail|chain|mlp|res2d|res2d_bwd|mlp_fwd|sln_fwd]
+                           [--tree DIR] [--out FILE]
 
 ``--kernel res`` (the default): K1b's residual-block backward, from DIR's
 ``iinsvae_torch/ops/kernels/csrc/in_chain_bwd.cu``, timed through DIR's own wrappers at the two
@@ -294,6 +294,80 @@ CUTS["res2d_tc_kernel"] = [
          "(2) conv 1's products", "(3) statistics, norm_relu", "(4) conv 2's products"))],
     ("(5) statistics, epilogue: the whole kernel", None),
 ]
+# K4's forward: the general kernel (one block a tile of 4 samples, each layer's weights streamed
+# through one tile of shared memory), cut after each layer.
+CUTS["mlp_chain_kernel"] = [
+    ("launch", "  const int d0 = a.dims[0];\n"),
+    ("stage x", "    cur[k * kRows + r] = r < nr ? x[static_cast<size_t>(r0 + r) * d0 + k] : 0.f;\n"
+     "  }\n"),
+    *[(f"layer {j}", "    float* t = cur;\n    cur = nxt;\n    nxt = t;\n", f"if (j == {j}) return;")
+      for j in range(3)],
+    ("layer 3: the whole kernel", None),
+]
+# K6's forward: the general kernel (two samples a block, taps read through the read-only cache),
+# cut after each stage's conv and LayerNorm, and after the out conv.
+CUTS["sln_chain_kernel"] = [
+    ("launch", "  float* nxt = smem + spb * a.width;\n"),
+    ("stage x", "    cur[s * a.width + (i - s * n0)] = xg[i];\n  }\n  __syncthreads();\n"),
+    *_stage_cuts([
+        ("up-conv", "    up_conv_stage<true>(cur, nxt, a.w[j], a.bias[j], a.l_in[j], a.c_in[j], "
+         "c_out, ns, a.width);\n    __syncthreads();\n"),
+        ("LayerNorm + ReLU", "             a.width);\n    __syncthreads();\n")], range(4)),
+    ("out conv k7, tanh",
+     "  out_stage(cur, nxt, a.w_out, __ldg(a.b_out), l, c, ns, a.width);\n  __syncthreads();\n"),
+    ("pool: the whole kernel", None),
+]
+# K4 at the restorers: the cluster kernel, its two flows (layer 0 in every block for the 1-D
+# restorer's 16 inputs, else exchanged) cut at the same points. A cut after an exchange waits
+# for the cluster's barrier and for the other blocks' copies into this block, so that no block
+# leaves while a copy into it is in flight.
+_CL_IN = ("for (int r = 0; r < kCluster; ++r) if (r != rank) mbar_wait(bars + OFF + r, "
+          "parity);")
+_CL_W = "if (threadIdx.x >= 32) cluster_wait();"
+_CL_L0 = "      layer0_all(xw, act, d0, s_tile, bias, a.slope[0], a.d[0], rank, row0, ns);\n"
+CUTS["mlp_cluster_kernel"] = [
+    ("launch", "  const int clusters = gridDim.x / kCluster;\n"),
+    ("stage x, W0, W1 and the biases (all landed)",
+     "  stage_rows(sm, a.w[1] + rank * kN1, kD1, kN1, kD2, ld(kN1));\n  cp_async_commit();\n",
+     "{ cp_async_wait<0>(); mbar_wait(xbar, 0); "
+     "__syncthreads(); return; }"),
+    ("layer 0: products (1-D: the whole layer, every column)",
+     (_CL_L0, "      products(act, act + d0 * sa, p, d0, kN0, s_tile, nullptr, parity, rank);\n"),
+     "{ cp_async_wait<0>(); return; }"),
+    ("layer 0: sums, bias, LeakyReLU, barrier, copies landed (2-D)",
+     (_CL_L0, "      exchange<1>(act, p, o, bias, kN0, s_tile, a.slope[0], a.d[0], kD1, rank, row0, "
+      "ns, bars,\n                  first);\n"),
+     "{ cp_async_wait<0>(); if (!all0) { " + _CL_W + " " + _CL_IN.replace("OFF", "0")
+     + " } return; }"),
+    ("layer 1: products (2-D: as the copies land)",
+     ("      products(act, sm, p, kD1, kN1, s_tile, nullptr, parity, rank);\n",
+      "      products(act, sm, p, kD1, kN1, s_tile, bars, parity, rank);\n"
+      "      if (threadIdx.x >= 32) cluster_wait();  // the last exchange's barrier, long complete\n"),
+     "{ cp_async_wait<0>(); return; }"),
+    ("layer 1: sums, bias, LeakyReLU, barrier, copies landed",
+     "                row0, ns, bars + kCluster, first || all0);\n",
+     "{ " + _CL_W + " " + _CL_IN.replace("OFF", "kCluster") + " return; }"),
+    ("layer 2: products (as the copies land), sums, bias, LeakyReLU",
+     "           row0, ns);\n    __syncthreads();\n", "{ " + _CL_W + " return; }"),
+    ("layer 3: partial dot products; barrier",
+     "    cl.sync();  // rank 0 holds every block's partial sums; every copy of this tile is done\n",
+     "return;"),
+    ("layer 3: the cluster's sum: the whole kernel", None),
+]
+# K6 at the decoder's shape: the tail kernel (sln_tail.cuh's forward, as K6b recomputes it).
+CUTS["tail_fwd_kernel"] = [
+    ("launch", "  extern __shared__ __align__(16) float sm[];\n  int tile = blockIdx.x;\n"),
+    ("zero rows, stage every stage's taps and x (all landed)",
+     "  stage_block(sm, a, x, tile, batch);\n", "{ cp_async_wait<0>(); __syncthreads(); return; }"),
+    ("forward stage 0: conv, LayerNorm, ReLU",
+     "    forward_stage<0>(sm, a.bias[0], a.gamma[0], a.beta[0]);\n    if (first) {\n"
+     "      cp_async_wait<0>();\n      __syncthreads();\n    }\n"),
+    *[(f"forward stage {j}: conv, LayerNorm, ReLU",
+       f"    forward_stage<{j}>(sm, a.bias[{j}], a.gamma[{j}], a.beta[{j}]);\n") for j in range(1, 4)],
+    ("out conv k7, tanh",
+     "      sm[kTh + s * z_floats(0) + p] = out_tanh(sm, s, p, b_out);\n    }\n    __syncthreads();\n"),
+    ("pool: the whole kernel", None),
+]
 # which source each --kernel reads, and its designs, newest first
 KERNELS = {
     "res": ("in_chain_bwd", ("res_block_bwd_kernel", "in_chain_bwd_kernel")),
@@ -303,6 +377,8 @@ KERNELS = {
     "mlp": ("mlp_chain_bwd", ("small_kernel", "mlp_bwd_chain_kernel")),
     "res2d": ("res_block_2d", ("res2d_tc_kernel", "res_block_2d_kernel")),
     "res2d_bwd": ("res_block_2d_bwd", ("res2d_bwd_tc_kernel",)),
+    "mlp_fwd": ("mlp_chain", ("mlp_cluster_kernel", "mlp_chain_kernel")),
+    "sln_fwd": ("sln_chain", ("tail_fwd_kernel", "sln_chain_kernel")),
 }
 
 
@@ -430,6 +506,19 @@ def main() -> int:
             g = rand(b, ws[-1].shape[1])
             sites[name] = (lambda g=g, x=x, ws=ws, bs=bs, sl=head.slopes, ds=ds:
                            backward.mlp_chain_bwd(g, x, ws, bs, sl, ds))
+    elif args.kernel == "mlp_fwd":
+        model_2d = IInsVAE(cir_len=157, num_classes=5, style_dim=16, conv_type=2,
+                           generator=torch.Generator().manual_seed(0)).cuda()
+        sites = {}
+        for name, head in (("restorer", model.restorer.restorer),
+                           ("classifier", model.classifier.classifier),
+                           ("restorer.2d", model_2d.restorer.restorer)):
+            n = len(head.slopes)
+            ws = [getattr(head, f"w{j}") for j in range(n)]
+            bs = [getattr(head, f"b{j}") for j in range(n)]
+            x = rand(b, ws[0].shape[0])
+            sites[name] = (lambda x=x, ws=ws, bs=bs, sl=head.slopes:
+                           fused.mlp_chain(x, ws, bs, sl))
     elif args.kernel == "res_fwd":
         x = rand(b, 8, 64)
         block = [(re_.res0_kernel1, 1, 1, "reflect"), (re_.res0_kernel2, 1, 1, "reflect")]
@@ -477,8 +566,12 @@ def main() -> int:
         x, g = rand(b, 8, 64), rand(b, 157)
         up = [tuple(getattr(dec, f"up{j}_{n}") for n in ("kernel", "bias", "gamma", "beta"))
               for j in range(4)]
-        sites = {"dec.tail": lambda: backward.sln_chain_bwd(g, x, up, dec.out_kernel,
-                                                             dec.out_bias, 157)}
+        if args.kernel == "sln_fwd":
+            sites = {"dec.tail": lambda: fused.sln_chain(x, up, dec.out_kernel, dec.out_bias,
+                                                         157)}
+        else:
+            sites = {"dec.tail": lambda: backward.sln_chain_bwd(g, x, up, dec.out_kernel,
+                                                                 dec.out_bias, 157)}
     rows = []
     with torch.no_grad():
         for (phase, _), (so, _) in zip(vs, procs):

@@ -334,6 +334,107 @@ def test_gpu_sln_chain_rejects_what_the_kernel_does_not_take(cuda):
     assert fused.sln_chain(x, stages, ko, bo, 157).shape == (x.shape[0], 157)
 
 
+# K6 at the decoder's shape runs the tail kernel (csrc/sln_chain.cu, namespace tail): (batch,
+# pool length); the last tile of 4 samples is short at 1, 5, 261 and 7
+SLN_TAIL_CASES = [(1, 157), (5, 157), (261, 157), (500, 157), (7, 152), (7, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,l_pool", SLN_TAIL_CASES)
+def test_gpu_sln_chain_tail_path_is_bit_equal_to_the_general_kernel(cuda, batch, l_pool):
+    """K6 at the decoder tail, input (8, 64), runs its own kernel on the forward K6b's tail
+    path recomputes (csrc/sln_tail.cuh): one launch a call, bit-equal to the general kernel on
+    the same inputs (K6b's ReLU masks and statistics rely on it) and over two calls, within
+    tolerance of the plain version."""
+    dec, _, _, stages = _decoder_inputs(cuda)
+    ko, bo = dec.out_kernel, dec.out_bias
+    gen = torch.Generator().manual_seed(batch)
+    x = torch.randn((batch, 8, 64), generator=gen).to(cuda)
+    with torch.no_grad():
+        n = fused.sln_chain.launches
+        got = fused.sln_chain(x, stages, ko, bo, l_pool)
+        assert fused.sln_chain.launches == n + 1
+        assert got.shape == (batch, l_pool) and torch.isfinite(got).all()
+        assert torch.equal(got, fused.launch_sln_chain(x, stages, ko, bo, l_pool, general=True))
+        assert torch.equal(got, fused.sln_chain(x, stages, ko, bo, l_pool))
+        torch.testing.assert_close(got, fused.sln_chain_ref(x, stages, ko, bo, l_pool),
+                                   rtol=RTOL, atol=ATOL)
+        assert _device_kernel_names(lambda: fused.sln_chain(x, stages, ko, bo, l_pool)) == {
+            "tail::tail_fwd_kernel"}
+
+
+def _head(cuda, head, batch):
+    """(ws, bs, slopes, x) of a head of the seeded model (MLP_HEADS) and seeded inputs."""
+    conv_type, attr = MLP_HEADS[head]
+    model = IInsVAE(**MODELS[conv_type], generator=torch.Generator().manual_seed(5)).to(cuda)
+    mod = getattr(getattr(model, attr), attr)
+    n = len(mod.slopes)
+    ws = [getattr(mod, f"w{j}").detach() for j in range(n)]
+    bs = [getattr(mod, f"b{j}").detach() for j in range(n)]
+    x = torch.randn((batch, ws[0].shape[0]), generator=torch.Generator().manual_seed(batch))
+    return ws, bs, mod.slopes, x.to(cuda)
+
+
+def _pre_activations(x, ws, bs, slopes):
+    """Each layer's plain pre-activation d_j, as K4 saves them."""
+    out = []
+    for w, b, s in zip(ws, bs, slopes):
+        out.append(x @ w + b)
+        x = out[-1] if s == 1.0 else torch.nn.functional.leaky_relu(out[-1], s)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head", ["restorer", "restorer.2d"])
+@pytest.mark.parametrize("batch", [1, 5, 261, 500])
+def test_gpu_mlp_chain_restorer_path_matches_plain(cuda, batch, head):
+    """K4 at the restorers runs the cluster kernel (csrc/mlp_chain.cu, namespace cluster: a
+    cluster of 8 blocks a tile of samples, each block an eighth of every layer's columns; the
+    last tile short at 1, 5 and 261): one launch a call, within tolerance of the plain version,
+    bit-equal over two calls and when it also saves the pre-activations, each saved d_j within
+    tolerance of the plain one."""
+    ws, bs, slopes, x = _head(cuda, head, batch)
+    with torch.no_grad():
+        n = fused.mlp_chain.launches
+        y, ds = fused.launch_mlp_chain(x, ws, bs, slopes)
+        assert fused.mlp_chain.launches == n + 1 and ds == []
+        assert y.shape == (batch, 1) and torch.isfinite(y).all()
+        torch.testing.assert_close(y, fused.mlp_chain_ref(x, ws, bs, slopes), rtol=RTOL,
+                                   atol=ATOL)
+        assert torch.equal(y, fused.launch_mlp_chain(x, ws, bs, slopes)[0])
+        y_saving, ds = fused.launch_mlp_chain(x, ws, bs, slopes, save_pre=True)
+        assert torch.equal(y, y_saving)
+        for j, (d, want) in enumerate(zip(ds, _pre_activations(x, ws, bs, slopes))):
+            torch.testing.assert_close(d, want, rtol=RTOL, atol=ATOL, msg=lambda m: f"d_{j}: {m}")
+        assert _device_kernel_names(lambda: fused.mlp_chain(x, ws, bs, slopes)) == {
+            "cluster::mlp_cluster_kernel"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [5, 500])
+def test_gpu_mlp_chain_classifier_keeps_the_general_kernel(cuda, batch):
+    """The classifier's widths (16 -> 16 -> 32 -> 16 -> 5) keep K4's general kernel, within
+    tolerance of the plain version and bit-equal over two calls."""
+    ws, bs, slopes, x = _head(cuda, "classifier", batch)
+    with torch.no_grad():
+        y = fused.mlp_chain(x, ws, bs, slopes)
+        torch.testing.assert_close(y, fused.mlp_chain_ref(x, ws, bs, slopes), rtol=RTOL,
+                                   atol=ATOL)
+        assert torch.equal(y, fused.mlp_chain(x, ws, bs, slopes))
+        assert _device_kernel_names(lambda: fused.mlp_chain(x, ws, bs, slopes)) == {
+            "mlp_chain_kernel"}
+
+
+@pytest.mark.gpu
+def test_gpu_mlp_chain_restorer_path_rejects_unaligned_weights(cuda):
+    """The restorer path raises on a weight that is not 16-byte aligned, rather than launch
+    another kernel."""
+    ws, bs, slopes, x = _head(cuda, "restorer", 5)
+    w = torch.empty(ws[1].numel() + 1, device=cuda)[1:].view(ws[1].shape).copy_(ws[1])
+    with torch.no_grad(), pytest.raises(ValueError):
+        fused.mlp_chain(x, [ws[0], w, *ws[2:]], bs, slopes)
+
+
 def _train_batch(b, device, seed=0):
     rng = np.random.default_rng(seed)
     batch = {"cir": rng.normal(size=(b, 157)), "err": np.abs(0.3 * rng.normal(size=(b, 1))),

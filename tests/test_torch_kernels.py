@@ -409,3 +409,69 @@ def test_k4b_batch_split_covers_every_row_once(batch, head):
     total = sum((a + 1) * k for a, k in zip(dims, dims[1:]))
     if batch <= 500:
         assert 4 * len(chunks) * total < 8 * 2 ** 20
+
+
+RESTORER_DIMS = {"restorer": (16, 512, 256, 256, 1), "restorer_2d": (128, 512, 256, 256, 1)}
+
+
+@pytest.mark.parametrize("batch", [1, 5, 37, 256, 261, 500])
+@pytest.mark.parametrize("head", list(RESTORER_DIMS))
+def test_k4_cluster_plan_covers_every_sample_and_column_once_within_shared_memory(batch, head):
+    """K4's path at the restorers (csrc/mlp_chain.cu, namespace cluster): cluster c of the grid
+    takes tiles c, c + clusters, ..., so every sample must lie in exactly one of those tiles,
+    with the 15 clusters of 8 blocks the H100 holds at once, with 16 and with fewer than the
+    tiles. Each block rank owns a slice of every layer's columns (of the last layer's weight
+    rows), and the slices cover each layer once. A block's shared memory stays within the 227
+    KB a block can have on the H100."""
+    dims = RESTORER_DIMS[head]
+    assert fused.takes_mlp_cluster(dims)
+    for slots in (15, 16, 3):
+        tile, tiles, clusters, smem = fused.mlp_cluster_plan(batch, dims[0], slots)
+        assert tile in (12, 24, 36) and tiles == -(-batch // tile)
+        assert 1 <= clusters <= min(slots, tiles)
+        if tiles > clusters:
+            assert tile == 36
+        seen = np.zeros(batch, dtype=int)
+        for c in range(clusters):
+            for t in range(c, tiles, clusters):
+                assert t * tile < batch
+                seen[t * tile:(t + 1) * tile] += 1
+        assert (seen == 1).all()
+        assert smem == fused.mlp_cluster_smem(dims[0], tile) <= 227 * 1024
+    for j, slices in enumerate(fused.mlp_cluster_columns(dims)):
+        width = dims[j + 1] if j < len(dims) - 2 else dims[-2]
+        assert len(slices) == fused.MLP_CLUSTER
+        cover = np.zeros(width, dtype=int)
+        for a, b in slices:
+            cover[a:b] += 1
+        assert (cover == 1).all(), j
+
+
+def test_k4_other_widths_take_the_general_kernel():
+    """Only the restorers' widths take K4's cluster path: the classifier (16 -> 16 -> 32 -> 16
+    -> 5) and chains that differ in any width keep the general kernel."""
+    assert not fused.takes_mlp_cluster(MLPS["classifier"][0])
+    for dims in ((16, 512, 256, 256, 2), (24, 512, 256, 256, 1), (144, 512, 256, 256, 1),
+                 (16, 512, 256, 1), (16, 256, 256, 256, 1), (8, 512, 256, 256, 1)):
+        assert not fused.takes_mlp_cluster(dims), dims
+
+
+@pytest.mark.parametrize("batch", [1, 5, 37, 256, 261, 500])
+def test_k6_tail_forward_tiles_cover_every_sample_once_within_shared_memory(batch):
+    """K6's path at the decoder's shape (csrc/sln_chain.cu, namespace tail, on the forward of
+    csrc/sln_tail.cuh that K6b's tail path recomputes): block j of the grid takes tiles j,
+    j + blocks, ..., so every sample must lie in exactly one of those tiles, with the H100's
+    132 SMs and with fewer SMs than tiles. A block's shared memory (the four stages' taps, the
+    tile's buffers, the statistics) stays within the 227 KB a block can have, and K6b's lies
+    after it."""
+    for sms in (132, 7):
+        tiles, blocks = fused.sln_tail_plan(batch, sms)
+        assert 1 <= blocks <= min(sms, tiles)
+        seen = np.zeros(batch, dtype=int)
+        for j in range(blocks):
+            for t in range(j, tiles, blocks):
+                assert t * fused.SLN_TAIL_TILE < batch
+                seen[t * fused.SLN_TAIL_TILE:(t + 1) * fused.SLN_TAIL_TILE] += 1
+        assert (seen == 1).all()
+    assert fused.SLN_TAIL_FWD_SMEM <= 227 * 1024
+    assert fused.SLN_TAIL_FWD_SMEM < backward.SLN_TAIL_SMEM
