@@ -17,10 +17,12 @@
    of K1's and K5's residual blocks, stage 0's k5 conv of K6 on the
    upsampled input (500, 64, 16), and for K4 one fp32 torch.mm of the
    head's largest layer; at the residual blocks (``range.res``,
-   ``dec.res``) also the device kernel a call launches (their own kernel,
-   ``res::res_block_kernel``), two calls bit-equal, and the output bit-equal
-   to the general kernel's on the same inputs (a second oracle; a mismatch
-   fails the run);
+   ``dec.res``) and the range encoder's stride-2 chains (``range.pair0``,
+   ``range.pair1``, ``range.single``) also the device kernel a call launches
+   (their own kernels, ``res::res_block_kernel`` and
+   ``down::down_chain_kernel``), two calls bit-equal, and the output bit-equal
+   to the general kernel's on the same inputs (a second oracle, timed beside
+   it; a mismatch fails the run);
 4. serves the flagship 1-D model at full width (seeded weights) through
    ``Predictor(device="cuda")`` on two paths, each on 3 batches of 500 CIRs
    and a ragged 137 with every launch counter set to 0 just before and
@@ -42,9 +44,9 @@
    dW of the head's largest layer) beside K4b; each call bit-equal over two
    calls, and the device kernels it launches named (the path it took);
    then holds every 1-D forward and backward kernel call at the ragged
-   batches 5 and 261 against its plain version, the residual blocks'
-   forward also bit for bit against the general kernel (``[ragged]``
-   lines);
+   batches 5 and 261 against its plain version, the residual blocks' and
+   the range chains' forward also bit for bit against the general kernel
+   (``[ragged]`` lines);
 7. trains the flagship (seeded weights) on the synthetic room_full fixture
    (10000 CIRs, the 'full' split's 8000 train CIRs standardized, batch 500)
    through ``cli.train_semi.build`` and ``training.loop.train_epochs``:
@@ -360,6 +362,8 @@ def call_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list[dic
             l_w, t_w, s_w, p_w, mode_w = widest[1]
             more["cudnn_conv"] = ncl_conv(rand_yard(b, l_w, t_w.shape[1]), t_w, None, s_w, p_w,
                                           mode_w)
+        if "general" not in more:  # the range chains: their kernel against the general one
+            more["general"] = lambda: fused.launch_in_chain(x, stages, residual, general=True)
         y_numel = b * l * stages[-1][0].shape[2]
         sites.append(dict(
             name=name, kernel="in_chain", replaces=replaces, calls_per_batch=calls,
@@ -894,13 +898,14 @@ def backward_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list
         with torch.no_grad():
             y = fused.conv_bias_act(x, taps, bias, stride=st, padding=pd, pad_mode=mode)
         g = rand(*y.shape)
-        kw = dict(need_dx=need_dx)
+        kw, more = dict(need_dx=need_dx), {}
         if wrapper is backward.conv_bias_act_bwd:
             kw.update(stride=st, padding=pd, pad_mode=mode)
+            more["general"] = lambda: wrapper(g, x, taps, bias, y, **kw, general=True)
         add(name, wrapper, replaces, 1, (g, x, taps, bias, y), kw,
             nbytes(x, taps, bias, y, g, taps, bias) + (nbytes(x) if need_dx else 0),
             (2 if need_dx else 1) * conv_flops(b, x.shape[1], taps, st, pd, mode),
-            library=conv_backward_call(x, taps, y, g, st, pd, mode, need_dx))
+            library=conv_backward_call(x, taps, y, g, st, pd, mode, need_dx), **more)
 
     def mlp_site(name, head, replaces):
         n = len(head.slopes)
@@ -1006,8 +1011,8 @@ def ragged_checks(model: IInsVAE) -> dict:
         k3 = max(v for k, v in errs.items() if k.startswith("strided_conv"))
         print(f"[ragged] batch {b}: all {len(errs)} 1-D kernel calls within tolerance of their "
               f"plain versions, largest error {max(errs.values()):.3e} (K3, K3b: {k3:.3e}); "
-              "K1 and K5 at the residual blocks and K6 at the decoder tail bit-equal to the "
-              "general kernel", flush=True)
+              "K1 at the range chains and the residual blocks, K5 at the residual blocks and "
+              "K6 at the decoder tail bit-equal to the general kernel", flush=True)
     return out
 
 
@@ -1043,12 +1048,17 @@ def check_and_time_backward(sites: list[dict], tag: str = "backward") -> list[di
     """Each backward site: every gradient of the kernel against the plain
     version's (compare_backward), bit-equal over two calls, the device kernels a
     call launches, then device times of kernel, plain version and library call
-    (CUDA-graph replay)."""
+    (CUDA-graph replay); where the site has a general kernel beside its own
+    (``general``: K2b's sites), that one held to the plain version too and timed."""
     rows = []
     for s in sites:
         errs, scaled = compare_backward(s)
         if not bit_equal_calls(s["run"]):
             raise AssertionError(f"{s['name']}: two calls of the kernel are not bit-equal")
+        general = {}
+        if "general" in s:
+            compare_backward(dict(s, run=s["general"]), " (general kernel)")
+            general = dict(general_ms=device_ms(s["general"]))
         bytes_ms = s["bytes"] / PEAK_BYTES_PER_S * 1e3
         flops_ms, fma_ms, more = ops_bound_ms(s)
         rows.append(dict(
@@ -1061,7 +1071,7 @@ def check_and_time_backward(sites: list[dict], tag: str = "backward") -> list[di
             cudnn_conv_ms=device_ms(s["cudnn_conv"]) if "cudnn_conv" in s else None,
             yardstick=s.get("yardstick", "cuDNN conv backward") if "cudnn_conv" in s else None,
             bytes=s["bytes"], flops=s["flops"], bound_ms=max(bytes_ms, flops_ms),
-            bound_by="bytes" if bytes_ms >= flops_ms else "operations", **more))
+            bound_by="bytes" if bytes_ms >= flops_ms else "operations", **more, **general))
         r = rows[-1]
         lib = f"{r['library_ms'] * 1e3:8.2f}" if r["library_ms"] is not None else "       -"
         print(f"[{tag}] {r['name']:<13} {r['kernel']:<20} max_abs_err {r['max_abs_err']:.3e} "
@@ -1071,8 +1081,9 @@ def check_and_time_backward(sites: list[dict], tag: str = "backward") -> list[di
               + (f", 3xTF32; as fp32 FMAs {fma_ms * 1e3:.2f} us" if more else "") + ")"
               + (f"  {r['yardstick']} (double dagger) {r['cudnn_conv_ms'] * 1e3:.2f} us"
                  if r["cudnn_conv_ms"] is not None else "")
-              + "  kernels " + ", ".join(f"{k} x{v}" for k, v in r["device_kernels"].items()),
-              flush=True)
+              + "  kernels " + ", ".join(f"{k} x{v}" for k, v in r["device_kernels"].items())
+              + (f"  general kernel {r['general_ms'] * 1e3:.2f} us (within tolerance)"
+                 if general else ""), flush=True)
     return rows
 
 

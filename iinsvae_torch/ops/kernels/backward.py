@@ -33,8 +33,9 @@ import torch
 
 from iinsvae_torch.ops.conv import reflect_pad2d
 from iinsvae_torch.ops.kernels import _build, fused, res2d, strided_conv
-from iinsvae_torch.ops.kernels.fused import (RES_C, RES_L, RES_STAGE, SLN_STAGES, Stage, UpStage,
-                                             _round4)
+from iinsvae_torch.ops.kernels.fused import (DOWN_SITES, DOWN_TILE, RES_C, RES_L, RES_STAGE,
+                                             SLN_STAGES, Stage, UpStage, _round4,
+                                             down_chain_plan, res_fwd_plan)
 from iinsvae_torch.ops.norms import EPS, adain, instance_norm
 
 _P = ctypes.c_void_p
@@ -92,32 +93,18 @@ def res_block_plan(batch: int, sms: int) -> tuple[int, int]:
 
 
 # K1's and K5's forward at the residual blocks (csrc/in_chain.cu, namespace res): tiles of 4
-# samples, or of 2 where tiles of 4 would leave more than half the SMs without one; at most one
-# persistent block a SM; RES_FWD_SMEM[tile] bytes of shared memory a block (both convs' taps,
+# samples, or of 2 where tiles of 4 would leave more than half the SMs without one
+# (fused.res_fwd_plan); at most one persistent block a SM; RES_FWD_SMEM[tile] bytes of shared memory a block (both convs' taps,
 # unpadded; x and the mid-block activation with their halo rows, and the conv output, in rows of
 # RES_C + 4 floats; four 8-byte mbarriers), as the source lays them out.
 RES_FWD_SMEM = {t: 4 * (6 * RES_C * RES_C + t * (3 * RES_L + 4) * (RES_C + 4) + 8)
                 for t in (2, 4)}
 
 
-def res_fwd_plan(batch: int, sms: int) -> tuple[int, int, int]:
-    """-> (tile, tiles, blocks) of K1's and K5's residual-block kernel: block j of the grid
-    takes tiles j, j + blocks, ..., tile t the samples t * tile .. (t + 1) * tile - 1 below
-    batch."""
-    tile = 4 if -(-batch // 4) > sms // 2 else 2
-    tiles = -(-batch // tile)
-    return tile, tiles, min(tiles, sms)
-
-
-# K1b's path at the range encoder's stride-2 chains (csrc/in_chain_bwd.cu, namespace down): the
-# flagship's three sites by their stage rows, each stage conv -> IN -> ReLU; tiles of DOWN_TILE
-# samples, at most one persistent block a SM (down_chain_plan), DOWN_SMEM[site] bytes of shared
-# memory a block, as the source lays them out. range.pair0's first stage reads the pooled CIR
-# (reflect pad): that path computes no dx there.
-DOWN_TILE = 4
-DOWN_SITES = {"range.pair0": [7, 1, 3, 1, 128, 1, 128, 4, 4, 2, 1, 0, 128, 4, 64, 8],
-              "range.pair1": [4, 2, 1, 0, 64, 8, 32, 16, 4, 2, 1, 0, 32, 16, 16, 32],
-              "range.single": [4, 2, 1, 0, 16, 32, 8, 64]}
+# K1b's path at the range encoder's stride-2 chains (csrc/in_chain_bwd.cu, namespace down; the
+# sites fused.DOWN_SITES, the grid fused.down_chain_plan): DOWN_SMEM[site] bytes of shared memory
+# a block, as the source lays them out. range.pair0's first stage reads the pooled CIR (reflect
+# pad): that path computes no dx there.
 
 
 def down_floats(rows: Sequence[int]) -> int:
@@ -137,13 +124,6 @@ def down_floats(rows: Sequence[int]) -> int:
 
 
 DOWN_SMEM = {name: 4 * down_floats(rows) for name, rows in DOWN_SITES.items()}
-
-
-def down_chain_plan(batch: int, sms: int) -> tuple[int, int]:
-    """-> (tiles, blocks) of the stride-2 chains' path: block j of the grid takes tiles j,
-    j + blocks, ..., tile t the samples t * DOWN_TILE .. (t + 1) * DOWN_TILE - 1 below batch."""
-    tiles = -(-batch // DOWN_TILE)
-    return tiles, min(tiles, sms)
 
 
 def _down_chain_bwd(g: torch.Tensor, x: torch.Tensor, taps, name: str, need_dx: bool):
@@ -219,7 +199,7 @@ def in_chain_bwd(g: torch.Tensor, x: torch.Tensor, stages: Sequence[Stage], *,
         dx, dtaps, _ = _res_block_bwd("in_chain_bwd", g, x, *taps, None, need_dx)
         in_chain_bwd.launches += 1
         return dx, dtaps
-    down = next((k for k, v in DOWN_SITES.items() if v == rows), None)
+    down = fused.down_site(rows)
     if not residual and down is not None and not (need_dx and rows[3]):
         dx, dtaps = _down_chain_bwd(g, x, taps, down, need_dx)
         in_chain_bwd.launches += 1
@@ -289,6 +269,67 @@ adain_res_block_bwd.launches = 0
 # ------------------------------ K2b and K3b ------------------------------
 
 
+# K2b's path at its three call sites in a 1-D training step (csrc/conv_bias_act_bwd.cu,
+# namespace site), by their stage rows: the range encoder's 1x1 out-conv, the env encoder's k7
+# reflect in-conv (no dx: it reads the pooled CIR) and the decoder's 1x1 in-conv. Tiles of
+# CBA_TILE samples, at most one persistent block a SM (cba_bwd_plan), CBA_SMEM[site] bytes of
+# shared memory a block (two tile buffers) and a partial row of CBA_ROW[site] floats a block, as
+# the source lays them out.
+CBA_TILE = 4
+CBA_SITES = {"range.out": [1, 1, 0, 0, 8, 64, 8, 2],
+             "env.in": [7, 1, 3, 1, 128, 1, 128, 16],
+             "dec.in": [1, 1, 0, 0, 8, 2, 8, 64]}
+
+
+def cba_site(rows: Sequence[int], need_dx: bool) -> str | None:
+    """The call site whose stage row this is, where its path computes what is asked, or None
+    (the general kernel): env.in's path computes no dx."""
+    site = next((k for k, v in CBA_SITES.items() if v == list(rows)), None)
+    return None if site is None or (need_dx and rows[3]) else site
+
+
+def cba_floats(rows: Sequence[int]) -> int:
+    """Floats of shared memory a block of K2b's site path takes for a stage row: two buffers of
+    a tile, each sample's x with its pad rows (the data rows 16-byte aligned, the sample rounded
+    up to 4 floats), g (masked into gz in place) and y."""
+    _, _, pad, _, l_in, c_in, l_out, c_out = rows
+    xa = _round4(pad * c_in)
+    return 2 * CBA_TILE * (_round4(xa + (l_in + pad) * c_in) + 2 * l_out * c_out)
+
+
+CBA_SMEM = {name: 4 * cba_floats(rows) for name, rows in CBA_SITES.items()}
+CBA_ROW = {name: _round4(r[0] * r[5] * r[7] + r[7]) for name, r in CBA_SITES.items()}
+
+
+def cba_bwd_plan(batch: int, sms: int) -> tuple[int, int]:
+    """-> (tiles, blocks) of K2b's site path: block j of the grid takes tiles j, j + blocks, ...,
+    tile t the samples t * CBA_TILE .. (t + 1) * CBA_TILE - 1 below batch."""
+    tiles = -(-batch // CBA_TILE)
+    return tiles, min(tiles, sms)
+
+
+def _cba_site_bwd(g: torch.Tensor, x: torch.Tensor, taps: torch.Tensor, y: torch.Tensor,
+                  name: str, need_dx: bool):
+    """Launch K2b's site path at ``name``; -> (dx or None, d(taps), dbias)."""
+    if any(t.data_ptr() % 16 for t in (g, x, taps, y)):
+        raise ValueError("conv_bias_act_bwd: the call sites' kernel takes 16-byte aligned x, "
+                         "taps, y and g")
+    b = x.shape[0]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    _, blocks = cba_bwd_plan(b, sms)
+    c_out = taps.shape[2]
+    part = torch.empty((blocks, CBA_ROW[name]), device=x.device, dtype=x.dtype)
+    dw = torch.empty(taps.numel() + c_out, device=x.device, dtype=x.dtype)
+    dx = torch.empty_like(x) if need_dx else None
+    fn = _build.function("conv_bias_act_bwd", "iins_cba_site_bwd", [_P] * 7 + [_I] * 5 + [_P])
+    err = fn(x.data_ptr(), taps.data_ptr(), y.data_ptr(), g.data_ptr(), _ptr(dx),
+             part.data_ptr(), dw.data_ptr(), b, list(CBA_SITES).index(name), CBA_TILE, blocks,
+             CBA_SMEM[name], _build.stream_handle(x))
+    _build.check(err, "conv_bias_act_bwd", "conv_bias_act_bwd")
+    dtaps, dbias = _split(dw, [taps.shape, (c_out,)])
+    return dx, dtaps, dbias
+
+
 def conv_bias_act_bwd_ref(g: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
                           bias: torch.Tensor, y: torch.Tensor, *, stride: int = 1,
                           padding: int = 0, pad_mode: str = "zero", need_dx: bool = True):
@@ -302,8 +343,12 @@ def conv_bias_act_bwd_ref(g: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
 
 def conv_bias_act_bwd(g: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
                       bias: torch.Tensor, y: torch.Tensor, *, stride: int = 1,
-                      padding: int = 0, pad_mode: str = "zero", need_dx: bool = True):
-    """K2b: -> (dx, d(taps), dbias) of fused.conv_bias_act, whose output was y."""
+                      padding: int = 0, pad_mode: str = "zero", need_dx: bool = True,
+                      general: bool = False):
+    """K2b: -> (dx, d(taps), dbias) of fused.conv_bias_act, whose output was y. Its three call
+    sites in a 1-D training step (CBA_SITES; env.in without dx) run their own path, any other
+    conv the general kernel; ``general`` runs the general kernel there too, the GPU tests'
+    second oracle."""
     if g.device.type == "cpu":
         return conv_bias_act_bwd_ref(g, x, taps, bias, y, stride=stride, padding=padding,
                                      pad_mode=pad_mode, need_dx=need_dx)
@@ -313,6 +358,11 @@ def conv_bias_act_bwd(g: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
         raise ValueError(f"conv_bias_act_bwd: bias must be ({c_out},), g and y "
                          f"{(b, l_out, c_out)}")
     _build.require_cuda_f32("conv_bias_act_bwd", g, x, taps, bias, y)
+    site = None if general else cba_site(rows, need_dx)
+    if site is not None:
+        dx, dtaps, dbias = _cba_site_bwd(g, x, taps, y, site, need_dx)
+        conv_bias_act_bwd.launches += 1
+        return dx, dtaps, dbias
     spb = _build.samples_per_block(b, _round4(rows[4] * rows[5]) + l_out * c_out)
     n_w = taps.numel() + c_out
     part = torch.empty(((b + spb - 1) // spb, n_w), device=x.device, dtype=x.dtype)

@@ -54,9 +54,10 @@
 // The residual block at the model's shape, (L, C) = (8, 64), two k3 reflect-
 // pad-1 convs (K1's three range-encoder blocks, fused_res_block's pallas_call
 // :215, kernel _fwd_resblock_kernel :172; K5's three decoder blocks, :508,
-// _fwd_adain_block_kernel :382), runs its own kernel (namespace res below);
-// every other shape (K1's range chains, K8) runs the general kernel. There the
-// general kernel took 27.3-28.2 us at batch 500 (H100), 9.5x its bound: 250
+// _fwd_adain_block_kernel :382), runs its own kernel (namespace res below),
+// the range encoder's three stride-2 chains at the flagship's shapes theirs
+// (namespace down, at the end of this file); every other shape (K8, other
+// widths) runs the general kernel. At the residual block the general kernel took 27.3-28.2 us at batch 500 (H100), 9.5x its bound: 250
 // blocks of 2 samples under the 48 KB default, each re-reading both convs'
 // taps, and every output thread reading its taps from global memory (a float4
 // for 4 multiply-adds). The res kernel:
@@ -67,7 +68,7 @@
 //   slower, and a cluster multicast of the copies slower still);
 // - one persistent block a SM (256 threads) walks tiles of 4 whole samples,
 //   or of 2 where tiles of 4 would leave more than half the SMs without one
-//   (backward.res_fwd_plan: 125 blocks at batch 500, 128 at 256); x and the
+//   (fused.res_fwd_plan: 125 blocks at batch 500, 128 at 256); x and the
 //   mid-block activation sit in shared memory with their reflect halo rows
 //   (rows of C + 4 floats, so a warp's 8 rows fall on distinct banks), so
 //   every window is contiguous and unmasked;
@@ -85,10 +86,35 @@
 //   one __fadd_rn, spelled out in both), so its output is the general
 //   kernel's bit for bit, and K1b/K5b's recompute, which shares res_block.cuh,
 //   is the forward's.
+//
+// The range chains (fused_in_pair's two sites, fused.py:361, kernel :318; and
+// fused_dense_layer(norm='in')'s range stage, :1320, kernel :1186): range.pair0
+// ((128, 1) k7 reflect -> (128, 4), k4 s2 -> (64, 8)), range.pair1 ((64, 8) ->
+// (32, 16) -> (16, 32)) and range.single ((16, 32) -> (8, 64)). Bound on the
+// H100 at batch 500: 0.38 us by bytes at pair0 (1.3 MB), 0.71 and 0.92 us by
+// operations at pair1 and single (47.9 and 61.4 MFLOP at 67 TFLOP/s fp32). The
+// general kernel took 9.35 / 13.28 / 11.50 us there (phase_times.py, H100):
+// 250 blocks of 2 samples, and every output thread reading its taps from L2, a
+// float4 for 4 multiply-adds. The down kernel, one template instance a site:
+// - the pieces K1b's recompute runs (down_chain.cuh): the stages' taps staged
+//   once a block by cp.async in rows of C_out + 4 floats, x and the mid-chain
+//   activation with their zero (or reflect) pad rows, so every window is
+//   contiguous and unmasked; each conv 4 output channels x every sample of the
+//   tile a thread (tile + 4 shared float4 loads for 16 x tile multiply-adds);
+//   the IN statistics and ReLU on norm_stage's rows and lanes;
+// - one persistent block a SM (256 threads) walks tiles of 4 samples, or of 2
+//   where tiles of 4 would leave more than half the SMs without one
+//   (fused.res_fwd_plan), in 25-57 KB of shared memory; no transposed taps,
+//   gradient buffers or partial rows (K1b's layout takes 66-93 KB);
+// - the last stage's IN + ReLU runs in place, and y leaves in contiguous float4
+//   rows;
+// - every sum in the general kernel's order, so y is its bit for bit.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
+#include "down_chain.cuh"
 #include "res_block.cuh"
 
 namespace {
@@ -499,6 +525,127 @@ int launch(const float* x, const float* w1, const float* w2, float* y, int batch
 
 }  // namespace res
 
+// ---------------------------------------------------------------------------
+// The range encoder's stride-2 chains at the flagship's shapes (down_chain.cuh: range.pair0,
+// range.pair1, range.single), every stage conv -> IN -> ReLU, on the pieces K1b's recompute runs.
+namespace down {
+
+// A block's shared memory at tiles of NS samples: each stage's taps (rows of C_out + 4 floats),
+// then for the tile x with its pad rows, z1 (between two unused rows) and, with two stages, y1
+// (stage 2's input with its zero pad rows) and z2; each region a multiple of 4 floats.
+template <class C, int NS>
+struct Fwd {
+  using S1 = typename C::S1;
+  using S2 = typename C::S2;
+  static constexpr int kW2s = S1::WFloats;
+  static constexpr int kXs = kW2s + (C::kTwo ? S2::WFloats : 0);
+  static constexpr int kZ1 = kXs + NS * S1::XS;
+  static constexpr int kY1 = kZ1 + NS * S1::ZS;
+  static constexpr int kZ2 = kY1 + (C::kTwo ? NS * S2::XS : 0);
+  static constexpr int kFloats = kZ2 + (C::kTwo ? NS * S2::ZS : 0);
+  static constexpr int kSmemBytes = kFloats * static_cast<int>(sizeof(float));
+  static_assert(kW2s % 4 == 0 && kXs % 4 == 0 && kZ1 % 4 == 0 && kY1 % 4 == 0 && kZ2 % 4 == 0,
+                "16-byte regions");
+  static_assert(kSmemBytes <= 227 * 1024, "a block's shared memory");
+};
+
+// In place over z (a stage's conv output rows): z <- relu(IN(z)), norm_stage's rows, lanes and
+// arithmetic (the statistics read the whole row before any lane writes it).
+template <class T>
+__device__ void norm_relu_rows(float* z, int ns) {
+  for_rows(T::LO, T::CO, ns, [&](int, int s, int ch, bool valid, int lane, int lanes) {
+    float* zs = z + s * T::ZS + T::LdZ + ch;
+    float mean, rs;
+    row_stats(zs, T::LO, T::LdZ, valid, lane, lanes, mean, rs);
+    if (!valid) return;
+    for (int i = lane; i < T::LO; i += lanes)
+      zs[i * T::LdZ] = fmaxf((zs[i * T::LdZ] - mean) * rs, 0.f);
+  });
+}
+
+// One persistent block a SM walks tiles of NS samples (tile b, b + grid, ...), every stage's
+// taps staged once a block by cp.async. Per tile, from x staged with its pad rows:
+//   (1) z1 = conv(x, W1)       two stages: (2) y1 = relu(IN(z1)) into stage 2's padded input,
+//                                          (3) z2 = conv(y1, W2)
+//   (4) z = relu(IN(z)) of the last stage, in place; (5) y out in contiguous float4 rows.
+// The convs run a thread (output row, 4 channels) for the tile's NS samples, each output one
+// fmaf chain over t, then ci ascending, as the general kernel sums it; the norms on its lanes:
+// y is the general kernel's bit for bit, and K1b's recompute (the same functions) sees it.
+template <class C, int NS>
+__global__ void __launch_bounds__(kThreads, 1)
+down_chain_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+                  const float* __restrict__ w2, float* __restrict__ y, int batch, int n_tiles) {
+  using L = Fwd<C, NS>;
+  using S1 = typename C::S1;
+  using S2 = typename C::S2;
+  constexpr int kLO = C::kTwo ? S2::LO : S1::LO, kCO = C::kTwo ? S2::CO : S1::CO;
+  constexpr int kLdZ = kCO + 4, kZS = (kLO + 2) * kLdZ, kQ = kCO / 4;
+  extern __shared__ __align__(16) float sm[];
+  float* w1s = sm;
+  float* w2s = sm + L::kW2s;
+  float* xs = sm + L::kXs;
+  float* z1 = sm + L::kZ1;
+  float* y1 = sm + L::kY1;
+  float* z2 = sm + L::kZ2;
+  float* zl = C::kTwo ? z2 : z1;  // the last stage's output
+  if constexpr (C::kTwo)  // y1's pad rows stay zero: no phase writes them
+    for (int i = threadIdx.x; i < NS * S2::XS; i += kThreads) y1[i] = 0.f;
+  stage_taps<S1>(w1, w1s);
+  if constexpr (C::kTwo) stage_taps<S2>(w2, w2s);
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int s0 = tile * NS, ns = min(NS, batch - s0);
+    __syncthreads();  // the last tile's reads of xs and zl are done
+    stage_input<S1, NS>(x, s0, ns, xs);
+    cp_async_wait_all();
+    __syncthreads();
+    conv_fwd<S1, NS>(xs, w1s, z1);  // (1)
+    __syncthreads();
+    if constexpr (C::kTwo) {
+      norm_relu<S1, S2>(z1, y1, ns);  // (2)
+      __syncthreads();
+      conv_fwd<S2, NS>(y1, w2s, z2);  // (3)
+      __syncthreads();
+    }
+    norm_relu_rows<typename std::conditional<C::kTwo, S2, S1>::type>(zl, ns);  // (4)
+    __syncthreads();
+    float* yg = y + static_cast<size_t>(s0) * kLO * kCO;  // (5)
+    for (int i = threadIdx.x; i < ns * kLO * kQ; i += kThreads) {
+      const int r = i / kQ, c = (i - r * kQ) * 4, s = r / kLO, l = r - s * kLO;
+      *reinterpret_cast<float4*>(yg + r * kCO + c) = lds4(zl + s * kZS + (1 + l) * kLdZ + c);
+    }
+  }
+}
+
+int smem_set[3][2] = {};
+
+template <class C, int NS>
+int launch_tile(const float* x, const float* w1, const float* w2, float* y, int batch,
+                int n_tiles, int grid, cudaStream_t s) {
+  constexpr int smem = Fwd<C, NS>::kSmemBytes;
+  const int err = allow_smem(down_chain_kernel<C, NS>, smem, &smem_set[C::kId][NS == 4]);
+  if (err) return err;
+  down_chain_kernel<C, NS><<<grid, kThreads, smem, s>>>(x, w1, w2, y, batch, n_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class C>
+int launch(const float* x, const float* w1, const float* w2, float* y, int batch, int tile,
+           int grid, int smem, void* stream) {
+  if (batch <= 0 || (tile != 2 && tile != 4)) return cudaErrorInvalidValue;
+  const int n_tiles = (batch + tile - 1) / tile;
+  const int want = tile == 4 ? Fwd<C, 4>::kSmemBytes : Fwd<C, 2>::kSmemBytes;
+  if (grid < 1 || grid > n_tiles || smem != want) return cudaErrorInvalidValue;
+  for (const void* p : {static_cast<const void*>(x), static_cast<const void*>(w1),
+                        static_cast<const void*>(w2), static_cast<const void*>(y)})
+    if (reinterpret_cast<std::uintptr_t>(p) % 16) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return tile == 4 ? launch_tile<C, 4>(x, w1, w2, y, batch, n_tiles, grid, s)
+                   : launch_tile<C, 2>(x, w1, w2, y, batch, n_tiles, grid, s);
+}
+
+}  // namespace down
+
 extern "C" {
 
 const char* iins_error_string(int err) {
@@ -536,7 +683,7 @@ int iins_adain_layer(const float* x, const float* w, const float* g, const float
 // K1's residual block (IN: every table null) or K5 (AdaIN) at (l, c) = (8, 64) on the
 // residual block's own path: x, y (B, 8, 64); w1, w2 (3, 64, 64), reflect pad 1; K5's tables
 // g1, b1, g2, b2 (B, 64). tile (2 or 4 samples), grid (the persistent blocks, 1 ..
-// ceil(B / tile)) and smem (a block's dynamic shared memory) as backward.res_fwd_plan and
+// ceil(B / tile)) and smem (a block's dynamic shared memory) as fused.res_fwd_plan and
 // RES_FWD_SMEM give them; the launch refuses any other.
 int iins_res_block(const float* x, const float* w1, const float* w2, const float* g1,
                    const float* b1, const float* g2, const float* b2, float* y, int batch, int l,
@@ -546,6 +693,25 @@ int iins_res_block(const float* x, const float* w1, const float* w2, const float
   if (!g1 || !b1 || !g2 || !b2) return cudaErrorInvalidValue;
   return res::launch<true>(x, w1, w2, y, batch, l, c, tile, grid, smem, Affine{g1, b1, g2, b2},
                            stream);
+}
+
+// K1 at the range encoder's stride-2 chains on their own path: site 0 range.pair0, 1
+// range.pair1, 2 range.single (down_chain.cuh). x (B, l_in, c_in); w1, w2 the stages' taps (w2
+// unused at site 2); y (B, l_out, c_out) of the chain output. tile (2 or 4 samples), grid (the
+// persistent blocks, 1 .. ceil(B / tile)) and smem (a block's dynamic shared memory) as
+// fused.res_fwd_plan and DOWN_FWD_SMEM give them; the launch refuses any other.
+int iins_down_chain(const float* x, const float* w1, const float* w2, float* y, int batch,
+                    int site, int tile, int grid, int smem, void* stream) {
+  switch (site) {
+    case 0:
+      return down::launch<down::Pair0>(x, w1, w2, y, batch, tile, grid, smem, stream);
+    case 1:
+      return down::launch<down::Pair1>(x, w1, w2, y, batch, tile, grid, smem, stream);
+    case 2:
+      return down::launch<down::Single>(x, w1, w1, y, batch, tile, grid, smem, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // stage: (k, stride, pad, reflect, l_in, c_in, l_out, c_out).

@@ -74,6 +74,57 @@ RES_L, RES_C = 8, 64
 RES_STAGE = [3, 1, 1, 1, RES_L, RES_C, RES_L, RES_C]
 
 
+# The range encoder's stride-2 chains at the flagship's shapes (csrc/down_chain.cuh), every stage
+# conv -> IN -> ReLU, where K1 (csrc/in_chain.cu) and K1b (csrc/in_chain_bwd.cu) run kernels of
+# their own (namespace down, one template instance a site), picked by the stage rows. K1b takes
+# tiles of DOWN_TILE samples, at most one persistent block a SM (down_chain_plan); K1 tiles of 4
+# or 2 (res_fwd_plan) and DOWN_FWD_SMEM[site, tile] bytes of shared memory a block, as the
+# source lays them out. range.pair0's first stage reads the pooled CIR (reflect pad).
+DOWN_TILE = 4
+DOWN_SITES = {"range.pair0": [7, 1, 3, 1, 128, 1, 128, 4, 4, 2, 1, 0, 128, 4, 64, 8],
+              "range.pair1": [4, 2, 1, 0, 64, 8, 32, 16, 4, 2, 1, 0, 32, 16, 16, 32],
+              "range.single": [4, 2, 1, 0, 16, 32, 8, 64]}
+
+
+def down_site(rows: Sequence[int]) -> str | None:
+    """The stride-2 chain site whose stage rows these are, or None."""
+    return next((k for k, v in DOWN_SITES.items() if v == list(rows)), None)
+
+
+def down_chain_plan(batch: int, sms: int) -> tuple[int, int]:
+    """-> (tiles, blocks) of K1b's stride-2 chains' path: block j of the grid takes tiles j,
+    j + blocks, ..., tile t the samples t * DOWN_TILE .. (t + 1) * DOWN_TILE - 1 below batch."""
+    tiles = -(-batch // DOWN_TILE)
+    return tiles, min(tiles, sms)
+
+
+def down_fwd_floats(rows: Sequence[int], tile: int) -> int:
+    """Floats of shared memory a block of K1's stride-2 chains' path takes for 1 or 2 stage rows
+    at tiles of ``tile`` samples: each stage's taps (rows of C_out + 4 floats) and, per sample,
+    each stage's input with its pad rows (rows of C_in + 4 floats, or C_in where that is not a
+    multiple of 4) and its conv output between two rows (rows of C_out + 4)."""
+    n = 0
+    for j in range(0, len(rows), 8):
+        k, _, pad, _, l_in, c_in, l_out, c_out = rows[j:j + 8]
+        ld_in = c_in if c_in % 4 else c_in + 4
+        n += k * c_in * (c_out + 4) + tile * ((l_in + 2 * pad) * ld_in + (l_out + 2) * (c_out + 4))
+    return n
+
+
+DOWN_FWD_SMEM = {(name, t): 4 * down_fwd_floats(rows, t) for name, rows in DOWN_SITES.items()
+                 for t in (2, 4)}
+
+
+def res_fwd_plan(batch: int, sms: int) -> tuple[int, int, int]:
+    """-> (tile, tiles, blocks) of K1's and K5's forward kernels at the residual blocks and of
+    K1's at the stride-2 chains: tiles of 4 samples, or of 2 where tiles of 4 would leave more
+    than half the SMs without one; block j of the grid takes tiles j, j + blocks, ..., tile t
+    the samples t * tile .. (t + 1) * tile - 1 below batch."""
+    tile = 4 if -(-batch // 4) > sms // 2 else 2
+    tiles = -(-batch // tile)
+    return tile, tiles, min(tiles, sms)
+
+
 def in_chain_ref(x: torch.Tensor, stages: Sequence[Stage], *,
                  residual: bool = False) -> torch.Tensor:
     """Plain version of K1: per stage conv (no bias) -> InstanceNorm -> ReLU;
@@ -104,8 +155,9 @@ def in_chain(x: torch.Tensor, stages: Sequence[Stage], *, residual: bool = False
 def launch_in_chain(x: torch.Tensor, stages: Sequence[Stage], residual: bool, *,
                     general: bool = False) -> torch.Tensor:
     """Check the operands, launch K1 and count the launch. The residual block at (8, 64) runs
-    its own kernel (_res_block); ``general`` runs the general kernel there instead, the
-    second oracle of the GPU tests and chip_smoke.py."""
+    its own kernel (_res_block), the range encoder's stride-2 chains (DOWN_SITES) theirs
+    (_down_chain); ``general`` runs the general kernel there instead, the second oracle of the
+    GPU tests and chip_smoke.py."""
     if not 1 <= len(stages) <= 2:
         raise ValueError(f"in_chain runs 1 or 2 stages, got {len(stages)}")
     rows, l_out, c_out = stage_rows(x, stages)
@@ -117,6 +169,11 @@ def launch_in_chain(x: torch.Tensor, stages: Sequence[Stage], residual: bool, *,
     _build.require_cuda_f32("in_chain", x, *taps)
     if residual and not general and rows == 2 * RES_STAGE:
         y = _res_block("in_chain", x, *taps, None)
+        in_chain.launches += 1
+        return y
+    down = None if residual or general else down_site(rows)
+    if down is not None:
+        y = _down_chain(x, taps, down)
         in_chain.launches += 1
         return y
     b = x.shape[0]
@@ -134,6 +191,24 @@ def launch_in_chain(x: torch.Tensor, stages: Sequence[Stage], residual: bool, *,
 
 
 in_chain.launches = 0
+
+
+def _down_chain(x: torch.Tensor, taps: Sequence[torch.Tensor], name: str) -> torch.Tensor:
+    """Launch K1's kernel at the stride-2 chain ``name`` (csrc/in_chain.cu's namespace down) on
+    the grid of res_fwd_plan; counts nothing (the caller counts)."""
+    if x.data_ptr() % 16:
+        raise ValueError("in_chain: the range chains' kernel takes a 16-byte aligned x")
+    rows = DOWN_SITES[name]
+    b = x.shape[0]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    tile, _, blocks = res_fwd_plan(b, sms)
+    y = torch.empty((b, rows[-2], rows[-1]), device=x.device, dtype=x.dtype)
+    fn = _build.function("in_chain", "iins_down_chain", [_P] * 4 + [_I] * 5 + [_P])
+    err = fn(x.data_ptr(), taps[0].data_ptr(), taps[-1].data_ptr(), y.data_ptr(), b,
+             list(DOWN_SITES).index(name), tile, blocks, DOWN_FWD_SMEM[name, tile],
+             _build.stream_handle(x))
+    _build.check(err, "in_chain", "in_chain")
+    return y
 
 
 # --------------------------- K2 conv_bias_act ---------------------------
@@ -412,14 +487,14 @@ adain_res_block.launches = 0
 def _res_block(what: str, x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
                tables: Sequence[torch.Tensor] | None) -> torch.Tensor:
     """Launch K1's (tables None) or K5's (tables g1, b1, g2, b2) residual-block kernel at
-    (8, 64), csrc/in_chain.cu's namespace res, on the grid of backward.res_fwd_plan; counts
+    (8, 64), csrc/in_chain.cu's namespace res, on the grid of res_fwd_plan; counts
     nothing (the caller counts)."""
     from iinsvae_torch.ops.kernels import backward
     if x.data_ptr() % 16:
         raise ValueError(f"{what}: the residual block's kernel takes a 16-byte aligned x")
     b = x.shape[0]
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    tile, _, blocks = backward.res_fwd_plan(b, sms)
+    tile, _, blocks = res_fwd_plan(b, sms)
     y = torch.empty_like(x)
     fn = _build.function("in_chain", "iins_res_block", [_P] * 8 + [_I] * 6 + [_P])
     err = fn(x.data_ptr(), k1.data_ptr(), k2.data_ptr(),

@@ -1,7 +1,7 @@
 """Where a redesigned kernel spends its time, phase by phase, on one NVIDIA card.
 
-    python3 phase_times.py [--kernel res|res_fwd|tail|chain|mlp|res2d|res2d_bwd|mlp_fwd|sln_fwd]
-                           [--tree DIR] [--out FILE]
+    python3 phase_times.py [--kernel res|res_fwd|tail|chain|mlp|res2d|res2d_bwd|mlp_fwd|sln_fwd|
+                                     cba_bwd|chain_fwd] [--tree DIR] [--out FILE]
 
 ``--kernel res`` (the default): K1b's residual-block backward, from DIR's
 ``iinsvae_torch/ops/kernels/csrc/in_chain_bwd.cu``, timed through DIR's own wrappers at the two
@@ -22,6 +22,12 @@ encoder IN block (``range.res2d``) and decoder AdaIN block (``dec.res2d``).
 ``--kernel res2d_bwd``: K7b, the 2-D residual block's backward, from ``csrc/res_block_2d_bwd.cu``,
 through ``res_block_2d_bwd`` at the expanded 2-D model's range encoder IN block (``range.res2d``)
 and decoder AdaIN block (``dec.res2d``), with the d1, d2 that K7 saves.
+``--kernel cba_bwd``: K2b, from ``csrc/conv_bias_act_bwd.cu``, through ``conv_bias_act_bwd`` at
+its three sites in a 1-D training step: the range encoder's 1x1 out-conv (``range.out``), the
+env encoder's k7 reflect in-conv without dx (``env.in``) and the decoder's 1x1 in-conv
+(``dec.in``).
+``--kernel chain_fwd``: K1 at the range encoder's three stride-2 chains (``range.pair0``,
+``range.pair1``, ``range.single``), from ``csrc/in_chain.cu``, through ``in_chain``.
 
 DIR defaults to this checkout. The script builds one variant of the source for each phase,
 which stops the kernel after that phase (one nvcc each, all at once, under
@@ -45,7 +51,9 @@ cuts set its ``kLastPhase`` (every copy, wait and __syncthreads stays, the phase
 work), and the row before them returns at once; K7's ``res_block_2d_kernel`` (fp32 FMAs, before
 the tensor cores) and ``res2d_tc_kernel``, whose first row stops once x and the first tap slice
 are in place and whose others set its ``kLastPhase`` as K7b's do (the second row keeps only the
-copies, waits and __syncthreads).
+copies, waits and __syncthreads); K2b's ``conv_bias_act_bwd_kernel`` (every shape, before its
+three call sites got a kernel of their own) and ``cba_site_bwd_kernel``; K1's
+``in_chain_kernel`` and, at the range chains, ``down_chain_kernel``.
 A kernel that launches several kernels a call is split by name too: each site's device time a
 call of each kernel, from a torch.profiler trace of the whole call (``[split]`` lines). Prints
 one JSON line and writes it to FILE (default ``build/phase_times.json``). Needs one CUDA card
@@ -368,6 +376,52 @@ CUTS["tail_fwd_kernel"] = [
      "      sm[kTh + s * z_floats(0) + p] = out_tanh(sm, s, p, b_out);\n    }\n    __syncthreads();\n"),
     ("pool: the whole kernel", None),
 ]
+# K2b: the general kernel (one block a tile of spb samples, a partial row a block, summed by a
+# second kernel), cut after each phase.
+CUTS["conv_bias_act_bwd_kernel"] = [
+    ("launch + reduce", "  const int s0 = blockIdx.x * spb;\n"),
+    ("stage x, gz = g * (y > 0)",
+     "    gz[i] = __ldg(y + o0 + i) > 0.f ? __ldg(g + o0 + i) : 0.f;\n  __syncthreads();\n"),
+    ("d(taps) partial", "  taps_grad_partial(xs, in_stride, gz, n_out, st, ns, mine);\n"),
+    ("dbias partial", "  bias_grad_partial(gz, n_out, st.l_out, st.c_out, ns, mine + st.k * st.c_in * "
+     "st.c_out);\n"),
+    ("dx: the whole kernel", None),
+]
+# K2b at its call sites (namespace site): the cuts of the tile loop continue to the next tile, so
+# those rows include the block's partial-row write and the last block's sum of the rows (" + sum");
+# the next row returns after the partial-row write, and the last is the whole kernel: the two
+# differ by the last block's sum.
+_CBA_CONT = "{ cp_async_wait<0>(); continue; }"
+CUTS["cba_site_bwd_kernel"] = [
+    ("launch", "  __shared__ bool last;\n"),
+    ("staging landed + sum",
+     "    cp_async_wait<1>();  // this tile's copies (the next tile's may be in flight)\n"
+     "    __syncthreads();\n", _CBA_CONT),
+    ("(1) gz = g * (y > 0) + sum",
+     "                        yv.z > 0.f ? gv.z : 0.f, yv.w > 0.f ? gv.w : 0.f);\n    }\n"
+     "    __syncthreads();\n", _CBA_CONT),
+    ("(2) d(taps), dbias + sum", "    taps_grad<T>(b, ns, rep, ci, co, acc, bacc);  // (2)\n",
+     _CBA_CONT),
+    ("(3) dx; the partial row (no sum)", "    row[e] = v;\n  }\n", "return;"),
+    ("(4) the ticket (the last block returns)", "  if (!last) return;\n", "return;"),
+    ("(5) the last block's sum: the whole kernel", None),
+]
+# K1 at the range chains (namespace down): a cut continues to the next tile; range.single (one
+# stage) never reaches the cuts of stage 2, so those rows time its whole kernel.
+CUTS["down_chain_kernel"] = [
+    ("launch", "  float* zl = C::kTwo ? z2 : z1;  // the last stage's output\n"),
+    ("stage taps and x (landed)",
+     "    stage_input<S1, NS>(x, s0, ns, xs);\n    cp_async_wait_all();\n    __syncthreads();\n",
+     "continue;"),
+    ("(1) z1 = conv(x, W1)", "    conv_fwd<S1, NS>(xs, w1s, z1);  // (1)\n    __syncthreads();\n",
+     "continue;"),
+    ("(2) y1 = relu(IN(z1))", "      norm_relu<S1, S2>(z1, y1, ns);  // (2)\n      __syncthreads();\n",
+     "continue;"),
+    ("(3) z2 = conv(y1, W2)",
+     "      conv_fwd<S2, NS>(y1, w2s, z2);  // (3)\n      __syncthreads();\n", "continue;"),
+    ("(4) IN, ReLU of the last stage", "(zl, ns);  // (4)\n    __syncthreads();\n", "continue;"),
+    ("(5) y out: the whole kernel", None),
+]
 # which source each --kernel reads, and its designs, newest first
 KERNELS = {
     "res": ("in_chain_bwd", ("res_block_bwd_kernel", "in_chain_bwd_kernel")),
@@ -379,6 +433,8 @@ KERNELS = {
     "res2d_bwd": ("res_block_2d_bwd", ("res2d_bwd_tc_kernel",)),
     "mlp_fwd": ("mlp_chain", ("mlp_cluster_kernel", "mlp_chain_kernel")),
     "sln_fwd": ("sln_chain", ("tail_fwd_kernel", "sln_chain_kernel")),
+    "cba_bwd": ("conv_bias_act_bwd", ("cba_site_bwd_kernel", "conv_bias_act_bwd_kernel")),
+    "chain_fwd": ("in_chain", ("down_chain_kernel", "in_chain_kernel")),
 }
 
 
@@ -490,6 +546,29 @@ def main() -> int:
             g = rand(*y.shape)
             sites[name] = (lambda g=g, x=x, stages=stages, need_dx=need_dx:
                            backward.in_chain_bwd(g, x, stages, need_dx=need_dx))
+    elif args.kernel == "chain_fwd":
+        st = [(re_.in_kernel, 1, 3, "reflect")] + [
+            (getattr(re_, f"down{j}_kernel"), 2, 1, "zero") for j in range(4)]
+        sites = {}
+        for name, (l, c, first, n) in {"range.pair0": (128, 1, 0, 2),
+                                       "range.pair1": (64, 8, 2, 2),
+                                       "range.single": (16, 32, 4, 1)}.items():
+            x = rand(b, l, c)
+            sites[name] = lambda x=x, stages=st[first:first + n]: fused.in_chain(x, stages)
+    elif args.kernel == "cba_bwd":
+        ee = model.encoder.env_encoder.ConvINAct_0
+        sites = {}
+        for name, (l, c, taps, bias, pad, mode, need_dx) in {
+                "range.out": (8, 64, re_.out_kernel, re_.out_bias, 0, "zero", True),
+                "env.in": (128, 1, ee.kernel, ee.bias, 3, "reflect", False),
+                "dec.in": (8, 2, dec.in_kernel, dec.in_bias, 0, "zero", True)}.items():
+            x = rand(b, l, c)
+            with torch.no_grad():
+                y = fused.conv_bias_act(x, taps, bias, padding=pad, pad_mode=mode)
+            g = rand(*y.shape)
+            sites[name] = (lambda g=g, x=x, t=taps, bi=bias, y=y, p=pad, m=mode, d=need_dx:
+                           backward.conv_bias_act_bwd(g, x, t, bi, y, padding=p, pad_mode=m,
+                                                      need_dx=d))
     elif args.kernel == "mlp":
         model_2d = IInsVAE(cir_len=157, num_classes=5, style_dim=16, conv_type=2,
                            generator=torch.Generator().manual_seed(0)).cuda()

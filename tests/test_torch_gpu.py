@@ -31,7 +31,7 @@ import torch
 
 from iinsvae_torch.models.vae import IInsVAE
 from iinsvae_torch.ops import kernels
-from iinsvae_torch.ops.conv import conv2d
+from iinsvae_torch.ops.conv import conv1d, conv2d
 from iinsvae_torch.ops.kernels import backward, fused, res2d, strided_conv
 from iinsvae_torch.ops.norms import adain, instance_norm
 from iinsvae_torch.ops.pooling import adaptive_avg_pool_matrix
@@ -724,6 +724,143 @@ def test_gpu_in_chain_backward_general_path_matches_plain(cuda, monkeypatch):
     _grads_match(backward.in_chain_bwd, (g0, x0, pair0), {}, "range.pair0 with dx",
                  same_without_dx=False)
     assert not calls
+
+
+def _range_chain(cuda, site, batch):
+    """(stages, x) of K1 at one of the range encoder's stride-2 chains, on the flagship's seeded
+    weights and seeded inputs at the batch."""
+    (l, c), first, n = RANGE_CHAINS[site]
+    re_ = IInsVAE(**FLAGSHIP, generator=torch.Generator().manual_seed(6)).encoder.range_encoder
+    re_ = re_.to(cuda)
+    stages = ([(re_.in_kernel, 1, 3, "reflect")]
+              + [(getattr(re_, f"down{j}_kernel"), 2, 1, "zero") for j in range(4)])
+    x = torch.randn((batch, l, c), generator=torch.Generator().manual_seed(batch)).to(cuda)
+    return stages[first:first + n], x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("site", list(RANGE_CHAINS))
+@pytest.mark.parametrize("batch", [1, 5, 261, 500])
+def test_gpu_range_chain_forward_is_bit_equal_to_the_general_kernel(cuda, batch, site):
+    """K1 at the range encoder's stride-2 chains runs a kernel of its own (csrc/in_chain.cu,
+    namespace down, on csrc/down_chain.cuh; tiles of 2 samples at 1, 5 and 261, of 4 at 500,
+    the last tile short at 1, 5 and 261): one launch a call, within tolerance of the plain
+    version, bit-equal to the general kernel on the same inputs (K1b's recompute relies on it)
+    and over two calls."""
+    stages, x = _range_chain(cuda, site, batch)
+    with torch.no_grad():
+        n = fused.in_chain.launches
+        got = fused.in_chain(x, stages)
+        assert fused.in_chain.launches == n + 1
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, fused.in_chain_ref(x, stages), rtol=RTOL, atol=ATOL)
+        assert torch.equal(got, fused.launch_in_chain(x, stages, False, general=True))
+        assert torch.equal(got, fused.in_chain(x, stages))
+        assert _device_kernel_names(lambda: fused.in_chain(x, stages)) == {
+            "down::down_chain_kernel"}
+
+
+# K2b's call sites in a 1-D training step: (input (L, C), padding, pad mode, dx as the step asks)
+K2B_SITES = {"range.out": ((8, 64), 0, "zero", True), "env.in": ((128, 1), 3, "reflect", False),
+             "dec.in": ((8, 2), 0, "zero", True)}
+
+
+def _k2b_site(cuda, site, batch):
+    """(args, kw) of K2b at one of its call sites, on the flagship's seeded weights, seeded x
+    and g, and y from K2. The plain version takes its ReLU mask from its own recompute, so a
+    sample with a pre-ReLU value (in float64) within MASK_MARGIN of its largest from 0 gets a
+    zero g: its mask then moves no gradient (at least half the samples are clear)."""
+    (l, c), pad, mode, _ = K2B_SITES[site]
+    m = IInsVAE(**FLAGSHIP, generator=torch.Generator().manual_seed(7)).to(cuda)
+    taps, bias = {"range.out": (m.encoder.range_encoder.out_kernel,
+                                m.encoder.range_encoder.out_bias),
+                  "env.in": (m.encoder.env_encoder.ConvINAct_0.kernel,
+                             m.encoder.env_encoder.ConvINAct_0.bias),
+                  "dec.in": (m.decoder.decoder.in_kernel, m.decoder.decoder.in_bias)}[site]
+    taps, bias = taps.detach(), bias.detach()
+    gen = torch.Generator().manual_seed(batch)
+    x = torch.randn((batch, l, c), generator=gen).to(cuda)
+    kw = dict(padding=pad, pad_mode=mode)
+    y = fused.conv_bias_act(x, taps, bias, **kw)
+    z = conv1d(x.double(), taps.double(), bias.double(), **kw).abs().flatten(1)
+    clear = z.amin(dim=1) >= MASK_MARGIN * z.amax(dim=1)
+    assert 2 * int(clear.sum()) >= batch, f"{site}: {int(clear.sum())} of {batch} samples clear"
+    g = torch.randn(y.shape, generator=gen).to(cuda) * clear[:, None, None]
+    return (g, x, taps, bias, y), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("site", list(K2B_SITES))
+@pytest.mark.parametrize("batch", [1, 5, 261, 500])
+def test_gpu_conv_bias_act_backward_sites_match_plain(cuda, monkeypatch, batch, site):
+    """K2b at its three call sites runs a kernel of its own (csrc/conv_bias_act_bwd.cu, namespace
+    site: persistent blocks over tiles of backward.CBA_TILE samples, the last block to finish
+    summing the partial rows; at 1, 5 and 261 the last tile is short): one launch a call,
+    within tolerance of the plain version, bit-equal over two calls, with and without dx
+    (env.in without, as the step calls it), one device kernel a call."""
+    args, kw = _k2b_site(cuda, site, batch)
+    need_dx = K2B_SITES[site][3]
+    calls = _spy(monkeypatch, "_cba_site_bwd")
+    _grads_match(backward.conv_bias_act_bwd, args, kw, f"{site} batch {batch}", need_dx=need_dx)
+    assert len(calls) == (3 if need_dx else 2)
+    assert _device_kernel_names(
+        lambda: backward.conv_bias_act_bwd(*args, **kw, need_dx=need_dx)) == {
+        "site::cba_site_bwd_kernel"}
+
+
+@pytest.mark.gpu
+def test_gpu_conv_bias_act_backward_general_path_matches_plain(cuda, monkeypatch):
+    """K2b's general kernel, which every other conv runs: a k3 zero-pad conv on a ragged batch,
+    env.in with dx (its path computes none) and ``general=True`` at range.out. None touches the
+    sites' path, and each matches the plain version."""
+    calls = _spy(monkeypatch, "_cba_site_bwd")
+    gen = torch.Generator().manual_seed(13)
+    x = torch.randn((7, 16, 8), generator=gen).to(cuda)
+    taps = (torch.randn((3, 8, 12), generator=gen) / 4).to(cuda)
+    bias = (torch.randn(12, generator=gen) / 4).to(cuda)
+    y = fused.conv_bias_act(x, taps, bias, padding=1)
+    g = torch.randn(y.shape, generator=gen).to(cuda)
+    _grads_match(backward.conv_bias_act_bwd, (g, x, taps, bias, y), dict(padding=1), "k3 conv")
+    args, kw = _k2b_site(cuda, "env.in", 5)
+    _grads_match(backward.conv_bias_act_bwd, args, kw, "env.in with dx", same_without_dx=False)
+    args, kw = _k2b_site(cuda, "range.out", 261)
+    got = backward.conv_bias_act_bwd(*args, **kw, general=True)
+    want = backward.conv_bias_act_bwd_ref(*args, **kw)
+    for i, (a, w) in enumerate(zip(got, want)):
+        _close_scaled(a, w, BWD_RTOL, BWD_ATOL, f"range.out general kernel gradient {i}")
+    assert not calls
+    assert _device_kernel_names(
+        lambda: backward.conv_bias_act_bwd(*args, **kw, general=True)) == {
+        "conv_bias_act_bwd_kernel", "iins::reduce_partials_kernel"}
+
+
+@pytest.mark.gpu
+def test_gpu_range_chain_and_k2b_site_paths_reject_what_their_kernels_do_not_take(cuda):
+    """K1's range-chain path and K2b's site path raise, rather than take another kernel, on an x,
+    y or g that is not 16-byte aligned (a view 4 bytes into a buffer) and on operands of the
+    wrong shape."""
+    def unaligned(t):
+        u = torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape)
+        u.copy_(t)
+        return u
+
+    stages, x = _range_chain(cuda, "range.pair1", 5)
+    with torch.no_grad():
+        assert fused.in_chain(x, stages).shape == (5, 16, 32)
+        with pytest.raises(ValueError):
+            fused.in_chain(unaligned(x), stages)
+        with pytest.raises(ValueError):  # taps that do not take the input's channels
+            fused.in_chain(x, [(stages[0][0][:, :4].contiguous(), *stages[0][1:]), stages[1]])
+    (g, x, taps, bias, y), kw = _k2b_site(cuda, "range.out", 5)
+    for i in (0, 1, 4):  # g, x, y
+        args = [g, x, taps, bias, y]
+        args[i] = unaligned(args[i])
+        with pytest.raises(ValueError):
+            backward.conv_bias_act_bwd(*args, **kw)
+    with pytest.raises(ValueError):  # y of another shape than g
+        backward.conv_bias_act_bwd(g, x, taps, bias, y[:, :4].contiguous(), **kw)
+    with pytest.raises(ValueError):  # g of another batch
+        backward.conv_bias_act_bwd(g[:4].contiguous(), x, taps, bias, y, **kw)
 
 
 # K4b's call sites: the 1-D restorer, the classifier and the 2-D restorer

@@ -11,6 +11,9 @@ The CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_gpu.py and chip_smoke.py.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -475,3 +478,114 @@ def test_k6_tail_forward_tiles_cover_every_sample_once_within_shared_memory(batc
         assert (seen == 1).all()
     assert fused.SLN_TAIL_FWD_SMEM <= 227 * 1024
     assert fused.SLN_TAIL_FWD_SMEM < backward.SLN_TAIL_SMEM
+
+
+def _cover_once(tiles: int, blocks: int, tile: int, batch: int) -> None:
+    """Block j of a persistent grid takes tiles j, j + blocks, ...: every sample in one tile."""
+    seen = np.zeros(batch, dtype=int)
+    for j in range(blocks):
+        for t in range(j, tiles, blocks):
+            assert t * tile < batch
+            seen[t * tile:(t + 1) * tile] += 1
+    assert (seen == 1).all()
+
+
+def _cuda_site_rows(source: str, pattern: str) -> dict[int, list[int]]:
+    """{site id: the numbers of the template arguments (true 1, false 0), in order} of the
+    `using` lines of a CUDA source that match ``pattern`` (a regex with the id and the
+    arguments as its two groups)."""
+    text = (Path(backward.__file__).parent / "csrc" / source).read_text()
+    return {int(i): [{"true": 1, "false": 0}.get(a) if a in ("true", "false") else int(a)
+                     for a in re.findall(r"\d+|true|false", args)]
+            for i, args in re.findall(pattern, text)}
+
+
+# K2b's call sites in a 1-D training step, (l_in, c_in, k, c_out, padding, pad_mode)
+K2B_SITES = {"range.out": (8, 64, 1, 2, 0, "zero"), "env.in": (128, 1, 7, 16, 3, "reflect"),
+             "dec.in": (8, 2, 1, 64, 0, "zero")}
+
+
+@pytest.mark.parametrize("batch", [1, 3, 4, 5, 261, 500])
+def test_k2b_site_tiles_cover_every_sample_once_within_shared_memory(batch):
+    """K2b's path at its three call sites (csrc/conv_bias_act_bwd.cu, namespace site): block j
+    of the grid takes tiles j, j + blocks, ..., so every sample must lie in exactly one of those
+    tiles, with the H100's 132 SMs and with fewer SMs than tiles, and a block writes one partial
+    row (at most 132). Its sites are the rows the flagship's K2 calls give and the source's
+    template instances (site id, k, pad, reflect, l_in, c_in, c_out), and a block's shared
+    memory (two tile buffers) stays within the 227 KB a block can have on the H100."""
+    for sms in (132, 7):
+        tiles, blocks = backward.cba_bwd_plan(batch, sms)
+        assert tiles == -(-batch // backward.CBA_TILE) and 1 <= blocks <= min(sms, tiles)
+        _cover_once(tiles, blocks, backward.CBA_TILE, batch)
+    cuda = _cuda_site_rows("conv_bias_act_bwd.cu",
+                           r"using \w+ = Site<(\d+), ([^>]*)>;")
+    assert sorted(cuda) == [0, 1, 2]
+    for i, (name, (l_in, c_in, k, c_out, pad, mode)) in enumerate(K2B_SITES.items()):
+        rows, _, _ = fused.stage_rows(torch.zeros((batch, l_in, c_in)),
+                                      [(torch.zeros((k, c_in, c_out)), 1, pad, mode)])
+        assert rows == backward.CBA_SITES[name] == list(backward.CBA_SITES.values())[i]
+        assert cuda[i][:6] == [k, pad, int(mode == "reflect"), l_in, c_in, c_out], name
+        assert cuda[i][6] == int(mode == "zero")  # dx at the 1x1 sites, none at env.in
+        assert backward.CBA_SMEM[name] == 4 * backward.cba_floats(rows) <= 227 * 1024, name
+        row = backward.CBA_ROW[name]
+        assert row % 4 == 0 and k * c_in * c_out + c_out <= row < k * c_in * c_out + c_out + 4
+
+
+@pytest.mark.parametrize("batch", [1, 3, 4, 5, 256, 261, 500])
+def test_k1_range_chain_forward_tiles_cover_every_sample_once_within_shared_memory(batch):
+    """K1's forward at the range encoder's stride-2 chains (csrc/in_chain.cu, namespace down, on
+    csrc/down_chain.cuh): block j of the grid takes tiles j, j + blocks, ..., so every sample
+    must lie in exactly one of those tiles, with the H100's 132 SMs and with fewer SMs than
+    tiles. Tiles of 4 samples, or of 2 where tiles of 4 would leave more than half the SMs
+    without one, so that batches 500 and 256 spread over at least 90% of the H100's SMs. Its
+    sites are the rows the flagship's range chains give and down_chain.cuh's template instances,
+    and a block's shared memory stays within the 227 KB a block can have, below K1b's."""
+    for sms in (132, 7):
+        tile, tiles, blocks = fused.res_fwd_plan(batch, sms)
+        assert tile in (2, 4) and tiles == -(-batch // tile)
+        assert (tile == 4) == (-(-batch // 4) > sms // 2)
+        assert 1 <= blocks <= min(sms, tiles)
+        _cover_once(tiles, blocks, tile, batch)
+    if batch in (256, 500):
+        assert fused.res_fwd_plan(batch, 132)[2] >= 0.9 * 132
+    cuda = _cuda_site_rows("down_chain.cuh", r"using \w+ = Chain<(\d+), ([^;]*)>;")
+    for i, name in enumerate(("pair0", "pair1", "single")):
+        l_in, c_in, stages = IN_CHAINS[name]
+        c_ins = [c_in] + [st[1] for st in stages]
+        rows, _, _ = fused.stage_rows(torch.zeros((batch, l_in, c_in)),
+                                      [(torch.zeros((k, c, c_out)), s, p, m)
+                                       for (k, c_out, s, p, m), c in zip(stages, c_ins)])
+        site = f"range.{name}"
+        assert rows == fused.DOWN_SITES[site] and list(fused.DOWN_SITES)[i] == site
+        # Chain<id, Stage<k, s, p, reflect, l_in, c_in, c_out>, Stage<...>, two>
+        args = cuda[i]
+        assert args[-1] == len(rows) // 8 - 1, site
+        for j in range(len(rows) // 8):
+            assert args[7 * j:7 * j + 6] == rows[8 * j:8 * j + 6] and \
+                args[7 * j + 6] == rows[8 * j + 7], site
+        for t in (2, 4):
+            smem = fused.DOWN_FWD_SMEM[site, t]
+            assert smem == 4 * fused.down_fwd_floats(rows, t) <= 227 * 1024
+            assert smem < backward.DOWN_SMEM[site]
+
+
+def test_other_shapes_take_the_general_kernels():
+    """Only the flagship's call sites take K1's range-chain path and K2b's site path (range.pair0
+    without dx at K1b, env.in without dx at K2b): other widths, lengths, strides, pads and
+    depths, and the residual block, keep the general kernels (or the residual block's own)."""
+    for name, rows in fused.DOWN_SITES.items():
+        assert fused.down_site(rows) == name
+    pair1 = fused.DOWN_SITES["range.pair1"]
+    for rows in ([4, 2, 1, 0, 64, 4, 32, 8, 4, 2, 1, 0, 32, 8, 16, 16],  # half width
+                 pair1[:8], pair1[8:],  # one stage of a pair
+                 [4, 2, 1, 0, 32, 32, 16, 64],  # another length
+                 [3, 2, 1, 0, 16, 32, 8, 64],  # another k
+                 2 * backward.RES_STAGE):
+        assert fused.down_site(rows) is None, rows
+    for name, rows in backward.CBA_SITES.items():
+        assert backward.cba_site(rows, need_dx=False) == name
+        assert backward.cba_site(rows, need_dx=True) == (None if name == "env.in" else name)
+    for rows in ([1, 1, 0, 0, 8, 64, 8, 4], [1, 1, 0, 0, 16, 64, 16, 2],
+                 [5, 1, 2, 1, 128, 1, 128, 16], [7, 1, 3, 0, 128, 1, 128, 16],
+                 [1, 1, 0, 0, 8, 4, 8, 64], [3, 1, 1, 0, 8, 2, 8, 64]):
+        assert backward.cba_site(rows, need_dx=False) is None, rows
