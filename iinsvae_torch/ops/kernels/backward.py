@@ -33,8 +33,8 @@ import torch
 
 from iinsvae_torch.ops.conv import reflect_pad2d
 from iinsvae_torch.ops.kernels import _build, fused, res2d, strided_conv
-from iinsvae_torch.ops.kernels.fused import (DOWN_SITES, DOWN_TILE, RES_C, RES_L, RES_STAGE,
-                                             SLN_STAGES, Stage, UpStage, _round4,
+from iinsvae_torch.ops.kernels.fused import (CBA_SITES, DOWN_SITES, DOWN_TILE, RES_C, RES_L,
+                                             RES_STAGE, SLN_STAGES, Stage, UpStage, _round4,
                                              down_chain_plan, res_fwd_plan)
 from iinsvae_torch.ops.norms import EPS, adain, instance_norm
 
@@ -270,21 +270,18 @@ adain_res_block_bwd.launches = 0
 
 
 # K2b's path at its three call sites in a 1-D training step (csrc/conv_bias_act_bwd.cu,
-# namespace site), by their stage rows: the range encoder's 1x1 out-conv, the env encoder's k7
-# reflect in-conv (no dx: it reads the pooled CIR) and the decoder's 1x1 in-conv. Tiles of
-# CBA_TILE samples, at most one persistent block a SM (cba_bwd_plan), CBA_SMEM[site] bytes of
-# shared memory a block (two tile buffers) and a partial row of CBA_ROW[site] floats a block, as
-# the source lays them out.
+# namespace site), by their stage rows (fused.CBA_SITES, which K2's forward shares): the range
+# encoder's 1x1 out-conv, the env encoder's k7 reflect in-conv (no dx: it reads the pooled CIR)
+# and the decoder's 1x1 in-conv. Tiles of CBA_TILE samples, at most one persistent block a SM
+# (cba_bwd_plan), CBA_SMEM[site] bytes of shared memory a block (two tile buffers) and a partial
+# row of CBA_ROW[site] floats a block, as the source lays them out.
 CBA_TILE = 4
-CBA_SITES = {"range.out": [1, 1, 0, 0, 8, 64, 8, 2],
-             "env.in": [7, 1, 3, 1, 128, 1, 128, 16],
-             "dec.in": [1, 1, 0, 0, 8, 2, 8, 64]}
 
 
 def cba_site(rows: Sequence[int], need_dx: bool) -> str | None:
     """The call site whose stage row this is, where its path computes what is asked, or None
     (the general kernel): env.in's path computes no dx."""
-    site = next((k for k, v in CBA_SITES.items() if v == list(rows)), None)
+    site = fused.cba_site(rows)
     return None if site is None or (need_dx and rows[3]) else site
 
 

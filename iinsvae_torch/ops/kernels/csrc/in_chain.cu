@@ -22,8 +22,8 @@
 // use a few lanes per (sample, channel) so short rows do not serialise.
 //
 // Layout: x (B, L, C) row-major, taps (k, C_in, C_out). K1 takes stages
-// whose C_out is a multiple of 4 only; K2 runs a C_out that is not (the 1x1
-// out-conv, C_out 2) on its scalar path.
+// whose C_out is a multiple of 4 only; K2's general kernel runs a C_out that
+// is not (a 1x1 conv to 2 channels off its call sites) on its scalar path.
 //
 // K5 adain_res_block replaces fused_adain_res_block (fused.py:557, kernel
 // _fwd_adain_block_kernel :382): the decoder's AdaIN residual block, K1's
@@ -109,6 +109,33 @@
 // - the last stage's IN + ReLU runs in place, and y leaves in contiguous float4
 //   rows;
 // - every sum in the general kernel's order, so y is its bit for bit.
+//
+// K2 at its three call sites (fused_dense_layer(norm='none')'s pallas_call :1252): range.out (the
+// range encoder's 1x1 out-conv, (8, 64) -> (8, 2)), env.in (the env encoder's k7 reflect-pad-3
+// in-conv, (128, 1) -> (128, 16)) and dec.in (the decoder's 1x1 in-conv, (8, 2) -> (8, 64)).
+// Bound on the H100 at batch 500 by bytes: 0.32 / 1.30 / 0.32 us (1.1 / 4.4 / 1.1 MB, y 4.1 MB
+// of env.in's); their products are at most 7.2 M multiply-adds (env.in's, 0.21 us). The
+// general kernel took 5.97 / 10.26 / 3.61 us there: 250 blocks of 2 samples, each thread's conv
+// reading its taps through __ldg one step at a time (range.out: a 64-step chain of scalar tap
+// loads on 32 busy threads of 256), env.in's windows through src_row's reflect branch. The cba
+// kernel, one template instance a site (namespace cba, at the end of this file):
+// - one persistent block a SM walks tiles of 4 samples, or of 2 where tiles of 4 would leave more
+//   than half the SMs without one (fused.res_fwd_plan); the block has as many threads as its
+//   tile has items (range.out one a (row, output channel): 64; env.in four (row, 4 channels)
+//   items a thread: 512; dec.in two: 256), so no thread idles;
+// - a thread loads its taps and bias into registers once (at most 64 floats), so no tap is
+//   read inside a product;
+// - the tile's x is staged by cp.async into shared memory (env.in's 3 reflect rows at each edge
+//   copied from the rows they mirror, so every window is contiguous and unmasked; range.out's
+//   rows C + 4 floats apart), the next tile's while the block works on this one;
+// - y is written once, from registers, by streaming stores (st.global.cs): float4s of 4
+//   channels (range.out's 2-channel rows as consecutive floats). Plain stores took env.in
+//   4.51-4.60 us, streaming ones 3.13-3.31 (its 4.1 MB of y), dec.in 2.38-2.45 and 1.89-2.09
+//   (H100; chip_smoke.py, phase_times.py);
+// - every output one fmaf chain from 0 over t, then ci ascending, then + bias and ReLU, the
+//   general kernel's order, so y is its bit for bit.
+// It takes 2.35-2.44 / 3.13-3.31 / 1.89-1.94 us at batch 500 on the H100 (PERF.md), most of
+// it the launch and one round trip for x.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -289,7 +316,8 @@ in_chain_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   for (int i = threadIdx.x; i < ns * n_last; i += blockDim.x) yg[i] = last[i];
 }
 
-// K2: one conv stage + per-channel bias + ReLU, written straight to y.
+// K2's general kernel: one conv stage + per-channel bias + ReLU, written straight to y (every
+// shape but the three call sites, which run namespace cba's kernel).
 template <int V>
 __global__ void __launch_bounds__(kThreads)
 conv_bias_act_kernel(const float* __restrict__ x, const float* __restrict__ w,
@@ -646,6 +674,193 @@ int launch(const float* x, const float* w1, const float* w2, float* y, int batch
 
 }  // namespace down
 
+// ---------------------------------------------------------------------------
+// K2 at its three call sites (fused.CBA_SITES, the rows K2b's site kernel takes), one template
+// instance each, the shapes fixed at compile time: range.out (1x1, (8, 64) -> (8, 2)), env.in (k7
+// reflect pad 3, (128, 1) -> (128, 16)) and dec.in (1x1, (8, 2) -> (8, 64)); stride 1.
+namespace cba {
+
+// (site id, k, pad, reflect, l_in, c_in, c_out, output items a thread)
+template <int kId_, int K_, int P_, bool R_, int LI_, int CI_, int CO_, int Per_>
+struct CbaSite {
+  static constexpr int kId = kId_, K = K_, P = P_, LI = LI_, CI = CI_, CO = CO_, Per = Per_;
+  static constexpr bool R = R_;
+  static constexpr int LO = LI + 2 * P - K + 1;
+  // a thread item: V output channels of one row, the item's group G of them in a row
+  static constexpr int V = CO % 4 ? 1 : 4, G = CO / V;
+  // a sample's x in shared memory with its pad rows: row u (-P <= u < LI + P) at kXa + u * kLd,
+  // rows of kLd floats (C_in + 4 where C_in is a multiple of 4, so that the 4 rows a quarter-
+  // warp reads fall on distinct banks), the data rows 16-byte aligned, a sample XS floats
+  static constexpr int kLd = CI % 4 ? CI : CI + 4;
+  static constexpr int kXa = (P * kLd + 3) / 4 * 4, XS = (kXa + (LI + P) * kLd + 3) / 4 * 4;
+  static_assert(LO == LI, "stride-1 'same' convs");
+  static_assert(P == 0 || (R && CI == 1 && K == 2 * P + 1), "a padded site is env.in's");
+  static_assert(kLd != CI || (LI * CI) % 4 == 0, "a sample's rows in 16-byte copies");
+};
+
+using RangeOut = CbaSite<0, 1, 0, false, 8, 64, 2, 1>;
+using EnvIn = CbaSite<1, 7, 3, true, 128, 1, 16, 4>;
+using DecIn = CbaSite<2, 1, 0, false, 8, 2, 64, 2>;
+
+// A block at tiles of NS samples: a thread each Per items, two buffers of the tile's x.
+template <class T, int NS>
+struct Layout {
+  static constexpr int kThreads = NS * T::LO * T::G / T::Per;
+  static constexpr int kBuf = NS * T::XS;
+  static constexpr int kSmemBytes = 2 * kBuf * static_cast<int>(sizeof(float));
+  static_assert((NS * T::LO * T::G) % T::Per == 0 && kThreads % T::G == 0 && kThreads % 32 == 0 &&
+                    kThreads <= 1024, "a block's threads");
+  static_assert(kSmemBytes <= 48 * 1024, "under the default shared memory");
+};
+
+// y out, as a streaming store (st.global.cs: y is read once, by the next kernel); phase_times.py's
+// "products" cut guards it by a condition no launch meets.
+template <class V>
+__device__ __forceinline__ void put(V* p, V v) { __stcs(p, v); }
+
+// The tile's samples s0 .. s0+ns-1 of x into buffer b by cp.async (env.in's reflect rows copied
+// from the rows they mirror, so every window is contiguous); the samples past the batch zero.
+template <class T, int NS>
+__device__ __forceinline__ void stage_x(const float* __restrict__ x, int s0, int ns, float* b) {
+  constexpr int kThreads = Layout<T, NS>::kThreads;
+  if constexpr (T::kLd == T::CI) {  // a sample's rows contiguous, as in x
+    constexpr int kQ = T::LI * T::CI / 4;
+    for (int i = threadIdx.x; i < NS * kQ; i += kThreads) {
+      const int s = i / kQ, q = i - s * kQ;
+      const bool ok = s < ns;
+      cp_async16(b + s * T::XS + T::kXa + 4 * q,
+                 x + static_cast<size_t>(s0 + (ok ? s : 0)) * T::LI * T::CI + 4 * q, ok);
+    }
+  } else {  // rows of C_in floats into rows of kLd
+    constexpr int kQ = T::CI / 4;
+    for (int i = threadIdx.x; i < NS * T::LI * kQ; i += kThreads) {
+      const int r = i / kQ, q = i - r * kQ, s = r / T::LI;
+      const bool ok = s < ns;
+      cp_async16(b + s * T::XS + T::kXa + (r - s * T::LI) * T::kLd + 4 * q,
+                 x + (static_cast<size_t>(s0) * T::LI + (ok ? r : 0)) * T::CI + 4 * q, ok);
+    }
+  }
+  if constexpr (T::P > 0)
+    for (int i = threadIdx.x; i < NS * 2 * T::P; i += kThreads) {
+      const int s = i / (2 * T::P), j = i - s * 2 * T::P;
+      const int u = j < T::P ? j - T::P : T::LI + j - T::P;  // rows -P .. -1 and L .. L+P-1
+      const int src = u < 0 ? -u : 2 * T::LI - 2 - u;
+      const bool ok = s < ns;
+      cp_async4(b + s * T::XS + T::kXa + u,
+                x + static_cast<size_t>(s0 + (ok ? s : 0)) * T::LI + src, ok);
+    }
+}
+
+// One persistent block a SM walks tiles of NS samples (tile b, b + grid, ...), the next tile's
+// x in flight (cp.async, two buffers) while it works on this one. A thread holds its taps and
+// bias in registers, loaded once; each of its Per items (a row's V output channels, the
+// thread's group of them fixed) is one fmaf chain an output from 0 over t, then ci ascending,
+// then + bias and ReLU: the general kernel's order (conv_points), so y is its bit for bit.
+template <class T, int NS>
+__global__ void __launch_bounds__(Layout<T, NS>::kThreads)
+cba_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+               const float* __restrict__ b, float* __restrict__ y, int batch, int n_tiles) {
+  using L = Layout<T, NS>;
+  constexpr int K = T::K, CI = T::CI, V = T::V;
+  extern __shared__ __align__(16) float sm[];
+  int tile = blockIdx.x;
+  stage_x<T, NS>(x, tile * NS, min(NS, batch - tile * NS), sm);
+  cp_async_commit();
+  const int cg = threadIdx.x % T::G;  // the thread's channels cg * V .. cg * V + V - 1
+  float wr[K * CI * V], br[V];
+#pragma unroll
+  for (int j = 0; j < K * CI; ++j) {
+    if constexpr (V == 4) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(w + j * T::CO) + cg);
+      wr[4 * j] = q.x, wr[4 * j + 1] = q.y, wr[4 * j + 2] = q.z, wr[4 * j + 3] = q.w;
+    } else {
+      wr[j] = __ldg(w + j * T::CO + cg);
+    }
+  }
+  if constexpr (V == 4) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(b) + cg);
+    br[0] = q.x, br[1] = q.y, br[2] = q.z, br[3] = q.w;
+  } else {
+    br[0] = __ldg(b + cg);
+  }
+  for (int buf = 0; tile < n_tiles; tile += gridDim.x, buf ^= 1) {
+    const int s0 = tile * NS, ns = min(NS, batch - s0), next = tile + gridDim.x;
+    if (next < n_tiles)
+      stage_x<T, NS>(x, next * NS, min(NS, batch - next * NS), sm + (buf ^ 1) * L::kBuf);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's copies (the next tile's may be in flight)
+    __syncthreads();
+    const float* xs = sm + buf * L::kBuf;
+#pragma unroll
+    for (int k = 0; k < T::Per; ++k) {
+      const int r = (static_cast<int>(threadIdx.x) + k * L::kThreads) / T::G;  // the tile's row
+      if (r < ns * T::LO) {
+        const int s = r / T::LO, l = r - s * T::LO;
+        const float* xr = xs + s * T::XS + T::kXa + (l - T::P) * T::kLd;  // the window's first row
+        float acc[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[v] = 0.f;
+#pragma unroll
+        for (int t = 0; t < K; ++t) {
+          if constexpr (CI % 4 == 0) {
+#pragma unroll
+            for (int ci = 0; ci < CI; ci += 4) {
+              const float4 q = res::lds4(xr + t * T::kLd + ci);
+              const float xv[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+              for (int c = 0; c < 4; ++c)
+#pragma unroll
+                for (int v = 0; v < V; ++v)
+                  acc[v] = fmaf(xv[c], wr[((t * CI) + ci + c) * V + v], acc[v]);
+            }
+          } else {
+#pragma unroll
+            for (int ci = 0; ci < CI; ++ci) {
+              const float xv = xr[t * T::kLd + ci];
+#pragma unroll
+              for (int v = 0; v < V; ++v) acc[v] = fmaf(xv, wr[(t * CI + ci) * V + v], acc[v]);
+            }
+          }
+        }
+        float* dst = y + (static_cast<size_t>(s0) * T::LO + r) * T::CO + cg * V;
+        if constexpr (V == 4)
+          put(reinterpret_cast<float4*>(dst),
+              make_float4(fmaxf(acc[0] + br[0], 0.f), fmaxf(acc[1] + br[1], 0.f),
+                          fmaxf(acc[2] + br[2], 0.f), fmaxf(acc[3] + br[3], 0.f)));
+        else
+          put(dst, fmaxf(acc[0] + br[0], 0.f));
+      }
+    }
+    __syncthreads();  // the buffer is read before it is staged again
+  }
+  cp_async_wait<0>();
+}
+
+template <class T, int NS>
+int launch_tile(const float* x, const float* w, const float* b, float* y, int batch, int n_tiles,
+                int grid, cudaStream_t s) {
+  using L = Layout<T, NS>;
+  cba_fwd_kernel<T, NS><<<grid, L::kThreads, L::kSmemBytes, s>>>(x, w, b, y, batch, n_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class T>
+int launch(const float* x, const float* w, const float* b, float* y, int batch, int tile,
+           int grid, int smem, void* stream) {
+  if (batch <= 0 || (tile != 2 && tile != 4)) return cudaErrorInvalidValue;
+  const int n_tiles = (batch + tile - 1) / tile;
+  const int want = tile == 4 ? Layout<T, 4>::kSmemBytes : Layout<T, 2>::kSmemBytes;
+  if (grid < 1 || grid > n_tiles || smem != want) return cudaErrorInvalidValue;
+  for (const void* p : {static_cast<const void*>(x), static_cast<const void*>(w),
+                        static_cast<const void*>(b), static_cast<const void*>(y)})
+    if (reinterpret_cast<std::uintptr_t>(p) % 16) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return tile == 4 ? launch_tile<T, 4>(x, w, b, y, batch, n_tiles, grid, s)
+                   : launch_tile<T, 2>(x, w, b, y, batch, n_tiles, grid, s);
+}
+
+}  // namespace cba
+
 extern "C" {
 
 const char* iins_error_string(int err) {
@@ -730,6 +945,25 @@ int iins_conv_bias_act(const float* x, const float* w, const float* b, float* y,
     conv_bias_act_kernel<1><<<grid, kThreads, smem, s>>>(x, w, b, y, batch, st, spb);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// K2 at its three call sites on their own path: site 0 range.out, 1 env.in, 2 dec.in (shapes at
+// the top of namespace cba). x (B, l_in, c_in), w (k, c_in, c_out), b (c_out), y (B, l_out,
+// c_out), all 16-byte aligned. tile (2 or 4 samples), grid (the persistent blocks, 1 ..
+// ceil(B / tile)) and smem (a block's dynamic shared memory) as fused.res_fwd_plan and
+// CBA_FWD_SMEM give them; the launch refuses any other.
+int iins_cba_fwd(const float* x, const float* w, const float* b, float* y, int batch, int site,
+                 int tile, int grid, int smem, void* stream) {
+  switch (site) {
+    case 0:
+      return cba::launch<cba::RangeOut>(x, w, b, y, batch, tile, grid, smem, stream);
+    case 1:
+      return cba::launch<cba::EnvIn>(x, w, b, y, batch, tile, grid, smem, stream);
+    case 2:
+      return cba::launch<cba::DecIn>(x, w, b, y, batch, tile, grid, smem, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

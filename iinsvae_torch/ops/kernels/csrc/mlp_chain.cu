@@ -26,8 +26,8 @@
 // backward (mlp_chain_bwd.cu) reads them, as the TPU backward reads the
 // d_j its forward saved (fused.py:1082). That is ~2 MB at batch 500.
 //
-// Two paths. The kernel above (mlp_chain_kernel) takes every chain: the
-// classifier and any other widths. At the restorers it took 41.8 us (1-D)
+// Three paths. The kernel above (mlp_chain_kernel) takes every chain the two
+// below do not (any other widths). At the restorers it took 41.8 us (1-D)
 // and 53.8 us (2-D) at batch 500 on the H100, slower than four torch.mm
 // calls: its 125 blocks each read every weight from L2 once for 4 samples,
 // 103 MB (1-D) and 132 MB (2-D) a call, a 32 KB tile at a time in series.
@@ -58,10 +58,41 @@
 // It takes 19.2-19.6 us (1-D) and 23.0-23.4 us (2-D) a call at batch 500 on
 // the H100 (PERF.md), 6-7x its bound: the staging of layer 0's inputs and
 // the exchanges take a third (1-D) to a half (2-D) of it (phase_times.py).
+//
+// The small heads, chains of 1-8 layers whose every width is at most 64 (the
+// classifier 16 -> 16 -> 32 -> 16 -> 5 of both models: 1,360 weights and 69
+// biases, 5.7 KB; 0.02 us of FMAs at batch 500), run mlp_head_kernel (namespace
+// head). The general kernel took 6.87-6.92 us there, all latency: 125 blocks of
+// 4 samples, each layer's weights read from L2 only once the layer starts (four
+// dependent round trips a call), two __syncthreads a weight tile and one a
+// layer, each 16-32-long dot product split over lanes and a shuffle tree. The
+// head kernel:
+// - stages every layer's weights and biases once a block, in one round of
+//   cp.async beside the tile's x: one L2 round trip a call, not one a layer;
+// - takes a warp a sample (8 a block, at most one persistent block a SM,
+//   fused.mlp_head_plan: 63 blocks at batch 500), lane c its layer's output
+//   columns c and c + 32, reading the layer's input from the warp's own row
+//   in shared memory as float4 broadcasts: a __syncwarp between the layers,
+//   no block barrier. Broadcast by __shfl_sync from registers instead, the
+//   input cost the classifier 5.48-5.54 us a call, 4.37 with its widths
+//   fixed at compile time (H100; chip_smoke.py, phase_times.py): each FMA
+//   waited on its shuffle;
+// - runs the classifier on an instance whose widths are compile-time
+//   constants (Dims<16, 16, 32, 16, 5>: every loop unrolls, the loads go
+//   ahead of the FMAs), any other small chain on one that reads them from the
+//   launch's arguments (Any); both take every layer's pointers and slope at
+//   fixed offsets of the arguments (the loops over the layers unroll);
+// - sums each column as one fmaf chain from 0 over k ascending, then + bias:
+//   another order than the general kernel's split (within the plain version's
+//   tolerance, not bit for bit), the same bits from call to call; it writes
+//   each d_j where asked, as the general kernel does.
+// It takes 3.36-3.37 us a call at batch 500 on the H100 (PERF.md): the launch
+// (1.2 us) and the staging (1.0) are two thirds of it.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "async_smem.cuh"
 
@@ -637,6 +668,233 @@ int launch(const float* x, float* y, int batch, const Args& a, int s_tile, int c
 
 }  // namespace cluster
 
+// ---------------------------------------------------------------------------
+// The small heads' path: chains of 1-8 layers whose every width is at most 64 (the classifier),
+// a warp a sample, no block barrier between the layers.
+namespace head {
+
+constexpr int kWarps = 8, kThreads = 32 * kWarps;  // a tile of kWarps samples a block
+constexpr int kMaxWidth = 64;
+
+__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
+
+// Floats of a block's shared memory: each layer's weight (D_j, D_{j+1}), then its bias, each
+// rounded up to 4 floats, layer by layer; then each warp's two activation rows of kMaxWidth.
+inline int smem_floats(const int* dims, int n_layers) {
+  int n = 0;
+  for (int j = 0; j < n_layers; ++j) n += round4(dims[j] * dims[j + 1]) + round4(dims[j + 1]);
+  return n + kWarps * 2 * kMaxWidth;
+}
+
+// n floats from src (global) to dst (shared, 16-byte aligned) by cp.async: 16-byte copies where
+// src is 16-byte aligned and n a multiple of 4, else 4-byte ones.
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int n) {
+  if (n % 4 == 0 && reinterpret_cast<std::uintptr_t>(src) % 16 == 0)
+    for (int i = threadIdx.x; i < n / 4; i += kThreads) cp_async16(dst + 4 * i, src + 4 * i, true);
+  else
+    for (int i = threadIdx.x; i < n; i += kThreads) cp_async4(dst + i, src + i, true);
+}
+
+// Sample s's input in the warp: lane k holds x[s, k] in a0 and x[s, k + 32] in a1, 0 past D0
+// and past the batch.
+__device__ __forceinline__ void load_x(const float* __restrict__ x, int s, int batch, int d0,
+                                       int lane, float& a0, float& a1) {
+  const float* xs = x + static_cast<size_t>(s) * d0;
+  a0 = s < batch && lane < d0 ? __ldg(xs + lane) : 0.f;
+  a1 = s < batch && lane + 32 < d0 ? __ldg(xs + lane + 32) : 0.f;
+}
+
+// y out; phase_times.py's "products" cut guards this store by a condition no launch meets.
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+
+// A chain's widths read from the launch's arguments (Any), or fixed at compile time (Dims<D0,
+// D1, ...>: the classifier's instance, whose loops all unroll; the launch picks it where the
+// widths match).
+struct Any {};
+template <int... W>
+struct Dims {
+  static constexpr int kLayers = sizeof...(W) - 1;
+  __host__ __device__ static constexpr int at(int j) {
+    constexpr int w[] = {W...};
+    return j <= kLayers ? w[j] : 1;
+  }
+  static bool matches(const int* dims, int n_layers) {
+    if (n_layers != kLayers) return false;
+    for (int j = 0; j <= kLayers; ++j)
+      if (dims[j] != at(j)) return false;
+    return true;
+  }
+};
+using Classifier = Dims<16, 16, 32, 16, 5>;
+
+template <class D>
+__device__ __forceinline__ int layers(const MlpArgs& a) {
+  if constexpr (std::is_same<D, Any>::value) return a.n_layers; else return D::kLayers;
+}
+template <class D>
+__device__ __forceinline__ int width(const MlpArgs& a, int j) {
+  if constexpr (std::is_same<D, Any>::value) return a.dims[j]; else return D::at(j);
+}
+
+// acc0 (acc1) += column c0 (c1) of a . W (kTwo: dout > 32), a (din) the warp's activation row
+// and W (din, dout) in shared memory, one fmaf chain over k ascending; every lane reads the same
+// a_k (a broadcast). kFull: din is a compile-time constant and the loop unrolls whole, a read
+// as float4s where din is a multiple of 4.
+template <bool kFull, bool kTwo>
+__device__ __forceinline__ void dots(const float* w, const float* a, int din, int dout, int c0,
+                                     int c1, float& acc0, float& acc1) {
+  const auto step = [&](int k, float ak) {
+    acc0 = fmaf(ak, w[k * dout + c0], acc0);
+    if constexpr (kTwo) acc1 = fmaf(ak, w[k * dout + c1], acc1);
+  };
+  if constexpr (kFull) {
+    if (din % 4 == 0) {
+#pragma unroll
+      for (int k = 0; k < din; k += 4) {
+        const float4 q = cluster::lds4(a + k);
+        step(k, q.x), step(k + 1, q.y), step(k + 2, q.z), step(k + 3, q.w);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < din; ++k) step(k, a[k]);
+    }
+  } else {
+#pragma unroll 4
+    for (int k = 0; k < din; ++k) step(k, a[k]);
+  }
+}
+
+// Block b walks tiles b, b + grid, ... of kWarps samples, warp w of the block sample w of the
+// tile. Every layer's weights and biases are staged once a block, in one round of cp.async,
+// beside the first tile's x (read into registers); the next tile's x is read while this one
+// runs. A layer: lane c owns output columns c and c + 32 and reads the layer's input from the
+// warp's activation row in shared memory (two rows, one a layer's input, the other its output,
+// in turn; a __syncwarp between the layers, no block barrier); each column is one fmaf chain
+// from 0 over k ascending, then + bias (d_j, written where asked) and LeakyReLU. Both loops over
+// the layers run over kMaxLayers with the layer a compile-time index, so that each layer's
+// pointers and slope are kernel parameters at fixed offsets; the classifier's instance has its
+// widths, offsets and loop bounds as constants too, and its loads unroll ahead of the FMAs.
+template <class D>
+__global__ void __launch_bounds__(kThreads)
+mlp_head_kernel(const float* __restrict__ x, float* __restrict__ y, int batch, int n_tiles,
+                MlpArgs a) {
+  constexpr bool kStatic = !std::is_same<D, Any>::value;
+  extern __shared__ __align__(16) float sm[];
+  const int n_layers = layers<D>(a);
+  int off = 0;
+#pragma unroll
+  for (int j = 0; j < kMaxLayers; ++j) {
+    if (j < n_layers) {
+      const int n = width<D>(a, j) * width<D>(a, j + 1);
+      stage(sm + off, a.w[j], n);
+      stage(sm + off + round4(n), a.b[j], width<D>(a, j + 1));
+      off += round4(n) + round4(width<D>(a, j + 1));
+    }
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, d0 = width<D>(a, 0);
+  float* act = sm + off + warp * 2 * kMaxWidth;  // the warp's two activation rows
+  int tile = blockIdx.x;
+  float x0, x1;
+  load_x(x, tile * kWarps + warp, batch, d0, lane, x0, x1);
+  cp_async_wait_all();
+  __syncthreads();
+  for (; tile < n_tiles; tile += gridDim.x) {
+    const int s = tile * kWarps + warp;
+    float a0 = x0, a1 = x1;
+    load_x(x, (tile + gridDim.x) * kWarps + warp, batch, d0, lane, x0, x1);
+    if (s >= batch) continue;  // the warp's sample is past the batch: warp-uniform
+    act[lane] = a0;
+    act[lane + 32] = a1;
+    __syncwarp();
+    const float* w = sm;
+    int dl = d0;
+#pragma unroll
+    for (int j = 0; j < kMaxLayers; ++j) {
+      if (j < n_layers) {
+        const int din = width<D>(a, j), dout = width<D>(a, j + 1);
+        const float* bias = w + round4(din * dout);
+        const bool hi = lane + 32 < dout;
+        const int c0 = lane < dout ? lane : 0, c1 = hi ? lane + 32 : 0;  // in range where unused
+        float acc0 = 0.f, acc1 = 0.f;
+        const float* in = act + (j & 1) * kMaxWidth;
+        if (dout > 32)
+          dots<kStatic, true>(w, in, din, dout, c0, c1, acc0, acc1);
+        else
+          dots<kStatic, false>(w, in, din, dout, c0, c1, acc0, acc1);
+        const float slope = a.slope[j];
+        const float e0 = acc0 + bias[c0], e1 = acc1 + bias[c1];
+        if (a.d[j]) {
+          float* dj = a.d[j] + static_cast<size_t>(s) * dout;
+          if (lane < dout) dj[lane] = e0;
+          if (hi) dj[lane + 32] = e1;
+        }
+        a0 = lane < dout ? (e0 > 0.f ? e0 : slope * e0) : 0.f;
+        a1 = hi ? (e1 > 0.f ? e1 : slope * e1) : 0.f;
+        float* out = act + ((j + 1) & 1) * kMaxWidth;  // the next layer's input
+        out[lane] = a0;
+        out[lane + 32] = a1;
+        __syncwarp();
+        dl = dout;
+        w = bias + round4(dout);
+      }
+    }
+    if (lane < dl) put(y + static_cast<size_t>(s) * dl + lane, a0);
+    if (lane + 32 < dl) put(y + static_cast<size_t>(s) * dl + lane + 32, a1);
+  }
+}
+
+int smem_set[2] = {0, 0};
+
+template <class D>
+int launch_instance(const float* x, float* y, int batch, int n_tiles, const MlpArgs& a, int grid,
+                    int smem, cudaStream_t s) {
+  const int err = allow_smem(mlp_head_kernel<D>, smem, &smem_set[std::is_same<D, Any>::value]);
+  if (err) return err;
+  mlp_head_kernel<D><<<grid, kThreads, smem, s>>>(x, y, batch, n_tiles, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch(const float* x, float* y, int batch, const MlpArgs& a, int tile, int grid, int smem,
+           void* stream) {
+  const int n_tiles = batch > 0 ? (batch + kWarps - 1) / kWarps : 0;
+  if (batch <= 0 || tile != kWarps || grid < 1 || grid > n_tiles || a.n_layers < 1 ||
+      a.n_layers > kMaxLayers)
+    return cudaErrorInvalidValue;
+  for (int j = 0; j <= a.n_layers; ++j)
+    if (a.dims[j] < 1 || a.dims[j] > kMaxWidth) return cudaErrorInvalidValue;
+  if (smem != smem_floats(a.dims, a.n_layers) * static_cast<int>(sizeof(float)) ||
+      smem > 227 * 1024)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return Classifier::matches(a.dims, a.n_layers)
+             ? launch_instance<Classifier>(x, y, batch, n_tiles, a, grid, smem, s)
+             : launch_instance<Any>(x, y, batch, n_tiles, a, grid, smem, s);
+}
+
+}  // namespace head
+
+namespace {
+
+// A chain of n_layers layers as iins_mlp_chain and iins_mlp_head take it (the widths unchecked).
+MlpArgs chain_args(int n_layers, const void* const* ws, const void* const* bs, const int* dims,
+                   const float* slopes, void* const* ds) {
+  MlpArgs a{};
+  a.n_layers = n_layers;
+  for (int j = 0; j <= n_layers; ++j) {
+    a.dims[j] = dims[j];
+    a.width = dims[j] > a.width ? dims[j] : a.width;
+  }
+  for (int j = 0; j < n_layers; ++j) {
+    a.w[j] = static_cast<const float*>(ws[j]);
+    a.b[j] = static_cast<const float*>(bs[j]);
+    a.slope[j] = slopes[j];
+    a.d[j] = ds ? static_cast<float*>(ds[j]) : nullptr;
+  }
+  return a;
+}
+
+}  // namespace
+
 extern "C" {
 
 const char* iins_error_string(int err) {
@@ -650,22 +908,11 @@ int iins_mlp_chain(const float* x, float* y, int batch, int n_layers, const void
                    const void* const* bs, const int* dims, const float* slopes,
                    void* const* ds, void* stream) {
   if (batch <= 0 || n_layers < 1 || n_layers > kMaxLayers) return cudaErrorInvalidValue;
-  MlpArgs a{};
-  a.n_layers = n_layers;
-  a.width = 0;
-  for (int j = 0; j <= n_layers; ++j) {
-    if (dims[j] <= 0) return cudaErrorInvalidValue;
-    if (j > 0 && (dims[j] > kTileFloats || dims[j] * lanes_for(dims[j]) > kMaxCols * kThreads))
+  for (int j = 0; j <= n_layers; ++j)
+    if (dims[j] <= 0 || (j > 0 && (dims[j] > kTileFloats ||
+                                   dims[j] * lanes_for(dims[j]) > kMaxCols * kThreads)))
       return cudaErrorInvalidValue;
-    a.dims[j] = dims[j];
-    a.width = dims[j] > a.width ? dims[j] : a.width;
-  }
-  for (int j = 0; j < n_layers; ++j) {
-    a.w[j] = static_cast<const float*>(ws[j]);
-    a.b[j] = static_cast<const float*>(bs[j]);
-    a.slope[j] = slopes[j];
-    a.d[j] = ds ? static_cast<float*>(ds[j]) : nullptr;
-  }
+  const MlpArgs a = chain_args(n_layers, ws, bs, dims, slopes, ds);
   const size_t smem = (2 * static_cast<size_t>(kRows) * a.width + kTileFloats) * sizeof(float);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   const int grid = (batch + kRows - 1) / kRows;
@@ -694,5 +941,17 @@ int iins_mlp_cluster(const float* x, float* y, int batch, int d0, const void* co
 // *out = the clusters of the restorers' path that the card holds at once, its blocks taking
 // smem bytes of shared memory each.
 int iins_mlp_cluster_slots(int smem, int* out) { return cluster::slots(smem, out); }
+
+// K4 on the small heads' path (namespace head): 1-8 layers, every width 1 .. 64; ws, bs, dims,
+// slopes, ds as for iins_mlp_chain. tile (8 samples), grid (the persistent blocks, 1 ..
+// ceil(B / tile)) and smem (a block's dynamic shared memory) as fused.mlp_head_plan and
+// mlp_head_smem give them; the launch refuses any other.
+int iins_mlp_head(const float* x, float* y, int batch, int n_layers, const void* const* ws,
+                  const void* const* bs, const int* dims, const float* slopes, void* const* ds,
+                  int tile, int grid, int smem, void* stream) {
+  if (n_layers < 1 || n_layers > kMaxLayers) return cudaErrorInvalidValue;
+  return head::launch(x, y, batch, chain_args(n_layers, ws, bs, dims, slopes, ds), tile, grid,
+                      smem, stream);
+}
 
 }  // extern "C"

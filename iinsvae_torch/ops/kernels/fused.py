@@ -44,6 +44,10 @@ def wants_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
 def stage_rows(x: torch.Tensor, stages: Sequence[Stage]) -> tuple[list[int], int, int]:
     """Validate a conv chain on x (B, L, C); return the flat
     (k, stride, pad, reflect, l_in, c_in, l_out, c_out) rows and the
@@ -116,10 +120,10 @@ DOWN_FWD_SMEM = {(name, t): 4 * down_fwd_floats(rows, t) for name, rows in DOWN_
 
 
 def res_fwd_plan(batch: int, sms: int) -> tuple[int, int, int]:
-    """-> (tile, tiles, blocks) of K1's and K5's forward kernels at the residual blocks and of
-    K1's at the stride-2 chains: tiles of 4 samples, or of 2 where tiles of 4 would leave more
-    than half the SMs without one; block j of the grid takes tiles j, j + blocks, ..., tile t
-    the samples t * tile .. (t + 1) * tile - 1 below batch."""
+    """-> (tile, tiles, blocks) of K1's and K5's forward kernels at the residual blocks, of K1's
+    at the stride-2 chains and of K2's at its call sites: tiles of 4 samples, or of 2 where tiles
+    of 4 would leave more than half the SMs without one; block j of the grid takes tiles j,
+    j + blocks, ..., tile t the samples t * tile .. (t + 1) * tile - 1 below batch."""
     tile = 4 if -(-batch // 4) > sms // 2 else 2
     tiles = -(-batch // tile)
     return tile, tiles, min(tiles, sms)
@@ -238,14 +242,69 @@ def conv_bias_act(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor, *,
 conv_bias_act.launches = 0
 
 
+# K2's and K2b's call sites in the 1-D model, by their stage rows: the range encoder's 1x1
+# out-conv, the env encoder's k7 reflect in-conv and the decoder's 1x1 in-conv. K2 runs them on
+# a kernel of its own (csrc/in_chain.cu, namespace cba, one template instance a site): tiles of
+# 4 or 2 samples, at most one persistent block a SM (res_fwd_plan), CBA_FWD_SMEM[site, tile]
+# bytes of shared memory a block (two buffers of the tile's x), as the source lays them out.
+# K2b's site kernel (backward.cba_site) takes the same rows, env.in without dx.
+CBA_SITES = {"range.out": [1, 1, 0, 0, 8, 64, 8, 2],
+             "env.in": [7, 1, 3, 1, 128, 1, 128, 16],
+             "dec.in": [1, 1, 0, 0, 8, 2, 8, 64]}
+
+
+def cba_site(rows: Sequence[int]) -> str | None:
+    """The K2 call site whose stage row this is, or None."""
+    return next((k for k, v in CBA_SITES.items() if v == list(rows)), None)
+
+
+def cba_fwd_floats(rows: Sequence[int], tile: int) -> int:
+    """Floats of shared memory a block of K2's site kernel takes for a stage row at tiles of
+    ``tile`` samples: two buffers, each sample's x with its pad rows in rows of C_in + 4 floats
+    (C_in where that is not a multiple of 4), the data rows 16-byte aligned, the sample rounded
+    up to 4 floats."""
+    _, _, pad, _, l_in, c_in, _, _ = rows
+    ld = c_in if c_in % 4 else c_in + 4
+    return 2 * tile * _round4(_round4(pad * ld) + (l_in + pad) * ld)
+
+
+CBA_FWD_SMEM = {(name, t): 4 * cba_fwd_floats(rows, t) for name, rows in CBA_SITES.items()
+                for t in (2, 4)}
+
+
+def _cba_site(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor, name: str) -> torch.Tensor:
+    """Launch K2's kernel at the call site ``name`` (csrc/in_chain.cu's namespace cba) on the grid
+    of res_fwd_plan; counts nothing (the callers count)."""
+    if any(t.data_ptr() % 16 for t in (x, taps, bias)):
+        raise ValueError("conv_bias_act: the call sites' kernel takes 16-byte aligned x, taps and "
+                         "bias")
+    rows = CBA_SITES[name]
+    b = x.shape[0]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    tile, _, blocks = res_fwd_plan(b, sms)
+    y = torch.empty((b, rows[6], rows[7]), device=x.device, dtype=x.dtype)
+    fn = _build.function("in_chain", "iins_cba_fwd", [_P] * 4 + [_I] * 5 + [_P])
+    err = fn(x.data_ptr(), taps.data_ptr(), bias.data_ptr(), y.data_ptr(), b,
+             list(CBA_SITES).index(name), tile, blocks, CBA_FWD_SMEM[name, tile],
+             _build.stream_handle(x))
+    _build.check(err, "in_chain", "conv_bias_act")
+    return y
+
+
 def launch_conv_bias_act(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor,
-                         stride: int, padding: int, pad_mode: str) -> torch.Tensor:
-    """Check the operands and launch the conv + bias + ReLU kernel; counts
-    nothing (conv_bias_act and autograd.ConvBiasAct count)."""
+                         stride: int, padding: int, pad_mode: str, *,
+                         general: bool = False) -> torch.Tensor:
+    """Check the operands and launch the conv + bias + ReLU kernel; counts nothing
+    (conv_bias_act and autograd.ConvBiasAct count). The call sites (CBA_SITES) run their own
+    kernel (_cba_site); ``general`` runs the general kernel there instead, the second oracle of
+    the GPU tests and chip_smoke.py."""
     rows, l_out, c_out = stage_rows(x, [(taps, stride, padding, pad_mode)])
     if bias.shape != (c_out,):
         raise ValueError(f"bias must be ({c_out},), got {tuple(bias.shape)}")
     _build.require_cuda_f32("conv_bias_act", x, taps, bias)
+    site = None if general else cba_site(rows)
+    if site is not None:
+        return _cba_site(x, taps, bias, site)
     b = x.shape[0]
     y = torch.empty((b, l_out, c_out), device=x.device, dtype=x.dtype)
     spb = _build.samples_per_block(b, rows[4] * rows[5])
@@ -359,12 +418,43 @@ def mlp_cluster_slots(device: torch.device, d0: int) -> int:
     return _cluster_slots[key]
 
 
+# K4's path at the small heads (csrc/mlp_chain.cu, namespace head): chains whose every width is
+# at most MLP_HEAD_WIDTH (the classifier 16 -> 16 -> 32 -> 16 -> 5), a warp a sample, tiles of
+# MLP_HEAD_TILE samples, at most one persistent block a SM (mlp_head_plan), every layer's weights
+# and biases in mlp_head_smem(dims) bytes of shared memory a block.
+MLP_HEAD_WIDTH, MLP_HEAD_TILE = 64, 8
+
+
+def takes_mlp_head(dims: Sequence[int]) -> bool:
+    """Whether a chain of the widths ``dims`` runs K4's small-head path."""
+    return 1 <= len(dims) - 1 <= _MAX_LAYERS and max(dims) <= MLP_HEAD_WIDTH
+
+
+def mlp_head_smem(dims: Sequence[int]) -> int:
+    """Bytes of shared memory a block of K4's small-head path takes: each layer's weight, then
+    its bias, each rounded up to 4 floats, then each warp's two activation rows of
+    MLP_HEAD_WIDTH floats, as the source lays them out."""
+    return 4 * (sum(_round4(a * k) + _round4(k) for a, k in zip(dims, dims[1:]))
+                + MLP_HEAD_TILE * 2 * MLP_HEAD_WIDTH)
+
+
+def mlp_head_plan(batch: int, sms: int) -> tuple[int, int]:
+    """-> (tiles, blocks) of K4's small-head path: block j of the grid takes tiles j, j + blocks,
+    ..., tile t the samples t * MLP_HEAD_TILE .. (t + 1) * MLP_HEAD_TILE - 1 below batch, one a
+    warp."""
+    tiles = -(-batch // MLP_HEAD_TILE)
+    return tiles, min(tiles, sms)
+
+
 def launch_mlp_chain(x: torch.Tensor, ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
-                     slopes: Sequence[float], save_pre: bool = False):
+                     slopes: Sequence[float], save_pre: bool = False, *, general: bool = False):
     """Check the operands, launch K4 and count the launch. -> (y, ds): with
     ``save_pre`` the kernel also writes each layer's pre-activation
     d_j (B, D_{j+1}), which the backward kernel reads; else ds is []. The restorers' widths
-    (takes_mlp_cluster) run the cluster kernel (mlp_cluster_plan), any other the general one."""
+    (takes_mlp_cluster) run the cluster kernel (mlp_cluster_plan), the small heads'
+    (takes_mlp_head) the head kernel (mlp_head_plan), any other the general one; ``general``
+    runs the general kernel at any widths, the second oracle of the GPU tests and
+    chip_smoke.py."""
     n = len(ws)
     if not (1 <= n <= _MAX_LAYERS and len(bs) == n and len(slopes) == n):
         raise ValueError(f"mlp_chain takes 1-{_MAX_LAYERS} layers with one bias and slope each")
@@ -380,7 +470,22 @@ def launch_mlp_chain(x: torch.Tensor, ws: Sequence[torch.Tensor], bs: Sequence[t
     y = torch.empty((x.shape[0], dims[-1]), device=x.device, dtype=x.dtype)
     ds = [torch.empty((x.shape[0], d), device=x.device, dtype=x.dtype)
           for d in dims[1:]] if save_pre else []
-    if takes_mlp_cluster(dims):
+    layers = ((_P * n)(*[w.data_ptr() for w in ws]), (_P * n)(*[b.data_ptr() for b in bs]),
+              (_I * (n + 1))(*dims), (ctypes.c_float * n)(*slopes),
+              (_P * n)(*[d.data_ptr() for d in ds]) if save_pre else None)
+    if not general and takes_mlp_head(dims):
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        _, blocks = mlp_head_plan(x.shape[0], sms)
+        fn = _build.function("mlp_chain", "iins_mlp_head",
+                             [_P, _P, _I, _I, ctypes.POINTER(_P), ctypes.POINTER(_P),
+                              ctypes.POINTER(_I), ctypes.POINTER(ctypes.c_float),
+                              ctypes.POINTER(_P), _I, _I, _I, _P])
+        err = fn(x.data_ptr(), y.data_ptr(), x.shape[0], n, *layers, MLP_HEAD_TILE, blocks,
+                 mlp_head_smem(dims), _build.stream_handle(x))
+        _build.check(err, "mlp_chain", "mlp_chain")
+        mlp_chain.launches += 1
+        return y, ds
+    if not general and takes_mlp_cluster(dims):
         if any(t.data_ptr() % 16 for t in (x, *ws, *bs[:-1])):
             raise ValueError("mlp_chain: the restorer path takes 16-byte aligned x, weights and "
                              "biases")
@@ -389,11 +494,9 @@ def launch_mlp_chain(x: torch.Tensor, ws: Sequence[torch.Tensor], bs: Sequence[t
         fn = _build.function("mlp_chain", "iins_mlp_cluster",
                              [_P, _P, _I, _I, ctypes.POINTER(_P), ctypes.POINTER(_P),
                               ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_P), _I, _I, _I, _P])
-        err = fn(x.data_ptr(), y.data_ptr(), x.shape[0], dims[0],
-                 (_P * n)(*[w.data_ptr() for w in ws]), (_P * n)(*[b.data_ptr() for b in bs]),
-                 (ctypes.c_float * n)(*slopes),
-                 (_P * n)(*[d.data_ptr() for d in ds]) if save_pre else None,
-                 tile, clusters, smem, _build.stream_handle(x))
+        w_ptrs, b_ptrs, _, slopes_c, d_ptrs = layers
+        err = fn(x.data_ptr(), y.data_ptr(), x.shape[0], dims[0], w_ptrs, b_ptrs, slopes_c,
+                 d_ptrs, tile, clusters, smem, _build.stream_handle(x))
         _build.check(err, "mlp_chain", "mlp_chain")
         mlp_chain.launches += 1
         return y, ds
@@ -401,11 +504,7 @@ def launch_mlp_chain(x: torch.Tensor, ws: Sequence[torch.Tensor], bs: Sequence[t
                          [_P, _P, _I, _I, ctypes.POINTER(_P), ctypes.POINTER(_P),
                           ctypes.POINTER(_I), ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_P),
                           _P])
-    err = fn(x.data_ptr(), y.data_ptr(), x.shape[0], n,
-             (_P * n)(*[w.data_ptr() for w in ws]), (_P * n)(*[b.data_ptr() for b in bs]),
-             (_I * (n + 1))(*dims), (ctypes.c_float * n)(*slopes),
-             (_P * n)(*[d.data_ptr() for d in ds]) if save_pre else None,
-             _build.stream_handle(x))
+    err = fn(x.data_ptr(), y.data_ptr(), x.shape[0], n, *layers, _build.stream_handle(x))
     _build.check(err, "mlp_chain", "mlp_chain")
     mlp_chain.launches += 1
     return y, ds
@@ -838,6 +937,3 @@ def launch_tanh_pool(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor,
 
 tanh_pool.launches = 0
 
-
-def _round4(n: int) -> int:
-    return (n + 3) // 4 * 4

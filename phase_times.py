@@ -1,7 +1,7 @@
 """Where a redesigned kernel spends its time, phase by phase, on one NVIDIA card.
 
     python3 phase_times.py [--kernel res|res_fwd|tail|chain|mlp|res2d|res2d_bwd|mlp_fwd|sln_fwd|
-                                     cba_bwd|chain_fwd] [--tree DIR] [--out FILE]
+                                     cba_bwd|chain_fwd|cba_fwd|mlp_head] [--tree DIR] [--out FILE]
 
 ``--kernel res`` (the default): K1b's residual-block backward, from DIR's
 ``iinsvae_torch/ops/kernels/csrc/in_chain_bwd.cu``, timed through DIR's own wrappers at the two
@@ -28,6 +28,10 @@ env encoder's k7 reflect in-conv without dx (``env.in``) and the decoder's 1x1 i
 (``dec.in``).
 ``--kernel chain_fwd``: K1 at the range encoder's three stride-2 chains (``range.pair0``,
 ``range.pair1``, ``range.single``), from ``csrc/in_chain.cu``, through ``in_chain``.
+``--kernel cba_fwd``: K2 at its three call sites (``range.out``, ``env.in``, ``dec.in``), from
+``csrc/in_chain.cu``, through ``conv_bias_act``.
+``--kernel mlp_head``: K4 at the classifier (16 -> 16 -> 32 -> 16 -> 5), from
+``csrc/mlp_chain.cu``, through ``mlp_chain``.
 
 DIR defaults to this checkout. The script builds one variant of the source for each phase,
 which stops the kernel after that phase (one nvcc each, all at once, under
@@ -53,7 +57,11 @@ the tensor cores) and ``res2d_tc_kernel``, whose first row stops once x and the 
 are in place and whose others set its ``kLastPhase`` as K7b's do (the second row keeps only the
 copies, waits and __syncthreads); K2b's ``conv_bias_act_bwd_kernel`` (every shape, before its
 three call sites got a kernel of their own) and ``cba_site_bwd_kernel``; K1's
-``in_chain_kernel`` and, at the range chains, ``down_chain_kernel``.
+``in_chain_kernel`` and, at the range chains, ``down_chain_kernel``; K2's
+``conv_bias_act_kernel`` (every shape, before its call sites got a kernel of their own) and
+``cba_fwd_kernel``; K4's ``mlp_chain_kernel`` (the general kernel, which ran the classifier
+before) and ``mlp_head_kernel``. A "(y not stored)" row computes everything and stores y only
+where a pointer equals 1, which no launch meets.
 A kernel that launches several kernels a call is split by name too: each site's device time a
 call of each kernel, from a torch.profiler trace of the whole call (``[split]`` lines). Prints
 one JSON line and writes it to FILE (default ``build/phase_times.json``). Needs one CUDA card
@@ -422,6 +430,45 @@ CUTS["down_chain_kernel"] = [
     ("(4) IN, ReLU of the last stage", "(zl, ns);  // (4)\n    __syncthreads();\n", "continue;"),
     ("(5) y out: the whole kernel", None),
 ]
+# K2: the general kernel (one block a tile of spb samples, taps read through __ldg inside the
+# products), and at its call sites the cba kernel (namespace cba), whose x lands in shared memory
+# by cp.async, its taps in registers. The "products" rows compute everything and store y only
+# where a pointer equals 1, which no launch meets.
+_NO_STORE = "if (reinterpret_cast<std::uintptr_t>(dst) == 1) "
+CUTS["conv_bias_act_kernel"] = [
+    ("launch", "                     Stage st, int spb) {\n"),
+    ("stage x", "i < ns * n0; i += blockDim.x) smem[i] = xg[i];\n  __syncthreads();\n"),
+    ("products, bias, ReLU (y not stored)",
+     {"    for (int v = 0; v < V; ++v) dst[v] = fmaxf(acc[v] + __ldg(b + co + v), 0.f);\n":
+      "    for (int v = 0; v < V; ++v) " + _NO_STORE + "dst[v] = fmaxf(acc[v] + __ldg(b + co + v), "
+      "0.f);\n"}),
+    ("y out: the whole kernel", None),
+]
+CUTS["cba_fwd_kernel"] = [
+    ("launch", "  extern __shared__ __align__(16) float sm[];\n  int tile = blockIdx.x;\n"),
+    ("x staged (landed)",
+     "    cp_async_wait<1>();  // this tile's copies (the next tile's may be in flight)\n"
+     "    __syncthreads();\n", "{ cp_async_wait<0>(); continue; }"),
+    ("taps in registers, products, bias, ReLU (y not stored)",
+     {"void put(V* p, V v) { __stcs(p, v); }":
+      "void put(V* p, V v) { if (reinterpret_cast<std::uintptr_t>(p) == 1) __stcs(p, v); }"}),
+    ("y out: the whole kernel", None),
+]
+# K4 at the small heads (namespace head): a cut after layer j returns with its d_j stores kept
+# (the launch's ds pointers are unknown to the compiler), so the layer's products stay.
+CUTS["mlp_head_kernel"] = [
+    ("launch", "  constexpr bool kStatic = !std::is_same<D, Any>::value;\n"
+     "  extern __shared__ __align__(16) float sm[];\n"),
+    ("weights, biases and x staged (landed)",
+     "  load_x(x, tile * kWarps + warp, batch, d0, lane, x0, x1);\n  cp_async_wait_all();\n"
+     "  __syncthreads();\n"),
+    *[(f"layer {j}", "        w = bias + round4(dout);\n", f"if (j == {j}) return;")
+      for j in range(3)],
+    ("layer 3 (y not stored)",
+     {"void put(float* p, float v) { *p = v; }":
+      "void put(float* p, float v) { if (reinterpret_cast<std::uintptr_t>(p) == 1) *p = v; }"}),
+    ("y out: the whole kernel", None),
+]
 # which source each --kernel reads, and its designs, newest first
 KERNELS = {
     "res": ("in_chain_bwd", ("res_block_bwd_kernel", "in_chain_bwd_kernel")),
@@ -435,6 +482,8 @@ KERNELS = {
     "sln_fwd": ("sln_chain", ("tail_fwd_kernel", "sln_chain_kernel")),
     "cba_bwd": ("conv_bias_act_bwd", ("cba_site_bwd_kernel", "conv_bias_act_bwd_kernel")),
     "chain_fwd": ("in_chain", ("down_chain_kernel", "in_chain_kernel")),
+    "cba_fwd": ("in_chain", ("cba_fwd_kernel", "conv_bias_act_kernel")),
+    "mlp_head": ("mlp_chain", ("mlp_head_kernel", "mlp_chain_kernel")),
 }
 
 
@@ -569,6 +618,23 @@ def main() -> int:
             sites[name] = (lambda g=g, x=x, t=taps, bi=bias, y=y, p=pad, m=mode, d=need_dx:
                            backward.conv_bias_act_bwd(g, x, t, bi, y, padding=p, pad_mode=m,
                                                       need_dx=d))
+    elif args.kernel == "cba_fwd":
+        ee = model.encoder.env_encoder.ConvINAct_0
+        sites = {}
+        for name, (l, c, taps, bias, pad, mode) in {
+                "range.out": (8, 64, re_.out_kernel, re_.out_bias, 0, "zero"),
+                "env.in": (128, 1, ee.kernel, ee.bias, 3, "reflect"),
+                "dec.in": (8, 2, dec.in_kernel, dec.in_bias, 0, "zero")}.items():
+            x = rand(b, l, c)
+            sites[name] = (lambda x=x, t=taps, bi=bias, p=pad, m=mode:
+                           fused.conv_bias_act(x, t, bi, padding=p, pad_mode=m))
+    elif args.kernel == "mlp_head":
+        head = model.classifier.classifier
+        n = len(head.slopes)
+        ws = [getattr(head, f"w{j}") for j in range(n)]
+        bs = [getattr(head, f"b{j}") for j in range(n)]
+        x = rand(b, ws[0].shape[0])
+        sites = {"classifier": lambda: fused.mlp_chain(x, ws, bs, head.slopes)}
     elif args.kernel == "mlp":
         model_2d = IInsVAE(cir_len=157, num_classes=5, style_dim=16, conv_type=2,
                            generator=torch.Generator().manual_seed(0)).cuda()
@@ -590,8 +656,7 @@ def main() -> int:
                            generator=torch.Generator().manual_seed(0)).cuda()
         sites = {}
         for name, head in (("restorer", model.restorer.restorer),
-                           ("classifier", model.classifier.classifier),
-                           ("restorer.2d", model_2d.restorer.restorer)):
+                           ("restorer.2d", model_2d.restorer.restorer)):  # the classifier: mlp_head
             n = len(head.slopes)
             ws = [getattr(head, f"w{j}") for j in range(n)]
             bs = [getattr(head, f"b{j}") for j in range(n)]

@@ -413,16 +413,63 @@ def test_gpu_mlp_chain_restorer_path_matches_plain(cuda, batch, head):
 @pytest.mark.gpu
 @pytest.mark.parametrize("batch", [5, 500])
 def test_gpu_mlp_chain_classifier_keeps_the_general_kernel(cuda, batch):
-    """The classifier's widths (16 -> 16 -> 32 -> 16 -> 5) keep K4's general kernel, within
-    tolerance of the plain version and bit-equal over two calls."""
+    """The classifier's widths (16 -> 16 -> 32 -> 16 -> 5) run K4's small-head kernel
+    (csrc/mlp_chain.cu, namespace head: a warp a sample, tiles of 8, the last short at 5 and
+    500): one launch a call, within tolerance of the plain version, bit-equal over two calls and
+    when it also saves the pre-activations, each saved d_j within tolerance of the plain one.
+    The general kernel stays reachable with ``general=True``, within tolerance of it."""
     ws, bs, slopes, x = _head(cuda, "classifier", batch)
+    assert fused.takes_mlp_head([ws[0].shape[0]] + [w.shape[1] for w in ws])
     with torch.no_grad():
-        y = fused.mlp_chain(x, ws, bs, slopes)
+        n = fused.mlp_chain.launches
+        y, ds = fused.launch_mlp_chain(x, ws, bs, slopes)
+        assert fused.mlp_chain.launches == n + 1 and ds == []
+        assert y.shape == (batch, 5) and torch.isfinite(y).all()
         torch.testing.assert_close(y, fused.mlp_chain_ref(x, ws, bs, slopes), rtol=RTOL,
                                    atol=ATOL)
         assert torch.equal(y, fused.mlp_chain(x, ws, bs, slopes))
+        y_saving, ds = fused.launch_mlp_chain(x, ws, bs, slopes, save_pre=True)
+        assert torch.equal(y, y_saving)
+        for j, (d, want) in enumerate(zip(ds, _pre_activations(x, ws, bs, slopes))):
+            torch.testing.assert_close(d, want, rtol=RTOL, atol=ATOL, msg=lambda m: f"d_{j}: {m}")
+        general = fused.launch_mlp_chain(x, ws, bs, slopes, general=True)[0]
+        torch.testing.assert_close(y, general, rtol=RTOL, atol=ATOL)
         assert _device_kernel_names(lambda: fused.mlp_chain(x, ws, bs, slopes)) == {
+            "head::mlp_head_kernel"}
+        assert _device_kernel_names(
+            lambda: fused.launch_mlp_chain(x, ws, bs, slopes, general=True)) == {
             "mlp_chain_kernel"}
+
+
+# (widths, slopes) of small chains no head has, on K4's small-head path: one layer, eight
+# layers, a width of 64 (two columns a lane), widths 1 and 3, and weights whose float counts
+# are no multiple of 4 (4-byte staging)
+MLP_SMALL = {"one": ((16, 5), (0.2,)), "eight": ((8, 64, 33, 17, 64, 3, 12, 40, 2),
+                                                 (0.1, 0.2, 1.0, 0.3, 0.01, 0.2, 0.5, 1.0)),
+             "odd": ((7, 3, 1, 9), (0.2, 0.1, 1.0)), "wide": ((64, 64), (0.3,))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chain", list(MLP_SMALL))
+@pytest.mark.parametrize("batch", [1, 7, 300])
+def test_gpu_mlp_chain_head_path_takes_other_small_widths(cuda, batch, chain):
+    """Chains of 1-8 layers whose every width is at most 64 run the small-head kernel: y and each
+    saved d_j within tolerance of the plain version, bit-equal over two calls."""
+    dims, slopes = MLP_SMALL[chain]
+    assert fused.takes_mlp_head(dims)
+    gen = torch.Generator().manual_seed(batch)
+    ws = [(torch.randn((a, k), generator=gen) / a ** 0.5).to(cuda) for a, k in zip(dims, dims[1:])]
+    bs = [(0.1 * torch.randn(k, generator=gen)).to(cuda) for k in dims[1:]]
+    x = torch.randn((batch, dims[0]), generator=gen).to(cuda)
+    with torch.no_grad():
+        y, ds = fused.launch_mlp_chain(x, ws, bs, slopes, save_pre=True)
+        torch.testing.assert_close(y, fused.mlp_chain_ref(x, ws, bs, slopes), rtol=RTOL,
+                                   atol=ATOL)
+        for j, (d, want) in enumerate(zip(ds, _pre_activations(x, ws, bs, slopes))):
+            torch.testing.assert_close(d, want, rtol=RTOL, atol=ATOL, msg=lambda m: f"d_{j}: {m}")
+        assert torch.equal(y, fused.mlp_chain(x, ws, bs, slopes))
+        assert _device_kernel_names(lambda: fused.mlp_chain(x, ws, bs, slopes)) == {
+            "head::mlp_head_kernel"}
 
 
 @pytest.mark.gpu
@@ -832,6 +879,95 @@ def test_gpu_conv_bias_act_backward_general_path_matches_plain(cuda, monkeypatch
     assert _device_kernel_names(
         lambda: backward.conv_bias_act_bwd(*args, **kw, general=True)) == {
         "conv_bias_act_bwd_kernel", "iins::reduce_partials_kernel"}
+
+
+def _k2_site(cuda, site, batch):
+    """(x, taps, bias, kw) of K2 at one of its call sites, on the flagship's seeded weights and
+    a seeded x at the batch."""
+    (l, c), pad, mode, _ = K2B_SITES[site]
+    m = IInsVAE(**FLAGSHIP, generator=torch.Generator().manual_seed(8)).to(cuda)
+    taps, bias = {"range.out": (m.encoder.range_encoder.out_kernel,
+                                m.encoder.range_encoder.out_bias),
+                  "env.in": (m.encoder.env_encoder.ConvINAct_0.kernel,
+                             m.encoder.env_encoder.ConvINAct_0.bias),
+                  "dec.in": (m.decoder.decoder.in_kernel, m.decoder.decoder.in_bias)}[site]
+    x = torch.randn((batch, l, c), generator=torch.Generator().manual_seed(batch)).to(cuda)
+    return x, taps.detach(), bias.detach(), dict(padding=pad, pad_mode=mode)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("site", list(K2B_SITES))
+@pytest.mark.parametrize("batch", [1, 5, 261, 500])
+def test_gpu_conv_bias_act_sites_are_bit_equal_to_the_general_kernel(cuda, batch, site):
+    """K2 at its three call sites runs a kernel of its own (csrc/in_chain.cu, namespace cba: tiles
+    of 2 samples at 1, 5 and 261, of 4 at 500, the last tile short at 1, 5 and 261): one launch a
+    call, within tolerance of the plain version, bit-equal to the general kernel on the same
+    inputs and over two calls."""
+    x, taps, bias, kw = _k2_site(cuda, site, batch)
+    assert fused.cba_site(fused.stage_rows(x, [(taps, 1, kw["padding"], kw["pad_mode"])])[0]) \
+        == site
+    with torch.no_grad():
+        n = fused.conv_bias_act.launches
+        got = fused.conv_bias_act(x, taps, bias, **kw)
+        assert fused.conv_bias_act.launches == n + 1
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, fused.conv_bias_act_ref(x, taps, bias, **kw), rtol=RTOL,
+                                   atol=ATOL)
+        assert torch.equal(got, fused.launch_conv_bias_act(x, taps, bias, 1, kw["padding"],
+                                                           kw["pad_mode"], general=True))
+        assert torch.equal(got, fused.conv_bias_act(x, taps, bias, **kw))
+        assert _device_kernel_names(lambda: fused.conv_bias_act(x, taps, bias, **kw)) == {
+            "cba::cba_fwd_kernel"}
+        assert _device_kernel_names(lambda: fused.launch_conv_bias_act(
+            x, taps, bias, 1, kw["padding"], kw["pad_mode"], general=True)) == {
+            "conv_bias_act_kernel"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("site", list(K2B_SITES))
+def test_gpu_conv_bias_act_under_autograd_feeds_k2b_the_sites_y(cuda, site):
+    """In training (autograd.ConvBiasAct) K2's call sites run the same kernel: y bit-equal to the
+    serving call's, and the gradients autograd gives bit-equal to K2b's on that y (dx where the
+    step asks for it: not at env.in, whose input is the pooled CIR)."""
+    x, taps, bias, kw = _k2_site(cuda, site, 261)
+    need_dx = K2B_SITES[site][3]
+    with torch.no_grad():
+        y_serving = fused.conv_bias_act(x, taps, bias, **kw)
+    leaves = [x.clone().requires_grad_(need_dx), taps.clone().requires_grad_(True),
+              bias.clone().requires_grad_(True)]
+    n = fused.conv_bias_act.launches
+    y = fused.conv_bias_act(*leaves, **kw)
+    assert fused.conv_bias_act.launches == n + 1
+    assert torch.equal(y.detach(), y_serving)
+    g = torch.randn(y.shape, generator=torch.Generator().manual_seed(9)).to(cuda)
+    y.backward(g)
+    want = backward.conv_bias_act_bwd(g, x, taps, bias, y_serving, **kw, need_dx=need_dx)
+    got = [leaf.grad for leaf in leaves]
+    for i, (a, w) in enumerate(zip(got, want)):
+        assert (a is None) == (w is None) and (a is None or torch.equal(a, w)), (site, i)
+
+
+@pytest.mark.gpu
+def test_gpu_conv_bias_act_sites_reject_what_their_kernel_does_not_take(cuda):
+    """K2's call-site kernel raises, rather than take another kernel, on an x, taps or bias that is
+    not 16-byte aligned (a view 4 bytes into a buffer) and on float64 operands; the general
+    kernel (``general=True``) still takes the unaligned ones."""
+    def unaligned(t):
+        u = torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape)
+        u.copy_(t)
+        return u
+
+    x, taps, bias, kw = _k2_site(cuda, "dec.in", 5)
+    with torch.no_grad():
+        for i in range(3):
+            args = [x, taps, bias]
+            args[i] = unaligned(args[i])
+            with pytest.raises(ValueError):
+                fused.conv_bias_act(*args, **kw)
+            assert torch.equal(fused.launch_conv_bias_act(*args, 1, 0, "zero", general=True),
+                               fused.conv_bias_act(x, taps, bias, **kw))
+        with pytest.raises(TypeError):
+            fused.conv_bias_act(x.double(), taps.double(), bias.double(), **kw)
 
 
 @pytest.mark.gpu

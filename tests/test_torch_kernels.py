@@ -451,12 +451,15 @@ def test_k4_cluster_plan_covers_every_sample_and_column_once_within_shared_memor
 
 
 def test_k4_other_widths_take_the_general_kernel():
-    """Only the restorers' widths take K4's cluster path: the classifier (16 -> 16 -> 32 -> 16
-    -> 5) and chains that differ in any width keep the general kernel."""
+    """Only the restorers' widths take K4's cluster path, and the classifier (16 -> 16 -> 32 ->
+    16 -> 5) its small-head path; chains that differ from the restorers in any width, with a
+    width over 64, keep the general kernel."""
     assert not fused.takes_mlp_cluster(MLPS["classifier"][0])
+    assert fused.takes_mlp_head(MLPS["classifier"][0])
     for dims in ((16, 512, 256, 256, 2), (24, 512, 256, 256, 1), (144, 512, 256, 256, 1),
                  (16, 512, 256, 1), (16, 256, 256, 256, 1), (8, 512, 256, 256, 1)):
         assert not fused.takes_mlp_cluster(dims), dims
+        assert not fused.takes_mlp_head(dims), dims
 
 
 @pytest.mark.parametrize("batch", [1, 5, 37, 256, 261, 500])
@@ -570,9 +573,10 @@ def test_k1_range_chain_forward_tiles_cover_every_sample_once_within_shared_memo
 
 
 def test_other_shapes_take_the_general_kernels():
-    """Only the flagship's call sites take K1's range-chain path and K2b's site path (range.pair0
-    without dx at K1b, env.in without dx at K2b): other widths, lengths, strides, pads and
-    depths, and the residual block, keep the general kernels (or the residual block's own)."""
+    """Only the flagship's call sites take K1's range-chain path and K2's and K2b's site paths
+    (range.pair0 without dx at K1b, env.in without dx at K2b): other widths, lengths, strides,
+    k, pads, pad modes and depths, and the residual block, keep the general kernels (or the
+    residual block's own)."""
     for name, rows in fused.DOWN_SITES.items():
         assert fused.down_site(rows) == name
     pair1 = fused.DOWN_SITES["range.pair1"]
@@ -585,7 +589,78 @@ def test_other_shapes_take_the_general_kernels():
     for name, rows in backward.CBA_SITES.items():
         assert backward.cba_site(rows, need_dx=False) == name
         assert backward.cba_site(rows, need_dx=True) == (None if name == "env.in" else name)
+    for name, rows in fused.CBA_SITES.items():
+        assert fused.cba_site(rows) == name
     for rows in ([1, 1, 0, 0, 8, 64, 8, 4], [1, 1, 0, 0, 16, 64, 16, 2],
                  [5, 1, 2, 1, 128, 1, 128, 16], [7, 1, 3, 0, 128, 1, 128, 16],
                  [1, 1, 0, 0, 8, 4, 8, 64], [3, 1, 1, 0, 8, 2, 8, 64]):
         assert backward.cba_site(rows, need_dx=False) is None, rows
+        assert fused.cba_site(rows) is None, rows
+    # K2's forward routing on the stage rows the wrapper builds: another length, width, k,
+    # stride, pad or pad mode than a call site's keeps the general kernel
+    for l_in, c_in, k, c_out, stride, pad, mode in (
+            (16, 64, 1, 2, 1, 0, "zero"), (8, 32, 1, 2, 1, 0, "zero"), (8, 64, 1, 4, 1, 0, "zero"),
+            (8, 64, 3, 2, 1, 1, "zero"), (8, 64, 1, 2, 2, 0, "zero"),
+            (128, 1, 7, 16, 1, 3, "zero"), (128, 1, 5, 16, 1, 2, "reflect"),
+            (64, 1, 7, 16, 1, 3, "reflect"), (128, 2, 7, 16, 1, 3, "reflect"),
+            (128, 1, 7, 16, 2, 3, "reflect"), (8, 2, 1, 32, 1, 0, "zero"),
+            (8, 2, 3, 64, 1, 1, "reflect"), (16, 2, 1, 64, 1, 0, "zero")):
+        rows, _, _ = fused.stage_rows(torch.zeros((2, l_in, c_in)),
+                                      [(torch.zeros((k, c_in, c_out)), stride, pad, mode)])
+        assert fused.cba_site(rows) is None, rows
+
+
+@pytest.mark.parametrize("batch", [1, 3, 4, 5, 256, 261, 500])
+def test_k2_site_tiles_cover_every_sample_once_within_shared_memory(batch):
+    """K2's forward at its three call sites (csrc/in_chain.cu, namespace cba): block j of the grid
+    takes tiles j, j + blocks, ..., so every sample must lie in exactly one of those tiles, with
+    the H100's 132 SMs and with fewer SMs than tiles; tiles of 4 samples, or of 2 where tiles of
+    4 would leave more than half the SMs without one. Its sites are the rows the flagship's K2
+    calls give, K2b's and the source's template instances (site id, k, pad, reflect, l_in, c_in,
+    c_out, items a thread), and a block's shared memory (two buffers of the tile's x) stays
+    within the 48 KB a block has by default."""
+    for sms in (132, 7):
+        tile, tiles, blocks = fused.res_fwd_plan(batch, sms)
+        assert tile in (2, 4) and tiles == -(-batch // tile)
+        assert (tile == 4) == (-(-batch // 4) > sms // 2)
+        assert 1 <= blocks <= min(sms, tiles)
+        _cover_once(tiles, blocks, tile, batch)
+    cuda = _cuda_site_rows("in_chain.cu", r"using \w+ = CbaSite<(\d+), ([^>]*)>;")
+    assert sorted(cuda) == [0, 1, 2] and list(fused.CBA_SITES) == list(K2B_SITES)
+    for i, (name, (l_in, c_in, k, c_out, pad, mode)) in enumerate(K2B_SITES.items()):
+        rows, l_out, _ = fused.stage_rows(torch.zeros((batch, l_in, c_in)),
+                                          [(torch.zeros((k, c_in, c_out)), 1, pad, mode)])
+        assert rows == fused.CBA_SITES[name] == backward.CBA_SITES[name]
+        assert fused.cba_site(rows) == name
+        assert cuda[i][:6] == [k, pad, int(mode == "reflect"), l_in, c_in, c_out], name
+        per = cuda[i][6]
+        for t in (2, 4):  # a block's threads: the tile's items (a row's 4 channels, or 1) / per
+            items = t * l_out * (c_out // 4 if c_out % 4 == 0 else c_out)
+            assert items % per == 0 and (items // per) % 32 == 0 and items // per <= 1024, name
+            smem = fused.CBA_FWD_SMEM[name, t]
+            assert smem == 4 * fused.cba_fwd_floats(rows, t) <= 48 * 1024, name
+
+
+@pytest.mark.parametrize("batch", [1, 5, 7, 8, 9, 256, 261, 500])
+def test_k4_head_plan_covers_every_sample_once_within_shared_memory(batch):
+    """K4's small-head path (csrc/mlp_chain.cu, namespace head): block j of the grid takes tiles
+    j, j + blocks, ..., a warp a sample, so every sample must lie in exactly one tile, with the
+    H100's 132 SMs and with fewer SMs than tiles. It takes the classifier and any chain of 1-8
+    layers whose every width is at most 64, not the restorers; a block's shared memory (every
+    layer's weights and biases) stays within the 227 KB a block can have, eight 64-wide layers
+    included."""
+    for sms in (132, 7):
+        tiles, blocks = fused.mlp_head_plan(batch, sms)
+        assert tiles == -(-batch // fused.MLP_HEAD_TILE) and 1 <= blocks <= min(sms, tiles)
+        _cover_once(tiles, blocks, fused.MLP_HEAD_TILE, batch)
+    classifier = MLPS["classifier"][0]
+    assert fused.takes_mlp_head(classifier)
+    assert fused.mlp_head_smem(classifier) == 4 * (256 + 16 + 512 + 32 + 512 + 16 + 80 + 8
+                                                   + fused.MLP_HEAD_TILE * 2 * 64)
+    for dims in RESTORER_DIMS.values():
+        assert not fused.takes_mlp_head(dims)
+    for dims in ((65, 16), (16, 65), (16, 64, 65, 5), (64,) * 10):
+        assert not fused.takes_mlp_head(dims), dims
+    for dims in ((1, 1), (64,) * 9, (7, 3, 1, 9)):
+        assert fused.takes_mlp_head(dims), dims
+        assert fused.mlp_head_smem(dims) <= 227 * 1024
