@@ -88,11 +88,22 @@
    serving launch's, d1 and d2 within tolerance of the plain convs. K7b reads
    the d1, d2 of such a K7 call; its bound is its four conv-sized products as
    3xTF32 on the tensor cores (the route it takes), the fp32-FMA figure
-   beside it.
+   beside it;
+10. [eval] trains, checkpoints, resumes and evaluates through the entry points, in a
+   temporary directory (eval_phase): ``cli.train_semi.main`` on the 1-D flagship at full
+   width (room_full, 10000 CIRs, batch 500, --kl_free_bits 0.5) for 4 epochs, a checkpoint
+   every 2, an evaluation every epoch, keep-last 1: the checkpoints and ``best.json`` it
+   leaves; its final checkpoint evaluated on the card with every launch counter set to 0
+   just before and read just after (17 forward launches a batch, no backward) and restored
+   on the CPU and evaluated there (outputs within the serving tolerance); the evaluated
+   CIR/s; a 2-epoch run resumed to 4, bit-equal to the continuous one; one epoch of the
+   default environment (nlos); the seeded 2-D model's evaluation over the 2000-row test
+   split (8 forward launches a batch, no backward), card against CPU.
 
 Prints a ``sites`` line (per call site, both models), a ``serving`` line,
 a ``backward`` line (per backward call site), a ``training`` and a
-``training_2d`` line, a ``one_stage`` line, a ``kernels`` line, the nvidia-smi line and, last,
+``training_2d`` line, a ``one_stage`` line, an ``eval`` line, a ``kernels`` line, the
+nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. The whole result also goes to
 chiprun_out/chip_smoke.json. Any failure raises and exits non-zero; without
 a CUDA device it exits 2 and prints no result.
@@ -116,6 +127,7 @@ import torch.nn.functional as F
 
 from iinsvae_torch.cli import train_semi
 from iinsvae_torch.config import Config
+from iinsvae_torch.evaluation import evaluate_semi
 from iinsvae_torch.models.vae import IInsVAE
 from iinsvae_torch.ops import kernels
 from iinsvae_torch.ops.conv import conv1d, out_len, upsample_nearest1d
@@ -218,6 +230,14 @@ SOURCES = {
     "sln_layer_bwd": _CSRC + "sln_layer_bwd.cu",
     "tanh_pool_bwd": _CSRC + "sln_layer_bwd.cu",
 }
+# [eval]: the entry point's flags (the training-quality recipe's model and fixture), the
+# epochs of its runs, and the CPU's top-two logit margin under which the card's argmax may
+# differ from the CPU's (the outputs agree within SERVE_RTOL / SERVE_ATOL)
+EVAL_FLAGS = ["--device", "cuda", "--dataset_env", "room_full", "--kl_free_bits", "0.5",
+              "--synthetic_n", "10000", "--batch_size", str(BATCH)]
+EVAL_SCHEDULE = ["--checkpoint_interval", "2", "--sample_interval", "1", "--keep_last", "1"]
+EVAL_EPOCHS = 4
+FLIP_MARGIN = 1e-3
 FLAGSHIP = dict(conv_type=1, cir_len=157, num_classes=5, style_dim=16, dim=4,
                 n_residual=3, n_downsample=4, range_dim=2)
 FLAGSHIP_2D = dict(FLAGSHIP, conv_type=2)
@@ -1633,6 +1653,172 @@ def one_stage_phase(model: IInsVAE) -> dict:
                 cross_checks=cross)
 
 
+def counted_eval(model: IInsVAE, test: dict, expected: dict[str, int] | None = None) -> dict:
+    """``evaluation.evaluate_semi`` on the test split at batch 500, on the model's device; on
+    the card with every launch counter set to 0 just before and read just after, ``expected``
+    forward launches a batch and no backward launch checked. -> metrics, outputs (the real
+    rows), launches."""
+    nb = -(-test["cir"].shape[0] // BATCH)
+    kernels.reset_launch_counts()
+    metrics, outs = evaluate_semi(model, test, BATCH, outputs=True)  # ends on the host
+    fwd, bwd = kernels.launch_counts(), kernels.backward_launch_counts()
+    if expected is not None:
+        for name in fwd:
+            if fwd[name] != expected.get(name, 0) * nb:
+                raise AssertionError(f"{name}: {fwd[name]} launches in {nb} evaluation batches, "
+                                     f"expected {expected.get(name, 0)} a batch")
+        if any(bwd.values()):
+            raise AssertionError(f"an evaluation launched backward kernels: {bwd}")
+    return dict(metrics=metrics, outputs=outs, launches=fwd, launches_bwd=bwd, batches=nb)
+
+
+def card_vs_cpu(card: dict, cpu: dict, what: str) -> dict:
+    """Two counted_eval results of one model on the card and on the CPU: every output within
+    the serving tolerance, argmax flips only where the CPU's top-two margin is under
+    FLIP_MARGIN (and at most as many), rmse and abs within the serving tolerance, the correct
+    count apart by at most the flips."""
+    errs = {}
+    for k, want in cpu["outputs"].items():
+        got = card["outputs"][k]
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise AssertionError(f"{what} {k}: shape {got.shape} (want {want.shape}) or non-finite")
+        np.testing.assert_allclose(got, want, rtol=SERVE_RTOL, atol=SERVE_ATOL,
+                                   err_msg=f"{what} {k}")
+        errs[k] = float(np.abs(got - want).max())
+    top2 = np.sort(cpu["outputs"]["logits"], axis=1)[:, -2:]
+    near = int(((top2[:, 1] - top2[:, 0]) < FLIP_MARGIN).sum())
+    flips = int((card["outputs"]["logits"].argmax(1) != cpu["outputs"]["logits"].argmax(1)).sum())
+    if flips > near:
+        raise AssertionError(f"{what}: {flips} argmax flips, {near} samples within the margin")
+    m, w = card["metrics"], cpu["metrics"]
+    for k in ("rmse", "abs"):
+        if not abs(m[k] - w[k]) <= SERVE_ATOL + SERVE_RTOL * abs(w[k]):
+            raise AssertionError(f"{what} {k}: card {m[k]!r}, CPU {w[k]!r}")
+    n = cpu["outputs"]["logits"].shape[0]
+    if abs(m["accuracy"] - w["accuracy"]) * n > flips + 1e-3:
+        raise AssertionError(f"{what} accuracy: card {m['accuracy']!r}, CPU {w['accuracy']!r}")
+    return dict(max_abs_err_vs_cpu=errs, argmax_flips=flips, within_margin=near,
+                card_metrics=m, cpu_metrics=w)
+
+
+def eval_phase() -> dict:
+    """[eval] The evaluation slice's paths on the card, in a temporary directory:
+
+    - ``cli.train_semi.main`` at full width (1-D, room_full, 10000 CIRs, batch 500,
+      --kl_free_bits 0.5) for EVAL_EPOCHS epochs with EVAL_SCHEDULE: the checkpoint
+      directories, ``best.json`` and the keep-last cleanup it leaves; its final checkpoint
+      evaluated on the card (17 forward launches a batch, no backward) and restored on the
+      CPU and evaluated there (card_vs_cpu), the card's metrics equal to the entry point's
+      final ones; the evaluated CIR/s;
+    - a run of 2 epochs resumed with ``--epoch 2`` to EVAL_EPOCHS: parameters bit-equal to
+      the continuous run's;
+    - one epoch with the default environment (nlos), trained and evaluated;
+    - the seeded 2-D model's eval step over the fixture's 2000-row test split (8 forward
+      launches a batch, no backward), card against CPU."""
+    import argparse
+    import tempfile
+
+    from iinsvae_torch.cli.common import resolve_data
+    from iinsvae_torch.config import add_args, add_train_args, from_args
+    from iinsvae_torch.training import checkpoint as ckpt
+
+    def split(cfg: Config) -> dict:
+        return dict(zip(("cir", "err", "label"), (torch.from_numpy(a) for a in
+                                                  resolve_data(cfg)[1])))
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        def run(name: str, *args: str):
+            """train_semi.main on EVAL_FLAGS and ``args`` -> its state and final metrics, its
+            wall time and its Config (the same flags parsed as it parses them)."""
+            argv = EVAL_FLAGS + ["--model_dir", f"{tmp}/{name}/models",
+                                 "--out_dir", f"{tmp}/{name}/results", *args]
+            t0 = time.perf_counter()
+            state, final = train_semi.main(argv)
+            wall = time.perf_counter() - t0
+            parser = argparse.ArgumentParser()
+            parser.add_argument("--device")
+            return state, final, wall, from_args(add_train_args(add_args(parser)).parse_args(argv))
+
+        state, final, wall, cfg = run("continuous", "--n_epochs", str(EVAL_EPOCHS),
+                                      *EVAL_SCHEDULE)
+        model_path, result_path = ckpt.semi_model_dir(cfg), ckpt.semi_result_dir(cfg)
+        best, epochs = ckpt.best_epoch(model_path), ckpt.list_epochs(model_path)
+        # epoch 0 and 2 checkpointed, each new best of epochs 1-3 saved; keep-last 1 leaves
+        # the final epoch and the best
+        if best is None or best["epoch"] not in range(1, EVAL_EPOCHS):
+            raise AssertionError(f"best.json: {best}")
+        if epochs != sorted({best["epoch"], EVAL_EPOCHS}):
+            raise AssertionError(f"checkpoints {epochs}, best {best}")
+        files = [Path(model_path, f"epoch_{e}", "state.pt") for e in epochs] + [
+            Path(result_path, "train_log.log"),
+            Path(result_path, f"residuals_zenodo_room_full_{EVAL_EPOCHS}.npz")]
+        if not all(f.is_file() for f in files):
+            raise AssertionError(f"missing: {[str(f) for f in files if not f.is_file()]}")
+
+        test = split(cfg)
+        cpu_model = IInsVAE(**cfg.model_kwargs())
+        cpu_model.load_state_dict(ckpt.read_checkpoint(model_path, EVAL_EPOCHS)["model"])
+        gpu_model = copy.deepcopy(cpu_model).cuda()
+        card = counted_eval(gpu_model, test, EXPECTED_RECON)
+        for k in ("rmse", "abs", "accuracy"):
+            if card["metrics"][k] != final[k]:
+                raise AssertionError(f"{k}: the restored checkpoint's {card['metrics'][k]!r} on "
+                                     f"the card, the entry point's final {final[k]!r}")
+        # timed before the CPU's evaluation, whose idle worker threads would share the host
+        reps = 10
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            counted_eval(gpu_model, test)
+        eval_cir_per_s = reps * test["cir"].shape[0] / (time.perf_counter() - t0)
+        agree = card_vs_cpu(card, counted_eval(cpu_model, test), "1-D checkpoint")
+
+        run("resumed", "--n_epochs", "2", *EVAL_SCHEDULE)
+        resumed, final_r, _, _ = run("resumed", "--n_epochs", str(EVAL_EPOCHS), "--epoch", "2",
+                                     *EVAL_SCHEDULE)
+        differ = [n for (n, p), q in zip(state.model.named_parameters(),
+                                         resumed.model.parameters()) if not torch.equal(p, q)]
+        if differ or resumed.step != state.step or final_r != final:
+            raise AssertionError(f"the resumed run differs from the continuous one: {differ}, "
+                                 f"steps {resumed.step} / {state.step}")
+
+        _, final_nlos, wall_nlos, cfg_nlos = run("nlos", "--dataset_env", "nlos", "--n_epochs",
+                                                 "1", "--sample_interval", "0",
+                                                 "--checkpoint_interval", "-1")
+        if not all(np.isfinite(final_nlos[k]) for k in ("rmse", "abs", "accuracy")) or \
+                ckpt.list_epochs(ckpt.semi_model_dir(cfg_nlos)) != [1]:
+            raise AssertionError(f"the nlos epoch: {final_nlos}")
+
+    cfg_2d = train_config(2)
+    test_2d = split(cfg_2d)
+    cpu_2d = IInsVAE(**FLAGSHIP_2D, generator=torch.Generator().manual_seed(0))
+    card_2d = counted_eval(copy.deepcopy(cpu_2d).cuda(), test_2d, EXPECTED_2D_RECON)
+    agree_2d = card_vs_cpu(card_2d, counted_eval(cpu_2d, test_2d), "2-D seeded")
+
+    result = dict(
+        config=dict(flags=EVAL_FLAGS, schedule=EVAL_SCHEDULE, epochs=EVAL_EPOCHS),
+        final_metrics=final, wall_s=wall, checkpoints=epochs, best=best,
+        launches=card["launches"], launches_bwd=card["launches_bwd"],
+        batches=card["batches"], launches_per_batch=sum(card["launches"].values()) / card["batches"],
+        card_vs_cpu=agree, eval_cir_per_s=eval_cir_per_s, eval_rows=int(test["cir"].shape[0]),
+        resumed_bit_equal=True, nlos=dict(final_metrics=final_nlos, wall_s=wall_nlos),
+        launches_2d=card_2d["launches"], launches_bwd_2d=card_2d["launches_bwd"],
+        launches_per_batch_2d=sum(card_2d["launches"].values()) / card_2d["batches"],
+        card_vs_cpu_2d=agree_2d)
+    print(f"[eval] 1-D: {EVAL_EPOCHS} epochs through cli.train_semi in {wall:.1f} s, final "
+          f"{final}; checkpoints {epochs}, best {best}; an evaluation batch "
+          f"{result['launches_per_batch']:g} forward launches, 0 backward; card vs CPU "
+          f"{agree['max_abs_err_vs_cpu']}, {agree['argmax_flips']} argmax flips "
+          f"({agree['within_margin']} within {FLIP_MARGIN}); {eval_cir_per_s:.1f} evaluated "
+          f"CIR/s ({test['cir'].shape[0]} rows, batch {BATCH}); resumed 2 -> {EVAL_EPOCHS} "
+          f"bit-equal", flush=True)
+    print(f"[eval] nlos: one epoch, final {final_nlos} in {wall_nlos:.1f} s", flush=True)
+    print(f"[eval] 2-D seeded: {result['launches_per_batch_2d']:g} forward launches a batch, "
+          f"0 backward; card vs CPU {agree_2d['max_abs_err_vs_cpu']}, "
+          f"{agree_2d['argmax_flips']} argmax flips ({agree_2d['within_margin']} within "
+          f"{FLIP_MARGIN})", flush=True)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script runs on the card",
@@ -1685,18 +1871,23 @@ def main() -> int:
     training_2d = train_main_path(2, EXPECTED_2D_RECON, EXPECTED_2D_TRAIN_BWD)
     del model_2d, cpu_2d
 
+    # evaluation, checkpoints and resume through the entry points
+    evaluation = eval_phase()
+
     per_fwd = "one forward batch of 500 (sum over its call sites)"
     per_step = "one training step at batch 500 (sum over its call sites)"
     names_1d = [k for k, v in EXPECTED_RECON.items() if v]
     kernel_table = kernel_rows(
         site_rows, names_1d, launches, per_fwd,
         {k: dict(launches_no_recon=launches_no_recon[k], launches_train=training["launches"][k],
+                 launches_eval=evaluation["launches"][k],
                  **conv_yardstick(site_rows, k, "mm_ms" if k == "mlp_chain" else "cudnn_conv_ms"))
          for k in names_1d})
     kernel_table += kernel_rows(
         site_rows_2d, ["res_block_2d"], launches_2d, per_fwd + ", conv_type 2",
         {"res_block_2d": dict(launches_no_recon=launches_2d_no_recon["res_block_2d"],
                               launches_train=training_2d["launches"]["res_block_2d"],
+                              launches_eval=evaluation["launches_2d"]["res_block_2d"],
                               save_ms=per_call_sum(site_rows_2d, "res_block_2d", "save_ms"),
                               bound="3xTF32 on the tensor cores",
                               tf32x3_bound_ms=per_call_sum(site_rows_2d, "res_block_2d",
@@ -1741,7 +1932,7 @@ def main() -> int:
         serving_2d=serving_2d, serving_2d_recon=serving_2d_recon,
         backward_sites=bwd_rows + bwd_rows_2d, ragged_max_abs_err=ragged, training=training,
         training_2d=training_2d,
-        one_stage=one_stage,
+        one_stage=one_stage, evaluation=evaluation,
         kernel_tolerance=[KERNEL_RTOL, KERNEL_ATOL], serve_tolerance=[SERVE_RTOL, SERVE_ATOL],
         backward_tolerance=[BWD_RTOL, BWD_ATOL], step_tolerance=[STEP_FACTOR, STEP_FLOOR],
         wall_s=time.perf_counter() - t_start),
@@ -1754,6 +1945,7 @@ def main() -> int:
     print(json.dumps({"training": training, "card": card}), flush=True)
     print(json.dumps({"training_2d": training_2d, "card": card}), flush=True)
     print(json.dumps({"one_stage": one_stage, "card": card}), flush=True)
+    print(json.dumps({"eval": evaluation, "card": card}), flush=True)
     print(json.dumps({"kernels": kernel_table}), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)

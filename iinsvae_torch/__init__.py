@@ -2,8 +2,9 @@
 
 It serves the IIns-VAE forward (range and env encoders, the Linear
 restorer and classifier heads, and, with ``return_recon``, the AdaIN
-decoder's reconstruction) and trains it with the semi-supervised step
-(training/, cli/train_semi.py), for the 1-D model (conv_type=1) and the
+decoder's reconstruction), trains it with the semi-supervised step,
+checkpoints, resumes and evaluates it (training/, evaluation/,
+cli/train_semi.py, cli/evaluate.py), for the 1-D model (conv_type=1) and the
 expanded 2-D model (conv_type=2: the encoders on the column-grouped square
 image, ops/colgroups.py; the decoder's subpixel 'fast' lowering,
 ops/subpixel.py). Activations stay channels-last ``(B, L, C)`` or
@@ -15,7 +16,8 @@ by ctypes, and each has a hand-written backward kernel behind a
 ``torch.autograd.Function``; on CPU tensors each wrapper runs its plain
 PyTorch version, which autograd differentiates.
 
-The package imports torch and numpy only: never jax, flax or iinsvae_tpu.
+The package imports torch, numpy and scipy (the .mat exports) only: never jax,
+flax or iinsvae_tpu.
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,10 @@
 """`serve` entry of the port, self-test mode (iinsvae_tpu/cli/serve.py:95-106).
 
-Builds a ``Predictor`` from an export_serving ``weights.npz`` (``--npz``)
-or, without one, from the seeded initialisation, sends ``--selftest_n``
+Builds a ``Predictor`` from an export_serving ``weights.npz`` (``--npz``),
+from the port's checkpoint of epoch ``--epoch N`` (``-1``: the latest) in
+the directory the training flags name (``--model_dir``, ``--dataset_env``,
+``--supervision_rate``, ...; training/checkpoint.py), or, without either,
+from the seeded initialisation, sends ``--selftest_n``
 random CIRs through it in padded batches of ``--serve_batch``, and prints a
 summary; with ``--recon`` the predictor also returns the reconstructed CIR
 and the summary gives its shape and range. ``--conv_type 2`` serves the
@@ -10,6 +13,7 @@ later slice.
 
     python -m iinsvae_torch.cli.serve --dataset_env room_full --serve_batch 256 --recon
     python -m iinsvae_torch.cli.serve --dataset_env room_full --conv_type 2 --recon
+    python -m iinsvae_torch.cli.serve --dataset_env room_full --synthetic_n 10000 --epoch 400
 """
 
 from __future__ import annotations
@@ -20,9 +24,10 @@ import time
 import numpy as np
 import torch
 
-from iinsvae_torch.config import add_args, from_args
+from iinsvae_torch.config import add_args, add_train_args, from_args
 from iinsvae_torch.models.vae import IInsVAE
 from iinsvae_torch.serving import Predictor
+from iinsvae_torch.training.checkpoint import latest_epoch, semi_model_dir
 
 
 def main(argv=None) -> None:
@@ -34,6 +39,7 @@ def main(argv=None) -> None:
     parser.add_argument("--recon", action="store_true",
                         help="also return the reconstructed CIR (runs the decoder)")
     add_args(parser)
+    add_train_args(parser)  # --epoch and the flags that name the checkpoint directory
     args = parser.parse_args(argv)
     cfg = from_args(args)
 
@@ -41,13 +47,20 @@ def main(argv=None) -> None:
         predictor = Predictor.from_npz(args.npz, cir_len=cfg.cir_len,
                                        batch_size=args.serve_batch, return_recon=args.recon,
                                        device=args.device)
+        source = args.npz
+    elif cfg.epoch:
+        epoch = latest_epoch(semi_model_dir(cfg)) if cfg.epoch == -1 else cfg.epoch
+        predictor = Predictor.from_checkpoint(cfg, epoch, batch_size=args.serve_batch,
+                                              return_recon=args.recon, device=args.device)
+        source = f"checkpoint epoch {epoch}"
     else:
         model = IInsVAE(**cfg.model_kwargs(),
                         generator=torch.Generator().manual_seed(cfg.seed))
         predictor = Predictor(model, batch_size=args.serve_batch, return_recon=args.recon,
                               device=args.device)
+        source = "seeded init"
     print(f"[serve] predictor ready (cir_len={cfg.cir_len}, batch={args.serve_batch}, "
-          f"device={predictor.device})", flush=True)
+          f"device={predictor.device}, {source})", flush=True)
 
     cirs = np.random.default_rng(cfg.seed).normal(size=(args.selftest_n, cfg.cir_len))
     t0 = time.perf_counter()

@@ -1,15 +1,29 @@
 """`train_semi` entry of the port: semi-supervised training of the 1-D
 IIns-VAE, or with ``--conv_type 2`` the expanded 2-D one, on the synthetic
-fixture (iinsvae_tpu/cli/train_semi.py).
+fixture (iinsvae_tpu/cli/train_semi.py, one process).
 
-Builds the synthetic Zenodo fixture (``--synthetic_n`` CIRs, fixture v2),
-takes the 'full' split's train part (the first 80%), standardizes it, pads
-it to whole batches and keeps it on the device; then runs ``--n_epochs``
-epochs of the semi step (per-sample or per-batch
-Bernoulli(``--supervision_rate``) label mask, Adam with the LambdaLR decay
-from ``--decay_epoch``) and prints one line an epoch: the loss, its four
-parts, the range RMSE and the env accuracy. Checkpoints, evaluation and the
-SVM baseline come with the evaluation slice.
+Builds the synthetic Zenodo fixture of ``--dataset_env`` (``--synthetic_n``
+CIRs, fixture v2), takes the 'full' split (the first ``--split_factor`` of
+the rows train, the rest test), standardizes it, pads the train part to
+whole batches and keeps both parts on the device; then runs the epochs of
+the semi step (per-sample or per-batch Bernoulli(``--supervision_rate``)
+label mask, Adam with the LambdaLR decay from ``--decay_epoch``) and logs
+one line an epoch: the loss, its four parts, the range RMSE and the env
+accuracy. Around them:
+
+- ``--epoch N`` resumes from checkpoint N, ``--epoch -1`` from the latest;
+  the LR schedule goes on from the restored step;
+- a checkpoint every ``--checkpoint_interval`` epochs (-1: none), then
+  ``--keep_last`` cleanup (the newest N and the best stay);
+- an evaluation of the test part every ``--sample_interval`` epochs after
+  epoch 0 (0: none); a new best validation RMSE moves ``best.json`` and
+  saves that epoch;
+- at the end a checkpoint at ``--n_epochs`` and a final evaluation that
+  writes the residual exports.
+
+Checkpoints go under ``--model_dir``, ``train_log.log`` and the residuals
+under ``--out_dir`` (training/checkpoint.py names the directories). The SVM
+baseline and the plots are not ported.
 
     python -m iinsvae_torch.cli.train_semi --dataset_env room_full --n_epochs 3 \\
         --synthetic_n 10000 --batch_size 500
@@ -24,11 +38,14 @@ from typing import Callable
 
 import torch
 
+from iinsvae_torch.cli.common import EpochLogger, fmt_metrics, resolve_data, setup_logging
 from iinsvae_torch.config import Config, add_args, add_train_args, from_args
-from iinsvae_torch.data.splits import full_split
-from iinsvae_torch.data.synthetic import synthetic_arrays
+from iinsvae_torch.evaluation.evaluate import evaluate_semi
 from iinsvae_torch.models.vae import IInsVAE
 from iinsvae_torch.serving import resolve_device
+from iinsvae_torch.training.checkpoint import (gc_checkpoints, latest_epoch, restore_checkpoint,
+                                               save_checkpoint, semi_model_dir,
+                                               semi_result_dir, update_best)
 from iinsvae_torch.training.loop import make_epoch_runner, pad_to_batches, train_epochs
 from iinsvae_torch.training.state import TrainState, create_train_state
 from iinsvae_torch.training.steps import make_semi_train_step
@@ -41,20 +58,20 @@ class Trainer:
     cfg: Config
     state: TrainState
     data: dict[str, torch.Tensor]  # the padded train split, on the device
+    test: dict[str, torch.Tensor]  # the test split (cir, err, label), on the device
     train_step: Callable
     run_epoch: Callable
 
 
 def build(cfg: Config, device: str | torch.device = "cuda") -> Trainer:
-    """The fixture's train split on ``device``, the seeded model, Adam with
-    the schedule, the step and the epoch runner."""
+    """The fixture's split on ``device``, the seeded model, Adam with the
+    schedule, the step and the epoch runner."""
     device = resolve_device(device)
-    cir, err, label, _ = synthetic_arrays(cfg.synthetic_n, cfg.seed, cfg.dataset_env,
-                                          cfg.dataset_name)
-    (train_cir, train_err, train_label), _ = full_split(cir, err, label)
+    (train_cir, train_err, train_label), test = resolve_data(cfg)
     data = pad_to_batches({"cir": train_cir, "err": train_err, "label": train_label},
                           cfg.batch_size)
     data = {k: v.to(device) for k, v in data.items()}
+    test = {k: torch.from_numpy(v).to(device) for k, v in zip(("cir", "err", "label"), test)}
     steps_per_epoch = data["cir"].shape[0] // cfg.batch_size
     model = IInsVAE(**cfg.model_kwargs(),
                     generator=torch.Generator().manual_seed(cfg.seed)).to(device)
@@ -63,31 +80,65 @@ def build(cfg: Config, device: str | torch.device = "cuda") -> Trainer:
                                steps_per_epoch=steps_per_epoch)
     step = make_semi_train_step(cfg.supervision_rate, mask_mode=cfg.mask_mode,
                                 kl_free_bits=cfg.kl_free_bits)
-    return Trainer(cfg, state, data, step, make_epoch_runner(step, cfg.batch_size))
+    return Trainer(cfg, state, data, test, step, make_epoch_runner(step, cfg.batch_size))
 
 
-def main(argv=None) -> tuple[Trainer, list[dict]]:
+def main(argv=None) -> tuple[TrainState, dict]:
+    """-> (the trained state, the final evaluation's metrics)."""
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     add_args(parser)
     add_train_args(parser)
     args = parser.parse_args(argv)
     cfg = from_args(args)
-    trainer = build(cfg, args.device)
-    n = int(trainer.data["weight"].sum().item())
-    print(f"[train_semi] {n} train CIRs in {trainer.data['cir'].shape[0] // cfg.batch_size} "
-          f"batches of {cfg.batch_size} on {trainer.data['cir'].device}, "
-          f"supervision {cfg.supervision_rate} ({cfg.mask_mode})", flush=True)
     t0 = time.perf_counter()
+    trainer = build(cfg, args.device)
+    model_path, result_path = semi_model_dir(cfg), semi_result_dir(cfg)
+    logger = setup_logging(result_path, "train_log.log")
+    logger.info(str(cfg.to_dict()))
+    state = trainer.state
+    if cfg.epoch == -1:  # resume from the latest checkpoint
+        cfg.epoch = latest_epoch(model_path) or 0
+    if cfg.epoch != 0:
+        restore_checkpoint(model_path, cfg.epoch, state)
+        logger.info(f"resumed from epoch {cfg.epoch}")
+    n = int(trainer.data["weight"].sum().item())
+    logger.info(f"[train_semi] {n} train CIRs in {trainer.data['cir'].shape[0] // cfg.batch_size} "
+                f"batches of {cfg.batch_size} on {trainer.data['cir'].device}, "
+                f"supervision {cfg.supervision_rate} ({cfg.mask_mode})")
+    eval_bs = min(500, trainer.test["cir"].shape[0])
 
-    def log(epoch, m):
-        parts = " ".join(f"[{k}: {m[k]:.6f}]" for k in LOGGED)
-        print(f"[Epoch {epoch}/{cfg.n_epochs}] {parts} "
-              f"[{time.perf_counter() - t0:.2f}s]", flush=True)
+    def evaluate(epoch: int, state: TrainState, final: bool = False) -> dict:
+        return evaluate_semi(state.model, trainer.test, eval_bs, result_path=result_path,
+                             epoch=epoch, dataset_env=cfg.dataset_env,
+                             dataset_name=cfg.dataset_name, export=final)
 
-    history = train_epochs(trainer.state, trainer.run_epoch, trainer.data, cfg.n_epochs,
-                           seed=cfg.seed, log_fn=log)
-    return trainer, history
+    def validate(epoch: int, state: TrainState) -> None:
+        if epoch == 0:
+            return
+        m = evaluate(epoch, state)
+        logger.info(f"[val epoch {epoch}] {fmt_metrics(m)}")
+        # best-model tracking keyed on the validation range RMSE
+        if update_best(model_path, epoch, m["rmse"]):
+            save_checkpoint(model_path, epoch, state)
+            logger.info(f"[best epoch {epoch}] rmse {m['rmse']:.6f}")
+
+    def checkpoint(epoch: int, state: TrainState) -> None:
+        save_checkpoint(model_path, epoch, state)
+        gc_checkpoints(model_path, cfg.keep_last)
+
+    train_epochs(state, trainer.run_epoch, trainer.data, cfg.n_epochs, seed=cfg.seed,
+                 start_epoch=cfg.epoch,
+                 log_fn=EpochLogger(logger, cfg.n_epochs,
+                                    f"[Model: C{cfg.conv_type}_{cfg.restorer_type}_semi"
+                                    f"{cfg.supervision_rate}]"),
+                 eval_fn=validate, eval_interval=cfg.sample_interval,
+                 checkpoint_fn=checkpoint, checkpoint_interval=max(cfg.checkpoint_interval, 0))
+    save_checkpoint(model_path, cfg.n_epochs, state)
+    gc_checkpoints(model_path, cfg.keep_last)
+    m = evaluate(cfg.n_epochs, state, final=True)
+    logger.info(f"[final] {fmt_metrics(m)} [wall: {time.perf_counter() - t0:.3f}s]")
+    return state, m
 
 
 if __name__ == "__main__":

@@ -1,15 +1,17 @@
 """The model-geometry, serving and training fields of the run config.
 
-A copy of the subset of iinsvae_tpu/config.py that serving and the semi
-training step need, with the same names and defaults, and the env ->
-(num_classes, cir_len) tables. ``add_args`` gives the model flags every
-entry point takes, ``add_train_args`` the trainer's.
+A copy of the subset of iinsvae_tpu/config.py that serving, the semi
+training step, checkpoints and evaluation need, with the same names and
+defaults, and the env -> (num_classes, cir_len) tables. ``add_args`` gives
+the model flags every entry point takes, ``add_train_args`` the trainer's,
+which also name the checkpoint directory, so the evaluate and serve entry
+points take them too.
 """
 
 from __future__ import annotations
 
 import argparse
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 
 NUM_CLASSES = {
     "nlos": 2,
@@ -53,6 +55,17 @@ class Config:
     mask_mode: str = "sample"  # sample (intent) | batch (reference literal)
     kl_free_bits: float = 0.0  # per-dim KL floor; 0 = reference-exact
     synthetic_n: int = 8192
+    # data split and the run's intervals and directories
+    # (iinsvae_tpu/config.py:39-41, 67-72, 88-89)
+    mode: str = "full"
+    split_factor: float = 0.8
+    epoch: int = 0  # epoch to start training from; -1 resumes from the latest checkpoint
+    test_epoch: int = 500
+    sample_interval: int = 20
+    checkpoint_interval: int = 50
+    keep_last: int = -1  # checkpoint GC: keep the newest N (and the best); <= 0 keeps all
+    out_dir: str = "./saved_results"
+    model_dir: str = "./saved_models"
 
     @property
     def cir_len(self) -> int:
@@ -70,6 +83,9 @@ class Config:
         if self.dataset_name == "ewine":
             return 2
         return NUM_CLASSES[self.dataset_env]
+
+    def to_dict(self) -> dict:
+        return asdict(self)
 
     def model_kwargs(self) -> dict:
         """Keyword arguments of models.vae.IInsVAE for this config."""
@@ -114,6 +130,18 @@ def add_train_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     a("--kl_free_bits", type=float, default=d.kl_free_bits,
       help="per-dimension KL floor (free bits); 0 = the reference's plain KL")
     a("--synthetic_n", type=int, default=d.synthetic_n)
+    a("--mode", type=str, default=d.mode, choices=["full", "paper"])
+    a("--split_factor", type=float, default=d.split_factor)
+    a("--epoch", type=int, default=d.epoch,
+      help="epoch to start training from; -1 resumes from the latest checkpoint")
+    a("--test_epoch", type=int, default=d.test_epoch)
+    a("--sample_interval", type=int, default=d.sample_interval)
+    a("--checkpoint_interval", type=int, default=d.checkpoint_interval)
+    a("--keep_last", type=int, default=d.keep_last,
+      help="checkpoint GC: keep only the newest N epoch checkpoints (plus the best); "
+           "<=0 keeps all")
+    a("--out_dir", type=str, default=d.out_dir)
+    a("--model_dir", type=str, default=d.model_dir)
     return parser
 
 

@@ -2,15 +2,17 @@
 
 A copy of the arithmetic of iinsvae_tpu/data/synthetic.py:66-125 at its
 default fixture version 2 (the same random draws in the same order, so a
-seed gives bit-equal CIRs) and of the ``room_full`` selection and shuffle of
-iinsvae_tpu/data/zenodo.py:122-162, without the pandas frame and pickle
-round trip (the card's machine has no pandas). Only ``room_full`` is
-ported; the other environments come with the data pipeline slice.
+seed gives bit-equal CIRs), selected and shuffled for each environment by
+``data.zenodo.select_env`` as iinsvae_tpu/data/zenodo.py:122-162 does,
+without the pandas frame and pickle round trip (the card's machine has no
+pandas).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from iinsvae_torch.data.zenodo import select_env
 
 CIR_LEN = 157
 # ~40% LOS; obstacle k is the one-hot string with its '1' at position 10-k-1
@@ -80,18 +82,11 @@ def synthetic_zenodo_arrays(n: int = 4096, seed: int = 0) -> dict[str, np.ndarra
 
 def synthetic_arrays(n: int = 4096, seed: int = 0, option: str = "room_full",
                      dataset_name: str = "zenodo"):
-    """(cir, err, label, room), shapes (N, 157), (N, 1), (N, 1), (N, 1),
-    float64, in the order zenodo.load_pkl_data gives them: the selected rows
-    shuffled by ``default_rng(seed).permutation``."""
+    """(cir, err, label, room) of environment ``option``, shapes (N, 157),
+    (N, 1), (N, 1), (N, 1), float64, in the order zenodo.load_pkl_data gives
+    them: the selected rows shuffled by ``default_rng(seed).permutation``."""
     if dataset_name != "zenodo":
         raise NotImplementedError(
             f"dataset_name {dataset_name!r}: only the zenodo fixture is ported; the eWine "
             "fixture (152 taps) comes with the data pipeline slice")
-    if option != "room_full":
-        raise NotImplementedError(
-            f"dataset_env {option!r}: only room_full is ported; the other environments "
-            "come with the data pipeline slice")
-    cols = synthetic_zenodo_arrays(n, seed)
-    room = cols["room"].astype(np.float64).reshape(-1, 1)
-    perm = np.random.default_rng(seed).permutation(n)
-    return cols["cir"][perm], cols["err"].reshape(-1, 1)[perm], room[perm], room[perm]
+    return select_env(synthetic_zenodo_arrays(n, seed), option, seed)

@@ -1,0 +1,3 @@
+from iinsvae_torch.evaluation.evaluate import add_plurality_share, evaluate_semi, export_residuals
+
+__all__ = ["add_plurality_share", "evaluate_semi", "export_residuals"]

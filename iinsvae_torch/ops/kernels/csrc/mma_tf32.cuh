@@ -110,4 +110,15 @@ __device__ __forceinline__ void mma3(float (&c)[M][N][4], const Frag<4> (&a)[M],
     for (int n = 0; n < N; ++n) mma(c[m][n], a[m].hi, b[n].hi);
 }
 
+// c += v, tile by tile, in fp32: a partial sum of mma3's added to its accumulator.
+template <int M, int N>
+__device__ __forceinline__ void add(float (&c)[M][N][4], const float (&v)[M][N][4]) {
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[m][n][i] += v[m][n][i];
+}
+
 }  // namespace tf32x3

@@ -30,9 +30,12 @@
 //   are (pixels x C_out) . (C_out x C_in) a tap over the nine taps, a warp
 //   32 x 32 of the tile's 128 x 64, the next step's operands loaded before
 //   this step's mma's; the taps' gradients one product of 36 m-tiles of
-//   (tap, ci) rows against (pixels x C_out), in two rounds of 4 and 5
-//   m-tiles a warp times 32 output channels, so one split of gd serves four
-//   or five m-tiles.
+//   (tap, ci) rows against (pixels x C_out), in three rounds of 3 m-tiles a
+//   warp times 32 output channels, so one split of gd serves three m-tiles.
+// - Accuracy. The tensor core truncates where an mma adds into its
+//   accumulator, so every two k-steps of a product run in a partial sum from
+//   zero, added to the product's sums in fp32 (kFlush, as K7 does); the
+//   partial sums' registers are why the taps' gradients take three rounds.
 // - The A operand of dk is a gather of reflect-shifted pixel rows of the
 //   field (y1 or x) in shared memory, read in place. That of the input
 //   gradient, the sum of gd over the outputs that read each pixel, is one
@@ -86,6 +89,13 @@ static_assert(2 * kSlice == kPair, "the tap ring takes one field's room");
 // kernel computes them up to kLastPhase; phase_times.py builds variants with an earlier last
 // phase, which keep every copy, wait and __syncthreads of the whole kernel.
 constexpr int kLastPhase = 6;
+// Where an mma adds its products into an accumulator the tensor core truncates the sum: summed
+// in one accumulator (72 k-steps for dy1 and dx, 16 a tile for the taps), the gradients were
+// up to tens of times further from float64 than the plain fp32 backward's
+// (tests/test_torch_gpu.py). So each kFlush k-steps of a product run in a partial sum of their
+// own, from zero, which is then added to the product's sums in fp32, as in K7; 4 spills more
+// registers and runs slower.
+constexpr int kFlush = 2;
 
 // The tap slices a block reads, in order: for each of its tiles k2's nine and, with dx, k1's
 // nine. Slice n goes to ring slot n % 2 as one group.
@@ -203,6 +213,7 @@ __device__ void input_grad(const float* gd, const float* E, TapStream& st, Group
       for (int nt = 0; nt < 4; ++nt) rb[nt] = ld2(B + nt * 8 * kLd + k0);
     };
     fetch(0);
+    float part[2][4][4];
 #pragma unroll
     for (int k0 = 0; k0 < kC; k0 += 8) {
       Frag<4> a[2];
@@ -220,7 +231,12 @@ __device__ void input_grad(const float* gd, const float* E, TapStream& st, Group
         b[nt].set(1, rb[nt].y);
       }
       if (k0 + 8 < kC) fetch(k0 + 8);
-      tf32x3::mma3(acc, a, b);
+      const int j = (k0 / 8) % kFlush;
+      if (j == 0)
+        tf32x3::mma3<true>(part, a, b);
+      else
+        tf32x3::mma3(part, a, b);
+      if (j == kFlush - 1) tf32x3::add(acc, part);
     }
   }
   __syncthreads();
@@ -247,27 +263,35 @@ __device__ void taps_grad_round(const float* in, const float* gd, int ns, float*
     ca[i] = reflect8(t + dw - 1) * kLd + ci;
     cb[i] = reflect8(t + 3 + dw) * kLd + ci;
   }
-  float acc[M][4][4] = {};
+  float acc[M][4][4] = {}, sum[M][4][4];
   for (int s = 0; s < ns; ++s) {
-    for (int h = 0; h < kH; ++h) {  // a step: image row h of sample s
-      const float* br = gd + s * kField + (h * kW + t) * kLd + co0 + g;
-      Frag<4> a[M];
-      Frag<2> b[4];
+    for (int h0 = 0; h0 < kH; h0 += kFlush) {
 #pragma unroll
-      for (int i = 0; i < M; ++i) {
-        const float* ar = in + s * kField + reflect8(h + dh[i] - 1) * kW * kLd;
-        const float2 u = ld2(ar + ca[i]), v = ld2(ar + cb[i]);
-        a[i].set(0, u.x);
-        a[i].set(1, u.y);
-        a[i].set(2, v.x);
-        a[i].set(3, v.y);
-      }
+      for (int j = 0; j < kFlush; ++j) {  // a step: image row h of sample s
+        const int h = h0 + j;
+        const float* br = gd + s * kField + (h * kW + t) * kLd + co0 + g;
+        Frag<4> a[M];
+        Frag<2> b[4];
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        b[nt].set(0, br[8 * nt]);
-        b[nt].set(1, br[4 * kLd + 8 * nt]);
+        for (int i = 0; i < M; ++i) {
+          const float* ar = in + s * kField + reflect8(h + dh[i] - 1) * kW * kLd;
+          const float2 u = ld2(ar + ca[i]), v = ld2(ar + cb[i]);
+          a[i].set(0, u.x);
+          a[i].set(1, u.y);
+          a[i].set(2, v.x);
+          a[i].set(3, v.y);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          b[nt].set(0, br[8 * nt]);
+          b[nt].set(1, br[4 * kLd + 8 * nt]);
+        }
+        if (j == 0)
+          tf32x3::mma3<true>(sum, a, b);
+        else
+          tf32x3::mma3(sum, a, b);
       }
-      tf32x3::mma3(acc, a, b);
+      tf32x3::add(acc, sum);
     }
   }
 #pragma unroll
@@ -290,11 +314,13 @@ __device__ void taps_grad_round(const float* in, const float* gd, int ns, float*
     }
 }
 
-// The tile's share of a conv's d(taps), in two rounds: m-tiles 0-15 (four a warp), 16-35 (five).
+// The tile's share of a conv's d(taps), in three rounds of 12 m-tiles (three a warp): a round
+// holds its sums and their partial sums in registers.
 __device__ void taps_grad(const float* in, const float* gd, int ns, float* __restrict__ part,
                           bool first) {
-  taps_grad_round<4>(in, gd, ns, part, first, 0);
-  taps_grad_round<5>(in, gd, ns, part, first, 16);
+  taps_grad_round<3>(in, gd, ns, part, first, 0);
+  taps_grad_round<3>(in, gd, ns, part, first, 12);
+  taps_grad_round<3>(in, gd, ns, part, first, 24);
 }
 
 // In place, for the first ns samples: d (a conv output's field) becomes gd,
@@ -311,21 +337,24 @@ __device__ void norm_grad(const float* ga, const float* __restrict__ gx, float* 
   {
     const int pair = threadIdx.x >> 1, lane = threadIdx.x & 1;
     const int s = pair / kC, c = pair % kC;
-    float sa = 0.f, sx = 0.f;
+    // summed in fp64: the sums are dgamma and dbeta themselves, each within half an fp32 unit
+    double sa = 0.0, sx = 0.0;
     if (s < ns)
       for (int i = lane; i < kPix; i += 2) {
         const float a = gx ? __ldg(gx + (s * kPix + i) * kC + c) : ga[(s * kPix + i) * kLd + c];
         sa += a;
-        sx = fmaf(a, (d[(s * kPix + i) * kLd + c] - mean[pair]) * rstd[pair], sx);
+        sx = fma(static_cast<double>(a),
+                 static_cast<double>((d[(s * kPix + i) * kLd + c] - mean[pair]) * rstd[pair]),
+                 sx);
       }
     sa += __shfl_xor_sync(kFull, sa, 1);
     sx += __shfl_xor_sync(kFull, sx, 1);
     if (lane == 0) {
-      ca[pair] = sa * (1.f / kPix);
-      cx[pair] = sx * (1.f / kPix);
+      ca[pair] = static_cast<float>(sa * (1.0 / kPix));
+      cx[pair] = static_cast<float>(sx * (1.0 / kPix));
       if (dg && s < ns) {
-        dg[pair] = sx;
-        db[pair] = sa;
+        dg[pair] = static_cast<float>(sx);
+        db[pair] = static_cast<float>(sa);
       }
     }
   }
@@ -459,23 +488,12 @@ __global__ void __launch_bounds__(kThreads, 1) res2d_bwd_tc_kernel(Args a) {
     if (next) g_x = load(it + 1, fx, a.x);
     // (6) dx = g + conv3x3^T(gd1, k1)
     if (a.dx) {
-      // the warp's share of g, loaded under the product
-      const bool mine_dx = kLastPhase >= 6 && (threadIdx.x >> 7) < ns;  // the warp's sample
-      float2 gv[2][4][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            gv[mt][nt][h] = mine_dx ? __ldg(reinterpret_cast<const float2*>(
-                                          a.g + off + (x_row0() + 16 * mt + 8 * h) * kC +
-                                          x_col0() + 8 * nt))
-                                    : make_float2(0.f, 0.f);
       if (kLastPhase >= 6) edge_sums(f1, fe, ns);
       __syncthreads();
       input_grad<kLastPhase >= 6>(f1, fe, st, gs, q, acc);
-      if (mine_dx) {
+      // the warp's share of g (in L2), loaded after the product: held through it, g and the
+      // partial sums spilled registers
+      if (kLastPhase >= 6 && (threadIdx.x >> 7) < ns) {  // the warp's sample
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -483,9 +501,9 @@ __global__ void __launch_bounds__(kThreads, 1) res2d_bwd_tc_kernel(Args a) {
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
               const size_t i = off + (x_row0() + 16 * mt + 8 * h) * kC + x_col0() + 8 * nt;
+              const float2 gv = __ldg(reinterpret_cast<const float2*>(a.g + i));
               *reinterpret_cast<float2*>(a.dx + i) =
-                  make_float2(acc[mt][nt][2 * h] + gv[mt][nt][h].x,
-                              acc[mt][nt][2 * h + 1] + gv[mt][nt][h].y);
+                  make_float2(acc[mt][nt][2 * h] + gv.x, acc[mt][nt][2 * h + 1] + gv.y);
             }
       }
     }

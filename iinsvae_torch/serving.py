@@ -59,6 +59,21 @@ class Predictor:
         model.load_state_dict(state)
         return cls(model, batch_size=batch_size, return_recon=return_recon, device=device)
 
+    @classmethod
+    def from_checkpoint(cls, cfg, epoch: Optional[int] = None, **kw) -> "Predictor":
+        """Serve the model of a port checkpoint (training/checkpoint.py): epoch
+        ``epoch`` of the directory that ``cfg`` names, or its latest."""
+        from iinsvae_torch.training.checkpoint import (latest_epoch, read_checkpoint,
+                                                       semi_model_dir)
+
+        model_path = semi_model_dir(cfg)
+        epoch = epoch if epoch is not None else latest_epoch(model_path)
+        if epoch is None:
+            raise FileNotFoundError(f"No saved models in {model_path}.")
+        model = IInsVAE(**cfg.model_kwargs())
+        model.load_state_dict(read_checkpoint(model_path, epoch)["model"])
+        return cls(model, batch_size=kw.pop("batch_size", 500), **kw)
+
     def forward_batch(self, x: torch.Tensor) -> list[torch.Tensor]:
         """err_est, label probs, env_code[, recon] of one padded batch
         (batch_size, L) already on the device, as device tensors."""

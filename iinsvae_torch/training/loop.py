@@ -1,10 +1,11 @@
-"""Epoch loop (iinsvae_tpu/training/loop.py:22-133, without the checkpoint
-and evaluation hooks).
+"""Epoch loop and evaluator (iinsvae_tpu/training/loop.py:22-133).
 
 The whole train split lives on the device; each epoch draws its
-permutation and every step's supervision mask there from one seeded
+permutation and every step's supervision mask there from its own seeded
 ``torch.Generator``, and the per-batch metrics stay on the device until the
-epoch ends: one host fetch an epoch.
+epoch ends: one host fetch an epoch. An epoch's draws depend only on the
+seed and the epoch, so a run resumed from a checkpoint repeats what the
+continuous run would have done.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from iinsvae_torch.training.steps import finalize_metrics, reduce_metrics
+from iinsvae_torch.training.steps import SUM_KEYS, finalize_metrics, reduce_metrics
 
 
 def pad_to_batches(data: dict, batch_size: int) -> dict[str, torch.Tensor]:
@@ -52,20 +53,54 @@ def make_epoch_runner(train_step: Callable, batch_size: int, shuffle: bool = Tru
     return run_epoch
 
 
+def _to_host(metrics: dict) -> dict[str, float]:
+    values = torch.stack([v.float() for v in metrics.values()]).cpu().tolist()  # one fetch
+    return dict(zip(metrics, values))
+
+
+def make_evaluator(eval_step: Callable, batch_size: int) -> Callable:
+    """-> evaluate(model, data) -> (metrics, outputs). ``data`` holds whole
+    batches (pad_to_batches). The metrics are ``finalize_metrics`` of the
+    split's summed ``SUM_KEYS`` (host floats, one fetch); each output comes
+    back stacked over the whole padded split, (n_batches, batch_size, ...),
+    as numpy, one fetch an output."""
+
+    def evaluate(model, data: dict) -> tuple[dict, dict]:
+        n = data["cir"].shape[0]
+        if n % batch_size:
+            raise ValueError(f"{n} rows are not whole batches of {batch_size}: pad_to_batches")
+        ms, outs = zip(*(eval_step(model, {k: v[i:i + batch_size] for k, v in data.items()})
+                         for i in range(0, n, batch_size)))
+        acc = {k: torch.stack([m[k] for m in ms]).sum() for k in ms[0] if k in SUM_KEYS}
+        outputs = {k: torch.stack([o[k] for o in outs]).cpu().numpy() for k in outs[0]}
+        return _to_host(finalize_metrics(acc)), outputs
+
+    return evaluate
+
+
 def train_epochs(state, run_epoch: Callable, data: dict, n_epochs: int, seed: int = 0,
                  start_epoch: int = 0,
-                 log_fn: Optional[Callable[[int, dict], None]] = None) -> list[dict]:
+                 log_fn: Optional[Callable[[int, dict], None]] = None,
+                 eval_fn: Optional[Callable] = None, eval_interval: int = 0,
+                 checkpoint_fn: Optional[Callable] = None,
+                 checkpoint_interval: int = 0) -> list[dict]:
     """Run epochs ``start_epoch .. n_epochs - 1``; returns each epoch's
     finalized metrics (host floats), which ``log_fn(epoch, metrics)`` also
-    receives."""
+    receives. After an epoch whose index is a multiple of
+    ``checkpoint_interval`` ``checkpoint_fn(epoch, state)`` runs, then, at a
+    multiple of ``eval_interval``, ``eval_fn(epoch, state)``: the order of the
+    reference's train_semi CLI, which saves and collects before it evaluates.
+    An interval of 0 turns its hook off."""
     history = []
     for epoch in range(start_epoch, n_epochs):
         # each (seed, epoch) draws its permutation and masks from its own stream
         gen = torch.Generator(device=data["cir"].device).manual_seed(seed * 1_000_003 + epoch)
-        metrics = finalize_metrics(run_epoch(state, data, gen))
-        values = torch.stack([v.float() for v in metrics.values()]).cpu().tolist()  # one fetch
-        metrics = dict(zip(metrics, values))
+        metrics = _to_host(finalize_metrics(run_epoch(state, data, gen)))
         history.append(metrics)
         if log_fn is not None:
             log_fn(epoch, metrics)
+        if checkpoint_fn is not None and checkpoint_interval and epoch % checkpoint_interval == 0:
+            checkpoint_fn(epoch, state)
+        if eval_fn is not None and eval_interval and epoch % eval_interval == 0:
+            eval_fn(epoch, state)
     return history

@@ -1,4 +1,4 @@
-"""The semi-supervised train step (iinsvae_tpu/training/steps.py:25-171).
+"""The semi-supervised train and eval steps (iinsvae_tpu/training/steps.py:25-188).
 
 Batches are dicts of device tensors:
 
@@ -134,5 +134,30 @@ def make_semi_train_step(supervision_rate: float = 1.0, lambda_res: float = 10.0
         metrics = grads_fn(state.model, batch, generator, sup_mask)
         state.apply_gradients()
         return metrics
+
+    return step
+
+
+EVAL_OUTPUTS = ("err_est", "logits", "env_code", "recon")
+
+
+def make_semi_eval_step() -> Callable:
+    """step(model, batch) -> (metrics, outputs): the forward in eval mode with
+    grad off, so every kernel runs its serving instance and no backward is
+    recorded; ``_metrics`` of the batch (device tensors) and the outputs
+    ``EVAL_OUTPUTS``."""
+
+    def step(model, batch: dict) -> tuple[dict, dict]:
+        cir, err, label = batch["cir"], batch["err"], batch["label"]
+        weight = batch.get("weight")
+        if weight is None:
+            weight = torch.ones(cir.shape[0], dtype=cir.dtype, device=cir.device)
+        was_training = model.training
+        model.eval()
+        with torch.no_grad():
+            out = model(cir)
+        model.train(was_training)
+        metrics = _metrics(out["err_est"], err, out["logits"], label, weight)
+        return metrics, {k: out[k] for k in EVAL_OUTPUTS}
 
     return step

@@ -367,9 +367,10 @@ def test_cli_serves_2d_with_recon_on_cpu():
     assert "recon (9, 157)" in r.stdout
 
 
-def test_cli_trains_2d_on_cpu():
+def test_cli_trains_2d_on_cpu(tmp_path):
     r = _run(["train_semi", "--device", "cpu", "--conv_type", "2", "--dataset_env", "room_full",
-              "--synthetic_n", "300", "--batch_size", "120", "--n_epochs", "1"])
+              "--synthetic_n", "300", "--batch_size", "120", "--n_epochs", "1",
+              "--model_dir", str(tmp_path / "models"), "--out_dir", str(tmp_path / "results")])
     assert r.returncode == 0, r.stderr
     assert "240 train CIRs in 2 batches of 120" in r.stdout
     line = next(ln for ln in r.stdout.splitlines() if ln.startswith("[Epoch 0/1]"))

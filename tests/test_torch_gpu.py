@@ -1170,6 +1170,36 @@ def test_gpu_res_block_2d_is_as_accurate_as_the_plain_fp32_block(cuda, b, adain)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("adain", [False, True])
+@pytest.mark.parametrize("b", [500, 261, 5, 1])
+def test_gpu_res_block_2d_backward_is_as_accurate_as_the_plain_fp32_block(cuda, b, adain):
+    """K7b runs its four products on the tensor cores in 3xTF32, reading the d1, d2 that K7
+    saved. Each of its gradients against autograd through the float64 block: the largest
+    error at most twice the plain fp32 backward's on the card (TF32 off). On the samples
+    whose ReLU mask rounding cannot decide (_clear_samples): elsewhere the mask, not the
+    summation, sets the error."""
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((b, 8, 8, 64), generator=gen).to(cuda)
+    k1, k2 = (0.05 * torch.randn((3, 3, 64, 64), generator=gen)).to(cuda), \
+        (0.05 * torch.randn((3, 3, 64, 64), generator=gen)).to(cuda)
+    affine = [torch.randn((b, 64), generator=gen).to(cuda) for _ in range(4)] if adain else []
+    g = torch.randn((b, 8, 8, 64), generator=gen).to(cuda)
+    keep = _clear_samples(x, k1, *affine)
+    assert 2 * len(keep) >= b, f"{len(keep)} of {b} samples clear"
+    x, g = x[keep].contiguous(), g[keep].contiguous()
+    affine = [t[keep].contiguous() for t in affine]
+    _, d1, d2 = res2d.launch_res_block_2d(x, k1, k2, *affine, save=True)
+    got = backward.res_block_2d_bwd(g, x, k1, k2, *affine, saved=(d1, d2))
+    plain = backward.res_block_2d_bwd_ref(g, x, k1, k2, *affine)
+    want = backward.res_block_2d_bwd_ref(*(t.double() for t in (g, x, k1, k2, *affine)))
+    names = ("dx", "dk1", "dk2", "dgamma1", "dbeta1", "dgamma2", "dbeta2")
+    for name, a, p, w in zip(names, got, plain, want):
+        err, err_plain = ((t.double() - w).abs().max().item() for t in (a, p))
+        assert err <= 2 * err_plain, \
+            f"{name}: {err:.3e} against float64, plain fp32 {err_plain:.3e}"
+
+
+@pytest.mark.gpu
 def test_gpu_res_block_2d_rejects_what_the_kernel_does_not_take(cuda):
     x = torch.randn((4, 8, 8, 64), device=cuda)
     k = torch.randn((3, 3, 64, 64), device=cuda)

@@ -233,8 +233,10 @@ def test_synthetic_fixture_is_bit_equal_to_jax():
         for a, b in zip(got, want):
             assert a.dtype == b.dtype and a.shape == b.shape
             np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="room_full"):
-        synthetic_arrays(10, 0, "nlos")
+    # the CLI's default environment (every environment: tests/test_torch_eval.py)
+    for a, b in zip(synthetic_arrays(10, 0, "nlos"), jax_synthetic_arrays(10, 0, "nlos")):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
 
 
 def test_cli_rejects_ewine_before_building_a_model(monkeypatch):
@@ -272,9 +274,10 @@ def _run(args):
                           text=True, timeout=600)
 
 
-def test_cli_trains_two_epochs_on_cpu():
+def test_cli_trains_two_epochs_on_cpu(tmp_path):
     r = _run(["--device", "cpu", "--dataset_env", "room_full", "--synthetic_n", "600",
-              "--batch_size", "200", "--n_epochs", "2"])
+              "--batch_size", "200", "--n_epochs", "2", "--model_dir", str(tmp_path / "models"),
+              "--out_dir", str(tmp_path / "results")])
     assert r.returncode == 0, r.stderr
     assert "480 train CIRs in 3 batches of 200" in r.stdout
     lines = [ln for ln in r.stdout.splitlines() if ln.startswith("[Epoch ")]
