@@ -100,10 +100,23 @@
    default environment (nlos); the seeded 2-D model's evaluation over the 2000-row test
    split (8 forward launches a batch, no backward), card against CPU.
 
+11. [joint] drives the supervised joint and separated paths at full width, batch 500, on the
+   synthetic nlos fixture (joint_phase): each model's steps counted (EMNet and EMNetLoop 12
+   forward and 12 backward launches a step, EMNetLoop with Conv1d heads 10 and 10, sep-E 4
+   and 4, sep-M 8 and 8) and one sep-EM inference batch (20, no backward); one step's
+   gradients and BatchNormEps running stats of EMNet and of EMNetLoop with Conv1d heads (masks
+   injected), card and CPU against float64 on the batch's samples clear of MASK_MARGIN; K4 and
+   K4b at the 2-class classifier (the small-head kernel's <Any> instance, checked with the
+   serving sites of step 3) against their plain versions at batch 500 and 261; ``cli.run.main``
+   for 3 epochs, counted, its loss finite and falling, its checkpoints, a 2 -> 3 resume
+   bit-equal, ``cli.evaluate --net joint``; ``cli.run_sep.main`` for 2 epochs a stage, counted;
+   EMNet's training CIR/s and its traced step (no claim). The ``kernels`` line gains
+   ``launches_joint`` and ``launches_sep``, each kernel's launches on the two entry points' runs.
+
 Prints a ``sites`` line (per call site, both models), a ``serving`` line,
 a ``backward`` line (per backward call site), a ``training`` and a
-``training_2d`` line, a ``one_stage`` line, an ``eval`` line, a ``kernels`` line, the
-nvidia-smi line and, last,
+``training_2d`` line, a ``one_stage`` line, an ``eval`` line, a ``joint`` line, a ``kernels``
+line, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. The whole result also goes to
 chiprun_out/chip_smoke.json. Any failure raises and exits non-zero; without
 a CUDA device it exits 2 and prints no result.
@@ -238,6 +251,18 @@ EVAL_FLAGS = ["--device", "cuda", "--dataset_env", "room_full", "--kl_free_bits"
 EVAL_SCHEDULE = ["--checkpoint_interval", "2", "--sample_interval", "1", "--keep_last", "1"]
 EVAL_EPOCHS = 4
 FLIP_MARGIN = 1e-3
+# [joint]: the entry points' flags (run / run_sep's default environment nlos, 2 classes, the
+# fixture and batch of the training-quality recipe), the epochs of their runs, and the
+# forward launches of one step of each model (one backward launch for each): EMNet and
+# EMNetLoop with Linear heads, K1 6 (the range encoder), K2 2 (range.out, env.in), K3 2 (the
+# env stages), K4 2 (the heads); Conv heads are plain ops (no K4); sep-E the env branch and the
+# classifier, sep-M the range branch and the restorer
+JOINT_FLAGS = ["--device", "cuda", "--dataset_env", "nlos", "--synthetic_n", "10000",
+               "--batch_size", str(BATCH)]
+JOINT_EPOCHS, SEP_EPOCHS = 3, 2
+JOINT_STEP = {"in_chain": 6, "conv_bias_act": 2, "strided_conv": 2, "mlp_chain": 2}
+SEP_E_STEP = {"conv_bias_act": 1, "strided_conv": 2, "mlp_chain": 1}
+SEP_M_STEP = {"in_chain": 6, "conv_bias_act": 1, "mlp_chain": 1}
 FLAGSHIP = dict(conv_type=1, cir_len=157, num_classes=5, style_dim=16, dim=4,
                 n_residual=3, n_downsample=4, range_dim=2)
 FLAGSHIP_2D = dict(FLAGSHIP, conv_type=2)
@@ -357,6 +382,34 @@ def nchw_conv3x3(x: torch.Tensor, taps: torch.Tensor):
     return lambda: F.conv2d(xp, w)
 
 
+def mlp_site(name: str, head, replaces: str, b: int, rand, rand_yard) -> dict:
+    """K4's call at a head (``head``: a Linear head, its ``w{j}``, ``b{j}`` and slopes) at
+    batch b on ``rand``'s inputs: the forward site dict of call_sites, a torch.mm of the
+    head's largest layer on ``rand_yard``'s data as its double-dagger yardstick, the general
+    kernel as its second oracle (within tolerance), the device kernel its path launches."""
+    n = len(head.slopes)
+    ws = [getattr(head, f"w{j}") for j in range(n)]
+    bs = [getattr(head, f"b{j}") for j in range(n)]
+    dev = ws[0].device
+    x = rand(b, ws[0].shape[0])
+    j = max(range(n), key=lambda i: ws[i].numel())  # the yardstick: the largest layer's mm
+    x_j, w_j = rand_yard(b, ws[j].shape[0]), ws[j].detach()
+    dims = [ws[0].shape[0]] + [w.shape[1] for w in ws]
+    return dict(
+        name=name, kernel="mlp_chain", replaces=replaces, calls_per_batch=1,
+        shape="->".join(str(d) for d in dims),
+        run=lambda: fused.mlp_chain(x, ws, bs, head.slopes),
+        plain=lambda: fused.mlp_chain_ref(x, ws, bs, head.slopes), library=None,
+        cudnn_conv=lambda: torch.mm(x_j, w_j),
+        yardstick=f"torch.mm of its {ws[j].shape[0]}->{ws[j].shape[1]} layer",
+        bytes=nbytes(x, *ws, *bs) + 4 * b * ws[-1].shape[1],
+        flops=2.0 * b * sum(w.numel() for w in ws), traced=True,
+        general_close=lambda: fused.launch_mlp_chain(x, ws, bs, head.slopes, general=True)[0],
+        device_kernel=("head::mlp_head_kernel" if fused.takes_mlp_head(dims)
+                       else "cluster::mlp_cluster_kernel"),
+        weights_l2=mlp_weight_l2_bytes(dims, b, dev))
+
+
 def call_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list[dict]:
     """Every kernel call of one serving forward with the reconstruction, at
     batch b (500 unless a ragged check asks for another), with the model's own weights and seeded random inputs of the
@@ -417,26 +470,7 @@ def call_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list[dic
             flops=conv_flops(b, x.shape[1], taps, s, p, mode), **more))
 
     def add_mlp(name, head, replaces):
-        n = len(head.slopes)
-        ws = [getattr(head, f"w{j}") for j in range(n)]
-        bs = [getattr(head, f"b{j}") for j in range(n)]
-        x = rand(b, ws[0].shape[0])
-        j = max(range(n), key=lambda i: ws[i].numel())  # the yardstick: the largest layer's mm
-        x_j, w_j = rand_yard(b, ws[j].shape[0]), ws[j].detach()
-        dims = [ws[0].shape[0]] + [w.shape[1] for w in ws]
-        sites.append(dict(
-            name=name, kernel="mlp_chain", replaces=replaces, calls_per_batch=1,
-            shape="->".join(str(d) for d in dims),
-            run=lambda: fused.mlp_chain(x, ws, bs, head.slopes),
-            plain=lambda: fused.mlp_chain_ref(x, ws, bs, head.slopes), library=None,
-            cudnn_conv=lambda: torch.mm(x_j, w_j),
-            yardstick=f"torch.mm of its {ws[j].shape[0]}->{ws[j].shape[1]} layer",
-            bytes=nbytes(x, *ws, *bs) + 4 * b * ws[-1].shape[1],
-            flops=2.0 * b * sum(w.numel() for w in ws), traced=True,
-            general_close=lambda: fused.launch_mlp_chain(x, ws, bs, head.slopes, general=True)[0],
-            device_kernel=("head::mlp_head_kernel" if fused.takes_mlp_head(dims)
-                           else "cluster::mlp_cluster_kernel"),
-            weights_l2=mlp_weight_l2_bytes(dims, b, dev)))
+        sites.append(mlp_site(name, head, replaces, b, rand, rand_yard))
 
     fp = "iinsvae_tpu/ops/pallas/fused.py"
     if model.encoder.conv_type == 2:
@@ -906,6 +940,32 @@ def conv3x3_backward_call(x: torch.Tensor, taps: torch.Tensor, g: torch.Tensor):
         gc, xp, w, None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1, [True, True, False])
 
 
+def mlp_bwd_site(name: str, head, replaces: str, b: int, rand, rand_yard) -> dict:
+    """K4b's call at a head at batch b, from the pre-activations K4 saves: the backward site
+    dict of backward_sites, two fp32 torch.mm calls (dx and dW of the head's largest layer) on
+    ``rand_yard``'s data as its double-dagger yardstick."""
+    n = len(head.slopes)
+    ws = [getattr(head, f"w{j}") for j in range(n)]
+    bs = [getattr(head, f"b{j}") for j in range(n)]
+    x = rand(b, ws[0].shape[0])
+    with torch.no_grad():
+        _, ds = fused.launch_mlp_chain(x, ws, bs, head.slopes, save_pre=True)
+    g = rand(b, ws[-1].shape[1])
+    # the yardstick: dx and dW of the largest layer (the restorers' 512 -> 256), two
+    # fp32 torch.mm calls on the same batch
+    j = max(range(n), key=lambda i: ws[i].numel())
+    y_j, gd_j = rand_yard(b, ws[j].shape[0]), rand_yard(b, ws[j].shape[1])
+    w_t = ws[j].detach().t()
+    args = (g, x, ws, bs, head.slopes, ds)
+    return dict(
+        name=name, kernel=backward.mlp_chain_bwd.__name__, replaces=replaces, calls_per_batch=1,
+        run=lambda: backward.mlp_chain_bwd(*args),
+        plain=lambda: backward.PLAIN[backward.mlp_chain_bwd](*args), library=None,
+        bytes=nbytes(x, *ws, *ds, g, x, *ws, *bs), flops=2 * 2.0 * b * sum(w.numel() for w in ws),
+        cudnn_conv=lambda: (torch.mm(gd_j, w_t), torch.mm(y_j.t(), gd_j)),
+        yardstick=f"torch.mm pair (dx, dW) of its {ws[j].shape[0]}->{ws[j].shape[1]} layer")
+
+
 def backward_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list[dict]:
     """Every backward kernel call of one training step at batch b (500 unless
     a ragged check asks for another): the
@@ -972,23 +1032,8 @@ def backward_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list
             (2 if need_dx else 1) * conv_flops(b, x.shape[1], taps, st, pd, mode),
             library=conv_backward_call(x, taps, y, g, st, pd, mode, need_dx), **more)
 
-    def mlp_site(name, head, replaces):
-        n = len(head.slopes)
-        ws = [getattr(head, f"w{j}") for j in range(n)]
-        bs = [getattr(head, f"b{j}") for j in range(n)]
-        x = rand(b, ws[0].shape[0])
-        with torch.no_grad():
-            _, ds = fused.launch_mlp_chain(x, ws, bs, head.slopes, save_pre=True)
-        g = rand(b, ws[-1].shape[1])
-        # the yardstick: dx and dW of the largest layer (the restorers' 512 -> 256), two
-        # fp32 torch.mm calls on the same batch
-        j = max(range(n), key=lambda i: ws[i].numel())
-        y_j, gd_j = rand_yard(b, ws[j].shape[0]), rand_yard(b, ws[j].shape[1])
-        w_t = ws[j].detach().t()
-        add(name, backward.mlp_chain_bwd, replaces, 1, (g, x, ws, bs, head.slopes, ds), {},
-            nbytes(x, *ws, *ds, g, x, *ws, *bs), 2 * 2.0 * b * sum(w.numel() for w in ws),
-            cudnn_conv=lambda: (torch.mm(gd_j, w_t), torch.mm(y_j.t(), gd_j)),
-            yardstick=f"torch.mm pair (dx, dW) of its {ws[j].shape[0]}->{ws[j].shape[1]} layer")
+    def add_mlp(name, head, replaces):
+        sites.append(mlp_bwd_site(name, head, replaces, b, rand, rand_yard))
 
     if model.encoder.conv_type == 2:
         for name, mod, affine in (("range.res2d", re_, []),
@@ -1002,7 +1047,7 @@ def backward_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list
                 dict(saved=(d1, d2)),
                 nbytes(x, d1, d2, k1, k2, *affine[:3], g, x, k1, k2, *affine),
                 4 * res2d_flops(b), tf32x3=True, cudnn_conv=conv3x3_backward_call(x, k1, g))
-        mlp_site("restorer.2d", model.restorer.restorer, f"{fp}:1136")
+        add_mlp("restorer.2d", model.restorer.restorer, f"{fp}:1136")
         return sites
     stages = [(re_.in_kernel, 1, 3, "reflect")] + [
         (getattr(re_, f"down{j}_kernel"), 2, 1, "zero") for j in range(4)]
@@ -1025,8 +1070,8 @@ def backward_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list
               2, 1, "zero", sc)
     conv_site("env.down1", backward.strided_conv_bwd, rand(b, 64, 32), c2.kernel, c2.bias,
               2, 1, "zero", sc)
-    mlp_site("restorer", model.restorer.restorer, f"{fp}:1136")
-    mlp_site("classifier", model.classifier.classifier, f"{fp}:1136")
+    add_mlp("restorer", model.restorer.restorer, f"{fp}:1136")
+    add_mlp("classifier", model.classifier.classifier, f"{fp}:1136")
     conv_site("dec.in", backward.conv_bias_act_bwd, rand(b, 8, 2), dec.in_kernel,
               dec.in_bias, 1, 0, "zero", f"{fp}:1268")
 
@@ -1819,6 +1864,335 @@ def eval_phase() -> dict:
     return result
 
 
+def _times(per: dict[str, int], n: int) -> dict[str, int]:
+    return {k: v * n for k, v in per.items()}
+
+
+def _add(*counts: dict[str, int]) -> dict[str, int]:
+    out: dict[str, int] = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def counted(fn, fwd: dict[str, int], bwd: dict[str, int], what: str):
+    """Run ``fn`` with every launch counter set to 0 just before and read just after: every
+    forward wrapper launched as ``fwd`` says, every backward one as ``bwd`` (the names of the
+    forward wrappers, each with its ``_bwd``), 0 where they say nothing. -> (fn's result, the
+    forward counts, the backward counts)."""
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got_f, got_b = kernels.launch_counts(), kernels.backward_launch_counts()
+    want_b = {f"{k}_bwd": v for k, v in bwd.items()}
+    for got, want in ((got_f, fwd), (got_b, want_b)):
+        for name, n in got.items():
+            if n != want.get(name, 0):
+                raise AssertionError(f"{what}: {name} launched {n} times, expected "
+                                     f"{want.get(name, 0)}")
+    return out, got_f, got_b
+
+
+def relu_margins(fn) -> torch.Tensor:
+    """Run ``fn`` (a forward on the CPU, in float64) and return, per sample, the smallest
+    |input| of every ReLU and LeakyReLU it applies, each over that input's largest in the
+    sample: where it is under MASK_MARGIN, the summation order of an fp32 forward decides
+    the unit's mask, and with it the sample's gradient."""
+    seen = []
+    relu, leaky = torch.relu, F.leaky_relu
+
+    def record(a):
+        a = a.detach().abs().flatten(1)
+        seen.append(a.amin(1) / a.amax(1).clamp_min(1e-300))
+
+    def relu_(a, *args, **kw):
+        record(a)
+        return relu(a, *args, **kw)
+
+    def leaky_(a, *args, **kw):
+        record(a)
+        return leaky(a, *args, **kw)
+
+    torch.relu, F.leaky_relu = relu_, leaky_
+    try:
+        fn()
+    finally:
+        torch.relu, F.leaky_relu = relu, leaky
+    return torch.stack(seen).amin(0)
+
+
+def joint_grads_vs_cpu(cpu: torch.nn.Module, batch: dict) -> dict:
+    """One joint step's gradients on the card and on the CPU (fp32), on the same seeded weights,
+    the fixture's first batch and injected Dropout masks, each against the CPU port's in float64,
+    held as step_grads_vs_cpu holds them; the BatchNormEps running stats after the step too.
+    The step runs on the batch's samples whose every ReLU and LeakyReLU input (relu_margins, the
+    float64 forward in train mode) clears MASK_MARGIN: a unit within it takes its mask from the
+    summation order, and with the joint loss's few terms (no reconstruction) one such unit moves
+    the range encoder's weight gradients far beyond the fp32 rounding this check bounds. At
+    least CLEAR_SHARE of the batch must be clear."""
+    from iinsvae_torch.models.layers import dropout_source, draw_dropout_masks
+
+    masks = draw_dropout_masks(cpu, torch.Generator().manual_seed(5), batch["cir"].cpu())
+    keep = torch.arange(batch["cir"].shape[0])
+    for _ in range(3):  # the heads' batch statistics change with the samples kept
+        probe = copy.deepcopy(cpu).double().train()
+        with torch.no_grad(), dropout_source(probe, masks={k: v[keep] for k, v in masks.items()}):
+            m = relu_margins(lambda: probe(batch["cir"][keep].cpu().double()))
+        if bool((m >= MASK_MARGIN).all()):
+            break
+        keep = keep[m >= MASK_MARGIN]
+    else:
+        raise AssertionError("no sub-batch clear of MASK_MARGIN in three rounds")
+    n_batch = len(batch["cir"])
+    if len(keep) < CLEAR_SHARE * n_batch:
+        raise AssertionError(f"{len(keep)} of {n_batch} samples clear of MASK_MARGIN")
+    batch = {k: v[keep.to(v.device)] for k, v in batch.items()}
+    masks = {k: v[keep] for k, v in masks.items()}
+    gpu, f64 = copy.deepcopy(cpu).cuda(), copy.deepcopy(cpu).double()
+    grads_fn = steps.make_joint_grads_fn()
+    mg = grads_fn(gpu, batch, dropout_masks={k: v.cuda() for k, v in masks.items()})
+    grads_fn(cpu, {k: v.cpu() for k, v in batch.items()}, dropout_masks=masks)
+    m64 = grads_fn(f64, {k: v.cpu().double() for k, v in batch.items()}, dropout_masks=masks)
+    torch.cuda.synchronize()
+    for k in ("loss", "loss_idy", "loss_reg"):
+        a, b = mg[k].item(), m64[k].item()
+        if not (np.isfinite(a) and abs(a - b) <= 1e-4 * abs(b) + 1e-6):
+            raise AssertionError(f"{k}: {a} on the card, {b} in float64 on the CPU")
+    rows = []
+    for kind, card, fp32, ref in (
+            ("gradient", {n: p.grad for n, p in gpu.named_parameters()},
+             {n: p.grad for n, p in cpu.named_parameters()},
+             {n: p.grad for n, p in f64.named_parameters()}),
+            ("running stat", dict(gpu.state_dict()), dict(cpu.state_dict()),
+             dict(f64.state_dict()))):
+        for name, t in card.items():
+            if kind == "running stat" and not name.endswith(("mean", "var")):
+                continue
+            want = ref[name]
+            scale = want.abs().max().item()
+            e_card = (t.cpu().double() - want).abs().max().item()
+            e_cpu = (fp32[name].double() - want).abs().max().item()
+            if not e_card <= STEP_FACTOR * e_cpu + STEP_FLOOR * scale:
+                raise AssertionError(f"{kind} {name}: card off float64 by {e_card:.3e}, the CPU "
+                                     f"by {e_cpu:.3e} (largest magnitude {scale:.3e})")
+            rows.append((e_card / max(e_cpu, 1e-300), e_card, e_cpu, scale, f"{kind} {name}"))
+    rows.sort(reverse=True)
+    return dict(samples=len(keep), batch=n_batch, dropout_masks=sorted(masks),
+                loss_card_f64={k: (mg[k].item(), m64[k].item())
+                               for k in ("loss", "loss_idy", "loss_reg")},
+                checked=len(rows), worst_card_over_cpu_err=rows[0][0], worst=rows[0][4],
+                max_abs_err_vs_f64=max(r[1] for r in rows))
+
+
+def epoch_losses(log_path: Path, tag: str = "") -> list[float]:
+    """The loss of each ``[Epoch i/n]`` line of an entry point's log (the lines holding
+    ``tag``)."""
+    return [float(re.search(r"\[loss: ([-+0-9.eE]+|nan|inf)\]", ln).group(1))
+            for ln in log_path.read_text().splitlines() if "[Epoch " in ln and tag in ln]
+
+
+def joint_head_sites() -> tuple[list[dict], list[dict]]:
+    """[joint] K4 and K4b at the joint path's 2-class classifier (nlos: 16 -> 16 -> 32 -> 16 ->
+    2, the small-head kernel's <Any> instance; EMNet's seeded weights) against their plain
+    versions at batch 500 and at a ragged batch, each K4 call within tolerance of the general
+    kernel, bit-equal over two calls and launching head::mlp_head_kernel, timed beside the
+    double-dagger yardstick and the bound. Run with the serving sites, before the long
+    profiler sessions of the later phases (an empty trace confirms no kernel name)."""
+    from iinsvae_torch.models.emnet import EMNet
+
+    head = EMNet(num_classes=2, generator=torch.Generator().manual_seed(0)).cuda() \
+        .identifier.classifier
+    fp = "iinsvae_tpu/ops/pallas/fused.py"
+    k4_rows, k4b_rows = [], []
+    for b in (BATCH, RAGGED[1]):
+        gen, yard = torch.Generator().manual_seed(40 + b), torch.Generator().manual_seed(97)
+
+        def rand(*shape, gen=gen):
+            return torch.randn(shape, generator=gen).cuda()
+
+        def rand_yard(*shape, yard=yard):
+            return torch.randn(shape, generator=yard).cuda()
+
+        name = f"classifier.2class (batch {b})"
+        with torch.inference_mode():
+            site = mlp_site(name, head, f"{fp}:1164", b, rand, rand_yard)
+            if site["device_kernel"] != "head::mlp_head_kernel":
+                raise AssertionError(f"the 2-class classifier takes {site['device_kernel']}")
+            k4_rows += check_and_time([site], tag="joint")
+        k4b_rows += check_and_time_backward(
+            [mlp_bwd_site(name, head, f"{fp}:1136", b, rand, rand_yard)], tag="joint")
+    return k4_rows, k4b_rows
+
+
+def joint_phase(head_rows: tuple[list[dict], list[dict]]) -> dict:
+    """[joint] The supervised joint and separated paths on the card, at full width, batch 500,
+    on the synthetic nlos fixture (2 classes):
+
+    - each model's steps counted: EMNet and EMNetLoop (Linear heads, JOINT_STEP launches a step
+      each way), EMNetLoop with Conv1d heads (no K4), IdentifierSep (sep-E, SEP_E_STEP),
+      RegressorSep (sep-M, SEP_M_STEP); the sep-EM inference of one batch (the identifier once,
+      the regressor once a class, no backward);
+    - one step's gradients and running stats, card and CPU against float64, for EMNet and for
+      EMNetLoop with Conv1d heads (BatchNormEps and Dropout on the card, masks injected);
+    - ``head_rows``: joint_head_sites' rows (K4 and K4b at the 2-class classifier);
+    - ``cli.run.main`` for JOINT_EPOCHS epochs (counted: each step's and each evaluation batch's
+      launches), its loss finite and falling, its checkpoints, a 2 -> 3 resume bit-equal to the
+      continuous run, ``cli.evaluate --net joint`` on its final checkpoint;
+    - ``cli.run_sep.main`` for SEP_EPOCHS epochs a stage (counted), finite sep-EM soft and hard
+      RMSE;
+    - EMNet's training CIR/s (host clock, 2 epochs) and the device's busy time a step and idle
+      share from a trace of 20 steps (no claim)."""
+    import tempfile
+    from types import SimpleNamespace
+
+    from iinsvae_torch.cli import evaluate as evaluate_cli
+    from iinsvae_torch.cli import run, run_sep
+    from iinsvae_torch.cli.common import device_data, parse, train_state
+    from iinsvae_torch.models.emnet import EMNet, EMNetLoop, IdentifierSep, RegressorSep
+    from iinsvae_torch.training import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    args, cfg = parse("the entry points' flags", JOINT_FLAGS)
+    nc = cfg.num_classes
+    data, test = device_data(cfg, torch.device(args.device))
+    n_real = int(data["weight"].sum().item())
+    steps_per_epoch = data["cir"].shape[0] // BATCH
+    batches = [{k: v[i * BATCH:(i + 1) * BATCH] for k, v in data.items()} for i in range(3)]
+    no_k4 = {**JOINT_STEP, "mlp_chain": 0}
+    conv = dict(enet_type="Conv1d", mnet_type="Conv1d")
+    models = {
+        "EMNet": (lambda g: EMNet(num_classes=nc, generator=g), steps.make_joint_train_step(),
+                  JOINT_STEP),
+        "EMNetLoop": (lambda g: EMNetLoop(num_classes=nc, generator=g),
+                      steps.make_joint_train_step(), JOINT_STEP),
+        "EMNetLoop_conv1d": (lambda g: EMNetLoop(num_classes=nc, **conv, generator=g),
+                             steps.make_joint_train_step(), no_k4),
+        "IdentifierSep": (lambda g: IdentifierSep(num_classes=nc, generator=g),
+                          steps.make_sep_e_train_step(), SEP_E_STEP),
+        "RegressorSep": (lambda g: RegressorSep(num_classes=nc, generator=g),
+                         steps.make_sep_m_train_step(), SEP_M_STEP)}
+    per_step, trained = {}, {}
+    for name, (make, step, want) in models.items():
+        model = make(torch.Generator().manual_seed(0)).cuda()
+        state = train_state(model, cfg, steps_per_epoch)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        metrics, fwd, bwd = counted(lambda: [step(state, b, gen) for b in batches],
+                                    _times(want, 3), _times(want, 3), f"{name} steps")
+        if not all(torch.isfinite(v).all() for m in metrics for v in m.values()):
+            raise AssertionError(f"{name}: non-finite step metrics")
+        per_step[name] = dict(forward=sum(fwd.values()) / 3, backward=sum(bwd.values()) / 3,
+                              by_kernel={k: v // 3 for k, v in fwd.items() if v})
+        trained[name] = model
+    infer_want = _add(SEP_E_STEP, _times(SEP_M_STEP, nc))
+    (_, _, err_est), infer_fwd, _ = counted(
+        lambda: steps.sep_em_marginalized_inference(trained["IdentifierSep"],
+                                                    trained["RegressorSep"],
+                                                    test["cir"][:BATCH], nc),
+        infer_want, {}, "sep-EM inference")
+    if err_est.shape != (BATCH, 1) or not torch.isfinite(err_est).all():
+        raise AssertionError(f"sep-EM inference: {tuple(err_est.shape)} or non-finite")
+    print("[joint] launches a step (forward, backward): " + ", ".join(
+        f"{k} {v['forward']:g} / {v['backward']:g}" for k, v in per_step.items())
+        + f"; sep-EM inference a batch {sum(infer_fwd.values())} forward, 0 backward",
+        flush=True)
+
+    grads = {name: joint_grads_vs_cpu(make(torch.Generator().manual_seed(3)), batches[0])
+             for name, (make, _, _) in models.items() if name in ("EMNet", "EMNetLoop_conv1d")}
+    for name, g in grads.items():
+        print(f"[joint] {name} step vs float64 ({g['samples']} of {BATCH} samples clear of "
+              f"MASK_MARGIN): {g['checked']} gradients and running stats, "
+              f"card max abs err {g['max_abs_err_vs_f64']:.3e}, at most "
+              f"{g['worst_card_over_cpu_err']:.2f}x the CPU's ({g['worst']}); dropout masks "
+              f"{len(g['dropout_masks'])}", flush=True)
+
+    del trained
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_joint_") as tmp:
+        def dirs(name: str) -> list[str]:
+            return ["--model_dir", f"{tmp}/{name}/models", "--out_dir", f"{tmp}/{name}/results"]
+
+        eval_batches = -(-test["cir"].shape[0] // BATCH)
+        n_steps = JOINT_EPOCHS * steps_per_epoch
+        t0 = time.perf_counter()
+        (state, final), run_fwd, run_bwd = counted(
+            lambda: run.main(JOINT_FLAGS + dirs("continuous") + [
+                "--n_epochs", str(JOINT_EPOCHS), "--checkpoint_interval", "1",
+                "--sample_interval", "0"]),
+            _add(_times(JOINT_STEP, n_steps), _times(JOINT_STEP, eval_batches)),
+            _times(JOINT_STEP, n_steps), "cli.run")
+        wall = time.perf_counter() - t0
+        run_cfg = Config(**{**cfg.to_dict(), "model_dir": f"{tmp}/continuous/models",
+                            "out_dir": f"{tmp}/continuous/results"})
+        losses = epoch_losses(Path(ckpt.joint_result_dir(run_cfg), "training_log.log"))
+        if len(losses) != JOINT_EPOCHS or not all(np.isfinite(losses)) or \
+                not losses[-1] < losses[0] or \
+                not all(np.isfinite(final[k]) for k in ("rmse", "abs", "accuracy")):
+            raise AssertionError(f"cli.run: losses {losses}, final {final}")
+        epochs = ckpt.list_epochs(ckpt.joint_model_dir(run_cfg))
+        if epochs != list(range(JOINT_EPOCHS + 1)):
+            raise AssertionError(f"cli.run checkpoints {epochs}")
+        run.main(JOINT_FLAGS + dirs("resumed") + ["--n_epochs", "2", "--checkpoint_interval",
+                                                  "-1"])
+        resumed, final_r = run.main(JOINT_FLAGS + dirs("resumed") + [
+            "--n_epochs", str(JOINT_EPOCHS), "--epoch", "2", "--checkpoint_interval", "-1"])
+        differ = [n for (n, p), q in zip(state.model.state_dict().items(),
+                                         resumed.model.state_dict().values())
+                  if not torch.equal(p, q)]
+        if differ or resumed.step != state.step or final_r != final:
+            raise AssertionError(f"cli.run resumed 2 -> {JOINT_EPOCHS} differs: {differ}")
+        evaluated = evaluate_cli.main(JOINT_FLAGS + dirs("continuous") + ["--net", "joint"])
+        if {k: evaluated[k] for k in ("rmse", "abs", "accuracy")} != \
+                {k: final[k] for k in ("rmse", "abs", "accuracy")}:
+            raise AssertionError(f"evaluate --net joint {evaluated}, cli.run's final {final}")
+        print(f"[joint] cli.run: {JOINT_EPOCHS} epochs in {wall:.1f} s, loss by epoch {losses}, "
+              f"final {final}; checkpoints {epochs}; resumed 2 -> {JOINT_EPOCHS} bit-equal; "
+              f"evaluate --net joint equal", flush=True)
+
+        sep_steps = SEP_EPOCHS * steps_per_epoch
+        t0 = time.perf_counter()
+        sep, sep_fwd, sep_bwd = counted(
+            lambda: run_sep.main(JOINT_FLAGS + dirs("sep") + [
+                "--n_epochs", str(SEP_EPOCHS), "--checkpoint_interval", "-1"]),
+            _add(_times(SEP_E_STEP, sep_steps), _times(SEP_M_STEP, sep_steps),
+                 _times(infer_want, eval_batches), _times(SEP_M_STEP, eval_batches)),
+            _add(_times(SEP_E_STEP, sep_steps), _times(SEP_M_STEP, sep_steps)), "cli.run_sep")
+        wall_sep = time.perf_counter() - t0
+        if not all(np.isfinite(sep[k]) for k in ("rmse", "rmse_hard", "accuracy")):
+            raise AssertionError(f"cli.run_sep: {sep}")
+        print(f"[joint] cli.run_sep: {SEP_EPOCHS} epochs a stage in {wall_sep:.1f} s, {sep}",
+              flush=True)
+
+    model = EMNet(num_classes=nc, generator=torch.Generator().manual_seed(0)).cuda()
+    state = train_state(model, cfg, steps_per_epoch)
+    step = steps.make_joint_train_step()
+    run_epoch = loop.make_epoch_runner(step, BATCH)
+    loop.train_epochs(state, run_epoch, data, 1, seed=1)  # warm
+    timed = 2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop.train_epochs(state, run_epoch, data, 1 + timed, seed=1, start_epoch=1)
+    cir_per_s = n_real * timed / (time.perf_counter() - t0)
+    trace = traced_train_steps(SimpleNamespace(cfg=cfg, data=data, train_step=step, state=state),
+                               20)
+    result = dict(
+        config=dict(flags=JOINT_FLAGS, joint_epochs=JOINT_EPOCHS, sep_epochs=SEP_EPOCHS,
+                    train_cirs=n_real, batch=BATCH),
+        launches_per_step=per_step, sep_em_inference_launches=infer_fwd,
+        grads_vs_cpu=grads, k4_two_class=head_rows[0], k4b_two_class=head_rows[1],
+        run=dict(final=final, losses=losses, wall_s=wall, checkpoints=epochs,
+                 resumed_bit_equal=True, evaluate_equal=True),
+        run_sep=dict(metrics=sep, wall_s=wall_sep),
+        launches_run=run_fwd, launches_run_bwd=run_bwd, launches_sep=sep_fwd,
+        launches_sep_bwd=sep_bwd, train_cir_per_s=cir_per_s, timed_epochs=timed, trace=trace,
+        wall_s=time.perf_counter() - t_phase)
+    print(f"[joint] EMNet: {cir_per_s:.1f} training CIR/s at batch {BATCH} over {timed} epochs "
+          f"(host clock); traced 20 steps: device busy {trace['device_busy_us_per_step']:.1f} us "
+          f"a step of {trace['wall_us_per_step']:.1f} us, idle {trace['device_idle_share']}; "
+          f"phase {result['wall_s']:.1f} s", flush=True)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script runs on the card",
@@ -1846,6 +2220,7 @@ def main() -> int:
     model = copy.deepcopy(cpu_model).cuda()
     with torch.inference_mode():
         site_rows = check_and_time(call_sites(model, torch.Generator().manual_seed(1)))
+    head_rows = joint_head_sites()
     main_path, launches_no_recon = serve_main_path(model, cpu_model, False, EXPECTED_NO_RECON)
     main_path_recon, launches = serve_main_path(model, cpu_model, True, EXPECTED_RECON)
     serving = throughput(model, recon=False)
@@ -1873,6 +2248,8 @@ def main() -> int:
 
     # evaluation, checkpoints and resume through the entry points
     evaluation = eval_phase()
+    # the supervised joint and separated paths through their entry points
+    joint = joint_phase(head_rows)
 
     per_fwd = "one forward batch of 500 (sum over its call sites)"
     per_step = "one training step at batch 500 (sum over its call sites)"
@@ -1923,6 +2300,12 @@ def main() -> int:
                  **conv_yardstick(one_stage["backward_sites"], k, "cudnn_conv_backward_ms"))
          for k in ONE_STAGE_BWD})
 
+    # each kernel's launches on the joint and separated entry points' main paths (cli.run,
+    # cli.run_sep: training steps, evaluation and inference)
+    for row in kernel_table:
+        row["launches_joint"] = {**joint["launches_run"], **joint["launches_run_bwd"]}[row["name"]]
+        row["launches_sep"] = {**joint["launches_sep"], **joint["launches_sep_bwd"]}[row["name"]]
+
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(dict(
         card=card, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
@@ -1932,7 +2315,7 @@ def main() -> int:
         serving_2d=serving_2d, serving_2d_recon=serving_2d_recon,
         backward_sites=bwd_rows + bwd_rows_2d, ragged_max_abs_err=ragged, training=training,
         training_2d=training_2d,
-        one_stage=one_stage, evaluation=evaluation,
+        one_stage=one_stage, evaluation=evaluation, joint=joint,
         kernel_tolerance=[KERNEL_RTOL, KERNEL_ATOL], serve_tolerance=[SERVE_RTOL, SERVE_ATOL],
         backward_tolerance=[BWD_RTOL, BWD_ATOL], step_tolerance=[STEP_FACTOR, STEP_FLOOR],
         wall_s=time.perf_counter() - t_start),
@@ -1946,6 +2329,7 @@ def main() -> int:
     print(json.dumps({"training_2d": training_2d, "card": card}), flush=True)
     print(json.dumps({"one_stage": one_stage, "card": card}), flush=True)
     print(json.dumps({"eval": evaluation, "card": card}), flush=True)
+    print(json.dumps({"joint": joint, "card": card}), flush=True)
     print(json.dumps({"kernels": kernel_table}), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)

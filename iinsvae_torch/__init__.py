@@ -1,10 +1,12 @@
 """iinsvae_torch — the PyTorch/CUDA port of iinsvae_tpu for one NVIDIA H100.
 
-It serves the IIns-VAE forward (range and env encoders, the Linear
-restorer and classifier heads, and, with ``return_recon``, the AdaIN
+It serves the IIns-VAE forward (range and env encoders, the Linear or
+Conv restorer and classifier heads, and, with ``return_recon``, the AdaIN
 decoder's reconstruction), trains it with the semi-supervised step,
 checkpoints, resumes and evaluates it (training/, evaluation/,
-cli/train_semi.py, cli/evaluate.py), for the 1-D model (conv_type=1) and the
+cli/train_semi.py, cli/evaluate.py), trains and evaluates the supervised
+joint EMNet / EMNetLoop and the separated IdentifierSep / RegressorSep
+(models/emnet.py, cli/run.py, cli/run_sep.py), for the 1-D model (conv_type=1) and the
 expanded 2-D model (conv_type=2: the encoders on the column-grouped square
 image, ops/colgroups.py; the decoder's subpixel 'fast' lowering,
 ops/subpixel.py). Activations stay channels-last ``(B, L, C)`` or

@@ -1,5 +1,5 @@
-"""Shared entry-point plumbing: logging, the data and the epoch lines
-(iinsvae_tpu/cli/common.py:26-38, 143-163).
+"""What the entry points share: logging, the data on the device, a model's
+train state, resuming and the epoch lines (iinsvae_tpu/cli/common.py).
 
 The port has no loader of the real datasets: ``resolve_data`` builds the
 synthetic fixture (``--synthetic_n`` CIRs from ``--seed``) and its split.
@@ -7,14 +7,31 @@ synthetic fixture (``--synthetic_n`` CIRs from ``--seed``) and its split.
 
 from __future__ import annotations
 
+import argparse
 import logging
 import os
 import sys
 import time
 
-from iinsvae_torch.config import Config
+import torch
+
+from iinsvae_torch.config import Config, add_args, add_train_args, from_args
 from iinsvae_torch.data.splits import full_split
 from iinsvae_torch.data.synthetic import synthetic_arrays
+from iinsvae_torch.training.checkpoint import latest_epoch
+from iinsvae_torch.training.loop import pad_to_batches
+from iinsvae_torch.training.state import TrainState, create_train_state
+
+
+def parse(doc: str, argv=None) -> tuple[argparse.Namespace, Config]:
+    """The training entry points' flags: --device and the model and training
+    flags. -> (the namespace, its Config)."""
+    parser = argparse.ArgumentParser(description=doc.splitlines()[0])
+    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    add_args(parser)
+    add_train_args(parser)
+    args = parser.parse_args(argv)
+    return args, from_args(args)
 
 
 def setup_logging(result_path: str, filename: str) -> logging.Logger:
@@ -48,6 +65,29 @@ def resolve_data(cfg: Config):
     cir, err, label, _ = synthetic_arrays(cfg.synthetic_n, cfg.seed, cfg.dataset_env,
                                           cfg.dataset_name)
     return full_split(cir, err, label, cfg.split_factor)
+
+
+def device_data(cfg: Config, device: torch.device) -> tuple[dict, dict]:
+    """-> (the train split padded to whole batches of ``cfg.batch_size`` with
+    its weight mask, the test split {cir, err, label}), both on ``device``."""
+    (train_cir, train_err, train_label), test = resolve_data(cfg)
+    data = pad_to_batches({"cir": train_cir, "err": train_err, "label": train_label},
+                          cfg.batch_size)
+    data = {k: v.to(device) for k, v in data.items()}
+    test = {k: torch.from_numpy(v).to(device) for k, v in zip(("cir", "err", "label"), test)}
+    return data, test
+
+
+def train_state(model: torch.nn.Module, cfg: Config, steps_per_epoch: int) -> TrainState:
+    """Adam over ``model`` with the LambdaLR decay of ``cfg``."""
+    return create_train_state(model, cfg.lr, cfg.b1, cfg.b2, n_epochs=cfg.n_epochs,
+                              decay_start_epoch=cfg.decay_epoch, steps_per_epoch=steps_per_epoch)
+
+
+def start_epoch(cfg: Config, model_path: str, tag: str = "") -> int:
+    """``--epoch``: -1 is the latest checkpoint of ``tag`` under ``model_path``
+    (0 where there is none)."""
+    return (latest_epoch(model_path, tag) or 0) if cfg.epoch == -1 else cfg.epoch
 
 
 def fmt_metrics(metrics: dict) -> str:

@@ -18,11 +18,12 @@ import os
 
 from iinsvae_torch.cli.common import fmt_metrics, resolve_data, setup_logging
 from iinsvae_torch.config import add_args, add_train_args, from_args
-from iinsvae_torch.evaluation.evaluate import evaluate_semi
+from iinsvae_torch.cli.run import build_model
+from iinsvae_torch.evaluation.evaluate import evaluate_joint, evaluate_semi
 from iinsvae_torch.models.vae import IInsVAE
 from iinsvae_torch.serving import resolve_device
-from iinsvae_torch.training.checkpoint import (latest_epoch, read_checkpoint, semi_model_dir,
-                                               semi_result_dir)
+from iinsvae_torch.training.checkpoint import (joint_model_dir, joint_result_dir, latest_epoch,
+                                               read_checkpoint, semi_model_dir, semi_result_dir)
 
 
 def main(argv=None) -> dict:
@@ -36,14 +37,16 @@ def main(argv=None) -> dict:
     add_train_args(parser)
     args = parser.parse_args(argv)
     cfg = from_args(args)
-    if args.net != "semi":
-        raise NotImplementedError("--net joint: the joint path (EMNet) is not ported; "
-                                  "ROADMAP.md Queue 1 item 10")
     if args.disentangle:
         raise NotImplementedError("--disentangle: the disentanglement evaluation is not "
                                   "ported; ROADMAP.md Queue 1 item 11")
     device = resolve_device(args.device)
-    model_path, result_path = semi_model_dir(cfg), semi_result_dir(cfg)
+    if args.net == "semi":
+        model_path, result_path = semi_model_dir(cfg), semi_result_dir(cfg)
+        model, eval_fn = IInsVAE(**cfg.model_kwargs()), evaluate_semi
+    else:
+        model_path, result_path = joint_model_dir(cfg), joint_result_dir(cfg, test=True)
+        model, eval_fn = build_model(cfg), evaluate_joint
     latest = latest_epoch(model_path)
     if latest is None:
         raise SystemExit(f"No saved models in {model_path}.")
@@ -52,11 +55,10 @@ def main(argv=None) -> dict:
         epoch = latest
     logger = setup_logging(result_path, "val_log.log")
     _, test = resolve_data(cfg)
-    model = IInsVAE(**cfg.model_kwargs())
     model.load_state_dict(read_checkpoint(model_path, epoch)["model"])
-    m = evaluate_semi(model.to(device), dict(zip(("cir", "err", "label"), test)),
-                      min(500, test[0].shape[0]), result_path=result_path, epoch=epoch,
-                      dataset_env=cfg.dataset_env, dataset_name=cfg.dataset_name, export=True)
+    m = eval_fn(model.to(device), dict(zip(("cir", "err", "label"), test)),
+                min(500, test[0].shape[0]), result_path=result_path, epoch=epoch,
+                dataset_env=cfg.dataset_env, dataset_name=cfg.dataset_name, export=True)
     logger.info(f"[test epoch {epoch}] {fmt_metrics(m)}")
     return m
 

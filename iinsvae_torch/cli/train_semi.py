@@ -31,23 +31,23 @@ baseline and the plots are not ported.
 
 from __future__ import annotations
 
-import argparse
 import time
 from dataclasses import dataclass
 from typing import Callable
 
 import torch
 
-from iinsvae_torch.cli.common import EpochLogger, fmt_metrics, resolve_data, setup_logging
-from iinsvae_torch.config import Config, add_args, add_train_args, from_args
+from iinsvae_torch.cli.common import (EpochLogger, device_data, fmt_metrics, parse,
+                                      setup_logging, start_epoch, train_state)
+from iinsvae_torch.config import Config, reject_parallel
 from iinsvae_torch.evaluation.evaluate import evaluate_semi
 from iinsvae_torch.models.vae import IInsVAE
 from iinsvae_torch.serving import resolve_device
-from iinsvae_torch.training.checkpoint import (gc_checkpoints, latest_epoch, restore_checkpoint,
+from iinsvae_torch.training.checkpoint import (gc_checkpoints, restore_checkpoint,
                                                save_checkpoint, semi_model_dir,
                                                semi_result_dir, update_best)
-from iinsvae_torch.training.loop import make_epoch_runner, pad_to_batches, train_epochs
-from iinsvae_torch.training.state import TrainState, create_train_state
+from iinsvae_torch.training.loop import make_epoch_runner, train_epochs
+from iinsvae_torch.training.state import TrainState
 from iinsvae_torch.training.steps import make_semi_train_step
 
 LOGGED = ("loss", "loss_ae", "loss_kl", "loss_res", "loss_env", "rmse", "accuracy")
@@ -66,18 +66,11 @@ class Trainer:
 def build(cfg: Config, device: str | torch.device = "cuda") -> Trainer:
     """The fixture's split on ``device``, the seeded model, Adam with the
     schedule, the step and the epoch runner."""
-    device = resolve_device(device)
-    (train_cir, train_err, train_label), test = resolve_data(cfg)
-    data = pad_to_batches({"cir": train_cir, "err": train_err, "label": train_label},
-                          cfg.batch_size)
-    data = {k: v.to(device) for k, v in data.items()}
-    test = {k: torch.from_numpy(v).to(device) for k, v in zip(("cir", "err", "label"), test)}
-    steps_per_epoch = data["cir"].shape[0] // cfg.batch_size
+    reject_parallel(cfg)
+    data, test = device_data(cfg, resolve_device(device))
     model = IInsVAE(**cfg.model_kwargs(),
-                    generator=torch.Generator().manual_seed(cfg.seed)).to(device)
-    state = create_train_state(model, cfg.lr, cfg.b1, cfg.b2, n_epochs=cfg.n_epochs,
-                               decay_start_epoch=cfg.decay_epoch,
-                               steps_per_epoch=steps_per_epoch)
+                    generator=torch.Generator().manual_seed(cfg.seed)).to(data["cir"].device)
+    state = train_state(model, cfg, data["cir"].shape[0] // cfg.batch_size)
     step = make_semi_train_step(cfg.supervision_rate, mask_mode=cfg.mask_mode,
                                 kl_free_bits=cfg.kl_free_bits)
     return Trainer(cfg, state, data, test, step, make_epoch_runner(step, cfg.batch_size))
@@ -85,20 +78,14 @@ def build(cfg: Config, device: str | torch.device = "cuda") -> Trainer:
 
 def main(argv=None) -> tuple[TrainState, dict]:
     """-> (the trained state, the final evaluation's metrics)."""
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    add_args(parser)
-    add_train_args(parser)
-    args = parser.parse_args(argv)
-    cfg = from_args(args)
+    args, cfg = parse(__doc__, argv)
     t0 = time.perf_counter()
     trainer = build(cfg, args.device)
     model_path, result_path = semi_model_dir(cfg), semi_result_dir(cfg)
     logger = setup_logging(result_path, "train_log.log")
     logger.info(str(cfg.to_dict()))
     state = trainer.state
-    if cfg.epoch == -1:  # resume from the latest checkpoint
-        cfg.epoch = latest_epoch(model_path) or 0
+    cfg.epoch = start_epoch(cfg, model_path)
     if cfg.epoch != 0:
         restore_checkpoint(model_path, cfg.epoch, state)
         logger.info(f"resumed from epoch {cfg.epoch}")

@@ -1,8 +1,8 @@
 """The model-geometry, serving and training fields of the run config.
 
-A copy of the subset of iinsvae_tpu/config.py that serving, the semi
-training step, checkpoints and evaluation need, with the same names and
-defaults, and the env -> (num_classes, cir_len) tables. ``add_args`` gives
+A copy of the subset of iinsvae_tpu/config.py that serving, the semi, joint
+and separated training steps, checkpoints and evaluation need, with the
+same names and defaults, and the env -> (num_classes, cir_len) tables. ``add_args`` gives
 the model flags every entry point takes, ``add_train_args`` the trainer's,
 which also name the checkpoint directory, so the evaluate and serve entry
 points take them too.
@@ -41,6 +41,11 @@ class Config:
     range_dim: int = 2
     restorer_type: str = "Linear"
     classifier_type: str = "Linear"
+    # the joint and separated paths (iinsvae_tpu/config.py:50-58)
+    net_ablation: str = "loop"  # loop (EMNet) | loops (EMNetLoop)
+    filters: int = 16
+    identifier_type: str = "Linear"
+    regressor_type: str = "Linear"
     dataset_name: str = "zenodo"
     dataset_env: str = "nlos"
     seed: int = 0
@@ -66,6 +71,11 @@ class Config:
     keep_last: int = -1  # checkpoint GC: keep the newest N (and the best); <= 0 keeps all
     out_dir: str = "./saved_results"
     model_dir: str = "./saved_models"
+    # parallel training (iinsvae_tpu/config.py:79-85): not ported, rejected
+    n_devices: int = 1
+    dist_coordinator: str = ""
+    dist_procs: int = 1
+    dist_rank: int = -1
 
     @property
     def cir_len(self) -> int:
@@ -98,6 +108,12 @@ class Config:
             classifier_type=self.classifier_type,
         )
 
+    def joint_kwargs(self) -> dict:
+        """Keyword arguments of models.emnet.EMNet / EMNetLoop."""
+        return dict(cir_len=self.cir_len, num_classes=self.num_classes, env_dim=self.env_dim,
+                    filters=self.filters, enet_type=self.identifier_type,
+                    mnet_type=self.regressor_type)
+
 
 def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     d = Config()
@@ -110,6 +126,10 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     a("--range_dim", type=int, default=d.range_dim)
     a("--restorer_type", type=str, default=d.restorer_type)
     a("--classifier_type", type=str, default=d.classifier_type)
+    a("--net_ablation", type=str, default=d.net_ablation, choices=["loop", "loops"])
+    a("--filters", type=int, default=d.filters)
+    a("--identifier_type", type=str, default="1", help="1 Linear / 2 Conv1d / 3 Conv2d")
+    a("--regressor_type", type=str, default="1")
     a("--dataset_name", type=str, default=d.dataset_name, choices=sorted(CIR_LEN))
     a("--dataset_env", type=str, default=d.dataset_env)
     a("--seed", type=int, default=d.seed)
@@ -142,7 +162,20 @@ def add_train_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
            "<=0 keeps all")
     a("--out_dir", type=str, default=d.out_dir)
     a("--model_dir", type=str, default=d.model_dir)
+    a("--n_devices", type=int, default=d.n_devices, help="parallel training: not ported")
+    a("--dist_coordinator", type=str, default=d.dist_coordinator,
+      help="multi-host training: not ported")
+    a("--dist_procs", type=int, default=d.dist_procs, help="multi-host training: not ported")
+    a("--dist_rank", type=int, default=d.dist_rank, help="multi-host training: not ported")
     return parser
+
+
+def reject_parallel(cfg: Config) -> None:
+    """The port trains on one device: --n_devices > 1 and the --dist_* flags raise."""
+    if cfg.n_devices > 1 or cfg.dist_procs > 1 or cfg.dist_coordinator or cfg.dist_rank >= 0:
+        raise NotImplementedError(
+            "parallel training (--n_devices > 1, --dist_*) is not ported; the port trains on "
+            "one device")
 
 
 def from_args(args: argparse.Namespace) -> Config:
@@ -152,6 +185,8 @@ def from_args(args: argparse.Namespace) -> Config:
             setattr(cfg, k, getattr(args, k))
     cfg.restorer_type = _NET_NAMES[str(cfg.restorer_type)]
     cfg.classifier_type = _NET_NAMES[str(cfg.classifier_type)]
+    cfg.identifier_type = _NET_NAMES[str(cfg.identifier_type)]
+    cfg.regressor_type = _NET_NAMES[str(cfg.regressor_type)]
     if cfg.dataset_env not in NUM_CLASSES and cfg.dataset_name == "zenodo":
         raise ValueError(
             f"Unknown environment {cfg.dataset_env!r}; choices: {sorted(NUM_CLASSES)}")

@@ -1,5 +1,6 @@
-"""Evaluation of the semi model: its metrics and residual exports
-(iinsvae_tpu/evaluation/evaluate.py:26-94, without the plots and the SVM).
+"""Evaluation of the semi model and of the joint EMNet / EMNetLoop: their
+metrics and residual exports (iinsvae_tpu/evaluation/evaluate.py:26-185,
+without the plots, the latent scatter and the SVM).
 
   * range RMSE / mean absolute error / env accuracy over the held-out split,
     with the plurality share of its labels beside the accuracy;
@@ -14,7 +15,7 @@ import os
 import numpy as np
 
 from iinsvae_torch.training.loop import make_evaluator, pad_to_batches
-from iinsvae_torch.training.steps import make_semi_eval_step
+from iinsvae_torch.training.steps import make_joint_eval_step, make_semi_eval_step
 
 
 def _unpad(arr_batched: np.ndarray, weight_batched: np.ndarray) -> np.ndarray:
@@ -57,6 +58,24 @@ def export_residuals(result_path: str, tag: str, res_em, original) -> None:
              original=original)
 
 
+def _evaluate(eval_step, model, data_test: dict, batch_size: int, result_path: str | None,
+              epoch: int, dataset_env: str, dataset_name: str, export: bool, outputs: bool):
+    device = next(model.parameters()).device
+    padded = {k: v.to(device) for k, v in pad_to_batches(data_test, batch_size).items()}
+    metrics, outs = make_evaluator(eval_step, batch_size)(model, padded)
+
+    w = padded["weight"].reshape(-1, batch_size).cpu().numpy()
+    err_gt = _unpad(padded["err"].reshape(-1, batch_size, 1).cpu().numpy(), w)
+    outs = {k: _unpad(v, w) for k, v in outs.items()}
+    label_gt = _unpad(padded["label"].reshape(-1, batch_size, 1).cpu().numpy(), w)
+    res_em = np.abs(err_gt - outs["err_est"])
+    add_plurality_share(metrics, label_gt)
+    if result_path is not None and export:
+        export_residuals(result_path, "%s_%s_%d" % (dataset_name, dataset_env, epoch),
+                         res_em, err_gt)
+    return (metrics, outs) if outputs else metrics
+
+
 def evaluate_semi(model, data_test: dict, batch_size: int = 500, result_path: str | None = None,
                   epoch: int = 0, dataset_env: str = "room_full", dataset_name: str = "zenodo",
                   export: bool = False, outputs: bool = False):
@@ -68,19 +87,15 @@ def evaluate_semi(model, data_test: dict, batch_size: int = 500, result_path: st
     ``residuals_<tag>.npz``, tag ``<dataset_name>_<dataset_env>_<epoch>``.
     -> the metrics; with ``outputs``, (metrics, the eval step's outputs on
     the real rows: err_est, logits, env_code and recon as numpy arrays)."""
-    device = next(model.parameters()).device
-    padded = {k: v.to(device) for k, v in pad_to_batches(data_test, batch_size).items()}
-    evaluate = make_evaluator(make_semi_eval_step(), batch_size)
-    metrics, outs = evaluate(model, padded)
+    return _evaluate(make_semi_eval_step(), model, data_test, batch_size, result_path, epoch,
+                     dataset_env, dataset_name, export, outputs)
 
-    w = padded["weight"].reshape(-1, batch_size).cpu().numpy()
-    err_gt = _unpad(padded["err"].reshape(-1, batch_size, 1).cpu().numpy(), w)
-    outs = {k: _unpad(v, w) for k, v in outs.items()}
-    err_est = outs["err_est"]
-    label_gt = _unpad(padded["label"].reshape(-1, batch_size, 1).cpu().numpy(), w)
-    res_em = np.abs(err_gt - err_est)
-    add_plurality_share(metrics, label_gt)
-    if result_path is not None and export:
-        export_residuals(result_path, "%s_%s_%d" % (dataset_name, dataset_env, epoch),
-                         res_em, err_gt)
-    return (metrics, outs) if outputs else metrics
+
+def evaluate_joint(model, data_test: dict, batch_size: int = 500, result_path: str | None = None,
+                   epoch: int = 0, dataset_env: str = "nlos", dataset_name: str = "zenodo",
+                   export: bool = False, outputs: bool = False):
+    """``evaluate_semi`` for EMNet / EMNetLoop (evaluate.py:146-185): the same
+    metrics and residual exports; with ``outputs`` the real rows' err_est,
+    logits and env_latent."""
+    return _evaluate(make_joint_eval_step(), model, data_test, batch_size, result_path, epoch,
+                     dataset_env, dataset_name, export, outputs)

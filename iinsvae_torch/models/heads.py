@@ -1,14 +1,26 @@
-"""Linear Restorer (range_code -> ranging error) and Classifier
-(env_code -> environment logits) heads, each one K4 mlp_chain launch
-(iinsvae_tpu/models/heads.py:26-71, 169-184, 224-264)."""
+"""Restorer (range_code -> ranging error) and Classifier (env_code ->
+environment logits) heads (iinsvae_tpu/models/heads.py:26-264).
+
+The Linear heads are one K4 mlp_chain launch each. The Conv1d / Conv2d
+heads are plain tensor ops, as in the JAX package, where XLA (no Pallas
+kernel) runs them: strided or 1x1 convs with LeakyReLU, Dropout(0.25) and
+BatchNormEps, then one Dense layer. Sub-modules are named as flax names
+them (``Conv1d_0``, ``Dropout_1``, ``BatchNormEps_0``, ``Dense_0``).
+"""
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from iinsvae_torch.models.layers import bias_uniform
+from iinsvae_torch.models.layers import (BatchNormEps, Conv1d, Conv2d, Dense, Dropout,
+                                         bias_uniform)
 from iinsvae_torch.ops.kernels import fused
+
+NET_TYPES = ("Linear", "Conv1d", "Conv2d")
 
 
 class _MLPChain(nn.Module):
@@ -36,8 +48,64 @@ class RestorerLinear(_MLPChain):
     (B, 8, 2) flattens l-major, c-minor, and the 2-D code (B, 8, 8, 2) in
     (h, w, c) order (128 wide), as the JAX reshape does (heads.py:61)."""
 
-    def __init__(self, code_size: int = 16, *, generator: torch.Generator):
-        super().__init__(code_size, (512, 256, 256, 1), (0.2, 0.2, 0.2, 1.0), generator)
+    def __init__(self, code_shape: tuple[int, ...] = (8, 2), *, generator: torch.Generator):
+        super().__init__(math.prod(code_shape), (512, 256, 256, 1), (0.2, 0.2, 0.2, 1.0),
+                         generator)
+
+
+class _ConvStack(nn.Module):
+    """Two k-wide stride-s convs, each followed by LeakyReLU(0.2) and
+    Dropout(0.25), then BatchNormEps, flatten and one Dense layer."""
+
+    def __init__(self, conv, c_in: int, filters: tuple[int, int], kernel_size: int, stride: int,
+                 padding: int, flat: int, d_out: int, *, generator: torch.Generator):
+        super().__init__()
+        name = conv.__name__
+        for i, f in enumerate(filters):
+            setattr(self, f"{name}_{i}", conv(c_in, f, kernel_size, stride=stride,
+                                              padding=padding, generator=generator))
+            setattr(self, f"Dropout_{i}", Dropout(0.25))
+            c_in = f
+        self.convs = [f"{name}_{i}" for i in range(len(filters))]
+        self.BatchNormEps_0 = BatchNormEps(c_in, generator=generator)
+        self.Dense_0 = Dense(flat, d_out, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i, conv in enumerate(self.convs):
+            x = getattr(self, f"Dropout_{i}")(F.leaky_relu(getattr(self, conv)(x), 0.2))
+        x = self.BatchNormEps_0(x)
+        return self.Dense_0(x.reshape(x.shape[0], -1))
+
+
+class RestorerConv1d(_ConvStack):
+    """heads.py:74-100: (B, 8, C) -> k4 s2 convs to (B, 4, 16) and (B, 2, 32)
+    -> (B, 64) -> 1. The 2-D code (B, 8, 8, C) gives its first column."""
+
+    def __init__(self, code_shape: tuple[int, ...] = (8, 2), *, generator: torch.Generator):
+        side, c = code_shape[0], code_shape[-1]
+        super().__init__(Conv1d, c, (16, 32), 4, 2, 1, side // 4 * 32, 1, generator=generator)
+
+    def forward(self, range_code: torch.Tensor) -> torch.Tensor:
+        return super().forward(range_code[:, :, 0] if range_code.dim() == 4 else range_code)
+
+
+class RestorerConv2d(_ConvStack):
+    """heads.py:103-130: the 1-D code (B, 8, C) broadcast along a new W axis
+    to (B, 8, 8, C) (the 2-D code is taken as it is) -> k4 s2 convs to
+    (B, 4, 4, 16) and (B, 2, 2, 32) -> (B, 128) -> 1."""
+
+    def __init__(self, code_shape: tuple[int, ...] = (8, 2), *, generator: torch.Generator):
+        side, c = code_shape[0], code_shape[-1]
+        super().__init__(Conv2d, c, (16, 32), 4, 2, 1, (side // 4) ** 2 * 32, 1,
+                         generator=generator)
+
+    def forward(self, range_code: torch.Tensor) -> torch.Tensor:
+        x = range_code
+        if x.dim() == 3:
+            x = x[:, :, None, :].expand(-1, -1, x.shape[1], -1)
+        elif x.shape[2] == 1:
+            x = x.expand(-1, -1, x.shape[1], -1)
+        return super().forward(x)
 
 
 class ClassifierLinear(_MLPChain):
@@ -50,21 +118,49 @@ class ClassifierLinear(_MLPChain):
                          (0.01, 0.01, 0.01, 0.2), generator)
 
 
-def _only_linear(head: str, net_type: str) -> None:
-    if net_type != "Linear":
-        raise NotImplementedError(
-            f"{head} net_type={net_type!r}: only the Linear heads are ported; "
-            "the Conv1d/Conv2d heads come with the joint and sep slice")
+class ClassifierConv1d(_ConvStack):
+    """heads.py:187-203: the code as (B, 1, env_dim) -> two 1x1 convs to
+    ``filters`` -> (B, filters) -> num_classes, LeakyReLU(0.2) on the output."""
+
+    def __init__(self, env_dim: int, num_classes: int, filters: int = 16, *,
+                 generator: torch.Generator):
+        super().__init__(Conv1d, env_dim, (filters, filters), 1, 1, 0, filters, num_classes,
+                         generator=generator)
+
+    def forward(self, env_code: torch.Tensor) -> torch.Tensor:
+        return F.leaky_relu(super().forward(env_code.reshape(env_code.shape[0], 1, -1)), 0.2)
+
+
+class ClassifierConv2d(_ConvStack):
+    """heads.py:206-221: ClassifierConv1d on the code as (B, 1, 1, env_dim)."""
+
+    def __init__(self, env_dim: int, num_classes: int, filters: int = 16, *,
+                 generator: torch.Generator):
+        super().__init__(Conv2d, env_dim, (filters, filters), 1, 1, 0, filters, num_classes,
+                         generator=generator)
+
+    def forward(self, env_code: torch.Tensor) -> torch.Tensor:
+        return F.leaky_relu(super().forward(env_code.reshape(env_code.shape[0], 1, 1, -1)), 0.2)
+
+
+def _check(head: str, net_type: str) -> None:
+    if net_type not in NET_TYPES:
+        raise ValueError(f"Unknown network type for {head}: {net_type!r}; choices {NET_TYPES} "
+                         "(Conv2dNoExpand comes with conv_type 3)")
 
 
 class Restorer(nn.Module):
-    """Facade (heads.py:224-244); the head sits at ``.restorer``."""
+    """Facade (heads.py:224-244); the head sits at ``.restorer``.
+    ``code_shape`` is the range code's shape without the batch axis:
+    (8, range_dim), or (8, 8, range_dim) for conv_type 2."""
 
-    def __init__(self, code_size: int = 16, net_type: str = "Linear", *,
+    def __init__(self, code_shape: tuple[int, ...] = (8, 2), net_type: str = "Linear", *,
                  generator: torch.Generator):
         super().__init__()
-        _only_linear("Restorer", net_type)
-        self.restorer = RestorerLinear(code_size, generator=generator)
+        _check("Restorer", net_type)
+        cls = {"Linear": RestorerLinear, "Conv1d": RestorerConv1d,
+               "Conv2d": RestorerConv2d}[net_type]
+        self.restorer = cls(tuple(code_shape), generator=generator)
 
     def forward(self, range_code: torch.Tensor) -> torch.Tensor:
         return self.restorer(range_code)
@@ -76,8 +172,10 @@ class Classifier(nn.Module):
     def __init__(self, env_dim: int, num_classes: int, filters: int = 16,
                  net_type: str = "Linear", *, generator: torch.Generator):
         super().__init__()
-        _only_linear("Classifier", net_type)
-        self.classifier = ClassifierLinear(env_dim, num_classes, filters, generator=generator)
+        _check("Classifier", net_type)
+        cls = {"Linear": ClassifierLinear, "Conv1d": ClassifierConv1d,
+               "Conv2d": ClassifierConv2d}[net_type]
+        self.classifier = cls(env_dim, num_classes, filters, generator=generator)
 
     def forward(self, env_code: torch.Tensor) -> torch.Tensor:
         return self.classifier(env_code)

@@ -1,4 +1,5 @@
-"""Initialisers, ConvINAct, Conv1d and the decoder's MLP.
+"""Initialisers, ConvINAct, Conv1d, Conv2d, Dense, the decoder's MLP, and
+the Conv heads' BatchNormEps and Dropout.
 
 Initialisation mirrors iinsvae_tpu/models/layers.py:21-31 in distribution
 (not in values: torch.Generator and jax.random give different streams):
@@ -8,10 +9,13 @@ Dense weights ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (torch's default).
 
 from __future__ import annotations
 
+import contextlib
+from typing import Iterator, Optional
+
 import torch
 from torch import nn
 
-from iinsvae_torch.ops.conv import conv1d
+from iinsvae_torch.ops.conv import conv1d, conv2d
 from iinsvae_torch.ops.kernels import fused, strided_conv
 
 
@@ -49,17 +53,35 @@ class ConvINAct(nn.Module):
 
 
 class Conv1d(nn.Module):
-    """Plain channels-last Conv1d with bias (JAX layers.py:58-95), for the
-    env encoder's 1x1 head on the length-1 mean: a plain tensor op."""
+    """Plain channels-last Conv1d with bias (JAX layers.py:58-95): the env
+    encoder's 1x1 head on the length-1 mean and the Conv heads' convs, plain
+    tensor ops (the JAX package runs them outside any Pallas kernel too)."""
 
-    def __init__(self, c_in: int, features: int, kernel_size: int, *,
-                 generator: torch.Generator):
+    def __init__(self, c_in: int, features: int, kernel_size: int, *, stride: int = 1,
+                 padding: int = 0, generator: torch.Generator):
         super().__init__()
+        self.stride, self.padding = stride, padding
         self.kernel = conv_normal((kernel_size, c_in, features), generator)
         self.bias = bias_uniform((features,), c_in * kernel_size, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv1d(x, self.kernel, self.bias)
+        return conv1d(x, self.kernel, self.bias, stride=self.stride, padding=self.padding)
+
+
+class Conv2d(nn.Module):
+    """Plain NHWC Conv2d with bias (JAX layers.py:98-123), one stride and
+    zero padding for both axes: ``kernel`` (k, k, C_in, C_out), ``bias``
+    (C_out,) U(+-1/sqrt(C_in * k * k))."""
+
+    def __init__(self, c_in: int, features: int, kernel_size: int, *, stride: int = 1,
+                 padding: int = 0, generator: torch.Generator):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.kernel = conv_normal((kernel_size, kernel_size, c_in, features), generator)
+        self.bias = bias_uniform((features,), c_in * kernel_size**2, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d(x, self.kernel, self.bias, stride=self.stride, padding=self.padding)
 
 
 class Dense(nn.Module):
@@ -95,3 +117,106 @@ class MLP(nn.Module):
         for i in range(self.n_blk - 1):
             x = torch.relu(getattr(self, f"Dense_{i}")(x))
         return getattr(self, f"Dense_{self.n_blk - 1}")(x)
+
+
+class BatchNormEps(nn.Module):
+    """The reference's ``nn.BatchNorm1d(c, 0.8)``, whose 0.8 lands on eps
+    (JAX layers.py:274-312): ``scale`` ~ N(1, 0.02), ``bias`` 0, running
+    ``mean`` / ``var`` buffers (the flax ``batch_stats``). In train mode it
+    normalises by the batch's mean and biased variance over every axis but
+    the last (padding rows count, as in JAX) and moves the running stats by
+    ``momentum`` towards the mean and the unbiased variance; in eval mode it
+    reads the running stats."""
+
+    def __init__(self, c: int, eps: float = 0.8, momentum: float = 0.1, *,
+                 generator: torch.Generator):
+        super().__init__()
+        self.eps, self.momentum = eps, momentum
+        self.scale = nn.Parameter(1.0 + 0.02 * torch.randn(c, generator=generator))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("mean", torch.zeros(c))
+        self.register_buffer("var", torch.ones(c))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            axes = tuple(range(x.dim() - 1))
+            mean = x.mean(dim=axes)
+            var = x.var(dim=axes, correction=0)
+            n = x.numel() // x.shape[-1]
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_((1 - m) * self.mean + m * mean)
+                self.var.copy_((1 - m) * self.var + m * (var * (n / max(n - 1, 1))))
+        else:
+            mean, var = self.mean, self.var
+        return (x - mean) * torch.rsqrt(var + self.eps) * self.scale + self.bias
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout(rate)``: in train mode each entry is kept with
+    probability 1 - rate and scaled by 1 / (1 - rate), else zeroed; in eval
+    mode the identity. The keep mask is ``keep`` where one is injected (a
+    bool tensor of x's shape), else a draw from ``generator``; both are set
+    for one forward by ``dropout_source``."""
+
+    def __init__(self, rate: float = 0.25):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+        self.keep: Optional[torch.Tensor] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return x
+        keep = self.keep
+        if keep is None:
+            if self.generator is None:
+                raise RuntimeError("Dropout in train mode needs a generator or an injected mask "
+                                   "(dropout_source)")
+            keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.rate
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros((), dtype=x.dtype,
+                                                                     device=x.device))
+
+
+@contextlib.contextmanager
+def dropout_source(model: nn.Module, generator: Optional[torch.Generator] = None,
+                   masks: Optional[dict[str, torch.Tensor]] = None) -> Iterator[None]:
+    """For the forwards inside the block, every Dropout of ``model`` takes
+    its keep mask from ``masks`` (by module name, as flax names the module's
+    path: ``identifier.classifier.Dropout_0``) or, where none is given, draws
+    it from ``generator``, in the order the forward reaches them."""
+    mods = {n: m for n, m in model.named_modules() if isinstance(m, Dropout)}
+    unknown = set(masks or ()) - set(mods)
+    if unknown:
+        raise KeyError(f"no Dropout named {sorted(unknown)}; the model has {sorted(mods)}")
+    for n, m in mods.items():
+        m.generator, m.keep = generator, (masks or {}).get(n)
+    try:
+        yield
+    finally:
+        for m in mods.values():
+            m.generator = m.keep = None
+
+
+def draw_dropout_masks(model: nn.Module, generator: torch.Generator,
+                       *inputs: torch.Tensor) -> dict[str, torch.Tensor]:
+    """Keep masks for every Dropout of ``model`` at the shapes a forward on
+    ``inputs`` gives them, drawn from ``generator`` on its device, by module
+    name: inject them (dropout_source) into copies of the model on other
+    devices or dtypes to run them all on the same masks. The shapes come from
+    a forward in eval mode, which moves no running stats."""
+    shapes: dict[str, torch.Size] = {}
+    handles = [m.register_forward_hook(
+        lambda mod, args, out, name=name: shapes.__setitem__(name, args[0].shape))
+        for name, m in model.named_modules() if isinstance(m, Dropout)]
+    was_training = model.training
+    try:
+        model.eval()
+        with torch.no_grad():
+            model(*inputs)
+    finally:
+        model.train(was_training)
+        for h in handles:
+            h.remove()
+    return {n: torch.rand(s, generator=generator, device=generator.device) >= 0.25
+            for n, s in shapes.items()}

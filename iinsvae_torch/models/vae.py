@@ -12,7 +12,10 @@ from iinsvae_torch.models.heads import Classifier, Restorer
 
 
 class IInsVAE(nn.Module):
-    """Parameters are made from ``generator`` (default: seed 0) on the CPU;
+    """With Conv1d / Conv2d heads the module's mode matters, as flax's
+    ``train`` flag does: in train mode their Dropout and BatchNormEps run on
+    the batch (the semi step), in eval mode they are the identity and the
+    running stats (the eval step, ``Predictor``). Parameters are made from ``generator`` (default: seed 0) on the CPU;
     move the module with ``.to(device)``. Parameter names follow the flax
     tree (``encoder.range_encoder.in_kernel``, ``decoder.decoder.mlp.Dense_0.kernel``,
     ``restorer.restorer.w0``, ...), so bridge.from_flax_numpy loads a JAX
@@ -31,8 +34,8 @@ class IInsVAE(nn.Module):
                                range_dim, cir_len, generator=generator)
         # the range code is (side, range_dim), or (side, side, range_dim) for conv_type 2
         side = 128 // 2**n_downsample
-        code_size = side ** (2 if conv_type == 2 else 1) * range_dim
-        self.restorer = Restorer(code_size, restorer_type, generator=generator)
+        code_shape = (side,) * (2 if conv_type == 2 else 1) + (range_dim,)
+        self.restorer = Restorer(code_shape, restorer_type, generator=generator)
         self.classifier = Classifier(style_dim, num_classes, net_type=classifier_type,
                                      generator=generator)
         # drawn last, so a seed gives the encoder and heads the same weights

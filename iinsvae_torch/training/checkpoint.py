@@ -2,9 +2,12 @@
 (iinsvae_tpu/training/checkpoint.py, with torch.save in place of orbax).
 
 A checkpoint is ``<model_dir>/epoch_N/state.pt``, ``torch.save`` of
-``{"step", "model", "optimizer"}`` state dicts. The directory names mirror
-the reference's hyperparameter-encoding scheme (train_semi.py:87-88), so
-runs stay identifiable. Retention keeps the newest N epochs and the one
+``{"step", "model", "optimizer"}`` state dicts (the model's holds the
+BatchNormEps running stats beside the parameters). The separated path keeps
+two models in one directory, ``ENet_epoch_N`` and ``MNet_epoch_N``: every
+function takes the ``tag`` that prefixes the name. The directory names
+mirror the reference's hyperparameter-encoding scheme (train_semi.py:87-88,
+run.py:77, run_sep.py:62), so runs stay identifiable. Retention keeps the newest N epochs and the one
 that ``best.json`` points at, which is swapped in with ``os.replace``, so a
 crash never leaves a torn pointer.
 """
@@ -36,15 +39,43 @@ def semi_result_dir(cfg) -> str:
     return semi_model_dir(cfg).replace(cfg.model_dir, cfg.out_dir, 1)
 
 
-def _ckpt_path(model_dir: str, epoch: int) -> str:
-    return os.path.abspath(os.path.join(model_dir, f"epoch_{epoch}"))
+def joint_model_dir(cfg) -> str:
+    return os.path.join(
+        cfg.model_dir + "_" + cfg.net_ablation,
+        "data_%s_%s_mode_%s" % (cfg.dataset_name, cfg.dataset_env, cfg.mode),
+        "enet%s_mnet%s" % (cfg.identifier_type, cfg.regressor_type),
+    )
 
 
-def save_checkpoint(model_dir: str, epoch: int, state) -> str:
+def joint_result_dir(cfg, test: bool = False) -> str:
+    return os.path.join(
+        cfg.out_dir + "_" + cfg.net_ablation, *(("test",) if test else ()),
+        "data_%s_%s_mode_%s" % (cfg.dataset_name, cfg.dataset_env, cfg.mode),
+        "enet%s_mnet%s" % (cfg.identifier_type, cfg.regressor_type),
+    )
+
+
+def sep_model_dir(cfg) -> str:
+    return os.path.join(
+        cfg.model_dir + "_sep",
+        "data_%s_%s_mode_%s" % (cfg.dataset_name, cfg.dataset_env, cfg.mode),
+        "enet%s_mnet%s" % (cfg.identifier_type, cfg.regressor_type),
+    )
+
+
+def _prefix(tag: str) -> str:
+    return f"{tag}_epoch_" if tag else "epoch_"
+
+
+def _ckpt_path(model_dir: str, epoch: int, tag: str = "") -> str:
+    return os.path.abspath(os.path.join(model_dir, f"{_prefix(tag)}{epoch}"))
+
+
+def save_checkpoint(model_dir: str, epoch: int, state, tag: str = "") -> str:
     """Write ``state`` (training.state.TrainState) as epoch ``epoch``; the
     file is written beside its name and moved there, so a reader never sees a
     torn one. -> the checkpoint's directory."""
-    path = _ckpt_path(model_dir, epoch)
+    path = _ckpt_path(model_dir, epoch, tag)
     os.makedirs(path, exist_ok=True)
     payload = {"step": int(state.step), "model": state.model.state_dict(),
                "optimizer": state.optimizer.state_dict()}
@@ -54,35 +85,36 @@ def save_checkpoint(model_dir: str, epoch: int, state) -> str:
     return path
 
 
-def read_checkpoint(model_dir: str, epoch: int) -> dict:
+def read_checkpoint(model_dir: str, epoch: int, tag: str = "") -> dict:
     """The saved payload {step, model, optimizer}, its tensors on the CPU."""
-    return torch.load(os.path.join(_ckpt_path(model_dir, epoch), _STATE_FILE),
+    return torch.load(os.path.join(_ckpt_path(model_dir, epoch, tag), _STATE_FILE),
                       map_location="cpu", weights_only=True)
 
 
-def restore_checkpoint(model_dir: str, epoch: int, state):
+def restore_checkpoint(model_dir: str, epoch: int, state, tag: str = ""):
     """Load epoch ``epoch`` into ``state`` (a freshly created one of the same
     model and optimizer), in place, and return it. The tensors are read to
     the CPU and ``load_state_dict`` copies each where the state's own
     parameters are, so a checkpoint written on the card restores on the CPU
     and the other way round; Adam's step counts stay on the host, as a fresh
     Adam keeps them. The LR schedule reads the restored step."""
-    payload = read_checkpoint(model_dir, epoch)
+    payload = read_checkpoint(model_dir, epoch, tag)
     state.model.load_state_dict(payload["model"])
     state.optimizer.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])
     return state
 
 
-def list_epochs(model_dir: str) -> list:
+def list_epochs(model_dir: str, tag: str = "") -> list:
     if not os.path.isdir(model_dir):
         return []
-    return sorted(int(d[6:]) for d in os.listdir(model_dir)
-                  if d.startswith("epoch_") and d[6:].isdigit())
+    p = _prefix(tag)
+    return sorted(int(d[len(p):]) for d in os.listdir(model_dir)
+                  if d.startswith(p) and d[len(p):].isdigit())
 
 
-def latest_epoch(model_dir: str) -> Optional[int]:
-    epochs = list_epochs(model_dir)
+def latest_epoch(model_dir: str, tag: str = "") -> Optional[int]:
+    epochs = list_epochs(model_dir, tag)
     return epochs[-1] if epochs else None
 
 
@@ -119,13 +151,13 @@ def restore_best(model_dir: str, state):
     return restore_checkpoint(model_dir, best["epoch"], state)
 
 
-def gc_checkpoints(model_dir: str, keep_last: int) -> list:
-    """Delete all but the newest ``keep_last`` epoch checkpoints (and never
-    the best-pointed epoch). keep_last <= 0 keeps everything (the
+def gc_checkpoints(model_dir: str, keep_last: int, tag: str = "") -> list:
+    """Delete all but the newest ``keep_last`` epoch checkpoints of ``tag``
+    (and never the best-pointed epoch). keep_last <= 0 keeps everything (the
     reference's behavior). Returns the removed epochs."""
     if keep_last <= 0:
         return []
-    epochs = list_epochs(model_dir)
+    epochs = list_epochs(model_dir, tag)
     protect = set(epochs[-keep_last:])
     best = best_epoch(model_dir)
     if best is not None:
@@ -133,6 +165,6 @@ def gc_checkpoints(model_dir: str, keep_last: int) -> list:
     removed = []
     for e in epochs:
         if e not in protect:
-            shutil.rmtree(_ckpt_path(model_dir, e), ignore_errors=True)
+            shutil.rmtree(_ckpt_path(model_dir, e, tag), ignore_errors=True)
             removed.append(e)
     return removed

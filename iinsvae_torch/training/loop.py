@@ -79,14 +79,17 @@ def make_evaluator(eval_step: Callable, batch_size: int) -> Callable:
 
 
 def train_epochs(state, run_epoch: Callable, data: dict, n_epochs: int, seed: int = 0,
-                 start_epoch: int = 0,
+                 start_epoch: int = 0, stream: int = 0,
                  log_fn: Optional[Callable[[int, dict], None]] = None,
                  eval_fn: Optional[Callable] = None, eval_interval: int = 0,
                  checkpoint_fn: Optional[Callable] = None,
                  checkpoint_interval: int = 0) -> list[dict]:
     """Run epochs ``start_epoch .. n_epochs - 1``; returns each epoch's
     finalized metrics (host floats), which ``log_fn(epoch, metrics)`` also
-    receives. After an epoch whose index is a multiple of
+    receives. Epoch e draws from the generator seeded ``seed * 1_000_003 +
+    stream + e``: a second model trained on the same data (sep-M after sep-E)
+    takes another ``stream``, as the JAX CLI folds ``10_000 + epoch`` into its
+    key (cli/run_sep.py:76). After an epoch whose index is a multiple of
     ``checkpoint_interval`` ``checkpoint_fn(epoch, state)`` runs, then, at a
     multiple of ``eval_interval``, ``eval_fn(epoch, state)``: the order of the
     reference's train_semi CLI, which saves and collects before it evaluates.
@@ -94,7 +97,8 @@ def train_epochs(state, run_epoch: Callable, data: dict, n_epochs: int, seed: in
     history = []
     for epoch in range(start_epoch, n_epochs):
         # each (seed, epoch) draws its permutation and masks from its own stream
-        gen = torch.Generator(device=data["cir"].device).manual_seed(seed * 1_000_003 + epoch)
+        gen = torch.Generator(device=data["cir"].device).manual_seed(
+            seed * 1_000_003 + stream + epoch)
         metrics = _to_host(finalize_metrics(run_epoch(state, data, gen)))
         history.append(metrics)
         if log_fn is not None:

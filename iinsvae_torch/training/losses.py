@@ -1,4 +1,5 @@
-"""Loss terms of the semi-supervised objective (iinsvae_tpu/training/losses.py:29-110).
+"""Loss terms of the semi-supervised and the supervised joint objectives
+(iinsvae_tpu/training/losses.py:29-127).
 
 * recon: L1(cir, recon); kl: mean KL of the env posterior, each latent
   dimension optionally floored at ``kl_free_bits``; res: L1(err, err_est);
@@ -73,3 +74,13 @@ def semi_loss(outputs: dict, cir: torch.Tensor, err: torch.Tensor, label: torch.
     aux = {"loss": total, "loss_ae": loss_ae, "loss_kl": loss_kl, "loss_res": loss_res,
            "loss_env": loss_env}
     return total, aux
+
+
+def joint_loss(label_est: torch.Tensor, err_est: torch.Tensor, err: torch.Tensor,
+               label: torch.Tensor, sample_weight: Optional[torch.Tensor] = None,
+               lambda_idy: float = 1.0, lambda_reg: float = 1.0) -> tuple[torch.Tensor, dict]:
+    """The supervised joint objective, CE + L1 (losses.py:113-127). -> (total, parts)."""
+    loss_idy = lambda_idy * cross_entropy(label_est, label, sample_weight)
+    loss_reg = lambda_reg * l1(err_est, err, sample_weight)
+    total = loss_idy + loss_reg
+    return total, {"loss": total, "loss_idy": loss_idy, "loss_reg": loss_reg}

@@ -10,7 +10,8 @@
 - The entry points: ``train_semi`` with its default environment (nlos)
   writes its log, checkpoints, ``best.json`` and residual exports without
   JAX; ``--epoch -1`` resumes from the latest checkpoint; ``evaluate`` reads
-  a checkpoint and exits where there is none; ``serve --epoch N`` serves it.
+  a checkpoint and exits where there is none, and with ``--net joint`` reads
+  the joint path's; ``serve --epoch N`` serves it.
 """
 
 import json
@@ -24,7 +25,7 @@ import torch
 
 from iinsvae_tpu.training import checkpoint as jckpt
 from iinsvae_torch.cli import evaluate as evaluate_cli
-from iinsvae_torch.cli import serve, train_semi
+from iinsvae_torch.cli import run, serve, train_semi
 from iinsvae_torch.config import Config
 from iinsvae_torch.models.vae import IInsVAE
 from iinsvae_torch.serving import Predictor
@@ -283,8 +284,11 @@ def test_evaluate_reads_the_checkpoint_and_serve_serves_it(default_env_run, tmp_
     assert evaluate_cli.main(flags + ["--test_epoch", "7"]) == m
     with pytest.raises(SystemExit, match="No saved models"):
         evaluate_cli.main(flags[:-4] + _dirs(str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="joint"):
-        evaluate_cli.main(flags + ["--net", "joint"])
+    # --net joint evaluates the joint path's checkpoint (cli.run's), not the semi one
+    _, joint = run.main(flags + ["--n_epochs", "1"])
+    got = evaluate_cli.main(flags + ["--net", "joint"])
+    assert {k: got[k] for k in ("rmse", "abs", "accuracy")} == {
+        k: joint[k] for k in ("rmse", "abs", "accuracy")}
 
     serve.main(flags + ["--epoch", "3", "--selftest_n", "9", "--serve_batch", "4"])
     out = capsys.readouterr().out

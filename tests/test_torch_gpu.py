@@ -29,6 +29,8 @@ import numpy as np
 import pytest
 import torch
 
+from iinsvae_torch.models import emnet
+from iinsvae_torch.models.layers import draw_dropout_masks
 from iinsvae_torch.models.vae import IInsVAE
 from iinsvae_torch.ops import kernels
 from iinsvae_torch.ops.conv import conv1d, conv2d
@@ -1367,3 +1369,79 @@ def test_gpu_one_stage_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):  # g of another length than the pool's
         backward.tanh_pool_bwd(torch.zeros((4, 150), device=cuda), xt, ko, bo, pool, **tail)
     assert fused.tanh_pool(xt, ko, bo, pool, **tail).shape == (4, 157)
+
+
+# The joint path (EMNet, nlos: 2 classes): one step's launches a kernel, forward and backward.
+# Linear heads: K1 6 (the range encoder), K2 2 (range.out, env.in), K3 2 (the env stages), K4 2
+# (the heads); the Conv heads are plain ops, so K4 does not run.
+JOINT_STEP = {"in_chain": 6, "conv_bias_act": 2, "strided_conv": 2, "mlp_chain": 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("net,heads", [("EMNet", "Linear"), ("EMNetLoop", "Conv1d")])
+def test_gpu_joint_step_gradients_match_cpu(cuda, net, heads):
+    """One joint step of EMNet (Linear heads) and EMNetLoop (Conv1d heads, so BatchNormEps and
+    Dropout run on the card, on injected masks) on the card and on the CPU (fp32), each against
+    the CPU port in float64: loss, every gradient and the running stats after the step, held as
+    test_gpu_training_step_gradients_match_cpu holds them; its launches counted."""
+    cpu = getattr(emnet, net)(num_classes=2, enet_type=heads, mnet_type=heads,
+                              generator=torch.Generator().manual_seed(9))
+    gpu, f64 = copy.deepcopy(cpu).to(cuda), copy.deepcopy(cpu).double()
+    data, _ = _train_batch(64, cuda, seed=2)
+    data["label"] = (data["label"] % 2)
+    masks = draw_dropout_masks(cpu, torch.Generator().manual_seed(3), data["cir"].cpu())
+    assert len(masks) == (0 if heads == "Linear" else 4)
+    grads_fn = steps.make_joint_grads_fn()
+    kernels.reset_launch_counts()
+    mg = grads_fn(gpu, data, dropout_masks={k: v.to(cuda) for k, v in masks.items()})
+    torch.cuda.synchronize()
+    want = {k: v - (k == "mlp_chain" and heads != "Linear") * 2 for k, v in JOINT_STEP.items()}
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == {
+        k: v for k, v in want.items() if v}
+    assert {k: v for k, v in kernels.backward_launch_counts().items() if v} == {
+        f"{k}_bwd": v for k, v in want.items() if v}
+    grads_fn(cpu, {k: v.cpu() for k, v in data.items()}, dropout_masks=masks)
+    m64 = grads_fn(f64, {k: v.cpu().double() for k, v in data.items()}, dropout_masks=masks)
+    for k in ("loss", "loss_idy", "loss_reg"):
+        assert mg[k].item() == pytest.approx(m64[k].item(), rel=1e-4, abs=1e-6), k
+    fp32, ref = dict(cpu.named_parameters()), dict(f64.named_parameters())
+    for name, p in gpu.named_parameters():
+        want = ref[name].grad
+        e_card = (p.grad.cpu().double() - want).abs().max().item()
+        e_cpu = (fp32[name].grad.double() - want).abs().max().item()
+        assert e_card <= STEP_FACTOR * e_cpu + STEP_FLOOR * want.abs().max().item(), name
+    fp32, ref = dict(cpu.named_buffers()), dict(f64.named_buffers())
+    for name, b in gpu.named_buffers():
+        want = ref[name]
+        e_card = (b.cpu().double() - want).abs().max().item()
+        e_cpu = (fp32[name].double() - want).abs().max().item()
+        assert e_card <= STEP_FACTOR * e_cpu + STEP_FLOOR * want.abs().max().item(), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 7, 300, 500])
+def test_gpu_mlp_chain_two_class_classifier_matches_plain(cuda, batch):
+    """K4 and K4b at the classifier of the joint path's default environment (nlos, 2 classes:
+    16 -> 16 -> 32 -> 16 -> 2), which takes the small-head kernel's <Any> instance: K4 within
+    tolerance of the plain version and bit-equal over two calls, one head::mlp_head_kernel a
+    call; K4b's gradients against the plain version's."""
+    mod = emnet.EMNet(num_classes=2, generator=torch.Generator().manual_seed(6)).to(
+        cuda).identifier.classifier
+    ws = [getattr(mod, f"w{j}").detach() for j in range(4)]
+    bs = [getattr(mod, f"b{j}").detach() for j in range(4)]
+    assert [ws[0].shape[0]] + [w.shape[1] for w in ws] == [16, 16, 32, 16, 2]
+    gen = torch.Generator().manual_seed(batch)
+    x = torch.randn((batch, 16), generator=gen).to(cuda)
+    with torch.no_grad():
+        y, ds = fused.launch_mlp_chain(x, ws, bs, mod.slopes, save_pre=True)
+        torch.testing.assert_close(y, fused.mlp_chain_ref(x, ws, bs, mod.slopes), rtol=RTOL,
+                                   atol=ATOL)
+        assert torch.equal(y, fused.mlp_chain(x, ws, bs, mod.slopes))
+        assert torch.equal(y, fused.mlp_chain(x, ws, bs, mod.slopes))
+        for j, (d, want) in enumerate(zip(ds, _pre_activations(x, ws, bs, mod.slopes))):
+            torch.testing.assert_close(d, want, rtol=RTOL, atol=ATOL, msg=lambda m: f"d_{j}: {m}")
+    assert _device_kernel_names(lambda: fused.mlp_chain(x, ws, bs, mod.slopes)) == {
+        "head::mlp_head_kernel"}
+    g = torch.randn((batch, 2), generator=gen).to(cuda)
+    _grads_match(backward.mlp_chain_bwd, (g, x, ws, bs, mod.slopes, ds), {},
+                 f"2-class classifier batch {batch}")

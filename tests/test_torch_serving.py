@@ -158,8 +158,8 @@ def test_bridge_ignores_decoder_and_rejects_unknown_keys(exported):
     assert all(state[k].shape == port[k].shape for k in state)
     assert bridge.model_geometry(state) == dict(
         conv_type=1, dim=4, n_downsample=4, n_residual=3, range_dim=2, style_dim=16, num_classes=5)
-    with pytest.raises(KeyError, match="unknown JAX parameter"):
-        bridge.from_flax_numpy({**flat, "params/restorer/restorer/Conv1d_0/kernel": np.zeros(1)})
+    with pytest.raises(KeyError, match="unknown JAX parameter"):  # Conv1d heads are known
+        bridge.from_flax_numpy({**flat, "params/restorer/restorer/Conv3d_0/kernel": np.zeros(1)})
     with pytest.raises(KeyError, match="unknown JAX parameter"):
         bridge.from_flax_numpy({**flat, "params/decoder/decoder/up9_scale": np.zeros(1)})
 
