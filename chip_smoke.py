@@ -5,6 +5,18 @@
 1. prints the card (nvidia-smi name and power limit) and the versions;
 2. builds the CUDA kernels from iinsvae_torch/ops/kernels/csrc with nvcc,
    one nvcc a source, all at once;
+   [server] then drives the serving deployment path before any torch.profiler session
+   (server_phase): the flagship 1-D model (seeded) as a recon Predictor at batch 256 behind
+   ``runtime.serve_predictor`` (probabilities and reconstruction, deadline 3 ms, the native
+   plane built with g++ from iinsvae_torch/runtime/csrc), a unix-socket and a TCP front;
+   8 client threads, 4 on each front, send 16 frames of 1-32 seeded CIRs each while 2
+   threads submit in-process, with every launch counter set to 0 just before and read just
+   after (17 launches a served batch, none backward); every row against the CPU Predictor;
+   the server's counters (native plane, every row posted, no timeout, reclaim or rejected
+   frame); the 2-D model through an in-process server (256 requests, 8 launches a batch);
+   and ``python -m iinsvae_torch.cli.serve --socket`` in a subprocess, answered, then
+   stopped by SIGINT (exit code 0, its stats line). It prints served rows/s through the
+   fronts, frame latency, mean occupancy and queue time beside the card (no claim);
 3. at batch 500, calls every kernel at every shape the 1-D model's serving
    forward gives it, holds the result against the kernel's plain PyTorch
    version on the same inputs, and times kernel, plain version and (where
@@ -115,8 +127,9 @@
 
 Prints a ``sites`` line (per call site, both models), a ``serving`` line,
 a ``backward`` line (per backward call site), a ``training`` and a
-``training_2d`` line, a ``one_stage`` line, an ``eval`` line, a ``joint`` line, a ``kernels``
-line, the nvidia-smi line and, last,
+``training_2d`` line, a ``one_stage`` line, an ``eval`` line, a ``joint`` line, a ``server``
+line, a ``kernels`` line (with ``launches_server``, each kernel's launches in the
+``[server]`` phase), the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. The whole result also goes to
 chiprun_out/chip_smoke.json. Any failure raises and exits non-zero; without
 a CUDA device it exits 2 and prints no result.
@@ -263,6 +276,14 @@ JOINT_EPOCHS, SEP_EPOCHS = 3, 2
 JOINT_STEP = {"in_chain": 6, "conv_bias_act": 2, "strided_conv": 2, "mlp_chain": 2}
 SEP_E_STEP = {"conv_bias_act": 1, "strided_conv": 2, "mlp_chain": 1}
 SEP_M_STEP = {"in_chain": 6, "conv_bias_act": 1, "mlp_chain": 1}
+# [server]: the request batcher in front of the recon Predictor at the serve CLI's batch and
+# deadline; SERVER_CLIENTS client threads (half on the unix-socket front, half on TCP) send
+# SERVER_FRAMES frames of 1-32 CIRs each, SERVER_LOCAL threads submit SERVER_LOCAL_N CIRs each
+# in-process beside them; the 2-D model serves SERVER_2D_N in-process requests
+SERVER_BATCH, SERVER_DEADLINE_MS = 256, 3.0
+SERVER_CLIENTS, SERVER_FRAMES, SERVER_MAX_FRAME = 8, 16, 32
+SERVER_LOCAL, SERVER_LOCAL_N = 2, 64
+SERVER_2D_N = 256
 FLAGSHIP = dict(conv_type=1, cir_len=157, num_classes=5, style_dim=16, dim=4,
                 n_residual=3, n_downsample=4, range_dim=2)
 FLAGSHIP_2D = dict(FLAGSHIP, conv_type=2)
@@ -2193,6 +2214,246 @@ def joint_phase(head_rows: tuple[list[dict], list[dict]]) -> dict:
     return result
 
 
+def _join_all(threads: list, timeout_s: float = 600.0) -> None:
+    """Start the threads and wait for all of them, timeout_s in all."""
+    deadline = time.monotonic() + timeout_s
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(max(0.0, deadline - time.monotonic()))
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a client thread of the server phase hung")
+
+
+def served_vs_cpu(cpu_model: IInsVAE, cirs: np.ndarray, err: np.ndarray, label: np.ndarray,
+                  extra: np.ndarray, what: str) -> dict:
+    """Served rows (err, label, probs, recon) against Predictor(device='cpu') on the same
+    weights and CIRs (float32, as the server hands them over): SERVE_RTOL / SERVE_ATOL, a
+    label flipped only where the CPU's top two classes tie within tolerance (serve_main_path)."""
+    if not (np.isfinite(err).all() and np.isfinite(extra).all()) or (label < 0).any():
+        raise AssertionError(f"{what}: a NaN or -1 row came back")
+    want = Predictor(cpu_model, batch_size=SERVER_BATCH, return_recon=True,
+                     device="cpu")(cirs.astype(np.float32))
+    k = want.label_probs.shape[1]
+    errs = {}
+    for f, a, b in (("err_est", err, want.err_est[:, 0]), ("label_probs", extra[:, :k],
+                    want.label_probs), ("recon", extra[:, k:], want.recon)):
+        np.testing.assert_allclose(a, b, rtol=SERVE_RTOL, atol=SERVE_ATOL, err_msg=f"{what} {f}")
+        errs[f] = float(np.abs(a - b).max())
+    top2 = np.sort(want.label_probs, axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 2 * SERVE_ATOL
+    if (label[clear] != want.label[clear]).any():
+        raise AssertionError(f"{what}: labels differ from the CPU path")
+    return dict(max_abs_err_vs_cpu=errs,
+                label_mismatches_within_ties=int((label != want.label).sum()))
+
+
+def counted_server(stats: dict, per_batch: dict[str, int], what: str) -> dict:
+    """The launch counts since the last reset: each forward kernel per_batch times the
+    server's batches, no backward launch."""
+    launches, bwd = kernels.launch_counts(), kernels.backward_launch_counts()
+    for name, per in per_batch.items():
+        if launches[name] != per * stats["batches"]:
+            raise AssertionError(f"{what}: {name} launched {launches[name]} times, expected "
+                                 f"{per} x {stats['batches']} batches")
+    if any(bwd.values()):
+        raise AssertionError(f"{what}: backward launches {bwd}")
+    return {**launches, **bwd}
+
+
+def check_server_stats(st: dict, rows: int, what: str) -> None:
+    if not st["submitted"] == st["rows_posted"] == st["rows_dispatched"] == rows:
+        raise AssertionError(f"{what}: {rows} rows sent, stats {st}")
+    if st["wait_timeouts"] or st["reclaimed"] or st["pending"]:
+        raise AssertionError(f"{what}: timeouts, reclaims or pending rows: {st}")
+
+
+def serve_entry_point(tmp: str) -> dict:
+    """``python -m iinsvae_torch.cli.serve --socket`` in a subprocess (the flagship, seeded):
+    one framed request answered, then SIGINT: exit code 0 and the stats line."""
+    import os
+    import signal
+    import threading
+
+    from iinsvae_torch.runtime import socket_client_request
+
+    sock = os.path.join(tmp, "cli.sock")
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "iinsvae_torch.cli.serve", "--dataset_env", "room_full",
+           "--socket", sock, "--serve_batch", str(SERVER_BATCH), "--probs", "--recon"]
+    proc = subprocess.Popen(cmd, cwd=root, env={**os.environ, "PYTHONPATH": str(root)},
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    watchdog = threading.Timer(600.0, proc.kill)
+    watchdog.start()
+    t0 = time.perf_counter()
+    try:
+        lines = []
+        for line in proc.stdout:
+            lines.append(line)
+            if "Ctrl-C to stop" in line:
+                break
+        ready_s = time.perf_counter() - t0
+        if not any("plane=native" in ln for ln in lines):
+            raise AssertionError("serve --socket did not come up:\n" + "".join(lines))
+        cirs = np.random.default_rng(9).normal(size=(5, 157))
+        err, label, extra = socket_client_request(sock, cirs, timeout_s=120.0, n_extra=5 + 157)
+        if not (np.isfinite(err).all() and np.isfinite(extra).all()) or (label < 0).any():
+            raise AssertionError("serve --socket answered with NaN or -1 rows")
+        proc.send_signal(signal.SIGINT)
+        out = "".join(lines) + proc.communicate(timeout=120)[0]
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    stats = [ln for ln in out.splitlines() if ln.startswith("[serve] stats:")]
+    if proc.returncode != 0 or not stats or "5 submitted" not in stats[0]:
+        raise AssertionError(f"serve --socket exit code {proc.returncode} after SIGINT:\n{out}")
+    return dict(cmd=" ".join(cmd[1:]), ready_s=ready_s, exit_code=proc.returncode,
+                stats_line=stats[0])
+
+
+def server_phase(card: str) -> dict:
+    """[server] The serving deployment path on the card (runtime.serve_predictor, the native
+    plane, both fronts, serve --socket), before any torch.profiler session:
+
+    - the flagship 1-D model (seeded) as Predictor(device='cuda', batch SERVER_BATCH,
+      return_recon=True), one padded batch run first (as the serve CLI does), behind
+      serve_predictor(with_probs, with_recon, deadline SERVER_DEADLINE_MS), a SocketFront on
+      a temporary path and a TcpFront on an ephemeral port of the loopback;
+    - SERVER_CLIENTS client threads, half on each front, each sending SERVER_FRAMES frames of
+      1-SERVER_MAX_FRAME CIRs drawn from a seed, and SERVER_LOCAL threads submitting
+      in-process beside them, with every launch counter set to 0 just before and read just
+      after: each kernel's launches equal the server's batches times its recon count (17 a
+      batch); the native plane, every row posted, no timeout, reclaim or rejected frame;
+      every row against the CPU Predictor (served_vs_cpu);
+    - the 2-D model (seeded) through an in-process server: SERVER_2D_N requests, 8 launches a
+      batch, card against CPU;
+    - serve_entry_point.
+    Prints served rows/s through the fronts, frame latency (median, p90), mean occupancy and
+    queue time beside the card (no claim)."""
+    import tempfile
+    import threading
+
+    from iinsvae_torch.runtime import (SocketFront, TcpFront, serve_predictor,
+                                       socket_client_request)
+
+    t_phase = time.perf_counter()
+    n_extra = FLAGSHIP["num_classes"] + FLAGSHIP["cir_len"]
+    cpu_model = IInsVAE(**FLAGSHIP, generator=torch.Generator().manual_seed(0))
+    gpu = Predictor(copy.deepcopy(cpu_model).cuda(), batch_size=SERVER_BATCH,
+                    return_recon=True, device="cuda")
+    gpu(np.zeros((1, FLAGSHIP["cir_len"]), np.float32))
+    rng = np.random.default_rng(8)
+    frames = [[rng.normal(size=(int(rng.integers(1, SERVER_MAX_FRAME + 1)), 157))
+               for _ in range(SERVER_FRAMES)] for _ in range(SERVER_CLIENTS)]
+    local = rng.normal(size=(SERVER_LOCAL, SERVER_LOCAL_N, 157))
+    got = [[None] * SERVER_FRAMES for _ in range(SERVER_CLIENTS)]
+    lat_ms = [[] for _ in range(SERVER_CLIENTS)]
+    got_local = [[None] * SERVER_LOCAL_N for _ in range(SERVER_LOCAL)]
+    with tempfile.TemporaryDirectory(prefix="iins_") as tmp:
+        kernels.reset_launch_counts()
+        with serve_predictor(gpu, with_probs=True, with_recon=True,
+                             deadline_ms=SERVER_DEADLINE_MS) as srv, \
+                SocketFront(srv, f"{tmp}/serve.sock") as unix, TcpFront(srv, 0) as tcp:
+            addrs = [unix.sock_path, ("127.0.0.1", tcp.port)]
+
+            def client(i):
+                for k, f in enumerate(frames[i]):
+                    t0 = time.perf_counter()
+                    got[i][k] = socket_client_request(addrs[i % 2], f, timeout_s=120.0,
+                                                      n_extra=n_extra)
+                    lat_ms[i].append((time.perf_counter() - t0) * 1e3)
+
+            def in_process(j):
+                for k in range(SERVER_LOCAL_N):
+                    got_local[j][k] = srv.submit(local[j, k], timeout_s=120.0)
+
+            t0 = time.perf_counter()
+            _join_all([threading.Thread(target=client, args=(i,)) for i in range(SERVER_CLIENTS)]
+                      + [threading.Thread(target=in_process, args=(j,))
+                         for j in range(SERVER_LOCAL)])
+            wall_s = time.perf_counter() - t0
+            st, native = srv.stats(), srv.native
+            rejected = [unix.rejected_frames, tcp.rejected_frames]
+        launches = counted_server(st, EXPECTED_RECON, "[server] 1-D")
+        entry = serve_entry_point(tmp)
+    if not native:
+        raise AssertionError("[server] the server is not on the native plane")
+    if any(rejected):
+        raise AssertionError(f"[server] rejected frames {rejected}")
+    if any(o is None for row in got_local for o in row):
+        raise AssertionError("[server] an in-process request timed out")
+    front_rows = sum(len(f) for fs in frames for f in fs)
+    check_server_stats(st, front_rows + SERVER_LOCAL * SERVER_LOCAL_N, "[server] 1-D")
+    cirs = np.concatenate([f for fs in frames for f in fs] + [local.reshape(-1, 157)])
+    outs = [g for gs in got for g in gs]
+    local_outs = [o for row in got_local for o in row]
+    err = np.concatenate([g[0] for g in outs] + [[o[0] for o in local_outs]])
+    label = np.concatenate([g[1] for g in outs] + [[o[1] for o in local_outs]])
+    extra = np.concatenate([g[2] for g in outs] + [np.stack([o[2] for o in local_outs])])
+    vs_cpu = served_vs_cpu(cpu_model, cirs, err, label, extra, "[server] 1-D")
+    lat = [x for xs in lat_ms for x in xs]
+    one_d = dict(model="1-D flagship, recon and probs", batch=SERVER_BATCH,
+                 deadline_ms=SERVER_DEADLINE_MS, clients=SERVER_CLIENTS,
+                 frames=SERVER_CLIENTS * SERVER_FRAMES, front_rows=front_rows,
+                 in_process_rows=SERVER_LOCAL * SERVER_LOCAL_N, wall_s=wall_s,
+                 front_rows_per_s=front_rows / wall_s,
+                 rows_per_s=(front_rows + SERVER_LOCAL * SERVER_LOCAL_N) / wall_s,
+                 frame_latency_ms_median=statistics.median(lat),
+                 frame_latency_ms_p90=float(np.percentile(lat, 90)), stats=st,
+                 rejected_frames=rejected, native=native, launches=launches, **vs_cpu)
+    print(f"[server] 1-D recon+probs, batch {SERVER_BATCH}, deadline {SERVER_DEADLINE_MS} ms: "
+          f"{front_rows} rows in {one_d['frames']} frames through the fronts and "
+          f"{one_d['in_process_rows']} in-process in {wall_s:.3f} s: "
+          f"{one_d['front_rows_per_s']:.1f} rows/s through the fronts, frame latency median "
+          f"{one_d['frame_latency_ms_median']:.3f} ms, p90 {one_d['frame_latency_ms_p90']:.3f} "
+          f"ms; {st['batches']} batches, mean occupancy {st['mean_occupancy']:.2f}, mean queue "
+          f"{st['mean_queue_ms']:.3f} ms; {sum(launches.values())} launches = 17 x "
+          f"{st['batches']}; max err vs CPU {vs_cpu['max_abs_err_vs_cpu']} | {card} (no claim)",
+          flush=True)
+
+    cpu_2d = IInsVAE(**FLAGSHIP_2D, generator=torch.Generator().manual_seed(0))
+    gpu_2d = Predictor(copy.deepcopy(cpu_2d).cuda(), batch_size=SERVER_BATCH,
+                       return_recon=True, device="cuda")
+    gpu_2d(np.zeros((1, FLAGSHIP_2D["cir_len"]), np.float32))
+    cirs_2d = np.random.default_rng(10).normal(size=(SERVER_2D_N, 157))
+    got_2d = [None] * SERVER_2D_N
+    kernels.reset_launch_counts()
+    with serve_predictor(gpu_2d, with_probs=True, with_recon=True,
+                         deadline_ms=SERVER_DEADLINE_MS) as srv:
+        def submit_2d(j):
+            for k in range(j, SERVER_2D_N, SERVER_CLIENTS):
+                got_2d[k] = srv.submit(cirs_2d[k], timeout_s=120.0)
+
+        t0 = time.perf_counter()
+        _join_all([threading.Thread(target=submit_2d, args=(j,)) for j in range(SERVER_CLIENTS)])
+        wall_2d = time.perf_counter() - t0
+        st_2d = srv.stats()
+    launches_2d = counted_server(st_2d, EXPECTED_2D_RECON, "[server] 2-D")
+    if any(o is None for o in got_2d):
+        raise AssertionError("[server] 2-D: a request timed out")
+    check_server_stats(st_2d, SERVER_2D_N, "[server] 2-D")
+    vs_cpu_2d = served_vs_cpu(cpu_2d, cirs_2d, np.array([o[0] for o in got_2d]),
+                              np.array([o[1] for o in got_2d]),
+                              np.stack([o[2] for o in got_2d]), "[server] 2-D")
+    two_d = dict(model="expanded 2-D, recon and probs, in-process", requests=SERVER_2D_N,
+                 wall_s=wall_2d, rows_per_s=SERVER_2D_N / wall_2d, stats=st_2d,
+                 launches=launches_2d, **vs_cpu_2d)
+    print(f"[server] 2-D recon+probs in-process: {SERVER_2D_N} requests in {wall_2d:.3f} s, "
+          f"{st_2d['batches']} batches (mean occupancy {st_2d['mean_occupancy']:.2f}, queue "
+          f"{st_2d['mean_queue_ms']:.3f} ms), {sum(launches_2d.values())} launches = 8 x "
+          f"{st_2d['batches']}; max err vs CPU "
+          f"{vs_cpu_2d['max_abs_err_vs_cpu']} | {card} (no claim)", flush=True)
+    print(f"[server] serve --socket: ready in {entry['ready_s']:.1f} s, answered, SIGINT -> "
+          f"exit {entry['exit_code']}: {entry['stats_line']}", flush=True)
+    result = dict(one_d=one_d, two_d=two_d, entry_point=entry, card=card,
+                  launches={k: launches[k] + launches_2d[k] for k in launches},
+                  wall_s=time.perf_counter() - t_phase)
+    print(f"[server] phase {result['wall_s']:.1f} s", flush=True)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script runs on the card",
@@ -2214,6 +2475,9 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
+
+    # the serving deployment path, before any torch.profiler session
+    server = server_phase(card)
 
     # the 1-D model
     cpu_model = IInsVAE(**FLAGSHIP, generator=torch.Generator().manual_seed(0))
@@ -2302,9 +2566,12 @@ def main() -> int:
 
     # each kernel's launches on the joint and separated entry points' main paths (cli.run,
     # cli.run_sep: training steps, evaluation and inference)
+    # and on the server's ([server]: the 1-D recon server through both fronts and the 2-D
+    # in-process server)
     for row in kernel_table:
         row["launches_joint"] = {**joint["launches_run"], **joint["launches_run_bwd"]}[row["name"]]
         row["launches_sep"] = {**joint["launches_sep"], **joint["launches_sep_bwd"]}[row["name"]]
+        row["launches_server"] = server["launches"][row["name"]]
 
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(dict(
@@ -2315,7 +2582,7 @@ def main() -> int:
         serving_2d=serving_2d, serving_2d_recon=serving_2d_recon,
         backward_sites=bwd_rows + bwd_rows_2d, ragged_max_abs_err=ragged, training=training,
         training_2d=training_2d,
-        one_stage=one_stage, evaluation=evaluation, joint=joint,
+        one_stage=one_stage, evaluation=evaluation, joint=joint, server=server,
         kernel_tolerance=[KERNEL_RTOL, KERNEL_ATOL], serve_tolerance=[SERVE_RTOL, SERVE_ATOL],
         backward_tolerance=[BWD_RTOL, BWD_ATOL], step_tolerance=[STEP_FACTOR, STEP_FLOOR],
         wall_s=time.perf_counter() - t_start),
@@ -2330,6 +2597,7 @@ def main() -> int:
     print(json.dumps({"one_stage": one_stage, "card": card}), flush=True)
     print(json.dumps({"eval": evaluation, "card": card}), flush=True)
     print(json.dumps({"joint": joint, "card": card}), flush=True)
+    print(json.dumps({"server": server}), flush=True)
     print(json.dumps({"kernels": kernel_table}), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)

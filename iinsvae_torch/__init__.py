@@ -6,7 +6,9 @@ decoder's reconstruction), trains it with the semi-supervised step,
 checkpoints, resumes and evaluates it (training/, evaluation/,
 cli/train_semi.py, cli/evaluate.py), trains and evaluates the supervised
 joint EMNet / EMNetLoop and the separated IdentifierSep / RegressorSep
-(models/emnet.py, cli/run.py, cli/run_sep.py), for the 1-D model (conv_type=1) and the
+(models/emnet.py, cli/run.py, cli/run_sep.py), and serves it to other processes through
+the request batcher and its unix-socket and TCP fronts (runtime/, cli/serve.py; a native
+plane in C++ built with g++ at first use), for the 1-D model (conv_type=1) and the
 expanded 2-D model (conv_type=2: the encoders on the column-grouped square
 image, ops/colgroups.py; the decoder's subpixel 'fast' lowering,
 ops/subpixel.py). Activations stay channels-last ``(B, L, C)`` or
@@ -29,6 +31,8 @@ _EXPORTS = {
     "IInsVAE": "iinsvae_torch.models.vae",
     "Predictor": "iinsvae_torch.serving",
     "load_npz": "iinsvae_torch.bridge",
+    "serve_predictor": "iinsvae_torch.runtime",
+    "socket_client_request": "iinsvae_torch.runtime",
 }
 
 __all__ = ["__version__", *_EXPORTS]

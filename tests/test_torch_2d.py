@@ -363,7 +363,8 @@ def test_cli_serves_2d_with_recon_on_cpu():
     r = _run(["serve", "--device", "cpu", "--conv_type", "2", "--dataset_env", "room_full",
               "--selftest_n", "9", "--serve_batch", "4", "--recon"])
     assert r.returncode == 0, r.stderr
-    assert "self-test ok: 9 requests in 3 batches" in r.stdout
+    assert "self-test ok: 9 requests through the server" in r.stdout
+    assert "[serve] stats: 9 submitted" in r.stdout
     assert "recon (9, 157)" in r.stdout
 
 

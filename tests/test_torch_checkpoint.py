@@ -292,7 +292,8 @@ def test_evaluate_reads_the_checkpoint_and_serve_serves_it(default_env_run, tmp_
 
     serve.main(flags + ["--epoch", "3", "--selftest_n", "9", "--serve_batch", "4"])
     out = capsys.readouterr().out
-    assert "checkpoint epoch 3" in out and "self-test ok: 9 requests in 3 batches" in out
+    assert "checkpoint epoch 3" in out and "self-test ok: 9 requests through the server" in out
+    assert "[serve] stats: 9 submitted" in out
     # the served model is the checkpoint's
     cirs = np.random.default_rng(0).normal(size=(5, 157)).astype(np.float32)
     got = Predictor.from_checkpoint(cfg, 3, batch_size=4, device="cpu")(cirs)

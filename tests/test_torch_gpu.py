@@ -24,6 +24,7 @@ model's largest.
 
 import copy
 import re
+import threading
 
 import numpy as np
 import pytest
@@ -136,6 +137,53 @@ def test_gpu_predictor_matches_cpu_predictor(cuda, recon, conv_type):
     for f in ("err_est", "label_probs", "env_code") + (("recon",) if recon else ()):
         np.testing.assert_allclose(getattr(a, f), getattr(b, f), rtol=1e-3, atol=1e-4,
                                    err_msg=f)
+
+
+@pytest.mark.gpu
+def test_gpu_recon_server_over_both_fronts_matches_cpu(cuda, tmp_path):
+    """The 1-D recon server on the card (runtime.serve_predictor with the
+    probabilities and the reconstruction) behind a unix-socket and a TCP
+    front: four clients on each send frames of 1-32 CIRs; every row is the
+    CPU Predictor's, and each kernel ran its recon count a served batch."""
+    from iinsvae_torch.runtime import SocketFront, TcpFront, serve_predictor, socket_client_request
+
+    model = IInsVAE(**MODELS[1], generator=torch.Generator().manual_seed(6))
+    cpu = Predictor(copy.deepcopy(model), batch_size=64, return_recon=True, device="cpu")
+    gpu = Predictor(model, batch_size=64, return_recon=True, device="cuda")
+    gpu(np.zeros((1, 157), np.float32))  # builds the kernels before the server opens
+    rng = np.random.default_rng(6)
+    frames = [rng.normal(size=(int(rng.integers(1, 33)), 157)) for _ in range(8)]
+    got = [None] * len(frames)
+    sock = str(tmp_path / "gpu.sock")
+    kernels.reset_launch_counts()
+    with serve_predictor(gpu, with_probs=True, with_recon=True, deadline_ms=2.0) as srv, \
+            SocketFront(srv, sock), TcpFront(srv, 0) as tcp:
+        addrs = [sock, ("127.0.0.1", tcp.port)]
+
+        def client(i):
+            got[i] = socket_client_request(addrs[i % 2], frames[i], n_extra=5 + 157)
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(frames))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120.0)
+        assert not any(t.is_alive() for t in threads)
+        st = srv.stats()
+    launches = kernels.launch_counts()
+    for name, per in RECON[1].items():
+        assert launches[name] == per * st["batches"], (name, launches[name], st["batches"])
+    rows = sum(len(f) for f in frames)
+    assert st["submitted"] == st["rows_posted"] == rows
+    assert st["wait_timeouts"] == st["reclaimed"] == 0
+    want = cpu(np.concatenate(frames).astype(np.float32))
+    err, label, extra = (np.concatenate(x) for x in zip(*got))
+    np.testing.assert_allclose(err, want.err_est[:, 0], rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(extra[:, :5], want.label_probs, rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(extra[:, 5:], want.recon, rtol=1e-3, atol=1e-4)
+    top2 = np.sort(want.label_probs, axis=1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 2e-4  # a label may flip only at a tie
+    np.testing.assert_array_equal(label[clear], want.label[clear])
 
 
 @pytest.mark.gpu

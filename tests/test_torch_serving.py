@@ -9,8 +9,10 @@ identical labels, and with ``return_recon`` the same reconstructed CIR.
 """
 
 import os
+import signal
 import subprocess
 import sys
+import threading
 import types
 
 import jax
@@ -228,12 +230,59 @@ def test_cli_self_test_on_cpu():
     r = _run(["-m", "iinsvae_torch.cli.serve", "--device", "cpu", "--dataset_env",
               "room_full", "--selftest_n", "9", "--serve_batch", "4"])
     assert r.returncode == 0, r.stderr
-    assert "self-test ok: 9 requests in 3 batches" in r.stdout
+    assert "plane=native, payload=err,label+0" in r.stdout
+    assert "self-test ok: 9 requests through the server" in r.stdout
+    assert "[serve] stats: 9 submitted" in r.stdout and "0 client timeouts" in r.stdout
 
 
 def test_cli_self_test_with_recon_on_cpu():
     r = _run(["-m", "iinsvae_torch.cli.serve", "--device", "cpu", "--dataset_env",
               "room_full", "--selftest_n", "9", "--serve_batch", "4", "--recon"])
     assert r.returncode == 0, r.stderr
-    assert "self-test ok: 9 requests in 3 batches" in r.stdout
+    assert "self-test ok: 9 requests through the server" in r.stdout
+    assert "[serve] stats: 9 submitted" in r.stdout
     assert "recon (9, 157)" in r.stdout
+
+
+def test_cli_socket_mode_answers_then_stops_on_sigint(tmp_path):
+    """``serve --socket`` in a subprocess: one framed request answered (the
+    error, label, probabilities and reconstruction), then SIGINT stops it
+    with exit code 0 and its stats line."""
+    from iinsvae_torch.runtime import socket_client_request
+
+    sock = str(tmp_path / "serve.sock")
+    env = {**os.environ, "PYTHONPATH": REPO, "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "iinsvae_torch.cli.serve", "--device", "cpu", "--dataset_env",
+         "room_full", "--socket", sock, "--serve_batch", "4", "--probs", "--recon"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    watchdog = threading.Timer(300.0, proc.kill)  # a hung server fails the test, not the suite
+    watchdog.start()
+    try:
+        lines = []
+        for line in proc.stdout:
+            lines.append(line)
+            if "Ctrl-C to stop" in line:
+                break
+        assert any(f"listening on {sock}" in ln for ln in lines), "".join(lines)
+        cirs = np.random.default_rng(4).normal(size=(3, 157))
+        err, label, extra = socket_client_request(sock, cirs, timeout_s=120.0, n_extra=5 + 157)
+        assert np.isfinite(err).all() and ((label >= 0) & (label < 5)).all()
+        np.testing.assert_allclose(extra[:, :5].sum(axis=1), 1.0, rtol=1e-5)
+        assert np.isfinite(extra[:, 5:]).all()
+        proc.send_signal(signal.SIGINT)
+        out = proc.communicate(timeout=120)[0]
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, out
+    assert "[serve] stats: 3 submitted" in out and "0 client timeouts" in out
+
+
+def test_cli_serve_devices_beyond_the_visible_raises():
+    r = _run(["-m", "iinsvae_torch.cli.serve", "--device", "cpu", "--dataset_env",
+              "room_full", "--serve_devices", "2"])
+    assert r.returncode != 0
+    assert "ValueError: --serve_devices 2 > 1 visible devices" in r.stderr
