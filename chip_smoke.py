@@ -125,6 +125,30 @@
    EMNet's training CIR/s and its traced step (no claim). The ``kernels`` line gains
    ``launches_joint`` and ``launches_sep``, each kernel's launches on the two entry points' runs.
 
+12. [bf16] (after the 2-D training, bf16_sites and bf16_train_path): the bfloat16 instances of
+   K7 (serving and saving, y bit-equal), K7b, K4 and K4b at the 2-D model's IN and AdaIN blocks,
+   restorer and classifier, at batch 500 on the model's weights rounded to bfloat16 and seeded
+   bfloat16 inputs: every output and gradient against float64 on the same inputs, at most
+   BF16_FACTOR times the plain bfloat16 version's error plus BF16_FLOOR of the result's
+   magnitude (K7's and K7b's per-sample tensors on the samples clear of MASK_MARGIN); each
+   call's device kernels (BF16_DEVICE_KERNELS), its time beside its bound (bfloat16 tensor
+   cores for K7 and K7b, fp32 FMAs for K4 and K4b), its plain version and a bfloat16 yardstick
+   (double dagger: one cuDNN 3x3 conv or conv backward of the block, torch.mm of the head's
+   largest layer); then ``--compute_dtype bfloat16`` training of the 2-D model through
+   ``cli.train_semi.build``: 3 epochs counted (K7 6, K7b 6, K4 2, K4b 2 bfloat16 launches a
+   step, no float32 instance), a finite loss that falls, training CIR/s and a traced step's
+   device busy time beside the float32 step's, one step's gradients on the card and on the
+   CPU port (bfloat16) against float64; and the entry points (bf16_cli_check): ``train_semi``
+   trains, checkpoints and resumes bit-equal, ``evaluate`` reads the checkpoint. The
+   ``kernels`` line gains the four bfloat16 instances as rows of their own; their
+   ``launches_joint``, ``launches_sep`` and ``launches_server`` are read in [joint] and [server],
+   which fail unless every bfloat16 counter stayed 0 there.
+
+Each device-kernel check (``device_kernel`` sites, the backward sites, [bf16]) reads the
+kernel nodes of a CUDA graph of the call (graph_kernels.launched_kernels, the graph replayed
+and its outputs bit-equal to an eager call's), not a torch.profiler trace, which on the card
+sometimes held no device event.
+
 Prints a ``sites`` line (per call site, both models), a ``serving`` line,
 a ``backward`` line (per backward call site), a ``training`` and a
 ``training_2d`` line, a ``one_stage`` line, an ``eval`` line, a ``joint`` line, a ``server``
@@ -157,8 +181,8 @@ from iinsvae_torch.evaluation import evaluate_semi
 from iinsvae_torch.models.vae import IInsVAE
 from iinsvae_torch.ops import kernels
 from iinsvae_torch.ops.conv import conv1d, out_len, upsample_nearest1d
-from iinsvae_torch.ops.kernels import _build, backward, fused, res2d, strided_conv
-from iinsvae_torch.ops.norms import adain, sample_layer_norm
+from iinsvae_torch.ops.kernels import _build, backward, fused, graph_kernels, res2d, strided_conv
+from iinsvae_torch.ops.norms import adain, instance_norm, sample_layer_norm
 from iinsvae_torch.ops.pooling import adaptive_avg_pool_matrix
 from iinsvae_torch.serving import Predictor
 from iinsvae_torch.training import loop, steps
@@ -255,6 +279,10 @@ SOURCES = {
     "adain_layer_bwd": _CSRC + "in_chain_bwd.cu",
     "sln_layer_bwd": _CSRC + "sln_layer_bwd.cu",
     "tanh_pool_bwd": _CSRC + "sln_layer_bwd.cu",
+    "res_block_2d_bf16": _CSRC + "res_block_2d_bf16.cu",
+    "res_block_2d_bwd_bf16": _CSRC + "res_block_2d_bf16_bwd.cu",
+    "mlp_chain_bf16": _CSRC + "mlp_chain.cu",
+    "mlp_chain_bwd_bf16": _CSRC + "mlp_chain_bwd.cu",
 }
 # [eval]: the entry point's flags (the training-quality recipe's model and fixture), the
 # epochs of its runs, and the CPU's top-two logit margin under which the card's argmax may
@@ -739,16 +767,10 @@ def check_and_time(sites: list[dict], tag: str = "kernel") -> list[dict]:
 
 
 def check_device_kernel(s: dict, seen: dict[str, int], tag: str) -> None:
-    """Where a site names the device kernel its call must launch (``device_kernel``), the
-    profiler's trace of the call holds that kernel, once a call, and nothing else. A trace
-    with no device event at all (torch.profiler sometimes gives one on the card, ROADMAP
-    Queue 3) proves nothing either way and is only reported."""
+    """Where a site names the device kernel its call must launch (``device_kernel``), a CUDA
+    graph of the call (device_kernels) holds that kernel once and nothing else."""
     want = s.get("device_kernel")
     if want is None:
-        return
-    if not seen:
-        print(f"[{tag}] {s['name']}: the trace holds no device event; {want} not confirmed",
-              flush=True)
         return
     if seen != {want: 1}:
         raise AssertionError(f"{s['name']}: the call launched {seen}, not {want} once")
@@ -1153,26 +1175,13 @@ def ragged_checks(model: IInsVAE) -> dict:
     return out
 
 
-def device_kernels(fn, calls: int = 3) -> dict[str, int]:
-    """The device kernels a call of ``fn`` launches and how many of each, from a torch.profiler
-    trace of ``calls`` calls: each name without its namespace's anonymous part, template
-    arguments and parameters. A trace can miss a kernel's first records, never add one, so
-    each count is the calls' mean rounded up."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out: dict[str, int] = {}
-    for e in sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                    key=lambda e: e.time_range.start):
-        name = re.split(r"[<(]", re.sub(r"^void ", "", e.name.replace("(anonymous namespace)::",
-                                                                      "")))[0]
-        out[name] = out.get(name, 0) + 1
-    return {k: -(-n // calls) for k, n in out.items()}
+def device_kernels(fn) -> dict[str, int]:
+    """The device kernels a call of ``fn`` launches and how many of each, each name without
+    its namespace's anonymous part, template arguments and parameters: the kernel nodes of a
+    CUDA graph of one call (graph_kernels.launched_kernels; a torch.profiler trace sometimes
+    held no device event on the card), the graph replayed and its outputs bit-equal to an
+    eager call's, so that the named kernels are the ones that computed them."""
+    return graph_kernels.launched_kernels(fn)
 
 
 def bit_equal_calls(fn) -> bool:
@@ -1897,15 +1906,24 @@ def _add(*counts: dict[str, int]) -> dict[str, int]:
     return out
 
 
+def bf16_counts(backward: bool) -> dict[str, int]:
+    """The bfloat16 instances' launch counters since the last reset, forward or backward ones,
+    each under its ``kernels`` line name (the wrapper's name with ``_bf16``)."""
+    return {f"{k}_bf16": v for k, v in kernels.bf16_launch_counts().items()
+            if k.endswith("_bwd") == backward}
+
+
 def counted(fn, fwd: dict[str, int], bwd: dict[str, int], what: str):
     """Run ``fn`` with every launch counter set to 0 just before and read just after: every
     forward wrapper launched as ``fwd`` says, every backward one as ``bwd`` (the names of the
-    forward wrappers, each with its ``_bwd``), 0 where they say nothing. -> (fn's result, the
-    forward counts, the backward counts)."""
+    forward wrappers, each with its ``_bwd``), 0 where they say nothing (so every bfloat16
+    instance, ``<wrapper>_bf16``, 0 unless named). -> (fn's result, the forward counts, the
+    backward counts), the bfloat16 instances' among them."""
     kernels.reset_launch_counts()
     out = fn()
     torch.cuda.synchronize()
-    got_f, got_b = kernels.launch_counts(), kernels.backward_launch_counts()
+    got_f = {**kernels.launch_counts(), **bf16_counts(backward=False)}
+    got_b = {**kernels.backward_launch_counts(), **bf16_counts(backward=True)}
     want_b = {f"{k}_bwd": v for k, v in bwd.items()}
     for got, want in ((got_f, fwd), (got_b, want_b)):
         for name, n in got.items():
@@ -2250,14 +2268,15 @@ def served_vs_cpu(cpu_model: IInsVAE, cirs: np.ndarray, err: np.ndarray, label: 
 
 def counted_server(stats: dict, per_batch: dict[str, int], what: str) -> dict:
     """The launch counts since the last reset: each forward kernel per_batch times the
-    server's batches, no backward launch."""
-    launches, bwd = kernels.launch_counts(), kernels.backward_launch_counts()
+    server's batches, no backward launch and no launch of a bfloat16 instance."""
+    launches = {**kernels.launch_counts(), **bf16_counts(backward=False)}
+    bwd = {**kernels.backward_launch_counts(), **bf16_counts(backward=True)}
     for name, per in per_batch.items():
         if launches[name] != per * stats["batches"]:
             raise AssertionError(f"{what}: {name} launched {launches[name]} times, expected "
                                  f"{per} x {stats['batches']} batches")
-    if any(bwd.values()):
-        raise AssertionError(f"{what}: backward launches {bwd}")
+    if any(v for k, v in launches.items() if k.endswith("_bf16")) or any(bwd.values()):
+        raise AssertionError(f"{what}: bfloat16 or backward launches {launches} {bwd}")
     return {**launches, **bwd}
 
 
@@ -2454,6 +2473,386 @@ def server_phase(card: str) -> dict:
     return result
 
 
+# ------------------------------------ [bf16] ------------------------------------
+
+BF16 = torch.bfloat16
+# H100 SXM data sheet: dense bfloat16 on the tensor cores (K7's and K7b's bfloat16 instances)
+PEAK_BF16_FLOP_PER_S = 989e12
+# A bfloat16 kernel against float64 on the same bfloat16-rounded inputs: its largest error at
+# most BF16_FACTOR times the plain bfloat16 version's, plus BF16_FLOOR of the float64 result's
+# largest magnitude (where the plain version happens to be exact); K7's and K7b's per-sample
+# tensors on the samples whose every pre-ReLU value clears MASK_MARGIN.
+BF16_FACTOR, BF16_FLOOR = 2.0, 2.0**-9
+# launches of one bfloat16 training step of the 2-D model: the bfloat16 instances of K7 (3 IN,
+# 3 AdaIN blocks) and K4 (2 heads) forward, one backward launch for each; nothing else
+EXPECTED_BF16_STEP = {"res_block_2d": 6, "mlp_chain": 2, "res_block_2d_bwd": 6,
+                      "mlp_chain_bwd": 2}
+# the device kernels a call of each bfloat16 instance launches (a CUDA graph of the call), by
+# kernel, or by kernel and site: K4's and K4b's are the bfloat16 instances of the float32
+# paths' kernels (the restorer's backward one launch a layer, the weight gradient and the sum)
+BF16_DEVICE_KERNELS = {
+    "res_block_2d_bf16": {"res2d_bf16_kernel": 1},
+    "res_block_2d_bwd_bf16": {"res2d_bf16_bwd_kernel": 1, "reduce_rows_bf16_kernel": 1},
+    "mlp_chain_bf16 restorer.2d": {"cluster::mlp_cluster_kernel": 1},
+    "mlp_chain_bf16 classifier": {"head::mlp_head_kernel": 1},
+    "mlp_chain_bwd_bf16 restorer.2d": {"layer::chain_kernel": 4, "layer::wgrad_kernel": 1,
+                                       "reduce_partials_bf16_kernel": 1},
+    "mlp_chain_bwd_bf16 classifier": {"small::small_kernel": 1,
+                                      "reduce_partials_bf16_kernel": 1}}
+# one bfloat16 step's gradients, card and CPU (the rows of BF16_GRAD_ROWS), each against the
+# CPU port in float64 (tests/test_torch_bf16.py holds the CPU port to JAX the same way): the
+# mean over the parameters of each one's relative RMS error, the card's at most 1.5 times the
+# CPU's plus 2^-8, and each parameter's at most 6 times the CPU's plus 2^-8; bfloat16 rounding
+# decides the L1 loss's signs and the ReLU masks in different places on the two devices, so a
+# small tensor's error swings by several times between them
+BF16_GRAD_ROWS = 200
+
+
+def _clear_rows(a1: torch.Tensor) -> torch.Tensor:
+    """The samples whose every value of a1 (float64, before a ReLU) clears MASK_MARGIN of the
+    sample's largest |a1|."""
+    a = a1.abs().flatten(1)
+    return a.amin(dim=1) >= MASK_MARGIN * a.amax(dim=1)
+
+
+def _vs_f64(name: str, got, plain, f64, rows=None) -> dict:
+    """Each tensor's largest error against float64, kernel and plain bfloat16 version (on
+    ``rows`` of the per-sample ones where given), the kernel's at most BF16_FACTOR times the
+    plain version's plus BF16_FLOOR of the float64 tensor's largest magnitude."""
+    out = []
+    for i, (a, p, w) in enumerate(zip(got, plain, f64)):
+        if a.shape != w.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"{name} tensor {i}: shape {tuple(a.shape)} or non-finite")
+        if rows is not None and a.shape[0] == rows.shape[0]:
+            a, p, w = a[rows], p[rows], w[rows]
+        e, e_plain = ((t.double() - w).abs().max().item() for t in (a, p))
+        scale = w.abs().max().item()
+        if e > BF16_FACTOR * e_plain + BF16_FLOOR * scale:
+            raise AssertionError(f"{name} tensor {i}: {e:.3e} off float64, the plain bfloat16 "
+                                 f"version {e_plain:.3e} (largest magnitude {scale:.3e})")
+        out.append(dict(err_vs_f64=e, plain_err_vs_f64=e_plain, scale=scale))
+    return dict(tensors=out, max_abs_err=max(
+        (a.double() - p.double()).abs().max().item() for a, p in zip(got, plain)))
+
+
+def bf16_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH):
+    """K7's and K7b's bfloat16 instances at the 2-D model's IN and AdaIN blocks, K4's and K4b's
+    at its restorer and classifier, at batch b on the model's weights rounded to bfloat16 and
+    seeded bfloat16 inputs: each held against float64 on the same inputs beside its plain
+    bfloat16 version and timed (CUDA graph replay) beside its bound, its plain version and a
+    bfloat16 yardstick (double dagger). -> (forward rows, backward rows)."""
+    dev = next(model.parameters()).device
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen).to(dev).to(BF16)
+
+    fwd, bwd = [], []
+    for name, blk, adain_ in (("range.res2d", model.encoder.range_encoder, False),
+                              ("dec.res2d", model.decoder.decoder, True)):
+        k1, k2 = (getattr(blk, f"res0_kernel{n}").detach().to(BF16) for n in (1, 2))
+        x, g = rand(b, 8, 8, 64), rand(b, 8, 8, 64)
+        aff = [rand(b, 64) for _ in range(4)] if adain_ else []
+        args = (x, k1, k2, *aff)
+        a64 = [t.double() for t in args]
+        y64, d1_64, d2_64 = res2d.res_block_2d_ref(*a64, save=True)
+        a1 = adain(d1_64, a64[3], a64[4]) if adain_ else instance_norm(d1_64)
+        rows = _clear_rows(a1)
+        if rows.sum().item() < CLEAR_SHARE * b:
+            raise AssertionError(f"{name}: {rows.sum().item()} of {b} samples clear")
+        y, d1, d2 = res2d.launch_res_block_2d(*args, save=True)
+        if not torch.equal(y, res2d.launch_res_block_2d(*args)):
+            raise AssertionError(f"{name}: K7's bfloat16 y differs when it saves d1 and d2")
+        plain = res2d.res_block_2d_bf16_ref(*args, save=True)
+        checks = _vs_f64(name, (y, d1, d2), plain, (y64, d1_64, d2_64), rows)
+        flops = 2 * res2d_flops(b)
+        bytes_ = nbytes(x, k1, k2, *aff, x)
+        fwd.append(dict(
+            name=name, kernel="res_block_2d_bf16", replaces=f"{RES2D}:339", per_step=3,
+            max_abs_err=checks["max_abs_err"], vs_f64=checks["tensors"],
+            clear_samples=int(rows.sum().item()),
+            ms=device_ms(lambda: res2d.launch_res_block_2d(*args)),
+            save_ms=device_ms(lambda: res2d.launch_res_block_2d(*args, save=True)),
+            plain_ms=device_ms(lambda: res2d.res_block_2d_bf16_ref(*args)),
+            yardstick_ms=device_ms(nchw_conv3x3(x, k1)),
+            yardstick="one cuDNN channels-last bfloat16 3x3 conv of the block",
+            flops=flops, bytes=bytes_,
+            bound_ms=max(flops / PEAK_BF16_FLOP_PER_S, bytes_ / PEAK_BYTES_PER_S) * 1e3,
+            bound_by="operations" if flops / PEAK_BF16_FLOP_PER_S >= bytes_ / PEAK_BYTES_PER_S
+            else "bytes",
+            device_kernels=device_kernels(lambda: res2d.launch_res_block_2d(*args))))
+        saved = (d1, d2)
+        run = lambda: backward.res_block_2d_bwd(g, *args, saved=saved)  # noqa: E731
+        got = _tensors(run())
+        want = _tensors(backward.res_block_2d_bwd_bf16_ref(g, *args, saved=saved))
+        ref = _tensors(backward.res_block_2d_bwd_closed(g.double(), *a64, saved=(d1_64, d2_64)))
+        checks = _vs_f64(name + " backward", got, want, ref, rows)
+        flops, bytes_ = 4 * res2d_flops(b), nbytes(x, d1, d2, g, x, k1, k2, k1, k2, *aff)
+        bwd.append(dict(
+            name=name, kernel="res_block_2d_bwd_bf16", replaces=f"{RES2D}:377", per_step=3,
+            max_abs_err=checks["max_abs_err"], vs_f64=checks["tensors"],
+            ms=device_ms(run),
+            plain_ms=device_ms(lambda: backward.res_block_2d_bwd_bf16_ref(g, *args, saved=saved)),
+            yardstick_ms=device_ms(conv3x3_backward_call(x, k1, g)),
+            yardstick="one cuDNN bfloat16 3x3 conv backward (dx, dW) of the block",
+            flops=flops, bytes=bytes_,
+            bound_ms=max(flops / PEAK_BF16_FLOP_PER_S, bytes_ / PEAK_BYTES_PER_S) * 1e3,
+            bound_by="operations" if flops / PEAK_BF16_FLOP_PER_S >= bytes_ / PEAK_BYTES_PER_S
+            else "bytes",
+            bit_equal_over_two_calls=bit_equal_calls(run), device_kernels=device_kernels(run)))
+    fp = "iinsvae_tpu/ops/pallas/fused.py"
+    for name, head in (("restorer.2d", model.restorer.restorer),
+                       ("classifier", model.classifier.classifier)):
+        n, slopes = len(head.slopes), head.slopes
+        ws = [getattr(head, f"w{j}").detach().to(BF16) for j in range(n)]
+        bs = [getattr(head, f"b{j}").detach().to(BF16) for j in range(n)]
+        x = rand(b, ws[0].shape[0])
+        g = rand(b, ws[-1].shape[1])
+        y, ds = fused.launch_mlp_chain(x, ws, bs, slopes, save_pre=True)
+        plain_y, plain_ds = fused.mlp_chain_bf16_ref(x, ws, bs, slopes, save_pre=True)
+        h, ds64 = x.double(), []
+        for w, v, s in zip(ws, bs, slopes):
+            ds64.append(h @ w.double() + v.double())
+            h = ds64[-1] if s == 1.0 else F.leaky_relu(ds64[-1], s)
+        checks = _vs_f64(name, (y, *ds), (plain_y, *plain_ds), (h, *ds64))
+        j = max(range(n), key=lambda i: ws[i].numel())
+        xj, gj = rand(b, ws[j].shape[0]), rand(b, ws[j].shape[1])
+        flops, bytes_ = 2.0 * b * sum(w.numel() for w in ws), nbytes(x, *ws, *bs, g)
+        serve = lambda: fused.mlp_chain(x, ws, bs, slopes)  # noqa: E731
+        fwd.append(dict(
+            name=name, kernel="mlp_chain_bf16", replaces=f"{fp}:1164", per_step=1,
+            max_abs_err=checks["max_abs_err"], vs_f64=checks["tensors"], ms=device_ms(serve),
+            save_ms=device_ms(lambda: fused.launch_mlp_chain(x, ws, bs, slopes, save_pre=True)),
+            plain_ms=device_ms(lambda: fused.mlp_chain_bf16_ref(x, ws, bs, slopes)),
+            yardstick_ms=device_ms(lambda: torch.mm(xj, ws[j])),
+            yardstick=f"one bfloat16 torch.mm of its {ws[j].shape[0]}->{ws[j].shape[1]} layer",
+            flops=flops, bytes=bytes_,
+            bound_ms=max(flops / PEAK_FP32_FLOP_PER_S, bytes_ / PEAK_BYTES_PER_S) * 1e3,
+            bound_by="operations" if flops / PEAK_FP32_FLOP_PER_S >= bytes_ / PEAK_BYTES_PER_S
+            else "bytes",
+            device_kernels=device_kernels(serve)))
+        args = (g, x, ws, bs, slopes, ds)
+        run = lambda: backward.mlp_chain_bwd(*args)  # noqa: E731
+        got = _tensors(run())
+        want = _tensors(backward.mlp_chain_bwd_bf16_ref(*args))
+        ref = _tensors(backward.plain_grads(
+            lambda x_, *p: fused.mlp_chain_ref(x_, p[:n], p[n:], slopes),
+            [x.double(), *(t.double() for t in ws), *(t.double() for t in bs)], g.double()))
+        checks = _vs_f64(name + " backward", got, want, ref)
+        w_t = ws[j].t()
+        bwd.append(dict(
+            name=name, kernel="mlp_chain_bwd_bf16", replaces=f"{fp}:1136", per_step=1,
+            max_abs_err=checks["max_abs_err"], vs_f64=checks["tensors"], ms=device_ms(run),
+            plain_ms=device_ms(lambda: backward.mlp_chain_bwd_bf16_ref(*args)),
+            yardstick_ms=device_ms(lambda: (torch.mm(gj, w_t), torch.mm(xj.t(), gj))),
+            yardstick=f"bfloat16 torch.mm pair (dx, dW) of its {ws[j].shape[0]}->"
+                      f"{ws[j].shape[1]} layer",
+            flops=2 * flops, bytes=nbytes(g, x, *ws, *ds, x, *ws, *bs),
+            bound_ms=max(2 * flops / PEAK_FP32_FLOP_PER_S,
+                         nbytes(g, x, *ws, *ds, x, *ws, *bs) / PEAK_BYTES_PER_S) * 1e3,
+            bound_by="operations", bit_equal_over_two_calls=bit_equal_calls(run),
+            device_kernels=device_kernels(run)))
+    for r in fwd + bwd:
+        if r["kernel"].endswith("_bwd_bf16") and not r["bit_equal_over_two_calls"]:
+            raise AssertionError(f"{r['name']} {r['kernel']}: two calls are not bit-equal")
+        want = BF16_DEVICE_KERNELS.get(f"{r['kernel']} {r['name']}",
+                                       BF16_DEVICE_KERNELS.get(r["kernel"]))
+        if r["device_kernels"] != want:
+            raise AssertionError(f"{r['name']} {r['kernel']}: the call launched "
+                                 f"{r['device_kernels']}, not {want}")
+        errs = ", ".join(f"{t['err_vs_f64']:.2e} (plain {t['plain_err_vs_f64']:.2e})"
+                         for t in r["vs_f64"])
+        print(f"[bf16] {r['name']:<12} {r['kernel']:<22} vs plain {r['max_abs_err']:.3e}; "
+              f"vs float64 {errs}; {r['ms'] * 1e3:8.2f} us"
+              + (f" (saving {r['save_ms'] * 1e3:.2f})" if "save_ms" in r else "")
+              + f"  plain {r['plain_ms'] * 1e3:8.2f} us  bound {r['bound_ms'] * 1e3:6.2f} us "
+              f"({r['bound_by']})  {r['yardstick']} (double dagger) "
+              f"{r['yardstick_ms'] * 1e3:.2f} us  kernels "
+              + ", ".join(f"{k} x{v}" for k, v in r["device_kernels"].items()), flush=True)
+    return fwd, bwd
+
+
+def _rel_rms(got: torch.Tensor, ref: torch.Tensor) -> float:
+    d = got.detach().cpu().double() - ref
+    return math.sqrt((d * d).mean().item() / max((ref * ref).mean().item(), 1e-300))
+
+
+def bf16_grads_vs_cpu(data: dict) -> dict:
+    """One bfloat16 step's gradients on the card and on the CPU (seeded weights, the fixture's
+    first BF16_GRAD_ROWS rows, one injected mask), each against the CPU port in float64 on
+    the same inputs (BF16_GRAD_ROWS' rule)."""
+    cpu = IInsVAE(**FLAGSHIP_2D, generator=torch.Generator().manual_seed(3))
+    gpu = copy.deepcopy(cpu).cuda()
+    f64 = copy.deepcopy(cpu).double()
+    batch = {k: v[:BF16_GRAD_ROWS] for k, v in data.items()}
+    mask = steps.draw_sup_mask(BF16_GRAD_ROWS, 0.1, "sample",
+                               torch.Generator(device="cuda").manual_seed(5))
+    grads_fn = steps.make_semi_grads_fn(0.1)
+    t0 = time.perf_counter()
+    mg = grads_fn(gpu, batch, sup_mask=mask)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    mc = grads_fn(cpu, {k: v.cpu() for k, v in batch.items()}, sup_mask=mask.cpu())
+    t2 = time.perf_counter()
+    m64 = grads_fn(f64, {k: v.cpu().double() for k, v in batch.items()},
+                   sup_mask=mask.cpu().double())
+    loss = {}
+    for k in ("loss", "loss_ae", "loss_kl", "loss_res", "loss_env"):
+        a, c, w = mg[k].item(), mc[k].item(), m64[k].item()
+        loss[k] = (a, c, w)
+        if not (np.isfinite(a) and abs(a - w) <= 1.5 * abs(c - w) + 2.0**-8 * abs(w)):
+            raise AssertionError(f"{k}: {a} on the card, {c} on the CPU, {w} in float64")
+    ref = dict(f64.named_parameters())
+    largest = max(p.grad.abs().max().item() for p in ref.values())
+    cpu_params = dict(cpu.named_parameters())
+    card_err, cpu_err, rows = [], [], {}
+    for name, p in gpu.named_parameters():
+        want, c = ref[name].grad, cpu_params[name].grad
+        if ZERO_GRAD.fullmatch(name):  # exactly 0 in exact arithmetic: rounding noise
+            for what, t in (("card", p.grad), ("CPU", c)):
+                if t.abs().max().item() > 2.0**-8 * largest:
+                    raise AssertionError(f"gradient {name} (exactly 0) on the {what}: "
+                                         f"{t.abs().max().item():.3e}, largest {largest:.3e}")
+            continue
+        if not want.any():  # the residual blocks' conv biases: no K7 input
+            if p.grad.any() or c.any():
+                raise AssertionError(f"gradient {name}: not exactly 0")
+            continue
+        e_card, e_cpu = _rel_rms(p.grad, want), _rel_rms(c, want)
+        rows[name] = (e_card, e_cpu)
+        card_err.append(e_card)
+        cpu_err.append(e_cpu)
+        if not e_card <= 6 * e_cpu + 2.0**-8:
+            raise AssertionError(f"gradient {name}: relative RMS error {e_card:.3e} on the card, "
+                                 f"{e_cpu:.3e} on the CPU")
+    mean_card, mean_cpu = float(np.mean(card_err)), float(np.mean(cpu_err))
+    if not mean_card <= 1.5 * mean_cpu + 2.0**-8:
+        raise AssertionError(f"mean relative RMS gradient error {mean_card:.3e} on the card, "
+                             f"{mean_cpu:.3e} on the CPU")
+    worst = max(rows, key=lambda k: rows[k][0] / (rows[k][1] + 2.0**-8))
+    print(f"[bf16] one step's gradients ({BF16_GRAD_ROWS} rows) vs float64: mean relative RMS "
+          f"error card {mean_card:.3e}, CPU {mean_cpu:.3e}; worst {worst} card "
+          f"{rows[worst][0]:.3e} CPU {rows[worst][1]:.3e}; loss card / CPU / float64 "
+          f"{loss['loss']}; step on the card {t1 - t0:.2f} s (first), on the CPU {t2 - t1:.2f} s",
+          flush=True)
+    return dict(rows=BF16_GRAD_ROWS, loss_card_cpu_f64=loss, mean_rel_rms_card=mean_card,
+                mean_rel_rms_cpu=mean_cpu, worst_param=worst, rel_rms_card_cpu=rows,
+                mask_labeled=int(mask.sum().item()))
+
+
+def bf16_train_path(fp32_2d: dict) -> dict:
+    """``--compute_dtype bfloat16`` training of the expanded 2-D model through
+    cli.train_semi.build and train_epochs: 3 epochs with every launch counter set to 0 just
+    before and read just after (EXPECTED_BF16_STEP a step, every float32 instance 0), a finite
+    loss that falls; training CIR/s over 5 more epochs and a traced step's device busy time
+    beside the float32 2-D step's (``fp32_2d``, train_main_path(2, ...)); one step's gradients
+    card and CPU against float64."""
+    cfg = train_config(2)
+    cfg.compute_dtype = "bfloat16"
+    trainer = train_semi.build(cfg, "cuda")
+    data = trainer.data
+    if data["cir"].dtype != BF16 or data["weight"].dtype != BF16:
+        raise AssertionError("the bfloat16 trainer's data is not bfloat16")
+    n_real = int(data["weight"].sum().item())
+    steps_per_epoch = data["cir"].shape[0] // cfg.batch_size
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    history = loop.train_epochs(trainer.state, trainer.run_epoch, data, 3, seed=cfg.seed)
+    torch.cuda.synchronize()
+    wall_3 = time.perf_counter() - t0
+    n_steps = trainer.state.step
+    got, fp32 = kernels.bf16_launch_counts(), {**kernels.launch_counts(),
+                                              **kernels.backward_launch_counts()}
+    if got != {k: v * n_steps for k, v in EXPECTED_BF16_STEP.items()} or any(fp32.values()):
+        raise AssertionError(f"bfloat16 launches {got}, float32 {fp32} in {n_steps} steps; "
+                             f"expected {EXPECTED_BF16_STEP} a step and no float32 instance")
+    losses = [h["loss"] for h in history]
+    if not all(np.isfinite(v) for h in history for v in h.values()):
+        raise AssertionError(f"non-finite bfloat16 training metrics: {history}")
+    if not losses[2] < losses[0]:
+        raise AssertionError(f"the bfloat16 loss did not fall: {losses}")
+    print(f"[bf16] conv_type 2, bfloat16: 3 epochs of {steps_per_epoch} steps ({n_real} CIRs, "
+          f"batch {cfg.batch_size}) in {wall_3:.3f} s; loss by epoch {losses}; launches a "
+          f"step: " + ", ".join(f"{k} {v / n_steps:g}" for k, v in got.items()), flush=True)
+    timed = 5
+    t0 = time.perf_counter()
+    loop.train_epochs(trainer.state, trainer.run_epoch, data, 3 + timed, seed=cfg.seed,
+                      start_epoch=3)
+    wall = time.perf_counter() - t0
+    cir_per_s = n_real * timed / wall
+    trace = traced_train_steps(trainer, 20)
+    grads = bf16_grads_vs_cpu(data)
+    t32 = fp32_2d["trace"]["device_busy_us_per_step"]
+    print(f"[bf16] conv_type 2: {cir_per_s:.1f} training CIR/s at batch {cfg.batch_size} over "
+          f"{timed} epochs (float32 {fp32_2d['train_cir_per_s']:.1f}, host clock, no claim); "
+          f"traced 20 steps: device busy {trace['device_busy_us_per_step']:.1f} us a step "
+          f"(float32 {t32:.1f}) of {trace['wall_us_per_step']:.1f} us, idle "
+          f"{trace['device_idle_share']}", flush=True)
+    return dict(history=history, steps=n_steps, launches=got,
+                launches_per_step={k: v / n_steps for k, v in got.items()},
+                train_cir_per_s=cir_per_s, fp32_train_cir_per_s=fp32_2d["train_cir_per_s"],
+                step_wall_ms=wall / (timed * steps_per_epoch) * 1e3, trace=trace,
+                fp32_device_busy_us_per_step=t32, grads_vs_cpu=grads)
+
+
+def bf16_cli_check() -> dict:
+    """``--conv_type 2 --compute_dtype bfloat16`` through the entry points on the card (no
+    device flag), in a temporary directory: ``cli.train_semi.main`` for 2 epochs; a 1-epoch run
+    resumed to 2 from its checkpoint, parameters (float32) bit-equal to the continuous run's and
+    the final metrics equal; ``cli.evaluate.main`` of the continuous run's final checkpoint, its
+    metrics those of the entry point's final evaluation."""
+    import tempfile
+
+    from iinsvae_torch.cli import evaluate as evaluate_cli
+
+    flags = ["--conv_type", "2", "--compute_dtype", "bfloat16", "--dataset_env", "room_full",
+             "--synthetic_n", "2000", "--batch_size", str(BATCH), "--sample_interval", "0",
+             "--checkpoint_interval", "-1"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bf16_") as tmp:
+        def dirs(name):
+            return ["--model_dir", f"{tmp}/{name}/models", "--out_dir", f"{tmp}/{name}/results"]
+
+        state_a, m_a = train_semi.main(flags + dirs("a") + ["--n_epochs", "2"])
+        train_semi.main(flags + dirs("b") + ["--n_epochs", "1"])
+        state_b, m_b = train_semi.main(flags + dirs("b") + ["--n_epochs", "2", "--epoch", "1"])
+        params = list(zip(state_a.model.parameters(), state_b.model.parameters()))
+        if not all(p.is_cuda and p.dtype == torch.float32 and torch.equal(p, q)
+                   for p, q in params) or m_a != m_b:
+            raise AssertionError("the bfloat16 run resumed 1 -> 2 differs from the continuous one")
+        m_eval = evaluate_cli.main(flags + dirs("a") + ["--test_epoch", "2"])
+        if m_eval != m_a:
+            raise AssertionError(f"evaluate {m_eval} != the entry point's final {m_a}")
+    wall = time.perf_counter() - t0
+    print(f"[bf16] train_semi --conv_type 2 --compute_dtype bfloat16 on the card: 2 epochs, a "
+          f"resume 1 -> 2 bit-equal, evaluate equal to the final evaluation (rmse "
+          f"{m_a['rmse']:.6f}, accuracy {m_a['accuracy']:.6f}); {wall:.1f} s", flush=True)
+    return dict(final=m_a, resumed_bit_equal=True, evaluate_equal_final=True, wall_s=wall)
+
+
+def bf16_kernel_rows(fwd: list[dict], bwd: list[dict], launches: dict[str, int]) -> list[dict]:
+    """The ``kernels`` line's rows of the bfloat16 instances: each summed over its sites, each
+    site times its calls a step; ``launches`` those of the bfloat16 training run."""
+    out = []
+    for name, wrapper, rows in (
+            ("res_block_2d_bf16", "res_block_2d", fwd), ("mlp_chain_bf16", "mlp_chain", fwd),
+            ("res_block_2d_bwd_bf16", "res_block_2d_bwd", bwd),
+            ("mlp_chain_bwd_bf16", "mlp_chain_bwd", bwd)):
+        rs = [r for r in rows if r["kernel"] == name]
+
+        def total(key):
+            return sum(r[key] * r["per_step"] for r in rs)
+
+        out.append(dict(
+            name=name, route="cuda", source=SOURCES[name], replaces=rs[0]["replaces"],
+            launches=launches[wrapper], max_abs_err=max(r["max_abs_err"] for r in rs),
+            ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
+            bound_by=rs[0]["bound_by"], library_ms=None,
+            per="one bfloat16 training step of the 2-D model at batch 500 (sum over its sites)",
+            yardstick_ms=total("yardstick_ms"), yardstick=rs[0]["yardstick"],
+            **({"save_ms": total("save_ms")} if all("save_ms" in r for r in rs) else {})))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script runs on the card",
@@ -2462,6 +2861,8 @@ def main() -> int:
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bfloat16 products reduce in fp32 ([bf16]: as the entry points' ops.conv.fp32_reduction)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = card_line()
     print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
@@ -2508,6 +2909,10 @@ def main() -> int:
     bwd_rows_2d = check_and_time_backward(
         backward_sites(model_2d, torch.Generator().manual_seed(4)))
     training_2d = train_main_path(2, EXPECTED_2D_RECON, EXPECTED_2D_TRAIN_BWD)
+    # the 2-D model in bfloat16: its kernel sites, then its training path
+    bf16_fwd, bf16_bwd = bf16_sites(model_2d, torch.Generator().manual_seed(6))
+    bf16_train = bf16_train_path(training_2d)
+    bf16_train["cli"] = bf16_cli_check()
     del model_2d, cpu_2d
 
     # evaluation, checkpoints and resume through the entry points
@@ -2564,10 +2969,11 @@ def main() -> int:
                  **conv_yardstick(one_stage["backward_sites"], k, "cudnn_conv_backward_ms"))
          for k in ONE_STAGE_BWD})
 
+    kernel_table += bf16_kernel_rows(bf16_fwd, bf16_bwd, bf16_train["launches"])
     # each kernel's launches on the joint and separated entry points' main paths (cli.run,
     # cli.run_sep: training steps, evaluation and inference)
     # and on the server's ([server]: the 1-D recon server through both fronts and the 2-D
-    # in-process server)
+    # in-process server); the bfloat16 instances' as read there (each run fails unless 0)
     for row in kernel_table:
         row["launches_joint"] = {**joint["launches_run"], **joint["launches_run_bwd"]}[row["name"]]
         row["launches_sep"] = {**joint["launches_sep"], **joint["launches_sep_bwd"]}[row["name"]]
@@ -2583,6 +2989,8 @@ def main() -> int:
         backward_sites=bwd_rows + bwd_rows_2d, ragged_max_abs_err=ragged, training=training,
         training_2d=training_2d,
         one_stage=one_stage, evaluation=evaluation, joint=joint, server=server,
+        bf16=dict(sites=bf16_fwd, backward_sites=bf16_bwd, training=bf16_train,
+                  tolerance=[BF16_FACTOR, BF16_FLOOR]),
         kernel_tolerance=[KERNEL_RTOL, KERNEL_ATOL], serve_tolerance=[SERVE_RTOL, SERVE_ATOL],
         backward_tolerance=[BWD_RTOL, BWD_ATOL], step_tolerance=[STEP_FACTOR, STEP_FLOOR],
         wall_s=time.perf_counter() - t_start),
@@ -2598,6 +3006,8 @@ def main() -> int:
     print(json.dumps({"eval": evaluation, "card": card}), flush=True)
     print(json.dumps({"joint": joint, "card": card}), flush=True)
     print(json.dumps({"server": server}), flush=True)
+    print(json.dumps({"bf16": dict(sites=bf16_fwd, backward_sites=bf16_bwd, training=bf16_train),
+                      "card": card}), flush=True)
     print(json.dumps({"kernels": kernel_table}), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)

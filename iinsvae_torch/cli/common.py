@@ -67,14 +67,21 @@ def resolve_data(cfg: Config):
     return full_split(cir, err, label, cfg.split_factor)
 
 
+def batch_dict(split, cfg: Config) -> dict[str, torch.Tensor]:
+    """(cir, err, label) -> {cir, err, label} tensors on the CPU, the CIRs in
+    ``cfg.compute_dtype`` and err and label float32 (iinsvae_tpu/cli/common.py:111-118)."""
+    cir, err, label = (torch.as_tensor(v) for v in split)
+    return {"cir": cir.to(cfg.torch_dtype), "err": err.float(), "label": label.float()}
+
+
 def device_data(cfg: Config, device: torch.device) -> tuple[dict, dict]:
     """-> (the train split padded to whole batches of ``cfg.batch_size`` with
-    its weight mask, the test split {cir, err, label}), both on ``device``."""
-    (train_cir, train_err, train_label), test = resolve_data(cfg)
-    data = pad_to_batches({"cir": train_cir, "err": train_err, "label": train_label},
-                          cfg.batch_size)
+    its weight mask (in the CIRs' dtype), the test split {cir, err, label}),
+    both on ``device`` (batch_dict)."""
+    train, test = resolve_data(cfg)
+    data = pad_to_batches(batch_dict(train, cfg), cfg.batch_size)
     data = {k: v.to(device) for k, v in data.items()}
-    test = {k: torch.from_numpy(v).to(device) for k, v in zip(("cir", "err", "label"), test)}
+    test = {k: v.to(device) for k, v in batch_dict(test, cfg).items()}
     return data, test
 
 

@@ -5,7 +5,9 @@ Restores the checkpoint of ``--test_epoch`` (or, where that epoch was not
 saved, the latest) from the directory the training flags name, evaluates
 the test part of the synthetic fixture's split, logs the metrics to
 ``val_log.log`` and writes the residual exports. Exits when the directory
-holds no checkpoint. The SVM baseline and the plots are not ported.
+holds no checkpoint. ``--compute_dtype bfloat16`` evaluates in bfloat16, as
+the training run did (iinsvae_tpu/cli/evaluate.py:68). The SVM baseline and
+the plots are not ported.
 
     python -m iinsvae_torch.cli.evaluate --dataset_env room_full --synthetic_n 10000 \\
         --test_epoch 400
@@ -16,16 +18,18 @@ from __future__ import annotations
 import argparse
 import os
 
-from iinsvae_torch.cli.common import fmt_metrics, resolve_data, setup_logging
-from iinsvae_torch.config import add_args, add_train_args, from_args
+from iinsvae_torch.cli.common import batch_dict, fmt_metrics, resolve_data, setup_logging
+from iinsvae_torch.config import add_args, add_train_args, from_args, reject_bf16
 from iinsvae_torch.cli.run import build_model
 from iinsvae_torch.evaluation.evaluate import evaluate_joint, evaluate_semi
 from iinsvae_torch.models.vae import IInsVAE
+from iinsvae_torch.ops.conv import fp32_reduction
 from iinsvae_torch.serving import resolve_device
 from iinsvae_torch.training.checkpoint import (joint_model_dir, joint_result_dir, latest_epoch,
                                                read_checkpoint, semi_model_dir, semi_result_dir)
 
 
+@fp32_reduction()
 def main(argv=None) -> dict:
     """-> the metrics (host floats)."""
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -40,6 +44,7 @@ def main(argv=None) -> dict:
     if args.disentangle:
         raise NotImplementedError("--disentangle: the disentanglement evaluation is not "
                                   "ported; ROADMAP.md Queue 1 item 11")
+    reject_bf16(cfg, "train_semi" if args.net == "semi" else "evaluate --net joint")
     device = resolve_device(args.device)
     if args.net == "semi":
         model_path, result_path = semi_model_dir(cfg), semi_result_dir(cfg)
@@ -56,9 +61,9 @@ def main(argv=None) -> dict:
     logger = setup_logging(result_path, "val_log.log")
     _, test = resolve_data(cfg)
     model.load_state_dict(read_checkpoint(model_path, epoch)["model"])
-    m = eval_fn(model.to(device), dict(zip(("cir", "err", "label"), test)),
-                min(500, test[0].shape[0]), result_path=result_path, epoch=epoch,
-                dataset_env=cfg.dataset_env, dataset_name=cfg.dataset_name, export=True)
+    m = eval_fn(model.to(device), batch_dict(test, cfg), min(500, test[0].shape[0]),
+                result_path=result_path, epoch=epoch, dataset_env=cfg.dataset_env,
+                dataset_name=cfg.dataset_name, export=True)
     logger.info(f"[test epoch {epoch}] {fmt_metrics(m)}")
     return m
 

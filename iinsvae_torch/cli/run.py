@@ -34,7 +34,7 @@ import torch
 
 from iinsvae_torch.cli.common import (EpochLogger, device_data, fmt_metrics, parse,
                                       setup_logging, start_epoch, train_state)
-from iinsvae_torch.config import Config, reject_parallel
+from iinsvae_torch.config import Config, reject_bf16, reject_parallel
 from iinsvae_torch.evaluation.evaluate import evaluate_joint
 from iinsvae_torch.models.emnet import EMNet, EMNetLoop
 from iinsvae_torch.serving import resolve_device
@@ -57,6 +57,7 @@ def main(argv=None) -> tuple[TrainState, dict]:
     """-> (the trained state, the final evaluation's metrics)."""
     args, cfg = parse(__doc__, argv)
     reject_parallel(cfg)
+    reject_bf16(cfg, "run")
     t0 = time.perf_counter()
     data, test = device_data(cfg, resolve_device(args.device))
     model = build_model(cfg).to(data["cir"].device)

@@ -28,7 +28,7 @@ import torch
 
 from iinsvae_torch.cli.common import (EpochLogger, device_data, fmt_metrics, parse,
                                       setup_logging, start_epoch, train_state)
-from iinsvae_torch.config import reject_parallel
+from iinsvae_torch.config import reject_bf16, reject_parallel
 from iinsvae_torch.evaluation.evaluate import add_plurality_share
 from iinsvae_torch.models.emnet import IdentifierSep, RegressorSep
 from iinsvae_torch.serving import resolve_device
@@ -63,6 +63,7 @@ def main(argv=None) -> dict:
     plurality_share."""
     args, cfg = parse(__doc__, argv)
     reject_parallel(cfg)
+    reject_bf16(cfg, "run_sep")
     t0 = time.perf_counter()
     data, test = device_data(cfg, resolve_device(args.device))
     device = data["cir"].device

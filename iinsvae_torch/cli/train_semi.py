@@ -1,6 +1,8 @@
 """`train_semi` entry of the port: semi-supervised training of the 1-D
 IIns-VAE, or with ``--conv_type 2`` the expanded 2-D one, on the synthetic
-fixture (iinsvae_tpu/cli/train_semi.py, one process).
+fixture (iinsvae_tpu/cli/train_semi.py, one process). With ``--conv_type 2
+--compute_dtype bfloat16`` the CIRs, the activations and the test split are
+bfloat16 (the parameters, Adam and the checkpoints stay float32).
 
 Builds the synthetic Zenodo fixture of ``--dataset_env`` (``--synthetic_n``
 CIRs, fixture v2), takes the 'full' split (the first ``--split_factor`` of
@@ -39,9 +41,10 @@ import torch
 
 from iinsvae_torch.cli.common import (EpochLogger, device_data, fmt_metrics, parse,
                                       setup_logging, start_epoch, train_state)
-from iinsvae_torch.config import Config, reject_parallel
+from iinsvae_torch.config import Config, reject_bf16, reject_parallel
 from iinsvae_torch.evaluation.evaluate import evaluate_semi
 from iinsvae_torch.models.vae import IInsVAE
+from iinsvae_torch.ops.conv import fp32_reduction
 from iinsvae_torch.serving import resolve_device
 from iinsvae_torch.training.checkpoint import (gc_checkpoints, restore_checkpoint,
                                                save_checkpoint, semi_model_dir,
@@ -65,8 +68,11 @@ class Trainer:
 
 def build(cfg: Config, device: str | torch.device = "cuda") -> Trainer:
     """The fixture's split on ``device``, the seeded model, Adam with the
-    schedule, the step and the epoch runner."""
+    schedule, the step and the epoch runner. Under ``--compute_dtype
+    bfloat16`` on the card, train under ``ops.conv.fp32_reduction`` (as
+    ``main`` does)."""
     reject_parallel(cfg)
+    reject_bf16(cfg)
     data, test = device_data(cfg, resolve_device(device))
     model = IInsVAE(**cfg.model_kwargs(),
                     generator=torch.Generator().manual_seed(cfg.seed)).to(data["cir"].device)
@@ -76,6 +82,7 @@ def build(cfg: Config, device: str | torch.device = "cuda") -> Trainer:
     return Trainer(cfg, state, data, test, step, make_epoch_runner(step, cfg.batch_size))
 
 
+@fp32_reduction()
 def main(argv=None) -> tuple[TrainState, dict]:
     """-> (the trained state, the final evaluation's metrics)."""
     args, cfg = parse(__doc__, argv)

@@ -13,6 +13,8 @@ from __future__ import annotations
 import argparse
 from dataclasses import asdict, dataclass
 
+import torch
+
 NUM_CLASSES = {
     "nlos": 2,
     "room_full": 5,
@@ -71,6 +73,9 @@ class Config:
     keep_last: int = -1  # checkpoint GC: keep the newest N (and the best); <= 0 keeps all
     out_dir: str = "./saved_results"
     model_dir: str = "./saved_models"
+    # the activations' dtype (iinsvae_tpu/config.py:90): the parameters stay float32 and every
+    # layer casts them to the activations' dtype at use
+    compute_dtype: str = "float32"  # float32 | bfloat16
     # parallel training (iinsvae_tpu/config.py:79-85): not ported, rejected
     n_devices: int = 1
     dist_coordinator: str = ""
@@ -80,6 +85,11 @@ class Config:
     @property
     def cir_len(self) -> int:
         return CIR_LEN[self.dataset_name]
+
+    @property
+    def torch_dtype(self):
+        """The activations' torch dtype of ``compute_dtype``."""
+        return {"float32": torch.float32, "bfloat16": torch.bfloat16}[self.compute_dtype]
 
     @property
     def expand(self) -> bool:
@@ -162,6 +172,8 @@ def add_train_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
            "<=0 keeps all")
     a("--out_dir", type=str, default=d.out_dir)
     a("--model_dir", type=str, default=d.model_dir)
+    a("--compute_dtype", type=str, default=d.compute_dtype, choices=["float32", "bfloat16"],
+      help="the activations' dtype; bfloat16 takes --conv_type 2 with the Linear heads")
     a("--n_devices", type=int, default=d.n_devices, help="parallel training: not ported")
     a("--dist_coordinator", type=str, default=d.dist_coordinator,
       help="multi-host training: not ported")
@@ -178,6 +190,28 @@ def reject_parallel(cfg: Config) -> None:
             "one device")
 
 
+def reject_bf16(cfg: Config, entry: str = "train_semi") -> None:
+    """bfloat16 runs the semi path of the expanded 2-D model with the Linear heads
+    (``train_semi``, ``evaluate``): any other model or entry point raises NotImplementedError,
+    before a model is built."""
+    if cfg.compute_dtype != "bfloat16":
+        return
+    if entry != "train_semi":
+        raise NotImplementedError(
+            f"--compute_dtype bfloat16 in {entry}: the port runs bfloat16 on the semi path "
+            "only (train_semi, evaluate); the joint and separated paths (BatchNormEps and the "
+            "Conv heads in bfloat16) are a later slice")
+    if cfg.conv_type != 2:
+        raise NotImplementedError(
+            f"--compute_dtype bfloat16 with --conv_type {cfg.conv_type}: the port runs "
+            "bfloat16 on the expanded 2-D model (conv_type 2) only; the 1-D model's bfloat16 "
+            "kernels and conv_type 3 are later slices")
+    if cfg.restorer_type != "Linear" or cfg.classifier_type != "Linear":
+        raise NotImplementedError(
+            "--compute_dtype bfloat16 takes the Linear heads: the Conv heads in bfloat16 are "
+            "a later slice")
+
+
 def from_args(args: argparse.Namespace) -> Config:
     cfg = Config()
     for k in vars(args):
@@ -187,6 +221,8 @@ def from_args(args: argparse.Namespace) -> Config:
     cfg.classifier_type = _NET_NAMES[str(cfg.classifier_type)]
     cfg.identifier_type = _NET_NAMES[str(cfg.identifier_type)]
     cfg.regressor_type = _NET_NAMES[str(cfg.regressor_type)]
+    if cfg.compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got {cfg.compute_dtype!r}")
     if cfg.dataset_env not in NUM_CLASSES and cfg.dataset_name == "zenodo":
         raise ValueError(
             f"Unknown environment {cfg.dataset_env!r}; choices: {sorted(NUM_CLASSES)}")

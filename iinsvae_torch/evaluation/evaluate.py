@@ -64,7 +64,7 @@ def _evaluate(eval_step, model, data_test: dict, batch_size: int, result_path: s
     padded = {k: v.to(device) for k, v in pad_to_batches(data_test, batch_size).items()}
     metrics, outs = make_evaluator(eval_step, batch_size)(model, padded)
 
-    w = padded["weight"].reshape(-1, batch_size).cpu().numpy()
+    w = padded["weight"].float().reshape(-1, batch_size).cpu().numpy()
     err_gt = _unpad(padded["err"].reshape(-1, batch_size, 1).cpu().numpy(), w)
     outs = {k: _unpad(v, w) for k, v in outs.items()}
     label_gt = _unpad(padded["label"].reshape(-1, batch_size, 1).cpu().numpy(), w)

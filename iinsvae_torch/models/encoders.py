@@ -29,7 +29,7 @@ from torch import nn
 
 from iinsvae_torch.models.layers import Conv1d, ConvINAct, bias_uniform, conv_normal
 from iinsvae_torch.ops import colgroups as cg
-from iinsvae_torch.ops.conv import conv2d
+from iinsvae_torch.ops.conv import cast_like, conv2d
 from iinsvae_torch.ops.kernels import fused, res2d
 from iinsvae_torch.ops.pooling import adaptive_avg_pool_matrix
 
@@ -170,7 +170,8 @@ class EnvEncoder2d(nn.Module):
             x = cg.relu_grouped(cg.conv2d_grouped(x, getattr(self, f"down{j}_kernel"),
                                                   getattr(self, f"down{j}_bias"), stride=2,
                                                   padding=1))
-        return cg.global_mean_grouped(x) @ self.out_kernel[0, 0] + self.out_bias
+        pooled = cg.global_mean_grouped(x)
+        return pooled @ cast_like(self.out_kernel[0, 0], pooled) + cast_like(self.out_bias, pooled)
 
 
 def split_env_stats(cat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -215,7 +216,7 @@ class Encoder(nn.Module):
                              persistent=False)
 
     def forward(self, cir: torch.Tensor):
-        x = (cir @ self.pool).unsqueeze(-1)  # (B, 128, 1)
+        x = (cir @ cast_like(self.pool, cir)).unsqueeze(-1)  # (B, 128, 1)
         if self.conv_type == 2:
             x = cg.constant_field(x, POOLED_LEN)  # (B, 128, 1 group, 1)
         return self.range_encoder(x), self.env_encoder(x)

@@ -18,6 +18,7 @@ from torch import nn
 
 from iinsvae_torch.models.layers import (BatchNormEps, Conv1d, Conv2d, Dense, Dropout,
                                          bias_uniform)
+from iinsvae_torch.ops.conv import cast_like
 from iinsvae_torch.ops.kernels import fused
 
 NET_TYPES = ("Linear", "Conv1d", "Conv2d")
@@ -38,8 +39,9 @@ class _MLPChain(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n = len(self.slopes)
-        ws = [getattr(self, f"w{j}") for j in range(n)]
-        bs = [getattr(self, f"b{j}") for j in range(n)]
+        # cast to the input's dtype, as heads.py:41-45 casts them before the kernel
+        ws = [cast_like(getattr(self, f"w{j}"), x) for j in range(n)]
+        bs = [cast_like(getattr(self, f"b{j}"), x) for j in range(n)]
         return fused.mlp_chain(x.reshape(x.shape[0], -1).contiguous(), ws, bs, self.slopes)
 
 

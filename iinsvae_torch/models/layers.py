@@ -5,6 +5,8 @@ Initialisation mirrors iinsvae_tpu/models/layers.py:21-31 in distribution
 (not in values: torch.Generator and jax.random give different streams):
 conv taps ~ N(0, 0.02) (the reference's weights_init_normal), biases and
 Dense weights ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (torch's default).
+Parameters are float32; a layer casts them to its input's dtype at use
+(ops.conv.cast_like), so a bfloat16 input runs the layer in bfloat16.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Iterator, Optional
 import torch
 from torch import nn
 
-from iinsvae_torch.ops.conv import conv1d, conv2d
+from iinsvae_torch.ops.conv import cast_like, conv1d, conv2d
 from iinsvae_torch.ops.kernels import fused, strided_conv
 
 
@@ -94,7 +96,7 @@ class Dense(nn.Module):
         self.bias = bias_uniform((features,), d_in, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.kernel + self.bias
+        return x @ cast_like(self.kernel, x) + cast_like(self.bias, x)
 
 
 class MLP(nn.Module):

@@ -11,12 +11,44 @@ matmul runs in full fp32 under torch's default matmul precision, forward
 and backward, where cuDNN's float32 convolutions default to TF32
 (``torch.backends.cudnn.allow_tf32``) and would put ~1e-3 between the card
 and the CPU.
+
+Under bfloat16 activations (``--compute_dtype bfloat16``) the float32
+parameters are cast to the activations' dtype at use (``cast_like``, JAX's
+``kernel.astype(x.dtype)``, iinsvae_tpu/ops/conv.py:84-88, :141-147): the
+products take bfloat16 operands, accumulate in fp32 and round the result,
+as XLA's ``preferred_element_type=jnp.float32`` does.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
+
+
+def cast_like(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Parameter ``p`` in the dtype of the activations ``x`` (a no-op for float32). The
+    gradient flows back through the cast in ``p``'s dtype, so the optimizer and the checkpoints
+    see float32."""
+    return p.to(x.dtype)
+
+
+@contextlib.contextmanager
+def fp32_reduction():
+    """Inside the block (or the function it decorates) a product of bfloat16 operands on the
+    card reduces in fp32, as the CPU's does and as ``preferred_element_type=jnp.float32``
+    asks: cuBLAS may reduce in bfloat16 while
+    ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction`` is on (torch's
+    default). The entry points that pick the compute dtype run under it; the setting is
+    restored on exit."""
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = before
 
 
 def out_len(l_in: int, k: int, stride: int = 1, padding: int = 0) -> int:
@@ -62,9 +94,9 @@ def conv2d(
         else:
             x = F.pad(x, (0, 0, padding, padding, padding, padding))
     win = x.unfold(1, kh, stride).unfold(2, kw, stride)  # (B, H_out, W_out, C_in, kh, kw)
-    y = torch.einsum("bhwcij,ijcd->bhwd", win, kernel)
+    y = torch.einsum("bhwcij,ijcd->bhwd", win, cast_like(kernel, x))
     if bias is not None:
-        y = y + bias
+        y = y + cast_like(bias, y)
     return y
 
 
@@ -87,7 +119,7 @@ def conv1d(
         else:
             x = F.pad(x, (0, 0, padding, padding))
     win = x.unfold(1, k, stride)  # (B, L_out, C_in, k)
-    y = torch.einsum("blct,tcd->bld", win, kernel)
+    y = torch.einsum("blct,tcd->bld", win, cast_like(kernel, x))
     if bias is not None:
-        y = y + bias
+        y = y + cast_like(bias, y)
     return y

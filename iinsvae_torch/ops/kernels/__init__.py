@@ -22,6 +22,12 @@ K3b, K4b, K6b, K7b, K8b-K10b: one backward wrapper for each forward wrapper).
 K8-K10 are the counterparts of the one-stage Pallas entries
 (fused_adain_layer, fused_sln_layer, fused_tanh_pool_layer); no model calls
 them.
+
+K4, K7 and their backward K4b, K7b also have bfloat16 instances, the 2-D
+model's kernels under ``--compute_dtype bfloat16`` (K4's and K4b's kernels
+templated on the storage type in csrc/mlp_chain.cu and mlp_chain_bwd.cu;
+csrc/res_block_2d_bf16.cu, res_block_2d_bf16_bwd.cu), counted apart in
+``<wrapper>.launches_bf16`` (bf16_launch_counts).
 """
 
 from iinsvae_torch.ops.kernels import backward, fused, res2d, strided_conv
@@ -32,9 +38,19 @@ WRAPPERS = (fused.in_chain, fused.conv_bias_act, strided_conv.strided_conv, fuse
 BACKWARD = backward.BACKWARD
 
 
+BF16 = (fused.mlp_chain, res2d.res_block_2d, backward.mlp_chain_bwd, backward.res_block_2d_bwd)
+
+
 def reset_launch_counts() -> None:
     for w in WRAPPERS + BACKWARD:
         w.launches = 0
+    for w in BF16:
+        w.launches_bf16 = 0
+
+
+def bf16_launch_counts() -> dict[str, int]:
+    """The bfloat16 instances' launches (forward and backward) by wrapper."""
+    return {w.__name__: w.launches_bf16 for w in BF16}
 
 
 def launch_counts() -> dict[str, int]:

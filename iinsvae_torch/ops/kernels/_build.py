@@ -25,7 +25,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "iinsvae_torch"
 SOURCES = ("in_chain", "strided_conv", "mlp_chain", "sln_chain", "res_block_2d", "sln_layer",
            "in_chain_bwd", "conv_bias_act_bwd", "strided_conv_bwd", "mlp_chain_bwd",
-           "sln_chain_bwd", "res_block_2d_bwd", "sln_layer_bwd")
+           "sln_chain_bwd", "res_block_2d_bwd", "sln_layer_bwd", "res_block_2d_bf16",
+           "res_block_2d_bf16_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -113,16 +114,24 @@ def check(err: int, lib_name: str, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch: {fn(err).decode()}")
 
 
-def require_cuda_f32(what: str, *tensors: torch.Tensor) -> None:
-    """The kernels take contiguous float32 tensors on one CUDA device."""
+def require_cuda(what: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
+    """A kernel takes contiguous tensors of one dtype (float32, or bfloat16 for the bfloat16
+    instances) on one CUDA device."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: float32 or bfloat16 tensors only, got {dtype}")
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{what}: every tensor must be on {dev} (CUDA), got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{what}: float32 tensors only, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{what}: {str(dtype)[6:]} tensors only, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: tensors must be contiguous")
+
+
+def require_cuda_f32(what: str, *tensors: torch.Tensor) -> None:
+    """The float32 kernels take contiguous float32 tensors on one CUDA device."""
+    require_cuda(what, torch.float32, *tensors)
 
 
 # a grid of about two blocks per SM on the H100's 132 SMs

@@ -8,6 +8,11 @@ the backward kernel (backward.py). The public wrappers take these only for
 CUDA tensors, with grad mode on and an input that requires grad; the input
 gradient is computed only where autograd asks for it
 (``ctx.needs_input_grad``).
+
+K4 and K7 also take bfloat16 operands on both devices: their bfloat16
+instances on the card, and on the CPU their plain bfloat16 versions with the
+closed-form bfloat16 backward (backward.mlp_chain_bwd, res_block_2d_bwd), whose
+cast points are not autograd of the forward.
 """
 
 from __future__ import annotations
@@ -85,7 +90,8 @@ class MlpChain(Function):
     @staticmethod
     def forward(ctx, x, slopes, n, *params):
         ws, bs = params[:n], params[n:]
-        y, ds = fused.launch_mlp_chain(x, ws, bs, slopes, save_pre=True)
+        fwd = fused.mlp_chain_bf16_ref if x.device.type == "cpu" else fused.launch_mlp_chain
+        y, ds = fwd(x, ws, bs, slopes, save_pre=True)
         ctx.slopes, ctx.n = slopes, n
         ctx.save_for_backward(x, *params, *ds)
         return y
@@ -142,7 +148,7 @@ class ResBlock2d(Function):
 
     @staticmethod
     def forward(ctx, x, k1, k2, *affine):
-        y, d1, d2 = res2d.launch_res_block_2d(x, k1, k2, *affine, save=True)
+        y, d1, d2 = res2d.forward_saved(x, k1, k2, *affine)
         ctx.save_for_backward(x, d1, d2, k1, k2, *affine)
         return y
 

@@ -447,15 +447,37 @@ def mlp_chain_bwd_ref(g: torch.Tensor, x: torch.Tensor, ws: Sequence[torch.Tenso
     return (dx if need_dx else None), list(rest[:n]), list(rest[n:])
 
 
+def mlp_chain_bwd_bf16_ref(g: torch.Tensor, x: torch.Tensor, ws: Sequence[torch.Tensor],
+                           bs: Sequence[torch.Tensor], slopes: Sequence[float],
+                           ds: Sequence[torch.Tensor], *, need_dx: bool = True):
+    """Plain version of K4b's bfloat16 instance (fused.py:1087-1106): the layers' inputs
+    recomputed from x and the bfloat16 d_j that K4 saved, g read as fp32, the chain's gradient
+    in fp32 between layers; dx, each dW_j and db_j rounded to bfloat16 once."""
+    n = len(ws)
+    ys = [x.float()] + [torch.nn.functional.leaky_relu(d.float(), s) if s != 1.0 else d.float()
+                        for d, s in zip(ds[:-1], slopes[:-1])]
+    g = g.float()
+    dws, dbs = [None] * n, [None] * n
+    for j in range(n - 1, -1, -1):
+        gd = g if slopes[j] == 1.0 else torch.where(ds[j].float() > 0, g, slopes[j] * g)
+        dws[j] = (ys[j].T @ gd).to(torch.bfloat16)
+        dbs[j] = gd.sum(dim=0).to(torch.bfloat16)
+        g = gd @ ws[j].float().T
+    return (g.to(torch.bfloat16) if need_dx else None), dws, dbs
+
+
 def mlp_chain_bwd(g: torch.Tensor, x: torch.Tensor, ws: Sequence[torch.Tensor],
                   bs: Sequence[torch.Tensor], slopes: Sequence[float],
                   ds: Sequence[torch.Tensor], *, need_dx: bool = True):
     """K4b: -> (dx, [dW_j], [db_j]) of fused.mlp_chain; ``ds`` are the
     pre-activations d_j that K4 saved (fused.launch_mlp_chain(save_pre=True)). Where every
     width is at most MLP_SMALL_WIDTH one kernel a tile of samples runs the whole backward, else
-    one kernel a layer and one for the weight gradient (csrc/mlp_chain_bwd.cu)."""
+    one kernel a layer and one for the weight gradient (csrc/mlp_chain_bwd.cu). bfloat16
+    operands run the same kernels' bfloat16 instances (bfloat16 dx, dW_j, db_j), on the CPU
+    mlp_chain_bwd_bf16_ref."""
     if g.device.type == "cpu":
-        return mlp_chain_bwd_ref(g, x, ws, bs, slopes, ds, need_dx=need_dx)
+        ref = mlp_chain_bwd_bf16_ref if x.dtype == torch.bfloat16 else mlp_chain_bwd_ref
+        return ref(g, x, ws, bs, slopes, ds, need_dx=need_dx)
     n = len(ws)
     dims = [x.shape[1]] + [w.shape[1] for w in ws]
     if len(ds) != n or any(d.shape != (x.shape[0], k) for d, k in zip(ds, dims[1:])):
@@ -464,15 +486,19 @@ def mlp_chain_bwd(g: torch.Tensor, x: torch.Tensor, ws: Sequence[torch.Tensor],
                                                  zip(ws, dims, dims[1:])):
         raise ValueError(f"g must be ({x.shape[0]}, {dims[-1]}) and the weights follow "
                          f"the widths {dims}")
-    _build.require_cuda_f32("mlp_chain_bwd", g, x, *ws, *ds)
+    _build.require_cuda("mlp_chain_bwd", x.dtype, g, x, *ws, *ds)
+    bf16 = x.dtype == torch.bfloat16
     b = x.shape[0]
-    gds = [torch.empty_like(d) for d in ds] if max(dims) > MLP_SMALL_WIDTH else []
+    # GD_j and the partial rows are fp32 in both instances
+    gds = [torch.empty(d.shape, device=x.device, dtype=torch.float32) for d in ds] \
+        if max(dims) > MLP_SMALL_WIDTH else []
     shapes = [(a + 1, k) for a, k in zip(dims, dims[1:])]
     total = sum(a * k for a, k in shapes)
     dwb = torch.empty(total, device=x.device, dtype=x.dtype)
-    part = torch.empty((len(mlp_split_plan(b, dims)), total), device=x.device, dtype=x.dtype)
+    part = torch.empty((len(mlp_split_plan(b, dims)), total), device=x.device,
+                       dtype=torch.float32)
     dx = torch.empty_like(x) if need_dx else None
-    fn = _build.function("mlp_chain_bwd", "iins_mlp_chain_bwd",
+    fn = _build.function("mlp_chain_bwd", "iins_mlp_chain_bwd" + ("_bf16" if bf16 else ""),
                          [_P, _P, _P, _I, _I, ctypes.POINTER(_P), ctypes.POINTER(_P),
                           ctypes.POINTER(_P), _P, _P, _I, ctypes.POINTER(_I),
                           ctypes.POINTER(ctypes.c_float), _P])
@@ -484,12 +510,16 @@ def mlp_chain_bwd(g: torch.Tensor, x: torch.Tensor, ws: Sequence[torch.Tensor],
              dwb.data_ptr(), part.data_ptr(), part.shape[0], (_I * (n + 1))(*dims),
              (ctypes.c_float * n)(*slopes), _build.stream_handle(x))
     _build.check(err, "mlp_chain_bwd", "mlp_chain_bwd")
-    mlp_chain_bwd.launches += 1
+    if bf16:
+        mlp_chain_bwd.launches_bf16 += 1
+    else:
+        mlp_chain_bwd.launches += 1
     views = _split(dwb, shapes)
     return dx, [d[:-1] for d in views], [d[-1] for d in views]
 
 
 mlp_chain_bwd.launches = 0
+mlp_chain_bwd.launches_bf16 = 0  # the bfloat16 instance's launches
 
 
 # ------------------------------ K6b ------------------------------
@@ -650,14 +680,65 @@ def res_block_2d_bwd_closed(g: torch.Tensor, x: torch.Tensor, k1: torch.Tensor,
     return (dx, dk1, dk2, *((dg1, db1, dg2, db2) if affine else ()))
 
 
+def _conv3x3_t_bf16(gd: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """The adjoint of res2d.conv3x3_bf16 in fp32 (gd fp32 holding bfloat16 values, k
+    bfloat16): _conv3x3_t without the W taps 0 and 2 at the output's edge columns, plus those
+    columns' edge tap (res2d.edge_taps) into columns 1 and 6."""
+    kf, f = k.float(), res2d.edge_taps(k).float()
+    b, h, w, _ = gd.shape
+    inner = gd.clone()
+    inner[:, :, 0] = 0
+    inner[:, :, w - 1] = 0
+    gp = gd.new_zeros((b, h + 2, w + 2, k.shape[2]))
+    for i in range(3):
+        for j in range(3):
+            gp[:, i:i + h, j:j + w] += (gd if j == 1 else inner) @ kf[i, j].T
+        gp[:, i:i + h, 2] += gd[:, :, 0] @ f[i].T
+        gp[:, i:i + h, w - 1] += gd[:, :, w - 1] @ f[i].T
+    gp[:, 2] += gp[:, 0]
+    gp[:, h - 1] += gp[:, h + 1]
+    return gp[:, 1:h + 1, 1:w + 1]
+
+
+def res_block_2d_bwd_bf16_ref(g: torch.Tensor, x: torch.Tensor, k1: torch.Tensor,
+                              k2: torch.Tensor, *affine: torch.Tensor, saved,
+                              need_dx: bool = True):
+    """Plain version of K7b's bfloat16 instance (res2d.py:201-283) on bfloat16 operands, from
+    the bfloat16 d1, d2 that K7 saved: the statistics are taken again, in fp32, from the
+    rounded d1 and d2; gd2 and gd1 are rounded to bfloat16 before any product, and so are the
+    products' other operands (y1, x; the taps are bfloat16); the products accumulate in fp32,
+    dk over the whole batch, and every gradient is rounded to bfloat16 once. (The TPU kernel
+    adds dk in bfloat16 across its grid's sample chunks, VMEM scaffolding: one chunk holds
+    every batch up to 25 samples, where the two agree.)"""
+    f32, bf16 = torch.float32, torch.bfloat16
+    d1, d2 = (t.to(f32) for t in saved)
+    gf, xf = g.to(f32), x.to(f32)
+    gam1, bet1, gam2 = (t.to(f32) for t in affine[:3]) if affine else (None, None, None)
+    gd2, dg2, db2 = _in_grad(gf, d2, gam2)
+    gd2 = gd2.to(bf16).to(f32)
+    a1 = adain(d1, gam1, bet1) if affine else instance_norm(d1)
+    y1 = torch.relu(a1).to(bf16).to(f32)
+    dk2 = _taps_grad_2d(y1, gd2)
+    gd1, dg1, db1 = _in_grad(_conv3x3_t_bf16(gd2, k2) * (a1 > 0), d1, gam1)
+    gd1 = gd1.to(bf16).to(f32)
+    dk1 = _taps_grad_2d(xf, gd1)
+    dx = (gf + _conv3x3_t_bf16(gd1, k1)).to(bf16) if need_dx else None
+    return (dx, *(t.to(bf16) for t in (dk1, dk2, *((dg1, db1, dg2, db2) if affine else ()))))
+
+
 def res_block_2d_bwd(g: torch.Tensor, x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
                      *affine: torch.Tensor, saved=None, need_dx: bool = True):
     """K7b: -> (dx, dk1, dk2[, dgamma1, dbeta1, dgamma2, dbeta2]) of
     res2d.res_block_2d; the affine gradients are (B, C) tables. On CUDA tensors it reads
     ``saved`` = (d1, d2), the pre-norm conv outputs K7 wrote
     (``res2d.launch_res_block_2d(..., save=True)``), and raises without them. One launch is
-    the kernel and the in-order sum of its blocks' d(taps) partial rows."""
+    the kernel and the in-order sum of its blocks' d(taps) partial rows. bfloat16 operands
+    run K7b's bfloat16 instance (csrc/res_block_2d_bf16_bwd.cu), on the CPU its closed form
+    (res_block_2d_bwd_bf16_ref), and return bfloat16 gradients."""
     if g.device.type == "cpu":
+        if x.dtype == torch.bfloat16:
+            return res_block_2d_bwd_bf16_ref(g, x, k1, k2, *affine, saved=saved,
+                                             need_dx=need_dx)
         return res_block_2d_bwd_ref(g, x, k1, k2, *affine, saved=saved, need_dx=need_dx)
     res2d.check_res_block_2d(x, k1, k2, *affine)
     if g.shape != x.shape or g.data_ptr() % 16:
@@ -667,27 +748,35 @@ def res_block_2d_bwd(g: torch.Tensor, x: torch.Tensor, k1: torch.Tensor, k2: tor
         raise ValueError(f"res_block_2d_bwd reads K7's saved d1, d2: two 16-byte aligned "
                          f"{tuple(x.shape)}")
     d1, d2 = saved
-    _build.require_cuda_f32("res_block_2d_bwd", g, x, d1, d2)
+    _build.require_cuda("res_block_2d_bwd", x.dtype, g, x, d1, d2)
     b = x.shape[0]
     _, blocks = res2d_bwd_plan(b, torch.cuda.get_device_properties(x.device).multi_processor_count)
     n_w = k1.numel() + k2.numel()
-    part = torch.empty((blocks, n_w), device=x.device, dtype=x.dtype)
+    # the blocks' d(taps) partial rows are fp32 in both instances
+    part = torch.empty((blocks, n_w), device=x.device, dtype=torch.float32)
     dk = torch.empty(n_w, device=x.device, dtype=x.dtype)
     daffine = torch.empty((4, b, x.shape[3]), device=x.device, dtype=x.dtype) if affine else ()
     dx = torch.empty_like(x) if need_dx else None
-    fn = _build.function("res_block_2d_bwd", "iins_res_block_2d_bwd", [_P] * 16 + [_I, _I, _P])
+    bf16 = x.dtype == torch.bfloat16
+    lib, name = ("res_block_2d_bf16_bwd", "iins_res_block_2d_bf16_bwd") if bf16 \
+        else ("res_block_2d_bwd", "iins_res_block_2d_bwd")
+    fn = _build.function(lib, name, [_P] * 16 + [_I, _I, _P])
     tables = [t.data_ptr() for t in affine[:3]] if affine else [None] * 3
     dtables = [t.data_ptr() for t in daffine] if affine else [None] * 4
     err = fn(x.data_ptr(), d1.data_ptr(), d2.data_ptr(), k1.data_ptr(), k2.data_ptr(), *tables,
              g.data_ptr(), _ptr(dx), part.data_ptr(), dk.data_ptr(), *dtables, b, blocks,
              _build.stream_handle(x))
-    _build.check(err, "res_block_2d_bwd", "res_block_2d_bwd")
-    res_block_2d_bwd.launches += 1
+    _build.check(err, lib, "res_block_2d_bwd")
+    if bf16:
+        res_block_2d_bwd.launches_bf16 += 1
+    else:
+        res_block_2d_bwd.launches += 1
     dk1, dk2 = _split(dk, [k1.shape, k2.shape])
     return (dx, dk1, dk2, *daffine)
 
 
 res_block_2d_bwd.launches = 0
+res_block_2d_bwd.launches_bf16 = 0  # the bfloat16 instance's launches
 
 
 

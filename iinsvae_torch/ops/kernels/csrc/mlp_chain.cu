@@ -88,7 +88,16 @@
 //   each d_j where asked, as the general kernel does.
 // It takes 3.36-3.37 us a call at batch 500 on the H100 (PERF.md): the launch
 // (1.2 us) and the staging (1.0) are two thirds of it.
+//
+// The cluster and head kernels also have bfloat16 instances (iins_mlp_cluster_bf16,
+// iins_mlp_head_bf16), K4 under --compute_dtype bfloat16 as the Pallas body computes it on
+// bfloat16 refs (fused.py:1072-1084): x, the weights and the biases are read as bfloat16 and
+// upcast where they are staged (by plain loads: cp.async cannot convert), the chain runs in
+// fp32 between the layers as in float32 (y is not rounded there, so a bfloat16 mma would not
+// compute it), and each d_j and the output are rounded to bfloat16 on store. Plain version:
+// fused.mlp_chain_bf16_ref.
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -106,15 +115,28 @@ constexpr int kTileFloats = 8192;   // 32 KB of weight rows
 constexpr int kPrefetch = kTileFloats / 4 / kThreads;  // float4s a thread holds
 constexpr size_t kMaxSmem = 48 * 1024;  // a block's default; the restorer needs exactly this
 
-struct MlpArgs {
-  const float* w[kMaxLayers];
-  const float* b[kMaxLayers];
+using bf16 = __nv_bfloat16;
+
+// A value of the storage type T (float, or bfloat16 for the bfloat16 instances) as fp32, and
+// back, rounded to the nearest.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+template <class T>
+__device__ __forceinline__ T from_f32(float v) {
+  if constexpr (std::is_same<T, float>::value) return v; else return __float2bfloat16_rn(v);
+}
+
+template <class T>
+struct ChainArgs {
+  const T* w[kMaxLayers];
+  const T* b[kMaxLayers];
   float slope[kMaxLayers];
-  float* d[kMaxLayers];  // each layer's pre-activations (B, dims[j + 1]), or null
+  T* d[kMaxLayers];  // each layer's pre-activations (B, dims[j + 1]), or null
   int dims[kMaxLayers + 1];
   int n_layers;
   int width;  // max(dims): length of each activation buffer, in kRows-float rows
 };
+using MlpArgs = ChainArgs<float>;
 
 // Lanes per output column for a layer of `dout` outputs: a power of two
 // <= 32 with dout * lanes <= kThreads.
@@ -251,11 +273,12 @@ constexpr int kMaxD0 = 128, kMaxS = 36;  // tiles of 12, 24 or 36 samples
 constexpr int kTs = 12, kTc = 8, kLanes = 8;  // a thread's samples, columns, lanes a tile
 constexpr int kP = kThreads * kTs;  // the split products' partial sums, in floats
 
+template <class T>
 struct Args {
-  const float* w[4];
-  const float* b[4];
+  const T* w[4];
+  const T* b[4];
   float slope[4];
-  float* d[4];  // each layer's pre-activations (B, D_{j+1}), or null
+  T* d[4];  // each layer's pre-activations (B, D_{j+1}), or null
   int d0;
 };
 
@@ -319,39 +342,64 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// Rows [0, rows) of a weight slice: `cols` floats a row from w + k * ld_w, into dst (rows,
-// ld_d floats apart).
-__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ w, int rows,
+// Rows [0, rows) of a weight slice: `cols` values a row from w + k * ld_w, into dst (rows,
+// ld_d floats apart): float32 by cp.async, bfloat16 8 values a 16-byte load, upcast and stored
+// (cols a multiple of 8).
+template <class T>
+__device__ __forceinline__ void stage_rows(float* dst, const T* __restrict__ w, int rows,
                                            int cols, int ld_w, int ld_d) {
-  const int q = cols / 4;
-  for (int i = threadIdx.x; i < rows * q; i += kThreads) {
-    const int k = i / q, c = (i - k * q) * 4;
-    cp_async16(dst + k * ld_d + c, w + static_cast<size_t>(k) * ld_w + c, true);
+  if constexpr (std::is_same<T, float>::value) {
+    const int q = cols / 4;
+    for (int i = threadIdx.x; i < rows * q; i += kThreads) {
+      const int k = i / q, c = (i - k * q) * 4;
+      cp_async16(dst + k * ld_d + c, w + static_cast<size_t>(k) * ld_w + c, true);
+    }
+  } else {
+    const int q = cols / 8;
+    for (int i = threadIdx.x; i < rows * q; i += kThreads) {
+      const int k = i / q, c = (i - k * q) * 8;
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(w + static_cast<size_t>(k) * ld_w + c));
+      const bf16* h = reinterpret_cast<const bf16*>(&v);
+      float4* o = reinterpret_cast<float4*>(dst + k * ld_d + c);
+      o[0] = make_float4(to_f32(h[0]), to_f32(h[1]), to_f32(h[2]), to_f32(h[3]));
+      o[1] = make_float4(to_f32(h[4]), to_f32(h[5]), to_f32(h[6]), to_f32(h[7]));
+    }
   }
 }
 
-// The tile's samples row0 .. row0 + ns - 1 of x (B, D0), one bulk copy into P (row-major),
-// which completes on xbar; thread 0 issues it.
-__device__ __forceinline__ void fetch_x(float* p, const float* __restrict__ x, int d0, int row0,
+// One value from global memory to dst (shared) as fp32: cp.async for float32, a load for
+// bfloat16.
+__device__ __forceinline__ void stage_one(float* dst, const float* src) { cp_async4(dst, src, true); }
+__device__ __forceinline__ void stage_one(float* dst, const bf16* src) { *dst = to_f32(*src); }
+
+// The tile's samples row0 .. row0 + ns - 1 of x (B, D0), one bulk copy into P (row-major, in
+// x's type), which completes on xbar; thread 0 issues it.
+template <class T>
+__device__ __forceinline__ void fetch_x(float* p, const T* __restrict__ x, int d0, int row0,
                                         int ns, unsigned long long* xbar) {
   if (threadIdx.x == 0) {
+    const unsigned bytes = ns * d0 * sizeof(T);
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // P's earlier reads first
-    mbar_expect_tx(xbar, ns * d0 * 4);
-    bulk_copy(p, x + static_cast<size_t>(row0) * d0, ns * d0 * 4, xbar);
+    mbar_expect_tx(xbar, bytes);
+    bulk_copy(p, reinterpret_cast<const float*>(x + static_cast<size_t>(row0) * d0), bytes, xbar);
   }
 }
 
-// x from P into dst (D0, S), k-major in rows of as(S) floats; samples past the batch zero.
+// x from P into dst (D0, S) as fp32, k-major in rows of as(S) floats; samples past the batch
+// zero.
+template <class T>
 __device__ __forceinline__ void place_x(float* dst, const float* p, int d0, int s_tile, int ns) {
   const int sa = as(s_tile);
+  const T* px = reinterpret_cast<const T*>(p);
   for (int i = threadIdx.x; i < s_tile * d0; i += kThreads) {
     const int s = i / d0, k = i - s * d0;
-    dst[k * sa + s] = s < ns ? p[i] : 0.f;
+    dst[k * sa + s] = s < ns ? to_f32(px[i]) : 0.f;
   }
 }
 
 // This block's slice of W0 (D0, 64) in rows of 68 floats, or all of it (D0, 512), to dst.
-__device__ __forceinline__ void stage_w0(float* dst, const float* __restrict__ w0, int d0,
+template <class T>
+__device__ __forceinline__ void stage_w0(float* dst, const T* __restrict__ w0, int d0,
                                         bool all) {
   if (all)
     stage_rows(dst, w0, d0, kD1, kD1, kD1);
@@ -441,9 +489,10 @@ __device__ __forceinline__ void products(const float* a, const float* w, float* 
 constexpr int kRepD0 = 16;
 static_assert(kRepD0 * (as(kMaxS) + kD1) <= kD2 * ld(kN2), "x and all of W0 fit in W2's place");
 
+template <class T>
 __device__ __forceinline__ void layer0_all(const float* xw, float* a, int d0, int s_tile,
                                            const float* b0, float slope,
-                                           float* __restrict__ ds, int rank, int row0, int ns) {
+                                           T* __restrict__ ds, int rank, int row0, int ns) {
   const int c = threadIdx.x % 128, g = threadIdx.x / 128, s0 = g * kTs, sa = as(s_tile);
   if (s0 >= s_tile) return;
   const float* xp = xw + s0;
@@ -467,7 +516,8 @@ __device__ __forceinline__ void layer0_all(const float* xw, float* a, int d0, in
 #pragma unroll
     for (int r = 0; r < kTs; ++r) {
       const float d = acc[q][r] + b;
-      if (ds && col / kN0 == rank && s0 + r < ns) ds[static_cast<size_t>(row0 + s0 + r) * kD1 + col] = d;
+      if (ds && col / kN0 == rank && s0 + r < ns)
+        ds[static_cast<size_t>(row0 + s0 + r) * kD1 + col] = from_f32<T>(d);
       v[r] = d > 0.f ? d : slope * d;
     }
 #pragma unroll
@@ -480,9 +530,10 @@ __device__ __forceinline__ void layer0_all(const float* xw, float* a, int d0, in
 // The layer's outputs from the partial sums P: d = the parts summed in order + bias (the
 // block's N, staged), written to ds (rows row0 .. row0 + ns - 1, columns col0 ..) where given;
 // out (N, S) = leaky(d), in rows of as(S) floats, and the same in out2 where given.
+template <class T>
 __device__ __forceinline__ void finish(const float* p, float* out, float* out2, int n,
                                        int s_tile, const float* bias, float slope,
-                                       float* __restrict__ ds, int dout, int col0, int row0,
+                                       T* __restrict__ ds, int dout, int col0, int row0,
                                        int ns) {
   const int parts = parts_of(n, s_tile), len = n * s_tile, sa = as(s_tile);
   for (int o = threadIdx.x; o < len; o += kThreads) {
@@ -490,7 +541,7 @@ __device__ __forceinline__ void finish(const float* p, float* out, float* out2, 
     float v = p[o];
     for (int q = 1; q < parts; ++q) v += p[q * len + o];
     const float d = v + bias[c];
-    if (ds && s < ns) ds[static_cast<size_t>(row0 + s) * dout + col0 + c] = d;
+    if (ds && s < ns) ds[static_cast<size_t>(row0 + s) * dout + col0 + c] = from_f32<T>(d);
     const float v_out = d > 0.f ? d : slope * d;
     out[c * sa + s] = v_out;
     if (out2) out2[c * sa + s] = v_out;
@@ -503,9 +554,9 @@ __device__ __forceinline__ void finish(const float* p, float* out, float* out2, 
 // of O to each other block's A, completing on that block's mbarrier bars[rank] (armed before
 // this block's arrival, so that no copy completes on it before). On a block's first tile it
 // also waits for all but kPending of its weights' copy groups.
-template <int kPending>
+template <int kPending, class T>
 __device__ __forceinline__ void exchange(float* a, float* p, float* o, const float* bias, int n,
-                                         int s_tile, float slope, float* ds, int dout, int rank,
+                                         int s_tile, float slope, T* ds, int dout, int rank,
                                          int row0, int ns, unsigned long long* bars, bool first) {
   const int slice = n * as(s_tile);
   if (threadIdx.x == 0)
@@ -526,10 +577,11 @@ __device__ __forceinline__ void exchange(float* a, float* p, float* o, const flo
 
 // Cluster c walks tiles c, c + clusters, ... of s_tile samples; block rank r of the cluster
 // owns columns [r N_j, (r + 1) N_j) of layers 0-2 and rows [r N_2, (r + 1) N_2) of the last
-// layer's weight.
+// layer's weight. T: the storage type of x, y, the weights, the biases and the d_j.
+template <class T>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
-mlp_cluster_kernel(const float* __restrict__ x, float* __restrict__ y, int batch, int s_tile,
-                   int n_tiles, Args a) {
+mlp_cluster_kernel(const T* __restrict__ x, T* __restrict__ y, int batch, int s_tile,
+                   int n_tiles, Args<T> a) {
   extern __shared__ __align__(16) float sm[];
   cg::cluster_group cl = cg::this_cluster();
   const int rank = static_cast<int>(cl.block_rank());
@@ -541,7 +593,7 @@ mlp_cluster_kernel(const float* __restrict__ x, float* __restrict__ y, int batch
   float* o = sm + o_off(d0, s_tile);
   auto* bars = reinterpret_cast<unsigned long long*>(sm + bar_off(d0, s_tile));
   const float* bias = sm + kB;
-  const float* w0 = a.w[0] + rank * kN0;
+  const T* w0 = a.w[0] + rank * kN0;
   unsigned long long* xbar = bars + 2 * kCluster;
   if (threadIdx.x <= 2 * kCluster) {
     mbar_init(bars + threadIdx.x);
@@ -562,7 +614,7 @@ mlp_cluster_kernel(const float* __restrict__ x, float* __restrict__ y, int batch
   stage_rows(sm + kB, a.b[0] + (all0 ? 0 : rank * kN0), 1, all0 ? kD1 : kN0, 0, 0);
   stage_rows(sm + kB + kD1, a.b[1] + rank * kN1, 1, kN1, 0, 0);
   stage_rows(sm + kB + kD1 + kN1, a.b[2] + rank * kN2, 1, kN2, 0, 0);
-  if (threadIdx.x == 0) cp_async4(sm + kB + kD1 + kN1 + kN2, a.b[3], true);
+  if (threadIdx.x == 0) stage_one(sm + kB + kD1 + kN1 + kN2, a.b[3]);
   cp_async_wait_all();
   stage_rows(sm, a.w[1] + rank * kN1, kD1, kN1, kD2, ld(kN1));
   cp_async_commit();
@@ -579,7 +631,7 @@ mlp_cluster_kernel(const float* __restrict__ x, float* __restrict__ y, int batch
       cp_async_wait_all();
     }
     mbar_wait(xbar, parity);
-    place_x(x_at, p, d0, s_tile, ns);
+    place_x<T>(x_at, p, d0, s_tile, ns);
     __syncthreads();
     if (all0) {
       // layer 0: x (D0, S) -> A (512, S), all of it here
@@ -628,27 +680,29 @@ mlp_cluster_kernel(const float* __restrict__ x, float* __restrict__ y, int batch
 #pragma unroll
       for (int r = 0; r < kCluster; ++r) v += p3[r * s_tile + threadIdx.x];
       const float d = v + bias[kD1 + kN1 + kN2];
-      if (a.d[3]) a.d[3][row0 + threadIdx.x] = d;
-      y[row0 + threadIdx.x] = d > 0.f ? d : a.slope[3] * d;
+      if (a.d[3]) a.d[3][row0 + threadIdx.x] = from_f32<T>(d);
+      y[row0 + threadIdx.x] = from_f32<T>(d > 0.f ? d : a.slope[3] * d);
     }
   }
 }
 
-int smem_set = 0;
+int smem_set[2] = {0, 0};  // the float32 and bfloat16 instances'
 
-// The clusters of blocks of `smem` bytes that the card holds at once.
+// The clusters of blocks of `smem` bytes that the card holds at once (the float32 instance's;
+// the bfloat16 one takes the same shared memory).
 int slots(int smem, int* out) {
-  int err = allow_smem(mlp_cluster_kernel, smem, &smem_set);
+  int err = allow_smem(mlp_cluster_kernel<float>, smem, &smem_set[0]);
   if (err) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(kCluster * 64);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
-  return static_cast<int>(cudaOccupancyMaxActiveClusters(out, mlp_cluster_kernel, &cfg));
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(out, mlp_cluster_kernel<float>, &cfg));
 }
 
-int launch(const float* x, float* y, int batch, const Args& a, int s_tile, int clusters,
-           int smem, void* stream) {
+template <class T>
+int launch(const T* x, T* y, int batch, const Args<T>& a, int s_tile, int clusters, int smem,
+           void* stream) {
   const int n_tiles = batch > 0 ? (batch + s_tile - 1) / s_tile : 0;
   if (batch <= 0 || s_tile < kTs || s_tile > kMaxS || s_tile % kTs || clusters < 1 ||
       clusters > n_tiles || a.d0 < 16 || a.d0 > kMaxD0 || a.d0 % 16 ||
@@ -659,10 +713,11 @@ int launch(const float* x, float* y, int batch, const Args& a, int s_tile, int c
     if (reinterpret_cast<std::uintptr_t>(a.w[j]) % 16 ||
         (j < 3 && reinterpret_cast<std::uintptr_t>(a.b[j]) % 16))
       return cudaErrorInvalidValue;
-  const int err = allow_smem(mlp_cluster_kernel, smem, &smem_set);
+  const int err =
+      allow_smem(mlp_cluster_kernel<T>, smem, &smem_set[std::is_same<T, bf16>::value]);
   if (err) return err;
-  mlp_cluster_kernel<<<clusters * kCluster, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, y, batch, s_tile, n_tiles, a);
+  mlp_cluster_kernel<T><<<clusters * kCluster, kThreads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(x, y, batch, s_tile, n_tiles, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -687,25 +742,31 @@ inline int smem_floats(const int* dims, int n_layers) {
 }
 
 // n floats from src (global) to dst (shared, 16-byte aligned) by cp.async: 16-byte copies where
-// src is 16-byte aligned and n a multiple of 4, else 4-byte ones.
+// src is 16-byte aligned and n a multiple of 4, else 4-byte ones; n bfloat16 values by loads,
+// upcast.
 __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int n) {
   if (n % 4 == 0 && reinterpret_cast<std::uintptr_t>(src) % 16 == 0)
     for (int i = threadIdx.x; i < n / 4; i += kThreads) cp_async16(dst + 4 * i, src + 4 * i, true);
   else
     for (int i = threadIdx.x; i < n; i += kThreads) cp_async4(dst + i, src + i, true);
 }
+__device__ __forceinline__ void stage(float* dst, const bf16* __restrict__ src, int n) {
+  for (int i = threadIdx.x; i < n; i += kThreads) dst[i] = to_f32(src[i]);
+}
 
 // Sample s's input in the warp: lane k holds x[s, k] in a0 and x[s, k + 32] in a1, 0 past D0
 // and past the batch.
-__device__ __forceinline__ void load_x(const float* __restrict__ x, int s, int batch, int d0,
+template <class T>
+__device__ __forceinline__ void load_x(const T* __restrict__ x, int s, int batch, int d0,
                                        int lane, float& a0, float& a1) {
-  const float* xs = x + static_cast<size_t>(s) * d0;
-  a0 = s < batch && lane < d0 ? __ldg(xs + lane) : 0.f;
-  a1 = s < batch && lane + 32 < d0 ? __ldg(xs + lane + 32) : 0.f;
+  const T* xs = x + static_cast<size_t>(s) * d0;
+  a0 = s < batch && lane < d0 ? to_f32(__ldg(xs + lane)) : 0.f;
+  a1 = s < batch && lane + 32 < d0 ? to_f32(__ldg(xs + lane + 32)) : 0.f;
 }
 
 // y out; phase_times.py's "products" cut guards this store by a condition no launch meets.
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+template <class T>
+__device__ __forceinline__ void put(T* p, float v) { *p = from_f32<T>(v); }
 
 // A chain's widths read from the launch's arguments (Any), or fixed at compile time (Dims<D0,
 // D1, ...>: the classifier's instance, whose loops all unroll; the launch picks it where the
@@ -727,12 +788,12 @@ struct Dims {
 };
 using Classifier = Dims<16, 16, 32, 16, 5>;
 
-template <class D>
-__device__ __forceinline__ int layers(const MlpArgs& a) {
+template <class D, class A>
+__device__ __forceinline__ int layers(const A& a) {
   if constexpr (std::is_same<D, Any>::value) return a.n_layers; else return D::kLayers;
 }
-template <class D>
-__device__ __forceinline__ int width(const MlpArgs& a, int j) {
+template <class D, class A>
+__device__ __forceinline__ int width(const A& a, int j) {
   if constexpr (std::is_same<D, Any>::value) return a.dims[j]; else return D::at(j);
 }
 
@@ -774,10 +835,11 @@ __device__ __forceinline__ void dots(const float* w, const float* a, int din, in
 // the layers run over kMaxLayers with the layer a compile-time index, so that each layer's
 // pointers and slope are kernel parameters at fixed offsets; the classifier's instance has its
 // widths, offsets and loop bounds as constants too, and its loads unroll ahead of the FMAs.
-template <class D>
+// T: the storage type of x, y, the weights, the biases and the d_j.
+template <class T, class D>
 __global__ void __launch_bounds__(kThreads)
-mlp_head_kernel(const float* __restrict__ x, float* __restrict__ y, int batch, int n_tiles,
-                MlpArgs a) {
+mlp_head_kernel(const T* __restrict__ x, T* __restrict__ y, int batch, int n_tiles,
+                ChainArgs<T> a) {
   constexpr bool kStatic = !std::is_same<D, Any>::value;
   extern __shared__ __align__(16) float sm[];
   const int n_layers = layers<D>(a);
@@ -824,9 +886,9 @@ mlp_head_kernel(const float* __restrict__ x, float* __restrict__ y, int batch, i
         const float slope = a.slope[j];
         const float e0 = acc0 + bias[c0], e1 = acc1 + bias[c1];
         if (a.d[j]) {
-          float* dj = a.d[j] + static_cast<size_t>(s) * dout;
-          if (lane < dout) dj[lane] = e0;
-          if (hi) dj[lane + 32] = e1;
+          T* dj = a.d[j] + static_cast<size_t>(s) * dout;
+          if (lane < dout) dj[lane] = from_f32<T>(e0);
+          if (hi) dj[lane + 32] = from_f32<T>(e1);
         }
         a0 = lane < dout ? (e0 > 0.f ? e0 : slope * e0) : 0.f;
         a1 = hi ? (e1 > 0.f ? e1 : slope * e1) : 0.f;
@@ -843,18 +905,21 @@ mlp_head_kernel(const float* __restrict__ x, float* __restrict__ y, int batch, i
   }
 }
 
-int smem_set[2] = {0, 0};
+int smem_set[4] = {0, 0, 0, 0};
 
-template <class D>
-int launch_instance(const float* x, float* y, int batch, int n_tiles, const MlpArgs& a, int grid,
+template <class T, class D>
+int launch_instance(const T* x, T* y, int batch, int n_tiles, const ChainArgs<T>& a, int grid,
                     int smem, cudaStream_t s) {
-  const int err = allow_smem(mlp_head_kernel<D>, smem, &smem_set[std::is_same<D, Any>::value]);
+  const int err = allow_smem(mlp_head_kernel<T, D>, smem,
+                             &smem_set[2 * std::is_same<T, bf16>::value +
+                                       std::is_same<D, Any>::value]);
   if (err) return err;
-  mlp_head_kernel<D><<<grid, kThreads, smem, s>>>(x, y, batch, n_tiles, a);
+  mlp_head_kernel<T, D><<<grid, kThreads, smem, s>>>(x, y, batch, n_tiles, a);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch(const float* x, float* y, int batch, const MlpArgs& a, int tile, int grid, int smem,
+template <class T>
+int launch(const T* x, T* y, int batch, const ChainArgs<T>& a, int tile, int grid, int smem,
            void* stream) {
   const int n_tiles = batch > 0 ? (batch + kWarps - 1) / kWarps : 0;
   if (batch <= 0 || tile != kWarps || grid < 1 || grid > n_tiles || a.n_layers < 1 ||
@@ -867,8 +932,8 @@ int launch(const float* x, float* y, int batch, const MlpArgs& a, int tile, int 
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return Classifier::matches(a.dims, a.n_layers)
-             ? launch_instance<Classifier>(x, y, batch, n_tiles, a, grid, smem, s)
-             : launch_instance<Any>(x, y, batch, n_tiles, a, grid, smem, s);
+             ? launch_instance<T, Classifier>(x, y, batch, n_tiles, a, grid, smem, s)
+             : launch_instance<T, Any>(x, y, batch, n_tiles, a, grid, smem, s);
 }
 
 }  // namespace head
@@ -876,21 +941,48 @@ int launch(const float* x, float* y, int batch, const MlpArgs& a, int tile, int 
 namespace {
 
 // A chain of n_layers layers as iins_mlp_chain and iins_mlp_head take it (the widths unchecked).
-MlpArgs chain_args(int n_layers, const void* const* ws, const void* const* bs, const int* dims,
-                   const float* slopes, void* const* ds) {
-  MlpArgs a{};
+template <class T>
+ChainArgs<T> chain_args(int n_layers, const void* const* ws, const void* const* bs,
+                        const int* dims, const float* slopes, void* const* ds) {
+  ChainArgs<T> a{};
   a.n_layers = n_layers;
   for (int j = 0; j <= n_layers; ++j) {
     a.dims[j] = dims[j];
     a.width = dims[j] > a.width ? dims[j] : a.width;
   }
   for (int j = 0; j < n_layers; ++j) {
-    a.w[j] = static_cast<const float*>(ws[j]);
-    a.b[j] = static_cast<const float*>(bs[j]);
+    a.w[j] = static_cast<const T*>(ws[j]);
+    a.b[j] = static_cast<const T*>(bs[j]);
     a.slope[j] = slopes[j];
-    a.d[j] = ds ? static_cast<float*>(ds[j]) : nullptr;
+    a.d[j] = ds ? static_cast<T*>(ds[j]) : nullptr;
   }
   return a;
+}
+
+template <class T>
+int launch_cluster(const void* x, void* y, int batch, int d0, const void* const* ws,
+                   const void* const* bs, const float* slopes, void* const* ds, int tile,
+                   int clusters, int smem, void* stream) {
+  cluster::Args<T> a{};
+  a.d0 = d0;
+  for (int j = 0; j < 4; ++j) {
+    a.w[j] = static_cast<const T*>(ws[j]);
+    a.b[j] = static_cast<const T*>(bs[j]);
+    a.slope[j] = slopes[j];
+    a.d[j] = ds ? static_cast<T*>(ds[j]) : nullptr;
+  }
+  return cluster::launch(static_cast<const T*>(x), static_cast<T*>(y), batch, a, tile, clusters,
+                         smem, stream);
+}
+
+template <class T>
+int launch_head(const void* x, void* y, int batch, int n_layers, const void* const* ws,
+                const void* const* bs, const int* dims, const float* slopes, void* const* ds,
+                int tile, int grid, int smem, void* stream) {
+  if (n_layers < 1 || n_layers > kMaxLayers) return cudaErrorInvalidValue;
+  return head::launch(static_cast<const T*>(x), static_cast<T*>(y), batch,
+                      chain_args<T>(n_layers, ws, bs, dims, slopes, ds), tile, grid, smem,
+                      stream);
 }
 
 }  // namespace
@@ -912,7 +1004,7 @@ int iins_mlp_chain(const float* x, float* y, int batch, int n_layers, const void
     if (dims[j] <= 0 || (j > 0 && (dims[j] > kTileFloats ||
                                    dims[j] * lanes_for(dims[j]) > kMaxCols * kThreads)))
       return cudaErrorInvalidValue;
-  const MlpArgs a = chain_args(n_layers, ws, bs, dims, slopes, ds);
+  const MlpArgs a = chain_args<float>(n_layers, ws, bs, dims, slopes, ds);
   const size_t smem = (2 * static_cast<size_t>(kRows) * a.width + kTileFloats) * sizeof(float);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   const int grid = (batch + kRows - 1) / kRows;
@@ -927,15 +1019,15 @@ int iins_mlp_chain(const float* x, float* y, int batch, int n_layers, const void
 int iins_mlp_cluster(const float* x, float* y, int batch, int d0, const void* const* ws,
                      const void* const* bs, const float* slopes, void* const* ds, int tile,
                      int clusters, int smem, void* stream) {
-  cluster::Args a{};
-  a.d0 = d0;
-  for (int j = 0; j < 4; ++j) {
-    a.w[j] = static_cast<const float*>(ws[j]);
-    a.b[j] = static_cast<const float*>(bs[j]);
-    a.slope[j] = slopes[j];
-    a.d[j] = ds ? static_cast<float*>(ds[j]) : nullptr;
-  }
-  return cluster::launch(x, y, batch, a, tile, clusters, smem, stream);
+  return launch_cluster<float>(x, y, batch, d0, ws, bs, slopes, ds, tile, clusters, smem, stream);
+}
+
+// The same, the bfloat16 instance: x, y, the weights, the biases and ds bfloat16; the plan
+// (tile, clusters, smem) that of float32.
+int iins_mlp_cluster_bf16(const void* x, void* y, int batch, int d0, const void* const* ws,
+                          const void* const* bs, const float* slopes, void* const* ds, int tile,
+                          int clusters, int smem, void* stream) {
+  return launch_cluster<bf16>(x, y, batch, d0, ws, bs, slopes, ds, tile, clusters, smem, stream);
 }
 
 // *out = the clusters of the restorers' path that the card holds at once, its blocks taking
@@ -949,9 +1041,17 @@ int iins_mlp_cluster_slots(int smem, int* out) { return cluster::slots(smem, out
 int iins_mlp_head(const float* x, float* y, int batch, int n_layers, const void* const* ws,
                   const void* const* bs, const int* dims, const float* slopes, void* const* ds,
                   int tile, int grid, int smem, void* stream) {
-  if (n_layers < 1 || n_layers > kMaxLayers) return cudaErrorInvalidValue;
-  return head::launch(x, y, batch, chain_args(n_layers, ws, bs, dims, slopes, ds), tile, grid,
-                      smem, stream);
+  return launch_head<float>(x, y, batch, n_layers, ws, bs, dims, slopes, ds, tile, grid, smem,
+                            stream);
+}
+
+// The same, the bfloat16 instance: x, y, the weights, the biases and ds bfloat16; the plan
+// (tile, grid, smem) that of float32.
+int iins_mlp_head_bf16(const void* x, void* y, int batch, int n_layers, const void* const* ws,
+                       const void* const* bs, const int* dims, const float* slopes,
+                       void* const* ds, int tile, int grid, int smem, void* stream) {
+  return launch_head<bf16>(x, y, batch, n_layers, ws, bs, dims, slopes, ds, tile, grid, smem,
+                           stream);
 }
 
 }  // extern "C"

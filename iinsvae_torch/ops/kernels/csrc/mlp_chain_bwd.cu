@@ -43,7 +43,18 @@
 //   n - 1 without dx), the weight gradient and the sum.
 // Deterministic: no atomics, every sum in a fixed order, so two runs give bit-equal
 // gradients. Full fp32 FMAs, no TF32.
+//
+// Both paths also have a bfloat16 instance (iins_mlp_chain_bwd_bf16), K4b under
+// --compute_dtype bfloat16 as the Pallas body computes it on bfloat16 refs (fused.py:
+// 1087-1106): g, x, the weights and the saved d_j are read as bfloat16 and upcast where they
+// are staged (by plain loads: cp.async cannot convert), so the layers' inputs are recomputed
+// from the rounded d_j; GD_j, the partial rows and every sum stay fp32; dx and each dW_j, db_j
+// are rounded to bfloat16 once, on store (the TPU kernel stores them in its refs' dtype).
+// Plain version: backward.mlp_chain_bwd_bf16_ref.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "async_smem.cuh"
 #include "conv_bwd_common.cuh"
@@ -64,15 +75,36 @@ __device__ __forceinline__ float lane4(const float4& v, int e) {
 
 __device__ __forceinline__ float leaky(float v, float slope) { return v > 0.f ? v : slope * v; }
 
+using bf16 = __nv_bfloat16;
+
+// A value of the storage type T (float, or bfloat16 for the bfloat16 instance) as fp32, and
+// back, rounded to the nearest.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+template <class T>
+__device__ __forceinline__ T from_f32(float v) {
+  if constexpr (std::is_same<T, float>::value) return v; else return __float2bfloat16_rn(v);
+}
+
+// One value from global memory to dst (shared) as fp32, or 0 where !valid: cp.async for
+// float32, a load for bfloat16.
+__device__ __forceinline__ void stage_one(float* dst, const float* src, bool valid) {
+  cp_async4(dst, src, valid);
+}
+__device__ __forceinline__ void stage_one(float* dst, const bf16* src, bool valid) {
+  *dst = valid ? to_f32(*src) : 0.f;
+}
+
 // ---------------------------------------------------------------------------
 // Small heads: the whole chain a block of 8 samples.
 namespace small {
 
 constexpr int kRows = 8, kThreads = 256, kMaxWidth = 64;
 
+template <class T>
 struct Args {
-  const float* w[kMaxLayers];
-  const float* d[kMaxLayers];
+  const T* w[kMaxLayers];
+  const T* d[kMaxLayers];
   float slope[kMaxLayers];
   int dims[kMaxLayers + 1];
   int w_off[kMaxLayers], d_off[kMaxLayers], gd_off[kMaxLayers];  // in shared memory
@@ -81,23 +113,26 @@ struct Args {
   int n;
 };
 
-// The block's rows of a (B, width) array to dst, 4-byte copies; rows past the batch zero.
-__device__ void stage_rows(float* dst, const float* __restrict__ src, int width, int r0, int nr) {
+// The block's rows of a (B, width) array to dst, a value a copy; rows past the batch zero.
+template <class T>
+__device__ void stage_rows(float* dst, const T* __restrict__ src, int width, int r0, int nr) {
   for (int e = threadIdx.x; e < kRows * width; e += kThreads) {
     const bool ok = e / width < nr;
-    cp_async4(dst + e, src + (ok ? static_cast<size_t>(r0) * width + e : 0), ok);
+    stage_one(dst + e, src + (ok ? static_cast<size_t>(r0) * width + e : 0), ok);
   }
 }
 
+// T: the storage type of g, x, dx, the weights and the d_j.
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-small_kernel(const float* __restrict__ g, const float* __restrict__ x, float* __restrict__ dx,
-             float* __restrict__ part, int batch, Args a) {
+small_kernel(const T* __restrict__ g, const T* __restrict__ x, T* __restrict__ dx,
+             float* __restrict__ part, int batch, Args<T> a) {
   extern __shared__ __align__(16) float sm[];
   const int r0 = blockIdx.x * kRows, nr = min(kRows, batch - r0), n = a.n;
   for (int j = 0; j < n; ++j)  // W_j transposed, (D_{j+1}, D_j): a warp reads 32 inputs i
     for (int e = threadIdx.x; e < a.dims[j] * a.dims[j + 1]; e += kThreads) {
       const int i = e / a.dims[j + 1], k = e - i * a.dims[j + 1];
-      cp_async4(sm + a.w_off[j] + k * a.dims[j] + i, a.w[j] + e, true);
+      stage_one(sm + a.w_off[j] + k * a.dims[j] + i, a.w[j] + e, true);
     }
   stage_rows(sm + a.x_off, x, a.dims[0], r0, nr);
   stage_rows(sm + a.g_off, g, a.dims[n], r0, nr);
@@ -131,7 +166,7 @@ small_kernel(const float* __restrict__ g, const float* __restrict__ x, float* __
       if (j > 0)
         sm[a.gd_off[j - 1] + e] = sm[a.d_off[j - 1] + e] > 0.f ? acc : a.slope[j - 1] * acc;
       else
-        dx[static_cast<size_t>(r0) * din + e] = acc;
+        dx[static_cast<size_t>(r0) * din + e] = from_f32<T>(acc);
     }
     __syncthreads();
   }
@@ -152,7 +187,7 @@ small_kernel(const float* __restrict__ g, const float* __restrict__ x, float* __
   }
 }
 
-int smem_set = 0;
+int smem_set[2] = {0, 0};  // the float32 and bfloat16 instances'
 
 }  // namespace small
 
@@ -173,23 +208,39 @@ static_assert(kChunkRows * (kLdY + kLdG) >= (kGroups - 1) * 16 * kThreads,
               "the groups' sums fit where the rows were");
 static_assert(kThreads == 8 * 16 && kTM == 4 * 8 && kTN == 4 * 16, "thread layouts");
 
+// 4 values from global memory to dst (shared, 16-byte aligned) as fp32, or zeros where !valid:
+// one cp.async for float32, an 8-byte load for bfloat16.
+__device__ __forceinline__ void stage_four(float* dst, const float* src, bool valid) {
+  cp_async16(dst, src, valid);
+}
+__device__ __forceinline__ void stage_four(float* dst, const bf16* src, bool valid) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (valid) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(src));
+    const bf16* h = reinterpret_cast<const bf16*>(&u);
+    v = make_float4(to_f32(h[0]), to_f32(h[1]), to_f32(h[2]), to_f32(h[3]));
+  }
+  *reinterpret_cast<float4*>(dst) = v;
+}
+
 // Panel rows [row0, row0 + nrows) of a (N, width) matrix, depth columns [c0, c0 + kTK), into
-// dst (rows ld floats apart, column c0 at dst + c0) by the block's threads: float4 copies where
-// width % 4 == 0, else 4-byte ones; past nvalid rows or the width, zero.
-__device__ void stage(float* dst, int ld, const float* __restrict__ src, int row0, int nvalid,
+// dst (rows ld floats apart, column c0 at dst + c0) by the block's threads, as fp32: 4 values a
+// copy where width % 4 == 0, else one; past nvalid rows or the width, zero.
+template <class T>
+__device__ void stage(float* dst, int ld, const T* __restrict__ src, int row0, int nvalid,
                       int nrows, int width, int c0, bool vec) {
   if (vec) {
     for (int e = threadIdx.x; e < nrows * kTK / 4; e += kChainThreads) {
       const int r = e / (kTK / 4), k = c0 + (e % (kTK / 4)) * 4;
       const bool ok = r < nvalid && k < width;
-      cp_async16(dst + r * ld + k, src + (ok ? static_cast<size_t>(row0 + r) * width + k : 0),
+      stage_four(dst + r * ld + k, src + (ok ? static_cast<size_t>(row0 + r) * width + k : 0),
                  ok);
     }
   } else {
     for (int e = threadIdx.x; e < nrows * kTK; e += kChainThreads) {
       const int r = e / kTK, k = c0 + e % kTK;
       const bool ok = r < nvalid && k < width;
-      cp_async4(dst + r * ld + k, src + (ok ? static_cast<size_t>(row0 + r) * width + k : 0),
+      stage_one(dst + r * ld + k, src + (ok ? static_cast<size_t>(row0 + r) * width + k : 0),
                 ok);
     }
   }
@@ -205,13 +256,16 @@ __device__ void for_own(int nrows, int c0, bool vec, Fn fn) {
 
 // A chain launch; the first of a call (mask_in, the head's last layer) masks g as it stages it
 // and keeps GD_j (column tile 0) for the weight gradient.
+template <class T>
 struct Chain {
-  const float* gd;      // GD_j (B, dout); mask_in: g
-  const float* d;       // mask_in: d_j
+  const T* g;           // mask_in: g (B, dout)
+  const float* gd;      // else GD_j (B, dout)
+  const T* d;           // mask_in: d_j
   float* gd_out;        // mask_in: GD_j kept here
-  const float* w;       // W_j (din, dout)
-  float* out;           // GD_{j-1} (B, din), or dx (j = 0), or null
-  const float* d_prev;  // d_{j-1} for GD_{j-1}'s mask; null for dx
+  const T* w;           // W_j (din, dout)
+  float* out;           // GD_{j-1} (B, din), or null
+  T* dx;                // j = 0: dx (B, din), or null
+  const T* d_prev;      // d_{j-1} for GD_{j-1}'s mask; null for dx
   float slope, slope_prev;
   int din, dout, batch, n_ci, ldk, mask_in, vec;
 };
@@ -220,8 +274,8 @@ struct Chain {
 // for layers of at most 16 inputs, else 4). The block's kGroups groups of 128 threads split the
 // depth (group q takes the chunks q, q + kGroups, ...), thread (ty, tx) of a group the samples
 // ty + 8m and inputs tx + 16n; the groups' sums are added in order.
-template <int NT>
-__global__ void __launch_bounds__(kChainThreads) chain_kernel(Chain a) {
+template <class T, int NT>
+__global__ void __launch_bounds__(kChainThreads) chain_kernel(Chain<T> a) {
   constexpr int kTNt = 16 * NT;
   extern __shared__ __align__(16) float sm[];
   float* sa = sm;                 // [kTM][ldk]: GD_j rows
@@ -231,7 +285,10 @@ __global__ void __launch_bounds__(kChainThreads) chain_kernel(Chain a) {
   const int nrow = min(kTM, a.batch - r0), ncol = min(kTNt, a.din - i0);
   const int chunks = (a.dout + kTK - 1) / kTK, me = threadIdx.x;
   for (int c = 0; c < chunks; ++c) {
-    stage(sa, a.ldk, a.gd, r0, nrow, kTM, a.dout, c * kTK, a.vec);
+    if (a.mask_in)
+      stage(sa, a.ldk, a.g, r0, nrow, kTM, a.dout, c * kTK, a.vec);
+    else
+      stage(sa, a.ldk, a.gd, r0, nrow, kTM, a.dout, c * kTK, a.vec);
     if (a.mask_in) stage(sd, a.ldk, a.d, r0, nrow, kTM, a.dout, c * kTK, a.vec);
     stage(sb, a.ldk, a.w, i0, ncol, kTNt, a.dout, c * kTK, a.vec);
   }
@@ -273,7 +330,7 @@ __global__ void __launch_bounds__(kChainThreads) chain_kernel(Chain a) {
 #pragma unroll
       for (int n = 0; n < NT; ++n) sm[((q - 1) * 16 + 4 * m + n) * kThreads + tid] = acc[m][n];
   __syncthreads();
-  if (q > 0 || !a.out) return;
+  if (q > 0 || !(a.out || a.dx)) return;
   // the next layer's mask: all its loads before any store (out may alias d_prev for the
   // compiler, which would otherwise wait out each load's round trip in turn)
   float dp[4][NT];
@@ -283,7 +340,7 @@ __global__ void __launch_bounds__(kChainThreads) chain_kernel(Chain a) {
     for (int n = 0; n < NT; ++n) {
       const int r = r0 + ty + 8 * m, i = i0 + tx + 16 * n;
       dp[m][n] = a.d_prev && r < a.batch && i < a.din
-                     ? __ldg(a.d_prev + static_cast<size_t>(r) * a.din + i) : 1.f;
+                     ? to_f32(__ldg(a.d_prev + static_cast<size_t>(r) * a.din + i)) : 1.f;
     }
 #pragma unroll
   for (int m = 0; m < 4; ++m) {
@@ -294,13 +351,18 @@ __global__ void __launch_bounds__(kChainThreads) chain_kernel(Chain a) {
       for (int p = 1; p < kGroups; ++p) v += sm[((p - 1) * 16 + 4 * m + n) * kThreads + tid];
       const int i = i0 + tx + 16 * n;
       if (r >= a.batch || i >= a.din) continue;
-      a.out[static_cast<size_t>(r) * a.din + i] = dp[m][n] > 0.f ? v : a.slope_prev * v;
+      const float o = dp[m][n] > 0.f ? v : a.slope_prev * v;
+      if (a.dx)
+        a.dx[static_cast<size_t>(r) * a.din + i] = from_f32<T>(o);
+      else
+        a.out[static_cast<size_t>(r) * a.din + i] = o;
     }
   }
 }
 
+template <class T>
 struct Wgrad {
-  const float* y[kMaxLayers];   // x, or d_{j-1}
+  const T* y[kMaxLayers];       // x, or d_{j-1}
   const float* gd[kMaxLayers];  // GD_j
   float y_slope[kMaxLayers];    // 1 for x, else slope_{j-1}
   int din[kMaxLayers], dout[kMaxLayers];
@@ -314,7 +376,9 @@ struct Wgrad {
 // chunk's samples q * 32 .. q * 32 + 31, thread (ty, tx) the inputs 4ty .. +3 and outputs
 // 4tx .. +3 (per sample 2 float4 loads for 16 multiply-adds); the groups' sums are added in
 // order and written to the chunk's partial row.
-__global__ void __launch_bounds__(kChainThreads) wgrad_kernel(Wgrad a, float* __restrict__ part) {
+template <class T>
+__global__ void __launch_bounds__(kChainThreads) wgrad_kernel(Wgrad<T> a,
+                                                              float* __restrict__ part) {
   extern __shared__ __align__(16) float sm[];
   float* sy = sm;                      // [kChunkRows][kLdY]: Y rows
   float* sg = sm + kChunkRows * kLdY;  // [kChunkRows][kLdG]: GD rows
@@ -375,9 +439,33 @@ __global__ void __launch_bounds__(kChainThreads) wgrad_kernel(Wgrad a, float* __
   }
 }
 
-int chain_smem_set[2] = {0, 0}, wgrad_smem_set = 0;
+// by instance: [bfloat16][NT == 4], [bfloat16]
+int chain_smem_set[2][2] = {}, wgrad_smem_set[2] = {};
 
 }  // namespace layer
+
+// dwb[i] = sum over p of part[p, i], p in order (iins::reduce_partials_kernel), rounded to
+// bfloat16 once.
+__global__ void __launch_bounds__(iins::kThreads)
+reduce_partials_bf16_kernel(const float* __restrict__ part, int n_parts, int n,
+                            bf16* __restrict__ out) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    float acc = 0.f;
+    for (int p = 0; p < n_parts; ++p) acc += __ldg(part + static_cast<size_t>(p) * n + i);
+    out[i] = __float2bfloat16_rn(acc);
+  }
+}
+
+// The partial rows' in-order sum into dwb, in its storage type.
+int launch_sum(const float* part, int n_parts, int n, float* out, cudaStream_t s) {
+  return iins::launch_reduce(part, n_parts, n, out, s);
+}
+int launch_sum(const float* part, int n_parts, int n, bf16* out, cudaStream_t s) {
+  const int grid = (n + iins::kThreads - 1) / iins::kThreads;
+  reduce_partials_bf16_kernel<<<grid < 1024 ? grid : 1024, iins::kThreads, 0, s>>>(part, n_parts,
+                                                                                  n, out);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // The chunks of the batch whose weight-gradient partials are summed (backward.mlp_split_plan).
 int n_parts(int batch, int max_width) {
@@ -386,16 +474,17 @@ int n_parts(int batch, int max_width) {
   return split > 4 ? split : 4;
 }
 
-int launch_small(const float* g, const float* x, float* dx, float* part, int batch, int n,
+template <class T>
+int launch_small(const T* g, const T* x, T* dx, float* part, int batch, int n,
                  const void* const* ws, const void* const* ds, const int* dims,
                  const float* slopes, cudaStream_t s) {
-  small::Args a{};
+  small::Args<T> a{};
   a.n = n;
   int off = 0;
   for (int j = 0; j <= n; ++j) a.dims[j] = dims[j];
   for (int j = 0; j < n; ++j) {
-    a.w[j] = static_cast<const float*>(ws[j]);
-    a.d[j] = static_cast<const float*>(ds[j]);
+    a.w[j] = static_cast<const T*>(ws[j]);
+    a.d[j] = static_cast<const T*>(ds[j]);
     a.slope[j] = slopes[j];
     a.w_off[j] = off;
     off += dims[j] * dims[j + 1];
@@ -412,30 +501,35 @@ int launch_small(const float* g, const float* x, float* dx, float* part, int bat
   a.floats = off;
   const int smem = off * static_cast<int>(sizeof(float));
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  int err = allow_smem(small::small_kernel, smem, &small::smem_set);
+  int err = allow_smem(small::small_kernel<T>, smem,
+                       &small::smem_set[std::is_same<T, bf16>::value]);
   if (err) return err;
   const int grid = n_parts(batch, small::kMaxWidth);
-  small::small_kernel<<<grid, small::kThreads, smem, s>>>(g, x, dx, part, batch, a);
+  small::small_kernel<T><<<grid, small::kThreads, smem, s>>>(g, x, dx, part, batch, a);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   return 0;
 }
 
-int launch_layers(const float* g, const float* x, float* dx, float* part, int batch, int n,
+template <class T>
+int launch_layers(const T* g, const T* x, T* dx, float* part, int batch, int n,
                   const void* const* ws, const void* const* ds, void* const* gds,
                   const int* dims, const float* slopes, const int* e_off, int total, int parts,
                   cudaStream_t s) {
   using namespace layer;
+  constexpr int kBf16 = std::is_same<T, bf16>::value;
   for (int j = n - 1; j >= 0; --j) {
     if (j == 0 && j != n - 1 && !dx) continue;
-    Chain a{};
+    Chain<T> a{};
     a.mask_in = j == n - 1;
-    a.gd = a.mask_in ? g : static_cast<const float*>(gds[j]);
-    a.d = static_cast<const float*>(ds[j]);
+    a.g = g;
+    a.gd = a.mask_in ? nullptr : static_cast<const float*>(gds[j]);
+    a.d = static_cast<const T*>(ds[j]);
     a.gd_out = static_cast<float*>(gds[j]);
-    a.w = static_cast<const float*>(ws[j]);
-    a.out = j ? static_cast<float*>(gds[j - 1]) : dx;
-    a.d_prev = j ? static_cast<const float*>(ds[j - 1]) : nullptr;
+    a.w = static_cast<const T*>(ws[j]);
+    a.out = j ? static_cast<float*>(gds[j - 1]) : nullptr;
+    a.dx = j ? nullptr : dx;
+    a.d_prev = j ? static_cast<const T*>(ds[j - 1]) : nullptr;
     a.slope = slopes[j];
     a.slope_prev = j ? slopes[j - 1] : 1.f;
     a.din = dims[j];
@@ -454,23 +548,23 @@ int launch_layers(const float* g, const float* x, float* dx, float* part, int ba
     const int smem = (panels > sums ? panels : sums) * static_cast<int>(sizeof(float));
     if (smem > kMaxSmem) return cudaErrorInvalidValue;
     const int grid = (batch + kTM - 1) / kTM * a.n_ci;
-    int err = narrow ? allow_smem(chain_kernel<1>, smem, &chain_smem_set[0])
-                     : allow_smem(chain_kernel<4>, smem, &chain_smem_set[1]);
+    int err = narrow ? allow_smem(chain_kernel<T, 1>, smem, &chain_smem_set[kBf16][0])
+                     : allow_smem(chain_kernel<T, 4>, smem, &chain_smem_set[kBf16][1]);
     if (err) return err;
     if (narrow)
-      chain_kernel<1><<<grid, kChainThreads, smem, s>>>(a);
+      chain_kernel<T, 1><<<grid, kChainThreads, smem, s>>>(a);
     else
-      chain_kernel<4><<<grid, kChainThreads, smem, s>>>(a);
+      chain_kernel<T, 4><<<grid, kChainThreads, smem, s>>>(a);
     err = static_cast<int>(cudaGetLastError());
     if (err) return err;
   }
-  Wgrad w{};
+  Wgrad<T> w{};
   w.batch = batch;
   w.rpc = (batch + parts - 1) / parts;
   w.total = total;
   if (w.rpc > kChunkRows) return cudaErrorInvalidValue;
   for (int j = 0; j < n; ++j) {
-    w.y[j] = j ? static_cast<const float*>(ds[j - 1]) : x;
+    w.y[j] = j ? static_cast<const T*>(ds[j - 1]) : x;
     w.gd[j] = static_cast<const float*>(gds[j]);
     w.y_slope[j] = j ? slopes[j - 1] : 1.f;
     w.din[j] = dims[j];
@@ -479,10 +573,34 @@ int launch_layers(const float* g, const float* x, float* dx, float* part, int ba
     w.tile0[j + 1] = w.tile0[j] + parts * ((dims[j] + kTM) / kTM) *
                                       ((dims[j + 1] + kTN - 1) / kTN);
   }
-  int err = allow_smem(wgrad_kernel, kWgradSmem, &wgrad_smem_set);
+  int err = allow_smem(wgrad_kernel<T>, kWgradSmem, &wgrad_smem_set[kBf16]);
   if (err) return err;
-  wgrad_kernel<<<w.tile0[n], kChainThreads, kWgradSmem, s>>>(w, part);
+  wgrad_kernel<T><<<w.tile0[n], kChainThreads, kWgradSmem, s>>>(w, part);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <class T>
+int launch_bwd(const void* g_, const void* x_, void* dx_, int batch, int n_layers,
+               const void* const* ws, const void* const* ds, void* const* gds, void* dwb,
+               float* part, int parts, const int* dims, const float* slopes, void* stream) {
+  if (batch <= 0 || n_layers < 1 || n_layers > kMaxLayers) return cudaErrorInvalidValue;
+  int e_off[kMaxLayers + 1] = {0}, width = 0;
+  for (int j = 0; j <= n_layers; ++j) {
+    if (dims[j] <= 0 || dims[j] > kMaxWidth) return cudaErrorInvalidValue;
+    width = dims[j] > width ? dims[j] : width;
+  }
+  for (int j = 0; j < n_layers; ++j) e_off[j + 1] = e_off[j] + (dims[j] + 1) * dims[j + 1];
+  if (parts != n_parts(batch, width)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* g = static_cast<const T*>(g_);
+  const T* x = static_cast<const T*>(x_);
+  T* dx = static_cast<T*>(dx_);
+  const int err = width <= small::kMaxWidth
+                      ? launch_small(g, x, dx, part, batch, n_layers, ws, ds, dims, slopes, s)
+                      : launch_layers(g, x, dx, part, batch, n_layers, ws, ds, gds, dims,
+                                      slopes, e_off, e_off[n_layers], parts, s);
+  if (err) return err;
+  return launch_sum(part, parts, e_off[n_layers], static_cast<T*>(dwb), s);
 }
 
 }  // namespace
@@ -503,21 +621,18 @@ int iins_mlp_chain_bwd(const float* g, const float* x, float* dx, int batch, int
                        const void* const* ws, const void* const* ds, void* const* gds,
                        float* dwb, float* part, int parts, const int* dims, const float* slopes,
                        void* stream) {
-  if (batch <= 0 || n_layers < 1 || n_layers > kMaxLayers) return cudaErrorInvalidValue;
-  int e_off[kMaxLayers + 1] = {0}, width = 0;
-  for (int j = 0; j <= n_layers; ++j) {
-    if (dims[j] <= 0 || dims[j] > kMaxWidth) return cudaErrorInvalidValue;
-    width = dims[j] > width ? dims[j] : width;
-  }
-  for (int j = 0; j < n_layers; ++j) e_off[j + 1] = e_off[j] + (dims[j] + 1) * dims[j + 1];
-  if (parts != n_parts(batch, width)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err = width <= small::kMaxWidth
-                      ? launch_small(g, x, dx, part, batch, n_layers, ws, ds, dims, slopes, s)
-                      : launch_layers(g, x, dx, part, batch, n_layers, ws, ds, gds, dims,
-                                      slopes, e_off, e_off[n_layers], parts, s);
-  if (err) return err;
-  return iins::launch_reduce(part, parts, e_off[n_layers], dwb, s);
+  return launch_bwd<float>(g, x, dx, batch, n_layers, ws, ds, gds, dwb, part, parts, dims,
+                           slopes, stream);
+}
+
+// The same, the bfloat16 instance: g, x, dx, the weights, ds and dwb bfloat16; gds and part
+// fp32.
+int iins_mlp_chain_bwd_bf16(const void* g, const void* x, void* dx, int batch, int n_layers,
+                            const void* const* ws, const void* const* ds, void* const* gds,
+                            void* dwb, float* part, int parts, const int* dims,
+                            const float* slopes, void* stream) {
+  return launch_bwd<bf16>(g, x, dx, batch, n_layers, ws, ds, gds, dwb, part, parts, dims,
+                          slopes, stream);
 }
 
 }  // extern "C"

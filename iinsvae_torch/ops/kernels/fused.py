@@ -333,11 +333,40 @@ def mlp_chain_ref(x: torch.Tensor, ws: Sequence[torch.Tensor], bs: Sequence[torc
 _MAX_LAYERS = 8
 
 
+def mlp_chain_bf16_ref(x: torch.Tensor, ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
+                       slopes: Sequence[float], save_pre: bool = False):
+    """Plain version of K4's bfloat16 instance (fused.py:1072-1084): bfloat16 x, weights and
+    biases read as fp32; the chain runs in fp32 between layers (y is not rounded), each
+    pre-activation d_j and the output are stored as bfloat16. -> y, or with ``save_pre``
+    (y, [d_j])."""
+    y, ds = x.float(), []
+    for w, b, s in zip(ws, bs, slopes):
+        d = y @ w.float() + b.float()
+        ds.append(d.to(torch.bfloat16))
+        y = d if s == 1.0 else torch.nn.functional.leaky_relu(d, s)
+    y = y.to(torch.bfloat16)
+    return (y, ds) if save_pre else y
+
+
 def mlp_chain(x: torch.Tensor, ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
               slopes: Sequence[float]) -> torch.Tensor:
     """K4: the whole Dense + LeakyReLU chain in one launch.
 
-    Replaces fused_mlp_chain (iinsvae_tpu/ops/pallas/fused.py:1164)."""
+    Replaces fused_mlp_chain (iinsvae_tpu/ops/pallas/fused.py:1164). On
+    bfloat16 x, weights and biases it runs K4's bfloat16 instance (the
+    cluster and head kernels of csrc/mlp_chain.cu on bfloat16 storage; plain
+    version mlp_chain_bf16_ref); under
+    autograd both devices go through autograd.MlpChain, whose backward is
+    K4b's bfloat16 instance on the card and its closed form on the CPU
+    (backward.mlp_chain_bwd_bf16_ref): the Pallas backward recomputes the
+    chain from the bfloat16 d_j, which autograd of the forward would not."""
+    if x.dtype == torch.bfloat16:
+        if wants_grad(x, *ws, *bs):
+            from iinsvae_torch.ops.kernels import autograd
+            return autograd.MlpChain.apply(x, tuple(slopes), len(ws), *ws, *bs)
+        if x.device.type == "cpu":
+            return mlp_chain_bf16_ref(x, ws, bs, slopes)
+        return launch_mlp_chain(x, ws, bs, slopes)[0]
     if x.device.type == "cpu":
         return mlp_chain_ref(x, ws, bs, slopes)
     if wants_grad(x, *ws, *bs):
@@ -454,7 +483,8 @@ def launch_mlp_chain(x: torch.Tensor, ws: Sequence[torch.Tensor], bs: Sequence[t
     (takes_mlp_cluster) run the cluster kernel (mlp_cluster_plan), the small heads'
     (takes_mlp_head) the head kernel (mlp_head_plan), any other the general one; ``general``
     runs the general kernel at any widths, the second oracle of the GPU tests and
-    chip_smoke.py."""
+    chip_smoke.py. bfloat16 operands run the bfloat16 instances of the cluster and head kernels
+    (the same plans; the general kernel has none: other widths raise)."""
     n = len(ws)
     if not (1 <= n <= _MAX_LAYERS and len(bs) == n and len(slopes) == n):
         raise ValueError(f"mlp_chain takes 1-{_MAX_LAYERS} layers with one bias and slope each")
@@ -466,24 +496,29 @@ def launch_mlp_chain(x: torch.Tensor, ws: Sequence[torch.Tensor], bs: Sequence[t
             raise ValueError(f"layer {len(dims) - 1}: weight {tuple(w.shape)} / bias "
                              f"{tuple(b.shape)} do not follow width {dims[-1]}")
         dims.append(w.shape[1])
-    _build.require_cuda_f32("mlp_chain", x, *ws, *bs)
+    _build.require_cuda("mlp_chain", x.dtype, x, *ws, *bs)
     y = torch.empty((x.shape[0], dims[-1]), device=x.device, dtype=x.dtype)
     ds = [torch.empty((x.shape[0], d), device=x.device, dtype=x.dtype)
           for d in dims[1:]] if save_pre else []
+    bf16 = x.dtype == torch.bfloat16
+    suffix = "_bf16" if bf16 else ""
+    if bf16 and (general or not (takes_mlp_head(dims) or takes_mlp_cluster(dims))):
+        raise ValueError(f"mlp_chain: the bfloat16 instance takes the small heads' and the "
+                         f"restorers' widths, not {dims}")
     layers = ((_P * n)(*[w.data_ptr() for w in ws]), (_P * n)(*[b.data_ptr() for b in bs]),
               (_I * (n + 1))(*dims), (ctypes.c_float * n)(*slopes),
               (_P * n)(*[d.data_ptr() for d in ds]) if save_pre else None)
     if not general and takes_mlp_head(dims):
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         _, blocks = mlp_head_plan(x.shape[0], sms)
-        fn = _build.function("mlp_chain", "iins_mlp_head",
+        fn = _build.function("mlp_chain", "iins_mlp_head" + suffix,
                              [_P, _P, _I, _I, ctypes.POINTER(_P), ctypes.POINTER(_P),
                               ctypes.POINTER(_I), ctypes.POINTER(ctypes.c_float),
                               ctypes.POINTER(_P), _I, _I, _I, _P])
         err = fn(x.data_ptr(), y.data_ptr(), x.shape[0], n, *layers, MLP_HEAD_TILE, blocks,
                  mlp_head_smem(dims), _build.stream_handle(x))
         _build.check(err, "mlp_chain", "mlp_chain")
-        mlp_chain.launches += 1
+        _count_mlp_chain(bf16)
         return y, ds
     if not general and takes_mlp_cluster(dims):
         if any(t.data_ptr() % 16 for t in (x, *ws, *bs[:-1])):
@@ -491,14 +526,14 @@ def launch_mlp_chain(x: torch.Tensor, ws: Sequence[torch.Tensor], bs: Sequence[t
                              "biases")
         tile, _, clusters, smem = mlp_cluster_plan(x.shape[0], dims[0],
                                                    mlp_cluster_slots(x.device, dims[0]))
-        fn = _build.function("mlp_chain", "iins_mlp_cluster",
+        fn = _build.function("mlp_chain", "iins_mlp_cluster" + suffix,
                              [_P, _P, _I, _I, ctypes.POINTER(_P), ctypes.POINTER(_P),
                               ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_P), _I, _I, _I, _P])
         w_ptrs, b_ptrs, _, slopes_c, d_ptrs = layers
         err = fn(x.data_ptr(), y.data_ptr(), x.shape[0], dims[0], w_ptrs, b_ptrs, slopes_c,
                  d_ptrs, tile, clusters, smem, _build.stream_handle(x))
         _build.check(err, "mlp_chain", "mlp_chain")
-        mlp_chain.launches += 1
+        _count_mlp_chain(bf16)
         return y, ds
     fn = _build.function("mlp_chain", "iins_mlp_chain",
                          [_P, _P, _I, _I, ctypes.POINTER(_P), ctypes.POINTER(_P),
@@ -511,6 +546,14 @@ def launch_mlp_chain(x: torch.Tensor, ws: Sequence[torch.Tensor], bs: Sequence[t
 
 
 mlp_chain.launches = 0
+mlp_chain.launches_bf16 = 0  # the bfloat16 instance's launches
+
+
+def _count_mlp_chain(bf16: bool) -> None:
+    if bf16:
+        mlp_chain.launches_bf16 += 1
+    else:
+        mlp_chain.launches += 1
 
 
 # --------------------------- K5 adain_res_block ---------------------------

@@ -10,6 +10,11 @@
 Every variance is taken two-pass, from the squared deviations from the
 mean: the one-pass E[x^2] - mean^2 form cancels to a negative number on
 near-constant inputs and gives NaN under the root.
+
+On bfloat16 activations the statistics are taken in float32 and rounded to
+bfloat16 (jnp.mean and jnp.var upcast bfloat16 and round their result), the
+rest runs in bfloat16, and the affine parameters are cast to the
+activations' dtype (iinsvae_tpu/ops/norms.py:47, :78).
 """
 
 from __future__ import annotations
@@ -19,9 +24,23 @@ import torch
 EPS = 1e-5
 
 
+def _stats_f32(x: torch.Tensor, axes, correction: int = 0):
+    """(mean, variance) of bfloat16 x over ``axes`` taken in float32 (two-pass) and rounded to
+    bfloat16, as jnp.mean and jnp.var give them."""
+    xf = x.float()
+    mean = xf.mean(dim=axes, keepdim=True)
+    d = xf - mean
+    n = xf.numel() // mean.numel()
+    var = (d * d).sum(dim=axes, keepdim=True) / (n - correction)
+    return mean.to(x.dtype), var.to(x.dtype)
+
+
 def instance_norm(x: torch.Tensor, eps: float = EPS) -> torch.Tensor:
     """x (B, *spatial, C): normalize each (sample, channel) over the spatial axes."""
     axes = tuple(range(1, x.dim() - 1))
+    if x.dtype == torch.bfloat16:
+        mean, var = _stats_f32(x, axes)
+        return (x - mean) * torch.rsqrt(var + eps)
     mean = x.mean(dim=axes, keepdim=True)
     d = x - mean
     var = (d * d).mean(dim=axes, keepdim=True)
@@ -32,12 +51,16 @@ def adain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
           eps: float = EPS) -> torch.Tensor:
     """x (B, *spatial, C); gamma, beta (B, C): IN(x) * gamma + beta per sample."""
     shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
-    return instance_norm(x, eps) * gamma.reshape(shape) + beta.reshape(shape)
+    y = instance_norm(x, eps)
+    return y * gamma.reshape(shape).to(y.dtype) + beta.reshape(shape).to(y.dtype)
 
 
 def sample_layer_norm_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-sample (mean, unbiased std) over all non-batch values, each (B,)."""
     flat = x.reshape(x.shape[0], -1)
+    if x.dtype == torch.bfloat16:
+        mean, var = _stats_f32(flat, (1,), correction=1)
+        return mean[:, 0], torch.sqrt(var[:, 0])
     mean = flat.mean(dim=1)
     d = flat - mean[:, None]
     std = torch.sqrt((d * d).sum(dim=1) / (flat.shape[1] - 1))
@@ -51,7 +74,7 @@ def sample_layer_norm_apply(x: torch.Tensor, mean: torch.Tensor, std: torch.Tens
     gamma, beta (C,)."""
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
     y = (x - mean.reshape(shape)) / (std.reshape(shape) + eps)
-    return y * gamma + beta
+    return y * gamma.to(y.dtype) + beta.to(y.dtype)
 
 
 def sample_layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,

@@ -58,6 +58,11 @@ def _to_host(metrics: dict) -> dict[str, float]:
     return dict(zip(metrics, values))
 
 
+def _host_array(t: torch.Tensor) -> np.ndarray:
+    """A device tensor as numpy; bfloat16 (which numpy lacks) as float32, exactly."""
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
 def make_evaluator(eval_step: Callable, batch_size: int) -> Callable:
     """-> evaluate(model, data) -> (metrics, outputs). ``data`` holds whole
     batches (pad_to_batches). The metrics are ``finalize_metrics`` of the
@@ -72,7 +77,7 @@ def make_evaluator(eval_step: Callable, batch_size: int) -> Callable:
         ms, outs = zip(*(eval_step(model, {k: v[i:i + batch_size] for k, v in data.items()})
                          for i in range(0, n, batch_size)))
         acc = {k: torch.stack([m[k] for m in ms]).sum() for k in ms[0] if k in SUM_KEYS}
-        outputs = {k: torch.stack([o[k] for o in outs]).cpu().numpy() for k in outs[0]}
+        outputs = {k: _host_array(torch.stack([o[k] for o in outs])) for k in outs[0]}
         return _to_host(finalize_metrics(acc)), outputs
 
     return evaluate

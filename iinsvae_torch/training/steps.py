@@ -140,6 +140,9 @@ def make_semi_grads_fn(supervision_rate: float = 1.0, lambda_res: float = 10.0,
             if generator is None:
                 raise ValueError("give a generator to draw the mask from, or a sup_mask")
             sup_mask = draw_sup_mask(cir.shape[0], supervision_rate, mask_mode, generator)
+        # in the CIRs' dtype, as the weight (steps.py:139-144): under bfloat16 the supervised
+        # terms' weight sums round to bfloat16, as JAX's do
+        sup_mask = sup_mask.to(cir.dtype)
         out = _forward(model, generator, dropout_masks, cir)
         total, aux = semi_loss(out, cir, err, label, sup_mask, weight, lambda_res=lambda_res,
                                kl_free_bits=kl_free_bits)

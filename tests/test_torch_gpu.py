@@ -35,7 +35,7 @@ from iinsvae_torch.models.layers import draw_dropout_masks
 from iinsvae_torch.models.vae import IInsVAE
 from iinsvae_torch.ops import kernels
 from iinsvae_torch.ops.conv import conv1d, conv2d
-from iinsvae_torch.ops.kernels import backward, fused, res2d, strided_conv
+from iinsvae_torch.ops.kernels import backward, fused, graph_kernels, res2d, strided_conv
 from iinsvae_torch.ops.norms import adain, instance_norm
 from iinsvae_torch.ops.pooling import adaptive_avg_pool_matrix
 from iinsvae_torch.serving import Predictor
@@ -84,6 +84,7 @@ def cuda():
                     "tests/test_torch_gpu.py")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.device("cuda")
 
 
@@ -302,21 +303,14 @@ def _res_block_forward(cuda, batch, which):
             lambda: fused.adain_res_block_ref(*args))
 
 
-def _device_kernel_names(fn, calls: int = 3) -> set[str]:
-    """The device kernels ``calls`` calls of ``fn`` launch, from a torch.profiler trace, each
-    name without ``void``, the anonymous namespace, template arguments and parameters (as
-    chip_smoke.device_kernels names them)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {re.split(r"[<(]", re.sub(r"^void ", "", e.name.replace("(anonymous namespace)::",
-                                                                    "")))[0]
-            for e in prof.events() if e.device_type == DeviceType.CUDA}
+def _device_kernel_names(fn) -> set[str]:
+    """The device kernels a call of ``fn`` launches, each name without ``void``, the anonymous
+    namespace, template arguments and parameters (as chip_smoke.device_kernels names them):
+    the kernel nodes of a CUDA graph of the call (graph_kernels.launched_kernels; a
+    torch.profiler trace of the call sometimes held no device event on the card). The graph is
+    replayed, and its outputs must be bit-equal to an eager call's: the named kernels are the
+    ones that computed them on the card."""
+    return set(graph_kernels.launched_kernels(fn))
 
 
 @pytest.mark.gpu
@@ -1493,3 +1487,186 @@ def test_gpu_mlp_chain_two_class_classifier_matches_plain(cuda, batch):
     g = torch.randn((batch, 2), generator=gen).to(cuda)
     _grads_match(backward.mlp_chain_bwd, (g, x, ws, bs, mod.slopes, ds), {},
                  f"2-class classifier batch {batch}")
+
+
+# ------------------------------ bfloat16 ------------------------------
+# The bfloat16 instances of K7, K7b, K4 and K4b (the 2-D model under --compute_dtype bfloat16)
+# against float64 on the same bfloat16-rounded inputs, beside their plain bfloat16 versions:
+# each tensor's largest error at most BF16_FACTOR times the plain version's plus BF16_FLOOR of
+# the float64 tensor's largest magnitude; K7's and K7b's per-sample tensors on the samples whose
+# every pre-ReLU value clears MASK_MARGIN (chip_smoke.py's [bf16] phase, the same rule).
+BF16 = torch.bfloat16
+BF16_FACTOR, BF16_FLOOR = 2.0, 2.0**-9
+BF16_STEP = {"res_block_2d": 6, "mlp_chain": 2, "res_block_2d_bwd": 6, "mlp_chain_bwd": 2}
+
+
+def _bf16_vs_f64(got, plain, f64, rows=None, what=""):
+    for i, (a, p, w) in enumerate(zip(got, plain, f64)):
+        assert a.shape == w.shape and a.dtype == BF16 and torch.isfinite(a).all(), f"{what} {i}"
+        if rows is not None and a.shape[0] == rows.shape[0]:
+            a, p, w = a[rows], p[rows], w[rows]
+        e, e_plain = ((t.double() - w).abs().max().item() for t in (a, p))
+        assert e <= BF16_FACTOR * e_plain + BF16_FLOOR * w.abs().max().item(), \
+            f"{what} tensor {i}: {e:.3e} off float64, plain bfloat16 {e_plain:.3e}"
+
+
+def _bf16_block(cuda, batch, adain_, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((batch, 8, 8, 64), generator=gen).to(BF16).to(cuda)
+    k1, k2 = ((0.02 * torch.randn((3, 3, 64, 64), generator=gen)).to(BF16).to(cuda)
+              for _ in range(2))
+    aff = [torch.randn((batch, 64), generator=gen).to(BF16).to(cuda) for _ in range(4)] \
+        if adain_ else []
+    g = torch.randn((batch, 8, 8, 64), generator=gen).to(BF16).to(cuda)
+    a64 = [t.double() for t in (x, k1, k2, *aff)]
+    y64, d1_64, d2_64 = res2d.res_block_2d_ref(*a64, save=True)
+    a1 = (adain(d1_64, a64[3], a64[4]) if adain_ else instance_norm(d1_64)).abs().flatten(1)
+    rows = a1.amin(dim=1) >= MASK_MARGIN * a1.amax(dim=1)
+    assert rows.float().mean().item() >= 0.5
+    return (x, k1, k2, *aff), g, a64, (y64, d1_64, d2_64), rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("adain_", [False, True])
+@pytest.mark.parametrize("batch", [5, 500])
+def test_gpu_res_block_2d_bf16_matches_plain_against_float64(cuda, batch, adain_):
+    """K7's bfloat16 instance, serving and saving (y bit-equal), and K7b's from its saves,
+    against float64 beside the plain bfloat16 versions; one launch a call, one device kernel
+    (two for K7b: the kernel and the sum of its partial rows), bit-equal over two calls."""
+    args, g, a64, f64, rows = _bf16_block(cuda, batch, adain_)
+    n = res2d.res_block_2d.launches_bf16
+    y, d1, d2 = res2d.launch_res_block_2d(*args, save=True)
+    assert res2d.res_block_2d.launches_bf16 == n + 1
+    assert torch.equal(y, res2d.launch_res_block_2d(*args))
+    _bf16_vs_f64((y, d1, d2), res2d.res_block_2d_bf16_ref(*args, save=True), f64, rows, "K7")
+    assert _device_kernel_names(lambda: res2d.launch_res_block_2d(*args)) == {
+        "res2d_bf16_kernel"}
+    n = backward.res_block_2d_bwd.launches_bf16
+    got = _tensors(backward.res_block_2d_bwd(g, *args, saved=(d1, d2)))
+    assert backward.res_block_2d_bwd.launches_bf16 == n + 1
+    plain = _tensors(backward.res_block_2d_bwd_bf16_ref(g, *args, saved=(d1, d2)))
+    ref = _tensors(backward.res_block_2d_bwd_closed(g.double(), *a64, saved=f64[1:]))
+    _bf16_vs_f64(got, plain, ref, rows, "K7b")
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, _tensors(backward.res_block_2d_bwd(g, *args, saved=(d1, d2)))))
+    assert _device_kernel_names(lambda: backward.res_block_2d_bwd(g, *args, saved=(d1, d2))) \
+        == {"res2d_bf16_bwd_kernel", "reduce_rows_bf16_kernel"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("adain_", [False, True])
+def test_gpu_res_block_2d_bf16_save_writes_what_k7b_reads(cuda, monkeypatch, adain_):
+    """Under autograd K7's bfloat16 saving instance writes d1 and d2, and K7b reads exactly
+    those: the tensors autograd.ResBlock2d hands the backward are bit-equal to a saving
+    launch's, and its y to the serving launch's."""
+    args, g, _, _, _ = _bf16_block(cuda, 37, adain_, seed=3)
+    seen = []
+    real = backward.res_block_2d_bwd
+
+    def record(*a, saved=None, **kw):
+        seen.append(saved)
+        return real(*a, saved=saved, **kw)
+
+    record.launches = record.launches_bf16 = 0  # the wrapper counts on its module name
+    monkeypatch.setattr(backward, "res_block_2d_bwd", record)
+    leaves = [t.clone().requires_grad_(True) for t in args]
+    y = res2d.res_block_2d(*leaves)
+    y.backward(g)
+    y0, d1, d2 = res2d.launch_res_block_2d(*args, save=True)
+    assert len(seen) == 1 and torch.equal(y.detach(), y0)
+    assert torch.equal(seen[0][0], d1) and torch.equal(seen[0][1], d2)
+    assert all(t.grad.dtype == BF16 and torch.isfinite(t.grad).all() for t in leaves)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head", ["restorer", "classifier"])
+@pytest.mark.parametrize("batch", [5, 500])
+def test_gpu_mlp_chain_bf16_matches_plain_against_float64(cuda, batch, head):
+    """K4's and K4b's bfloat16 instances at the 2-D restorer (128 -> 512 -> 256 -> 256 -> 1)
+    and the classifier, on the model's weights rounded to bfloat16, against float64 beside the
+    plain bfloat16 versions (K4b from the d_j that K4 saved); the bfloat16 instances of the
+    float32 paths' kernels: K4 the cluster kernel at the restorer and the head kernel at the
+    classifier, K4b one launch a layer, the weight gradient and the partial rows' sum at the
+    restorer, the small-head kernel and the sum at the classifier."""
+    model = IInsVAE(**MODELS[2], generator=torch.Generator().manual_seed(4)).to(cuda)
+    mod = getattr(model, head)
+    mod = getattr(mod, head)
+    n, slopes = len(mod.slopes), mod.slopes
+    ws = [getattr(mod, f"w{j}").detach().to(BF16) for j in range(n)]
+    bs = [getattr(mod, f"b{j}").detach().to(BF16) for j in range(n)]
+    gen = torch.Generator().manual_seed(batch)
+    x = torch.randn((batch, ws[0].shape[0]), generator=gen).to(BF16).to(cuda)
+    g = torch.randn((batch, ws[-1].shape[1]), generator=gen).to(BF16).to(cuda)
+    m = fused.mlp_chain.launches_bf16
+    y, ds = fused.launch_mlp_chain(x, ws, bs, slopes, save_pre=True)
+    assert fused.mlp_chain.launches_bf16 == m + 1
+    assert torch.equal(y, fused.mlp_chain(x, ws, bs, slopes))
+    h, ds64 = x.double(), []
+    for w, v, s in zip(ws, bs, slopes):
+        ds64.append(h @ w.double() + v.double())
+        h = ds64[-1] if s == 1.0 else torch.nn.functional.leaky_relu(ds64[-1], s)
+    py, pds = fused.mlp_chain_bf16_ref(x, ws, bs, slopes, save_pre=True)
+    _bf16_vs_f64((y, *ds), (py, *pds), (h, *ds64), what="K4")
+    assert _device_kernel_names(lambda: fused.mlp_chain(x, ws, bs, slopes)) == {
+        "restorer": {"cluster::mlp_cluster_kernel"},
+        "classifier": {"head::mlp_head_kernel"}}[head]
+    args = (g, x, ws, bs, slopes, ds)
+    got = _tensors(backward.mlp_chain_bwd(*args))
+    plain = _tensors(backward.mlp_chain_bwd_bf16_ref(*args))
+    ref = _tensors(backward.plain_grads(
+        lambda x_, *p: fused.mlp_chain_ref(x_, p[:n], p[n:], slopes),
+        [x.double(), *(t.double() for t in ws), *(t.double() for t in bs)], g.double()))
+    _bf16_vs_f64(got, plain, ref, what="K4b")
+    assert all(torch.equal(a, b) for a, b in zip(got, _tensors(backward.mlp_chain_bwd(*args))))
+    assert _device_kernel_names(lambda: backward.mlp_chain_bwd(*args)) == {
+        "restorer": {"layer::chain_kernel", "layer::wgrad_kernel", "reduce_partials_bf16_kernel"},
+        "classifier": {"small::small_kernel", "reduce_partials_bf16_kernel"}}[head]
+
+
+def _rel_rms(got, ref):
+    d = got.detach().cpu().double() - ref
+    return (d.square().mean() / ref.square().mean()).sqrt().item()
+
+
+@pytest.mark.gpu
+def test_gpu_bf16_training_step_matches_cpu_against_float64(cuda):
+    """One bfloat16 step of the 2-D model on the card and on the CPU port, the same weights,
+    batch and mask, each against the CPU port in float64: the step launches the bfloat16
+    instances only (K7 6, K4 2 forward, one backward each); the losses within 1.5 times the
+    CPU's error plus 2^-8 of the value; the gradients' mean relative RMS error at most 1.5 times
+    the CPU's plus 2^-8 and each at most 6 times plus 2^-8 (bfloat16 rounding decides the L1
+    loss's signs and the ReLU masks in other places on each device, tests/test_torch_bf16.py);
+    the range encoder's normed biases (exactly 0 in exact arithmetic) within 2^-8 of the
+    largest gradient, the residual blocks' biases exactly 0."""
+    cpu = IInsVAE(**MODELS[2], generator=torch.Generator().manual_seed(5))
+    gpu, f64 = copy.deepcopy(cpu).to(cuda), copy.deepcopy(cpu).double()
+    data, mask = _train_batch(64, "cpu", seed=2)
+    data = {k: (v.to(BF16) if k in ("cir", "weight") else v) for k, v in data.items()}
+    grads_fn = steps.make_semi_grads_fn(0.5)
+    kernels.reset_launch_counts()
+    mg = grads_fn(gpu, {k: v.to(cuda) for k, v in data.items()}, sup_mask=mask.to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.bf16_launch_counts() == BF16_STEP
+    assert not any(kernels.launch_counts().values())
+    assert not any(kernels.backward_launch_counts().values())
+    mc = grads_fn(cpu, data, sup_mask=mask)
+    m64 = grads_fn(f64, {k: v.double() for k, v in data.items()}, sup_mask=mask.double())
+    for k in ("loss", "loss_ae", "loss_kl", "loss_res", "loss_env"):
+        a, c, w = mg[k].item(), mc[k].item(), m64[k].item()
+        assert abs(a - w) <= 1.5 * abs(c - w) + 2.0**-8 * abs(w), (k, a, c, w)
+    ref, cpu_p = dict(f64.named_parameters()), dict(cpu.named_parameters())
+    largest = max(p.grad.abs().max().item() for p in ref.values())
+    e_card, e_cpu = [], []
+    for name, p in gpu.named_parameters():
+        want = ref[name].grad
+        assert p.grad.dtype == torch.float32, name
+        if ZERO_GRAD.fullmatch(name):
+            assert p.grad.abs().max().item() <= 2.0**-8 * largest, name
+            continue
+        if not want.any():
+            assert not p.grad.any() and not cpu_p[name].grad.any(), name
+            continue
+        e_card.append(_rel_rms(p.grad, want))
+        e_cpu.append(_rel_rms(cpu_p[name].grad, want))
+        assert e_card[-1] <= 6 * e_cpu[-1] + 2.0**-8, (name, e_card[-1], e_cpu[-1])
+    assert np.mean(e_card) <= 1.5 * np.mean(e_cpu) + 2.0**-8, (np.mean(e_card), np.mean(e_cpu))
