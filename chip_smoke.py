@@ -134,7 +134,9 @@
    call's device kernels (BF16_DEVICE_KERNELS), its time beside its bound (bfloat16 tensor
    cores for K7 and K7b, fp32 FMAs for K4 and K4b), its plain version and a bfloat16 yardstick
    (double dagger: one cuDNN 3x3 conv or conv backward of the block, torch.mm of the head's
-   largest layer); then ``--compute_dtype bfloat16`` training of the 2-D model through
+   largest layer), K7 and K7b also beside the whole block composed of library calls (two
+   cuDNN convs, the norms and the skip as torch ops) and its autograd backward, in CUDA graphs
+   (res2d_library_block); then ``--compute_dtype bfloat16`` training of the 2-D model through
    ``cli.train_semi.build``: 3 epochs counted (K7 6, K7b 6, K4 2, K4b 2 bfloat16 launches a
    step, no float32 instance), a finite loss that falls, training CIR/s and a traced step's
    device busy time beside the float32 step's, one step's gradients on the card and on the
@@ -2491,8 +2493,9 @@ EXPECTED_BF16_STEP = {"res_block_2d": 6, "mlp_chain": 2, "res_block_2d_bwd": 6,
 # kernel, or by kernel and site: K4's and K4b's are the bfloat16 instances of the float32
 # paths' kernels (the restorer's backward one launch a layer, the weight gradient and the sum)
 BF16_DEVICE_KERNELS = {
-    "res_block_2d_bf16": {"res2d_bf16_kernel": 1},
-    "res_block_2d_bwd_bf16": {"res2d_bf16_bwd_kernel": 1, "reduce_rows_bf16_kernel": 1},
+    "res_block_2d_bf16": {"res2d_bf16_wgmma_kernel": 1},
+    "res_block_2d_bwd_bf16": {"res2d_bf16_bwd_wgmma_kernel": 1, "res2d_bf16_dk_kernel": 1,
+                              "reduce_rows_bf16_kernel": 1},
     "mlp_chain_bf16 restorer.2d": {"cluster::mlp_cluster_kernel": 1},
     "mlp_chain_bf16 classifier": {"head::mlp_head_kernel": 1},
     "mlp_chain_bwd_bf16 restorer.2d": {"layer::chain_kernel": 4, "layer::wgrad_kernel": 1,
@@ -2535,18 +2538,55 @@ def _vs_f64(name: str, got, plain, f64, rows=None) -> dict:
         (a.double() - p.double()).abs().max().item() for a, p in zip(got, plain)))
 
 
+def res2d_library_block(x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor, aff, g):
+    """K7's whole bfloat16 block composed of library calls on the same data, as a channels-last
+    NCHW view: two cuDNN bfloat16 3x3 convs (F.pad reflect, F.conv2d), the norms
+    (ops.norms.instance_norm / adain) and the ReLU and skip as torch ops. -> (forward, forward
+    and backward) callables for device_ms (one CUDA graph each): the composition's forward, and
+    a forward with the autograd backward to x, the taps and the tables (a backward alone cannot
+    be captured: autograd makes the forward's stream wait on it, the legacy stream during
+    capture). The backward's time is the second graph's less the first's. A whole-block
+    yardstick beside K7 and K7b (its rounding is cuDNN's, with no edge slices), which the port
+    never calls."""
+    cl = torch.channels_last
+    xc = x.permute(0, 3, 1, 2).contiguous(memory_format=cl).requires_grad_(True)
+    w1, w2 = (k.detach().permute(3, 2, 0, 1).contiguous(memory_format=cl).requires_grad_(True)
+              for k in (k1, k2))
+    tables = [t.detach().clone().requires_grad_(True) for t in aff]
+
+    def norm(d, i):
+        v = d.permute(0, 2, 3, 1)
+        v = adain(v, tables[2 * i], tables[2 * i + 1]) if tables else instance_norm(v)
+        return v.permute(0, 3, 1, 2)
+
+    def forward():
+        d1 = F.conv2d(F.pad(xc, (1, 1, 1, 1), mode="reflect"), w1)
+        d2 = F.conv2d(F.pad(torch.relu(norm(d1, 0)), (1, 1, 1, 1), mode="reflect"), w2)
+        return xc + norm(d2, 1)
+
+    def forward_no_grad():
+        with torch.no_grad():
+            return forward()
+
+    gc = g.permute(0, 3, 1, 2).contiguous(memory_format=cl)
+    leaves = [xc, w1, w2, *tables]
+    return forward_no_grad, lambda: torch.autograd.grad(forward(), leaves, gc)
+
+
 def bf16_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH):
     """K7's and K7b's bfloat16 instances at the 2-D model's IN and AdaIN blocks, K4's and K4b's
     at its restorer and classifier, at batch b on the model's weights rounded to bfloat16 and
     seeded bfloat16 inputs: each held against float64 on the same inputs beside its plain
     bfloat16 version and timed (CUDA graph replay) beside its bound, its plain version and a
-    bfloat16 yardstick (double dagger). -> (forward rows, backward rows)."""
+    bfloat16 yardstick (double dagger); K7 and K7b also beside the whole block composed of
+    library calls, forward and backward (res2d_library_block). -> (forward rows, backward
+    rows)."""
     dev = next(model.parameters()).device
 
     def rand(*shape):
         return torch.randn(shape, generator=gen).to(dev).to(BF16)
 
-    fwd, bwd = [], []
+    fwd, bwd, blocks = [], [], []
     for name, blk, adain_ in (("range.res2d", model.encoder.range_encoder, False),
                               ("dec.res2d", model.decoder.decoder, True)):
         k1, k2 = (getattr(blk, f"res0_kernel{n}").detach().to(BF16) for n in (1, 2))
@@ -2599,6 +2639,7 @@ def bf16_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH):
             bound_by="operations" if flops / PEAK_BF16_FLOP_PER_S >= bytes_ / PEAK_BYTES_PER_S
             else "bytes",
             bit_equal_over_two_calls=bit_equal_calls(run), device_kernels=device_kernels(run)))
+        blocks.append((fwd[-1], bwd[-1], (x, k1, k2, aff, g)))
     fp = "iinsvae_tpu/ops/pallas/fused.py"
     for name, head in (("restorer.2d", model.restorer.restorer),
                        ("classifier", model.classifier.classifier)):
@@ -2651,6 +2692,18 @@ def bf16_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH):
                          nbytes(g, x, *ws, *ds, x, *ws, *bs) / PEAK_BYTES_PER_S) * 1e3,
             bound_by="operations", bit_equal_over_two_calls=bit_equal_calls(run),
             device_kernels=device_kernels(run)))
+    # K7's and K7b's whole-block library yardsticks, after every other site's timing: their
+    # large CUDA graphs timed before the K4 sites left the classifier's saving instance 3.4%
+    # slower than its parent's in an A/B
+    for rf, rb, data in blocks:
+        lib_fwd, lib_both = res2d_library_block(*data)
+        rf["composite_ms"] = device_ms(lib_fwd)
+        rf["composite"] = ("the whole block as library calls in one CUDA graph: two cuDNN "
+                           "channels-last bfloat16 3x3 convs, the norms, ReLU and skip as torch "
+                           "ops")
+        rb["composite_ms"] = device_ms(lib_both) - rf["composite_ms"]
+        rb["composite"] = ("the autograd backward of the whole block as library calls (one "
+                           "CUDA graph of its forward and backward, less the forward's)")
     for r in fwd + bwd:
         if r["kernel"].endswith("_bwd_bf16") and not r["bit_equal_over_two_calls"]:
             raise AssertionError(f"{r['name']} {r['kernel']}: two calls are not bit-equal")
@@ -2666,7 +2719,10 @@ def bf16_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH):
               + (f" (saving {r['save_ms'] * 1e3:.2f})" if "save_ms" in r else "")
               + f"  plain {r['plain_ms'] * 1e3:8.2f} us  bound {r['bound_ms'] * 1e3:6.2f} us "
               f"({r['bound_by']})  {r['yardstick']} (double dagger) "
-              f"{r['yardstick_ms'] * 1e3:.2f} us  kernels "
+              f"{r['yardstick_ms'] * 1e3:.2f} us"
+              + (f"  {r['composite']}: {r['composite_ms'] * 1e3:.2f} us" if "composite_ms" in r
+                 else "")
+              + "  kernels "
               + ", ".join(f"{k} x{v}" for k, v in r["device_kernels"].items()), flush=True)
     return fwd, bwd
 
@@ -2849,7 +2905,9 @@ def bf16_kernel_rows(fwd: list[dict], bwd: list[dict], launches: dict[str, int])
             bound_by=rs[0]["bound_by"], library_ms=None,
             per="one bfloat16 training step of the 2-D model at batch 500 (sum over its sites)",
             yardstick_ms=total("yardstick_ms"), yardstick=rs[0]["yardstick"],
-            **({"save_ms": total("save_ms")} if all("save_ms" in r for r in rs) else {})))
+            **({"save_ms": total("save_ms")} if all("save_ms" in r for r in rs) else {}),
+            **({"composite_ms": total("composite_ms"), "composite": rs[0]["composite"]}
+               if all("composite_ms" in r for r in rs) else {})))
     return out
 
 

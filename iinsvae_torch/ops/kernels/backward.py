@@ -616,6 +616,49 @@ def res2d_bwd_plan(batch: int, sms: int) -> tuple[int, int]:
     return tiles, min(tiles, sms)
 
 
+# blocks a cluster of K7b bf16's taps' gradient (kDkCluster of csrc/res_block_2d_bf16_bwd.cu)
+RES2D_BF16_DK_CLUSTER = 4
+
+
+_dk_slots: dict[int, int] = {}
+
+
+def res2d_bf16_dk_slots(device: torch.device) -> int:
+    """The clusters of K7b bf16's taps' gradient that the card holds at once, asked of the CUDA
+    runtime once a device."""
+    key = device.index if device.index is not None else torch.cuda.current_device()
+    if key not in _dk_slots:
+        n = ctypes.c_int(0)
+        fn = _build.function("res_block_2d_bf16_bwd", "iins_res_block_2d_bf16_bwd_slots",
+                             [ctypes.POINTER(_I)])
+        with torch.cuda.device(key):
+            _build.check(fn(ctypes.byref(n)), "res_block_2d_bf16_bwd",
+                         "res_block_2d_bwd cluster occupancy")
+        if n.value < 2:
+            raise RuntimeError("res_block_2d_bwd: the card holds fewer than two clusters of the "
+                               "bfloat16 taps' gradient")
+        _dk_slots[key] = n.value
+    return _dk_slots[key]
+
+
+def res2d_bf16_bwd_plan(batch: int, sms: int, slots: int) -> tuple[int, int]:
+    """-> (blocks, chunks) of K7b's bfloat16 instance: the input gradients' persistent grid of
+    blocks of two warpgroups, one sample each at a time (at most one block a SM); and the taps'
+    gradient's sample chunks a conv, a multiple of the cluster of 4, both convs' clusters at
+    most the ``slots`` the card holds at once (more run in a second wave): block (conv, c) of
+    its 2 x chunks sums the samples c, c + chunks, ..., and each cluster of 4 chunks writes one
+    partial row."""
+    n = RES2D_BF16_DK_CLUSTER
+    return min(sms, -(-batch // 2)), n * max(1, min(slots // 2, -(-batch // n)))
+
+
+def res2d_bf16_bwd_scratch(batch: int, chunks: int) -> int:
+    """Floats of K7b bf16's scratch: 2 x chunks / 4 partial rows of 36,864 (each conv's
+    d(taps), one a cluster), then gd1, gd2 and y1 of the batch in bfloat16, the taps'
+    gradient's operands."""
+    return 2 * (chunks // RES2D_BF16_DK_CLUSTER) * 9 * 64 * 64 + 3 * batch * 64 * 64 // 2
+
+
 def res_block_2d_bwd_ref(g: torch.Tensor, x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
                          *affine: torch.Tensor, saved=None, need_dx: bool = True):
     """Plain version of K7b: autograd through the plain forward from x (``saved``, which the
@@ -733,8 +776,9 @@ def res_block_2d_bwd(g: torch.Tensor, x: torch.Tensor, k1: torch.Tensor, k2: tor
     ``saved`` = (d1, d2), the pre-norm conv outputs K7 wrote
     (``res2d.launch_res_block_2d(..., save=True)``), and raises without them. One launch is
     the kernel and the in-order sum of its blocks' d(taps) partial rows. bfloat16 operands
-    run K7b's bfloat16 instance (csrc/res_block_2d_bf16_bwd.cu), on the CPU its closed form
-    (res_block_2d_bwd_bf16_ref), and return bfloat16 gradients."""
+    run K7b's bfloat16 instance (csrc/res_block_2d_bf16_bwd.cu: the input gradients, the
+    taps' gradient's partial rows and their in-order sum, by res2d_bf16_bwd_plan), on the CPU
+    its closed form (res_block_2d_bwd_bf16_ref), and return bfloat16 gradients."""
     if g.device.type == "cpu":
         if x.dtype == torch.bfloat16:
             return res_block_2d_bwd_bf16_ref(g, x, k1, k2, *affine, saved=saved,
@@ -750,21 +794,30 @@ def res_block_2d_bwd(g: torch.Tensor, x: torch.Tensor, k1: torch.Tensor, k2: tor
     d1, d2 = saved
     _build.require_cuda("res_block_2d_bwd", x.dtype, g, x, d1, d2)
     b = x.shape[0]
-    _, blocks = res2d_bwd_plan(b, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     n_w = k1.numel() + k2.numel()
-    # the blocks' d(taps) partial rows are fp32 in both instances
-    part = torch.empty((blocks, n_w), device=x.device, dtype=torch.float32)
     dk = torch.empty(n_w, device=x.device, dtype=x.dtype)
     daffine = torch.empty((4, b, x.shape[3]), device=x.device, dtype=x.dtype) if affine else ()
     dx = torch.empty_like(x) if need_dx else None
     bf16 = x.dtype == torch.bfloat16
-    lib, name = ("res_block_2d_bf16_bwd", "iins_res_block_2d_bf16_bwd") if bf16 \
-        else ("res_block_2d_bwd", "iins_res_block_2d_bwd")
-    fn = _build.function(lib, name, [_P] * 16 + [_I, _I, _P])
+    if bf16:
+        lib, name = "res_block_2d_bf16_bwd", "iins_res_block_2d_bf16_bwd"
+        blocks, chunks = res2d_bf16_bwd_plan(b, sms, res2d_bf16_dk_slots(x.device))
+        part = torch.empty(res2d_bf16_bwd_scratch(b, chunks), device=x.device,
+                           dtype=torch.float32)
+        fn = _build.function(lib, name, [_P] * 16 + [_I, _I, _I, _P])
+        plan = (blocks, chunks)
+    else:
+        lib, name = "res_block_2d_bwd", "iins_res_block_2d_bwd"
+        _, blocks = res2d_bwd_plan(b, sms)
+        # the blocks' d(taps) partial rows
+        part = torch.empty((blocks, n_w), device=x.device, dtype=torch.float32)
+        fn = _build.function(lib, name, [_P] * 16 + [_I, _I, _P])
+        plan = (blocks,)
     tables = [t.data_ptr() for t in affine[:3]] if affine else [None] * 3
     dtables = [t.data_ptr() for t in daffine] if affine else [None] * 4
     err = fn(x.data_ptr(), d1.data_ptr(), d2.data_ptr(), k1.data_ptr(), k2.data_ptr(), *tables,
-             g.data_ptr(), _ptr(dx), part.data_ptr(), dk.data_ptr(), *dtables, b, blocks,
+             g.data_ptr(), _ptr(dx), part.data_ptr(), dk.data_ptr(), *dtables, b, *plan,
              _build.stream_handle(x))
     _build.check(err, lib, "res_block_2d_bwd")
     if bf16:

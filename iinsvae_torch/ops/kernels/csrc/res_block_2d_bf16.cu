@@ -12,142 +12,81 @@
 //
 // Bound on the H100 at batch 500: 2 x 64 pixels x 64 x 576 multiply-adds a sample, 4.72 GFLOP
 // on the bfloat16 tensor cores (989 TFLOP/s dense) is 4.8 us; the bytes, x and y (8.2 MB) and
-// d1, d2 under training (8.2 MB), 2.4-4.9 us at 3.35 TB/s. A first, simple design:
-// - A block of 256 threads owns a tile of two samples (128 pixel rows); 250 blocks at batch
-//   500, one a SM (161 KB of shared memory).
-// - Each conv is a (128 x 768) . (768 x 64) product on the tensor cores, mma.sync m16n8k16
-//   with bfloat16 operands and fp32 accumulators, over twelve tap slices (nine taps, three
-//   edge slices); a warp owns 32 x 32 of the output. A operand: the field's pixel rows in
-//   shared memory (bfloat16, rows of 72), reflect-shifted for the tap and read in place, a
-//   zero row where the slice does not apply to the pixel; B: the slice as stored, (C_in,
-//   C_out) rows of 72, copied 16 bytes at a time (res_block_2d_bf16.cuh), a fragment's pair
-//   two 2-byte loads a row apart. Each slice's four k-steps run in a partial sum from zero
-//   that is added to the conv's sums in fp32: the tensor cores' accumulation truncates.
-// - The conv's fp32 output goes to shared memory for the statistics (two-pass) and the
-//   epilogue; y1 replaces x in the field; y reads x again from device memory (L2).
+// d1, d2 under training (8.2 MB), 2.4-4.9 us at 3.35 TB/s. The design, for Hopper (res_block_2d_bf16.cuh):
+// - Persistent blocks of two warpgroups, one block an SM (at most ceil(B / 2)); a warpgroup
+//   owns one sample at a time, samples 2 b + w, then + 2 x grid. Both convs' twelve slices
+//   (192 KB, 128-byte swizzled) are staged once a block, before the first sample, and stay:
+//   the nine taps by cp.async, every copy in flight at once, then the edge sums from them; the
+//   first design restaged them twice a tile of two samples.
+// - Each conv is 12 products (64 pixels x 64 C_in) . (64 C_in x 64 C_out) of four wgmma
+//   m64n64k16 each: A, the reflect-shifted pixel rows of the field (x, then y1), gathered into
+//   registers by ldmatrix with each lane's own row address (a zero row where the slice does not
+//   apply), so the reflection is an address and not a copy; B, the slice, read by a
+//   descriptor with the transpose (the slice's rows are C_in). Each slice's four k-steps sum
+//   from zero into one of two partial accumulators, added to the conv's sums in fp32 (the tensor
+//   cores' accumulation truncates) while the next slice's products run.
+// - Statistics from the accumulators: a thread's 2 rows a channel, shuffles across the warp's
+//   rows, the four warps' sums through shared memory; two-pass. y1 goes back into the field
+//   over x (a thread keeps its own 32 values of x in registers for the skip); d1, d2 and y go
+//   out through the field too, 16 contiguous bytes a thread (store_tile).
+// - The next sample's x comes in by cp.async into the warpgroup's second field under the
+//   current sample's products. Shared memory: 192 KB of taps, 4 x 8 KB of fields, 2 KB of
+//   sums, a zero row.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "async_smem.cuh"
-#include "res_block_2d.cuh"
 #include "res_block_2d_bf16.cuh"
 
 namespace {
 
-using namespace res2d;
 using namespace res2d_bf16;
 
-constexpr int kLdD = kC + 4;             // floats between two pixel rows of the conv output
-constexpr int kRows = kSamples * kPix;   // 128 pixel rows a tile
-constexpr int kZeroRow = kRows;          // the field's all-zero row
-constexpr size_t kFieldBytes = (kRows + 1) * kLd * sizeof(bf16);
-constexpr size_t kTapBytes = kSlices * kSlice * sizeof(bf16);
-constexpr size_t kSmem = kFieldBytes + kTapBytes + kRows * kLdD * sizeof(float) +
-                         2 * kSamples * kC * sizeof(float);
-static_assert(kFieldBytes % 16 == 0 && kTapBytes % 16 == 0, "16-byte aligned regions");
+constexpr int kGroups = 2;  // warpgroups a block, one sample each
+constexpr int kThreads = kGroups * kWarpGroup;
+constexpr int kFieldsOff = 2 * kConvBytes;
+constexpr int kRedOff = kFieldsOff + 2 * kGroups * kTileBytes;
+constexpr int kZeroOff = kRedOff + kGroups * 4 * kC * 4;
+constexpr size_t kSmem = kZeroOff + kRowBytes;
+static_assert(kSmem <= 232448, "over the H100's 227 KB of shared memory a block");
 
-// The field row that tile row p reads for slice t: taps t < 9 (dh, dw) read the
-// reflect-shifted pixel, except that at the edge columns the W taps 0 and 2 give way to the
-// edge slice 9 + dh, which reads column 1 (at column 0) or 6 (at column 7); a zero row where
-// the slice does not apply.
+// Phases past kLastPhase do no work (phase_times.py --kernel res2d_bf16): 0 the staging, the
+// copies, waits and barriers; 1 conv 1's products; 2 its statistics, d1, y1; 3 conv 2's
+// products; 4 its statistics and the epilogue. A cut right after a conv's products keeps them
+// (keep), or ptxas would drop them.
+constexpr int kLastPhase = 4;
+
+// The field row that output pixel p reads for slice t, or -1 (a zero row): taps t < 9 (dh, dw)
+// the reflect-shifted pixel, except that at the edge columns the W taps 0 and 2 give way to the
+// edge slice 9 + dh, which reads column 1 (at column 0) or 6 (at column 7).
 __device__ __forceinline__ int source_row(int p, int t) {
-  const int s = p >> 6, u = (p >> 3) & 7, v = p & 7;
+  const int u = p >> 3, v = p & 7;
   const bool edge = v == 0 || v == kW - 1;
-  int dh, col;
   if (t < kTaps) {
-    dh = t / 3;
     const int dw = t % 3;
-    if (edge && dw != 1) return kZeroRow;
-    col = reflect8(v + dw - 1);
-  } else {
-    dh = t - kTaps;
-    if (!edge) return kZeroRow;
-    col = v == 0 ? 1 : kW - 2;
+    if (edge && dw != 1) return -1;
+    return reflect8(u + t / 3 - 1) * kW + reflect8(v + dw - 1);
   }
-  return s * kPix + reflect8(u + dh - 1) * kW + col;
+  if (!edge) return -1;
+  return reflect8(u + t - kTaps - 1) * kW + (v == 0 ? 1 : kW - 2);
 }
 
-// acc = the warp's 32 x 32 of the conv of the field (bfloat16 rows of kLd) with the staged
-// slices: rows x_row0() + 16 mt (+ 8), columns x_col0() + 8 nt (+ 1), the mma's C layout.
-__device__ void conv(const bf16* field, const bf16* taps, float (&acc)[2][4][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t2 = 2 * (lane & 3);
-  const int r0 = (threadIdx.x >> 6) * 32, c0 = ((threadIdx.x >> 5) & 1) * 32;
+// acc = conv3x3 of the field with the staged slices, in the accumulator layout: twelve
+// products, one a slice (B: the slice's rows C_in, the descriptor's transpose). kPhase: the
+// products' phase, whose successor consumes acc (a cut between them keeps acc in sink).
+template <int kPhase>
+__device__ __forceinline__ void conv(const unsigned char* field, const unsigned char* zero,
+                                     const unsigned char* taps, float (&acc)[32], bf16* sink) {
+  if (kLastPhase < kPhase) {
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-#pragma unroll 1
-  for (int t = 0; t < kSlices; ++t) {
-    const bf16* A[2][2];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        A[mt][h] = field + source_row(r0 + 16 * mt + 8 * h + g, t) * kLd + t2;
-    // B[k = ci][n = co] from the slice's (C_in, C_out) rows: a pair along ci, two rows apart
-    const bf16* B = taps + t * kSlice + t2 * kLd + c0 + g;
-    float part[2][4][4];
-#pragma unroll
-    for (int ks = 0; ks < kC / 16; ++ks) {
-      const int k0 = 16 * ks;
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        a[mt][0] = ld32(A[mt][0] + k0);
-        a[mt][1] = ld32(A[mt][1] + k0);
-        a[mt][2] = ld32(A[mt][0] + k0 + 8);
-        a[mt][3] = ld32(A[mt][1] + k0 + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const bf16* b = B + k0 * kLd + 8 * nt;
-        const uint32_t b0 = pack(b[0], b[kLd]), b1 = pack(b[8 * kLd], b[9 * kLd]);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          if (ks == 0)
-            mma<true>(part[mt][nt], a[mt], b0, b1);
-          else
-            mma<false>(part[mt][nt], a[mt], b0, b1);
-        }
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[mt][nt][i];
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    return;
   }
-}
-
-// The warp's share of the conv output into D (rows of kLdD floats).
-__device__ __forceinline__ void store_acc(const float (&acc)[2][4][4], float* D) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t2 = 2 * (lane & 3);
-  const int r0 = (threadIdx.x >> 6) * 32, c0 = ((threadIdx.x >> 5) & 1) * 32;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float* d = D + (r0 + 16 * mt + 8 * h + g) * kLdD + c0 + 8 * nt + t2;
-        d[0] = acc[mt][nt][2 * h];
-        d[1] = acc[mt][nt][2 * h + 1];
-      }
-}
-
-// The normalised value of conv output v of (sample, channel) q, with the AdaIN affine of the
-// bfloat16 (B, C) tables g, b (offset to the tile's first sample) where they are given:
-// xn * gamma, then + beta, each rounded, as the plain version computes it.
-__device__ __forceinline__ float norm_bf16(float v, int q, const float* mean, const float* rstd,
-                                           const bf16* __restrict__ g,
-                                           const bf16* __restrict__ b) {
-  v = __fmul_rn(__fsub_rn(v, mean[q]), rstd[q]);
-  return g ? __fadd_rn(__fmul_rn(v, __bfloat162float(g[q])), __bfloat162float(b[q])) : v;
+  sum_products<2, 1, kSlices>(acc, field, zero, taps, gather_row(), [](int t) { return t; },
+                           [](int p, int t) { return source_row(p, t); });
+  if (kLastPhase == kPhase) keep(acc, sink);
 }
 
 struct Args {
@@ -157,70 +96,120 @@ struct Args {
 };
 
 // kSave: also write d1 and d2 (training); the arithmetic is the same either way.
-template <bool kSave>
-__global__ void __launch_bounds__(kThreads, 1) res2d_bf16_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* field = reinterpret_cast<bf16*>(smem_raw);                  // x, then y1
-  bf16* taps = reinterpret_cast<bf16*>(smem_raw + kFieldBytes);     // k1's slices, then k2's
-  float* D = reinterpret_cast<float*>(smem_raw + kFieldBytes + kTapBytes);  // d1, then d2
-  float* mean = D + kRows * kLdD;
-  float* rstd = mean + kSamples * kC;
-  const int s0 = blockIdx.x * kSamples, ns = min(kSamples, a.batch - s0);
-  const size_t off = static_cast<size_t>(s0) * kPix * kC;
-  const bf16 *g1 = nullptr, *b1 = nullptr, *g2 = nullptr, *b2 = nullptr;
-  if (a.g1) {
-    g1 = a.g1 + s0 * kC;
-    b1 = a.b1 + s0 * kC;
-    g2 = a.g2 + s0 * kC;
-    b2 = a.b2 + s0 * kC;
-  }
-  // x into the field (a missing second sample and the zero row as zeros), 8 bfloat16 a thread
-  for (int i = threadIdx.x; i < (kRows + 1) * (kC / 8); i += kThreads) {
-    const int r = i / (kC / 8), c = (i % (kC / 8)) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r < ns * kPix) v = *reinterpret_cast<const uint4*>(a.x + off + r * kC + c);
-    *reinterpret_cast<uint4*>(field + r * kLd + c) = v;
-  }
-  stage_slices(a.k1, taps);
+template <bool kSave, bool kAdain>
+__global__ void __launch_bounds__(kThreads, 1) res2d_bf16_wgmma_kernel(Args a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int wg = threadIdx.x / kWarpGroup, tid = threadIdx.x % kWarpGroup;
+  unsigned char* taps1 = smem;
+  unsigned char* taps2 = smem + kConvBytes;
+  unsigned char* fields = smem + kFieldsOff + wg * 2 * kTileBytes;
+  float* red = reinterpret_cast<float*>(smem + kRedOff) + wg * 4 * kC;
+  unsigned char* zero = smem + kZeroOff;
+  if (threadIdx.x == 0 && (smem_u32(smem) & 1023)) __trap();  // the swizzle needs 1024 B
+  const int stride = kGroups * gridDim.x;
+  int s = kGroups * blockIdx.x + wg;
+  if (threadIdx.x < kRowBytes / 16) reinterpret_cast<uint4*>(zero)[threadIdx.x] = make_uint4(0, 0, 0, 0);
+  copy_taps(a.k1, taps1, threadIdx.x, kThreads);
+  copy_taps(a.k2, taps2, threadIdx.x, kThreads);
+  if (s < a.batch) copy_tile(a.x + static_cast<size_t>(s) * kPix * kC, fields, tid, kWarpGroup);
+  cp_async_wait_all();
+  fence_proxy_async();
   __syncthreads();
-  float acc[2][4][4];
-  for (int n = 0; n < 2; ++n) {
-    // d = conv3x3(field, k): into D, saved as bfloat16 where asked
-    conv(field, taps, acc);
-    store_acc(acc, D);
-    __syncthreads();
-    if (n == 0) stage_slices(a.k2, taps);  // k1's slices are no longer read
-    bf16* saved = n == 0 ? a.d1 : a.d2;
-    if (kSave)
-      for (int i = threadIdx.x; i < ns * kPix * kC; i += kThreads)
-        saved[off + i] = __float2bfloat16_rn(D[(i / kC) * kLdD + i % kC]);
-    channel_stats<kLdD>(D, mean, rstd);
-    __syncthreads();
-    if (n == 0) {
-      // y1 = bf16(relu(N1(d1))) replaces x in the field
-      for (int i = threadIdx.x; i < kRows * kC; i += kThreads) {
-        const int r = i / kC, c = i % kC, q = (r / kPix) * kC + c;
-        const float v = (r / kPix) < ns ? norm_bf16(D[r * kLdD + c], q, mean, rstd, g1, b1) : 0.f;
-        field[r * kLd + c] = __float2bfloat16_rn(fmaxf(v, 0.f));
-      }
-      __syncthreads();
+  edge_slices(taps1, threadIdx.x, kThreads);
+  edge_slices(taps2, threadIdx.x, kThreads);
+  fence_proxy_async();
+  __syncthreads();
+  for (int it = 0; s < a.batch; s += stride, ++it) {
+    unsigned char* field = fields + (it & 1) * kTileBytes;
+    const size_t off = static_cast<size_t>(s) * kPix * kC;
+    if (s + stride < a.batch)
+      copy_tile(a.x + off + static_cast<size_t>(stride) * kPix * kC,
+                fields + ((it + 1) & 1) * kTileBytes, tid, kWarpGroup);
+    cp_async_commit();
+    cp_async_wait<1>();  // this sample's x
+    wg_sync(wg);
+    // (1) d1 = conv3x3(x, k1)
+    float acc[32], mean[16], rstd[16], gam[16] = {}, bet[16] = {};
+    conv<1>(field, zero, taps1, acc, a.y);
+    if (kAdain) {
+      table16(a.g1 + s * kC, gam);
+      table16(a.b1 + s * kC, bet);
     }
+    // (2) its statistics; d1 saved; x kept for the skip; y1 = bf16(relu(N1(d1))) over x
+    uint32_t xr[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        xr[2 * j + h] = *reinterpret_cast<const uint32_t*>(field + frag_swz(j, h));
+    if (kLastPhase >= 2) {
+      channel_stats(acc, mean, rstd, red, wg);  // its barriers: every thread has its x
+      if (kSave) {  // d1 out through the field
+        put_tile(field, acc);
+        wg_sync(wg);
+        store_tile(field, a.d1 + off);
+        wg_sync(wg);
+      }
+#pragma unroll
+      for (int q = 0; q < 32; ++q) {
+        const int i = 2 * (q >> 2) + (q & 1);
+        acc[q] = fmaxf(norm_bf16<kAdain>(acc[q], mean[i], rstd[i], gam[i], bet[i]), 0.f);
+      }
+      put_tile(field, acc);
+    }
+    wg_sync(wg);  // y1 in place for every warp's gather
+    // (3) d2 = conv3x3(y1, k2)
+    conv<3>(field, zero, taps2, acc, a.y);
+    // (4) its statistics; d2 saved; y = bf16(x + N2(d2))
+    if (kLastPhase >= 4) {
+      if (kAdain) {
+        table16(a.g2 + s * kC, gam);
+        table16(a.b2 + s * kC, bet);
+      }
+      channel_stats(acc, mean, rstd, red, wg);  // its barriers: every warp's gather is done
+      if (kSave) {  // d2 out through the field
+        put_tile(field, acc);
+        wg_sync(wg);
+        store_tile(field, a.d2 + off);
+        wg_sync(wg);
+      }
+#pragma unroll
+      for (int q = 0; q < 32; ++q) {
+        const int i = 2 * (q >> 2) + (q & 1);
+        const float2 xv = unpack2(xr[2 * (q >> 2) + ((q >> 1) & 1)]);
+        acc[q] = __fadd_rn(q & 1 ? xv.y : xv.x,
+                           norm_bf16<kAdain>(acc[q], mean[i], rstd[i], gam[i], bet[i]));
+      }
+      put_tile(field, acc);  // y out through the field
+      wg_sync(wg);
+      store_tile(field, a.y + off);
+    }
+    wg_sync(wg);  // the field's reads are done before it is refilled
   }
-  // y = bf16(x + N2(d2)), x reread (from L2)
-  for (int i = threadIdx.x; i < ns * kPix * kC; i += kThreads) {
-    const int r = i / kC, c = i % kC, q = (r / kPix) * kC + c;
-    const float v = norm_bf16(D[r * kLdD + c], q, mean, rstd, g2, b2);
-    a.y[off + i] = __float2bfloat16_rn(__fadd_rn(__bfloat162float(a.x[off + i]), v));
-  }
+  cp_async_wait<0>();
 }
 
-template <bool kSave>
+int sm_count() {
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return 0;
+  }
+  return sms;
+}
+
+template <bool kSave, bool kAdain>
 int launch(const Args& a, cudaStream_t stream) {
   static int smem_set = 0;
-  const int err = allow_smem(res2d_bf16_kernel<kSave>, static_cast<int>(kSmem), &smem_set);
+  const int err =
+      allow_smem(res2d_bf16_wgmma_kernel<kSave, kAdain>, static_cast<int>(kSmem), &smem_set);
   if (err) return err;
-  const int grid = (a.batch + kSamples - 1) / kSamples;
-  res2d_bf16_kernel<kSave><<<grid, kThreads, kSmem, stream>>>(a);
+  const int sms = sm_count();
+  if (sms <= 0) return cudaErrorInvalidDevice;
+  const int tiles = (a.batch + kGroups - 1) / kGroups, grid = tiles < sms ? tiles : sms;
+  res2d_bf16_wgmma_kernel<kSave, kAdain><<<grid, kThreads, kSmem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -250,7 +239,8 @@ int iins_res_block_2d_bf16(const void* x, const void* k1, const void* k2, const 
                   static_cast<bf16*>(d1),       static_cast<bf16*>(d2),
                   batch};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return d1 ? launch<true>(args, s) : launch<false>(args, s);
+  if (g1) return d1 ? launch<true, true>(args, s) : launch<false, true>(args, s);
+  return d1 ? launch<true, false>(args, s) : launch<false, false>(args, s);
 }
 
 }  // extern "C"

@@ -18,369 +18,472 @@
 // batch. Plain version: backward.res_block_2d_bwd_bf16_ref.
 //
 // Bound on the H100 at batch 500: four conv-sized products, 9.44 GFLOP on the bfloat16 tensor
-// cores (989 TFLOP/s), 9.5 us; ~20 MB of x, d1, d2, g and dx, 6.1 us at 3.35 TB/s. A first,
-// simple design:
-// - Persistent blocks of 256 threads, one a SM (at most ceil(B / 2)), walk over tiles of two
-//   samples; shared memory (215 KB) holds gd (bfloat16, and a zero row), y1 then x
-//   (bfloat16), twelve staged slices of the taps (bfloat16, (C_in, C_out) rows as stored,
-//   res_block_2d_bf16.cuh), d2 then d1 (fp32), ga1 (fp32) and the statistics.
-// - The taps' gradient is one (576 x 128) . (128 x 64) product a tile on the tensor cores
-//   (mma.sync m16n8k16, bfloat16, fp32 accumulators), A gathered from the reflect-shifted
-//   pixel rows of y1 or x, B from gd; a warp owns 9 of its 36 m-tiles x 32 output channels
-//   and adds its tile's sums into the block's own fp32 row of a (blocks, 73,728) buffer;
-//   a second kernel sums the rows in a fixed order and rounds, so two runs are bit-equal.
-// - The input gradient is a (128 x 64) . (64 x 64) product a slice on the tensor cores,
-//   summed in the mma's accumulators over the twelve slices and, for the slices of dh 0 and 2,
-//   once more for the rows that reflection reads twice: A row p' = the gd row of the output
-//   that reads input pixel p' through the slice (or a zero row), B = the slice^T; a warp owns
-//   32 x 32 of it, each slice's four k-steps in a partial sum from zero added in fp32.
+// cores (989 TFLOP/s), 9.5 us; ~20 MB of x, d1, d2, g and dx, 6.1 us at 3.35 TB/s. The design,
+// for Hopper (res_block_2d_bf16.cuh), three launches a call:
+// - res2d_bf16_bwd_wgmma_kernel, the input gradients. Persistent blocks of two warpgroups,
+//   one block an SM; a warpgroup owns one sample at a time. Both convs' twelve slices (192 KB,
+//   128-byte swizzled, rows C_in of C_out as stored: B of the adjoint without a transpose) are
+//   staged once a block. A thread reads g, d1, d2 straight into registers at its accumulator
+//   positions, where it needs them (the next sample's are asked into L2 first; held across
+//   the products, g and d1 would spill): the norms' backward and the
+//   statistics work on them there, with shuffles across the warp's rows and a small exchange
+//   across its four warps. gd2 then gd1 (bfloat16) go into one swizzled field, the A operand
+//   of the adjoint: its rows gathered by ldmatrix, each lane's row the gd row that its input
+//   pixel reads through the slice (adjoint_row), and for the slices of dh 0 and 2 a second pass
+//   for the rows that reflection reads twice: 20 products of four wgmma m64n64k16 a gradient,
+//   each adding into the gradient's sums in the tensor cores, the next pass's gather under it.
+//   No partial sums here (K7's convs keep them): with them the kernel spilled and ran slower;
+//   the float64 checks hold either way, every output being rounded to bfloat16. gd2, gd1 and y1 (bfloat16) also go to scratch for the taps' gradient, and dx
+//   out, each through that field, 16 contiguous bytes a thread (store_tile).
+// - res2d_bf16_dk_kernel, the taps' gradient: 2 x chunks blocks of three warpgroups, block
+//   (conv, chunk) takes the samples chunk, chunk + chunks, ... of dk1 (x, gd1) or dk2 (y1, gd2);
+//   warpgroup w owns taps 3 w .. 3 w + 2, whose (64 C_in x 64 C_out) sums it holds in its
+//   registers across the block's samples. A tap's product a sample is (C_in x 64 pixels) .
+//   (64 pixels x C_out): A, the input's reflect-shifted rows gathered transposed (ldmatrix
+//   .trans), B, gd in pixel rows, the descriptor's transpose; each tap's four k-steps add into
+//   its sums in the tensor cores (no partial sums: the float64 checks hold, dk being rounded to
+//   bfloat16 once), the next tap's gather under them. The next three samples' inputs and gd
+//   come in by cp.async, a ring of four buffers, under the products. At the end each block
+//   puts its fp32 row of 36,864 in its shared memory (thread-major, over the ring), and the
+//   cluster of 4 blocks (consecutive chunks of one conv) sums its four rows through distributed
+//   shared memory, each block a quarter in rank order, into one row in device memory: one row
+//   a cluster, not a block. The clusters are at most as many as the card holds at once
+//   (iins_res_block_2d_bf16_bwd_slots): more ran in a second wave.
+// - reduce_rows_bf16_kernel sums each conv's cluster rows in order and rounds: two calls are
+//   bit-equal (no atomics).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "async_smem.cuh"
-#include "res_block_2d.cuh"
 #include "res_block_2d_bf16.cuh"
 
 namespace {
 
-using namespace res2d;
 using namespace res2d_bf16;
 
-constexpr int kLdF = kC + 4;             // floats between two rows of an fp32 field
-constexpr int kRows = kSamples * kPix;   // 128 pixel rows a tile
-constexpr int kTapGrads = kTaps * kC * kC;
-constexpr size_t kFieldBytes = kRows * kLd * sizeof(bf16);
-constexpr size_t kGdBytes = (kRows + 1) * kLd * sizeof(bf16);  // and the zero row
-constexpr size_t kTapBytes = kSlices * kSlice * sizeof(bf16);
-constexpr size_t kF32Bytes = kRows * kLdF * sizeof(float);
-constexpr size_t kSmem = kGdBytes + kFieldBytes + kTapBytes + 2 * kF32Bytes +
-                         6 * kSamples * kC * sizeof(float);
-static_assert(kGdBytes % 16 == 0 && kFieldBytes % 16 == 0 && kTapBytes % 16 == 0,
-              "16-byte aligned regions");
+constexpr int kTapGrads = kTaps * kC * kC;  // one conv's d(taps)
+constexpr int kGroups = 2;                  // warpgroups a block of the input gradients
+constexpr int kThreads = kGroups * kWarpGroup;
+constexpr int kGdOff = 2 * kConvBytes;
+constexpr int kRedOff = kGdOff + kGroups * kTileBytes;
+constexpr int kRedFloats = 2 * 4 * kC;      // two sums of four warps a channel
+constexpr int kStatOff = kRedOff + kGroups * kRedFloats * 4;
+constexpr int kStatFloats = 3 * kC;         // mean1, rstd1, gamma1 a channel
+constexpr int kZeroOff = kStatOff + kGroups * kStatFloats * 4;
+constexpr size_t kSmem = kZeroOff + kRowBytes;
+static_assert(kSmem <= 232448, "over the H100's 227 KB of shared memory a block");
+constexpr int kDkGroups = 3;                // warpgroups a block of the taps' gradient
+constexpr int kDkThreads = kDkGroups * kWarpGroup;
+constexpr int kDkStages = 4;                // buffers of (input, gd): 3 samples ahead
+constexpr int kDkCluster = 4;               // blocks a cluster, whose rows it sums in one
+constexpr size_t kDkSmem = kTapGrads * 4;   // the block's row, over the ring at the end
+static_assert(kDkSmem >= kDkStages * 2 * kTileBytes, "the ring fits in the row's space");
 
-// The pixel row that tile row p reads through tap t of the forward's conv (no edge slices:
-// the taps' gradient is that of each tap).
-__device__ __forceinline__ int tap_source(int p, int t) {
-  const int s = p >> 6, u = (p >> 3) & 7, v = p & 7;
-  return s * kPix + reflect8(u + t / 3 - 1) * kW + reflect8(v + t % 3 - 1);
-}
+// Phases past kLastPhase do no work (phase_times.py --kernel res2d_bf16_bwd): 0 the staging,
+// loads, copies, waits and barriers, and the partial rows' sum; 1 gd2; 2 y1; 3 dy1's products
+// (a cut there keeps them, or ptxas would drop them); 4 gd1; 5 dx's products; 6 the taps'
+// gradient's products.
+constexpr int kLastPhase = 6;
 
-// tile rows of a bfloat16 (B, 8, 8, C) tensor into an fp32 field (zeros past ns samples)
-__device__ void load_f32(const bf16* __restrict__ src, float* dst, int ns) {
-  for (int i = threadIdx.x; i < kRows * kC; i += kThreads) {
-    const int r = i / kC, c = i % kC;
-    dst[r * kLdF + c] = r < ns * kPix ? __bfloat162float(src[i]) : 0.f;
-  }
-}
-
-// The taps' gradient of one tile: part[tap][ci][co] (first: =, else +=) the sum over the
-// tile's pixels of in[tap_source(p, tap)][ci] * gd[p][co]. m-tile j holds tap j / 4 and input
-// channels (j % 4) * 16 .. + 15; warp w owns the m-tiles w / 2 + 4 i and the output channels
-// (w % 2) * 32 .. + 31. A lane's k indices are pixels, so its operand pairs are gathered.
-__device__ void taps_grad(const bf16* in, const bf16* gd, float* __restrict__ part,
-                          bool first) {
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t2 = 2 * (lane & 3);
-  const int co0 = (w & 1) * 32;
-  for (int j = w >> 1; j < 4 * kTaps; j += 4) {
-    const int tap = j >> 2, ci = (j & 3) * 16 + g;
-    float acc[4][4];
-#pragma unroll 1
-    for (int ks = 0; ks < kRows / 16; ++ks) {
-      const int p0 = 16 * ks + t2;
-      const int s0 = tap_source(p0, tap), s1 = tap_source(p0 + 1, tap);
-      const int s8 = tap_source(p0 + 8, tap), s9 = tap_source(p0 + 9, tap);
-      uint32_t a[4];
-      a[0] = pack(in[s0 * kLd + ci], in[s1 * kLd + ci]);
-      a[1] = pack(in[s0 * kLd + ci + 8], in[s1 * kLd + ci + 8]);
-      a[2] = pack(in[s8 * kLd + ci], in[s9 * kLd + ci]);
-      a[3] = pack(in[s8 * kLd + ci + 8], in[s9 * kLd + ci + 8]);
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int co = co0 + 8 * nt + g;
-        const uint32_t b0 = pack(gd[p0 * kLd + co], gd[(p0 + 1) * kLd + co]);
-        const uint32_t b1 = pack(gd[(p0 + 8) * kLd + co], gd[(p0 + 9) * kLd + co]);
-        if (ks == 0)
-          mma<true>(acc[nt], a, b0, b1);
-        else
-          mma<false>(acc[nt], a, b0, b1);
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float* q = part + (tap * kC + ci + 8 * h) * kC + co0 + 8 * nt + t2;
-        const float v0 = acc[nt][2 * h], v1 = acc[nt][2 * h + 1];
-        q[0] = first ? v0 : q[0] + v0;
-        q[1] = first ? v1 : q[1] + v1;
-      }
-  }
-}
-
-// The gd row that input pixel r reads through slice t of the adjoint (sub 0: the output pixel
-// (u1 + 1 - dh, ...); sub 1: the reflected one, u = 0 at u1 = 1 for dh = 0, u = 7 at u1 = 6
-// for dh = 2): taps t < 9 (dh, dw) were read by the output (u, v) with reflect(u + dh - 1) = u1
-// and v = v1 + 1 - dw, except at the output's edge columns where dw != 1; edge slice 9 + dh by
-// the output column 0 (input column 1) and 7 (input column 6). kRows, the zero row, where none.
+// The gd row that input pixel r reads through slice t of the adjoint, or -1 (a zero row). Sub
+// 0: the output pixel (r / 8 + 1 - dh, ...); sub 1: the reflected one, u = 0 at input row 1
+// for dh = 0, u = 7 at input row 6 for dh = 2. Taps t < 9 (dh, dw) were read by the output
+// (u, v) with reflect(u + dh - 1) = u1 and v = v1 + 1 - dw, except at the output's edge
+// columns where dw != 1; edge slice 9 + dh by the output column 0 (input column 1) and 7
+// (input column 6).
 __device__ __forceinline__ int adjoint_row(int r, int t, int sub) {
-  const int s = r >> 6, u1 = (r >> 3) & 7, v1 = r & 7;
+  const int u1 = r >> 3, v1 = r & 7;
   const int dh = t < kTaps ? t / 3 : t - kTaps;
   int u;
   if (sub == 0) {
     u = u1 + 1 - dh;
-    if (u < 0 || u >= kH) return kRows;
+    if (u < 0 || u >= kH) return -1;
+  } else if (dh == 0 && u1 == 1) {
+    u = 0;
+  } else if (dh == 2 && u1 == kH - 2) {
+    u = kH - 1;
   } else {
-    if (dh == 0 && u1 == 1) u = 0;
-    else if (dh == 2 && u1 == kH - 2) u = kH - 1;
-    else return kRows;
+    return -1;
   }
   int v;
   if (t < kTaps) {
     const int dw = t % 3;
     v = v1 + 1 - dw;
-    if (v < (dw == 1 ? 0 : 1) || v > (dw == 1 ? kW - 1 : kW - 2)) return kRows;
+    if (v < (dw == 1 ? 0 : 1) || v > (dw == 1 ? kW - 1 : kW - 2)) return -1;
+  } else if (v1 == 1) {
+    v = 0;
+  } else if (v1 == kW - 2) {
+    v = kW - 1;
   } else {
-    if (v1 == 1) v = 0;
-    else if (v1 == kW - 2) v = kW - 1;
-    else return kRows;
+    return -1;
   }
-  return s * kPix + u * kW + v;
+  return u * kW + v;
 }
 
-// acc = the warp's 32 x 32 of conv3x3^T(gd, k) on the tile, rows x_row0() + 16 mt (+ 8) (input
-// pixels), columns x_col0() + 8 nt (+ 1) (input channels): for each slice, and for the slices
-// with dh 0 or 2 once more for the reflected rows, A = the gd rows that read each input pixel
-// (adjoint_row; the zero row where none), B = the slice^T, in a partial sum from zero added to
-// acc in fp32. gd has its zero row at kRows.
-__device__ void input_grad(const bf16* gd, const bf16* taps, float (&acc)[2][4][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t2 = 2 * (lane & 3);
-  const int r0 = (threadIdx.x >> 6) * 32, c0 = ((threadIdx.x >> 5) & 1) * 32;
-  const int u_lo = (r0 >> 3) & 7;  // the warp's rows hold input rows u_lo .. u_lo + 3
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-#pragma unroll 1
-  for (int t = 0; t < kSlices; ++t) {
-    const int dh = t < kTaps ? t / 3 : t - kTaps;
-#pragma unroll 1
-    for (int sub = 0; sub < 2; ++sub) {
-      // the reflected rows: input row 1 (dh 0) or 6 (dh 2), in the warp's rows or not at all
-      if (sub == 1 && !(dh == 0 && u_lo <= 1) && !(dh == 2 && u_lo + 3 >= kH - 2)) continue;
-      const bf16* A[2][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          A[mt][h] = gd + adjoint_row(r0 + 16 * mt + 8 * h + g, t, sub) * kLd + t2;
-      const bf16* B = taps + t * kSlice + (c0 + g) * kLd + t2;
-      float part[2][4][4];
-#pragma unroll
-      for (int ks = 0; ks < kC / 16; ++ks) {
-        const int k0 = 16 * ks;
-        uint32_t a[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          a[mt][0] = ld32(A[mt][0] + k0);
-          a[mt][1] = ld32(A[mt][1] + k0);
-          a[mt][2] = ld32(A[mt][0] + k0 + 8);
-          a[mt][3] = ld32(A[mt][1] + k0 + 8);
-        }
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const uint32_t b0 = ld32(B + nt * 8 * kLd + k0), b1 = ld32(B + nt * 8 * kLd + k0 + 8);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            if (ks == 0)
-              mma<true>(part[mt][nt], a[mt], b0, b1);
-            else
-              mma<false>(part[mt][nt], a[mt], b0, b1);
-          }
-        }
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[mt][nt][i];
-    }
-  }
+// The adjoint's passes: the twelve slices, then the second pass of the eight with dh 0 or 2.
+__host__ __device__ constexpr int pass_slice(int n) {
+  return n < kSlices ? n : (n < kSlices + 3 ? n - kSlices : (n < kSlices + 6 ? n - kSlices + 3
+                                                                 : (n == kSlices + 6 ? 9 : 11)));
 }
+constexpr int kPasses = kSlices + 8;
 
-// In place for the first ns samples: the conv output d (fp32 field) becomes gd = bf16 of the
-// gradient of d into gdb, from ga (the gradient of a = N(d)): a float field, or (gx) the
-// bfloat16 upstream gradient in device memory at the tile's first sample; d's statistics;
-// gamma (null for IN). Per (s, c): sa = sum ga, sx = sum ga * xn (AdaIN: dbeta and dgamma,
-// rounded to bfloat16 into the tile's rows of db, dg);
-// gd = rstd * gamma * (ga - sa / 64 - xn * sx / 64). Rows past ns get gd 0.
-__device__ void norm_grad(const float* ga, const bf16* __restrict__ gx, const float* d,
-                          bf16* gdb, int ns, const float* mean, const float* rstd,
-                          const bf16* __restrict__ gam, bf16* dg, bf16* db, float* ca,
-                          float* cx) {
-  {
-    const int pair = threadIdx.x >> 1, lane = threadIdx.x & 1;
-    const int s = pair / kC, c = pair % kC;
-    float sa = 0.f, sx = 0.f;
-    if (s < ns)
-      for (int i = lane; i < kPix; i += 2) {
-        const int r = s * kPix + i;
-        const float a = gx ? __bfloat162float(gx[r * kC + c]) : ga[r * kLdF + c];
-        sa += a;
-        sx = fmaf(a, (d[r * kLdF + c] - mean[pair]) * rstd[pair], sx);
-      }
-    sa += __shfl_xor_sync(kFull, sa, 1);
-    sx += __shfl_xor_sync(kFull, sx, 1);
-    if (lane == 0) {
-      ca[pair] = sa * (1.f / kPix);
-      cx[pair] = sx * (1.f / kPix);
-      if (dg && s < ns) {
-        dg[pair] = __float2bfloat16_rn(sx);
-        db[pair] = __float2bfloat16_rn(sa);
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kRows * kC; i += kThreads) {
-    const int r = i / kC, c = i % kC, q = (r / kPix) * kC + c;
-    float v = 0.f;
-    if (r < ns * kPix) {
-      const float a = gx ? __bfloat162float(gx[r * kC + c]) : ga[r * kLdF + c];
-      const float xn = (d[r * kLdF + c] - mean[q]) * rstd[q];
-      const float scale = gam ? rstd[q] * __bfloat162float(gam[q]) : rstd[q];
-      v = scale * (a - ca[q] - xn * cx[q]);
-    }
-    gdb[r * kLd + c] = __float2bfloat16_rn(v);
-  }
+// acc = conv3x3^T(gd, k) in the accumulator layout (rows input pixels, columns C_in).
+__device__ __forceinline__ void input_grad(const unsigned char* gd, const unsigned char* zero,
+                                           const unsigned char* taps, float (&acc)[32]) {
+  sum_products<0, 0, kPasses>(acc, gd, zero, taps, gather_row(),
+                              [](int n) { return pass_slice(n); },
+                           [](int p, int n) { return adjoint_row(p, pass_slice(n), n < kSlices ? 0 : 1); });
 }
 
 struct Args {
   const bf16 *x, *d1, *d2, *k1, *k2, *g1, *b1, *g2, *g;
-  bf16 *dx;
-  float* part;
-  bf16 *dg1, *db1, *dg2, *db2;
-  int batch;
+  bf16* dx;
+  float* part;               // 2 x chunks rows of kTapGrads: dk1's, then dk2's
+  bf16 *gd1s, *gd2s, *y1s;   // scratch (B, 8, 8, 64) each: the taps' gradient's operands
+  bf16 *dk, *dg1, *db1, *dg2, *db2;
+  int batch, chunks;
 };
 
-// a1 = N1(d1) of (tile row r, channel c), with the AdaIN affine of the bfloat16 tables g, b
-// where given: xn * gamma, then + beta, each rounded, as the forward computes it.
-__device__ __forceinline__ float norm_bf16(const float* D, int r, int c, const float* mean,
-                                           const float* rstd, const bf16* __restrict__ g,
-                                           const bf16* __restrict__ b) {
-  const int q = (r / kPix) * kC + c;
-  float v = __fmul_rn(__fsub_rn(D[r * kLdF + c], mean[q]), rstd[q]);
-  return g ? __fadd_rn(__fmul_rn(v, __bfloat162float(g[q])), __bfloat162float(b[q])) : v;
+// The thread's 32 positions of a sample's bfloat16 (64, 64) rows.
+__device__ __forceinline__ void load_frag(const bf16* __restrict__ src, uint32_t (&r)[16]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      r[2 * j + h] = __ldg(reinterpret_cast<const unsigned*>(src + frag_off(j, h)));
 }
 
-__global__ void __launch_bounds__(kThreads, 1) res2d_bf16_bwd_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* gd = reinterpret_cast<bf16*>(smem_raw);                   // gd2, then gd1; zero row
-  bf16* fy = reinterpret_cast<bf16*>(smem_raw + kGdBytes);        // y1, then x
-  bf16* taps = reinterpret_cast<bf16*>(smem_raw + kGdBytes + kFieldBytes);  // k2's, then k1's
-  float* D = reinterpret_cast<float*>(smem_raw + kGdBytes + kFieldBytes + kTapBytes);
-  float* P = D + kRows * kLdF;  // ga1
-  float* m1 = P + kRows * kLdF;
-  float* r1 = m1 + kSamples * kC;
-  float* m2 = r1 + kSamples * kC;
-  float* r2 = m2 + kSamples * kC;
-  float* ca = r2 + kSamples * kC;
-  float* cx = ca + kSamples * kC;
-  const int tiles = (a.batch + kSamples - 1) / kSamples;
-  float* part = a.part + static_cast<size_t>(blockIdx.x) * 2 * kTapGrads;  // dk1, then dk2
-  const int lane = threadIdx.x & 31, g8 = lane >> 2, t2 = 2 * (lane & 3);
-  const int r0 = (threadIdx.x >> 6) * 32, c0 = ((threadIdx.x >> 5) & 1) * 32;
-  for (int c = threadIdx.x; c < kC; c += kThreads) gd[kRows * kLd + c] = __float2bfloat16_rn(0.f);
-  float acc[2][4][4];
-  for (int tile = blockIdx.x, it = 0; tile < tiles; tile += gridDim.x, ++it) {
-    const int s0 = tile * kSamples, ns = min(kSamples, a.batch - s0);
-    const size_t off = static_cast<size_t>(s0) * kPix * kC;
-    const int tab = s0 * kC;
-    const bf16* g1 = a.g1 ? a.g1 + tab : nullptr;
-    const bf16* b1 = a.g1 ? a.b1 + tab : nullptr;
-    const bf16* g2 = a.g1 ? a.g2 + tab : nullptr;
-    bf16* dg1 = a.g1 ? a.dg1 + tab : nullptr;
-    bf16* db1 = a.g1 ? a.db1 + tab : nullptr;
-    bf16* dg2 = a.g1 ? a.dg2 + tab : nullptr;
-    bf16* db2 = a.g1 ? a.db2 + tab : nullptr;
-    // (1) gd2 = bf16(N2'(g, d2)); k2's slices staged
-    __syncthreads();  // the previous tile's reads of every buffer are done
-    stage_slices(a.k2, taps);
-    load_f32(a.d2 + off, D, ns);
-    __syncthreads();
-    channel_stats<kLdF>(D, m2, r2);
-    __syncthreads();
-    norm_grad(nullptr, a.g + off, D, gd, ns, m2, r2, g2, dg2, db2, ca, cx);
-    __syncthreads();
-    // (2) d1 and its statistics; y1 = bf16(relu(N1(d1)))
-    load_f32(a.d1 + off, D, ns);
-    __syncthreads();
-    channel_stats<kLdF>(D, m1, r1);
-    __syncthreads();
-    for (int i = threadIdx.x; i < kRows * kC; i += kThreads) {
-      const int r = i / kC, c = i % kC;
-      const float v = r < ns * kPix ? norm_bf16(D, r, c, m1, r1, g1, b1) : 0.f;
-      fy[r * kLd + c] = __float2bfloat16_rn(fmaxf(v, 0.f));
+__device__ __forceinline__ void unpack_frag(const uint32_t (&r)[16], float (&d)[32]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 f = unpack2(r[2 * j + h]);
+      d[4 * j + 2 * h] = f.x;
+      d[4 * j + 2 * h + 1] = f.y;
     }
-    __syncthreads();
-    // (3) dk2 += y1-windows^T gd2
-    taps_grad(fy, gd, part + kTapGrads, it == 0);
-    // (4) dy1 = conv3x3^T(gd2, k2); ga1 = dy1 where a1 > 0, into P
-    input_grad(gd, taps, acc);
+}
+
+// The norm's backward in place: ga (the gradient of a = N(d), accumulator layout) becomes gd:
+// per channel sa = sum ga, sx = sum ga xn (AdaIN: dbeta, dgamma, rounded into the sample's
+// table rows db, dg); gd = rstd gamma (ga - sa / 64 - xn sx / 64), xn = (d - mean) rstd.
+template <bool kAdain>
+__device__ __forceinline__ void norm_grad(float (&ga)[32], const float (&d)[32],
+                                          const float (&mean)[16], const float (&rstd)[16],
+                                          const float (&gam)[16], bf16* __restrict__ dg,
+                                          bf16* __restrict__ db, float* red, int wg) {
+  float s[2][16];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+  for (int i = 0; i < 16; ++i) {
+    const int q0 = 4 * (i >> 1) + (i & 1), q1 = q0 + 2;
+    s[0][i] = ga[q0] + ga[q1];
+    s[1][i] = fmaf(ga[q0], (d[q0] - mean[i]) * rstd[i], ga[q1] * ((d[q1] - mean[i]) * rstd[i]));
+  }
+  channel_sums<2>(s, red, wg);
+  if (kAdain && threadIdx.x % kWarpGroup < 4)
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = r0 + 16 * mt + 8 * (i >> 1) + g8, c = c0 + 8 * nt + t2 + (i & 1);
-          const bool on = r < ns * kPix && norm_bf16(D, r, c, m1, r1, g1, b1) > 0.f;
-          P[r * kLdF + c] = on ? acc[mt][nt][i] : 0.f;
-        }
-    __syncthreads();  // every warp is past (3), which read y1
-    // x replaces y1
-    for (int i = threadIdx.x; i < kRows * kC; i += kThreads) {
-      const int r = i / kC, c = i % kC;
-      fy[r * kLd + c] = r < ns * kPix ? a.x[off + i] : __float2bfloat16_rn(0.f);
+    for (int i = 0; i < 16; ++i) {
+      dg[chan(i)] = __float2bfloat16_rn(s[1][i]);
+      db[chan(i)] = __float2bfloat16_rn(s[0][i]);
     }
-    __syncthreads();
-    // (5) gd1 = bf16(N1'(ga1, d1))
-    norm_grad(P, nullptr, D, gd, ns, m1, r1, g1, dg1, db1, ca, cx);
-    __syncthreads();
-    // (6) dk1 += x-windows^T gd1
-    taps_grad(fy, gd, part, it == 0);
-    // (7) dx = bf16(g + conv3x3^T(gd1, k1)); (4) read k2's slices before the __syncthreads above
-    if (a.dx) {
-      stage_slices(a.k1, taps);
-      __syncthreads();
-      input_grad(gd, taps, acc);
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int r = r0 + 16 * mt + 8 * (i >> 1) + g8, c = c0 + 8 * nt + t2 + (i & 1);
-            if (r < ns * kPix) {
-              const size_t j = off + r * kC + c;
-              a.dx[j] = __float2bfloat16_rn(__fadd_rn(__bfloat162float(a.g[j]), acc[mt][nt][i]));
-            }
-          }
-    }
+  for (int q = 0; q < 32; ++q) {
+    const int i = 2 * (q >> 2) + (q & 1);
+    const float xn = (d[q] - mean[i]) * rstd[i];
+    const float scale = kAdain ? rstd[i] * gam[i] : rstd[i];
+    ga[q] = scale * (ga[q] - s[0][i] * (1.f / kPix) - xn * (s[1][i] * (1.f / kPix)));
   }
 }
 
-// out[i] = bf16(sum over the rows p = 0 .. n_parts - 1 of part[p][i]), in that order.
-__global__ void reduce_rows_bf16_kernel(const float* __restrict__ part, int n_parts, int n,
-                                        bf16* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int p = 0; p < n_parts; ++p) s += part[static_cast<size_t>(p) * n + i];
-  out[i] = __float2bfloat16_rn(s);
+// The thread's 32 values into the warpgroup's field, then the field out to dst (a sample's
+// rows in device memory); the field stays.
+__device__ __forceinline__ void put_and_store(unsigned char* field, const float (&v)[32],
+                                              bf16* __restrict__ dst, int wg) {
+  put_tile(field, v);
+  wg_sync(wg);
+  store_tile(field, dst);
+}
+
+template <bool kAdain, bool kDx>
+__global__ void __launch_bounds__(kThreads, 1) res2d_bf16_bwd_wgmma_kernel(Args a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int wg = threadIdx.x / kWarpGroup;
+  unsigned char* taps2 = smem;  // k2's slices (dy1), then k1's (dx)
+  unsigned char* taps1 = smem + kConvBytes;
+  unsigned char* gd = smem + kGdOff + wg * kTileBytes;
+  float* red = reinterpret_cast<float*>(smem + kRedOff) + wg * kRedFloats;
+  float* stat = reinterpret_cast<float*>(smem + kStatOff) + wg * kStatFloats;
+  unsigned char* zero = smem + kZeroOff;
+  if (threadIdx.x == 0 && (smem_u32(smem) & 1023)) __trap();  // the swizzle needs 1024 B
+  const int stride = kGroups * gridDim.x;
+  // a sample's g, d2, d1 are asked into L2 a sample ahead: the first under the staging
+  auto prefetch = [&](int s) {
+    if (threadIdx.x % kWarpGroup == 0 && s < a.batch) {
+      const size_t off = static_cast<size_t>(s) * kPix * kC;
+      prefetch_l2(reinterpret_cast<const float*>(a.g + off), kTileBytes);
+      prefetch_l2(reinterpret_cast<const float*>(a.d2 + off), kTileBytes);
+      prefetch_l2(reinterpret_cast<const float*>(a.d1 + off), kTileBytes);
+    }
+  };
+  prefetch(kGroups * blockIdx.x + wg);
+  if (threadIdx.x < kRowBytes / 16) reinterpret_cast<uint4*>(zero)[threadIdx.x] = make_uint4(0, 0, 0, 0);
+  copy_taps(a.k2, taps2, threadIdx.x, kThreads);
+  if (kDx) copy_taps(a.k1, taps1, threadIdx.x, kThreads);
+  cp_async_wait_all();
+  fence_proxy_async();
+  __syncthreads();
+  edge_slices(taps2, threadIdx.x, kThreads);
+  if (kDx) edge_slices(taps1, threadIdx.x, kThreads);
+  fence_proxy_async();
+  __syncthreads();
+  for (int s = kGroups * blockIdx.x + wg; s < a.batch; s += stride) {
+    const size_t off = static_cast<size_t>(s) * kPix * kC;
+    prefetch(s + stride);
+    // g and d1 are read again where they are needed (from L2): held in registers across the
+    // products they would spill. Every output goes out through the warpgroup's field gd
+    // (put_and_store), whose last use it follows.
+    uint32_t r[16];
+    float d[32], ga[32], mean[16], rstd[16], gam[16] = {}, bet[16] = {};
+    // (2) d1's statistics; a1 = N1(d1), its ReLU mask; y1 = bf16(relu(a1)) to scratch
+    load_frag(a.d1 + off, r);
+    unpack_frag(r, d);
+    uint32_t mask = 0;
+    if (kAdain) {
+      table16(a.g1 + s * kC, gam);
+      table16(a.b1 + s * kC, bet);
+    }
+    if (kLastPhase >= 2) {
+      channel_stats(d, mean, rstd, red, wg);  // its barriers: the last sample's field reads done
+      if (threadIdx.x % kWarpGroup < 4)
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          stat[chan(i)] = mean[i];
+          stat[kC + chan(i)] = rstd[i];
+          stat[2 * kC + chan(i)] = gam[i];
+        }
+#pragma unroll
+      for (int q = 0; q < 32; ++q) {
+        const int i = 2 * (q >> 2) + (q & 1);
+        const float a1 = norm_bf16<kAdain>(d[q], mean[i], rstd[i], gam[i], bet[i]);
+        mask |= static_cast<uint32_t>(a1 > 0.f) << q;
+        ga[q] = fmaxf(a1, 0.f);
+      }
+      put_and_store(gd, ga, a.y1s + off, wg);
+    }
+    // (1) gd2 = bf16(N2'(g, d2)), statistics from the rounded d2
+    load_frag(a.g + off, r);
+    unpack_frag(r, ga);
+    load_frag(a.d2 + off, r);
+    unpack_frag(r, d);
+    if (kAdain) table16(a.g2 + s * kC, gam);
+    if (kLastPhase >= 1) {
+      channel_stats(d, mean, rstd, red, wg);  // its barriers: y1's field reads done
+      norm_grad<kAdain>(ga, d, mean, rstd, gam, a.dg2 + s * kC, a.db2 + s * kC, red, wg);
+      put_and_store(gd, ga, a.gd2s + off, wg);
+    }
+    wg_sync(wg);  // gd2 and the statistics in place
+    // (3) dy1 = conv3x3^T(gd2, k2)
+    float acc[32];
+    if (kLastPhase >= 3) {
+      input_grad(gd, zero, taps2, acc);
+      if (kLastPhase == 3) keep(acc, a.dk);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    }
+    // (4) ga1 = dy1 where a1 > 0; gd1 = bf16(N1'(ga1, d1)) over gd2
+    if (kLastPhase >= 4) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        mean[i] = stat[chan(i)];
+        rstd[i] = stat[kC + chan(i)];
+        gam[i] = stat[2 * kC + chan(i)];
+      }
+#pragma unroll
+      for (int q = 0; q < 32; ++q) ga[q] = (mask >> q) & 1 ? acc[q] : 0.f;
+      load_frag(a.d1 + off, r);
+      unpack_frag(r, d);
+      norm_grad<kAdain>(ga, d, mean, rstd, gam, a.dg1 + s * kC, a.db1 + s * kC, red, wg);
+      put_and_store(gd, ga, a.gd1s + off, wg);  // norm_grad's barriers: dy1's gathers done
+    }
+    // (5) dx = bf16(g + conv3x3^T(gd1, k1))
+    if (kDx) {
+      wg_sync(wg);  // gd1 in place
+      if (kLastPhase >= 5) input_grad(gd, zero, taps1, acc);
+      load_frag(a.g + off, r);
+#pragma unroll
+      for (int q = 0; q < 32; ++q) {
+        const float2 gv = unpack2(r[2 * (q >> 2) + ((q >> 1) & 1)]);
+        acc[q] = __fadd_rn(q & 1 ? gv.y : gv.x, acc[q]);
+      }
+      wg_sync(wg);  // every warp's gathers of gd1 are done
+      put_and_store(gd, acc, a.dx + off, wg);
+    }
+    wg_sync(wg);  // the field's reads are done before the next sample writes it
+  }
+}
+
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;"
+               ::: "memory");
+}
+
+// 16 bytes at this block's shared address a in the shared memory of block `rank` of the cluster.
+__device__ __forceinline__ float4 ld_cluster(uint32_t a, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(r)
+               : "memory");
+  return v;
+}
+
+// The taps' gradient of one conv over a chunk of the batch; a cluster's rows summed in one.
+__global__ void __cluster_dims__(kDkCluster, 1, 1) __launch_bounds__(kDkThreads, 1)
+    res2d_bf16_dk_kernel(Args a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  if (threadIdx.x == 0 && (smem_u32(smem) & 1023)) __trap();  // the swizzle needs 1024 B
+  const int conv = blockIdx.x / a.chunks, chunk = blockIdx.x % a.chunks;
+  const bf16* in = conv ? a.y1s : a.x;
+  const bf16* gsrc = conv ? a.gd2s : a.gd1s;
+  const int wg = threadIdx.x / kWarpGroup, tid = threadIdx.x % kWarpGroup;
+  const int warp = tid >> 5, lane = tid & 31;
+  float acc[3][32];
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[k][i] = 0.f;
+  // ldmatrix.trans: lane l addresses pixel row (l % 8) + 8 (l / 16) of a k-step's 16, and
+  // C_in chunk 2 warp + (l / 8) % 2: A[ci][p] = in[tap source of p][ci], the m16n8k16 A layout
+  const int pl = (lane & 7) + 8 * (lane >> 4), cl = 2 * warp + ((lane >> 3) & 1);
+  auto fill = [&](int s, int buf) {
+    const size_t off = static_cast<size_t>(s) * kPix * kC;
+    copy_tile(in + off, smem + buf * 2 * kTileBytes, threadIdx.x, kDkThreads);
+    copy_tile(gsrc + off, smem + (buf * 2 + 1) * kTileBytes, threadIdx.x, kDkThreads);
+  };
+#pragma unroll
+  for (int k = 0; k < kDkStages - 1; ++k) {
+    if (chunk + k * a.chunks < a.batch) fill(chunk + k * a.chunks, k);
+    cp_async_commit();
+  }
+  for (int s = chunk, it = 0; s < a.batch; s += a.chunks, ++it) {
+    const unsigned char* field = smem + (it % kDkStages) * 2 * kTileBytes;
+    const unsigned char* gdt = field + kTileBytes;
+    const int ahead = s + (kDkStages - 1) * a.chunks;
+    if (ahead < a.batch) fill(ahead, (it + kDkStages - 1) % kDkStages);
+    cp_async_commit();
+    cp_async_wait<kDkStages - 1>();
+    fence_proxy_async();  // gd, copied by this thread, is read by wgmma
+    __syncthreads();
+    if (kLastPhase >= 6) {
+      // each tap's four k-steps add into its sums in the tensor cores, one group a tap, the
+      // next tap's gather in flight meanwhile (two A buffers)
+      uint32_t am[2][4][4];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        if (k == 2) {
+          wgmma_wait<1>();
+          fence_regs(acc[0]);
+          fence_regs(am[0]);
+        }
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          const int p = 16 * ks + pl;
+          const int src = reflect8((p >> 3) + wg - 1) * kW + reflect8((p & 7) + k - 1);
+          ldsm_x4_trans(am[k & 1][ks], smem_u32(field + swz(src, cl)));
+        }
+        fence_regs(acc[k]);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          wgmma<1, 1>(acc[k], am[k & 1][ks], desc_sw128(smem_u32(gdt) + ks * 16 * kRowBytes));
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+      fence_regs(acc[1]);
+      fence_regs(acc[2]);
+      fence_regs(am[1]);
+      fence_regs(am[0]);
+    }
+    __syncthreads();  // every warpgroup is done with this buffer before it is refilled
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring's reads are done: the block's row goes over it
+  // the row thread-major, 16 contiguous bytes a thread a store (a thread's own pairs, stored
+  // where they lie in dk, scatter a warp's stores over 8 rows and ran far below the memory's
+  // rate): tap t's
+  // 4,096 floats as [j][thread][4], the float4 acc[4 j .. 4 j + 3] (reduce_rows_bf16_kernel
+  // maps them back)
+  float* mine = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float4*>(mine + (3 * wg + k) * kC * kC + (j * kWarpGroup + tid) * 4) =
+          make_float4(acc[k][4 * j], acc[k][4 * j + 1], acc[k][4 * j + 2], acc[k][4 * j + 3]);
+  cluster_sync_all();  // every block's row in its shared memory
+  // block rank r of the cluster sums the quarter r of the cluster's rows, in rank order, and
+  // writes it to the cluster's row in device memory: a fourth of the rows the sum then reads
+  constexpr int kQuarter = kTapGrads / 4 / kDkCluster;  // float4s
+  uint32_t rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(rank));
+  float4* row = reinterpret_cast<float4*>(
+      a.part + (static_cast<size_t>(conv) * (a.chunks / kDkCluster) + chunk / kDkCluster) *
+                   kTapGrads);
+  for (int i = rank * kQuarter + threadIdx.x; i < (rank + 1) * kQuarter; i += kDkThreads) {
+    const uint32_t at = smem_u32(mine) + i * 16;
+    float4 v = ld_cluster(at, 0);
+#pragma unroll
+    for (int r = 1; r < kDkCluster; ++r) {
+      const float4 u = ld_cluster(at, r);
+      v.x += u.x;
+      v.y += u.y;
+      v.z += u.z;
+      v.w += u.w;
+    }
+    row[i] = v;
+  }
+  cluster_sync_all();  // no block leaves while another reads its shared memory
+}
+
+// dk = bf16 of the sum over the rows c = 0 .. rows - 1 (one a cluster), in that order, of each
+// conv's rows, dk1 then dk2: a thread sums one float4 of the thread-major rows (tap t, j, thread w l) and
+// writes it where it lies in dk (t, C_in, C_out): C_in 16 w + l / 4 (+ 8), C_out 8 j + 2 (l % 4)
+// (+ 1).
+__global__ void reduce_rows_bf16_kernel(const float* __restrict__ part, int rows,
+                                        bf16* __restrict__ dk) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;  // a float4 of the two convs' rows
+  if (i >= 2 * kTapGrads / 4) return;
+  const int conv = i / (kTapGrads / 4), k = i % (kTapGrads / 4);
+  const float4* p = reinterpret_cast<const float4*>(part) +
+                    static_cast<size_t>(conv) * rows * (kTapGrads / 4) + k;
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c = 0; c < rows; ++c) {
+    const float4 v = p[static_cast<size_t>(c) * (kTapGrads / 4)];
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
+  const int t = k / (kC * kC / 4), j = (k / kWarpGroup) % 8, thr = k % kWarpGroup;
+  const int w = thr >> 5, l = thr & 31;
+  bf16* o = dk + conv * kTapGrads + t * kC * kC + (16 * w + (l >> 2)) * kC + 8 * j + 2 * (l & 3);
+  *reinterpret_cast<uint32_t*>(o) = pack2(s.x, s.y);
+  *reinterpret_cast<uint32_t*>(o + 8 * kC) = pack2(s.z, s.w);
+}
+
+template <bool kAdain, bool kDx>
+int launch_input_grads(const Args& a, int blocks, cudaStream_t s) {
+  static int smem_set = 0;
+  const int err = allow_smem(res2d_bf16_bwd_wgmma_kernel<kAdain, kDx>, static_cast<int>(kSmem),
+                             &smem_set);
+  if (err) return err;
+  res2d_bf16_bwd_wgmma_kernel<kAdain, kDx><<<blocks, kThreads, kSmem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -391,40 +494,66 @@ const char* iins_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// The clusters of the taps' gradient's kernel that the card holds at once, into out: more
+// clusters than that run in a second wave.
+int iins_res_block_2d_bf16_bwd_slots(int* out) {
+  static int smem_set = 0;
+  const int err = allow_smem(res2d_bf16_dk_kernel, static_cast<int>(kDkSmem), &smem_set);
+  if (err) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kDkCluster * 64);
+  cfg.blockDim = dim3(kDkThreads);
+  cfg.dynamicSmemBytes = kDkSmem;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(out, res2d_bf16_dk_kernel, &cfg));
+}
+
 // bfloat16 x, d1, d2 (K7's saved pre-norm conv outputs), g (B, 8, 8, 64); k1, k2 (3, 3, 64,
 // 64); g1, b1, g2 (B, 64) for the AdaIN block, null for the InstanceNorm block. Out (bfloat16):
 // dx (B, 8, 8, 64) or null (not needed); dk (2 x 36,864: dk1 then dk2); dg1, db1, dg2, db2
-// (B, 64) for AdaIN, else null. blocks: the persistent grid, at most one block a SM and at
-// most ceil(B / 2); part is fp32 scratch of blocks x 73,728. Every pointer 16-byte aligned.
+// (B, 64) for AdaIN, else null. blocks: the input gradients' persistent grid, at most B;
+// chunks: the taps' gradient's blocks a conv, a multiple of 4 (the cluster) and at most B
+// rounded up to one; scratch: 2 x chunks / 4 x 36,864 floats of partial rows (one a cluster),
+// then 3 x B x 4,096 bfloat16 (gd1, gd2, y1). Every pointer 16-byte aligned.
 int iins_res_block_2d_bf16_bwd(const void* x, const void* d1, const void* d2, const void* k1,
                                const void* k2, const void* g1, const void* b1, const void* g2,
-                               const void* g, void* dx, void* part, void* dk, void* dg1,
+                               const void* g, void* dx, void* scratch, void* dk, void* dg1,
                                void* db1, void* dg2, void* db2, int batch, int blocks,
-                               void* stream) {
-  if (batch <= 0 || blocks <= 0 || blocks > (batch + kSamples - 1) / kSamples || !x || !d1 ||
-      !d2 || !k1 || !k2 || !g || !part || !dk)
+                               int chunks, void* stream) {
+  if (batch <= 0 || blocks <= 0 || blocks > batch || chunks <= 0 || chunks % kDkCluster ||
+      chunks > kDkCluster * ((batch + kDkCluster - 1) / kDkCluster) || !x || !d1 || !d2 || !k1 || !k2 || !g || !scratch || !dk)
     return cudaErrorInvalidValue;
   const bool adain = g1 != nullptr;
   if (adain != (b1 != nullptr) || adain != (g2 != nullptr) || adain != (dg1 != nullptr) ||
       adain != (db1 != nullptr) || adain != (dg2 != nullptr) || adain != (db2 != nullptr))
     return cudaErrorInvalidValue;
-  static int smem_set = 0;
-  const int err = allow_smem(res2d_bf16_bwd_kernel, static_cast<int>(kSmem), &smem_set);
+  static int dk_smem_set = 0;
+  int err = allow_smem(res2d_bf16_dk_kernel, static_cast<int>(kDkSmem), &dk_smem_set);
   if (err) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   using cb = const bf16*;
-  const Args args{static_cast<cb>(x),   static_cast<cb>(d1),  static_cast<cb>(d2),
-                  static_cast<cb>(k1),  static_cast<cb>(k2),  static_cast<cb>(g1),
-                  static_cast<cb>(b1),  static_cast<cb>(g2),  static_cast<cb>(g),
-                  static_cast<bf16*>(dx), static_cast<float*>(part),
+  float* part = static_cast<float*>(scratch);
+  bf16* fields =
+      reinterpret_cast<bf16*>(part + static_cast<size_t>(2) * (chunks / kDkCluster) * kTapGrads);
+  const size_t n = static_cast<size_t>(batch) * kPix * kC;
+  const Args args{static_cast<cb>(x),     static_cast<cb>(d1),    static_cast<cb>(d2),
+                  static_cast<cb>(k1),    static_cast<cb>(k2),    static_cast<cb>(g1),
+                  static_cast<cb>(b1),    static_cast<cb>(g2),    static_cast<cb>(g),
+                  static_cast<bf16*>(dx), part,                   fields,
+                  fields + n,             fields + 2 * n,         static_cast<bf16*>(dk),
                   static_cast<bf16*>(dg1), static_cast<bf16*>(db1), static_cast<bf16*>(dg2),
-                  static_cast<bf16*>(db2), batch};
-  res2d_bf16_bwd_kernel<<<blocks, kThreads, kSmem, s>>>(args);
+                  static_cast<bf16*>(db2), batch,                 chunks};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (adain)
+    err = dx ? launch_input_grads<true, true>(args, blocks, s)
+             : launch_input_grads<true, false>(args, blocks, s);
+  else
+    err = dx ? launch_input_grads<false, true>(args, blocks, s)
+             : launch_input_grads<false, false>(args, blocks, s);
+  if (err) return err;
+  res2d_bf16_dk_kernel<<<2 * chunks, kDkThreads, kDkSmem, s>>>(args);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int n = 2 * kTapGrads;
-  reduce_rows_bf16_kernel<<<(n + 255) / 256, 256, 0, s>>>(static_cast<const float*>(part),
-                                                          blocks, n, static_cast<bf16*>(dk));
+  reduce_rows_bf16_kernel<<<(2 * kTapGrads / 4 + 255) / 256, 256, 0, s>>>(
+      part, chunks / kDkCluster, static_cast<bf16*>(dk));
   return static_cast<int>(cudaGetLastError());
 }
 

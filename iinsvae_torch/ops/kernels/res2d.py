@@ -33,8 +33,11 @@ Pallas body computes on bfloat16 refs (:128-139, :176-198): x and y1 = relu(N1(d
 rounded to bfloat16 as the convs' operands, the taps are bfloat16, the
 products accumulate in fp32, the statistics are taken in fp32 from the
 unrounded d1 and d2, and y, d1 and d2 are stored as bfloat16. Its kernel is
-csrc/res_block_2d_bf16.cu (K7's bfloat16 instance, bfloat16 mma.sync), its
-backward csrc/res_block_2d_bf16_bwd.cu; under autograd both devices go
+csrc/res_block_2d_bf16.cu (K7's bfloat16 instance: persistent blocks of two
+warpgroups, both convs' taps staged once a block, wgmma m64n64k16), its
+backward csrc/res_block_2d_bf16_bwd.cu (three launches: the input gradients,
+the taps' gradient in clusters of four blocks, the sum of the partial rows);
+under autograd both devices go
 through autograd.ResBlock2d, whose backward is the bfloat16 closed form on
 the CPU (backward.res_block_2d_bwd_bf16_ref), since the backward's own cast
 points (gd1 and gd2 rounded to bfloat16 before the products, statistics
@@ -54,7 +57,8 @@ from iinsvae_torch.ops.norms import adain, instance_norm
 
 # the only field the kernel takes: (8, 8) pixels of 64 channels
 FIELD = (8, 8, 64)
-# samples a block of K7, and a tile of K7b, owns (kSamples of csrc/res_block_2d.cuh)
+# samples a block of K7, and a tile of K7b, owns (kSamples of csrc/res_block_2d.cuh; the
+# float32 instances: the bfloat16 ones have their own, csrc/res_block_2d_bf16.cuh)
 SAMPLES_PER_BLOCK = 2
 
 _P = ctypes.c_void_p

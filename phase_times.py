@@ -1,7 +1,8 @@
 """Where a redesigned kernel spends its time, phase by phase, on one NVIDIA card.
 
     python3 phase_times.py [--kernel res|res_fwd|tail|chain|mlp|res2d|res2d_bwd|mlp_fwd|sln_fwd|
-                                     cba_bwd|chain_fwd|cba_fwd|mlp_head] [--tree DIR] [--out FILE]
+                                     cba_bwd|chain_fwd|cba_fwd|mlp_head|res2d_bf16|res2d_bf16_bwd]
+                           [--tree DIR] [--out FILE]
 
 ``--kernel res`` (the default): K1b's residual-block backward, from DIR's
 ``iinsvae_torch/ops/kernels/csrc/in_chain_bwd.cu``, timed through DIR's own wrappers at the two
@@ -22,6 +23,11 @@ encoder IN block (``range.res2d``) and decoder AdaIN block (``dec.res2d``).
 ``--kernel res2d_bwd``: K7b, the 2-D residual block's backward, from ``csrc/res_block_2d_bwd.cu``,
 through ``res_block_2d_bwd`` at the expanded 2-D model's range encoder IN block (``range.res2d``)
 and decoder AdaIN block (``dec.res2d``), with the d1, d2 that K7 saves.
+``--kernel res2d_bf16``: K7's bfloat16 instance, from ``csrc/res_block_2d_bf16.cu``, through
+``res2d.launch_res_block_2d`` (serving, nothing saved) at the same two blocks on bfloat16 inputs
+and the model's taps rounded to bfloat16. ``--kernel res2d_bf16_bwd``: K7b's bfloat16 instance,
+from ``csrc/res_block_2d_bf16_bwd.cu``, through ``res_block_2d_bwd`` there, with the d1, d2 that
+K7's bfloat16 instance saves.
 ``--kernel cba_bwd``: K2b, from ``csrc/conv_bias_act_bwd.cu``, through ``conv_bias_act_bwd`` at
 its three sites in a 1-D training step: the range encoder's 1x1 out-conv (``range.out``), the
 env encoder's k7 reflect in-conv without dx (``env.in``) and the decoder's 1x1 in-conv
@@ -60,7 +66,10 @@ three call sites got a kernel of their own) and ``cba_site_bwd_kernel``; K1's
 ``in_chain_kernel`` and, at the range chains, ``down_chain_kernel``; K2's
 ``conv_bias_act_kernel`` (every shape, before its call sites got a kernel of their own) and
 ``cba_fwd_kernel``; K4's ``mlp_chain_kernel`` (the general kernel, which ran the classifier
-before) and ``mlp_head_kernel``. A "(y not stored)" row computes everything and stores y only
+before) and ``mlp_head_kernel``; K7's and K7b's bfloat16 instances on wgmma,
+``res2d_bf16_wgmma_kernel`` and ``res2d_bf16_bwd_wgmma_kernel``, whose cuts set their
+``kLastPhase`` (K7b's rows before the last run its taps' gradient's kernel without products,
+so the last row less the one before is those products). A "(y not stored)" row computes everything and stores y only
 where a pointer equals 1, which no launch meets.
 A kernel that launches several kernels a call is split by name too: each site's device time a
 call of each kernel, from a torch.profiler trace of the whole call (``[split]`` lines). Prints
@@ -310,6 +319,33 @@ CUTS["res2d_tc_kernel"] = [
          "(2) conv 1's products", "(3) statistics, norm_relu", "(4) conv 2's products"))],
     ("(5) statistics, epilogue: the whole kernel", None),
 ]
+# K7's bfloat16 instance on wgmma: the first row returns at once, the others set its
+# kLastPhase (0: the taps' staging, x's copies, the waits and barriers only).
+_RES2D_BF16_LAST = "constexpr int kLastPhase = 4;"
+CUTS["res2d_bf16_wgmma_kernel"] = [
+    ("launch", "  if (threadIdx.x == 0 && (smem_u32(smem) & 1023)) __trap();  "
+               "// the swizzle needs 1024 B\n"),
+    *[(phase, {_RES2D_BF16_LAST: f"constexpr int kLastPhase = {j};"}) for j, phase in enumerate(
+        ("(0) staging: taps, x copies, waits, barriers", "(1) conv 1's products",
+         "(2) statistics, d1, y1", "(3) conv 2's products"))],
+    ("(4) statistics, epilogue: the whole kernel", None),
+]
+# K7b's bfloat16 instance, three launches a call: the input gradients' kernel, the taps'
+# gradient's kernel (res2d_bf16_dk_kernel) and the rows' sum. Each row's variant does the work of
+# the phases up to its kLastPhase; the first also returns from the input gradients' kernel at
+# once, and every row before the last runs the taps' gradient's kernel without its products (its
+# copies, waits, barriers and row writes), and the sum.
+_RES2D_BF16_BWD_LAST = "constexpr int kLastPhase = 6;"
+CUTS["res2d_bf16_bwd_wgmma_kernel"] = [
+    ("launch; dk kernel without products; the sum",
+     {_RES2D_BF16_BWD_LAST: "constexpr int kLastPhase = 5;",
+      "  copy_taps(a.k2, taps2, threadIdx.x, kThreads);\n":
+      "  if (kLastPhase < 6) return;\n  copy_taps(a.k2, taps2, threadIdx.x, kThreads);\n"}),
+    *[(phase, {_RES2D_BF16_BWD_LAST: f"constexpr int kLastPhase = {j};"}) for j, phase in enumerate(
+        ("(0) staging: taps, loads, waits, barriers", "(1) gd2 = N2'(g, d2)", "(2) y1",
+         "(3) dy1's products", "(4) gd1 = N1'(ga1, d1)", "(5) dx's products"))],
+    ("(6) the taps' gradient's products: the whole call", None),
+]
 # K4's forward: the general kernel (one block a tile of 4 samples, each layer's weights streamed
 # through one tile of shared memory), cut after each layer.
 CUTS["mlp_chain_kernel"] = [
@@ -478,6 +514,8 @@ KERNELS = {
     "mlp": ("mlp_chain_bwd", ("small_kernel", "mlp_bwd_chain_kernel")),
     "res2d": ("res_block_2d", ("res2d_tc_kernel", "res_block_2d_kernel")),
     "res2d_bwd": ("res_block_2d_bwd", ("res2d_bwd_tc_kernel",)),
+    "res2d_bf16": ("res_block_2d_bf16", ("res2d_bf16_wgmma_kernel",)),
+    "res2d_bf16_bwd": ("res_block_2d_bf16_bwd", ("res2d_bf16_bwd_wgmma_kernel",)),
     "mlp_fwd": ("mlp_chain", ("mlp_cluster_kernel", "mlp_chain_kernel")),
     "sln_fwd": ("sln_chain", ("tail_fwd_kernel", "sln_chain_kernel")),
     "cba_bwd": ("conv_bias_act_bwd", ("cba_site_bwd_kernel", "conv_bias_act_bwd_kernel")),
@@ -683,6 +721,26 @@ def main() -> int:
                                    [rand(b, 64) for _ in range(4)])):
             x, k1, k2 = rand(b, 8, 8, 64), mod.res0_kernel1, mod.res0_kernel2
             sites[name] = (lambda x=x, k1=k1, k2=k2, t=tables: res2d.res_block_2d(x, k1, k2, *t))
+    elif args.kernel in ("res2d_bf16", "res2d_bf16_bwd"):
+        from iinsvae_torch.ops.kernels import res2d
+
+        model_2d = IInsVAE(cir_len=157, num_classes=5, style_dim=16, conv_type=2,
+                           generator=torch.Generator().manual_seed(0)).cuda()
+        sites = {}
+        for name, mod, n_tables in (("range.res2d", model_2d.encoder.range_encoder, 0),
+                                    ("dec.res2d", model_2d.decoder.decoder, 4)):
+            x, g = (rand(b, 8, 8, 64).to(torch.bfloat16) for _ in range(2))
+            k1, k2 = (mod.res0_kernel1.detach().to(torch.bfloat16),
+                      mod.res0_kernel2.detach().to(torch.bfloat16))
+            tables = [rand(b, 64).to(torch.bfloat16) for _ in range(n_tables)]
+            if args.kernel == "res2d_bf16":
+                sites[name] = (lambda x=x, k1=k1, k2=k2, t=tables:
+                               res2d.launch_res_block_2d(x, k1, k2, *t))
+                continue
+            with torch.no_grad():
+                _, d1, d2 = res2d.launch_res_block_2d(x, k1, k2, *tables, save=True)
+            sites[name] = (lambda g=g, x=x, k1=k1, k2=k2, t=tables, s=(d1, d2):
+                           backward.res_block_2d_bwd(g, x, k1, k2, *t, saved=s))
     elif args.kernel == "res2d_bwd":
         from iinsvae_torch.ops.kernels import res2d
 

@@ -1528,11 +1528,14 @@ def _bf16_block(cuda, batch, adain_, seed=0):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("adain_", [False, True])
-@pytest.mark.parametrize("batch", [5, 500])
+@pytest.mark.parametrize("batch", [1, 5, 263, 500, 1031])
 def test_gpu_res_block_2d_bf16_matches_plain_against_float64(cuda, batch, adain_):
     """K7's bfloat16 instance, serving and saving (y bit-equal), and K7b's from its saves,
     against float64 beside the plain bfloat16 versions; one launch a call, one device kernel
-    (two for K7b: the kernel and the sum of its partial rows), bit-equal over two calls."""
+    (three for K7b: the input gradients, the taps' gradient and the sum of its partial rows),
+    bit-equal over two calls. The batches: one sample (a block with an idle warpgroup), a
+    ragged last block, fewer samples than SMs, the model's 500, and more than one sample a
+    warpgroup and a taps' gradient block beyond a whole round."""
     args, g, a64, f64, rows = _bf16_block(cuda, batch, adain_)
     n = res2d.res_block_2d.launches_bf16
     y, d1, d2 = res2d.launch_res_block_2d(*args, save=True)
@@ -1540,7 +1543,7 @@ def test_gpu_res_block_2d_bf16_matches_plain_against_float64(cuda, batch, adain_
     assert torch.equal(y, res2d.launch_res_block_2d(*args))
     _bf16_vs_f64((y, d1, d2), res2d.res_block_2d_bf16_ref(*args, save=True), f64, rows, "K7")
     assert _device_kernel_names(lambda: res2d.launch_res_block_2d(*args)) == {
-        "res2d_bf16_kernel"}
+        "res2d_bf16_wgmma_kernel"}
     n = backward.res_block_2d_bwd.launches_bf16
     got = _tensors(backward.res_block_2d_bwd(g, *args, saved=(d1, d2)))
     assert backward.res_block_2d_bwd.launches_bf16 == n + 1
@@ -1550,7 +1553,24 @@ def test_gpu_res_block_2d_bf16_matches_plain_against_float64(cuda, batch, adain_
     assert all(torch.equal(a, b) for a, b in zip(
         got, _tensors(backward.res_block_2d_bwd(g, *args, saved=(d1, d2)))))
     assert _device_kernel_names(lambda: backward.res_block_2d_bwd(g, *args, saved=(d1, d2))) \
-        == {"res2d_bf16_bwd_kernel", "reduce_rows_bf16_kernel"}
+        == {"res2d_bf16_bwd_wgmma_kernel", "res2d_bf16_dk_kernel", "reduce_rows_bf16_kernel"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("adain_", [False, True])
+def test_gpu_res_block_2d_bf16_backward_is_bit_equal_over_two_calls_at_1031(cuda, adain_):
+    """K7b's bfloat16 instance at batch 1031 (more samples than a round of the persistent grid
+    and of the taps' gradient's clusters): two calls give bit-equal gradients, the taps'
+    gradient included (partial rows summed in a fixed order, no atomics), and d1, d2 saved
+    twice are bit-equal too."""
+    args, g, _, _, _ = _bf16_block(cuda, 1031, adain_, seed=5)
+    y, d1, d2 = res2d.launch_res_block_2d(*args, save=True)
+    y_, d1_, d2_ = res2d.launch_res_block_2d(*args, save=True)
+    assert torch.equal(y, y_) and torch.equal(d1, d1_) and torch.equal(d2, d2_)
+    first = _tensors(backward.res_block_2d_bwd(g, *args, saved=(d1, d2)))
+    for _ in range(2):
+        again = _tensors(backward.res_block_2d_bwd(g, *args, saved=(d1, d2)))
+        assert len(again) == len(first) and all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.gpu
