@@ -131,8 +131,9 @@
    bfloat16 inputs: every output and gradient against float64 on the same inputs, at most
    BF16_FACTOR times the plain bfloat16 version's error plus BF16_FLOOR of the result's
    magnitude (K7's and K7b's per-sample tensors on the samples clear of MASK_MARGIN); each
-   call's device kernels (BF16_DEVICE_KERNELS), its time beside its bound (bfloat16 tensor
-   cores for K7 and K7b, fp32 FMAs for K4 and K4b), its plain version and a bfloat16 yardstick
+   call's device kernels (BF16_DEVICE_KERNELS), its time beside its bound (at the card's
+   bfloat16 rate for all four; K4 and K4b compute in fp32 FMAs, whose time is printed beside
+   it), its plain version and a bfloat16 yardstick
    (double dagger: one cuDNN 3x3 conv or conv backward of the block, torch.mm of the head's
    largest layer), K7 and K7b also beside the whole block composed of library calls (two
    cuDNN convs, the norms and the skip as torch ops) and its autograd backward, in CUDA graphs
@@ -144,7 +145,28 @@
    trains, checkpoints and resumes bit-equal, ``evaluate`` reads the checkpoint. The
    ``kernels`` line gains the four bfloat16 instances as rows of their own; their
    ``launches_joint``, ``launches_sep`` and ``launches_server`` are read in [joint] and [server],
-   which fail unless every bfloat16 counter stayed 0 there.
+   which fail unless every bfloat16 counter stayed 0 there. The soft 2-D restorer's (128 -> 512
+   -> 256 -> 256 -> 2, the cluster kernel's instance of last width 2) bfloat16 K4 and K4b sites
+   run here too.
+
+13. [noexpand] (noexpand_phase): the column-image model (conv_type 3, NoExpand: full width, 3
+   residual blocks, 4 downsamples, style_dim 16, 157 taps, 5 classes, --env_conv_init torch,
+   seeded) served through ``Predictor(device="cuda")`` at batch 500 without and with the
+   reconstruction, counted (2 launches a batch: K4 at the restorer and at the classifier) and
+   held to the CPU Predictor; the port's kernels of a forward batch and of a step's forward and
+   backward read from CUDA graphs (K4's cluster and head kernels; with K4b's at the two heads);
+   serving CIR/s, device busy time and idle share; its training main path as in 7 (2 + 2
+   launches a step).
+
+14. [soft] (soft_phase): K4 at the soft restorers (16 -> ... -> 2 and 128 -> ... -> 2, fp32)
+   and K4b, at batch 500 and 261, against their plain versions, K4 within tolerance of the
+   general kernel and launching the cluster kernel; the 1-D soft step (--use_soft) through
+   ``cli.train_semi.build``, one epoch counted (17 + 17 a step), one step's gradients card vs
+   CPU against float64 with the eps injected; the bfloat16 2-D soft step, one epoch counted;
+   the cluster kernel named once in a CUDA graph of each soft step. The ``kernels`` line gains
+   the soft rows (``mlp_chain_soft``, ``mlp_chain_bwd_soft``, ``mlp_chain_bf16_soft``,
+   ``mlp_chain_bwd_bf16_soft``) and ``launches_noexpand``, each row's wrapper's launches on
+   the column-image model's 3 counted training epochs.
 
 Each device-kernel check (``device_kernel`` sites, the backward sites, [bf16]) reads the
 kernel nodes of a CUDA graph of the call (graph_kernels.launched_kernels, the graph replayed
@@ -154,8 +176,8 @@ sometimes held no device event.
 Prints a ``sites`` line (per call site, both models), a ``serving`` line,
 a ``backward`` line (per backward call site), a ``training`` and a
 ``training_2d`` line, a ``one_stage`` line, an ``eval`` line, a ``joint`` line, a ``server``
-line, a ``kernels`` line (with ``launches_server``, each kernel's launches in the
-``[server]`` phase), the nvidia-smi line and, last,
+line, a ``noexpand`` / ``soft`` line, a ``kernels`` line (with ``launches_server``, each
+kernel's launches in the ``[server]`` phase), the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. The whole result also goes to
 chiprun_out/chip_smoke.json. Any failure raises and exits non-zero; without
 a CUDA device it exits 2 and prints no result.
@@ -317,7 +339,17 @@ SERVER_2D_N = 256
 FLAGSHIP = dict(conv_type=1, cir_len=157, num_classes=5, style_dim=16, dim=4,
                 n_residual=3, n_downsample=4, range_dim=2)
 FLAGSHIP_2D = dict(FLAGSHIP, conv_type=2)
-MODELS = {1: FLAGSHIP, 2: FLAGSHIP_2D}
+# [noexpand]: the column-image model (conv_type 3, NoExpand) at full width with the env encoder's
+# conv taps from torch's default (--env_conv_init torch): its forward launches K4 at the restorer
+# (16 -> 512 -> 256 -> 256 -> 1, the cluster kernel) and at the classifier (the head kernel),
+# every conv and norm a plain op; a step one K4b launch for each
+FLAGSHIP_3D = dict(FLAGSHIP, conv_type=3, env_conv_init="torch")
+EXPECTED_3D = {**{k: 0 for k in EXPECTED_NO_RECON}, "mlp_chain": 2}
+EXPECTED_3D_TRAIN_BWD = {f"{k}_bwd": v for k, v in EXPECTED_3D.items()}
+# [soft]: the 1-D model with the soft restorer (--use_soft: 16 -> ... -> 2, the cluster kernel's
+# instance of last width 2), which launches as the 1-D model does
+FLAGSHIP_SOFT = dict(FLAGSHIP, soft=True)
+MODELS = {1: FLAGSHIP, 2: FLAGSHIP_2D, 3: FLAGSHIP_3D, "soft": FLAGSHIP_SOFT}
 RES2D = "iinsvae_tpu/ops/pallas/res2d.py"
 OUT = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke.json"
 
@@ -1235,10 +1267,23 @@ def check_and_time_backward(sites: list[dict], tag: str = "backward") -> list[di
     return rows
 
 
-def train_config(conv_type: int) -> Config:
-    """bench.py's training setting on the synthetic room_full fixture."""
-    return Config(conv_type=conv_type, dataset_env="room_full", env_dim=16, synthetic_n=10000,
-                  batch_size=BATCH, n_epochs=500, decay_epoch=100, supervision_rate=0.1)
+def train_config(key) -> Config:
+    """bench.py's training setting on the synthetic room_full fixture, for the model
+    ``MODELS[key]``."""
+    m = MODELS[key]
+    return Config(conv_type=m["conv_type"], env_conv_init=m.get("env_conv_init", "reference"),
+                  use_soft=m.get("soft", False), dataset_env="room_full", env_dim=16,
+                  synthetic_n=10000, batch_size=BATCH, n_epochs=500, decay_epoch=100,
+                  supervision_rate=0.1)
+
+
+def soft_eps(key, device) -> dict:
+    """{"soft_eps": a seeded standard-normal (BATCH, 1) on ``device``} for a model with the
+    soft restorer, injected into its step like the mask; {} for any other."""
+    if not MODELS[key].get("soft"):
+        return {}
+    return {"soft_eps": torch.randn((BATCH, 1), generator=torch.Generator().manual_seed(6))
+            .to(device)}
 
 
 def traced_train_steps(trainer, n: int) -> dict:
@@ -1304,7 +1349,7 @@ def _double(a):
     return a
 
 
-def step_calls_vs_f64(data: dict, conv_type: int) -> dict:
+def step_calls_vs_f64(data: dict, key) -> dict:
     """Every backward kernel call of one real training step (the fixture's
     first batch, seeded weights), recorded with its inputs; the kernel's and
     the plain version's (fp32) gradients each against the plain version in
@@ -1321,11 +1366,11 @@ def step_calls_vs_f64(data: dict, conv_type: int) -> dict:
         record.launches = 0
         setattr(backward, w.__name__, record)
     try:
-        model = IInsVAE(**MODELS[conv_type], generator=torch.Generator().manual_seed(3)).cuda()
+        model = IInsVAE(**MODELS[key], generator=torch.Generator().manual_seed(3)).cuda()
         mask = steps.draw_sup_mask(BATCH, 0.1, "sample",
                                    torch.Generator(device="cuda").manual_seed(5))
         steps.make_semi_grads_fn(0.1)(model, {k: v[:BATCH] for k, v in data.items()},
-                                      sup_mask=mask)
+                                      sup_mask=mask, **soft_eps(key, "cuda"))
         torch.cuda.synchronize()
     finally:
         for w in originals:
@@ -1347,20 +1392,21 @@ def step_calls_vs_f64(data: dict, conv_type: int) -> dict:
     return out
 
 
-def step_grads_vs_cpu(data: dict, conv_type: int) -> dict:
+def step_grads_vs_cpu(data: dict, key) -> dict:
     """One step's gradients on the card and on the CPU (fp32), on the same
-    seeded weights, the first batch of the fixture and one injected mask,
-    each against the CPU port's in float64."""
-    cpu = IInsVAE(**MODELS[conv_type], generator=torch.Generator().manual_seed(3))
+    seeded weights, the first batch of the fixture and one injected mask (and
+    a soft restorer's eps), each against the CPU port's in float64."""
+    cpu = IInsVAE(**MODELS[key], generator=torch.Generator().manual_seed(3))
     gpu = copy.deepcopy(cpu).cuda()
     f64 = copy.deepcopy(cpu).double()
     batch = {k: v[:BATCH] for k, v in data.items()}
     mask = steps.draw_sup_mask(BATCH, 0.1, "sample", torch.Generator(device="cuda").manual_seed(5))
+    eps = soft_eps(key, "cpu")
     grads_fn = steps.make_semi_grads_fn(0.1)
-    mg = grads_fn(gpu, batch, sup_mask=mask)
-    mc = grads_fn(cpu, {k: v.cpu() for k, v in batch.items()}, sup_mask=mask.cpu())
+    mg = grads_fn(gpu, batch, sup_mask=mask, **{k: v.cuda() for k, v in eps.items()})
+    mc = grads_fn(cpu, {k: v.cpu() for k, v in batch.items()}, sup_mask=mask.cpu(), **eps)
     m64 = grads_fn(f64, {k: v.cpu().double() for k, v in batch.items()},
-                   sup_mask=mask.cpu().double())
+                   sup_mask=mask.cpu().double(), **{k: v.double() for k, v in eps.items()})
     torch.cuda.synchronize()
     loss = {k: (mg[k].item(), mc[k].item(), m64[k].item())
             for k in ("loss", "loss_ae", "loss_kl", "loss_res", "loss_env")}
@@ -1399,12 +1445,12 @@ def step_grads_vs_cpu(data: dict, conv_type: int) -> dict:
                                          for r in rows})
 
 
-def train_main_path(conv_type: int, expected: dict[str, int],
-                    expected_bwd: dict[str, int]) -> dict:
-    """The training main path of the 1-D or the expanded 2-D model: 3
-    epochs counted (``expected`` forward and ``expected_bwd`` backward
+def train_main_path(key, expected: dict[str, int], expected_bwd: dict[str, int]) -> dict:
+    """The training main path of the model ``MODELS[key]`` (the 1-D, the expanded 2-D or the
+    column-image model): 3 epochs counted (``expected`` forward and ``expected_bwd`` backward
     launches a step), then throughput, trace and the card-vs-CPU gradients."""
-    cfg = train_config(conv_type)
+    cfg = train_config(key)
+    conv_type = cfg.conv_type
     trainer = train_semi.build(cfg, "cuda")
     data = trainer.data
     n_real = int(data["weight"].sum().item())
@@ -1415,6 +1461,11 @@ def train_main_path(conv_type: int, expected: dict[str, int],
     torch.cuda.synchronize()
     wall_3 = time.perf_counter() - t0
     fwd, bwd = kernels.launch_counts(), kernels.backward_launch_counts()
+    bf16 = {**bf16_counts(backward=False), **bf16_counts(backward=True)}
+    soft = {**soft_counts(False), **soft_counts(True)}
+    if any(bf16.values()) or any(soft.values()):
+        raise AssertionError(f"float32 training launched bfloat16 instances or the soft "
+                             f"restorer's: {bf16} {soft}")
     n_steps = trainer.state.step
     for counts, want in ((fwd, expected), (bwd, expected_bwd)):
         for name, per in want.items():
@@ -1442,14 +1493,15 @@ def train_main_path(conv_type: int, expected: dict[str, int],
     cir_per_s = n_real * timed / wall
     trace = traced_train_steps(trainer, 20)
     host = host_profile(trainer)
-    grads = step_grads_vs_cpu(data, conv_type)
-    calls_f64 = step_calls_vs_f64(data, conv_type)
+    grads = step_grads_vs_cpu(data, key)
+    calls_f64 = step_calls_vs_f64(data, key)
     result = dict(
         config=dict(conv_type=conv_type, synthetic_n=cfg.synthetic_n, train_cirs=n_real,
                     batch=cfg.batch_size,
                     supervision_rate=cfg.supervision_rate, n_epochs_schedule=cfg.n_epochs,
                     decay_epoch=cfg.decay_epoch),
-        history=history, steps=n_steps, launches=fwd, launches_bwd=bwd,
+        history=history, steps=n_steps, launches=fwd, launches_bwd=bwd, launches_bf16=bf16,
+        launches_soft=soft,
         launches_per_step=sum(fwd.values()) / n_steps,
         launches_bwd_per_step=sum(bwd.values()) / n_steps,
         train_cir_per_s=cir_per_s, step_wall_ms=wall / (timed * steps_per_epoch) * 1e3,
@@ -1915,18 +1967,26 @@ def bf16_counts(backward: bool) -> dict[str, int]:
             if k.endswith("_bwd") == backward}
 
 
+def soft_counts(backward: bool) -> dict[str, int]:
+    """K4's or K4b's launches at the soft restorer since the last reset, under their
+    ``kernels`` line names (``mlp_chain[_bwd][_bf16]_soft``)."""
+    return {k: v for k, v in kernels.soft_launch_counts().items() if ("_bwd" in k) == backward}
+
+
 def counted(fn, fwd: dict[str, int], bwd: dict[str, int], what: str):
     """Run ``fn`` with every launch counter set to 0 just before and read just after: every
     forward wrapper launched as ``fwd`` says, every backward one as ``bwd`` (the names of the
-    forward wrappers, each with its ``_bwd``), 0 where they say nothing (so every bfloat16
-    instance, ``<wrapper>_bf16``, 0 unless named). -> (fn's result, the forward counts, the
-    backward counts), the bfloat16 instances' among them."""
+    forward wrappers, each with its ``_bwd``, or a backward counter's own name), 0 where they
+    say nothing (so every bfloat16 instance, ``<wrapper>_bf16``, and the soft restorer's
+    launches, ``<wrapper>_soft``, 0 unless named). -> (fn's result, the forward counts, the
+    backward counts), the bfloat16 instances' and the soft restorer's among them."""
     kernels.reset_launch_counts()
     out = fn()
     torch.cuda.synchronize()
-    got_f = {**kernels.launch_counts(), **bf16_counts(backward=False)}
-    got_b = {**kernels.backward_launch_counts(), **bf16_counts(backward=True)}
-    want_b = {f"{k}_bwd": v for k, v in bwd.items()}
+    got_f = {**kernels.launch_counts(), **bf16_counts(backward=False), **soft_counts(False)}
+    got_b = {**kernels.backward_launch_counts(), **bf16_counts(backward=True),
+             **soft_counts(True)}
+    want_b = {k if "_bwd" in k else f"{k}_bwd": v for k, v in bwd.items()}
     for got, want in ((got_f, fwd), (got_b, want_b)):
         for name, n in got.items():
             if n != want.get(name, 0):
@@ -2270,15 +2330,17 @@ def served_vs_cpu(cpu_model: IInsVAE, cirs: np.ndarray, err: np.ndarray, label: 
 
 def counted_server(stats: dict, per_batch: dict[str, int], what: str) -> dict:
     """The launch counts since the last reset: each forward kernel per_batch times the
-    server's batches, no backward launch and no launch of a bfloat16 instance."""
-    launches = {**kernels.launch_counts(), **bf16_counts(backward=False)}
-    bwd = {**kernels.backward_launch_counts(), **bf16_counts(backward=True)}
+    server's batches, no backward launch, no launch of a bfloat16 instance and none at the
+    soft restorer."""
+    launches = {**kernels.launch_counts(), **bf16_counts(backward=False), **soft_counts(False)}
+    bwd = {**kernels.backward_launch_counts(), **bf16_counts(backward=True), **soft_counts(True)}
     for name, per in per_batch.items():
         if launches[name] != per * stats["batches"]:
             raise AssertionError(f"{what}: {name} launched {launches[name]} times, expected "
                                  f"{per} x {stats['batches']} batches")
-    if any(v for k, v in launches.items() if k.endswith("_bf16")) or any(bwd.values()):
-        raise AssertionError(f"{what}: bfloat16 or backward launches {launches} {bwd}")
+    if any(v for k, v in launches.items() if k.endswith(("_bf16", "_soft"))) \
+            or any(bwd.values()):
+        raise AssertionError(f"{what}: bfloat16, soft or backward launches {launches} {bwd}")
     return {**launches, **bwd}
 
 
@@ -2478,7 +2540,7 @@ def server_phase(card: str) -> dict:
 # ------------------------------------ [bf16] ------------------------------------
 
 BF16 = torch.bfloat16
-# H100 SXM data sheet: dense bfloat16 on the tensor cores (K7's and K7b's bfloat16 instances)
+# H100 SXM data sheet: dense bfloat16 on the tensor cores (the bound of every bfloat16 instance)
 PEAK_BF16_FLOP_PER_S = 989e12
 # A bfloat16 kernel against float64 on the same bfloat16-rounded inputs: its largest error at
 # most BF16_FACTOR times the plain bfloat16 version's, plus BF16_FLOOR of the float64 result's
@@ -2497,9 +2559,12 @@ BF16_DEVICE_KERNELS = {
     "res_block_2d_bwd_bf16": {"res2d_bf16_bwd_wgmma_kernel": 1, "res2d_bf16_dk_kernel": 1,
                               "reduce_rows_bf16_kernel": 1},
     "mlp_chain_bf16 restorer.2d": {"cluster::mlp_cluster_kernel": 1},
+    "mlp_chain_bf16 restorer.2d.soft": {"cluster::mlp_cluster_kernel": 1},
     "mlp_chain_bf16 classifier": {"head::mlp_head_kernel": 1},
     "mlp_chain_bwd_bf16 restorer.2d": {"layer::chain_kernel": 4, "layer::wgrad_kernel": 1,
                                        "reduce_partials_bf16_kernel": 1},
+    "mlp_chain_bwd_bf16 restorer.2d.soft": {"layer::chain_kernel": 4, "layer::wgrad_kernel": 1,
+                                            "reduce_partials_bf16_kernel": 1},
     "mlp_chain_bwd_bf16 classifier": {"small::small_kernel": 1,
                                       "reduce_partials_bf16_kernel": 1}}
 # one bfloat16 step's gradients, card and CPU (the rows of BF16_GRAD_ROWS), each against the
@@ -2573,9 +2638,10 @@ def res2d_library_block(x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor, aff
     return forward_no_grad, lambda: torch.autograd.grad(forward(), leaves, gc)
 
 
-def bf16_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH):
+def bf16_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH, extra_heads=()):
     """K7's and K7b's bfloat16 instances at the 2-D model's IN and AdaIN blocks, K4's and K4b's
-    at its restorer and classifier, at batch b on the model's weights rounded to bfloat16 and
+    at its restorer and classifier (and at ``extra_heads``, (name, Linear head) pairs: the soft
+    2-D restorer), at batch b on the model's weights rounded to bfloat16 and
     seeded bfloat16 inputs: each held against float64 on the same inputs beside its plain
     bfloat16 version and timed (CUDA graph replay) beside its bound, its plain version and a
     bfloat16 yardstick (double dagger); K7 and K7b also beside the whole block composed of
@@ -2642,7 +2708,7 @@ def bf16_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH):
         blocks.append((fwd[-1], bwd[-1], (x, k1, k2, aff, g)))
     fp = "iinsvae_tpu/ops/pallas/fused.py"
     for name, head in (("restorer.2d", model.restorer.restorer),
-                       ("classifier", model.classifier.classifier)):
+                       ("classifier", model.classifier.classifier), *extra_heads):
         n, slopes = len(head.slopes), head.slopes
         ws = [getattr(head, f"w{j}").detach().to(BF16) for j in range(n)]
         bs = [getattr(head, f"b{j}").detach().to(BF16) for j in range(n)]
@@ -2667,9 +2733,10 @@ def bf16_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH):
             yardstick_ms=device_ms(lambda: torch.mm(xj, ws[j])),
             yardstick=f"one bfloat16 torch.mm of its {ws[j].shape[0]}->{ws[j].shape[1]} layer",
             flops=flops, bytes=bytes_,
-            bound_ms=max(flops / PEAK_FP32_FLOP_PER_S, bytes_ / PEAK_BYTES_PER_S) * 1e3,
-            bound_by="operations" if flops / PEAK_FP32_FLOP_PER_S >= bytes_ / PEAK_BYTES_PER_S
+            bound_ms=max(flops / PEAK_BF16_FLOP_PER_S, bytes_ / PEAK_BYTES_PER_S) * 1e3,
+            bound_by="operations" if flops / PEAK_BF16_FLOP_PER_S >= bytes_ / PEAK_BYTES_PER_S
             else "bytes",
+            fp32_fma_bound_ms=flops / PEAK_FP32_FLOP_PER_S * 1e3,
             device_kernels=device_kernels(serve)))
         args = (g, x, ws, bs, slopes, ds)
         run = lambda: backward.mlp_chain_bwd(*args)  # noqa: E731
@@ -2679,7 +2746,7 @@ def bf16_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH):
             lambda x_, *p: fused.mlp_chain_ref(x_, p[:n], p[n:], slopes),
             [x.double(), *(t.double() for t in ws), *(t.double() for t in bs)], g.double()))
         checks = _vs_f64(name + " backward", got, want, ref)
-        w_t = ws[j].t()
+        w_t, bytes_b = ws[j].t(), nbytes(g, x, *ws, *ds, x, *ws, *bs)
         bwd.append(dict(
             name=name, kernel="mlp_chain_bwd_bf16", replaces=f"{fp}:1136", per_step=1,
             max_abs_err=checks["max_abs_err"], vs_f64=checks["tensors"], ms=device_ms(run),
@@ -2687,11 +2754,12 @@ def bf16_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH):
             yardstick_ms=device_ms(lambda: (torch.mm(gj, w_t), torch.mm(xj.t(), gj))),
             yardstick=f"bfloat16 torch.mm pair (dx, dW) of its {ws[j].shape[0]}->"
                       f"{ws[j].shape[1]} layer",
-            flops=2 * flops, bytes=nbytes(g, x, *ws, *ds, x, *ws, *bs),
-            bound_ms=max(2 * flops / PEAK_FP32_FLOP_PER_S,
-                         nbytes(g, x, *ws, *ds, x, *ws, *bs) / PEAK_BYTES_PER_S) * 1e3,
-            bound_by="operations", bit_equal_over_two_calls=bit_equal_calls(run),
-            device_kernels=device_kernels(run)))
+            flops=2 * flops, bytes=bytes_b,
+            bound_ms=max(2 * flops / PEAK_BF16_FLOP_PER_S, bytes_b / PEAK_BYTES_PER_S) * 1e3,
+            bound_by="operations" if 2 * flops / PEAK_BF16_FLOP_PER_S
+            >= bytes_b / PEAK_BYTES_PER_S else "bytes",
+            fp32_fma_bound_ms=2 * flops / PEAK_FP32_FLOP_PER_S * 1e3,
+            bit_equal_over_two_calls=bit_equal_calls(run), device_kernels=device_kernels(run)))
     # K7's and K7b's whole-block library yardsticks, after every other site's timing: their
     # large CUDA graphs timed before the K4 sites left the classifier's saving instance 3.4%
     # slower than its parent's in an A/B
@@ -2718,7 +2786,10 @@ def bf16_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH):
               f"vs float64 {errs}; {r['ms'] * 1e3:8.2f} us"
               + (f" (saving {r['save_ms'] * 1e3:.2f})" if "save_ms" in r else "")
               + f"  plain {r['plain_ms'] * 1e3:8.2f} us  bound {r['bound_ms'] * 1e3:6.2f} us "
-              f"({r['bound_by']})  {r['yardstick']} (double dagger) "
+              f"({r['bound_by']}"
+              + (f"; as fp32 FMAs {r['fp32_fma_bound_ms'] * 1e3:.2f} us"
+                 if "fp32_fma_bound_ms" in r else "")
+              + f")  {r['yardstick']} (double dagger) "
               f"{r['yardstick_ms'] * 1e3:.2f} us"
               + (f"  {r['composite']}: {r['composite_ms'] * 1e3:.2f} us" if "composite_ms" in r
                  else "")
@@ -2886,14 +2957,15 @@ def bf16_cli_check() -> dict:
 
 
 def bf16_kernel_rows(fwd: list[dict], bwd: list[dict], launches: dict[str, int]) -> list[dict]:
-    """The ``kernels`` line's rows of the bfloat16 instances: each summed over its sites, each
-    site times its calls a step; ``launches`` those of the bfloat16 training run."""
+    """The ``kernels`` line's rows of the bfloat16 instances: each summed over its sites (the
+    2-D model's; the soft restorer's has rows of its own, soft_kernel_rows), each site times its
+    calls a step; ``launches`` those of the bfloat16 training run."""
     out = []
     for name, wrapper, rows in (
             ("res_block_2d_bf16", "res_block_2d", fwd), ("mlp_chain_bf16", "mlp_chain", fwd),
             ("res_block_2d_bwd_bf16", "res_block_2d_bwd", bwd),
             ("mlp_chain_bwd_bf16", "mlp_chain_bwd", bwd)):
-        rs = [r for r in rows if r["kernel"] == name]
+        rs = [r for r in rows if r["kernel"] == name and not r["name"].endswith(".soft")]
 
         def total(key):
             return sum(r[key] * r["per_step"] for r in rs)
@@ -2906,8 +2978,218 @@ def bf16_kernel_rows(fwd: list[dict], bwd: list[dict], launches: dict[str, int])
             per="one bfloat16 training step of the 2-D model at batch 500 (sum over its sites)",
             yardstick_ms=total("yardstick_ms"), yardstick=rs[0]["yardstick"],
             **({"save_ms": total("save_ms")} if all("save_ms" in r for r in rs) else {}),
+            **({"fp32_fma_bound_ms": total("fp32_fma_bound_ms")}
+               if all("fp32_fma_bound_ms" in r for r in rs) else {}),
             **({"composite_ms": total("composite_ms"), "composite": rs[0]["composite"]}
                if all("composite_ms" in r for r in rs) else {})))
+    return out
+
+
+
+def step_graph(model: IInsVAE, batch: dict, **inject) -> dict[str, int]:
+    """The port's kernels one training step's forward and backward launch (the semi step's
+    gradients, ``inject``: the mask and a soft restorer's eps), read from a CUDA graph of the
+    call: its replay's loss, metrics and gradients bit-equal to an eager call's."""
+    grads_fn = steps.make_semi_grads_fn(0.1)
+
+    def step():
+        metrics = grads_fn(model, batch, **inject)
+        return [*metrics.values(), *(p.grad for p in model.parameters())]
+
+    return graph_kernels.port_kernels(device_kernels(step))
+
+
+def head_kernels(heads, b: int = BATCH) -> dict[str, int]:
+    """The port's kernels that K4 (as training launches it, saving the d_j) and K4b launch at
+    ``heads`` (Linear heads), one call each, at batch b on seeded inputs."""
+    gen, out = torch.Generator().manual_seed(31), {}
+    for head in heads:
+        n = len(head.slopes)
+        ws = [getattr(head, f"w{j}").detach() for j in range(n)]
+        bs = [getattr(head, f"b{j}").detach() for j in range(n)]
+        x = torch.randn((b, ws[0].shape[0]), generator=gen).cuda()
+        g = torch.randn((b, ws[-1].shape[1]), generator=gen).cuda()
+        _, ds = fused.launch_mlp_chain(x, ws, bs, head.slopes, save_pre=True)
+        for fn in (lambda: fused.launch_mlp_chain(x, ws, bs, head.slopes, save_pre=True),
+                   lambda: backward.mlp_chain_bwd(g, x, ws, bs, head.slopes, ds)):
+            out = _add(out, graph_kernels.port_kernels(device_kernels(fn)))
+    return out
+
+
+def noexpand_phase() -> dict:
+    """[noexpand] The column-image model (conv_type 3, FLAGSHIP_3D: full width, 3 residual
+    blocks, 4 downsamples, --env_conv_init torch, seeded weights) on the card: served through
+    Predictor at batch 500 without and with the reconstruction, counted (EXPECTED_3D a batch)
+    and held to the CPU Predictor; the port's kernels of one forward batch read from a CUDA
+    graph (K4's cluster kernel at the restorer, its head kernel at the classifier, nothing
+    else); serving CIR/s, device busy time and idle share; its training main path (3 epochs
+    counted, EXPECTED_3D forward and backward launches a step, a falling loss, training CIR/s,
+    a traced step's busy time and idle share, one step's gradients card vs CPU against
+    float64); and the port's kernels of one step's forward and backward from a CUDA graph: those
+    of K4 and K4b at the two heads, nothing else."""
+    t0 = time.perf_counter()
+    cpu = IInsVAE(**FLAGSHIP_3D, generator=torch.Generator().manual_seed(0))
+    model = copy.deepcopy(cpu).cuda()
+    main_path, launches = serve_main_path(model, cpu, False, EXPECTED_3D)
+    main_path_recon, launches_recon = serve_main_path(model, cpu, True, EXPECTED_3D)
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(BATCH, 157))
+                         .astype(np.float32)).cuda()
+    pred = Predictor(model, batch_size=BATCH, return_recon=True, device="cuda")
+    with torch.inference_mode():
+        graph_fwd = graph_kernels.port_kernels(device_kernels(lambda: pred.forward_batch(x)))
+    want_fwd = {"cluster::mlp_cluster_kernel": 1, "head::mlp_head_kernel": 1}
+    if graph_fwd != want_fwd:
+        raise AssertionError(f"[noexpand] a forward batch launched {graph_fwd}, not {want_fwd}")
+    print(f"[noexpand] a forward batch with the reconstruction, from a CUDA graph: the port's "
+          f"kernels {graph_fwd}", flush=True)
+    serving = throughput(model, recon=False, sizes=(BATCH,), n_batches=40)
+    serving_recon = throughput(model, recon=True, sizes=(BATCH,), n_batches=40)
+    training = train_main_path(3, EXPECTED_3D, EXPECTED_3D_TRAIN_BWD)
+    gen = torch.Generator().manual_seed(4)
+    batch = {"cir": torch.randn((BATCH, 157), generator=gen).cuda(),
+             "err": torch.rand((BATCH, 1), generator=gen).cuda(),
+             "label": torch.randint(0, 5, (BATCH, 1), generator=gen).float().cuda(),
+             "weight": torch.ones(BATCH).cuda()}
+    mask = steps.draw_sup_mask(BATCH, 0.1, "sample", torch.Generator(device="cuda").manual_seed(5))
+    graph_step = step_graph(model, batch, sup_mask=mask)
+    want_step = head_kernels([model.restorer.restorer, model.classifier.classifier])
+    if graph_step != want_step:
+        raise AssertionError(f"[noexpand] a step launched {graph_step}, not {want_step}")
+    t = training["trace"]
+    busy = serving[BATCH]["trace"]["device_busy_us_per_batch"]
+    print(f"[noexpand] a step's forward and backward, from a CUDA graph: the port's kernels "
+          f"{graph_step}; serving {serving[BATCH]['cir_per_s']:.1f} CIR/s at batch {BATCH} "
+          f"(recon {serving_recon[BATCH]['cir_per_s']:.1f}), device busy {busy:.1f} us a batch; "
+          f"training {training['train_cir_per_s']:.1f} CIR/s, device busy "
+          f"{t['device_busy_us_per_step']:.1f} us a step of {t['wall_us_per_step']:.1f} us, idle "
+          f"{t['device_idle_share']}; phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(config=FLAGSHIP_3D, main_path=main_path, main_path_recon=main_path_recon,
+                launches_per_batch=launches, graph_forward=graph_fwd, graph_step=graph_step,
+                serving=serving, serving_recon=serving_recon, training=training,
+                wall_s=time.perf_counter() - t0)
+
+
+def soft_phase() -> dict:
+    """[soft] The soft restorer (--use_soft): K4 (the cluster kernel's instance of last width
+    2) and K4b at the 1-D soft restorer (16 -> 512 -> 256 -> 256 -> 2) and the 2-D one (128 ->
+    ... -> 2) at batch 500 and 261, against their plain versions, K4 within tolerance of the
+    general kernel and launching cluster::mlp_cluster_kernel, each bit-equal over two calls,
+    timed beside its bound and yardstick; the 1-D soft step through cli.train_semi.build: one
+    epoch counted (17 forward and 17 backward launches a step), a finite loss, one step's
+    gradients card vs CPU against float64 (the eps injected), the cluster kernel once in a CUDA
+    graph of a step; the bfloat16 2-D soft step (--conv_type 2 --compute_dtype bfloat16
+    --use_soft): one epoch counted (EXPECTED_BF16_STEP bfloat16 launches a step, no float32
+    instance), a finite loss, the cluster kernel once in a CUDA graph of a step. The soft 2-D
+    restorer's bfloat16 K4 and K4b sites run in [bf16] (bf16_sites)."""
+    from iinsvae_torch.models.heads import RestorerLinear
+
+    t0 = time.perf_counter()
+    fp = "iinsvae_tpu/ops/pallas/fused.py"
+    k4_rows, k4b_rows = [], []
+    for name, shape in (("restorer.soft", (8, 2)), ("restorer.2d.soft", (8, 8, 2))):
+        head = RestorerLinear(shape, soft=True, generator=torch.Generator().manual_seed(0)).cuda()
+        for b in (BATCH, RAGGED[1]):
+            gen, yard = torch.Generator().manual_seed(50 + b), torch.Generator().manual_seed(96)
+
+            def rand(*shape_, gen=gen):
+                return torch.randn(shape_, generator=gen).cuda()
+
+            def rand_yard(*shape_, yard=yard):
+                return torch.randn(shape_, generator=yard).cuda()
+
+            site_name = f"{name} (batch {b})"
+            with torch.inference_mode():
+                site = mlp_site(site_name, head, f"{fp}:1164", b, rand, rand_yard)
+                if site["device_kernel"] != "cluster::mlp_cluster_kernel":
+                    raise AssertionError(f"{name} takes {site['device_kernel']}")
+                k4_rows += check_and_time([site], tag="soft")
+            k4b_rows += check_and_time_backward(
+                [mlp_bwd_site(site_name, head, f"{fp}:1136", b, rand, rand_yard)], tag="soft")
+
+    cfg = train_config("soft")
+    trainer = train_semi.build(cfg, "cuda")
+    per_epoch = trainer.data["cir"].shape[0] // cfg.batch_size
+    history, fwd, bwd = counted(
+        lambda: loop.train_epochs(trainer.state, trainer.run_epoch, trainer.data, 1,
+                                  seed=cfg.seed),
+        {**_times(EXPECTED_RECON, per_epoch), "mlp_chain_soft": per_epoch},
+        {**_times(EXPECTED_RECON, per_epoch), "mlp_chain_bwd_soft": per_epoch}, "soft 1-D step")
+    if not all(np.isfinite(v) for h in history for v in h.values()):
+        raise AssertionError(f"[soft] non-finite 1-D metrics: {history}")
+    grads = step_grads_vs_cpu(trainer.data, "soft")
+    batch = {k: v[:BATCH] for k, v in trainer.data.items()}
+    mask = steps.draw_sup_mask(BATCH, 0.1, "sample", torch.Generator(device="cuda").manual_seed(5))
+    graph_1d = step_graph(trainer.state.model, batch, sup_mask=mask, **soft_eps("soft", "cuda"))
+
+    cfg_bf = train_config(2)
+    cfg_bf.compute_dtype, cfg_bf.use_soft = "bfloat16", True
+    trainer_bf = train_semi.build(cfg_bf, "cuda")
+    kernels.reset_launch_counts()
+    history_bf = loop.train_epochs(trainer_bf.state, trainer_bf.run_epoch, trainer_bf.data, 1,
+                                   seed=cfg_bf.seed)
+    torch.cuda.synchronize()
+    n_bf = trainer_bf.state.step
+    got, fp32 = kernels.bf16_launch_counts(), {**kernels.launch_counts(),
+                                              **kernels.backward_launch_counts()}
+    got_soft = kernels.soft_launch_counts()
+    want_soft = dict(mlp_chain_soft=0, mlp_chain_bf16_soft=n_bf, mlp_chain_bwd_soft=0,
+                     mlp_chain_bwd_bf16_soft=n_bf)
+    if got != _times(EXPECTED_BF16_STEP, n_bf) or any(fp32.values()) or got_soft != want_soft:
+        raise AssertionError(f"[soft] bfloat16 launches {got}, float32 {fp32}, at the soft "
+                             f"restorer {got_soft} in {n_bf} steps")
+    if not all(np.isfinite(v) for h in history_bf for v in h.values()):
+        raise AssertionError(f"[soft] non-finite bfloat16 metrics: {history_bf}")
+    batch_bf = {k: v[:BATCH] for k, v in trainer_bf.data.items()}
+    eps_bf = soft_eps("soft", "cuda")["soft_eps"].to(BF16)
+    graph_bf = step_graph(trainer_bf.state.model, batch_bf, sup_mask=mask.to(BF16),
+                          soft_eps=eps_bf)
+    for what, graph in (("the 1-D soft step", graph_1d), ("the bfloat16 2-D soft step", graph_bf)):
+        if graph.get("cluster::mlp_cluster_kernel") != 1:
+            raise AssertionError(f"[soft] {what} launched {graph}: not the cluster kernel once")
+    whole_f = sum(v for k, v in fwd.items() if not k.endswith("_soft"))
+    whole_b = sum(v for k, v in bwd.items() if not k.endswith("_soft"))
+    print(f"[soft] 1-D soft step: {whole_f // per_epoch} + {whole_b // per_epoch} launches a "
+          f"step, {fwd['mlp_chain_soft'] // per_epoch} + {bwd['mlp_chain_bwd_soft'] // per_epoch} "
+          f"of them at the soft restorer, loss {history[0]['loss']:.6f}, "
+          f"grads vs float64: card max abs err {grads['max_abs_err_vs_f64']:.3e} (at most "
+          f"{grads['worst_card_over_cpu_err']:.2f}x the CPU's); bfloat16 2-D soft step: "
+          f"{sum(got.values()) // n_bf} launches a step, loss {history_bf[0]['loss']:.6f}; the "
+          f"port's kernels of a step from CUDA graphs: 1-D {graph_1d}, bfloat16 2-D {graph_bf}; "
+          f"phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(sites=k4_rows, backward_sites=k4b_rows, history_1d=history,
+                launches_1d=fwd, launches_bwd_1d=bwd, grads_vs_cpu=grads, graph_1d=graph_1d,
+                history_bf16=history_bf, launches_bf16=got, launches_soft_bf16=got_soft,
+                graph_bf16=graph_bf,
+                wall_s=time.perf_counter() - t0)
+
+
+def soft_kernel_rows(soft: dict, bf16_fwd: list[dict], bf16_bwd: list[dict]) -> list[dict]:
+    """The ``kernels`` line's rows of K4 and K4b at the soft restorers: fp32 at the 1-D soft
+    restorer, batch 500 ([soft]; launches: those at the soft restorer over the 1-D soft epoch),
+    bfloat16 at the 2-D one ([bf16]; launches: those at the soft restorer over the bfloat16
+    soft epoch)."""
+    out = []
+    for name, kernel, rs, launches in (
+            ("mlp_chain_soft", "mlp_chain", soft["sites"], soft["launches_1d"][
+                "mlp_chain_soft"]),
+            ("mlp_chain_bwd_soft", "mlp_chain_bwd", soft["backward_sites"],
+             soft["launches_bwd_1d"]["mlp_chain_bwd_soft"]),
+            ("mlp_chain_bf16_soft", "mlp_chain_bf16", bf16_fwd,
+             soft["launches_soft_bf16"]["mlp_chain_bf16_soft"]),
+            ("mlp_chain_bwd_bf16_soft", "mlp_chain_bwd_bf16", bf16_bwd,
+             soft["launches_soft_bf16"]["mlp_chain_bwd_bf16_soft"])):
+        site = "restorer.2d.soft" if kernel.endswith("bf16") else f"restorer.soft (batch {BATCH})"
+        r = next(r for r in rs if r["kernel"] == kernel and r["name"] == site)
+        out.append(dict(
+            name=name, route="cuda", source=SOURCES[kernel], replaces=r["replaces"],
+            launches=launches, max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+            **({"fp32_fma_bound_ms": r["fp32_fma_bound_ms"]} if "fp32_fma_bound_ms" in r
+               else {}),
+            per=f"one call at {site.split(' ')[0]}, batch {BATCH}; launches: those at the soft "
+                "restorer",
+            yardstick_ms=r.get("cudnn_conv_ms", r.get("yardstick_ms")),
+            yardstick=r["yardstick"]))
     return out
 
 
@@ -2968,7 +3250,12 @@ def main() -> int:
         backward_sites(model_2d, torch.Generator().manual_seed(4)))
     training_2d = train_main_path(2, EXPECTED_2D_RECON, EXPECTED_2D_TRAIN_BWD)
     # the 2-D model in bfloat16: its kernel sites, then its training path
-    bf16_fwd, bf16_bwd = bf16_sites(model_2d, torch.Generator().manual_seed(6))
+    from iinsvae_torch.models.heads import RestorerLinear
+
+    soft_2d = RestorerLinear((8, 8, 2), soft=True,
+                             generator=torch.Generator().manual_seed(0)).cuda()
+    bf16_fwd, bf16_bwd = bf16_sites(model_2d, torch.Generator().manual_seed(6),
+                                    extra_heads=[("restorer.2d.soft", soft_2d)])
     bf16_train = bf16_train_path(training_2d)
     bf16_train["cli"] = bf16_cli_check()
     del model_2d, cpu_2d
@@ -2977,6 +3264,9 @@ def main() -> int:
     evaluation = eval_phase()
     # the supervised joint and separated paths through their entry points
     joint = joint_phase(head_rows)
+    # the column-image model (conv_type 3) and the soft restorer
+    noexpand = noexpand_phase()
+    soft = soft_phase()
 
     per_fwd = "one forward batch of 500 (sum over its call sites)"
     per_step = "one training step at batch 500 (sum over its call sites)"
@@ -3028,14 +3318,20 @@ def main() -> int:
          for k in ONE_STAGE_BWD})
 
     kernel_table += bf16_kernel_rows(bf16_fwd, bf16_bwd, bf16_train["launches"])
+    kernel_table += soft_kernel_rows(soft, bf16_fwd, bf16_bwd)
     # each kernel's launches on the joint and separated entry points' main paths (cli.run,
     # cli.run_sep: training steps, evaluation and inference)
     # and on the server's ([server]: the 1-D recon server through both fronts and the 2-D
-    # in-process server); the bfloat16 instances' as read there (each run fails unless 0)
+    # in-process server), and on the column-image model's training run ([noexpand]: 3 epochs);
+    # the bfloat16 instances' and the soft restorer's as read there (each run fails unless 0)
+    tr3 = noexpand["training"]
     for row in kernel_table:
-        row["launches_joint"] = {**joint["launches_run"], **joint["launches_run_bwd"]}[row["name"]]
-        row["launches_sep"] = {**joint["launches_sep"], **joint["launches_sep_bwd"]}[row["name"]]
-        row["launches_server"] = server["launches"][row["name"]]
+        name = row["name"]
+        row["launches_joint"] = {**joint["launches_run"], **joint["launches_run_bwd"]}[name]
+        row["launches_sep"] = {**joint["launches_sep"], **joint["launches_sep_bwd"]}[name]
+        row["launches_server"] = server["launches"][name]
+        row["launches_noexpand"] = {**tr3["launches"], **tr3["launches_bwd"],
+                                    **tr3["launches_bf16"], **tr3["launches_soft"]}[name]
 
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(dict(
@@ -3047,6 +3343,7 @@ def main() -> int:
         backward_sites=bwd_rows + bwd_rows_2d, ragged_max_abs_err=ragged, training=training,
         training_2d=training_2d,
         one_stage=one_stage, evaluation=evaluation, joint=joint, server=server,
+        noexpand=noexpand, soft=soft,
         bf16=dict(sites=bf16_fwd, backward_sites=bf16_bwd, training=bf16_train,
                   tolerance=[BF16_FACTOR, BF16_FLOOR]),
         kernel_tolerance=[KERNEL_RTOL, KERNEL_ATOL], serve_tolerance=[SERVE_RTOL, SERVE_ATOL],
@@ -3064,6 +3361,7 @@ def main() -> int:
     print(json.dumps({"eval": evaluation, "card": card}), flush=True)
     print(json.dumps({"joint": joint, "card": card}), flush=True)
     print(json.dumps({"server": server}), flush=True)
+    print(json.dumps({"noexpand": noexpand, "soft": soft, "card": card}), flush=True)
     print(json.dumps({"bf16": dict(sites=bf16_fwd, backward_sites=bf16_bwd, training=bf16_train),
                       "card": card}), flush=True)
     print(json.dumps({"kernels": kernel_table}), flush=True)

@@ -73,7 +73,7 @@ def main(argv=None) -> dict:
     logger.info(str(cfg.to_dict()))
     gen = torch.Generator().manual_seed(cfg.seed)
     enet = IdentifierSep(cfg.cir_len, cfg.num_classes, cfg.env_dim, cfg.filters,
-                         cfg.identifier_type, generator=gen).to(device)
+                         cfg.identifier_type, cfg.env_conv_init, generator=gen).to(device)
     mnet = RegressorSep(cfg.cir_len, cfg.num_classes, cfg.regressor_type,
                         generator=gen).to(device)
     steps_per_epoch = data["cir"].shape[0] // cfg.batch_size

@@ -8,7 +8,8 @@ from the seeded initialisation, and puts the request batcher in front of it
 (runtime/batcher.py: batches of ``--serve_batch``, a partial batch flushed
 ``--deadline_ms`` after its oldest request). ``--probs`` appends the
 env-class probabilities to every result, ``--recon`` the reconstructed CIR;
-``--conv_type 2`` serves the expanded 2-D model.
+``--conv_type 2`` serves the expanded 2-D model, ``--conv_type 3`` the
+column-image one; ``--use_soft`` a soft restorer's checkpoint (its mu).
 
 With ``--socket PATH`` and/or ``--tcp_port PORT`` (0: an ephemeral port) it
 listens until Ctrl-C (SIGINT); clients speak the framed protocol

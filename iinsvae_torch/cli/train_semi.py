@@ -1,8 +1,12 @@
 """`train_semi` entry of the port: semi-supervised training of the 1-D
-IIns-VAE, or with ``--conv_type 2`` the expanded 2-D one, on the synthetic
-fixture (iinsvae_tpu/cli/train_semi.py, one process). With ``--conv_type 2
---compute_dtype bfloat16`` the CIRs, the activations and the test split are
-bfloat16 (the parameters, Adam and the checkpoints stay float32).
+IIns-VAE, or with ``--conv_type 2`` the expanded 2-D one, with ``--conv_type
+3`` the column-image one, on the synthetic fixture
+(iinsvae_tpu/cli/train_semi.py, one process). ``--use_soft`` trains the
+reparameterised restorer (its sample in the step, its mu evaluated);
+``--env_conv_init torch`` draws the env encoder's conv taps from torch's
+default (refused at conv_type 2). With ``--conv_type 2 --compute_dtype
+bfloat16`` the CIRs, the activations and the test split are bfloat16 (the
+parameters, Adam and the checkpoints stay float32).
 
 Builds the synthetic Zenodo fixture of ``--dataset_env`` (``--synthetic_n``
 CIRs, fixture v2), takes the 'full' split (the first ``--split_factor`` of

@@ -15,6 +15,9 @@ from dataclasses import asdict, dataclass
 
 import torch
 
+from iinsvae_torch.models.heads import check_restorer
+from iinsvae_torch.models.layers import check_conv_type
+
 NUM_CLASSES = {
     "nlos": 2,
     "room_full": 5,
@@ -29,6 +32,8 @@ NUM_CLASSES = {
 
 CIR_LEN = {"zenodo": 157, "ewine": 152}
 
+# the CLI's net types (iinsvae_tpu/config.py:31-33); the column-image restorer
+# (Conv2dNoExpand) is reachable from the model's constructor only, in either package
 _NET_NAMES = {"1": "Linear", "2": "Conv1d", "3": "Conv2d",
               "Linear": "Linear", "Conv1d": "Conv1d", "Conv2d": "Conv2d"}
 
@@ -38,11 +43,13 @@ class Config:
     n_residual: int = 3
     n_downsample: int = 4
     env_dim: int = 16
-    conv_type: int = 1
+    conv_type: int = 1  # 1 the 1-D model, 2 the expanded 2-D model, 3 the column image
     dim: int = 4
     range_dim: int = 2
     restorer_type: str = "Linear"
     classifier_type: str = "Linear"
+    use_soft: bool = False  # the reparameterised restorer (iinsvae_tpu/config.py:146)
+    env_conv_init: str = "reference"  # reference | torch: the env encoder's conv taps (:184)
     # the joint and separated paths (iinsvae_tpu/config.py:50-58)
     net_ablation: str = "loop"  # loop (EMNet) | loops (EMNetLoop)
     filters: int = 16
@@ -93,9 +100,9 @@ class Config:
 
     @property
     def expand(self) -> bool:
-        """conv_type 2 runs on the expanded square image (the JAX model's
-        ``expand``, iinsvae_tpu/config.py:113-115); the port's IInsVAE
-        takes it from conv_type."""
+        """The JAX model's ``expand`` (iinsvae_tpu/config.py:113-115): on for
+        conv_type 2 and 3, where conv_type 2 runs on the expanded square image
+        and 3 on the column; the port's IInsVAE takes both from conv_type."""
         return self.conv_type != 1
 
     @property
@@ -116,13 +123,14 @@ class Config:
             cir_len=self.cir_len, num_classes=self.num_classes,
             restorer_type=self.restorer_type,
             classifier_type=self.classifier_type,
+            soft=self.use_soft, env_conv_init=self.env_conv_init,
         )
 
     def joint_kwargs(self) -> dict:
         """Keyword arguments of models.emnet.EMNet / EMNetLoop."""
         return dict(cir_len=self.cir_len, num_classes=self.num_classes, env_dim=self.env_dim,
                     filters=self.filters, enet_type=self.identifier_type,
-                    mnet_type=self.regressor_type)
+                    mnet_type=self.regressor_type, env_conv_init=self.env_conv_init)
 
 
 def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
@@ -131,11 +139,17 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     a("--n_residual", type=int, default=d.n_residual)
     a("--n_downsample", type=int, default=d.n_downsample)
     a("--env_dim", type=int, default=d.env_dim)
-    a("--conv_type", type=int, default=d.conv_type)
+    a("--conv_type", type=int, default=d.conv_type,
+      help="1 Conv1d / 2 Conv2d (expand) / 3 Conv2d on the column image (NoExpand)")
     a("--dim", type=int, default=d.dim)
     a("--range_dim", type=int, default=d.range_dim)
     a("--restorer_type", type=str, default=d.restorer_type)
     a("--classifier_type", type=str, default=d.classifier_type)
+    a("--use_soft", action="store_true", default=d.use_soft,
+      help="the reparameterised restorer: (mu, logvar), a sample in training, mu served")
+    a("--env_conv_init", type=str, default=d.env_conv_init, choices=["reference", "torch"],
+      help="the env encoder's conv taps: reference N(0, 0.02) or torch's default "
+           "U(+-1/sqrt(fan_in)); torch is refused with --conv_type 2")
     a("--net_ablation", type=str, default=d.net_ablation, choices=["loop", "loops"])
     a("--filters", type=int, default=d.filters)
     a("--identifier_type", type=str, default="1", help="1 Linear / 2 Conv1d / 3 Conv2d")
@@ -173,7 +187,8 @@ def add_train_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     a("--out_dir", type=str, default=d.out_dir)
     a("--model_dir", type=str, default=d.model_dir)
     a("--compute_dtype", type=str, default=d.compute_dtype, choices=["float32", "bfloat16"],
-      help="the activations' dtype; bfloat16 takes --conv_type 2 with the Linear heads")
+      help="the activations' dtype; bfloat16 takes --conv_type 2 with the Linear heads "
+           "(and --use_soft)")
     a("--n_devices", type=int, default=d.n_devices, help="parallel training: not ported")
     a("--dist_coordinator", type=str, default=d.dist_coordinator,
       help="multi-host training: not ported")
@@ -191,8 +206,9 @@ def reject_parallel(cfg: Config) -> None:
 
 
 def reject_bf16(cfg: Config, entry: str = "train_semi") -> None:
-    """bfloat16 runs the semi path of the expanded 2-D model with the Linear heads
-    (``train_semi``, ``evaluate``): any other model or entry point raises NotImplementedError,
+    """bfloat16 runs the semi path of the expanded 2-D model (conv_type 2) with the Linear
+    heads, soft or not (``train_semi``, ``evaluate``): the 1-D and the column-image model
+    (conv_type 1, 3), the Conv heads and any other entry point raise NotImplementedError,
     before a model is built."""
     if cfg.compute_dtype != "bfloat16":
         return
@@ -204,8 +220,9 @@ def reject_bf16(cfg: Config, entry: str = "train_semi") -> None:
     if cfg.conv_type != 2:
         raise NotImplementedError(
             f"--compute_dtype bfloat16 with --conv_type {cfg.conv_type}: the port runs "
-            "bfloat16 on the expanded 2-D model (conv_type 2) only; the 1-D model's bfloat16 "
-            "kernels and conv_type 3 are later slices")
+            "bfloat16 on the expanded 2-D model (conv_type 2) only, with --use_soft or "
+            "without; the 1-D model's (conv_type 1) and the column-image model's "
+            "(conv_type 3) bfloat16 paths are later slices")
     if cfg.restorer_type != "Linear" or cfg.classifier_type != "Linear":
         raise NotImplementedError(
             "--compute_dtype bfloat16 takes the Linear heads: the Conv heads in bfloat16 are "
@@ -226,4 +243,13 @@ def from_args(args: argparse.Namespace) -> Config:
     if cfg.dataset_env not in NUM_CLASSES and cfg.dataset_name == "zenodo":
         raise ValueError(
             f"Unknown environment {cfg.dataset_env!r}; choices: {sorted(NUM_CLASSES)}")
+    check_conv_type(cfg.conv_type)
+    if cfg.env_conv_init == "torch" and cfg.conv_type == 2:
+        raise ValueError(
+            "--env_conv_init torch diverges on the conv_type=2 expanded path (NaN within the "
+            "first epochs in the JAX package, f32 and bf16, BASELINE.md round 3): its 2-D env "
+            "encoder has no normalization, so torch's default init leaves the (mu, log_sigma) "
+            "head O(1)+ and the KL blows up. Use the default --env_conv_init reference with "
+            "conv_type=2.")
+    check_restorer(cfg.conv_type, cfg.restorer_type)
     return cfg

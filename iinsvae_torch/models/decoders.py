@@ -17,7 +17,16 @@ The expanded 2-D decoder, 'fast' lowering (decoders.py:262-340):
                   output column 0 reads it
                -> tanh(7x7 reflect conv + bias) of column 0 -> pool 128 -> 157
 
-Both read ``env_code``, the (mu, log_sigma) stats, not a sample
+The column-image decoder (conv_type=3, decoders.py:361-394), on the
+(B, H, C) column, every op plain tensor ops:
+
+  (B, 8, 1, 2) -> relu(1x1 conv + bias) -> (B, 8, 64)
+               -> 3x AdaIN residual block, (3,1) reflect
+               -> 4x ((2,1) nearest upsample, (5,1) zero-padded conv + bias,
+                  LayerNorm, ReLU) -> (B, 128, 4)
+               -> tanh((7,1) reflect conv + bias) -> pool 128 -> 157
+
+All three read ``env_code``, the (mu, log_sigma) stats, not a sample
 (iinsvae_tpu/models/vae.py:82-83).
 """
 
@@ -26,7 +35,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from iinsvae_torch.models.layers import MLP, bias_uniform, conv_normal
+from iinsvae_torch.models.layers import (MLP, ColumnConv, ResidualBlock2dNoExpand,
+                                         SampleLayerNorm, bias_uniform, check_conv_type,
+                                         conv_normal)
 from iinsvae_torch.ops import subpixel
 from iinsvae_torch.ops.colgroups import on_device
 from iinsvae_torch.ops.conv import conv1d, conv2d
@@ -157,20 +168,60 @@ class Decoder2d(nn.Module):
         return y.reshape(b, h) @ pool
 
 
+class Decoder2dNoExpand(nn.Module):
+    """decoders.py:361-394; parameters named as in the flax module: ``mlp``,
+    ``Conv2d_0`` (1x1 in), ``ResidualBlock2dNoExpand_{i}`` (AdaIN; their conv
+    biases no input), ``Conv2d_{1..n}`` with ``SampleLayerNorm_{0..n-1}`` (the
+    upsample stages; the reference's asymmetric ReflectionPad2d((3,1)) of the
+    out-conv resolved to the symmetric 3 over H, as in JAX) and the (7,1)
+    out-conv last."""
+
+    def __init__(self, dim: int = 4, n_residual: int = 3, n_upsample: int = 4,
+                 in_dim: int = 157, out_dim: int = 2, style_dim: int = 8, *,
+                 generator: torch.Generator):
+        super().__init__()
+        self.n_residual, self.n_upsample, self.in_dim = n_residual, n_upsample, in_dim
+        d = self.width = dim * 2**n_upsample
+        self.mlp = MLP(style_dim, n_residual * 2 * 2 * d, generator=generator)
+        self.Conv2d_0 = ColumnConv(out_dim, d, 1, generator=generator)
+        for i in range(n_residual):
+            setattr(self, f"ResidualBlock2dNoExpand_{i}",
+                    ResidualBlock2dNoExpand(d, "adain", generator=generator))
+        for j in range(n_upsample):
+            setattr(self, f"Conv2d_{j + 1}", ColumnConv(d, d // 2, 5, padding=2,
+                                                        generator=generator))
+            setattr(self, f"SampleLayerNorm_{j}", SampleLayerNorm(d // 2, generator=generator))
+            d //= 2
+        setattr(self, f"Conv2d_{n_upsample + 1}", ColumnConv(d, 1, 7, padding=3,
+                                                             pad_mode="reflect",
+                                                             generator=generator))
+
+    def forward(self, range_code: torch.Tensor, env_code: torch.Tensor) -> torch.Tensor:
+        per_block = slice_adain_params(self.mlp(env_code), self.n_residual, self.width)
+        x = torch.relu(self.Conv2d_0(range_code[:, :, 0]))  # (B, 8, 64)
+        for i, params in enumerate(per_block):
+            x = getattr(self, f"ResidualBlock2dNoExpand_{i}")(x, params)
+        for j in range(self.n_upsample):
+            x = getattr(self, f"Conv2d_{j + 1}")(x.repeat_interleave(2, dim=1))
+            x = torch.relu(getattr(self, f"SampleLayerNorm_{j}")(x))
+        y = torch.tanh(getattr(self, f"Conv2d_{self.n_upsample + 1}")(x))  # (B, 128, 1)
+        b, h = y.shape[:2]
+        pool = adaptive_avg_pool_matrix(h, self.in_dim, device=y.device, dtype=y.dtype)
+        return y.reshape(b, h) @ pool
+
+
 class Decoder(nn.Module):
-    """Facade (decoders.py:397-431) for conv_type 1 and 2 (expanded): the
-    decoder sits at ``.decoder``; forward(range_code (B, 8, out_dim) or
-    (B, 8, 8, out_dim), env_code (B, style_dim)) -> (B, in_dim)."""
+    """Facade (decoders.py:397-437) for conv_type 1, 2 (expanded) and 3
+    (column image): the decoder sits at ``.decoder``; forward(range_code
+    (B, 8, out_dim), (B, 8, 8, out_dim) or (B, 8, 1, out_dim), env_code
+    (B, style_dim)) -> (B, in_dim)."""
 
     def __init__(self, conv_type: int = 1, dim: int = 4, n_residual: int = 3,
                  n_upsample: int = 4, in_dim: int = 157, out_dim: int = 2, style_dim: int = 8,
                  *, generator: torch.Generator):
         super().__init__()
-        decoders = {1: Decoder1d, 2: Decoder2d}
-        if conv_type not in decoders:
-            raise NotImplementedError(
-                f"conv_type={conv_type}: the port has the 1-D and the expanded 2-D decoder "
-                "(conv_type 1 and 2)")
+        check_conv_type(conv_type)
+        decoders = {1: Decoder1d, 2: Decoder2d, 3: Decoder2dNoExpand}
         self.decoder = decoders[conv_type](dim, n_residual, n_upsample, in_dim, out_dim,
                                            style_dim, generator=generator)
 

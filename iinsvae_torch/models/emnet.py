@@ -47,10 +47,11 @@ class _Pooled(nn.Module):
 class _Backbone(_Pooled):
     """emnet.py:35-56: CIR -> (range_code (B, 8, 2), env_latent (B, env_dim))."""
 
-    def __init__(self, cir_len: int, env_dim: int, *, generator: torch.Generator):
+    def __init__(self, cir_len: int, env_dim: int, env_conv_init: str = "reference", *,
+                 generator: torch.Generator):
         super().__init__(cir_len)
         self.range_encoder = RangeEncoder1d(4, 3, 4, CODE_SHAPE[-1], generator=generator)
-        self.env_encoder = EnvEncoder1d(16, 2, env_dim, generator=generator)
+        self.env_encoder = EnvEncoder1d(16, 2, env_dim, env_conv_init, generator=generator)
 
     def forward(self, cir: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         x = self.pooled(cir)
@@ -59,18 +60,20 @@ class _Backbone(_Pooled):
 
 class EMNet(nn.Module):
     """emnet.py:59-82. ``enet_type`` / ``mnet_type`` name the Classifier's and
-    the Restorer's net type ('Linear', 'Conv1d', 'Conv2d')."""
+    the Restorer's net type ('Linear', 'Conv1d', 'Conv2d'); ``env_conv_init``
+    the env encoder's conv taps ('reference' or 'torch', ``--env_conv_init``)."""
 
     loop = False
 
     def __init__(self, cir_len: int = 157, num_classes: int = 5, env_dim: int = 16,
-                 filters: int = 16, enet_type: str = "Linear", mnet_type: str = "Linear", *,
+                 filters: int = 16, enet_type: str = "Linear", mnet_type: str = "Linear",
+                 env_conv_init: str = "reference", *,
                  generator: torch.Generator | None = None):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.cir_len, self.num_classes = cir_len, num_classes
-        self.backbone = _Backbone(cir_len, env_dim, generator=generator)
+        self.backbone = _Backbone(cir_len, env_dim, env_conv_init, generator=generator)
         self.identifier = Classifier(env_dim, num_classes, filters, enet_type,
                                      generator=generator)
         if self.loop:
@@ -97,13 +100,13 @@ class IdentifierSep(_Pooled):
     """emnet.py:116-136, sep-E: cir -> (label_est, env_latent)."""
 
     def __init__(self, cir_len: int = 157, num_classes: int = 2, env_dim: int = 16,
-                 filters: int = 16, enet_type: str = "Linear", *,
-                 generator: torch.Generator | None = None):
+                 filters: int = 16, enet_type: str = "Linear", env_conv_init: str = "reference",
+                 *, generator: torch.Generator | None = None):
         super().__init__(cir_len)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.cir_len, self.num_classes = cir_len, num_classes
-        self.env_encoder = EnvEncoder1d(16, 2, env_dim, generator=generator)
+        self.env_encoder = EnvEncoder1d(16, 2, env_dim, env_conv_init, generator=generator)
         self.identifier = Classifier(env_dim, num_classes, filters, enet_type,
                                      generator=generator)
 

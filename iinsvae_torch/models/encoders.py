@@ -20,6 +20,20 @@ few distinct columns, exactly the dense field's.
                   -> relu(1x1 conv) -> (B, 8, 8, 2)
   EnvEncoder2d:   k7 reflect conv 1 -> 16, ReLU -> 2x (k4 s2 conv, ReLU)
                   -> weighted mean over (H, W) -> dense 64 -> style_dim
+
+The column-image model (conv_type=3, NoExpand) reads the CIR as a (L, 1)
+column with (k, 1) kernels (encoders.py:236-294), carried here as (B, H, C):
+
+  pool to (128, 1) (once, in the Encoder facade)
+  RangeEncoder2dNoExpand: relu(1x1 conv 1 -> 4) -> 4x ((4,1) s2 conv, IN,
+                  ReLU) -> (B, 8, 64) -> 3x residual ((3,1) reflect, IN)
+                  -> relu(1x1 conv) -> (B, 8, 1, 2)
+  EnvEncoder2dNoExpand: (7,1) zero-padded conv 1 -> 16, ReLU -> 2x ((4,1) s2
+                  conv, ReLU) -> mean over H -> 1x1 conv -> style_dim
+
+Every conv of the column model is plain tensor ops, as XLA runs it in the
+JAX package. The env encoders take ``conv_init`` ('reference' N(0, 0.02) or
+'torch', the CLI's ``--env_conv_init``) for their conv taps.
 """
 
 from __future__ import annotations
@@ -27,10 +41,13 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from iinsvae_torch.models.layers import Conv1d, ConvINAct, bias_uniform, conv_normal
+from iinsvae_torch.models.layers import (ColumnConv, Conv1d, ConvINAct, ResidualBlock2dNoExpand,
+                                         bias_uniform, check_conv_type, conv_normal,
+                                         pick_conv_init)
 from iinsvae_torch.ops import colgroups as cg
 from iinsvae_torch.ops.conv import cast_like, conv2d
 from iinsvae_torch.ops.kernels import fused, res2d
+from iinsvae_torch.ops.norms import instance_norm
 from iinsvae_torch.ops.pooling import adaptive_avg_pool_matrix
 
 POOLED_LEN = 128
@@ -70,25 +87,28 @@ class RangeEncoder1d(nn.Module):
 
 
 class EnvEncoder1d(nn.Module):
-    """encoders.py:297-324 with the reference conv init N(0, 0.02). The k7
-    reflect in-conv runs K2 conv_bias_act, the stride-2 stages K3
-    strided_conv; the mean and the 1x1 head are plain tensor ops. Takes the
-    pooled (B, 128, 1) signal."""
+    """encoders.py:297-324; ``conv_init`` gives the conv taps (the biases
+    keep torch's default either way). The k7 reflect in-conv runs K2
+    conv_bias_act, the stride-2 stages K3 strided_conv; the mean and the 1x1
+    head are plain tensor ops. Takes the pooled (B, 128, 1) signal."""
 
-    def __init__(self, dim: int = 16, n_downsample: int = 2, style_dim: int = 8, *,
-                 generator: torch.Generator):
+    def __init__(self, dim: int = 16, n_downsample: int = 2, style_dim: int = 8,
+                 conv_init: str = "reference", *, generator: torch.Generator):
         super().__init__()
-        convs = [ConvINAct(1, dim, 7, padding=3, pad_mode="reflect", generator=generator)]
+        init = pick_conv_init(conv_init)
+        convs = [ConvINAct(1, dim, 7, padding=3, pad_mode="reflect", init=init,
+                           generator=generator)]
         d = dim
         for _ in range(2):
-            convs.append(ConvINAct(d, d * 2, 4, stride=2, padding=1, generator=generator))
+            convs.append(ConvINAct(d, d * 2, 4, stride=2, padding=1, init=init,
+                                   generator=generator))
             d *= 2
         for _ in range(n_downsample - 2):
-            convs.append(ConvINAct(d, d, 4, stride=2, padding=1, generator=generator))
+            convs.append(ConvINAct(d, d, 4, stride=2, padding=1, init=init, generator=generator))
         self.n_convs = len(convs)
         for i, conv in enumerate(convs):
             setattr(self, f"ConvINAct_{i}", conv)
-        self.Conv1d_0 = Conv1d(d, style_dim, 1, generator=generator)
+        self.Conv1d_0 = Conv1d(d, style_dim, 1, init=init, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, 128, 1)
         for i in range(self.n_convs):
@@ -141,26 +161,27 @@ class RangeEncoder2d(nn.Module):
 
 
 class EnvEncoder2d(nn.Module):
-    """encoders.py:327-370, grouped lowering, reference init N(0, 0.02).
+    """encoders.py:327-370, grouped lowering; ``conv_init`` gives the conv taps.
     No norm; the global mean weights each group by its column count, and
     the 1x1 head on the (B, 64) mean is a dense layer. Takes the pooled
     one-group (B, 128, 1, 1) field."""
 
-    def __init__(self, dim: int = 16, n_downsample: int = 2, style_dim: int = 8, *,
-                 generator: torch.Generator):
+    def __init__(self, dim: int = 16, n_downsample: int = 2, style_dim: int = 8,
+                 conv_init: str = "reference", *, generator: torch.Generator):
         super().__init__()
+        init = pick_conv_init(conv_init)
         dims, d = [], dim
         for _ in range(2):
             dims.append((d, d * 2))
             d *= 2
         dims += [(d, d)] * (n_downsample - 2)
         self.n_down = len(dims)
-        self.in_kernel = conv_normal((7, 7, 1, dim), generator)
+        self.in_kernel = init((7, 7, 1, dim), generator)
         self.in_bias = bias_uniform((dim,), 49, generator)
         for j, (di, do) in enumerate(dims):
-            setattr(self, f"down{j}_kernel", conv_normal((4, 4, di, do), generator))
+            setattr(self, f"down{j}_kernel", init((4, 4, di, do), generator))
             setattr(self, f"down{j}_bias", bias_uniform((do,), di * 16, generator))
-        self.out_kernel = conv_normal((1, 1, d, style_dim), generator)
+        self.out_kernel = init((1, 1, d, style_dim), generator)
         self.out_bias = bias_uniform((style_dim,), d, generator)
 
     def forward(self, x: cg.GroupedField) -> torch.Tensor:
@@ -172,6 +193,68 @@ class EnvEncoder2d(nn.Module):
                                                   padding=1))
         pooled = cg.global_mean_grouped(x)
         return pooled @ cast_like(self.out_kernel[0, 0], pooled) + cast_like(self.out_bias, pooled)
+
+
+class RangeEncoder2dNoExpand(nn.Module):
+    """encoders.py:236-257 on the pooled (B, 128, 1) column; the convs at
+    ``Conv2d_0`` (1x1 in), ``Conv2d_1..n`` ((4,1) stride-2, each before an
+    IN), ``ResidualBlock2dNoExpand_{i}`` and the 1x1 out-conv last, as flax
+    names them. Every conv bias before a norm is no input (``norm_follows``):
+    its gradient is exactly 0. -> (B, 8, 1, out_dim)."""
+
+    def __init__(self, dim: int = 4, n_residual: int = 3, n_downsample: int = 4,
+                 out_dim: int = 2, *, generator: torch.Generator):
+        super().__init__()
+        self.n_downsample, self.n_residual = n_downsample, n_residual
+        self.Conv2d_0 = ColumnConv(1, dim, 1, generator=generator)
+        d = dim
+        for j in range(n_downsample):
+            setattr(self, f"Conv2d_{j + 1}", ColumnConv(d, d * 2, 4, stride=2, padding=1,
+                                                        norm_follows=True, generator=generator))
+            d *= 2
+        for i in range(n_residual):
+            setattr(self, f"ResidualBlock2dNoExpand_{i}",
+                    ResidualBlock2dNoExpand(d, "in", generator=generator))
+        setattr(self, f"Conv2d_{n_downsample + 1}", ColumnConv(d, out_dim, 1, generator=generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, 128, 1)
+        x = torch.relu(self.Conv2d_0(x))  # no norm (reference models.py:228-233)
+        for j in range(self.n_downsample):
+            x = torch.relu(instance_norm(getattr(self, f"Conv2d_{j + 1}")(x)))
+        for i in range(self.n_residual):
+            x = getattr(self, f"ResidualBlock2dNoExpand_{i}")(x)
+        x = torch.relu(getattr(self, f"Conv2d_{self.n_downsample + 1}")(x))
+        return x.unsqueeze(2)  # (B, 8, 1, out_dim)
+
+
+class EnvEncoder2dNoExpand(nn.Module):
+    """encoders.py:260-294 on the pooled (B, 128, 1) column: the (7,1) in-conv
+    zero-padded (PARITY.md resolves the reference's ReflectionPad2d(3) on a
+    width-1 field that way), (4,1) stride-2 convs, ReLU, the mean over H and
+    a 1x1 head; ``conv_init`` gives every conv's taps."""
+
+    def __init__(self, dim: int = 16, n_downsample: int = 2, style_dim: int = 8,
+                 conv_init: str = "reference", *, generator: torch.Generator):
+        super().__init__()
+        init = pick_conv_init(conv_init)
+        convs = [ColumnConv(1, dim, 7, padding=3, init=init, generator=generator)]
+        d = dim
+        for _ in range(2):
+            convs.append(ColumnConv(d, d * 2, 4, stride=2, padding=1, init=init,
+                                    generator=generator))
+            d *= 2
+        for _ in range(n_downsample - 2):
+            convs.append(ColumnConv(d, d, 4, stride=2, padding=1, init=init, generator=generator))
+        convs.append(ColumnConv(d, style_dim, 1, init=init, generator=generator))
+        self.n_convs = len(convs)
+        for i, conv in enumerate(convs):
+            setattr(self, f"Conv2d_{i}", conv)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, 128, 1)
+        for i in range(self.n_convs - 1):
+            x = torch.relu(getattr(self, f"Conv2d_{i}")(x))
+        cat = getattr(self, f"Conv2d_{self.n_convs - 1}")(x.mean(dim=1, keepdim=True))
+        return cat.reshape(cat.shape[0], -1)  # (B, style_dim)
 
 
 def split_env_stats(cat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -186,32 +269,37 @@ def env_kl(mu: torch.Tensor, log_sigma: torch.Tensor) -> torch.Tensor:
     return kl.mean()
 
 
+ENCODERS = {1: (RangeEncoder1d, EnvEncoder1d), 2: (RangeEncoder2d, EnvEncoder2d),
+            3: (RangeEncoder2dNoExpand, EnvEncoder2dNoExpand)}
+
+
 class Encoder(nn.Module):
-    """Facade of encoders.py:400-477 for conv_type 1 and 2 (expanded).
+    """Facade of encoders.py:400-477 for conv_type 1, 2 (expanded) and 3
+    (column image).
 
     forward(cir (B, L)) -> (range_code (B, 8, out_dim) for conv_type 1,
-    (B, 8, 8, out_dim) for 2; env_code (B, style_dim) = (mu, log_sigma)).
-    The CIR is pooled to 128 taps once and both encoders read it: conv_type
-    2 reads it as the constant field of width 128, which is the adaptive
-    pool of the (L, L) expanded image to (128, 128) (colgroups.
-    pool_constant_field; encoders.py:449-450). Serving reads no KL, so the
-    forward computes none: ``env_kl(*split_env_stats(env_code))`` gives it
-    where it is read."""
+    (B, 8, 8, out_dim) for 2, (B, 8, 1, out_dim) for 3; env_code (B,
+    style_dim) = (mu, log_sigma)). The CIR is pooled to 128 taps once and
+    both encoders read it: conv_type 2 reads it as the constant field of
+    width 128, which is the adaptive pool of the (L, L) expanded image to
+    (128, 128) (colgroups.pool_constant_field; encoders.py:449-450), and
+    conv_type 3 as the column, the (L, 1) image pooled to (128, 1)
+    (encoders.py:249, :281). Serving reads no KL, so the forward computes
+    none: ``env_kl(*split_env_stats(env_code))`` gives it where it is read.
+    ``env_conv_init`` gives the env encoder's conv taps."""
 
     def __init__(self, conv_type: int = 1, dim: int = 4, n_residual: int = 3,
                  n_downsample: int = 4, style_dim: int = 8, out_dim: int = 2,
-                 cir_len: int = 157, *, generator: torch.Generator):
+                 cir_len: int = 157, env_conv_init: str = "reference", *,
+                 generator: torch.Generator):
         super().__init__()
-        encoders = {1: (RangeEncoder1d, EnvEncoder1d), 2: (RangeEncoder2d, EnvEncoder2d)}
-        if conv_type not in encoders:
-            raise NotImplementedError(
-                f"conv_type={conv_type}: the port has the 1-D model (conv_type=1) and the "
-                "expanded 2-D model (conv_type=2); conv_type 3 is a later slice")
+        check_conv_type(conv_type)
         self.conv_type = conv_type
-        range_cls, env_cls = encoders[conv_type]
+        range_cls, env_cls = ENCODERS[conv_type]
         self.range_encoder = range_cls(dim, n_residual, n_downsample, out_dim,
                                        generator=generator)
-        self.env_encoder = env_cls(dim * 4, n_downsample - 2, style_dim, generator=generator)
+        self.env_encoder = env_cls(dim * 4, n_downsample - 2, style_dim, env_conv_init,
+                                   generator=generator)
         self.register_buffer("pool", adaptive_avg_pool_matrix(cir_len, POOLED_LEN),
                              persistent=False)
 

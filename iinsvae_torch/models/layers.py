@@ -1,10 +1,12 @@
-"""Initialisers, ConvINAct, Conv1d, Conv2d, Dense, the decoder's MLP, and
-the Conv heads' BatchNormEps and Dropout.
+"""Initialisers, ConvINAct, Conv1d, Conv2d, ColumnConv, Dense, the decoder's MLP,
+SampleLayerNorm, the column-image residual block, and the Conv heads'
+BatchNormEps and Dropout.
 
-Initialisation mirrors iinsvae_tpu/models/layers.py:21-31 in distribution
+Initialisation mirrors iinsvae_tpu/models/layers.py:21-55 in distribution
 (not in values: torch.Generator and jax.random give different streams):
 conv taps ~ N(0, 0.02) (the reference's weights_init_normal), biases and
-Dense weights ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (torch's default).
+Dense weights ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (torch's default); the
+env encoders' conv taps optionally torch's default too (``pick_conv_init``).
 Parameters are float32; a layer casts them to its input's dtype at use
 (ops.conv.cast_like), so a bfloat16 input runs the layer in bfloat16.
 """
@@ -19,6 +21,16 @@ from torch import nn
 
 from iinsvae_torch.ops.conv import cast_like, conv1d, conv2d
 from iinsvae_torch.ops.kernels import fused, strided_conv
+from iinsvae_torch.ops.norms import adain, instance_norm, sample_layer_norm
+
+
+def check_conv_type(conv_type: int) -> None:
+    """``conv_type`` 1, 2 or 3 (the 1-D, the expanded 2-D and the column-image model); any
+    other raises ValueError. (The JAX Encoder and Decoder run any other value as the
+    column-image model.)"""
+    if conv_type not in (1, 2, 3):
+        raise ValueError(f"conv_type must be 1 (1-D), 2 (expanded 2-D) or 3 (column image, "
+                         f"NoExpand), got {conv_type!r}")
 
 
 def conv_normal(shape, generator: torch.Generator, std: float = 0.02) -> nn.Parameter:
@@ -31,6 +43,28 @@ def bias_uniform(shape, fan_in: int, generator: torch.Generator) -> nn.Parameter
     return nn.Parameter((2.0 * u - 1.0) * bound)
 
 
+def conv_torch(shape, generator: torch.Generator) -> nn.Parameter:
+    """torch's Conv default U(+-1/sqrt(fan_in)), fan_in every axis of the taps but the
+    last (JAX layers.py:34-49). For taps of 16 values or more ``torch.rand`` takes as much
+    of the generator's stream as ``torch.randn``, so a model's other parameters come out
+    the same under either init."""
+    fan_in = 1
+    for n in shape[:-1]:
+        fan_in *= int(n)
+    return bias_uniform(shape, fan_in, generator)
+
+
+CONV_INITS = ("reference", "torch")
+
+
+def pick_conv_init(name: str):
+    """'reference' -> N(0, 0.02) (weights_init_normal); 'torch' -> torch's Conv default
+    U(+-1/sqrt(fan_in)) (JAX layers.py:52-55)."""
+    if name not in CONV_INITS:
+        raise ValueError(f"conv init must be one of {CONV_INITS}, got {name!r}")
+    return conv_normal if name == "reference" else conv_torch
+
+
 class ConvINAct(nn.Module):
     """The norm-free ConvINAct of the env encoder: Conv1d + bias + ReLU in
     one launch (JAX layers.py:126-220 with norm='none', act='relu').
@@ -41,10 +75,11 @@ class ConvINAct(nn.Module):
     in_chain directly, as the JAX RangeEncoder1d holds their taps itself.)"""
 
     def __init__(self, c_in: int, features: int, kernel_size: int, *, stride: int = 1,
-                 padding: int = 0, pad_mode: str = "zero", generator: torch.Generator):
+                 padding: int = 0, pad_mode: str = "zero", init=conv_normal,
+                 generator: torch.Generator):
         super().__init__()
         self.stride, self.padding, self.pad_mode = stride, padding, pad_mode
-        self.kernel = conv_normal((kernel_size, c_in, features), generator)
+        self.kernel = init((kernel_size, c_in, features), generator)
         self.bias = bias_uniform((features,), c_in * kernel_size, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -60,10 +95,10 @@ class Conv1d(nn.Module):
     tensor ops (the JAX package runs them outside any Pallas kernel too)."""
 
     def __init__(self, c_in: int, features: int, kernel_size: int, *, stride: int = 1,
-                 padding: int = 0, generator: torch.Generator):
+                 padding: int = 0, init=conv_normal, generator: torch.Generator):
         super().__init__()
         self.stride, self.padding = stride, padding
-        self.kernel = conv_normal((kernel_size, c_in, features), generator)
+        self.kernel = init((kernel_size, c_in, features), generator)
         self.bias = bias_uniform((features,), c_in * kernel_size, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -84,6 +119,68 @@ class Conv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv2d(x, self.kernel, self.bias, stride=self.stride, padding=self.padding)
+
+
+class ColumnConv(nn.Module):
+    """The flax Conv2d of the column-image model (conv_type 3): a (k, 1) kernel, stride
+    (s, 1) and padding ((p, p), (0, 0)) on a (B, H, 1, C) column (JAX layers.py:98-123).
+    Parameters as flax names them: ``kernel`` (k, 1, C_in, C_out), ``bias`` (C_out,)
+    U(+-1/sqrt(C_in * k)). The port carries the column as (B, H, C), its width 1 dropped,
+    so the conv is a conv1d over H: plain tensor ops, as XLA runs it in the JAX package.
+    ``norm_follows``: an InstanceNorm or AdaIN follows the conv and removes its bias, so
+    the bias is no input of the forward and its gradient is exactly 0 (JAX adds it and
+    its gradient is rounding noise)."""
+
+    def __init__(self, c_in: int, features: int, kernel_size: int, *, stride: int = 1,
+                 padding: int = 0, pad_mode: str = "zero", norm_follows: bool = False,
+                 init=conv_normal, generator: torch.Generator):
+        super().__init__()
+        self.stride, self.padding, self.pad_mode = stride, padding, pad_mode
+        self.norm_follows = norm_follows
+        self.kernel = init((kernel_size, 1, c_in, features), generator)
+        self.bias = bias_uniform((features,), c_in * kernel_size, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, H, C_in) -> (B, H_out, C_out)
+        return conv1d(x, self.kernel[:, 0], None if self.norm_follows else self.bias,
+                      stride=self.stride, padding=self.padding, pad_mode=self.pad_mode)
+
+
+class ResidualBlock2dNoExpand(nn.Module):
+    """The column-image residual block (JAX layers.py:362-385): x + norm(conv(relu(
+    norm(conv(x))))), each conv (3, 1) with reflect padding 1 over H, each norm
+    InstanceNorm or AdaIN with a per-sample (gamma, beta) (B, C). The convs sit at
+    ``Conv2d_0`` / ``Conv2d_1`` as in flax; their biases are no input (``norm_follows``).
+    Plain tensor ops on the (B, H, C) column."""
+
+    def __init__(self, features: int, norm: str = "in", *, generator: torch.Generator):
+        super().__init__()
+        if norm not in ("in", "adain"):
+            raise ValueError(f"norm must be 'in' or 'adain', got {norm!r}")
+        self.norm = norm
+        for i in range(2):
+            setattr(self, f"Conv2d_{i}", ColumnConv(features, features, 3, padding=1,
+                                                    pad_mode="reflect", norm_follows=True,
+                                                    generator=generator))
+
+    def _norm(self, y: torch.Tensor, params) -> torch.Tensor:
+        return instance_norm(y) if self.norm == "in" else adain(y, *params)
+
+    def forward(self, x: torch.Tensor, adain_params=(None, None)) -> torch.Tensor:
+        y = torch.relu(self._norm(self.Conv2d_0(x), adain_params[0]))
+        return x + self._norm(self.Conv2d_1(y), adain_params[1])
+
+
+class SampleLayerNorm(nn.Module):
+    """The reference's per-sample LayerNorm as a module (JAX layers.py:261-271): ``gamma``
+    ~ U(0, 1), ``beta`` 0, per channel."""
+
+    def __init__(self, c: int, *, generator: torch.Generator):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.rand((c,), generator=generator))
+        self.beta = nn.Parameter(torch.zeros(c))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return sample_layer_norm(x, self.gamma, self.beta)
 
 
 class Dense(nn.Module):

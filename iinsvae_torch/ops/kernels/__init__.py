@@ -27,7 +27,9 @@ K4, K7 and their backward K4b, K7b also have bfloat16 instances, the 2-D
 model's kernels under ``--compute_dtype bfloat16`` (K4's and K4b's kernels
 templated on the storage type in csrc/mlp_chain.cu and mlp_chain_bwd.cu;
 csrc/res_block_2d_bf16.cu, res_block_2d_bf16_bwd.cu), counted apart in
-``<wrapper>.launches_bf16`` (bf16_launch_counts).
+``<wrapper>.launches_bf16`` (bf16_launch_counts). Of K4's and K4b's launches, those at the
+soft restorer (the cluster kernel's widths with a last width of 2) are also counted in
+``fused.SOFT_LAUNCHES`` (soft_launch_counts).
 """
 
 from iinsvae_torch.ops.kernels import backward, fused, res2d, strided_conv
@@ -46,11 +48,19 @@ def reset_launch_counts() -> None:
         w.launches = 0
     for w in BF16:
         w.launches_bf16 = 0
+    for k in fused.SOFT_LAUNCHES:
+        fused.SOFT_LAUNCHES[k] = 0
 
 
 def bf16_launch_counts() -> dict[str, int]:
     """The bfloat16 instances' launches (forward and backward) by wrapper."""
     return {w.__name__: w.launches_bf16 for w in BF16}
+
+
+def soft_launch_counts() -> dict[str, int]:
+    """K4's and K4b's launches at the soft restorer, fp32 as ``<wrapper>_soft`` and bfloat16
+    as ``<wrapper>_bf16_soft`` (forward and backward)."""
+    return dict(fused.SOFT_LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:

@@ -514,6 +514,8 @@ def mlp_chain_bwd(g: torch.Tensor, x: torch.Tensor, ws: Sequence[torch.Tensor],
         mlp_chain_bwd.launches_bf16 += 1
     else:
         mlp_chain_bwd.launches += 1
+    if fused.takes_mlp_cluster(dims) and dims[-1] == 2:  # the soft restorer's widths
+        fused.count_soft("mlp_chain_bwd", bf16)
     views = _split(dwb, shapes)
     return dx, [d[:-1] for d in views], [d[-1] for d in views]
 

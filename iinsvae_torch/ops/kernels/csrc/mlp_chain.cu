@@ -32,7 +32,8 @@
 // calls: its 125 blocks each read every weight from L2 once for 4 samples,
 // 103 MB (1-D) and 132 MB (2-D) a call, a 32 KB tile at a time in series.
 // The restorers, D0 -> 512 -> 256 -> 256 -> 1 (D0 = 16 or 128, a multiple of
-// 16 up to 128), run mlp_cluster_kernel below instead:
+// 16 up to 128), and the soft restorers, whose last layer gives 2 outputs (mu,
+// logvar), run mlp_cluster_kernel below instead:
 // - A cluster of 8 blocks owns a tile of 12, 24 or 36 samples (the least
 //   with which the clusters the card holds at once, 15 on the H100, take
 //   the batch in one round), and each block an eighth of every layer's
@@ -47,7 +48,8 @@
 //   products take each block's rows as they land, the block's own first.
 // - Layer 0 of the 1-D restorer (16 inputs) runs whole in every block (0.3
 //   MFLOP a block): that costs less than the exchange it saves.
-// - The 256 -> 1 layer is a partial dot product in each block, summed by
+// - The 256 -> 1 (or 2) layer is a partial dot product in each block (two
+//   for the soft restorer, the last width a template parameter), summed by
 //   rank 0 in rank order.
 // - The products are fp32 FMAs in register tiles of 12 samples x 8 columns
 //   (96 FMAs for 5 16-byte shared loads), 8 lanes a tile over interleaved
@@ -267,7 +269,8 @@ namespace cg = cooperative_groups;
 
 constexpr int kCluster = 8;
 constexpr int kThreads = 384;  // 12 warps, 3 an SM sub-partition
-constexpr int kD1 = 512, kD2 = 256, kD3 = 256;  // the restorers' widths after D0; the last is 1
+constexpr int kD1 = 512, kD2 = 256, kD3 = 256;  // the restorers' widths after D0, then D4
+constexpr int kMaxD4 = 2;  // the last width D4, a template parameter: 1, or 2 (mu, logvar)
 constexpr int kN0 = kD1 / kCluster, kN1 = kD2 / kCluster, kN2 = kD3 / kCluster;  // columns a block
 constexpr int kMaxD0 = 128, kMaxS = 36;  // tiles of 12, 24 or 36 samples
 constexpr int kTs = 12, kTc = 8, kLanes = 8;  // a thread's samples, columns, lanes a tile
@@ -282,24 +285,26 @@ struct Args {
   int d0;
 };
 
-// Shared memory, in floats: the block's weight slices W1 (512, 32) and W2 (256, 32) in rows of
-// 36 floats, W3's 32 rows and its biases (b0's 64, or all 512 where every block runs layer 0;
-// b1's and b2's 32; b3); the layer input A (k, S)
+// Shared memory, in floats (the same for either last width D4): the block's weight slices W1
+// (512, 32) and W2 (256, 32) in rows of 36 floats, W3's 32 rows of D4 (room for kMaxD4) and its
+// biases (b0's 64, or all 512 where every block runs layer 0; b1's and b2's 32; b3's D4); the
+// layer input A (k, S)
 // in rows of as(S) floats: x with W0's slice (D0, 64) behind it in rows of 68 (both dead once
 // layer 0's products are done, staged again for a cluster's next tile), then each layer's
 // output, every block's columns at its rank's rows; the split products' partial sums P (part,
 // column, sample); this block's outputs of layers 0 and 1 (64, as(S)) and (32, as(S)), which
-// bulk copies take to every block's A; the 256 -> 1 layer's partial sums of every block (rank,
-// S), read by rank 0; an mbarrier for each layer 0 and 1 and each other block, on which that
+// bulk copies take to every block's A; the 256 -> D4 layer's partial sums of every block (rank,
+// D4, S; room for kMaxD4), read by rank 0; an mbarrier for each layer 0 and 1 and each other block, on which that
 // block's copy of its outputs into A completes, one for x's copy (the tile's x lands in P,
 // row-major, and is placed k-major from there).
 // Rows of W and A are 4 banks apart (a row length of 4 mod 8 floats), so that the 8 lanes that
 // read 8 consecutive rows at the same column read distinct banks.
-constexpr int kBias = kD1 + kN1 + kN2 + 4;  // b0 (all of it, or this block's 64), b1, b2, b3
+constexpr int kBias = kD1 + kN1 + kN2 + 4;  // b0 (all of it, or this block's 64), b1, b2, b3 (D4)
 __host__ __device__ constexpr int ld(int n) { return n + 4; }
 __host__ __device__ constexpr int as(int s) { return s % 8 ? s : s + 4; }
 __host__ __device__ constexpr int max_of(int a, int b) { return a > b ? a : b; }
-constexpr int kW2 = kD1 * ld(kN1), kW3 = kW2 + kD2 * ld(kN2), kB = kW3 + kN2, kA = kB + kBias;
+constexpr int kW2 = kD1 * ld(kN1), kW3 = kW2 + kD2 * ld(kN2), kB = kW3 + kN2 * kMaxD4;
+constexpr int kA = kB + kBias;
 __host__ __device__ constexpr int a_floats(int d0, int s) {
   return max_of(kD1 * as(s), d0 * (as(s) + ld(kN0)));
 }
@@ -308,7 +313,9 @@ __host__ __device__ constexpr int o_off(int d0, int s) { return p_off(d0, s) + k
 __host__ __device__ constexpr int p3_off(int d0, int s) {
   return o_off(d0, s) + (kN0 + kN1) * as(s);
 }
-__host__ __device__ constexpr int bar_off(int d0, int s) { return p3_off(d0, s) + kCluster * s; }
+__host__ __device__ constexpr int bar_off(int d0, int s) {
+  return p3_off(d0, s) + kCluster * kMaxD4 * s;
+}
 __host__ __device__ constexpr int smem_floats(int d0, int s) {
   return bar_off(d0, s) + 4 * kCluster + 4;  // 17 mbarriers and room for an 18th
 }
@@ -577,11 +584,13 @@ __device__ __forceinline__ void exchange(float* a, float* p, float* o, const flo
 
 // Cluster c walks tiles c, c + clusters, ... of s_tile samples; block rank r of the cluster
 // owns columns [r N_j, (r + 1) N_j) of layers 0-2 and rows [r N_2, (r + 1) N_2) of the last
-// layer's weight. T: the storage type of x, y, the weights, the biases and the d_j.
-template <class T>
+// layer's weight (256, D4). T: the storage type of x, y, the weights, the biases and the d_j;
+// D4: the last width, 1 or 2.
+template <class T, int D4>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
 mlp_cluster_kernel(const T* __restrict__ x, T* __restrict__ y, int batch, int s_tile,
                    int n_tiles, Args<T> a) {
+  static_assert(D4 >= 1 && D4 <= kMaxD4, "the last width is 1 or 2");
   extern __shared__ __align__(16) float sm[];
   cg::cluster_group cl = cg::this_cluster();
   const int rank = static_cast<int>(cl.block_rank());
@@ -610,11 +619,11 @@ mlp_cluster_kernel(const T* __restrict__ x, T* __restrict__ y, int batch, int s_
   float* x_at = all0 ? xw : act;  // x (D0, S), then W0 behind it
   fetch_x(p, x, d0, tile * s_tile, min(s_tile, batch - tile * s_tile), xbar);
   stage_w0(x_at + d0 * sa, all0 ? a.w[0] : w0, d0, all0);
-  stage_rows(sm + kW3, a.w[3] + rank * kN2, 1, kN2, 0, 0);
+  stage_rows(sm + kW3, a.w[3] + rank * kN2 * D4, 1, kN2 * D4, 0, 0);
   stage_rows(sm + kB, a.b[0] + (all0 ? 0 : rank * kN0), 1, all0 ? kD1 : kN0, 0, 0);
   stage_rows(sm + kB + kD1, a.b[1] + rank * kN1, 1, kN1, 0, 0);
   stage_rows(sm + kB + kD1 + kN1, a.b[2] + rank * kN2, 1, kN2, 0, 0);
-  if (threadIdx.x == 0) stage_one(sm + kB + kD1 + kN1 + kN2, a.b[3]);
+  if (threadIdx.x < D4) stage_one(sm + kB + kD1 + kN1 + kN2 + threadIdx.x, a.b[3] + threadIdx.x);
   cp_async_wait_all();
   stage_rows(sm, a.w[1] + rank * kN1, kD1, kN1, kD2, ld(kN1));
   cp_async_commit();
@@ -654,8 +663,8 @@ mlp_cluster_kernel(const T* __restrict__ x, T* __restrict__ y, int batch, int s_
     }
     exchange<0>(act, p, o + kN0 * sa, bias + kD1, kN1, s_tile, a.slope[1], a.d[1], kD2, rank,
                 row0, ns, bars + kCluster, first || all0);
-    // layer 2: (256, S) -> this block's columns (32, S), then layer 3: its rows of the dot
-    // product, into rank 0's partial sums, which rank 0 sums in rank order
+    // layer 2: (256, S) -> this block's columns (32, S), then layer 3: its rows of the D4 dot
+    // products, into rank 0's partial sums, which rank 0 sums in rank order
     products(act, sm + kW2, p, kD2, kN2, s_tile, bars + kCluster, parity, rank);
     __syncthreads();
     finish(p, act, nullptr, kN2, s_tile, bias + kD1 + kN1, a.slope[2], a.d[2], kD3, rank * kN2,
@@ -663,44 +672,54 @@ mlp_cluster_kernel(const T* __restrict__ x, T* __restrict__ y, int batch, int s_
     __syncthreads();
     if (static_cast<int>(threadIdx.x) < kLanes * s_tile) {  // 8 lanes a sample, 4 rows each
       const int s3 = threadIdx.x / kLanes, j = threadIdx.x % kLanes;
-      const float* w3 = sm + kW3 + 4 * j;
+      const float* w3 = sm + kW3 + 4 * j * D4;
       const float* x3 = act + 4 * j * sa + s3;
-      float v = 0.f;
+      float v[D4] = {};
 #pragma unroll
-      for (int c = 0; c < 4; ++c) v = fmaf(x3[c * sa], w3[c], v);
-      v += __shfl_xor_sync(0xffffffffu, v, 4);
-      v += __shfl_xor_sync(0xffffffffu, v, 2);
-      v += __shfl_xor_sync(0xffffffffu, v, 1);
-      if (j == 0) cl.map_shared_rank(p3, 0)[rank * s_tile + s3] = v;
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int q = 0; q < D4; ++q) v[q] = fmaf(x3[c * sa], w3[c * D4 + q], v[q]);
+#pragma unroll
+      for (int q = 0; q < D4; ++q) {
+        v[q] += __shfl_xor_sync(0xffffffffu, v[q], 4);
+        v[q] += __shfl_xor_sync(0xffffffffu, v[q], 2);
+        v[q] += __shfl_xor_sync(0xffffffffu, v[q], 1);
+        if (j == 0) cl.map_shared_rank(p3, 0)[(rank * D4 + q) * s_tile + s3] = v[q];
+      }
     }
     if (threadIdx.x >= 32) cluster_wait();  // the last exchange's barrier, long complete
     cl.sync();  // rank 0 holds every block's partial sums; every copy of this tile is done
     if (rank == 0 && static_cast<int>(threadIdx.x) < ns) {
-      float v = 0.f;
+      const size_t row = static_cast<size_t>(row0 + threadIdx.x) * D4;
 #pragma unroll
-      for (int r = 0; r < kCluster; ++r) v += p3[r * s_tile + threadIdx.x];
-      const float d = v + bias[kD1 + kN1 + kN2];
-      if (a.d[3]) a.d[3][row0 + threadIdx.x] = from_f32<T>(d);
-      y[row0 + threadIdx.x] = from_f32<T>(d > 0.f ? d : a.slope[3] * d);
+      for (int q = 0; q < D4; ++q) {
+        float v = 0.f;
+#pragma unroll
+        for (int r = 0; r < kCluster; ++r) v += p3[(r * D4 + q) * s_tile + threadIdx.x];
+        const float d = v + bias[kD1 + kN1 + kN2 + q];
+        if (a.d[3]) a.d[3][row + q] = from_f32<T>(d);
+        y[row + q] = from_f32<T>(d > 0.f ? d : a.slope[3] * d);
+      }
     }
   }
 }
 
-int smem_set[2] = {0, 0};  // the float32 and bfloat16 instances'
+int smem_set[2][kMaxD4] = {};  // the float32 and bfloat16 instances', each last width's
 
-// The clusters of blocks of `smem` bytes that the card holds at once (the float32 instance's;
-// the bfloat16 one takes the same shared memory).
+// The clusters of blocks of `smem` bytes that the card holds at once (the float32 instance's of
+// last width 1; the others take the same shared memory).
 int slots(int smem, int* out) {
-  int err = allow_smem(mlp_cluster_kernel<float>, smem, &smem_set[0]);
+  int err = allow_smem(mlp_cluster_kernel<float, 1>, smem, &smem_set[0][0]);
   if (err) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(kCluster * 64);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
-  return static_cast<int>(cudaOccupancyMaxActiveClusters(out, mlp_cluster_kernel<float>, &cfg));
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(out, mlp_cluster_kernel<float, 1>, &cfg));
 }
 
-template <class T>
+template <class T, int D4>
 int launch(const T* x, T* y, int batch, const Args<T>& a, int s_tile, int clusters, int smem,
            void* stream) {
   const int n_tiles = batch > 0 ? (batch + s_tile - 1) / s_tile : 0;
@@ -713,11 +732,12 @@ int launch(const T* x, T* y, int batch, const Args<T>& a, int s_tile, int cluste
     if (reinterpret_cast<std::uintptr_t>(a.w[j]) % 16 ||
         (j < 3 && reinterpret_cast<std::uintptr_t>(a.b[j]) % 16))
       return cudaErrorInvalidValue;
-  const int err =
-      allow_smem(mlp_cluster_kernel<T>, smem, &smem_set[std::is_same<T, bf16>::value]);
+  const int err = allow_smem(mlp_cluster_kernel<T, D4>, smem,
+                             &smem_set[std::is_same<T, bf16>::value][D4 - 1]);
   if (err) return err;
-  mlp_cluster_kernel<T><<<clusters * kCluster, kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(x, y, batch, s_tile, n_tiles, a);
+  mlp_cluster_kernel<T, D4><<<clusters * kCluster, kThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(x, y, batch, s_tile, n_tiles,
+                                                                   a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -960,7 +980,7 @@ ChainArgs<T> chain_args(int n_layers, const void* const* ws, const void* const* 
 }
 
 template <class T>
-int launch_cluster(const void* x, void* y, int batch, int d0, const void* const* ws,
+int launch_cluster(const void* x, void* y, int batch, int d0, int d4, const void* const* ws,
                    const void* const* bs, const float* slopes, void* const* ds, int tile,
                    int clusters, int smem, void* stream) {
   cluster::Args<T> a{};
@@ -971,8 +991,11 @@ int launch_cluster(const void* x, void* y, int batch, int d0, const void* const*
     a.slope[j] = slopes[j];
     a.d[j] = ds ? static_cast<T*>(ds[j]) : nullptr;
   }
-  return cluster::launch(static_cast<const T*>(x), static_cast<T*>(y), batch, a, tile, clusters,
-                         smem, stream);
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+  if (d4 == 1) return cluster::launch<T, 1>(xt, yt, batch, a, tile, clusters, smem, stream);
+  if (d4 == 2) return cluster::launch<T, 2>(xt, yt, batch, a, tile, clusters, smem, stream);
+  return cudaErrorInvalidValue;
 }
 
 template <class T>
@@ -1012,22 +1035,25 @@ int iins_mlp_chain(const float* x, float* y, int batch, int n_layers, const void
   return static_cast<int>(cudaGetLastError());
 }
 
-// K4 on the restorers' path (namespace cluster): x (B, d0) -> y (B, 1) through d0 -> 512 -> 256
-// -> 256 -> 1; ws, bs, slopes, ds as for iins_mlp_chain (4 layers). tile (12, 24 or 36 samples),
-// clusters (1 .. ceil(B / tile)) and smem (a block's dynamic shared memory) as
-// fused.mlp_cluster_plan gives them; the launch refuses any other.
-int iins_mlp_cluster(const float* x, float* y, int batch, int d0, const void* const* ws,
+// K4 on the restorers' path (namespace cluster): x (B, d0) -> y (B, d4) through d0 -> 512 -> 256
+// -> 256 -> d4, d4 1 or 2 (the soft restorer's mu, logvar); ws, bs, slopes, ds as for
+// iins_mlp_chain (4 layers). tile (12, 24 or 36 samples), clusters (1 .. ceil(B / tile)) and smem
+// (a block's dynamic shared memory) as fused.mlp_cluster_plan gives them; the launch refuses any
+// other.
+int iins_mlp_cluster(const float* x, float* y, int batch, int d0, int d4, const void* const* ws,
                      const void* const* bs, const float* slopes, void* const* ds, int tile,
                      int clusters, int smem, void* stream) {
-  return launch_cluster<float>(x, y, batch, d0, ws, bs, slopes, ds, tile, clusters, smem, stream);
+  return launch_cluster<float>(x, y, batch, d0, d4, ws, bs, slopes, ds, tile, clusters, smem,
+                               stream);
 }
 
 // The same, the bfloat16 instance: x, y, the weights, the biases and ds bfloat16; the plan
 // (tile, clusters, smem) that of float32.
-int iins_mlp_cluster_bf16(const void* x, void* y, int batch, int d0, const void* const* ws,
-                          const void* const* bs, const float* slopes, void* const* ds, int tile,
-                          int clusters, int smem, void* stream) {
-  return launch_cluster<bf16>(x, y, batch, d0, ws, bs, slopes, ds, tile, clusters, smem, stream);
+int iins_mlp_cluster_bf16(const void* x, void* y, int batch, int d0, int d4,
+                          const void* const* ws, const void* const* bs, const float* slopes,
+                          void* const* ds, int tile, int clusters, int smem, void* stream) {
+  return launch_cluster<bf16>(x, y, batch, d0, d4, ws, bs, slopes, ds, tile, clusters, smem,
+                              stream);
 }
 
 // *out = the clusters of the restorers' path that the card holds at once, its blocks taking

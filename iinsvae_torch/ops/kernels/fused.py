@@ -376,24 +376,27 @@ def mlp_chain(x: torch.Tensor, ws: Sequence[torch.Tensor], bs: Sequence[torch.Te
 
 
 # K4's path at the restorers (csrc/mlp_chain.cu, namespace cluster): widths D0 -> 512 -> 256 ->
-# 256 -> 1 with D0 a multiple of 16 up to 128 (the 1-D restorer's 16, the 2-D one's 128). A
-# cluster of MLP_CLUSTER blocks takes a tile of samples, each block 1 / MLP_CLUSTER of every
-# layer's output columns (mlp_cluster_columns), with those columns' weights in shared memory.
+# 256 -> D4 with D0 a multiple of 16 up to 128 (the 1-D and column-image restorers' 16, the 2-D
+# one's 128) and D4 1, or 2 for the soft restorers' (mu, logvar). A cluster of MLP_CLUSTER blocks
+# takes a tile of samples, each block 1 / MLP_CLUSTER of every layer's output columns
+# (mlp_cluster_columns), with those columns' weights in shared memory.
 MLP_CLUSTER = 8
-MLP_CLUSTER_WIDTHS = (512, 256, 256, 1)
+MLP_CLUSTER_WIDTHS = (512, 256, 256)  # the widths after D0, then D4
+MLP_CLUSTER_LAST = (1, 2)  # D4: the kernel's template instances
 MLP_CLUSTER_TILE = 12  # samples a tile: 12, 24 or 36
 MLP_CLUSTER_WHOLE_L0 = 16  # up to this many inputs layer 0 runs whole in every block
 
 
 def takes_mlp_cluster(dims: Sequence[int]) -> bool:
     """Whether a chain of the widths ``dims`` runs K4's restorer path."""
-    return (tuple(dims[1:]) == MLP_CLUSTER_WIDTHS and dims[0] % 16 == 0
-            and 16 <= dims[0] <= 128)
+    return (len(dims) == 5 and tuple(dims[1:4]) == MLP_CLUSTER_WIDTHS
+            and dims[4] in MLP_CLUSTER_LAST and dims[0] % 16 == 0 and 16 <= dims[0] <= 128)
 
 
 def mlp_cluster_columns(dims: Sequence[int]) -> list[list[tuple[int, int]]]:
     """-> per layer, each block rank's [start, end) of the layer's output columns; at the last
-    layer (one column) each rank's rows of the weight, the partial dot product it sums."""
+    layer (one or two columns) each rank's rows of the weight, the partial dot products it
+    sums."""
     out = []
     for j, d in enumerate(dims[1:]):
         n = (d if j < len(dims) - 2 else dims[-2]) // MLP_CLUSTER
@@ -402,19 +405,19 @@ def mlp_cluster_columns(dims: Sequence[int]) -> list[list[tuple[int, int]]]:
 
 
 def mlp_cluster_smem(d0: int, tile: int) -> int:
-    """Bytes of shared memory a block of K4's restorer path takes, as the source lays them out:
-    its slices of W1 and W2 in rows of 36 floats, W3's 32 rows, room for all of b0, its 32 of
-    b1 and of b2, and b3; the layer input (512, tile) in rows of tile (+ 4 where tile is a
-    multiple of 8) floats, which first holds x (d0, tile) and its slice of W0 in rows of 68;
-    the split products' partial sums (12 a thread of 384); its outputs of layers 0 and 1 in
-    rows of the same length; every block's partial dot products (8, tile); room for 18 8-byte
-    mbarriers."""
-    d1, d2, d3, _ = MLP_CLUSTER_WIDTHS
-    c = MLP_CLUSTER
-    weights = d1 * (d2 // c + 4) + d2 * (d3 // c + 4) + d3 // c + d1 + (d2 + d3) // c + 4
+    """Bytes of shared memory a block of K4's restorer path takes, as the source lays them out
+    (the same for either last width D4): its slices of W1 and W2 in rows of 36 floats, W3's 32
+    rows of up to 2, room for all of b0, its 32 of b1 and of b2, and b3; the layer input (512,
+    tile) in rows of tile (+ 4 where tile is a multiple of 8) floats, which first holds x (d0,
+    tile) and its slice of W0 in rows of 68; the split products' partial sums (12 a thread of
+    384); its outputs of layers 0 and 1 in rows of the same length; every block's partial dot
+    products (8, up to 2, tile); room for 18 8-byte mbarriers."""
+    d1, d2, d3 = MLP_CLUSTER_WIDTHS
+    c, d4 = MLP_CLUSTER, max(MLP_CLUSTER_LAST)
+    weights = d1 * (d2 // c + 4) + d2 * (d3 // c + 4) + d3 // c * d4 + d1 + (d2 + d3) // c + 4
     row = tile if tile % 8 else tile + 4
     act = max(d1 * row, d0 * (row + d1 // c + 4))
-    return 4 * (weights + act + 12 * 384 + (d1 + d2) // c * row + c * tile + 4 * c + 4)
+    return 4 * (weights + act + 12 * 384 + (d1 + d2) // c * row + c * d4 * tile + 4 * c + 4)
 
 
 def mlp_cluster_plan(batch: int, d0: int, slots: int) -> tuple[int, int, int, int]:
@@ -527,13 +530,13 @@ def launch_mlp_chain(x: torch.Tensor, ws: Sequence[torch.Tensor], bs: Sequence[t
         tile, _, clusters, smem = mlp_cluster_plan(x.shape[0], dims[0],
                                                    mlp_cluster_slots(x.device, dims[0]))
         fn = _build.function("mlp_chain", "iins_mlp_cluster" + suffix,
-                             [_P, _P, _I, _I, ctypes.POINTER(_P), ctypes.POINTER(_P),
+                             [_P, _P, _I, _I, _I, ctypes.POINTER(_P), ctypes.POINTER(_P),
                               ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_P), _I, _I, _I, _P])
         w_ptrs, b_ptrs, _, slopes_c, d_ptrs = layers
-        err = fn(x.data_ptr(), y.data_ptr(), x.shape[0], dims[0], w_ptrs, b_ptrs, slopes_c,
-                 d_ptrs, tile, clusters, smem, _build.stream_handle(x))
+        err = fn(x.data_ptr(), y.data_ptr(), x.shape[0], dims[0], dims[-1], w_ptrs, b_ptrs,
+                 slopes_c, d_ptrs, tile, clusters, smem, _build.stream_handle(x))
         _build.check(err, "mlp_chain", "mlp_chain")
-        _count_mlp_chain(bf16)
+        _count_mlp_chain(bf16, soft=dims[-1] == 2)
         return y, ds
     fn = _build.function("mlp_chain", "iins_mlp_chain",
                          [_P, _P, _I, _I, ctypes.POINTER(_P), ctypes.POINTER(_P),
@@ -547,13 +550,23 @@ def launch_mlp_chain(x: torch.Tensor, ws: Sequence[torch.Tensor], bs: Sequence[t
 
 mlp_chain.launches = 0
 mlp_chain.launches_bf16 = 0  # the bfloat16 instance's launches
+# of K4's and K4b's launches, those at the soft restorer (the cluster kernel's widths with a last
+# width of 2), fp32 and bfloat16, under the names kernels.soft_launch_counts gives them
+SOFT_LAUNCHES = dict.fromkeys(("mlp_chain_soft", "mlp_chain_bf16_soft", "mlp_chain_bwd_soft",
+                               "mlp_chain_bwd_bf16_soft"), 0)
 
 
-def _count_mlp_chain(bf16: bool) -> None:
+def count_soft(wrapper: str, bf16: bool) -> None:
+    SOFT_LAUNCHES[wrapper + ("_bf16" if bf16 else "") + "_soft"] += 1
+
+
+def _count_mlp_chain(bf16: bool, soft: bool = False) -> None:
     if bf16:
         mlp_chain.launches_bf16 += 1
     else:
         mlp_chain.launches += 1
+    if soft:
+        count_soft("mlp_chain", bf16)
 
 
 # --------------------------- K5 adain_res_block ---------------------------

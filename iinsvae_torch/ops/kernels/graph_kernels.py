@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import re
+from pathlib import Path
 from typing import Callable
 
 import torch
@@ -144,3 +145,16 @@ def launched_kernels(fn: Callable) -> dict[str, int]:
     if len(replayed) != len(eager) or not all(torch.equal(a, b) for a, b in zip(replayed, eager)):
         raise AssertionError("a CUDA graph of the call gives other outputs than an eager call")
     return names
+
+
+_GLOBAL = re.compile(r"__global__\s+void\s+(?:__\w+__\s*\([^)]*\)\s*)*(\w+)\s*\(")
+
+
+def port_kernels(launched: dict[str, int]) -> dict[str, int]:
+    """The port's own kernels among ``launched`` (launched_kernels' names and counts): those
+    whose name's last part is a ``__global__`` function of the CUDA sources beside this file;
+    the rest are PyTorch's, the plain ops'."""
+    csrc = Path(__file__).resolve().parent / "csrc"
+    own = {n for f in csrc.glob("*.cu*") for n in _GLOBAL.findall(f.read_text())}
+    return {k: v for k, v in launched.items()
+            if k.split("::")[-1] in own and not k.startswith("at::")}

@@ -123,27 +123,37 @@ def _backward(model, loss: torch.Tensor) -> None:
 
 def make_semi_grads_fn(supervision_rate: float = 1.0, lambda_res: float = 10.0,
                        mask_mode: str = "sample", kl_free_bits: float = 0.0) -> Callable:
-    """grads_fn(model, batch, generator=None, sup_mask=None, dropout_masks=None) -> metrics.
+    """grads_fn(model, batch, generator=None, sup_mask=None, dropout_masks=None,
+    soft_eps=None) -> metrics.
 
     The update-free half of the step: the forward, ``semi_loss`` and its
     backward, which leaves the gradients in the parameters' ``.grad``. The
-    mask is drawn from ``generator`` unless ``sup_mask`` (B,) is given; the
-    Conv heads' Dropout masks are drawn from it after the mask."""
+    mask is drawn from ``generator`` unless ``sup_mask`` (B,) is given; a soft
+    restorer's standard-normal eps (B, 1) after it, unless ``soft_eps`` is
+    given (JAX draws it from the step's key, steps.py:135-150, vae.py:79-84);
+    the Conv heads' Dropout masks last."""
     if mask_mode not in ("sample", "batch"):
         raise ValueError(f"mask_mode must be 'sample' or 'batch', got {mask_mode!r}")
 
     def grads_fn(model, batch: dict, generator: Optional[torch.Generator] = None,
-                 sup_mask: Optional[torch.Tensor] = None, dropout_masks: Masks = None) -> dict:
+                 sup_mask: Optional[torch.Tensor] = None, dropout_masks: Masks = None,
+                 soft_eps: Optional[torch.Tensor] = None) -> dict:
         cir, err, label = batch["cir"], batch["err"], batch["label"]
         weight = _weight(batch)
+        soft = getattr(model, "soft", False)
+        if (sup_mask is None or (soft and soft_eps is None)) and generator is None:
+            raise ValueError("give a generator to draw the mask and a soft restorer's eps "
+                             "from, or a sup_mask (and soft_eps)")
         if sup_mask is None:
-            if generator is None:
-                raise ValueError("give a generator to draw the mask from, or a sup_mask")
             sup_mask = draw_sup_mask(cir.shape[0], supervision_rate, mask_mode, generator)
         # in the CIRs' dtype, as the weight (steps.py:139-144): under bfloat16 the supervised
         # terms' weight sums round to bfloat16, as JAX's do
         sup_mask = sup_mask.to(cir.dtype)
-        out = _forward(model, generator, dropout_masks, cir)
+        if soft and soft_eps is None:
+            # in the CIRs' dtype, as JAX draws it in mu's (heads.py:22)
+            soft_eps = torch.randn((cir.shape[0], 1), generator=generator,
+                                   device=generator.device).to(cir.dtype)
+        out = _forward(model, generator, dropout_masks, cir, soft_eps)
         total, aux = semi_loss(out, cir, err, label, sup_mask, weight, lambda_res=lambda_res,
                                kl_free_bits=kl_free_bits)
         _backward(model, total)
@@ -158,8 +168,8 @@ def make_semi_grads_fn(supervision_rate: float = 1.0, lambda_res: float = 10.0,
 
 def make_semi_train_step(supervision_rate: float = 1.0, lambda_res: float = 10.0,
                          mask_mode: str = "sample", kl_free_bits: float = 0.0) -> Callable:
-    """step(state, batch, generator=None, sup_mask=None, dropout_masks=None) -> metrics:
-    the gradients of ``make_semi_grads_fn``, then one Adam update of ``state``.
+    """step(state, batch, generator=None, sup_mask=None, dropout_masks=None, soft_eps=None)
+    -> metrics: the gradients of ``make_semi_grads_fn``, then one Adam update of ``state``.
 
     mask_mode 'sample' draws a per-sample Bernoulli(supervision_rate) mask;
     'batch' one draw that masks the whole batch (the reference's per-batch
@@ -167,8 +177,9 @@ def make_semi_train_step(supervision_rate: float = 1.0, lambda_res: float = 10.0
     grads_fn = make_semi_grads_fn(supervision_rate, lambda_res, mask_mode, kl_free_bits)
 
     def step(state: TrainState, batch: dict, generator: Optional[torch.Generator] = None,
-             sup_mask: Optional[torch.Tensor] = None, dropout_masks: Masks = None) -> dict:
-        metrics = grads_fn(state.model, batch, generator, sup_mask, dropout_masks)
+             sup_mask: Optional[torch.Tensor] = None, dropout_masks: Masks = None,
+             soft_eps: Optional[torch.Tensor] = None) -> dict:
+        metrics = grads_fn(state.model, batch, generator, sup_mask, dropout_masks, soft_eps)
         state.apply_gradients()
         return metrics
 
@@ -191,8 +202,9 @@ EVAL_OUTPUTS = ("err_est", "logits", "env_code", "recon")
 
 
 def make_semi_eval_step() -> Callable:
-    """step(model, batch) -> (metrics, outputs): the forward in eval mode,
-    ``_metrics`` of the batch (device tensors) and the outputs ``EVAL_OUTPUTS``."""
+    """step(model, batch) -> (metrics, outputs): the forward in eval mode (a soft
+    restorer's mu, steps.py:183), ``_metrics`` of the batch (device tensors) and the outputs
+    ``EVAL_OUTPUTS``."""
 
     def step(model, batch: dict) -> tuple[dict, dict]:
         out = eval_forward(model, batch["cir"])

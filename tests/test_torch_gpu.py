@@ -43,7 +43,12 @@ from iinsvae_torch.training import steps
 
 RTOL, ATOL = 1e-4, 1e-4
 FLAGSHIP = dict(cir_len=157, num_classes=5, style_dim=16)
-MODELS = {1: dict(FLAGSHIP), 2: dict(FLAGSHIP, conv_type=2)}
+# the 1-D, the expanded 2-D and the column-image model (with the env encoder's conv taps from
+# torch's default, the configuration [noexpand] of chip_smoke.py serves); the 1-D and 2-D
+# models with the soft restorer
+MODELS = {1: dict(FLAGSHIP), 2: dict(FLAGSHIP, conv_type=2),
+          3: dict(FLAGSHIP, conv_type=3, env_conv_init="torch"),
+          "soft": dict(FLAGSHIP, soft=True), "soft2d": dict(FLAGSHIP, conv_type=2, soft=True)}
 # (module, wrapper, plain version); the models call each wrapper through its module
 WRAPPED = [(fused, "in_chain", fused.in_chain_ref),
            (fused, "conv_bias_act", fused.conv_bias_act_ref),
@@ -62,8 +67,10 @@ NO_RECON = {1: {"in_chain": 6, "conv_bias_act": 2, "strided_conv": 2, "mlp_chain
                 "adain_res_block": 0, "sln_chain": 0, "res_block_2d": 0, **STANDALONE},
             2: {"in_chain": 0, "conv_bias_act": 0, "strided_conv": 0, "mlp_chain": 2,
                 "adain_res_block": 0, "sln_chain": 0, "res_block_2d": 3, **STANDALONE}}
+# the column-image model: K4 at its two heads, every conv and norm a plain op
+NO_RECON[3] = {**{k: 0 for k in NO_RECON[1]}, "mlp_chain": 2}
 RECON = {1: {**NO_RECON[1], "conv_bias_act": 3, "adain_res_block": 3, "sln_chain": 1},
-         2: {**NO_RECON[2], "res_block_2d": 6}}
+         2: {**NO_RECON[2], "res_block_2d": 6}, 3: NO_RECON[3]}
 # backward launches of one training step: one for each forward launch
 TRAIN_BWD = {t: {f"{k}_bwd": v for k, v in r.items()} for t, r in RECON.items()}
 BWD_RTOL, BWD_ATOL = 1e-3, 1e-4
@@ -89,7 +96,7 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("conv_type", [1, 2])
+@pytest.mark.parametrize("conv_type", [1, 2, 3])
 @pytest.mark.parametrize("recon", [False, True])
 @pytest.mark.parametrize("batch", [1, 7, 500])
 def test_gpu_every_kernel_call_of_the_forward_matches_plain(cuda, monkeypatch, batch, recon,
@@ -127,7 +134,7 @@ def test_gpu_every_kernel_call_of_the_forward_matches_plain(cuda, monkeypatch, b
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("conv_type", [1, 2])
+@pytest.mark.parametrize("conv_type", [1, 2, 3])
 @pytest.mark.parametrize("recon", [False, True])
 def test_gpu_predictor_matches_cpu_predictor(cuda, recon, conv_type):
     model = IInsVAE(**MODELS[conv_type], generator=torch.Generator().manual_seed(5))
@@ -560,7 +567,7 @@ def _clear_samples(x, k1, *affine) -> torch.Tensor:
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("conv_type", [1, 2])
+@pytest.mark.parametrize("conv_type", [1, 2, 3])
 @pytest.mark.parametrize("batch", [37, 500])
 def test_gpu_every_backward_kernel_call_of_a_step_matches_plain(cuda, monkeypatch, batch,
                                                                 conv_type):
@@ -612,7 +619,7 @@ def test_gpu_every_backward_kernel_call_of_a_step_matches_plain(cuda, monkeypatc
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("conv_type", [1, 2])
+@pytest.mark.parametrize("conv_type", [1, 2, 3])
 def test_gpu_training_step_gradients_match_cpu(cuda, conv_type):
     cpu = IInsVAE(**MODELS[conv_type], generator=torch.Generator().manual_seed(9))
     gpu = copy.deepcopy(cpu).to(cuda)
@@ -638,7 +645,7 @@ def test_gpu_training_step_gradients_match_cpu(cuda, conv_type):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("conv_type", [1, 2])
+@pytest.mark.parametrize("conv_type", [1, 2, 3])
 def test_gpu_backward_is_bit_reproducible(cuda, conv_type):
     """No atomics: two backward passes give bit-equal weight gradients."""
     model = IInsVAE(**MODELS[conv_type]).to(cuda)
@@ -1045,7 +1052,8 @@ def test_gpu_range_chain_and_k2b_site_paths_reject_what_their_kernels_do_not_tak
 
 # K4b's call sites: the 1-D restorer, the classifier and the 2-D restorer
 MLP_HEADS = {"restorer": (1, "restorer"), "classifier": (1, "classifier"),
-             "restorer.2d": (2, "restorer")}
+             "restorer.2d": (2, "restorer"), "restorer.soft": ("soft", "restorer"),
+             "restorer.2d.soft": ("soft2d", "restorer")}
 
 
 @pytest.mark.gpu
@@ -1658,19 +1666,38 @@ def test_gpu_bf16_training_step_matches_cpu_against_float64(cuda):
     loss's signs and the ReLU masks in other places on each device, tests/test_torch_bf16.py);
     the range encoder's normed biases (exactly 0 in exact arithmetic) within 2^-8 of the
     largest gradient, the residual blocks' biases exactly 0."""
-    cpu = IInsVAE(**MODELS[2], generator=torch.Generator().manual_seed(5))
+    _bf16_step_vs_f64(cuda, 2)
+
+
+@pytest.mark.gpu
+def test_gpu_bf16_soft_training_step_matches_cpu_against_float64(cuda):
+    """The same with the soft restorer (128 -> ... -> 2, the cluster kernel of last width 2),
+    a bfloat16 eps injected on both devices."""
+    _bf16_step_vs_f64(cuda, "soft2d")
+
+
+def _bf16_step_vs_f64(cuda, key):
+    cpu = IInsVAE(**MODELS[key], generator=torch.Generator().manual_seed(5))
     gpu, f64 = copy.deepcopy(cpu).to(cuda), copy.deepcopy(cpu).double()
     data, mask = _train_batch(64, "cpu", seed=2)
     data = {k: (v.to(BF16) if k in ("cir", "weight") else v) for k, v in data.items()}
     grads_fn = steps.make_semi_grads_fn(0.5)
     kernels.reset_launch_counts()
-    mg = grads_fn(gpu, {k: v.to(cuda) for k, v in data.items()}, sup_mask=mask.to(cuda))
+    eps = {"soft_eps": torch.randn((64, 1), generator=torch.Generator().manual_seed(3)).to(BF16)
+           } if MODELS[key].get("soft") else {}
+    mg = grads_fn(gpu, {k: v.to(cuda) for k, v in data.items()}, sup_mask=mask.to(cuda),
+                  **{k: v.to(cuda) for k, v in eps.items()})
     torch.cuda.synchronize()
     assert kernels.bf16_launch_counts() == BF16_STEP
+    soft = int(bool(MODELS[key].get("soft")))
+    assert kernels.soft_launch_counts() == {"mlp_chain_soft": 0, "mlp_chain_bf16_soft": soft,
+                                            "mlp_chain_bwd_soft": 0,
+                                            "mlp_chain_bwd_bf16_soft": soft}
     assert not any(kernels.launch_counts().values())
     assert not any(kernels.backward_launch_counts().values())
-    mc = grads_fn(cpu, data, sup_mask=mask)
-    m64 = grads_fn(f64, {k: v.double() for k, v in data.items()}, sup_mask=mask.double())
+    mc = grads_fn(cpu, data, sup_mask=mask, **eps)
+    m64 = grads_fn(f64, {k: v.double() for k, v in data.items()}, sup_mask=mask.double(),
+                   **{k: v.double() for k, v in eps.items()})
     for k in ("loss", "loss_ae", "loss_kl", "loss_res", "loss_env"):
         a, c, w = mg[k].item(), mc[k].item(), m64[k].item()
         assert abs(a - w) <= 1.5 * abs(c - w) + 2.0**-8 * abs(w), (k, a, c, w)
@@ -1690,3 +1717,146 @@ def test_gpu_bf16_training_step_matches_cpu_against_float64(cuda):
         e_cpu.append(_rel_rms(cpu_p[name].grad, want))
         assert e_card[-1] <= 6 * e_cpu[-1] + 2.0**-8, (name, e_card[-1], e_cpu[-1])
     assert np.mean(e_card) <= 1.5 * np.mean(e_cpu) + 2.0**-8, (np.mean(e_card), np.mean(e_cpu))
+
+
+# ------------------------- the soft restorer and conv_type 3 -------------------------
+
+SOFT_HEADS = {"restorer.soft": "soft", "restorer.2d.soft": "soft2d"}
+
+
+def _soft_head(cuda, head, batch, dtype=torch.float32):
+    model = IInsVAE(**MODELS[SOFT_HEADS[head]], generator=torch.Generator().manual_seed(7))
+    mod = model.restorer.restorer
+    n = len(mod.slopes)
+    ws = [getattr(mod, f"w{j}").detach().to(dtype).to(cuda) for j in range(n)]
+    bs = [getattr(mod, f"b{j}").detach().to(dtype).to(cuda) for j in range(n)]
+    gen = torch.Generator().manual_seed(batch)
+    x = torch.randn((batch, ws[0].shape[0]), generator=gen).to(dtype).to(cuda)
+    g = torch.randn((batch, 2), generator=gen).to(dtype).to(cuda)
+    return ws, bs, mod.slopes, x, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head", list(SOFT_HEADS))
+@pytest.mark.parametrize("batch", [1, 13, 500])
+def test_gpu_mlp_chain_soft_restorers_take_the_cluster_kernel(cuda, batch, head):
+    """K4 at the soft restorers (16 or 128 -> 512 -> 256 -> 256 -> 2: the cluster kernel's
+    instance of last width 2, each block rank's two partial dot products summed across the
+    cluster): one launch, counted at the soft restorer too (the general kernel's is not),
+    within tolerance of the plain version and of the general kernel, bit-equal over two calls
+    and when saving the pre-activations, each saved d_j within tolerance; the cluster kernel
+    named in a graph of the call. K4b at those widths from the saved d_j against its plain
+    version, counted at the soft restorer."""
+    ws, bs, slopes, x, g = _soft_head(cuda, head, batch)
+    assert fused.takes_mlp_cluster([x.shape[1]] + [w.shape[1] for w in ws])
+    with torch.no_grad():
+        n, s = fused.mlp_chain.launches, fused.SOFT_LAUNCHES["mlp_chain_soft"]
+        y, _ = fused.launch_mlp_chain(x, ws, bs, slopes)
+        assert fused.mlp_chain.launches == n + 1
+        assert fused.SOFT_LAUNCHES["mlp_chain_soft"] == s + 1
+        assert y.shape == (batch, 2) and torch.isfinite(y).all()
+        torch.testing.assert_close(y, fused.mlp_chain_ref(x, ws, bs, slopes), rtol=RTOL,
+                                   atol=ATOL)
+        general, _ = fused.launch_mlp_chain(x, ws, bs, slopes, general=True)
+        assert fused.SOFT_LAUNCHES["mlp_chain_soft"] == s + 1
+        torch.testing.assert_close(y, general, rtol=RTOL, atol=ATOL)
+        assert torch.equal(y, fused.launch_mlp_chain(x, ws, bs, slopes)[0])
+        y_saving, ds = fused.launch_mlp_chain(x, ws, bs, slopes, save_pre=True)
+        assert torch.equal(y, y_saving)
+        for j, (d, want) in enumerate(zip(ds, _pre_activations(x, ws, bs, slopes))):
+            torch.testing.assert_close(d, want, rtol=RTOL, atol=ATOL, msg=lambda m: f"d_{j}: {m}")
+        assert _device_kernel_names(lambda: fused.mlp_chain(x, ws, bs, slopes)) == {
+            "cluster::mlp_cluster_kernel"}
+    sb = fused.SOFT_LAUNCHES["mlp_chain_bwd_soft"]
+    _grads_match(backward.mlp_chain_bwd, (g, x, ws, bs, slopes, ds), {}, f"{head} {batch}")
+    assert fused.SOFT_LAUNCHES["mlp_chain_bwd_soft"] > sb
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head", list(SOFT_HEADS))
+@pytest.mark.parametrize("batch", [1, 13, 500])
+def test_gpu_mlp_chain_bf16_soft_restorers_match_plain_against_float64(cuda, batch, head):
+    """The bfloat16 instances of K4 (the cluster kernel of last width 2) and K4b at the soft
+    restorers, on the model's weights rounded to bfloat16, against float64 beside the plain
+    bfloat16 versions; the cluster kernel named in a graph of the K4 call; both counted at the
+    soft restorer."""
+    ws, bs, slopes, x, g = _soft_head(cuda, head, batch, BF16)
+    m, s = fused.mlp_chain.launches_bf16, fused.SOFT_LAUNCHES["mlp_chain_bf16_soft"]
+    y, ds = fused.launch_mlp_chain(x, ws, bs, slopes, save_pre=True)
+    assert fused.mlp_chain.launches_bf16 == m + 1 and y.shape == (batch, 2)
+    assert fused.SOFT_LAUNCHES["mlp_chain_bf16_soft"] == s + 1
+    assert torch.equal(y, fused.mlp_chain(x, ws, bs, slopes))
+    h, ds64 = x.double(), []
+    for w, v, s in zip(ws, bs, slopes):
+        ds64.append(h @ w.double() + v.double())
+        h = ds64[-1] if s == 1.0 else torch.nn.functional.leaky_relu(ds64[-1], s)
+    py, pds = fused.mlp_chain_bf16_ref(x, ws, bs, slopes, save_pre=True)
+    _bf16_vs_f64((y, *ds), (py, *pds), (h, *ds64), what="K4")
+    assert _device_kernel_names(lambda: fused.mlp_chain(x, ws, bs, slopes)) == {
+        "cluster::mlp_cluster_kernel"}
+    n = len(ws)
+    args = (g, x, ws, bs, slopes, ds)
+    sb = fused.SOFT_LAUNCHES["mlp_chain_bwd_bf16_soft"]
+    got = _tensors(backward.mlp_chain_bwd(*args))
+    assert fused.SOFT_LAUNCHES["mlp_chain_bwd_bf16_soft"] == sb + 1
+    plain = _tensors(backward.mlp_chain_bwd_bf16_ref(*args))
+    ref = _tensors(backward.plain_grads(
+        lambda x_, *p: fused.mlp_chain_ref(x_, p[:n], p[n:], slopes),
+        [x.double(), *(t.double() for t in ws), *(t.double() for t in bs)], g.double()))
+    _bf16_vs_f64(got, plain, ref, what="K4b")
+    assert all(torch.equal(a, b) for a, b in zip(got, _tensors(backward.mlp_chain_bwd(*args))))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("recon", [False, True])
+def test_gpu_noexpand_forward_launches_k4_only(cuda, recon):
+    """The column-image model's forward at batch 500: two launches (K4 at the restorer and at
+    the classifier), the port's kernels of a CUDA graph of the call the cluster and the head
+    kernel, outputs within tolerance of the CPU model's."""
+    cpu = IInsVAE(**MODELS[3], generator=torch.Generator().manual_seed(3)).eval()
+    model = copy.deepcopy(cpu).to(cuda)
+    x = torch.randn((500, 157), generator=torch.Generator().manual_seed(1))
+    xc = x.to(cuda)
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        out = model(xc) if recon else model.encode(xc)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["mlp_chain"] == (2 if recon else 0)
+        assert not any(v for k, v in kernels.launch_counts().items() if k != "mlp_chain")
+        names = graph_kernels.port_kernels(graph_kernels.launched_kernels(lambda: model(xc)))
+        assert names == {"cluster::mlp_cluster_kernel": 1, "head::mlp_head_kernel": 1}
+        if recon:
+            want = cpu(x)
+            for k in ("recon", "err_est", "logits", "env_code", "range_code"):
+                torch.testing.assert_close(out[k].cpu(), want[k], rtol=1e-3, atol=1e-4,
+                                           msg=lambda m: f"{k}: {m}")
+
+
+@pytest.mark.gpu
+def test_gpu_soft_training_step_gradients_match_cpu(cuda):
+    """One 1-D step with the soft restorer on the card and on the CPU, the mask and the eps
+    injected, each against the CPU port in float64 (as test_gpu_training_step_gradients_match_
+    cpu); K4 and K4b launch once each at the restorer and the classifier."""
+    cpu = IInsVAE(**MODELS["soft"], generator=torch.Generator().manual_seed(9))
+    gpu, f64 = copy.deepcopy(cpu).to(cuda), copy.deepcopy(cpu).double()
+    data, mask = _train_batch(64, cuda, seed=3)
+    eps = torch.randn((64, 1), generator=torch.Generator().manual_seed(4))
+    grads_fn = steps.make_semi_grads_fn(0.5)
+    kernels.reset_launch_counts()
+    mg = grads_fn(gpu, data, sup_mask=mask, soft_eps=eps.to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == RECON[1]
+    assert kernels.soft_launch_counts() == {"mlp_chain_soft": 1, "mlp_chain_bf16_soft": 0,
+                                            "mlp_chain_bwd_soft": 1, "mlp_chain_bwd_bf16_soft": 0}
+    grads_fn(cpu, {k: v.cpu() for k, v in data.items()}, sup_mask=mask.cpu(), soft_eps=eps)
+    m64 = grads_fn(f64, {k: v.cpu().double() for k, v in data.items()},
+                   sup_mask=mask.cpu().double(), soft_eps=eps.double())
+    for k in ("loss", "loss_ae", "loss_kl", "loss_res", "loss_env"):
+        assert mg[k].item() == pytest.approx(m64[k].item(), rel=1e-4, abs=1e-6), k
+    fp32, ref = dict(cpu.named_parameters()), dict(f64.named_parameters())
+    assert ref["restorer.restorer.w3"].grad[:, 1].abs().max() > 0  # logvar's weights learn
+    for name, p in gpu.named_parameters():
+        want = ref[name].grad
+        e_card = (p.grad.cpu().double() - want).abs().max().item()
+        e_cpu = (fp32[name].grad.double() - want).abs().max().item()
+        assert e_card <= STEP_FACTOR * e_cpu + STEP_FLOOR * want.abs().max().item(), name

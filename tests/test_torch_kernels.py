@@ -281,6 +281,30 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
         "sln_layer": 0, "tanh_pool": 0}
 
 
+def test_soft_restorer_counts_reset_and_count_no_cpu_launch():
+    """K4's and K4b's launches at the soft restorer are counted apart, under the ``kernels``
+    line's row names; reset sets them to 0, and the soft restorer's widths on CPU tensors
+    (the plain versions) count nothing."""
+    for k in fused.SOFT_LAUNCHES:
+        fused.SOFT_LAUNCHES[k] = 3
+    kernels.reset_launch_counts()
+    gen = torch.Generator().manual_seed(0)
+    dims = (16, 512, 256, 256, 2)
+    ws = [0.05 * torch.randn((a, k), generator=gen) for a, k in zip(dims, dims[1:])]
+    bs = [torch.zeros(k) for k in dims[1:]]
+    x = torch.randn((3, 16), generator=gen)
+    assert fused.takes_mlp_cluster(dims)
+    slopes = [0.2, 0.2, 0.2, 1.0]
+    y, h, ds = fused.mlp_chain(x, ws, bs, slopes), x, []
+    for w, b, s in zip(ws, bs, slopes):
+        ds.append(h @ w + b)
+        h = torch.nn.functional.leaky_relu(ds[-1], s)
+    backward.mlp_chain_bwd(torch.ones_like(y), x, ws, bs, slopes, ds)
+    assert kernels.soft_launch_counts() == {
+        "mlp_chain_soft": 0, "mlp_chain_bf16_soft": 0, "mlp_chain_bwd_soft": 0,
+        "mlp_chain_bwd_bf16_soft": 0}
+
+
 def test_conv1d_reflect_padding_excludes_the_edge():
     """k3 reflect at L=8: output 0 reads inputs (1, 0, 1), output 7 reads (6, 7, 6)."""
     x = torch.arange(8, dtype=torch.float32).reshape(1, 8, 1)
@@ -414,7 +438,9 @@ def test_k4b_batch_split_covers_every_row_once(batch, head):
         assert 4 * len(chunks) * total < 8 * 2 ** 20
 
 
-RESTORER_DIMS = {"restorer": (16, 512, 256, 256, 1), "restorer_2d": (128, 512, 256, 256, 1)}
+RESTORER_DIMS = {"restorer": (16, 512, 256, 256, 1), "restorer_2d": (128, 512, 256, 256, 1),
+                 "restorer_soft": (16, 512, 256, 256, 2),
+                 "restorer_2d_soft": (128, 512, 256, 256, 2)}
 
 
 @pytest.mark.parametrize("batch", [1, 5, 37, 256, 261, 500])
@@ -451,12 +477,12 @@ def test_k4_cluster_plan_covers_every_sample_and_column_once_within_shared_memor
 
 
 def test_k4_other_widths_take_the_general_kernel():
-    """Only the restorers' widths take K4's cluster path, and the classifier (16 -> 16 -> 32 ->
-    16 -> 5) its small-head path; chains that differ from the restorers in any width, with a
-    width over 64, keep the general kernel."""
+    """Only the restorers' widths (the last 1, or 2 for the soft restorers) take K4's cluster
+    path, and the classifier (16 -> 16 -> 32 -> 16 -> 5) its small-head path; chains that
+    differ from the restorers in any width, with a width over 64, keep the general kernel."""
     assert not fused.takes_mlp_cluster(MLPS["classifier"][0])
     assert fused.takes_mlp_head(MLPS["classifier"][0])
-    for dims in ((16, 512, 256, 256, 2), (24, 512, 256, 256, 1), (144, 512, 256, 256, 1),
+    for dims in ((16, 512, 256, 256, 3), (24, 512, 256, 256, 1), (144, 512, 256, 256, 1),
                  (16, 512, 256, 1), (16, 256, 256, 256, 1), (8, 512, 256, 256, 1)):
         assert not fused.takes_mlp_cluster(dims), dims
         assert not fused.takes_mlp_head(dims), dims
@@ -664,3 +690,18 @@ def test_k4_head_plan_covers_every_sample_once_within_shared_memory(batch):
     for dims in ((1, 1), (64,) * 9, (7, 3, 1, 9)):
         assert fused.takes_mlp_head(dims), dims
         assert fused.mlp_head_smem(dims) <= 227 * 1024
+
+
+def test_port_kernels_keeps_the_csrc_global_functions_only():
+    """graph_kernels.port_kernels keeps a graph's kernels whose name's last part is a
+    __global__ function of csrc/ (with or without a namespace) and drops PyTorch's: the checks
+    of chip_smoke.py's [noexpand] and [soft] phases count the port's kernels among plain ops."""
+    from iinsvae_torch.ops.kernels import graph_kernels
+
+    seen = {"cluster::mlp_cluster_kernel": 1, "head::mlp_head_kernel": 1,
+            "iins::reduce_partials_kernel": 2, "res2d_bf16_wgmma_kernel": 1,
+            "at::native::reduce_kernel": 7, "at::native::vectorized_elementwise_kernel": 9,
+            "cutlass::Kernel2": 2, "sm80_xmma_gemm_f32f32_f32f32_f32_nn_n": 3}
+    assert graph_kernels.port_kernels(seen) == {
+        "cluster::mlp_cluster_kernel": 1, "head::mlp_head_kernel": 1,
+        "iins::reduce_partials_kernel": 2, "res2d_bf16_wgmma_kernel": 1}

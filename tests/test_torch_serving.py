@@ -194,9 +194,11 @@ def test_recon_is_the_decoder_slice():
     assert Predictor(IInsVAE(), batch_size=4, device="cpu")(np.zeros((6, 157))).recon is None
 
 
-def test_other_conv_types_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="conv_type"):
-        IInsVAE(conv_type=3)
+def test_conv_types_other_than_1_2_3_raise_value_error():
+    """conv_type 1, 2 and 3 are the port's models; any other raises (the JAX package runs
+    every other value as the column-image model)."""
+    with pytest.raises(ValueError, match="conv_type"):
+        IInsVAE(conv_type=4)
 
 
 def _run(code_or_args, **kw):
