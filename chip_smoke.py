@@ -168,6 +168,27 @@
    ``mlp_chain_bwd_bf16_soft``) and ``launches_noexpand``, each row's wrapper's launches on
    the column-image model's 3 counted training epochs.
 
+15. [data] (data_phase, in a temporary working directory): ``resolve_data`` on the card's
+   machine (no pandas there) for the eWine fixture (two CSVs of 5000 seeded rows written, parsed
+   by the native plane bit-equal to the rows written, the 'full' split, then read again from the
+   mmap cache) and the 'paper' split of fixture v2 (the cache written cold, read warm; its test
+   split exactly the Room == 2 rows); K6 and K6b at the eWine decoder tail (pool 128 -> 152,
+   batch 500) against their plain versions as the 157 sites are held (K6 on the tail kernel,
+   bit-equal to the general kernel); K4 and K4b bfloat16 at the paper protocol's 4-class
+   classifier (the head kernel's <Any> instance) against float64 beside the plain bfloat16
+   version; the eWine model's (152 taps, 2 classes) training main path as in 7 (17 + 17
+   launches a step, counted), its step's CUDA graph naming exactly the 157-tap step's kernels;
+   the eWine model served through Predictor (17 launches a batch, counted, against the CPU) and
+   by ``serve --dataset_name ewine`` in a subprocess, frames of 152 taps on both fronts against
+   the CPU Predictor, then SIGINT; and the paper protocol's bfloat16 2-D step (--mode paper
+   --dataset_env paper --conv_type 2 --compute_dtype bfloat16 --supervision_rate 1.0) through
+   ``cli.train_semi.build``, one epoch counted (K7 6 and K4 2 bfloat16 launches a step, one
+   backward each), the cluster and head kernels once each in a CUDA graph of a step. The
+   ``kernels`` line gains K6 and K6b at the pool of 152 and K4 and K4b bfloat16 at the 4-class
+   head (``sln_chain_152``, ``sln_chain_bwd_152``, ``mlp_chain_bf16_4class``,
+   ``mlp_chain_bwd_bf16_4class``; ``counter`` names the launch counter their other phases'
+   launches are read from).
+
 Each device-kernel check (``device_kernel`` sites, the backward sites, [bf16]) reads the
 kernel nodes of a CUDA graph of the call (graph_kernels.launched_kernels, the graph replayed
 and its outputs bit-equal to an eager call's), not a torch.profiler trace, which on the card
@@ -176,7 +197,7 @@ sometimes held no device event.
 Prints a ``sites`` line (per call site, both models), a ``serving`` line,
 a ``backward`` line (per backward call site), a ``training`` and a
 ``training_2d`` line, a ``one_stage`` line, an ``eval`` line, a ``joint`` line, a ``server``
-line, a ``noexpand`` / ``soft`` line, a ``kernels`` line (with ``launches_server``, each
+line, a ``noexpand`` / ``soft`` line, a ``data`` line, a ``kernels`` line (with ``launches_server``, each
 kernel's launches in the ``[server]`` phase), the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. The whole result also goes to
 chiprun_out/chip_smoke.json. Any failure raises and exits non-zero; without
@@ -281,6 +302,13 @@ STEP_FACTOR, STEP_FLOOR = 10.0, 1e-4
 # ZERO_GRAD_SHARE of the model's largest gradient instead.
 ZERO_GRAD = re.compile(r"encoder\.range_encoder\.(in|down\d+)_bias")
 ZERO_GRAD_SHARE = 1e-6
+# The models whose training-step gradient check (step_grads_vs_cpu) runs on the batch's samples
+# whose every ReLU input clears MASK_MARGIN, as joint_grads_vs_cpu's does: on the eWine model's
+# first fixture batch 100 of 500 samples have one within it, and a 1e-7 relative perturbation of
+# the CIRs moved the float64 gradients by up to 5.7e-4 of their scale (the clear 400: 1.8e-6):
+# there the summation order of an fp32 forward decides a mask and the gradient, which the card
+# (kernels or plain backward alike) then misses by 1e-3 of the scale
+CLEAR_STEP = ("ewine",)
 _CSRC = "iinsvae_torch/ops/kernels/csrc/"
 SOURCES = {
     "in_chain": _CSRC + "in_chain.cu",
@@ -349,7 +377,12 @@ EXPECTED_3D_TRAIN_BWD = {f"{k}_bwd": v for k, v in EXPECTED_3D.items()}
 # [soft]: the 1-D model with the soft restorer (--use_soft: 16 -> ... -> 2, the cluster kernel's
 # instance of last width 2), which launches as the 1-D model does
 FLAGSHIP_SOFT = dict(FLAGSHIP, soft=True)
-MODELS = {1: FLAGSHIP, 2: FLAGSHIP_2D, 3: FLAGSHIP_3D, "soft": FLAGSHIP_SOFT}
+# [data]: the eWine model, the 1-D flagship at 152 taps and 2 classes: its encoders pool 152 ->
+# 128, so every kernel but K6 / K6b runs the 157-tap model's shapes, and the decoder tail pools
+# 128 -> 152; its step launches the 1-D step's kernels
+FLAGSHIP_EWINE = dict(FLAGSHIP, cir_len=152, num_classes=2)
+MODELS = {1: FLAGSHIP, 2: FLAGSHIP_2D, 3: FLAGSHIP_3D, "soft": FLAGSHIP_SOFT,
+          "ewine": FLAGSHIP_EWINE}
 RES2D = "iinsvae_tpu/ops/pallas/res2d.py"
 OUT = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke.json"
 
@@ -619,18 +652,19 @@ def call_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list[dic
         flops += 2.0 * b * upsampled_rows(l, k, 2) * c_in * c_out
         l *= 2
     flops += conv_flops(b, l, dec.out_kernel, 1, 3, "reflect")
-    pool = adaptive_avg_pool_matrix(l, 157, device=dev)  # a buffer, as the encoder's is
+    l_pool = model.cir_len  # 157, or 152 for the eWine model
+    pool = adaptive_avg_pool_matrix(l, l_pool, device=dev)  # a buffer, as the encoder's is
     sites.append(dict(
         name="dec.tail", kernel="sln_chain", replaces=f"{fp}:1027", calls_per_batch=1,
-        shape=f"{tuple(xt.shape)}->({b}, 157)",
-        run=lambda: fused.sln_chain(xt, stages, dec.out_kernel, dec.out_bias, 157),
-        plain=lambda: fused.sln_chain_ref(xt, stages, dec.out_kernel, dec.out_bias, 157,
+        shape=f"{tuple(xt.shape)}->({b}, {l_pool})",
+        run=lambda: fused.sln_chain(xt, stages, dec.out_kernel, dec.out_bias, l_pool),
+        plain=lambda: fused.sln_chain_ref(xt, stages, dec.out_kernel, dec.out_bias, l_pool,
                                           pool=pool),
-        general=lambda: fused.launch_sln_chain(xt, stages, dec.out_kernel, dec.out_bias, 157,
+        general=lambda: fused.launch_sln_chain(xt, stages, dec.out_kernel, dec.out_bias, l_pool,
                                                general=True),
         library=None, cudnn_conv=ncl_conv(upsample_nearest1d(xt, 2), *stages[0][:2], 1, 2, "zero"),
         bytes=nbytes(xt, *[t for st in stages for t in st], dec.out_kernel, dec.out_bias)
-        + 4 * b * 157,
+        + 4 * b * l_pool,
         flops=flops))
     return sites
 
@@ -858,7 +892,8 @@ def serve_main_path(model: IInsVAE, cpu_model: IInsVAE, recon: bool,
     without or with the reconstruction, counted (``expected`` launches a
     batch), and compared with the CPU Predictor on the same weights."""
     rng = np.random.default_rng(0)
-    requests = [rng.normal(size=(n, 157)).astype(np.float32) for n in (500, 500, 500, 137)]
+    requests = [rng.normal(size=(n, model.cir_len)).astype(np.float32)
+                for n in (500, 500, 500, 137)]
     gpu = Predictor(model, batch_size=BATCH, return_recon=recon, device="cuda")
     kernels.reset_launch_counts()
     outs = [gpu(r) for r in requests]
@@ -1170,12 +1205,13 @@ def backward_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH) -> list
         l *= 2
     flops += conv_flops(b, l, dec.out_kernel, 1, 3, "reflect")
     params = [t for st in up for t in st] + [dec.out_kernel, dec.out_bias]
-    g = rand(b, 157)
+    l_pool = model.cir_len  # 157, or 152 for the eWine model
+    g = rand(b, l_pool)
     xu = upsample_nearest1d(xt, 2)  # stage 0's conv input, (B, 16, 64)
     add("dec.tail", backward.sln_chain_bwd, f"{fp}:996", 1,
-        (g, xt, up, dec.out_kernel, dec.out_bias, 157), {},
+        (g, xt, up, dec.out_kernel, dec.out_bias, l_pool), {},
         nbytes(xt, *params, g, xt, *params), 3 * flops,
-        plain_kw=dict(pool=adaptive_avg_pool_matrix(l, 157, device=dev)),
+        plain_kw=dict(pool=adaptive_avg_pool_matrix(l, l_pool, device=dev)),
         cudnn_conv=conv_backward_call(xu, up[0][0], torch.ones_like(xu[..., :32]),
                                       torch.randn_like(xu[..., :32]), 1, 2, "zero", True))
     return sites
@@ -1268,11 +1304,12 @@ def check_and_time_backward(sites: list[dict], tag: str = "backward") -> list[di
 
 
 def train_config(key) -> Config:
-    """bench.py's training setting on the synthetic room_full fixture, for the model
-    ``MODELS[key]``."""
+    """bench.py's training setting on the synthetic room_full fixture (the eWine fixture for the
+    eWine model), for the model ``MODELS[key]``."""
     m = MODELS[key]
     return Config(conv_type=m["conv_type"], env_conv_init=m.get("env_conv_init", "reference"),
                   use_soft=m.get("soft", False), dataset_env="room_full", env_dim=16,
+                  dataset_name="ewine" if m["cir_len"] == 152 else "zenodo",
                   synthetic_n=10000, batch_size=BATCH, n_epochs=500, decay_epoch=100,
                   supervision_rate=0.1)
 
@@ -1395,13 +1432,26 @@ def step_calls_vs_f64(data: dict, key) -> dict:
 def step_grads_vs_cpu(data: dict, key) -> dict:
     """One step's gradients on the card and on the CPU (fp32), on the same
     seeded weights, the first batch of the fixture and one injected mask (and
-    a soft restorer's eps), each against the CPU port's in float64."""
+    a soft restorer's eps), each against the CPU port's in float64; for the
+    models of CLEAR_STEP on the batch's samples clear of MASK_MARGIN
+    (relu_margins of the float64 forward), at least CLEAR_SHARE of it."""
     cpu = IInsVAE(**MODELS[key], generator=torch.Generator().manual_seed(3))
     gpu = copy.deepcopy(cpu).cuda()
     f64 = copy.deepcopy(cpu).double()
     batch = {k: v[:BATCH] for k, v in data.items()}
     mask = steps.draw_sup_mask(BATCH, 0.1, "sample", torch.Generator(device="cuda").manual_seed(5))
     eps = soft_eps(key, "cpu")
+    n_batch = BATCH
+    if key in CLEAR_STEP:
+        with torch.no_grad():
+            keep = relu_margins(lambda: f64(batch["cir"].cpu().double(),
+                                            **{k: v.double() for k, v in eps.items()}))
+        keep = keep >= MASK_MARGIN
+        if keep.sum().item() < CLEAR_SHARE * BATCH:
+            raise AssertionError(f"{keep.sum().item()} of {BATCH} samples clear of MASK_MARGIN")
+        batch, mask = {k: v[keep.to(v.device)] for k, v in batch.items()}, mask[keep.cuda()]
+        eps = {k: v[keep] for k, v in eps.items()}
+        n_batch = int(keep.sum().item())
     grads_fn = steps.make_semi_grads_fn(0.1)
     mg = grads_fn(gpu, batch, sup_mask=mask, **{k: v.cuda() for k, v in eps.items()})
     mc = grads_fn(cpu, {k: v.cpu() for k, v in batch.items()}, sup_mask=mask.cpu(), **eps)
@@ -1438,7 +1488,7 @@ def step_grads_vs_cpu(data: dict, key) -> dict:
                                  f"CPU by {e_cpu:.3e} (largest magnitude {scale:.3e})")
     ratio, _, _, _, ratio_name = rows[0]
     max_err = max(r[1] for r in rows)
-    return dict(loss_card_cpu_f64=loss, max_abs_err_vs_f64=max_err,
+    return dict(loss_card_cpu_f64=loss, max_abs_err_vs_f64=max_err, samples=n_batch,
                 worst_card_over_cpu_err=ratio, worst_param=ratio_name,
                 mask_labeled=int(mask.sum().item()), zero_grad_err_over_largest=zero_grad,
                 err_over_scale_card_cpu={r[4]: [r[1] / (r[3] or 1.0), r[2] / (r[3] or 1.0)]
@@ -2561,12 +2611,15 @@ BF16_DEVICE_KERNELS = {
     "mlp_chain_bf16 restorer.2d": {"cluster::mlp_cluster_kernel": 1},
     "mlp_chain_bf16 restorer.2d.soft": {"cluster::mlp_cluster_kernel": 1},
     "mlp_chain_bf16 classifier": {"head::mlp_head_kernel": 1},
+    "mlp_chain_bf16 classifier.4": {"head::mlp_head_kernel": 1},
     "mlp_chain_bwd_bf16 restorer.2d": {"layer::chain_kernel": 4, "layer::wgrad_kernel": 1,
                                        "reduce_partials_bf16_kernel": 1},
     "mlp_chain_bwd_bf16 restorer.2d.soft": {"layer::chain_kernel": 4, "layer::wgrad_kernel": 1,
                                             "reduce_partials_bf16_kernel": 1},
     "mlp_chain_bwd_bf16 classifier": {"small::small_kernel": 1,
-                                      "reduce_partials_bf16_kernel": 1}}
+                                      "reduce_partials_bf16_kernel": 1},
+    "mlp_chain_bwd_bf16 classifier.4": {"small::small_kernel": 1,
+                                        "reduce_partials_bf16_kernel": 1}}
 # one bfloat16 step's gradients, card and CPU (the rows of BF16_GRAD_ROWS), each against the
 # CPU port in float64 (tests/test_torch_bf16.py holds the CPU port to JAX the same way): the
 # mean over the parameters of each one's relative RMS error, the card's at most 1.5 times the
@@ -2706,9 +2759,36 @@ def bf16_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH, extra_heads
             else "bytes",
             bit_equal_over_two_calls=bit_equal_calls(run), device_kernels=device_kernels(run)))
         blocks.append((fwd[-1], bwd[-1], (x, k1, k2, aff, g)))
+    heads = (("restorer.2d", model.restorer.restorer),
+             ("classifier", model.classifier.classifier), *extra_heads)
+    head_fwd, head_bwd = bf16_head_sites(heads, b, rand)
+    fwd += head_fwd
+    bwd += head_bwd
+    # K7's and K7b's whole-block library yardsticks, after every other site's timing: their
+    # large CUDA graphs timed before the K4 sites left the classifier's saving instance 3.4%
+    # slower than its parent's in an A/B
+    for rf, rb, data in blocks:
+        lib_fwd, lib_both = res2d_library_block(*data)
+        rf["composite_ms"] = device_ms(lib_fwd)
+        rf["composite"] = ("the whole block as library calls in one CUDA graph: two cuDNN "
+                           "channels-last bfloat16 3x3 convs, the norms, ReLU and skip as torch "
+                           "ops")
+        rb["composite_ms"] = device_ms(lib_both) - rf["composite_ms"]
+        rb["composite"] = ("the autograd backward of the whole block as library calls (one "
+                           "CUDA graph of its forward and backward, less the forward's)")
+    check_bf16_rows(fwd + bwd)
+    return fwd, bwd
+
+
+def bf16_head_sites(heads, b: int, rand) -> tuple[list[dict], list[dict]]:
+    """K4's and K4b's bfloat16 instances at ``heads`` ((name, Linear head) pairs), at batch b on
+    the heads' weights rounded to bfloat16 and ``rand``'s bfloat16 inputs: each held against
+    float64 beside its plain bfloat16 version and timed (CUDA graph replay) beside its bound,
+    its plain version and a bfloat16 torch.mm yardstick (double dagger). -> (forward rows,
+    backward rows); check_bf16_rows checks their kernels and prints them."""
     fp = "iinsvae_tpu/ops/pallas/fused.py"
-    for name, head in (("restorer.2d", model.restorer.restorer),
-                       ("classifier", model.classifier.classifier), *extra_heads):
+    fwd, bwd = [], []
+    for name, head in heads:
         n, slopes = len(head.slopes), head.slopes
         ws = [getattr(head, f"w{j}").detach().to(BF16) for j in range(n)]
         bs = [getattr(head, f"b{j}").detach().to(BF16) for j in range(n)]
@@ -2760,19 +2840,13 @@ def bf16_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH, extra_heads
             >= bytes_b / PEAK_BYTES_PER_S else "bytes",
             fp32_fma_bound_ms=2 * flops / PEAK_FP32_FLOP_PER_S * 1e3,
             bit_equal_over_two_calls=bit_equal_calls(run), device_kernels=device_kernels(run)))
-    # K7's and K7b's whole-block library yardsticks, after every other site's timing: their
-    # large CUDA graphs timed before the K4 sites left the classifier's saving instance 3.4%
-    # slower than its parent's in an A/B
-    for rf, rb, data in blocks:
-        lib_fwd, lib_both = res2d_library_block(*data)
-        rf["composite_ms"] = device_ms(lib_fwd)
-        rf["composite"] = ("the whole block as library calls in one CUDA graph: two cuDNN "
-                           "channels-last bfloat16 3x3 convs, the norms, ReLU and skip as torch "
-                           "ops")
-        rb["composite_ms"] = device_ms(lib_both) - rf["composite_ms"]
-        rb["composite"] = ("the autograd backward of the whole block as library calls (one "
-                           "CUDA graph of its forward and backward, less the forward's)")
-    for r in fwd + bwd:
+    return fwd, bwd
+
+
+def check_bf16_rows(rows: list[dict]) -> None:
+    """Each bfloat16 row's device kernels against BF16_DEVICE_KERNELS and a backward call
+    bit-equal over two calls (each failure raises); one line a row."""
+    for r in rows:
         if r["kernel"].endswith("_bwd_bf16") and not r["bit_equal_over_two_calls"]:
             raise AssertionError(f"{r['name']} {r['kernel']}: two calls are not bit-equal")
         want = BF16_DEVICE_KERNELS.get(f"{r['kernel']} {r['name']}",
@@ -2795,7 +2869,6 @@ def bf16_sites(model: IInsVAE, gen: torch.Generator, b: int = BATCH, extra_heads
                  else "")
               + "  kernels "
               + ", ".join(f"{k} x{v}" for k, v in r["device_kernels"].items()), flush=True)
-    return fwd, bwd
 
 
 def _rel_rms(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -3193,6 +3266,273 @@ def soft_kernel_rows(soft: dict, bf16_fwd: list[dict], bf16_bwd: list[dict]) -> 
     return out
 
 
+# ------------------------------------ [data] ------------------------------------
+
+# [data]: the fixtures' size (the training-quality recipe's), the paper protocol's bfloat16 2-D
+# step (K7 6, K4 2 a step: the restorer's cluster kernel and the 4-class classifier's head
+# kernel; one backward launch each), and the serve CLI's clients on the eWine model
+DATA_N = 10000
+EXPECTED_PAPER_STEP = {"res_block_2d_bf16": 6, "mlp_chain_bf16": 2}
+EXPECTED_PAPER_STEP_BWD = {"res_block_2d_bwd_bf16": 6, "mlp_chain_bwd_bf16": 2}
+DATA_CLIENTS, DATA_FRAMES = 4, 6
+
+
+def data_resolution() -> dict:
+    """resolve_data on the card's machine (pandas or not, in the working directory): the eWine
+    fixture (two CSVs of DATA_N / 2 rows written from the seed, parsed by the native plane, read
+    back bit-equal to the rows they were written from; the 'full' split, then again from the
+    mmap cache) and the 'paper' split of fixture v2 (written to the cache cold, read warm; its
+    test split exactly the rows of the medium room, Room == 2). Each second read equal to the
+    first and read-only (a view of the mapping)."""
+    from importlib.util import find_spec
+
+    from iinsvae_torch.cli.common import resolve_data
+    from iinsvae_torch.data.synthetic import synthetic_arrays, synthetic_ewine_rows
+    from iinsvae_torch.runtime.native import read_csv
+
+    out, first = dict(pandas=find_spec("pandas") is not None), {}
+    for name, cfg in (("ewine", Config(dataset_name="ewine", synthetic_n=DATA_N)),
+                      ("paper", Config(dataset_env="paper", mode="paper", synthetic_n=DATA_N))):
+        times, splits = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            splits.append(resolve_data(cfg))
+            times.append(time.perf_counter() - t0)
+        first[name] = splits[0]
+        (train, test), (train_w, test_w) = splits
+        for a, b in zip(train + test, train_w + test_w):
+            if a.dtype != np.float32 or not np.array_equal(a, b) or b.flags.writeable:
+                raise AssertionError(f"[data] {name}: the cached split differs from the first")
+        out[name] = dict(train=train[0].shape[0], test=test[0].shape[0], taps=train[0].shape[1],
+                         classes=int(np.unique(np.concatenate([train[2], test[2]])).size),
+                         cold_s=times[0], warm_s=times[1])
+    for i, path in enumerate(("data/data_ewine/dataset1/tag_room0.csv",
+                              "data/data_ewine/dataset1/tag_room1.csv")):
+        if not np.array_equal(read_csv(path), synthetic_ewine_rows(DATA_N // 2, i)):
+            raise AssertionError(f"[data] {path} does not parse back to the rows written")
+    _, err, label, room = synthetic_arrays(DATA_N, 0, "paper")
+    held = room[:, 0] == 2
+    _, (_, test_err, test_label) = first["paper"]
+    if not (np.array_equal(test_err, err[held].astype(np.float32))
+            and np.array_equal(test_label, label[held].astype(np.float32))):
+        raise AssertionError("[data] the paper split's test part is not the Room == 2 rows")
+    e, p = out["ewine"], out["paper"]
+    if (e["taps"], e["classes"], e["train"], e["test"]) != (152, 2, 8000, 2000) \
+            or p["classes"] != 4 or p["test"] != int(held.sum()):
+        raise AssertionError(f"[data] splits {out}")
+    out["paper"]["held_out_room"] = 2
+    print(f"[data] pandas {'present' if out['pandas'] else 'absent'}; eWine fixture (2 CSVs of "
+          f"{DATA_N // 2} rows, parsed by the native plane, bit-equal to the rows written): "
+          f"{e['train']} train / {e['test']} test CIRs of {e['taps']} taps, 2 classes, "
+          f"{e['cold_s']:.3f} s cold, {e['warm_s']:.4f} s from the cache; paper split of "
+          f"fixture v2: {p['train']} train / {p['test']} test, the test split exactly the "
+          f"{int(held.sum())} Room == 2 rows, 4 classes, {p['cold_s']:.3f} s cold (cache "
+          f"written), {p['warm_s']:.4f} s warm (mmap)", flush=True)
+    return out
+
+
+def serve_cli_fronts(tmp: str, cpu_model: IInsVAE, flags: list[str], what: str) -> dict:
+    """``python -m iinsvae_torch.cli.serve <flags> --socket --tcp_port 0 --probs --recon`` in a
+    subprocess: DATA_CLIENTS client threads, half on each front, send DATA_FRAMES frames of
+    1-SERVER_MAX_FRAME seeded CIRs each; every row against the CPU Predictor of the same seeded
+    weights (served_vs_cpu), the server's counters (every row submitted, no timeout), then
+    SIGINT: exit code 0 and the stats line."""
+    import os
+    import signal
+    import threading
+
+    from iinsvae_torch.runtime import socket_client_request, socket_stats_request
+
+    sock = os.path.join(tmp, "data.sock")
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "iinsvae_torch.cli.serve", *flags, "--socket", sock,
+           "--tcp_port", "0", "--serve_batch", str(SERVER_BATCH), "--probs", "--recon"]
+    proc = subprocess.Popen(cmd, cwd=root, env={**os.environ, "PYTHONPATH": str(root)},
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    watchdog = threading.Timer(600.0, proc.kill)
+    watchdog.start()
+    cir_len, k = cpu_model.cir_len, cpu_model.num_classes
+    try:
+        lines = []
+        for line in proc.stdout:
+            lines.append(line)
+            if "Ctrl-C to stop" in line:
+                break
+        ports = [ln.split()[-1] for ln in lines if "listening on tcp port" in ln]
+        if not any("plane=native" in ln for ln in lines) or not ports:
+            raise AssertionError(f"{what} did not come up:\n" + "".join(lines))
+        addrs = [sock, ("127.0.0.1", int(ports[0]))]
+        results, failures = [], []
+
+        def client(i):
+            rng = np.random.default_rng(70 + i)
+            try:
+                for _ in range(DATA_FRAMES):
+                    cirs = rng.normal(size=(int(rng.integers(1, SERVER_MAX_FRAME + 1)), cir_len))
+                    err, label, extra = socket_client_request(addrs[i % 2], cirs, timeout_s=120.0,
+                                                              n_extra=k + cir_len)
+                    results.append((cirs, err, label, extra))
+            except Exception as e:  # noqa: BLE001 - raised below, in the phase's thread
+                failures.append(e)
+
+        _join_all([threading.Thread(target=client, args=(i,)) for i in range(DATA_CLIENTS)])
+        if failures:
+            raise failures[0]
+        rows = sum(len(r[0]) for r in results)
+        st = socket_stats_request(sock)
+        if st["submitted"] != rows or st["wait_timeouts"]:
+            raise AssertionError(f"{what}: {rows} rows sent, stats {st}")
+        check = served_vs_cpu(cpu_model, *(np.concatenate([r[j] for r in results])
+                                           for j in range(4)), what)
+        proc.send_signal(signal.SIGINT)
+        out = "".join(lines) + proc.communicate(timeout=120)[0]
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    stats = [ln for ln in out.splitlines() if ln.startswith("[serve] stats:")]
+    if proc.returncode != 0 or not stats:
+        raise AssertionError(f"{what}: exit code {proc.returncode} after SIGINT:\n{out}")
+    return dict(cmd=" ".join(cmd[1:]), rows=rows, frames=len(results), exit_code=0,
+                stats_line=stats[0], **check)
+
+
+def data_phase() -> dict:
+    """[data] The data pipeline and the two model paths it opens, in a temporary working
+    directory (the entry points resolve the data under ./data): data_resolution; K6 and K6b at
+    the eWine model's decoder tail (pool 128 -> 152) at batch 500 against their plain versions
+    (K6 on the tail kernel, bit-equal to the general kernel, as check_and_time holds the 157
+    sites; K6b on its tail path); K4 and K4b bfloat16 at the paper protocol's 4-class
+    classifier against float64 beside the plain bfloat16 version; the eWine semi step's main
+    path (train_main_path: 3 epochs counted, the 1-D step's launches, a falling loss, CIR/s,
+    busy time and idle share, gradients card and CPU against float64); the port's kernels of a
+    CUDA graph of the eWine step, exactly those of the 157-tap step's; the eWine model served
+    (serve_main_path, counted, against the CPU) and through ``serve --dataset_name ewine`` on
+    both fronts (serve_cli_fronts); the paper protocol's bfloat16 2-D step (--mode paper
+    --dataset_env paper --conv_type 2 --compute_dtype bfloat16 --supervision_rate 1.0), one
+    epoch counted, a finite loss, the cluster and head kernels once each in a CUDA graph of a
+    step."""
+    import os
+    import tempfile
+
+    from iinsvae_torch.models.heads import ClassifierLinear
+
+    t0 = time.perf_counter()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
+        os.chdir(tmp)
+        try:
+            resolution = data_resolution()
+            cpu = IInsVAE(**FLAGSHIP_EWINE, generator=torch.Generator().manual_seed(0))
+            model = copy.deepcopy(cpu).cuda()
+            with torch.inference_mode():
+                tail = [dict(s, name="dec.tail.152", device_kernel="tail::tail_fwd_kernel")
+                        for s in call_sites(model, torch.Generator().manual_seed(1))
+                        if s["name"] == "dec.tail"]
+                k6 = check_and_time(tail, tag="data")
+            k6b = check_and_time_backward(
+                [dict(s, name="dec.tail.152") for s in
+                 backward_sites(model, torch.Generator().manual_seed(2))
+                 if s["name"] == "dec.tail"], tag="data")
+            if "tail::tail_bwd_kernel" not in k6b[0]["device_kernels"]:
+                raise AssertionError(f"[data] K6b at 152 launched {k6b[0]['device_kernels']}")
+            head4 = ClassifierLinear(16, 4, generator=torch.Generator().manual_seed(0)).cuda()
+            gen = torch.Generator().manual_seed(12)
+            k4_fwd, k4_bwd = bf16_head_sites(
+                [("classifier.4", head4)], BATCH,
+                lambda *shape: torch.randn(shape, generator=gen).cuda().to(BF16))
+            check_bf16_rows(k4_fwd + k4_bwd)
+
+            training = train_main_path("ewine", EXPECTED_TRAIN, EXPECTED_TRAIN_BWD)
+            gen_b = torch.Generator().manual_seed(4)
+            mask = steps.draw_sup_mask(BATCH, 0.1, "sample",
+                                       torch.Generator(device="cuda").manual_seed(5))
+            graphs = {}
+            for key in (1, "ewine"):
+                m = MODELS[key]
+                batch = {"cir": torch.randn((BATCH, m["cir_len"]), generator=gen_b).cuda(),
+                         "err": torch.rand((BATCH, 1), generator=gen_b).cuda(),
+                         "label": torch.randint(0, m["num_classes"], (BATCH, 1),
+                                                generator=gen_b).float().cuda(),
+                         "weight": torch.ones(BATCH).cuda()}
+                graphs[key] = step_graph(IInsVAE(**m).cuda(), batch, sup_mask=mask)
+            if graphs["ewine"] != graphs[1]:
+                raise AssertionError(f"[data] the eWine step launched {graphs['ewine']}, the "
+                                     f"157-tap step {graphs[1]}")
+            serving, _ = serve_main_path(model, cpu, True, EXPECTED_RECON)
+            server = serve_cli_fronts(tmp, cpu, ["--dataset_name", "ewine"],
+                                      "serve --dataset_name ewine")
+
+            cfg = Config(conv_type=2, compute_dtype="bfloat16", mode="paper",
+                         dataset_env="paper", supervision_rate=1.0, synthetic_n=DATA_N,
+                         batch_size=BATCH, n_epochs=800, decay_epoch=300, env_dim=16)
+            trainer = train_semi.build(cfg, "cuda")
+            n_paper = trainer.data["cir"].shape[0] // BATCH
+            history, fwd, bwd = counted(
+                lambda: loop.train_epochs(trainer.state, trainer.run_epoch, trainer.data, 1,
+                                          seed=0),
+                _times(EXPECTED_PAPER_STEP, n_paper), _times(EXPECTED_PAPER_STEP_BWD, n_paper),
+                "[data] the paper protocol's bfloat16 step")
+            if not all(np.isfinite(v) for h in history for v in h.values()):
+                raise AssertionError(f"[data] non-finite paper metrics: {history}")
+            batch = {k: v[:BATCH] for k, v in trainer.data.items()}
+            graph_paper = step_graph(trainer.state.model, batch, sup_mask=mask.to(BF16))
+            if graph_paper.get("cluster::mlp_cluster_kernel") != 1 \
+                    or graph_paper.get("head::mlp_head_kernel") != 1:
+                raise AssertionError(f"[data] the paper step launched {graph_paper}")
+        finally:
+            os.chdir(cwd)
+    t = training["trace"]
+    print(f"[data] eWine step: {training['launches_per_step']:g} + "
+          f"{training['launches_bwd_per_step']:g} launches a step, the 157-tap step's kernels in "
+          f"its CUDA graph, loss by epoch {[round(h['loss'], 6) for h in training['history']]}, "
+          f"device busy {t['device_busy_us_per_step']:.1f} us a step, idle "
+          f"{t['device_idle_share']}; served at 152 taps (17 launches a batch) and through "
+          f"serve --dataset_name ewine on both fronts: {server['rows']} rows in "
+          f"{server['frames']} frames equal to the CPU's; the paper protocol's bfloat16 step: "
+          f"{n_paper} steps an epoch, K7 6 + K4 2 bfloat16 launches a step and one backward "
+          f"each, loss {history[0]['loss']:.6f}; phase {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return dict(resolution=resolution, sites=k6, backward_sites=k6b, bf16_sites=k4_fwd,
+                bf16_backward_sites=k4_bwd, training=training, graph_step=graphs["ewine"],
+                serving=serving, server=server,
+                paper=dict(steps=n_paper, history=history, launches=fwd, launches_bwd=bwd,
+                           graph_step=graph_paper),
+                wall_s=time.perf_counter() - t0)
+
+
+def data_kernel_rows(data: dict) -> list[dict]:
+    """The ``kernels`` line's rows of this phase's new shapes: K6 and K6b at the pool of 152
+    (launches: the eWine main path's 3 counted epochs) and K4 and K4b bfloat16 at the 4-class
+    head (launches: the paper step's epoch, one at the classifier a step, as its CUDA graph
+    shows; ``launches_wrapper`` the wrapper's, the restorer's among them). ``counter`` names
+    the launch counter the other phases' launches are read from."""
+    tr, paper = data["training"], data["paper"]
+    out = []
+    for name, counter, r, launches, wrapper in (
+            ("sln_chain_152", "sln_chain", data["sites"][0], tr["launches"]["sln_chain"],
+             tr["launches"]["sln_chain"]),
+            ("sln_chain_bwd_152", "sln_chain_bwd", data["backward_sites"][0],
+             tr["launches_bwd"]["sln_chain_bwd"], tr["launches_bwd"]["sln_chain_bwd"]),
+            ("mlp_chain_bf16_4class", "mlp_chain_bf16", data["bf16_sites"][0], paper["steps"],
+             paper["launches"]["mlp_chain_bf16"]),
+            ("mlp_chain_bwd_bf16_4class", "mlp_chain_bwd_bf16", data["bf16_backward_sites"][0],
+             paper["steps"], paper["launches_bwd"]["mlp_chain_bwd_bf16"])):
+        kernel = r["kernel"]
+        out.append(dict(
+            name=name, counter=counter, route="cuda", source=SOURCES[kernel],
+            replaces=r["replaces"], launches=launches, launches_wrapper=wrapper,
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+            **({"fp32_fma_bound_ms": r["fp32_fma_bound_ms"]} if "fp32_fma_bound_ms" in r
+               else {}),
+            per=f"one call at {r['name']}, batch {BATCH}",
+            yardstick_ms=r.get("cudnn_conv_ms", r.get("yardstick_ms")),
+            yardstick=r["yardstick"]))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script runs on the card",
@@ -3267,6 +3607,8 @@ def main() -> int:
     # the column-image model (conv_type 3) and the soft restorer
     noexpand = noexpand_phase()
     soft = soft_phase()
+    # the data pipeline, the eWine model and the paper protocol's split
+    data = data_phase()
 
     per_fwd = "one forward batch of 500 (sum over its call sites)"
     per_step = "one training step at batch 500 (sum over its call sites)"
@@ -3319,6 +3661,7 @@ def main() -> int:
 
     kernel_table += bf16_kernel_rows(bf16_fwd, bf16_bwd, bf16_train["launches"])
     kernel_table += soft_kernel_rows(soft, bf16_fwd, bf16_bwd)
+    kernel_table += data_kernel_rows(data)
     # each kernel's launches on the joint and separated entry points' main paths (cli.run,
     # cli.run_sep: training steps, evaluation and inference)
     # and on the server's ([server]: the 1-D recon server through both fronts and the 2-D
@@ -3326,7 +3669,7 @@ def main() -> int:
     # the bfloat16 instances' and the soft restorer's as read there (each run fails unless 0)
     tr3 = noexpand["training"]
     for row in kernel_table:
-        name = row["name"]
+        name = row.get("counter", row["name"])
         row["launches_joint"] = {**joint["launches_run"], **joint["launches_run_bwd"]}[name]
         row["launches_sep"] = {**joint["launches_sep"], **joint["launches_sep_bwd"]}[name]
         row["launches_server"] = server["launches"][name]
@@ -3343,7 +3686,7 @@ def main() -> int:
         backward_sites=bwd_rows + bwd_rows_2d, ragged_max_abs_err=ragged, training=training,
         training_2d=training_2d,
         one_stage=one_stage, evaluation=evaluation, joint=joint, server=server,
-        noexpand=noexpand, soft=soft,
+        noexpand=noexpand, soft=soft, data=data,
         bf16=dict(sites=bf16_fwd, backward_sites=bf16_bwd, training=bf16_train,
                   tolerance=[BF16_FACTOR, BF16_FLOOR]),
         kernel_tolerance=[KERNEL_RTOL, KERNEL_ATOL], serve_tolerance=[SERVE_RTOL, SERVE_ATOL],
@@ -3362,6 +3705,7 @@ def main() -> int:
     print(json.dumps({"joint": joint, "card": card}), flush=True)
     print(json.dumps({"server": server}), flush=True)
     print(json.dumps({"noexpand": noexpand, "soft": soft, "card": card}), flush=True)
+    print(json.dumps({"data": data, "card": card}), flush=True)
     print(json.dumps({"bf16": dict(sites=bf16_fwd, backward_sites=bf16_bwd, training=bf16_train),
                       "card": card}), flush=True)
     print(json.dumps({"kernels": kernel_table}), flush=True)

@@ -11,7 +11,10 @@ the request batcher and its unix-socket and TCP fronts (runtime/, cli/serve.py; 
 plane in C++ built with g++ at first use), for the 1-D model (conv_type=1) and the
 expanded 2-D model (conv_type=2: the encoders on the column-grouped square
 image, ops/colgroups.py; the decoder's subpixel 'fast' lowering,
-ops/subpixel.py). Activations stay channels-last ``(B, L, C)`` or
+ops/subpixel.py), and the column image (conv_type=3). Its data pipeline (data/,
+runtime/cache.py, cli/inspect_data.py) reads the Zenodo pickle (with pandas) or the eWine
+CSVs (152 taps, by the native plane's parser), else their synthetic fixtures, assembles the
+'full' or 'paper' split and keeps it in an mmap cache. Activations stay channels-last ``(B, L, C)`` or
 ``(B, H, W, C)``, conv taps ``(k, C_in, C_out)`` or ``(kh, kw, C_in,
 C_out)`` and dense weights ``(D_in, D_out)``, the JAX package's layouts, so
 parameters carry across without transposes (bridge.py). Every kernel on the path is hand-written
@@ -20,8 +23,8 @@ by ctypes, and each has a hand-written backward kernel behind a
 ``torch.autograd.Function``; on CPU tensors each wrapper runs its plain
 PyTorch version, which autograd differentiates.
 
-The package imports torch, numpy and scipy (the .mat exports) only: never jax,
-flax or iinsvae_tpu.
+The package imports torch, numpy and scipy (the .mat exports) only, pandas only to read a
+Zenodo pickle and matplotlib only for inspect_data's plot: never jax, flax or iinsvae_tpu.
 """
 
 __version__ = "0.1.0"

@@ -3,7 +3,7 @@
 
 Restores the checkpoint of ``--test_epoch`` (or, where that epoch was not
 saved, the latest) from the directory the training flags name, evaluates
-the test part of the synthetic fixture's split, logs the metrics to
+the test part of the data's split (cli/common.resolve_data, as training resolved it), logs the metrics to
 ``val_log.log`` and writes the residual exports. Exits when the directory
 holds no checkpoint. ``--compute_dtype bfloat16`` evaluates in bfloat16, as
 the training run did (iinsvae_tpu/cli/evaluate.py:68). The SVM baseline and

@@ -1,8 +1,9 @@
 """`run` entry of the port: supervised joint training of EMNet
-(``--net_ablation loop``) or EMNetLoop (``loops``) on the synthetic fixture,
-then its evaluation (iinsvae_tpu/cli/run.py, one process).
+(``--net_ablation loop``) or EMNetLoop (``loops``) on the dataset (the synthetic
+fixture where the real one is absent), then its evaluation (iinsvae_tpu/cli/run.py,
+one process).
 
-Builds the fixture's 'full' split as ``train_semi`` does, then runs the
+Resolves the data and its ``--mode`` split as ``train_semi`` does, then runs the
 epochs of the joint step (CE on the env logits + L1 on the ranging error,
 Adam with the LambdaLR decay from ``--decay_epoch``) and logs one line an
 epoch. ``--identifier_type`` / ``--regressor_type`` (1 Linear, 2 Conv1d,

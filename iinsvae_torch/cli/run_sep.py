@@ -3,7 +3,7 @@
 
 Trains the identifier (IdentifierSep, sep-E: cross-entropy), then the
 label-conditional regressor (RegressorSep, sep-M: L1 on the true labels),
-each ``--n_epochs`` epochs on the synthetic fixture's train split, each from
+each ``--n_epochs`` epochs on the train split (cli/common.resolve_data), each from
 its own seeded stream; then, on the test split, the sep-E accuracy, the
 soft marginalised sep-EM estimate p(dd | r) = sum_k p(k | r) p(dd | r, k)
 and its RMSE, the hard-assignment RMSE (the regressor under the argmax

@@ -14,8 +14,9 @@ column-image one; ``--use_soft`` a soft restorer's checkpoint (its mu).
 With ``--socket PATH`` and/or ``--tcp_port PORT`` (0: an ephemeral port) it
 listens until Ctrl-C (SIGINT); clients speak the framed protocol
 (``runtime.socket_client_request``, or the JAX package's client of the same
-name). Without either it sends ``--selftest_n`` random CIRs through the
-server and exits. Either way it prints the server's counters on exit.
+name). Without either it sends ``--selftest_n`` CIRs of the data's test split
+(cli/common.resolve_data, as training resolves it; ``--dataset_name ewine``: 152 taps)
+through the server and exits. Either way it prints the server's counters on exit.
 
     python -m iinsvae_torch.cli.serve --dataset_env room_full --socket /tmp/iins.sock --probs
     python -m iinsvae_torch.cli.serve --dataset_env room_full --conv_type 2 --recon
@@ -30,6 +31,7 @@ import time
 import numpy as np
 import torch
 
+from iinsvae_torch.cli.common import resolve_data
 from iinsvae_torch.config import add_args, add_train_args, from_args
 from iinsvae_torch.models.vae import IInsVAE
 from iinsvae_torch.runtime.batcher import SocketFront, TcpFront, serve_predictor
@@ -50,9 +52,11 @@ def build_predictor(args, cfg) -> tuple[Predictor, str]:
 
 
 def self_test(server, n: int, cfg, recon: bool) -> None:
-    """``n`` random CIRs through the server, one in-process request at a time."""
+    """``n`` CIRs of the test split (repeated where it has fewer) through the server, one
+    in-process request at a time."""
     cir_len = cfg.cir_len
-    cirs = np.random.default_rng(cfg.seed).normal(size=(n, cir_len))
+    test_cir = resolve_data(cfg)[1][0]
+    cirs = test_cir[np.arange(n) % test_cir.shape[0]]
     t0 = time.perf_counter()
     outs = [server.submit(c, timeout_s=300.0) for c in cirs]
     dt = time.perf_counter() - t0

@@ -1,17 +1,20 @@
 """`train_semi` entry of the port: semi-supervised training of the 1-D
 IIns-VAE, or with ``--conv_type 2`` the expanded 2-D one, with ``--conv_type
-3`` the column-image one, on the synthetic fixture
-(iinsvae_tpu/cli/train_semi.py, one process). ``--use_soft`` trains the
+3`` the column-image one (iinsvae_tpu/cli/train_semi.py, one process). ``--use_soft`` trains the
 reparameterised restorer (its sample in the step, its mu evaluated);
 ``--env_conv_init torch`` draws the env encoder's conv taps from torch's
 default (refused at conv_type 2). With ``--conv_type 2 --compute_dtype
 bfloat16`` the CIRs, the activations and the test split are bfloat16 (the
 parameters, Adam and the checkpoints stay float32).
 
-Builds the synthetic Zenodo fixture of ``--dataset_env`` (``--synthetic_n``
-CIRs, fixture v2), takes the 'full' split (the first ``--split_factor`` of
-the rows train, the rest test), standardizes it, pads the train part to
-whole batches and keeps both parts on the device; then runs the epochs of
+Resolves the data (cli/common.resolve_data): the Zenodo pickle at
+``--data_root`` (which needs pandas) and the environment ``--dataset_env``, or
+with ``--dataset_name ewine`` the eWine CSVs (152 taps, 2 classes), else the
+synthetic fixture of ``--synthetic_n`` CIRs (``--fixture_version``); takes the
+``--mode`` split ('full': the first ``--split_factor`` of the rows train, the
+rest test; 'paper': the medium room, Room == 2, held out), standardizes it (the
+mmap cache keeps it for the next run), pads the train part to whole batches
+and keeps both parts on the device; then runs the epochs of
 the semi step (per-sample or per-batch Bernoulli(``--supervision_rate``)
 label mask, Adam with the LambdaLR decay from ``--decay_epoch``) and logs
 one line an epoch: the loss, its four parts, the range RMSE and the env
@@ -33,6 +36,9 @@ baseline and the plots are not ported.
 
     python -m iinsvae_torch.cli.train_semi --dataset_env room_full --n_epochs 3 \\
         --synthetic_n 10000 --batch_size 500
+    python -m iinsvae_torch.cli.train_semi --mode paper --dataset_env paper --conv_type 2 \\
+        --compute_dtype bfloat16 --supervision_rate 1.0 --n_epochs 800 --decay_epoch 300
+    python -m iinsvae_torch.cli.train_semi --dataset_name ewine --n_epochs 3
 """
 
 from __future__ import annotations
@@ -71,7 +77,7 @@ class Trainer:
 
 
 def build(cfg: Config, device: str | torch.device = "cuda") -> Trainer:
-    """The fixture's split on ``device``, the seeded model, Adam with the
+    """The data's split on ``device``, the seeded model, Adam with the
     schedule, the step and the epoch runner. Under ``--compute_dtype
     bfloat16`` on the card, train under ``ops.conv.fp32_reduction`` (as
     ``main`` does)."""

@@ -1,11 +1,11 @@
 """The model-geometry, serving and training fields of the run config.
 
 A copy of the subset of iinsvae_tpu/config.py that serving, the semi, joint
-and separated training steps, checkpoints and evaluation need, with the
-same names and defaults, and the env -> (num_classes, cir_len) tables. ``add_args`` gives
-the model flags every entry point takes, ``add_train_args`` the trainer's,
-which also name the checkpoint directory, so the evaluate and serve entry
-points take them too.
+and separated training steps, checkpoints, evaluation and the data pipeline
+need, with the same names and defaults, and the env -> (num_classes, cir_len)
+tables. ``add_args`` gives the model flags every entry point takes,
+``add_train_args`` the trainer's and the data's, which also name the
+checkpoint directory, so the evaluate and serve entry points take them too.
 """
 
 from __future__ import annotations
@@ -69,6 +69,12 @@ class Config:
     mask_mode: str = "sample"  # sample (intent) | batch (reference literal)
     kl_free_bits: float = 0.0  # per-dim KL floor; 0 = reference-exact
     synthetic_n: int = 8192
+    # the data (iinsvae_tpu/config.py:87, :97-103): the Zenodo pickle, the synthetic fixture
+    # when it is absent, the mmap cache of the assembled split, the fixture's version
+    data_root: str = "./data/data_zenodo/dataset.pkl"
+    allow_synthetic: bool = True  # fall back to the synthetic fixture
+    data_cache: bool = True  # mmap binary cache of the assembled split
+    fixture_version: int = 2  # 2 adds the material signatures; 1 the pre-round-5 generator
     # data split and the run's intervals and directories
     # (iinsvae_tpu/config.py:39-41, 67-72, 88-89)
     mode: str = "full"
@@ -174,6 +180,13 @@ def add_train_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     a("--kl_free_bits", type=float, default=d.kl_free_bits,
       help="per-dimension KL floor (free bits); 0 = the reference's plain KL")
     a("--synthetic_n", type=int, default=d.synthetic_n)
+    a("--data_root", type=str, default=d.data_root)
+    a("--no_synthetic", action="store_true",
+      help="fail instead of falling back to the synthetic fixture")
+    a("--no_data_cache", action="store_true", help="disable the mmap binary dataset cache")
+    a("--fixture_version", type=int, default=d.fixture_version, choices=[1, 2],
+      help="synthetic fixture generation: 2 (default) adds scale-invariant material resonance "
+           "signatures; 1 is the pre-round-5 generator")
     a("--mode", type=str, default=d.mode, choices=["full", "paper"])
     a("--split_factor", type=float, default=d.split_factor)
     a("--epoch", type=int, default=d.epoch,
@@ -234,6 +247,10 @@ def from_args(args: argparse.Namespace) -> Config:
     for k in vars(args):
         if hasattr(cfg, k):
             setattr(cfg, k, getattr(args, k))
+    if getattr(args, "no_synthetic", False):
+        cfg.allow_synthetic = False
+    if getattr(args, "no_data_cache", False):
+        cfg.data_cache = False
     cfg.restorer_type = _NET_NAMES[str(cfg.restorer_type)]
     cfg.classifier_type = _NET_NAMES[str(cfg.classifier_type)]
     cfg.identifier_type = _NET_NAMES[str(cfg.identifier_type)]

@@ -4,9 +4,12 @@ a pandas frame (the card's machine has no pandas).
 
 ``select_env(columns, option, seed)`` takes the fixture's columns (cir,
 err, room, and obstacle as the index 0-9 of ``OBSTACLE_ONEHOT``, -1 for
-LOS) and returns what ``load_pkl_data`` returns for the same rows: each
-part's rows in their order, the parts concatenated in their listed order,
-then permuted by ``default_rng(seed).permutation``.
+LOS, -2 for any other string) and returns what ``load_pkl_data`` returns
+for the same rows: each part's rows in their order, the parts concatenated
+in their listed order, then permuted by ``default_rng(seed).permutation``.
+``load_pkl_data`` reads the real ``dataset.pkl`` into those columns; it
+imports pandas when called, so on a machine without pandas it raises an
+ImportError that names it.
 """
 
 from __future__ import annotations
@@ -50,6 +53,8 @@ ZENODO_ENVS = (
 
 # a one-hot string -> the obstacle column's index (-1 for LOS)
 _OBSTACLE_INDEX = {LOS_STR: -1, **{s: k for k, s in enumerate(OBSTACLE_ONEHOT)}}
+# the obstacle column's index of a string no selection names (a multi-obstacle string)
+OTHER_OBSTACLE = -2
 
 
 def label_dictionary(dataset_env: str) -> dict:
@@ -124,3 +129,29 @@ def select_env(columns: dict, option: str | None = None, seed: int = 0):
     rows, label = rows[perm], label[perm]
     err = np.asarray(columns["err"], np.float64).reshape(-1, 1)
     return columns["cir"][rows], err[rows], label, room[rows]
+
+
+def label_int2str(dataset_env: str, label_int: int) -> str:
+    return label_dictionary(dataset_env)[int(label_int)]
+
+
+def frame_columns(frame) -> dict[str, np.ndarray]:
+    """A dataset.pkl frame (columns CIR, Error, Room, Obstacles) -> select_env's columns."""
+    obstacles = frame["Obstacles"].to_numpy()
+    return {"cir": np.vstack(frame["CIR"].to_numpy()),
+            "err": np.asarray(frame["Error"].to_numpy(), dtype=np.float64),
+            "room": np.asarray(frame["Room"].to_numpy()),
+            "obstacle": np.array([_OBSTACLE_INDEX.get(s, OTHER_OBSTACLE) for s in obstacles],
+                                 dtype=np.int64)}
+
+
+def load_pkl_data(filepath: str, option: str | None = None, seed: int = 0):
+    """Load, select, shuffle (iinsvae_tpu/data/zenodo.py:122-162). -> (cir, err, label,
+    room), shapes (N, 157), (N, 1), (N, 1), (N, 1). Needs pandas (an ImportError naming it
+    where it is missing): the pickle is a pandas frame."""
+    try:
+        import pandas as pd
+    except ImportError as e:
+        raise ImportError(f"reading the Zenodo pickle {filepath} needs pandas, which this "
+                          "machine does not have") from e
+    return select_env(frame_columns(pd.read_pickle(filepath)), option, seed)

@@ -1860,3 +1860,152 @@ def test_gpu_soft_training_step_gradients_match_cpu(cuda):
         e_card = (p.grad.cpu().double() - want).abs().max().item()
         e_cpu = (fp32[name].grad.double() - want).abs().max().item()
         assert e_card <= STEP_FACTOR * e_cpu + STEP_FLOOR * want.abs().max().item(), name
+
+
+# ------------------------------ eWine (152 taps) ------------------------------
+# The eWine model: the 1-D flagship at 152 taps and 2 classes. Its encoders pool 152 -> 128,
+# so every kernel but K6 / K6b sees the shapes of the 157-tap model; the decoder tail pools
+# 128 -> 152.
+EWINE = dict(FLAGSHIP, cir_len=152, num_classes=2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [5, 500])
+def test_gpu_sln_chain_and_its_backward_at_the_ewine_pool_match_plain(cuda, batch):
+    """K6 at the decoder tail pooling to 152 on the tail kernel, bit-equal to the general
+    kernel (whose forward K6b's tail path recomputes) and within tolerance of the plain
+    version; K6b's gradients against the plain version's, bit-equal over two calls, on the
+    tail path's kernels."""
+    dec, _, _, stages = _decoder_inputs(cuda)
+    ko, bo = dec.out_kernel, dec.out_bias
+    gen = torch.Generator().manual_seed(152 + batch)
+    x = torch.randn((batch, 8, 64), generator=gen).to(cuda)
+    with torch.no_grad():
+        y = fused.sln_chain(x, stages, ko, bo, 152)
+        assert y.shape == (batch, 152)
+        assert torch.equal(y, fused.launch_sln_chain(x, stages, ko, bo, 152, general=True))
+        torch.testing.assert_close(y, fused.sln_chain_ref(x, stages, ko, bo, 152), rtol=RTOL,
+                                   atol=ATOL)
+    g = torch.randn((batch, 152), generator=gen).to(cuda)
+    _tail_grads_match((g, x, stages, ko, bo, 152), f"pool 152, batch {batch}")
+    assert _device_kernel_names(lambda: fused.sln_chain(x, stages, ko, bo, 152)) == {
+        "tail::tail_fwd_kernel"}
+    # K6b takes its tail path at 152 as at 157: the same device kernels
+    names = _device_kernel_names(lambda: backward.sln_chain_bwd(g, x, stages, ko, bo, 152))
+    g157 = torch.randn((batch, 157), generator=gen).to(cuda)
+    assert "tail::tail_bwd_kernel" in names and names == _device_kernel_names(
+        lambda: backward.sln_chain_bwd(g157, x, stages, ko, bo, 157))
+
+
+def _mlp_bf16_matches_plain(head, batch, kernels_fwd, kernels_bwd):
+    """K4's and K4b's bfloat16 instances at a Linear head (its weights rounded to bfloat16),
+    against float64 beside the plain bfloat16 versions (K4b from the d_j that K4 saved), each
+    call one bfloat16 launch, the device kernels named, K4b bit-equal over two calls."""
+    n, slopes = len(head.slopes), head.slopes
+    ws = [getattr(head, f"w{j}").detach().to(BF16) for j in range(n)]
+    bs = [getattr(head, f"b{j}").detach().to(BF16) for j in range(n)]
+    gen = torch.Generator().manual_seed(batch)
+    x = torch.randn((batch, ws[0].shape[0]), generator=gen).to(BF16).to(ws[0].device)
+    g = torch.randn((batch, ws[-1].shape[1]), generator=gen).to(BF16).to(ws[0].device)
+    m = fused.mlp_chain.launches_bf16
+    y, ds = fused.launch_mlp_chain(x, ws, bs, slopes, save_pre=True)
+    assert fused.mlp_chain.launches_bf16 == m + 1
+    assert torch.equal(y, fused.mlp_chain(x, ws, bs, slopes))
+    h, ds64 = x.double(), []
+    for w, v, s in zip(ws, bs, slopes):
+        ds64.append(h @ w.double() + v.double())
+        h = ds64[-1] if s == 1.0 else torch.nn.functional.leaky_relu(ds64[-1], s)
+    py, pds = fused.mlp_chain_bf16_ref(x, ws, bs, slopes, save_pre=True)
+    _bf16_vs_f64((y, *ds), (py, *pds), (h, *ds64), what="K4")
+    assert _device_kernel_names(lambda: fused.mlp_chain(x, ws, bs, slopes)) == kernels_fwd
+    args = (g, x, ws, bs, slopes, ds)
+    m = backward.mlp_chain_bwd.launches_bf16
+    got = _tensors(backward.mlp_chain_bwd(*args))
+    assert backward.mlp_chain_bwd.launches_bf16 == m + 1
+    plain = _tensors(backward.mlp_chain_bwd_bf16_ref(*args))
+    ref = _tensors(backward.plain_grads(
+        lambda x_, *p: fused.mlp_chain_ref(x_, p[:n], p[n:], slopes),
+        [x.double(), *(t.double() for t in ws), *(t.double() for t in bs)], g.double()))
+    _bf16_vs_f64(got, plain, ref, what="K4b")
+    assert all(torch.equal(a, b) for a, b in zip(got, _tensors(backward.mlp_chain_bwd(*args))))
+    assert _device_kernel_names(lambda: backward.mlp_chain_bwd(*args)) == kernels_bwd
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [5, 261, 500])
+def test_gpu_mlp_chain_bf16_at_the_4_class_head_matches_plain(cuda, batch):
+    """The paper protocol's classifier (16 -> 16 -> 32 -> 16 -> 4, the head kernel's <Any>
+    instance) of the 2-D model in bfloat16: K4 and K4b against float64 beside the plain
+    bfloat16 versions."""
+    model = IInsVAE(**dict(MODELS[2], num_classes=4),
+                    generator=torch.Generator().manual_seed(4)).to(cuda)
+    head = model.classifier.classifier
+    assert head.w3.shape == (16, 4)
+    _mlp_bf16_matches_plain(head, batch, {"head::mlp_head_kernel"},
+                            {"small::small_kernel", "reduce_partials_bf16_kernel"})
+
+
+def _clear_of_relu_ties(model64, cir64) -> torch.Tensor:
+    """The samples whose every ReLU and LeakyReLU input in the float64 forward clears
+    MASK_MARGIN of its largest |value| in the sample: within it an fp32 forward's summation order
+    decides the mask (chip_smoke.relu_margins, the same rule)."""
+    seen = []
+    relu, leaky = torch.relu, torch.nn.functional.leaky_relu
+
+    def record(fn):
+        def hooked(a, *args, **kw):
+            a_ = a.detach().abs().flatten(1)
+            seen.append(a_.amin(1) / a_.amax(1).clamp_min(1e-300))
+            return fn(a, *args, **kw)
+        return hooked
+
+    torch.relu, torch.nn.functional.leaky_relu = record(relu), record(leaky)
+    try:
+        with torch.no_grad():
+            model64(cir64)
+    finally:
+        torch.relu, torch.nn.functional.leaky_relu = relu, leaky
+    return torch.stack(seen).amin(0) >= MASK_MARGIN
+
+
+@pytest.mark.gpu
+def test_gpu_ewine_step_launches_the_1d_steps_kernels(cuda):
+    """One semi step of the eWine model at batch 500: the same launches a step as the 157-tap
+    model (17 forward, 17 backward), the port's kernels of a CUDA graph of the step the same as
+    the 157-tap step's; then the step on the batch's samples clear of ReLU ties
+    (_clear_of_relu_ties, at least 3/4 of them), its gradients on the card and the CPU each
+    against float64 (as test_gpu_training_step_gradients_match_cpu)."""
+    grads_fn = steps.make_semi_grads_fn(0.5)
+    seen = {}
+    for name, kw in (("157", MODELS[1]), ("152", EWINE)):
+        cpu = IInsVAE(**kw, generator=torch.Generator().manual_seed(9))
+        gpu = copy.deepcopy(cpu).to(cuda)
+        data, mask = _train_batch(500, cuda, seed=3)
+        data["cir"] = data["cir"][:, :kw["cir_len"]].contiguous()
+        data["label"] = data["label"] % kw["num_classes"]
+
+        def step():
+            metrics = grads_fn(gpu, data, sup_mask=mask)
+            return [*metrics.values(), *(p.grad for p in gpu.parameters())]
+
+        kernels.reset_launch_counts()
+        step()
+        torch.cuda.synchronize()
+        assert kernels.launch_counts() == RECON[1], name
+        assert kernels.backward_launch_counts() == TRAIN_BWD[1], name
+        seen[name] = graph_kernels.port_kernels(graph_kernels.launched_kernels(step))
+    assert seen["152"] == seen["157"] and seen["152"]["tail::tail_fwd_kernel"] == 1
+    f64 = copy.deepcopy(cpu).double()
+    keep = _clear_of_relu_ties(f64, data["cir"].cpu().double())
+    assert keep.sum().item() >= 375
+    data, mask = {k: v[keep.to(cuda)] for k, v in data.items()}, mask[keep.to(cuda)]
+    grads_fn(gpu, data, sup_mask=mask)
+    cpu_data = {k: v.cpu() for k, v in data.items()}
+    grads_fn(cpu, cpu_data, sup_mask=mask.cpu())
+    grads_fn(f64, {k: v.double() for k, v in cpu_data.items()}, sup_mask=mask.cpu().double())
+    fp32, ref = dict(cpu.named_parameters()), dict(f64.named_parameters())
+    for name, p in gpu.named_parameters():
+        want = ref[name].grad
+        e_card = (p.grad.cpu().double() - want).abs().max().item()
+        e_cpu = (fp32[name].grad.double() - want).abs().max().item()
+        assert e_card <= STEP_FACTOR * e_cpu + STEP_FLOOR * want.abs().max().item(), name

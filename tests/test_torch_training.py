@@ -43,7 +43,6 @@ from iinsvae_tpu.training import optim as joptim
 from iinsvae_tpu.training import state as jstate
 from iinsvae_tpu.training import steps as jsteps
 from iinsvae_torch import bridge
-from iinsvae_torch.cli import train_semi
 from iinsvae_torch.data.splits import Standardizer
 from iinsvae_torch.data.synthetic import synthetic_arrays
 from iinsvae_torch.models.vae import IInsVAE
@@ -237,18 +236,6 @@ def test_synthetic_fixture_is_bit_equal_to_jax():
     for a, b in zip(synthetic_arrays(10, 0, "nlos"), jax_synthetic_arrays(10, 0, "nlos")):
         assert a.dtype == b.dtype and a.shape == b.shape
         np.testing.assert_array_equal(a, b)
-
-
-def test_cli_rejects_ewine_before_building_a_model(monkeypatch):
-    """The eWine fixture (152 taps) is not ported: training on it stops with a
-    NotImplementedError before the model is built, not at the first step."""
-    def no_model(*args, **kwargs):
-        raise AssertionError("a model was built")
-    monkeypatch.setattr(train_semi, "IInsVAE", no_model)
-    with pytest.raises(NotImplementedError, match="eWine"):
-        train_semi.main(["--device", "cpu", "--dataset_name", "ewine", "--dataset_env",
-                         "room_full", "--n_epochs", "1", "--synthetic_n", "1000",
-                         "--batch_size", "100"])
 
 
 def test_standardizer_matches_jax():
